@@ -18,9 +18,10 @@ from . import initializer
 from . import initializer as init
 from . import ops
 from .ops.registry import nd
+from . import optimizer
 from . import gluon
 from . import convert
 
 __all__ = ["MXNetError", "DeferredInitializationError", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "context", "autograd", "random",
-           "initializer", "init", "ops", "nd", "gluon", "convert"]
+           "initializer", "init", "ops", "nd", "optimizer", "gluon", "convert"]

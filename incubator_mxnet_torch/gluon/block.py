@@ -8,9 +8,9 @@ global counters), ``collect_params``, the structural keys of
 ``hybridize`` records its flag and changes nothing: PyTorch runs eagerly,
 and the port's kernels are launched the same way either way.
 
-Until the training slice brings ``autograd.record()``, nothing records:
-a Block runs its forward with PyTorch's grad mode off, as MXNet runs a
-network outside ``record()``.
+A Block runs its forward with PyTorch's grad mode on inside
+``autograd.record()`` and off outside it, as MXNet records a network only
+inside ``record()``; every child's ``__call__`` reads the same flag.
 """
 from __future__ import annotations
 

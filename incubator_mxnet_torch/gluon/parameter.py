@@ -3,8 +3,18 @@
 Counterpart of the JAX package's ``gluon/parameter.py``, with the same
 lifecycle: construct (a 0 in the shape means unknown), ``initialize``
 (deferred until the first forward infers the shape), ``data()``,
-``set_data``, ``cast``.  A Parameter holds one ``torch.nn.Parameter`` on
-one device.
+``set_data``, ``cast``, and the gradient API: ``grad()``, ``list_grad()``,
+``zero_grad()``, ``grad_req`` and ``lr_mult``/``wd_mult``.  A Parameter
+holds one ``torch.nn.Parameter`` on one device.
+
+Gradients follow MXNet, not PyTorch: a Parameter keeps its own gradient
+buffer, and a hook run after PyTorch accumulates the backward's gradient
+moves it there, overwriting (``grad_req="write"``) or adding
+(``"add"``), and clears PyTorch's ``.grad``.  So two backwards without a
+step in between leave the second gradient under ``write``, whichever of
+``mx.autograd.backward`` or ``Tensor.backward`` ran them.  The buffer is
+made at the first backward or ``grad()`` (zeros until a backward writes
+it), so a network that only runs inference holds none.
 """
 from __future__ import annotations
 
@@ -33,17 +43,23 @@ def _resolve_device(ctx):
 class Parameter:
     """A trainable (or auxiliary) tensor of a Block."""
 
-    def __init__(self, name, grad_req="write", shape=None, dtype="float32", init=None,
-                 allow_deferred_init=False):
+    def __init__(self, name, grad_req="write", shape=None, dtype="float32", lr_mult=1.0,
+                 wd_mult=1.0, init=None, allow_deferred_init=False):
         self.name = name
+        self._data = None
+        self._grad = None
+        self._grad_version = 0
+        self._hook = None
+        self._grad_req = None
         self.grad_req = grad_req
         if isinstance(shape, int):
             shape = (shape,)
         self._shape = tuple(shape) if shape is not None else None
         self.dtype = dtype_name(dtype)
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
         self.init = init
         self.allow_deferred_init = allow_deferred_init
-        self._data = None
         self._deferred_init = None
 
     @property
@@ -59,6 +75,50 @@ class Parameter:
             raise ValueError(f"Parameter {self.name}: shape {new_shape} incompatible "
                              f"with inferred {self._shape}")
         self._shape = new_shape
+
+    @property
+    def grad_req(self):
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        if req not in ("write", "add", "null"):
+            raise ValueError(f"grad_req must be 'write', 'add' or 'null', got {req!r}")
+        self._grad_req = req
+        if self._data is not None:
+            self._attach_grad()
+
+    @property
+    def grad_version(self):
+        """Bumped each time a backward writes this parameter's gradient
+        (``Trainer.step(ignore_stale_grad=True)`` reads it); -1 under
+        ``grad_req="null"``."""
+        return -1 if self._grad_req == "null" else self._grad_version
+
+    def _attach_grad(self):
+        """Give the current ``torch.nn.Parameter`` the flag and the hook
+        that ``grad_req`` asks for; the gradient buffer starts anew."""
+        if self._hook is not None:
+            self._hook.remove()
+            self._hook = None
+        self._data.grad = None
+        self._grad = None
+        self._data.requires_grad_(self._grad_req != "null")
+        if self._grad_req != "null":
+            self._hook = self._data.register_post_accumulate_grad_hook(self._take_grad)
+
+    @torch.no_grad()
+    def _take_grad(self, tensor):
+        """After PyTorch accumulates a backward's gradient into ``.grad``:
+        move it into the buffer by ``grad_req`` and clear ``.grad``."""
+        g, tensor.grad = tensor.grad, None
+        if self._grad is None:
+            self._grad = g
+        elif self._grad_req == "add":
+            self._grad.add_(g)
+        else:
+            self._grad.copy_(g)
+        self._grad_version += 1
 
     def initialize(self, init=None, ctx=None, default_init=None, force_reinit=False):
         """Allocate and initialize on ``ctx`` (default: the current context,
@@ -83,7 +143,8 @@ class Parameter:
         data = torch.zeros(self._shape, dtype=as_torch_dtype(self.dtype), device=device)
         initializer = _init_mod.create(init or self.init or default_init)
         initializer(_init_mod.InitDesc(self.name), data)
-        self._data = torch.nn.Parameter(data, requires_grad=self.grad_req != "null")
+        self._data = torch.nn.Parameter(data)
+        self._attach_grad()
         self._deferred_init = None
 
     def _finish_deferred_init(self, inferred_shape=None):
@@ -98,8 +159,29 @@ class Parameter:
         self._finish_init(*self._deferred_init)
 
     def data(self, ctx=None):
+        self._check_initialized()
+        return self._data
+
+    def grad(self, ctx=None):
+        """The gradient buffer (MXNet semantics: see the module doc)."""
+        self._check_initialized()
+        if self._grad_req == "null":
+            raise RuntimeError(f"Cannot get gradient array for Parameter {self.name} "
+                               "because grad_req='null'")
+        if self._grad is None:
+            self._grad = torch.zeros_like(self._data, memory_format=torch.contiguous_format)
+        return self._grad
+
+    def list_grad(self):
+        return [self.grad()]
+
+    def zero_grad(self):
+        if self._grad is not None:
+            self._grad.zero_()
+
+    def _check_initialized(self):
         if self._data is not None:
-            return self._data
+            return
         if self._deferred_init is not None:
             raise DeferredInitializationError(
                 f"Parameter {self.name} has not been initialized yet because "
@@ -125,11 +207,13 @@ class Parameter:
             self._data.copy_(src.to(device=self._data.device, dtype=self._data.dtype))
 
     def cast(self, dtype):
+        """A new ``torch.nn.Parameter`` of ``dtype`` and a new (zero)
+        gradient: hold Parameters, not the tensors of ``data()``, across a
+        cast."""
         self.dtype = dtype_name(dtype)
         if self._data is not None:
-            self._data = torch.nn.Parameter(
-                self._data.detach().to(as_torch_dtype(dtype)),
-                requires_grad=self.grad_req != "null")
+            self._data = torch.nn.Parameter(self._data.detach().to(as_torch_dtype(dtype)))
+            self._attach_grad()
 
     def __repr__(self):
         return f"Parameter {self.name} (shape={self._shape}, dtype={self.dtype})"

@@ -1,22 +1,26 @@
-"""Scaled-dot-product attention: the hand-written flash-attention forward
-kernel and its plain PyTorch version.
+"""Scaled-dot-product attention: the hand-written flash-attention kernels
+(forward, and the dq and dk/dv backward passes) and their plain PyTorch
+versions.
 
-Counterpart of the JAX package's ``ops/attention.py``.  There, a Pallas
-kernel (``_fwd_kernel``) served long sequences on the TPU and XLA the
-rest.  Here every attention call on a CUDA tensor launches the port's own
-kernel, ``ops/csrc/flash_fwd.cu``, whatever the sequence length; a tensor
-on the CPU takes the plain version, which the CPU tests hold against the
-JAX package.  There is no other route: a CUDA call the kernel cannot take
+Counterpart of the JAX package's ``ops/attention.py``.  There, Pallas
+kernels (``_fwd_kernel``, ``_bwd_dq_kernel``, ``_bwd_dkv_kernel``) served
+long sequences on the TPU and XLA the rest.  Here every attention call on
+a CUDA tensor launches the port's own kernels, ``ops/csrc/flash_fwd.cu``
+and ``ops/csrc/flash_bwd.cu``, whatever the sequence length; a tensor on
+the CPU takes the plain versions, which the CPU tests hold against the JAX
+package.  There is no other route: a CUDA call a kernel cannot take
 raises.
 
-Layouts: the kernel reads q/k/v through batch, head and sequence strides
-(unit stride on Dh), so ``fused_qkv_attention`` hands it the
-``[B, S, 3, H, Dh]`` view of the QKV projection with no copy, and writes o
-in ``[B, S, H, Dh]`` for the output projection.
+Layouts: the kernels read q/k/v (and o, do) through batch, head and
+sequence strides (unit stride on Dh), so ``fused_qkv_attention`` hands
+them the ``[B, S, 3, H, Dh]`` view of the QKV projection with no copy,
+o lands in ``[B, S, H, Dh]`` for the output projection, and the backward
+writes dq, dk and dv straight into the three slices of one
+``[B, S, 3, H, Dh]`` gradient.
 
-Gradients: the CPU path is differentiable by ordinary autograd.  On the
-card this slice is inference only; the backward kernels and the
-``torch.autograd.Function`` around both come with the training slice.
+Gradients: one ``torch.autograd.Function`` (``_FlashAttention``) holds
+the forward, which saves o and the per-row log-sum-exp when an input
+requires a gradient, and the backward, ``flash_bwd``.
 """
 from __future__ import annotations
 
@@ -28,7 +32,8 @@ import torch
 from . import _cuda
 from .registry import register
 
-__all__ = ["flash_fwd", "flash_fwd_plain", "flash_attention", "attention_reference",
+__all__ = ["flash_fwd", "flash_fwd_plain", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv",
+           "flash_bwd_plain", "flash_attention", "attention_reference",
            "attention_reference_bshd", "fused_attention", "fused_qkv_attention",
            "fused_kv_attention"]
 
@@ -61,53 +66,90 @@ def flash_fwd_plain(q, k, v, causal=False, scale=None, with_lse=False):
     return o, lse
 
 
+def flash_bwd_plain(q, k, v, o, do, lse, causal=False, scale=None):
+    """Gradients (dq, dk, dv) of ``o = softmax(q·kᵀ·scale)·v`` on
+    [..., S, Dh] tensors, from the forward's o and lse (``[B·H, Sq]`` fp32,
+    or any shape of q's rows), with the kernels' algebra and dtype policy:
+    p = exp(s − lse) in fp32 (0 where masked), delta = rowsum(do∘o) in fp32
+    from the stored o, p cast to do's dtype before pᵀ·do, ds = p∘(dp −
+    delta) cast to q's dtype before ds·k and dsᵀ·q, fp32 accumulation, dq
+    and dk times ``scale``, gradients in the inputs' dtypes."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        sq, sk = s.shape[-2], s.shape[-1]
+        keep = (torch.arange(sq, device=s.device)[:, None]
+                >= torch.arange(sk, device=s.device)[None, :])
+        s = s.masked_fill(~keep, float("-inf"))
+    p = torch.exp(s - lse.reshape(q.shape[:-1]).unsqueeze(-1))
+    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = (p * (dp - delta)).to(q.dtype).float()
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _strides_bhs(x, bshd):
     """(batch, head, sequence) element strides of a 4-D operand."""
     st = x.stride()
     return (st[0], st[2], st[1]) if bshd else (st[0], st[1], st[2])
 
 
-def _check_cuda_operands(q, k, v, bshd):
+def _check_cuda_operands(fn, q, k, v, bshd, **like_q):
+    """What the kernels take: 4-D operands on q's device, of q's dtype (one
+    of three), head dim 16/32/64/128, unit stride on Dh, 16-byte aligned
+    rows; ``like_q`` names further operands of q's shape (o, do, dq...)."""
     dev = q.device
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    for name, x in (("q", q), ("k", k), ("v", v), *like_q.items()):
         if x.device != dev:
-            raise ValueError(f"flash_fwd: {name} is on {x.device}, q on {dev}")
+            raise ValueError(f"{fn}: {name} is on {x.device}, q on {dev}")
         if x.dtype != q.dtype:
-            raise ValueError(f"flash_fwd: {name} is {x.dtype}, q is {q.dtype}")
+            raise ValueError(f"{fn}: {name} is {x.dtype}, q is {q.dtype}")
         if x.dim() != 4:
-            raise ValueError(f"flash_fwd: {name} must be 4-D, got {tuple(x.shape)}")
+            raise ValueError(f"{fn}: {name} must be 4-D, got {tuple(x.shape)}")
         if x.stride(-1) != 1:
-            raise ValueError(f"flash_fwd: {name} needs unit stride on Dh, got {x.stride()}")
+            raise ValueError(f"{fn}: {name} needs unit stride on Dh, got {x.stride()}")
         nbytes = x.element_size()
         shape_bhs = (x.shape[0], x.shape[2], x.shape[1]) if bshd else x.shape[:3]
         for n, s in zip(shape_bhs, _strides_bhs(x, bshd)):
             if n > 1 and (s * nbytes) % 16:
                 raise ValueError(
-                    f"flash_fwd: {name} strides {x.stride()} are not 16-byte multiples")
+                    f"{fn}: {name} strides {x.stride()} are not 16-byte multiples")
         if x.data_ptr() % 16:
-            raise ValueError(f"flash_fwd: {name} is not 16-byte aligned")
+            raise ValueError(f"{fn}: {name} is not 16-byte aligned")
     if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"flash_fwd: unsupported dtype {q.dtype}")
+        raise ValueError(f"{fn}: unsupported dtype {q.dtype}")
     d = q.shape[-1]
     if d not in _HEAD_DIMS or k.shape[-1] != d or v.shape[-1] != d:
-        raise ValueError(f"flash_fwd: head dim must be one of {_HEAD_DIMS} and equal "
+        raise ValueError(f"{fn}: head dim must be one of {_HEAD_DIMS} and equal "
                          f"for q, k, v; got {q.shape[-1]}, {k.shape[-1]}, {v.shape[-1]}")
     if k.shape != v.shape:
-        raise ValueError(f"flash_fwd: k {tuple(k.shape)} and v {tuple(v.shape)} differ")
+        raise ValueError(f"{fn}: k {tuple(k.shape)} and v {tuple(v.shape)} differ")
     bh_q = (q.shape[0], q.shape[2] if bshd else q.shape[1])
     bh_k = (k.shape[0], k.shape[2] if bshd else k.shape[1])
     if bh_q != bh_k:
-        raise ValueError(f"flash_fwd: batch/heads of q {bh_q} and k {bh_k} differ")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError(
-            "flash_fwd has no gradient on the card yet: the backward kernels come "
-            "with the training slice of the port. Run inference under torch.no_grad().")
+        raise ValueError(f"{fn}: batch/heads of q {bh_q} and k {bh_k} differ")
+    for name, x in like_q.items():
+        if x.shape != q.shape:
+            raise ValueError(f"{fn}: {name} {tuple(x.shape)} differs from q {tuple(q.shape)}")
 
 
 def _entry():
     fn = _cuda.load("flash_fwd").mx_flash_fwd
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_entry():
+    fn = _cuda.load("flash_bwd").mx_flash_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -134,7 +176,7 @@ def flash_fwd(q, k, v, causal=False, scale=None, with_lse=False, layout="bhsd"):
         return o.transpose(1, 2), lse
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd runs on CPU or CUDA tensors, got {q.device}")
-    _check_cuda_operands(q, k, v, bshd)
+    _check_cuda_operands("flash_fwd", q, k, v, bshd)
     b, d = q.shape[0], q.shape[3]
     h, sq = (q.shape[2], q.shape[1]) if bshd else (q.shape[1], q.shape[2])
     sk = k.shape[1] if bshd else k.shape[2]
@@ -156,6 +198,153 @@ def flash_fwd(q, k, v, causal=False, scale=None, with_lse=False, layout="bhsd"):
 flash_fwd.launches = 0
 
 
+def _bwd_launch(q, k, v, o, do, lse, dq, dk, dv, causal, scale, bshd):
+    """One ctypes call of ``mx_flash_bwd``: the dq pass when ``dq`` is
+    given, the dk/dv pass when ``dk``/``dv`` are."""
+    _check_cuda_operands("flash_bwd", q, k, v, bshd, o=o, do=do,
+                         **({} if dq is None else {"dq": dq}))
+    if dk is not None:  # dk and dv: k's shape, dtype, device and stride rules
+        _check_cuda_operands("flash_bwd", k, k, v, bshd, dk=dk, dv=dv)
+    b, d = q.shape[0], q.shape[3]
+    h, sq = (q.shape[2], q.shape[1]) if bshd else (q.shape[1], q.shape[2])
+    sk = k.shape[1] if bshd else k.shape[2]
+    if (lse.dtype != torch.float32 or lse.device != q.device
+            or tuple(lse.shape) != (b * h, sq) or not lse.is_contiguous()):
+        raise ValueError(f"flash_bwd: lse must be contiguous fp32 [B·H, Sq] = "
+                         f"{(b * h, sq)} on {q.device}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+    ops = (q, k, v, o, do, dq if dq is not None else q,
+           dk if dk is not None else k, dv if dv is not None else v)
+    strides = (ctypes.c_longlong * 24)(*(st for x in ops for st in _strides_bhs(x, bshd)))
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    with torch.cuda.device(q.device):
+        rc = _bwd_entry()(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          o.data_ptr(), do.data_ptr(), lse.data_ptr(), ptr(dq), ptr(dk),
+                          ptr(dv), b, h, sq, sk, d, strides, float(scale),
+                          int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd launch failed with CUDA error {rc}")
+
+
+def _bwd_args(q, layout, scale):
+    if layout not in ("bhsd", "bshd"):
+        raise ValueError(f"layout must be 'bhsd' or 'bshd', got {layout!r}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_bwd runs on CPU or CUDA tensors, got {q.device}")
+    return layout == "bshd", 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+
+
+def _bwd_plain(q, k, v, o, do, lse, causal, scale, bshd):
+    """flash_bwd_plain in the caller's layout."""
+    t = (lambda x: x.transpose(1, 2)) if bshd else (lambda x: x)
+    return [t(g) for g in flash_bwd_plain(t(q), t(k), t(v), t(o), t(do), lse, causal, scale)]
+
+
+def _into(dst, src):
+    return src if dst is None else dst.copy_(src)
+
+
+def _new_like(x):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def flash_bwd_dq(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd", dq=None):
+    """The dq pass of :func:`flash_bwd`; writes into ``dq`` when given and
+    returns dq.  A CPU tensor takes :func:`flash_bwd_plain`; a CUDA tensor
+    launches the dq kernel (``flash_bwd_dq.launches`` counts) or raises."""
+    bshd, scale = _bwd_args(q, layout, scale)
+    if q.device.type == "cpu":
+        return _into(dq, _bwd_plain(q, k, v, o, do, lse, causal, scale, bshd)[0])
+    dq = _new_like(q) if dq is None else dq
+    _bwd_launch(q, k, v, o, do, lse, dq, None, None, causal, scale, bshd)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd",
+                  dk=None, dv=None):
+    """The dk/dv pass of :func:`flash_bwd`; writes into ``dk``/``dv`` when
+    given and returns (dk, dv).  A CPU tensor takes
+    :func:`flash_bwd_plain`; a CUDA tensor launches the dk/dv kernel
+    (``flash_bwd_dkv.launches`` counts) or raises."""
+    if (dk is None) != (dv is None):
+        raise ValueError("flash_bwd_dkv: give both dk and dv or neither")
+    bshd, scale = _bwd_args(q, layout, scale)
+    if q.device.type == "cpu":
+        _, gk, gv = _bwd_plain(q, k, v, o, do, lse, causal, scale, bshd)
+        return _into(dk, gk), _into(dv, gv)
+    if dk is None:
+        dk, dv = _new_like(k), _new_like(v)
+    _bwd_launch(q, k, v, o, do, lse, None, dk, dv, causal, scale, bshd)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
+
+
+def flash_bwd(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd", out=None):
+    """Flash-attention backward: ``(dq, dk, dv)`` from the forward's inputs,
+    its output o, the output gradient do (o's layout) and its lse
+    (``[B·H, Sq]`` fp32).  ``out`` = (dq, dk, dv) tensors to write into, in
+    any strides the kernels take (the three slices of one
+    ``[B, S, 3, H, Dh]`` gradient, say).
+
+    A CPU tensor takes :func:`flash_bwd_plain` (once, for all three); a
+    CUDA tensor launches the two kernels, ``flash_bwd_dq`` then
+    ``flash_bwd_dkv``, or raises."""
+    dq, dk, dv = out if out is not None else (None, None, None)
+    bshd, scale = _bwd_args(q, layout, scale)
+    if q.device.type == "cpu":
+        grads = _bwd_plain(q, k, v, o, do, lse, causal, scale, bshd)
+        return tuple(_into(dst, g) for dst, g in zip((dq, dk, dv), grads))
+    dq = flash_bwd_dq(q, k, v, o, do, lse, causal, scale, layout, dq=dq)
+    dk, dv = flash_bwd_dkv(q, k, v, o, do, lse, causal, scale, layout, dk=dk, dv=dv)
+    return dq, dk, dv
+
+
+def _views(tensors, spec):
+    """q, k, v as views of ``tensors``: each spec entry is (index, slot),
+    slot None for the tensor itself, else its [:, :, slot] slice (the
+    packed [B, S, n, H, Dh] projection outputs)."""
+    return tuple(tensors[i] if slot is None else tensors[i][:, :, slot] for i, slot in spec)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention over q, k, v taken as views of the packed inputs
+    (``_views``), so the backward writes each input's gradient whole:
+    dq, dk and dv land in the slices of one ``[B, S, 3, H, Dh]`` tensor
+    for the fused QKV projection, with no stack copy."""
+
+    @staticmethod
+    def forward(ctx, spec, causal, scale, layout, *inputs):
+        q, k, v = _views(inputs, spec)
+        o, lse = flash_fwd(q, k, v, causal, scale, with_lse=True, layout=layout)
+        ctx.spec, ctx.causal, ctx.scale, ctx.layout = spec, causal, scale, layout
+        ctx.save_for_backward(*inputs, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        *inputs, o, lse = ctx.saved_tensors
+        grads = [torch.empty_like(x, memory_format=torch.contiguous_format) for x in inputs]
+        flash_bwd(*_views(inputs, ctx.spec), o, do.contiguous(), lse, ctx.causal, ctx.scale,
+                  ctx.layout, out=_views(grads, ctx.spec))
+        return (None, None, None, None, *grads)
+
+
+def _attend(spec, inputs, causal, scale, layout):
+    """o of attention over the views ``spec`` of ``inputs``: through
+    ``_FlashAttention`` when a gradient is wanted, straight to
+    ``flash_fwd`` (no lse) when not."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(inputs[0].shape[-1])
+    if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
+        return _FlashAttention.apply(spec, causal, float(scale), layout, *inputs)
+    return flash_fwd(*_views(inputs, spec), causal, scale, layout=layout)[0]
+
+
 def attention_reference(q, k, v, causal=False, scale=None):
     """Plain attention on [B, H, S, D] (or [BH, S, D]), output in v's dtype;
     the counterpart of the JAX package's ``attention_reference``."""
@@ -169,12 +358,8 @@ def attention_reference_bshd(q, k, v, causal=False, scale=None):
 
 
 def flash_attention(q, k, v, causal=False, scale=None):
-    """Fused attention on [B, H, S, D] tensors."""
-    return flash_fwd(q, k, v, causal, scale)[0]
-
-
-def _attend_bshd(q, k, v, causal, scale):
-    return flash_fwd(q, k, v, causal, scale, layout="bshd")[0]
+    """Fused attention on [B, H, S, D] tensors; differentiable."""
+    return _attend(((0, None), (1, None), (2, None)), (q, k, v), causal, scale, "bhsd")
 
 
 @register("fused_attention")
@@ -188,7 +373,8 @@ def fused_attention(q, k, v, num_heads=1, causal=False, scale=None):
     def split(x):
         return x.reshape(b, x.shape[1], h, d // h)
 
-    return _attend_bshd(split(q), split(k), split(v), causal, scale).reshape(b, s, d)
+    return _attend(((0, None), (1, None), (2, None)), (split(q), split(k), split(v)),
+                   causal, scale, "bshd").reshape(b, s, d)
 
 
 @register("fused_qkv_attention")
@@ -201,7 +387,7 @@ def fused_qkv_attention(qkv, num_heads=1, causal=False, scale=None):
     if d % h or d3 % 3:
         raise ValueError(f"qkv dim {d3} not divisible into 3 heads×{h}")
     x = qkv.reshape(b, s, 3, h, d // h)
-    return _attend_bshd(x[:, :, 0], x[:, :, 1], x[:, :, 2], causal, scale).reshape(b, s, d)
+    return _attend(((0, 0), (0, 1), (0, 2)), (x,), causal, scale, "bshd").reshape(b, s, d)
 
 
 @register("fused_kv_attention")
@@ -214,5 +400,6 @@ def fused_kv_attention(q, kv, num_heads=1, causal=False, scale=None):
         raise ValueError(f"kv dim {kv.shape[-1]} must be 2×{d}, heads {h}")
     dh = d // h
     x = kv.reshape(b, kv.shape[1], 2, h, dh)
-    out = _attend_bshd(q.reshape(b, sq, h, dh), x[:, :, 0], x[:, :, 1], causal, scale)
+    out = _attend(((0, None), (1, 0), (1, 1)), (q.reshape(b, sq, h, dh), x), causal, scale,
+                  "bshd")
     return out.reshape(b, sq, d)

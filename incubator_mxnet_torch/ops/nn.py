@@ -1,4 +1,5 @@
-"""Neural-network operators that BERT's forward calls.
+"""Neural-network operators that BERT's forward and its pretraining loss
+call.
 
 Counterpart of the matching ops in the JAX package's ``ops/nn.py``, with
 MXNet's calling conventions (``FullyConnected`` weight ``[out, in]``) and
@@ -74,18 +75,70 @@ def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
 
 @register("Dropout")
 def dropout(data, p=0.5, mode="training", axes=(), training=None):
-    """Identity outside training (parity: the reference's is_train dispatch).
-    The training branch needs a mask drawn from the device generator and
-    comes with the training slice."""
+    """Identity outside training unless ``mode="always"`` (parity: the
+    reference's is_train dispatch).  In training, each element is kept
+    with probability exactly 1 − p and scaled by 1/(1 − p); the mask is
+    drawn from the port's generator of the data's device
+    (``random.get_generator``), never from PyTorch's global one, and is
+    shared along ``axes``."""
     if training is None:
         from .. import autograd
 
         training = autograd.is_training()
     if (not training and mode != "always") or p <= 0:
         return data
-    raise NotImplementedError(
-        "Dropout in training mode comes with the training slice of the port; "
-        "run inference under autograd.predict_mode() or build with dropout=0")
+    from ..random import get_generator
+
+    shape = list(data.shape)
+    for ax in axes:
+        shape[ax] = 1
+    keep = 1.0 - p
+    mask = torch.empty(shape, device=data.device).bernoulli_(
+        keep, generator=get_generator(data.device))
+    return data * mask.to(data.dtype) / keep
+
+
+@register("softmax")
+def softmax(data, axis=-1, temperature=None, length=None):
+    """fp32 inside, output in the input dtype; ``length`` masks positions
+    at or past each row's length along ``axis`` (they get 0)."""
+    x = data.float()
+    if temperature is not None and temperature != 1.0:
+        x = x / temperature
+    if length is None:
+        return torch.softmax(x, dim=axis).to(data.dtype)
+    ax = axis % x.ndim
+    idx = torch.arange(x.shape[ax], device=x.device).reshape((-1,) + (1,) * (x.ndim - 1 - ax))
+    mask = idx < length.reshape(tuple(length.shape) + (1,) * (x.ndim - length.ndim))
+    out = torch.softmax(x.masked_fill(~mask, float("-inf")), dim=axis)
+    return torch.where(mask, out, torch.zeros_like(out)).to(data.dtype)
+
+
+@register("log_softmax")
+def log_softmax(data, axis=-1, temperature=None):
+    x = data.float()
+    if temperature not in (None, 1.0):
+        x = x / temperature
+    return torch.log_softmax(x, dim=axis).to(data.dtype)
+
+
+def streaming_softmax_ce(logits, labels):
+    """Per-position cross-entropy ``lse(logits) − logits[label]`` with fp32
+    accumulation over the class axis; labels are integers of
+    ``logits.shape[:-1]``.  The row max is held constant, as the JAX
+    package's ``stop_gradient`` holds it, so the gradient is softmax −
+    one-hot in fp32, returned in the logits' dtype."""
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    lse = m[..., 0].float() + torch.log(torch.exp((logits - m).float()).sum(dim=-1))
+    gold = torch.take_along_dim(logits, labels.long()[..., None], dim=-1)[..., 0].float()
+    return lse - gold
+
+
+@register("softmax_cross_entropy")
+def softmax_cross_entropy(data, label):
+    """Summed cross-entropy with integer labels (parity: the reference's
+    ``softmax_cross_entropy``)."""
+    return streaming_softmax_ce(data, label.reshape(data.shape[:-1])).sum()
 
 
 @register("gather_positions")

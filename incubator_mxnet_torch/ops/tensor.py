@@ -1,8 +1,11 @@
-"""Tensor creation and shape ops that BERT calls.
+"""Tensor creation, shape, elementwise and reduction ops that BERT and the
+Gluon losses call.
 
 Counterpart of the matching ops in the JAX package's ``ops/tensor.py``
-(``reshape``, ``slice_axis``) and ``ndarray/ndarray.py`` (``zeros``,
-``arange``), including MXNet's special reshape codes.
+(``reshape``, ``slice_axis``, ``pick``, ``broadcast_mul``, ``square``,
+``sum``/``mean`` with MXNet's ``axis``/``keepdims``/``exclude``) and
+``ndarray/ndarray.py`` (``zeros``, ``arange``), including MXNet's special
+reshape codes.
 """
 from __future__ import annotations
 
@@ -114,3 +117,53 @@ alias("Reshape", "reshape")
 @register("slice_axis")
 def slice_axis(x, axis, begin, end):
     return x[(slice(None),) * (axis % x.ndim) + (slice(begin, end),)]
+
+
+@register("broadcast_mul")
+def broadcast_mul(lhs, rhs):
+    return torch.mul(lhs, rhs)
+
+
+@register("square")
+def square(x):
+    return torch.square(x)
+
+
+def _norm_axis(x, axis, exclude=False):
+    """MXNet's reduction axes: int, tuple or None (all); ``exclude`` takes
+    every other axis."""
+    if axis is None:
+        return None
+    if isinstance(axis, int):
+        axis = (axis,)
+    axis = tuple(a % x.ndim for a in axis)
+    if exclude:
+        axis = tuple(i for i in range(x.ndim) if i not in axis)
+    return axis
+
+
+def _make_reduce(name, fn):
+    def red(x, axis=None, keepdims=False, exclude=False):
+        ax = _norm_axis(x, axis, exclude)
+        if ax is None:
+            out = fn(x)
+            return out.reshape((1,) * x.ndim) if keepdims else out
+        if not ax:  # no axis left to reduce (exclude of every axis)
+            return x
+        return fn(x, dim=ax, keepdim=keepdims)
+
+    red.__name__ = name
+    register(name)(red)
+
+
+_make_reduce("sum", torch.sum)
+_make_reduce("mean", torch.mean)
+
+
+@register("pick")
+def pick(x, index, axis=-1, keepdims=False, mode="clip"):
+    """x's entries at ``index`` along ``axis`` (indices clipped to range,
+    MXNet's default mode)."""
+    idx = index.long().clamp(0, x.shape[axis] - 1).unsqueeze(axis)
+    out = torch.take_along_dim(x, idx, dim=axis)
+    return out if keepdims else out.squeeze(axis)

@@ -138,7 +138,7 @@ def test_bshd_reference_matches_jax():
 
 
 def test_cpu_gradients_match_jax():
-    """On the CPU the plain version is differentiable by ordinary autograd;
+    """On the CPU the autograd Function runs the plain forward and backward;
     its gradients agree with JAX's (tolerance of test_transformer.py)."""
     arrs = _qkv(8, 2, 2, 64, 64, 16)
     g_ref = jax.grad(lambda q, k, v: (jatt.attention_reference(q, k, v, causal=True) ** 2).sum(),
@@ -190,7 +190,13 @@ def test_kernel_matches_plain_on_card(cuda_device, causal):
 
 
 @pytest.mark.cuda
-def test_kernel_refuses_gradients_on_card(cuda_device):
+def test_kernel_gradients_on_card(cuda_device):
+    """On the card, autograd through flash_attention runs the forward with
+    lse and both backward kernels (tests/test_torch_flash_bwd.py holds
+    their values to the plain version)."""
     q = torch.randn(1, 2, 64, 32, device=cuda_device, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tatt.flash_attention(q, q, q)
+    before = (tatt.flash_fwd.launches, tatt.flash_bwd_dq.launches, tatt.flash_bwd_dkv.launches)
+    tatt.flash_attention(q, q, q).sum().backward()
+    assert q.grad.shape == q.shape and torch.isfinite(q.grad).all()
+    assert (tatt.flash_fwd.launches, tatt.flash_bwd_dq.launches,
+            tatt.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)

@@ -96,8 +96,10 @@ def test_dropout_is_identity_outside_training_and_waits_inside():
         assert tnn.dropout(x, p=0.1) is x
     with mx.autograd.train_mode():
         assert tnn.dropout(x, p=0.0) is x
-        with pytest.raises(NotImplementedError, match="training slice"):
-            tnn.dropout(x, p=0.1)
+        y = tnn.dropout(x, p=0.1)  # training: drops and rescales
+    kept = y != 0
+    assert 0 < kept.sum() < x.numel()
+    torch.testing.assert_close(y[kept], x[kept] / 0.9, rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("axis,begin,end", [(1, 0, 1), (0, 1, 3), (-1, 2, None), (1, -3, -1)])
