@@ -2,7 +2,7 @@
 """Drive the PyTorch port (``incubator_mxnet_torch``) on one NVIDIA H100.
 
     python3 chip_smoke.py                  # on a machine with a CUDA card
-    python3 chip_smoke.py --cpu-rehearsal  # tiny BERT on the CPU plain path
+    python3 chip_smoke.py --cpu-rehearsal  # tiny BERT and ResNet on the CPU plain path
 
 Phases, each printing JSON lines; no phase's failure is caught:
 
@@ -10,10 +10,11 @@ Phases, each printing JSON lines; no phase's failure is caught:
 2. build: compile every kernel of the paths from ``ops/csrc`` (one nvcc
    per source, all at once) with ``-Xptxas -v`` and report registers,
    shared memory and spills; a spill fails the phase;
-3. kernel_vs_plain, kernel_vs_plain_bwd: each kernel against its plain
-   PyTorch version on the card, at the main paths' shapes and the edge
-   cases, each against a stated bound; any miss exits non-zero after the
-   phase;
+3. kernel_vs_plain, kernel_vs_plain_bwd, kernel_vs_plain_bn: each kernel
+   against its plain PyTorch version on the card, at the main paths' shapes
+   and the edge cases, each against a stated bound (and bn_stats against
+   itself: two runs must be bit-identical); any miss exits non-zero after
+   the phase;
 4. slice: BERT-base (12 layers, 768 units, vocab 30522, bf16, random
    weights from a seed) answers inference requests through
    ``net(token_ids, token_types, masked_positions)``; the kernels' launch
@@ -24,15 +25,25 @@ Phases, each printing JSON lines; no phase's failure is caught:
    ``autograd.backward`` and ``gluon.Trainer.step``; launch counts around
    exactly one step, finite and falling losses; then the card's bf16
    gradients against the port's fp32 gradients on the CPU, per parameter;
-6. times: each kernel, its plain version and the library call at the main
-   path's shape, the kernel's bound; forward and training-step time,
-   samples/s and peak memory; a torch.profiler breakdown of one forward's
-   and one training step's device time by kernel family.
+6. resnet_train: ResNet-50 v1 training steps as bench.py's bench_resnet50
+   takes them (B=256, 224x224 synthetic images, AMP bf16 with fp32
+   parameters, SGD lr 0.1 momentum 0.9 wd 1e-4, the streaming softmax
+   cross-entropy) through ``autograd.record``, ``autograd.backward`` and
+   ``gluon.Trainer.step``; launch counts around exactly one step (53
+   bn_stats, 53 bn_apply, 0 bn_apply_res, no BatchNorm reference call),
+   finite losses, moved running statistics; then, at B=16, the card's fp32
+   and AMP gradients against the port's fp32 gradients on the CPU, per
+   parameter, beside the CPU's own sensitivity;
+7. times: each kernel, its plain version and the library call at the main
+   paths' shapes, the kernel's bound; BERT forward and training-step time,
+   the ResNet-50 step's time, img/s, peak memory and its split; a
+   torch.profiler breakdown of device time by kernel family for one BERT
+   forward, one BERT training step and one ResNet-50 step.
 
 The last line is ``{"ok": true, "device": {...}}``, printed only when every
-phase passed on a CUDA card.  The rehearsal runs the slice, train and
-timing phases on the CPU at a tiny size, with the kernels' plain versions,
-and never prints it.
+phase passed on a CUDA card.  The rehearsal runs the slice, train, ResNet
+and timing phases on the CPU at a tiny size, with the kernels' plain
+versions, and never prints it.
 """
 from __future__ import annotations
 
@@ -53,8 +64,11 @@ import torch  # noqa: E402
 import incubator_mxnet_torch as mx  # noqa: E402
 from incubator_mxnet_torch.convert import load_numpy_params  # noqa: E402
 from incubator_mxnet_torch.gluon.model_zoo import bert as bert_zoo  # noqa: E402
+from incubator_mxnet_torch.gluon.model_zoo import vision  # noqa: E402
 from incubator_mxnet_torch.ops import _cuda  # noqa: E402
 from incubator_mxnet_torch.ops import attention as att  # noqa: E402
+from incubator_mxnet_torch.ops import bn  # noqa: E402
+from incubator_mxnet_torch.ops import nn as ops_nn  # noqa: E402
 from incubator_mxnet_torch.ops.nn import streaming_softmax_ce  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a kernel
@@ -103,9 +117,49 @@ GRAD_REL_BOUND = 0.15
 BERT_BASE = dict(vocab_size=30522, max_length=512, dropout=0.1)
 TINY_BERT = dict(vocab_size=128, units=32, hidden_size=64, num_layers=2, num_heads=2,
                  max_length=64, dropout=0.1)
-KERNELS = ("flash_fwd", "flash_bwd")  # sources under incubator_mxnet_torch/ops/csrc
+# BatchNorm kernels against their plain versions.  bn_stats: both sides sum
+# in fp32 in different orders; the kernel's longest sequential run is one
+# lane's share of a row, L ~ 400 terms at the stem, so the difference walks
+# like sqrt(L)·u ~ 1.2e-6 of Σ|x| (u = 2**-24), and the worst case
+# (L + log2 M)·u is 2.4e-5: the bound is STATS_REL of Σ|x| for Σx and of
+# Σx² for Σx², per channel.  bn_apply(_res): the same fp32 arithmetic,
+# rounded once to the output type; the kernel fuses x·scale + shift into one
+# fma and the plain version rounds the product first, so the fp32 values
+# differ by up to two fp32 roundings of the largest term, which can move the
+# rounded output by one ulp: the bound per element is one ulp of the output
+# type at the plain result plus two fp32 ulps of |x·scale| + |shift| + |res|.
+STATS_REL = 1e-5
+# ResNet-50 gradients on the card against fp32 on the CPU, same weights,
+# B=16, BatchNorm in training.  A batch-normalized ReLU network in training
+# is chaotic: its gradients, and their sensitivity to any perturbation,
+# grow with depth (the mean-field result for BatchNorm networks).  The
+# phase measures that sensitivity on the CPU in the same run, as two
+# yardsticks: the change of the fp32 gradients when every weight moves by
+# 1e-6 relative (some ten fp32 roundings), and when the weights are rounded
+# to bf16.  So:
+# * fp32 on the card (AMP off, TF32 off) differs from the CPU by summation
+#   order and algorithm, about one fp32 rounding per op: less than the 1e-6
+#   yardstick, which moves gradients by a few percent.  The bound is 0.3,
+#   several times that; a wrong BN kernel moves the batch statistics by
+#   their own size and the gradients by order 1 (100 %).  The logits: 1e-3,
+#   against 1e-4 or less from such a perturbation.
+# * AMP bf16 rounds every activation and weight (u = 2**-8), a perturbation
+#   the bf16 yardstick shows to decorrelate the gradients (order 1).  No
+#   bound below that can hold, so the AMP run is held only to finite
+#   gradients within 2 of the reference's norm (what two unrelated vectors
+#   of equal norm give at most) and reported beside its yardstick.
+RESNET_FP32_GRAD_REL_BOUND = 0.3
+RESNET_FP32_LOGIT_REL_BOUND = 1e-3
+RESNET_AMP_GRAD_REL_BOUND = 2.0
+
+RESNET_B = 256
+TINY_RESNET = dict(layers=[1, 1, 1, 1], channels=[8, 16, 32, 64, 128], classes=10,
+                   thumbnail=True)
+KERNELS = ("flash_fwd", "flash_bwd", "bn")  # sources under incubator_mxnet_torch/ops/csrc
 ENTRIES = {"flash_fwd": att.flash_fwd, "flash_bwd_dq": att.flash_bwd_dq,
-           "flash_bwd_dkv": att.flash_bwd_dkv}
+           "flash_bwd_dkv": att.flash_bwd_dkv, "bn_stats": bn.bn_stats,
+           "bn_apply": bn.bn_apply, "bn_apply_res": bn.bn_apply_res}
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def emit(phase, **fields):
@@ -186,8 +240,9 @@ def phase_build():
     emit("build", wall_seconds=time.perf_counter() - t0, spills=spills)
     if spills:
         sys.exit(1)
-    att._entry()  # load both once, outside any timing
+    att._entry()  # load all three once, outside any timing
     att._bwd_entry()
+    bn._lib()
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -339,6 +394,106 @@ def phase_kernel_vs_plain_bwd(device):
     return main_errs
 
 
+# BatchNorm inputs of ResNet-50 v1 at 224x224: (C, H·W) of the 53 layers.
+RESNET_BN_SHAPES = ((64, 12544), (64, 3136), (256, 3136), (128, 784), (512, 784), (256, 196),
+                    (1024, 196), (512, 49), (2048, 49))
+BN_MAIN = [dict(name=f"c{c}_hw{hw}", n=RESNET_B, c=c, hw=hw, dtype=torch.bfloat16, main=True)
+           for c, hw in RESNET_BN_SHAPES]
+BN_CASES = BN_MAIN + [
+    dict(name="fp32_c256_hw3136", n=RESNET_B, c=256, hw=3136, dtype=torch.float32),
+    dict(name="fp32_c2048_hw49", n=RESNET_B, c=2048, hw=49, dtype=torch.float32),
+    dict(name="fp16_c64_hw3136", n=32, c=64, hw=3136, dtype=torch.float16),
+    dict(name="n1", n=1, c=64, hw=3136, dtype=torch.bfloat16),
+    dict(name="c1", n=RESNET_B, c=1, hw=196, dtype=torch.bfloat16),
+    dict(name="hw1", n=RESNET_B, c=2048, hw=1, dtype=torch.bfloat16),
+    dict(name="odd_hw33", n=8, c=12, hw=33, dtype=torch.bfloat16),
+    dict(name="odd_hw45_fp32", n=3, c=12, hw=45, dtype=torch.float32),
+    dict(name="view_c_stride", n=16, c=64, hw=49, dtype=torch.bfloat16, view="c"),
+    dict(name="view_n_stride", n=16, c=256, hw=196, dtype=torch.bfloat16, view="n"),
+]
+
+
+def _bn_input(case, gen, device):
+    """x of the case, with a non-zero mean as conv output has; ``view``
+    "c" takes every other channel of a wider tensor (C stride 2·HW), "n"
+    channels 1..C of a wider one (N stride (C+3)·HW)."""
+    n, c, hw, dtype = case["n"], case["c"], case["hw"], case["dtype"]
+    view = case.get("view")
+    wide = {"c": 2 * c, "n": c + 3}.get(view, c)
+    x = (2 * torch.randn((n, wide, hw), generator=gen, device=device) + 0.5).to(dtype)
+    return {"c": x[:, ::2], "n": x[:, 1:c + 1]}.get(view, x)
+
+
+def _ulps(t, dtype):
+    """Elementwise spacing of ``dtype``'s values at |t|."""
+    mant = {torch.bfloat16: 7, torch.float16: 10, torch.float32: 23}[dtype]
+    _, e = torch.frexp(t.float().abs())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 1 - mant)
+
+
+def _bn_case(case, gen, device):
+    x = _bn_input(case, gen, device)
+    res = _bn_input(case, gen, device)
+    c = case["c"]
+    scale = torch.rand(c, generator=gen, device=device) + 0.5
+    shift = torch.randn(c, generator=gen, device=device)
+    got, again = bn.bn_stats(x), bn.bn_stats(x)
+    torch.cuda.synchronize()
+    ref = bn.bn_stats_plain(x)
+    x32 = x.float()
+    abs_sum = x32.abs().sum(dim=(0, 2))
+    rec = dict(case=case["name"], dtype=str(case["dtype"]).replace("torch.", ""),
+               shape=dict(n=case["n"], c=c, hw=case["hw"]), strides=list(x.stride()),
+               stats_deterministic=torch.equal(got, again),
+               stats_max_abs_err=(got - ref).abs().max().item(),
+               sum_err_over_bound=((got[:, 0] - ref[:, 0]).abs()
+                                   / (STATS_REL * abs_sum)).max().item(),
+               sumsq_err_over_bound=((got[:, 1] - ref[:, 1]).abs()
+                                     / (STATS_REL * ref[:, 1])).max().item())
+    prod = (x32 * scale[None, :, None]).abs() + shift.abs()[None, :, None]
+    errs = {}
+    for relu in (False, True):
+        for r in (None, res):
+            out = bn.bn_apply(x, scale, shift, residual=r, relu=relu)
+            torch.cuda.synchronize()
+            want = bn.bn_apply_plain(x, scale, shift, r, relu)
+            terms = prod if r is None else prod + r.float().abs()
+            bound = _ulps(want, x.dtype) + 2 * _ulps(terms, torch.float32)
+            diff = (out.float() - want.float()).abs()
+            key = ("bn_apply_res" if r is not None else "bn_apply") + ("_relu" if relu else "")
+            errs[key] = (diff.max().item(), (diff / bound).max().item())
+    rec.update({f"{k}_max_abs_err": e for k, (e, _) in errs.items()})
+    rec.update({f"{k}_err_over_bound": q for k, (_, q) in errs.items()})
+    ok = (rec["stats_deterministic"] and rec["sum_err_over_bound"] <= 1
+          and rec["sumsq_err_over_bound"] <= 1 and all(q <= 1 for _, q in errs.values()))
+    for v in rec.values():
+        ok = ok and (not isinstance(v, float) or math.isfinite(v))
+    rec["ok"] = ok
+    return rec, errs
+
+
+def phase_kernel_vs_plain_bn(device):
+    """Returns the max abs error of each BN kernel over the nine ResNet-50
+    shapes (bn_apply without ReLU, as the path calls it)."""
+    gen = torch.Generator(device=device).manual_seed(2468)
+    misses, main = [], {"bn_stats": 0.0, "bn_apply": 0.0, "bn_apply_res": 0.0}
+    with torch.no_grad():
+        for case in BN_CASES:
+            rec, errs = _bn_case(case, gen, device)
+            emit("kernel_vs_plain_bn", stats_bound_rel=STATS_REL, **rec)
+            if not rec["ok"]:
+                misses.append(case["name"])
+            if case.get("main"):
+                main["bn_stats"] = max(main["bn_stats"], rec["stats_max_abs_err"])
+                main["bn_apply"] = max(main["bn_apply"], errs["bn_apply"][0])
+                main["bn_apply_res"] = max(main["bn_apply_res"], errs["bn_apply_res"][0],
+                                           errs["bn_apply_res_relu"][0])
+    if misses:
+        emit("kernel_vs_plain_bn", failed=misses)
+        sys.exit(1)
+    return main
+
+
 # -- phase 4 ----------------------------------------------------------------
 
 
@@ -397,7 +552,7 @@ def phase_slice(rehearsal):
             sys.exit(1)
     want = 0 if rehearsal else num_layers * len(reqs)
     emit("slice", launches=counts, expected_flash_fwd=want, forwards=len(reqs))
-    if counts != {"flash_fwd": want, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
+    if counts != {n: want if n == "flash_fwd" else 0 for n in ENTRIES}:
         sys.exit(1)
 
     # the same weights, fp32, through the port on the CPU
@@ -467,7 +622,7 @@ def phase_train(rehearsal):
     sync()
     finite = all(math.isfinite(x) for x in losses)
     falling = losses[-1] < losses[0]
-    want = {n: 0 if rehearsal else num_layers for n in ENTRIES}
+    want = {n: num_layers if n in FLASH and not rehearsal else 0 for n in ENTRIES}
     emit("train", model="BERTForPretrain(bert_base) bf16, Adam multi_precision, dropout 0.1"
          if not rehearsal else "tiny BERT bf16 (CPU rehearsal)", b=b, s=s, p=p,
          losses=losses, finite=finite, falling=falling, launches_one_step=counts,
@@ -512,6 +667,184 @@ def phase_train_vs_cpu(net, rehearsal):
 # -- phase 6 ----------------------------------------------------------------
 
 
+def _build_resnet(rehearsal, ctx, seed):
+    mx.random.seed(seed)
+    if rehearsal:
+        cfg = dict(TINY_RESNET)
+        net = vision.ResNetV1(vision.BottleneckV1, cfg.pop("layers"), cfg.pop("channels"), **cfg)
+    else:
+        net = vision.resnet50_v1(classes=1000)
+    net.initialize(ctx=ctx)
+    size = 32 if rehearsal else 224
+    with mx.autograd.predict_mode():  # finish the deferred shapes, as bench.py does
+        net(torch.zeros(2, 3, size, size, device=ctx.device))
+    return net
+
+
+def _image_batch(rehearsal, b, gen, device):
+    size, classes = (32, TINY_RESNET["classes"]) if rehearsal else (224, 1000)
+    img = torch.rand((b, 3, size, size), generator=gen, device=device)
+    labels = torch.randint(0, classes, (b,), generator=gen, device=device, dtype=torch.int32)
+    return img, labels
+
+
+def resnet_step(net, trainer, batch, train_mode=True):
+    """One step as bench.py's bench_resnet50 takes it: the per-sample
+    streaming softmax cross-entropy, backward, SGD; returns the loss."""
+    img, labels = batch
+    with mx.autograd.record(train_mode=train_mode):
+        loss = streaming_softmax_ce(net(img), labels)
+    mx.autograd.backward(loss)
+    if trainer is not None:
+        trainer.step(img.shape[0])
+    return loss
+
+
+def phase_resnet_train(rehearsal):
+    """ResNet-50 v1 training steps (AMP bf16, fp32 parameters, SGD-momentum)
+    on one device-resident synthetic batch; returns (net, trainer, batch,
+    launch counts of one step, the step's BatchNorm input shapes)."""
+    ctx = mx.cpu() if rehearsal else mx.gpu(0)
+    device = ctx.device
+    b = 2 if rehearsal else RESNET_B
+    mx.amp.init("bfloat16")
+    net = _build_resnet(rehearsal, ctx, 0)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4})
+    batch = _image_batch(rehearsal, b, torch.Generator(device=device).manual_seed(21), device)
+    blocks = [m for m in net.modules() if isinstance(m, mx.gluon.nn.BatchNorm)]
+    before = [(m.running_mean.data().clone(), m.running_var.data().clone()) for m in blocks]
+
+    losses = [resnet_step(net, trainer, batch).mean().item() for _ in range(2)]  # warm-up
+    shapes = {}
+
+    def record_shape(_, args):
+        key = (args[0].shape[1], args[0].shape[2] * args[0].shape[3])
+        shapes[key] = shapes.get(key, 0) + 1
+
+    hooks = [m.register_forward_pre_hook(record_shape) for m in blocks]
+    reset_kernel_counts()
+    ops_nn.batch_norm.reference_calls = 0
+    losses.append(resnet_step(net, trainer, batch).mean().item())  # syncs on .item()
+    counts = kernel_counts()
+    reference_calls = ops_nn.batch_norm.reference_calls
+    for h in hooks:
+        h.remove()
+    losses += [resnet_step(net, trainer, batch).mean().item() for _ in range(9)]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    moved = sum(not (torch.equal(m.running_mean.data(), m0) and torch.equal(m.running_var.data(), v0))
+                for m, (m0, v0) in zip(blocks, before))
+    finite = all(math.isfinite(x) for x in losses)
+    n_bn = len(blocks)
+    want = {n: n_bn if n in ("bn_stats", "bn_apply") and not rehearsal else 0 for n in ENTRIES}
+    emit("resnet_train", model="resnet50_v1(classes=1000), AMP bf16, fp32 parameters, SGD "
+         "lr 0.1 momentum 0.9 wd 1e-4" if not rehearsal else "tiny ResNetV1 (CPU rehearsal)",
+         b=b, batchnorm_layers=n_bn, losses=losses, finite=finite,
+         running_stats_moved=f"{moved}/{n_bn}", launches_one_step=counts, expected=want,
+         batchnorm_reference_calls=reference_calls,
+         bn_shapes_one_step=[[c, hw, k] for (c, hw), k in sorted(shapes.items())])
+    if not finite or counts != want or reference_calls != 0 or moved != n_bn:
+        sys.exit(1)
+    mx.amp.disable()
+    return net, trainer, batch, counts, shapes
+
+
+def _resnet_grads(net, batch, amp):
+    """Logits and per-parameter fp32 gradients of one training-mode
+    forward and backward (no update), with or without AMP bf16."""
+    if amp:
+        mx.amp.init("bfloat16")
+    img, labels = batch
+    with mx.autograd.record():
+        logits = net(img)
+        loss = streaming_softmax_ce(logits, labels)
+    mx.autograd.backward(loss)
+    mx.amp.disable()
+    grads = {k: p.grad().detach().float().cpu().clone()
+             for k, p in net._collect_params_with_prefix().items() if p.grad_req != "null"}
+    return logits.detach().float().cpu(), grads
+
+
+def _feeds_batchnorm(key, params):
+    """A convolution bias followed by BatchNorm in the same container
+    (BottleneckV1's body.0 and body.6): in training the BN subtracts each
+    channel's batch mean, so the bias's exact gradient is zero and what
+    either side computes is rounding noise, with no relative error."""
+    *path, idx, leaf = key.split(".")
+    return leaf == "bias" and idx.isdigit() and ".".join(path + [str(int(idx) + 1), "beta"]) in params
+
+
+def _rel_errors(grads, ref):
+    out = {}
+    for key, r in ref.items():
+        if _feeds_batchnorm(key, ref):
+            continue
+        rn, dn = r.norm().item(), (grads[key] - r).norm().item()
+        out[key] = dn / rn if rn > 0 else (0.0 if dn == 0 else math.inf)
+    return out
+
+
+def _grad_report(name, logits, grads, ref_logits, ref, bound, logit_bound, **extra):
+    rels = _rel_errors(grads, ref)
+    extra["zero_gradient_biases_max_abs"] = max(
+        [grads[k].abs().max().item() for k in ref if _feeds_batchnorm(k, ref)], default=0.0)
+    logit_rel = ((logits - ref_logits).norm() / ref_logits.norm()).item()
+    bad = [k for k, rel in rels.items() if not (math.isfinite(rel) and rel <= bound)]
+    ok = not bad and math.isfinite(logit_rel) and logit_rel <= logit_bound
+    worst = sorted(((rel, k) for k, rel in rels.items()), reverse=True)
+    emit("resnet_train_vs_cpu_fp32", compare=name, params=len(rels), bound=bound,
+         logits_rel_err=logit_rel, logits_bound=logit_bound,
+         worst=[[k, rel] for rel, k in worst[:6]], median_rel=worst[len(worst) // 2][0],
+         failed=bad, ok=ok, **extra)
+    return ok, worst[len(worst) // 2][0]
+
+
+def phase_resnet_train_vs_cpu(rehearsal):
+    """The card's gradients against the port's fp32 gradients on the CPU:
+    the same ResNet-50 weights (a fresh net from seed 1), B=16 at 224x224,
+    BatchNorm in training; relative L2 error per parameter and of the
+    logits.  Held to its bound: the card's fp32 run (AMP off, TF32 off).
+    Held only to order 1: the card's AMP bf16 run.  Each is reported beside
+    a yardstick, the CPU's own fp32 gradients with the weights moved by
+    1e-6 relative or rounded to bf16 (see RESNET_FP32_GRAD_REL_BOUND)."""
+    ctx = mx.cpu() if rehearsal else mx.gpu(0)
+    b = 2 if rehearsal else 16
+    net = _build_resnet(rehearsal, ctx, 1)
+    batch = _image_batch(rehearsal, b, torch.Generator(device=ctx.device).manual_seed(23),
+                         ctx.device)
+    arrays = {k: p.data().detach().float().cpu().numpy()
+              for k, p in net._collect_params_with_prefix().items()}
+    amp_logits, amp_grads = _resnet_grads(net, batch, amp=True)
+    card_logits, card_grads = _resnet_grads(net, batch, amp=False)
+    ref_net = _build_resnet(rehearsal, mx.cpu(), 1)
+    cpu_batch = tuple(x.cpu() for x in batch)
+    load_numpy_params(ref_net, arrays)
+    ref_logits, ref = _resnet_grads(ref_net, cpu_batch, amp=False)
+    noise = torch.Generator().manual_seed(29)
+    yardsticks = {}
+    for name, moved in (
+            ("cpu_fp32_perturbed_1e-6", lambda w: w * (1 + 1e-6 * torch.randn(
+                w.shape, generator=noise, dtype=torch.float64).numpy()).astype(w.dtype)),
+            ("cpu_fp32_bf16_weights", lambda w: torch.from_numpy(w).bfloat16().float().numpy())):
+        load_numpy_params(ref_net, {k: moved(a) for k, a in arrays.items()})
+        y_logits, y_grads = _resnet_grads(ref_net, cpu_batch, amp=False)
+        _, yardsticks[name] = _grad_report(name, y_logits, y_grads, ref_logits, ref, math.inf,
+                                           math.inf, note="yardstick: the CPU's fp32 run "
+                                           "with moved weights")
+    ok32, _ = _grad_report("card_fp32", card_logits, card_grads, ref_logits, ref,
+                           RESNET_FP32_GRAD_REL_BOUND, RESNET_FP32_LOGIT_REL_BOUND, b=b,
+                           yardstick_median_rel=yardsticks["cpu_fp32_perturbed_1e-6"])
+    ok_amp, _ = _grad_report("card_amp_bf16", amp_logits, amp_grads, ref_logits, ref,
+                             RESNET_AMP_GRAD_REL_BOUND, RESNET_AMP_GRAD_REL_BOUND, b=b,
+                             yardstick_median_rel=yardsticks["cpu_fp32_bf16_weights"])
+    if not (ok32 and ok_amp):
+        sys.exit(1)
+
+
+# -- phase 7 ----------------------------------------------------------------
+
+
 def _time(fn, arg_sets, iters):
     """Per call of ``fn``, cycling through ``arg_sets`` (several input sets,
     so a call does not find the last one's inputs in the 50 MB L2):
@@ -544,9 +877,11 @@ def _time(fn, arg_sets, iters):
 
 
 def _kernel_family(name):
-    for fam in ("flash_bwd_dkv", "flash_bwd_dq", "flash_fwd"):
+    for fam in ("flash_bwd_dkv", "flash_bwd_dq", "flash_fwd", "bn_stats", "bn_apply"):
         if fam in name:
             return fam
+    if re.search(r"conv|cudnn|fprop|dgrad|wgrad|nchw|nhwc", name, re.I):
+        return "convolution"
     if re.search(r"gemm|nvjet|xmma|cutlass|cublas", name, re.I):
         return "matmul"
     return "other"
@@ -564,26 +899,35 @@ def phase_profile(what, fn, smi):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.time_range.elapsed_us()
-    total_us = sum(kernels.values())
+    # BatchNorm's backward is plain PyTorch inside record_function
+    # ("mx.bn_backward"), which the trace also shows as a range on the
+    # device: kernels that start inside one of those ranges form the
+    # bn_backward_plain family, and the ranges themselves are no kernels.
+    device = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    bn_ranges = [(ev.time_range.start, ev.time_range.end) for ev in device
+                 if ev.name == "mx.bn_backward"]
+    by_family = {}
+    for ev in device:
+        if ev.name.startswith("mx."):
+            continue
+        fam = ("bn_backward_plain" if any(a <= ev.time_range.start < b for a, b in bn_ranges)
+               else _kernel_family(ev.name))
+        kernels = by_family.setdefault(fam, {})
+        kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+    families = {fam: sum(k.values()) for fam, k in by_family.items()}
+    total_us = sum(families.values())
     if total_us == 0:
         emit("profile", what=what, device_time="not measured", card=smi)
         return
-    families = {}
-    for name, us in kernels.items():
-        fam = _kernel_family(name)
-        families[fam] = families.get(fam, 0.0) + us
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    top = {fam: [[n[:90], us] for n, us in sorted(k.items(), key=lambda kv: -kv[1])[:3]]
+           for fam, k in by_family.items()}
     emit("profile", what=what, wall_us=wall_us, device_us=total_us,
          device_busy_share=total_us / wall_us, families_us=families,
-         top_kernels_us=[[n[:90], us] for n, us in top], card=smi)
+         top_kernels_us_by_family=top, card=smi)
 
 
-def _bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_OPS_PER_S[torch.bfloat16]
+def _bound(nbytes, flops, dtype=torch.bfloat16):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_OPS_PER_S[dtype]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -657,6 +1001,118 @@ def _times_bwd(views, bhsd_sets, gen, smi):
     return out
 
 
+def _times_bn(shapes, smi):
+    """Each BN kernel, its plain version and the library call at the nine
+    ResNet-50 shapes (N=256, bf16), and their sums over one training step's
+    launches (``shapes`` = {(C, HW): launches in one step}).  The library
+    calls, timed only: ``torch.batch_norm_stats`` (mean and inverse std
+    from one read) for bn_stats, ``torch.batch_norm_elemt`` with mean 0 and
+    inverse std 1 (so x·scale + shift) for bn_apply; bn_apply_res has no
+    one-call counterpart."""
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(77)
+    names = ("bn_stats", "bn_apply", "bn_apply_res")
+    step = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0) for k in names}
+    for c, hw in RESNET_BN_SHAPES:
+        n = RESNET_B
+        nbytes_x = n * c * hw * 2
+        sets = []
+        for _ in range(max(2, -(-160_000_000 // nbytes_x))):  # the sets exceed the 50 MB L2
+            x = _bn_input(dict(n=n, c=c, hw=hw, dtype=torch.bfloat16), gen, device)
+            sets.append((x, torch.rand(c, generator=gen, device=device) + 0.5,
+                         torch.randn(c, generator=gen, device=device),
+                         _bn_input(dict(n=n, c=c, hw=hw, dtype=torch.bfloat16), gen, device)))
+        zeros, ones = torch.zeros(c, device=device), torch.ones(c, device=device)
+        stats_sets = [(x,) for x, _, _, _ in sets]
+        apply_sets = [(x, sc, sh) for x, sc, sh, _ in sets]
+        with torch.no_grad():
+            rows = {
+                "bn_stats": (_time(bn.bn_stats, stats_sets, 20),
+                             _time(bn.bn_stats_plain, stats_sets, 5),
+                             _time(lambda x: torch.batch_norm_stats(x, 1e-5), stats_sets, 20),
+                             nbytes_x + c * 8, 3 * n * c * hw),
+                "bn_apply": (_time(lambda *a: bn.bn_apply(*a, relu=False), apply_sets, 20),
+                             _time(lambda *a: bn.bn_apply_plain(*a, relu=False), apply_sets, 5),
+                             _time(lambda x, sc, sh: torch.batch_norm_elemt(
+                                 x, sc, sh, zeros, ones, 1e-5), apply_sets, 20),
+                             2 * nbytes_x + c * 8, 2 * n * c * hw),
+                "bn_apply_res": (_time(lambda *a: bn.bn_apply_res(*a, relu=True), sets, 20),
+                                 _time(lambda *a: bn.bn_apply_plain(*a, relu=True), sets, 5),
+                                 None, 3 * nbytes_x + c * 8, 3 * n * c * hw)}
+        for name, (kern, plain, lib, nbytes, flops) in rows.items():
+            bound_ms, bound_by = _bound(nbytes, flops, torch.float32)
+            emit("times", kernel=name, shape=dict(n=n, c=c, hw=hw, dtype="bfloat16"),
+                 ms=kern[0], call_ms=kern[1], plain_ms=plain[0],
+                 library_ms=None if lib is None else lib[0],
+                 library={"bn_stats": "torch.batch_norm_stats",
+                          "bn_apply": "torch.batch_norm_elemt"}.get(name),
+                 bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
+                 share_of_bound=bound_ms / kern[0],
+                 achieved_bytes_per_s=nbytes / (kern[0] * 1e-3), card=smi)
+            k = shapes.get((c, hw), 0)
+            step[name]["ms"] += k * kern[0]
+            step[name]["plain_ms"] += k * plain[0]
+            step[name]["library_ms"] = (None if lib is None
+                                        else step[name]["library_ms"] + k * lib[0])
+            step[name]["bound_ms"] += k * bound_ms
+            step[name]["bound_by"] = bound_by
+        del sets, stats_sets, apply_sets
+    for name, row in step.items():
+        emit("times", kernel=name, per="one ResNet-50 step: its BatchNorm launches at their "
+             "shapes", launches=sum(shapes.values()), **row,
+             share_of_bound=row["bound_ms"] / row["ms"], card=smi)
+    return step
+
+
+def _resnet_step_phases(net, trainer, batch, iters):
+    """Mean wall ms of the ResNet step's three parts, each closed by a
+    synchronize (as _step_phases does for BERT)."""
+    img, labels = batch
+    spent = {"forward_and_loss": 0.0, "backward": 0.0, "trainer_step": 0.0}
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            loss = streaming_softmax_ce(net(img), labels)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mx.autograd.backward(loss)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        trainer.step(img.shape[0])
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for key, dt in zip(spent, (t1 - t0, t2 - t1, t3 - t2)):
+            spent[key] += dt * 1e3 / iters
+    return spent
+
+
+def _times_resnet(resnet, smi):
+    """The ResNet-50 training step: step ms, img/s, peak memory, its split,
+    and a torch.profiler breakdown of its device time."""
+    net, trainer, batch = resnet
+    b = batch[0].shape[0]
+    mx.amp.init("bfloat16")
+    iters = 10
+    torch.cuda.reset_peak_memory_stats()
+    resnet_step(net, trainer, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        resnet_step(net, trainer, batch)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / iters
+    emit("times", train_step="resnet50_v1 AMP bf16, fp32 parameters, SGD momentum", b=b,
+         image=224, step_ms=step_s * 1e3, img_per_s=b / step_s,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         cudnn_benchmark=torch.backends.cudnn.benchmark, card=smi)
+    emit("times", resnet_train_step_phases_ms=_resnet_step_phases(net, trainer, batch, 3),
+         card=smi)
+    phase_profile(f"train step: resnet50_v1 AMP bf16 B={b} 224x224, SGD momentum",
+                  lambda: resnet_step(net, trainer, batch), smi)
+    mx.amp.disable()
+
+
 def _step_phases(net, trainer, batch, iters):
     """Mean wall ms of the training step's three parts (forward with the
     loss, backward, Trainer.step), each closed by a synchronize, so each
@@ -682,9 +1138,11 @@ def _step_phases(net, trainer, batch, iters):
     return spent
 
 
-def phase_times(net, main_req, train, counts, errs, smi):
-    """``train`` = (net, trainer, batch); ``counts`` = {path: launch
-    counts}; ``errs`` = {kernel: max abs error at the main path's layout}."""
+def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, smi):
+    """``train`` and ``resnet`` = (net, trainer, batch) of the BERT and
+    ResNet-50 training paths; ``bn_shapes`` = {(C, HW): launches in one
+    ResNet-50 step}; ``counts`` = {path: launch counts}; ``errs`` =
+    {kernel: max abs error at the main paths' layouts and shapes}."""
     device = torch.device("cuda", 0)
     b, s, h, d = MAIN["b"], MAIN["sq"], MAIN["h"], MAIN["d"]
     gen = torch.Generator(device=device).manual_seed(99)
@@ -695,6 +1153,8 @@ def phase_times(net, main_req, train, counts, errs, smi):
     before = kernel_counts()
     rows = {"flash_fwd": _times_fwd(views, bhsd_sets, smi)}
     rows.update(_times_bwd(views, bhsd_sets, gen, smi))
+    del qkv_sets, views, bhsd_sets
+    rows.update(_times_bn(bn_shapes, smi))
 
     iters = 10
     torch.cuda.reset_peak_memory_stats()
@@ -731,14 +1191,21 @@ def phase_times(net, main_req, train, counts, errs, smi):
                       lambda: net(*main_req), smi)
     phase_profile("train step: BERTForPretrain(bert_base) bf16 B=64 S=128 P=20, Adam mp",
                   lambda: train_step(tnet, trainer, batch), smi)
+    _times_resnet(resnet, smi)
     set_kernel_counts(before)  # timed and profiled launches are not the main paths'
 
     sources = {"flash_fwd": ("flash_fwd.cu", "incubator_mxnet_tpu/ops/attention.py:85"),
                "flash_bwd_dq": ("flash_bwd.cu", "incubator_mxnet_tpu/ops/attention.py:203"),
-               "flash_bwd_dkv": ("flash_bwd.cu", "incubator_mxnet_tpu/ops/attention.py:248")}
+               "flash_bwd_dkv": ("flash_bwd.cu", "incubator_mxnet_tpu/ops/attention.py:248"),
+               "bn_stats": ("bn.cu", "incubator_mxnet_tpu/ops/pallas_bn.py:33"),
+               "bn_apply": ("bn.cu", "incubator_mxnet_tpu/ops/pallas_bn.py:67"),
+               "bn_apply_res": ("bn.cu", "incubator_mxnet_tpu/ops/pallas_bn.py:75")}
+    main_path = {"flash_fwd": "inference", "flash_bwd_dq": "train_step",
+                 "flash_bwd_dkv": "train_step", "bn_stats": "resnet_train_step",
+                 "bn_apply": "resnet_train_step", "bn_apply_res": "resnet_train_step"}
     kernels = []
     for name, (src, replaces) in sources.items():
-        path = "inference" if name == "flash_fwd" else "train_step"
+        path = main_path[name]
         row = rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": f"incubator_mxnet_torch/ops/csrc/{src}",
@@ -746,26 +1213,33 @@ def phase_times(net, main_req, train, counts, errs, smi):
             "launches_by_path": {p: c[name] for p, c in counts.items()},
             "max_abs_err": errs[name], "max_err": errs[name], "ms": row["ms"],
             "kernel_ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            **({"per": "one ResNet-50 step (B=256): ms, plain_ms, bound_ms and library_ms "
+                       "sum the step's 53 BatchNorm shapes"} if name.startswith("bn_") else {})})
     print(json.dumps({"kernels": kernels}), flush=True)
 
 
-def rehearse_times(net, main_req, train):
-    """CPU stand-in for phase 6: host times of the plain paths, labelled as
+def rehearse_times(net, main_req, train, resnet):
+    """CPU stand-in for phase 7: host times of the plain paths, labelled as
     CPU numbers, never as the card's."""
     t0 = time.perf_counter()
     with mx.autograd.predict_mode():
         net(*main_req)
     t1 = time.perf_counter()
     train_step(*train)
+    t2 = time.perf_counter()
+    mx.amp.init("bfloat16")
+    resnet_step(*resnet)
+    mx.amp.disable()
     emit("times", device="cpu", note="CPU rehearsal: host time, not a device metric",
-         forward_host_ms=(t1 - t0) * 1e3, train_step_host_ms=(time.perf_counter() - t1) * 1e3)
+         forward_host_ms=(t1 - t0) * 1e3, train_step_host_ms=(t2 - t1) * 1e3,
+         resnet_train_step_host_ms=(time.perf_counter() - t2) * 1e3)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 4-6 on the CPU at a tiny size; never prints ok")
+                    help="run phases 4-7 on the CPU at a tiny size; never prints ok")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -773,7 +1247,9 @@ def main():
         net, main_req, _ = phase_slice(rehearsal=True)
         tnet, trainer, batch, _ = phase_train(rehearsal=True)
         phase_train_vs_cpu(tnet, rehearsal=True)
-        rehearse_times(net, main_req, (tnet, trainer, batch))
+        rnet, rtrainer, rbatch, _, _ = phase_resnet_train(rehearsal=True)
+        phase_resnet_train_vs_cpu(rehearsal=True)
+        rehearse_times(net, main_req, (tnet, trainer, batch), (rnet, rtrainer, rbatch))
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on the card",
@@ -784,11 +1260,15 @@ def main():
     device = torch.device("cuda", 0)
     errs = {"flash_fwd": phase_kernel_vs_plain(device)}
     errs.update(phase_kernel_vs_plain_bwd(device))
+    errs.update(phase_kernel_vs_plain_bn(device))
     net, main_req, infer_counts = phase_slice(rehearsal=False)
     tnet, trainer, batch, train_counts = phase_train(rehearsal=False)
     phase_train_vs_cpu(tnet, rehearsal=False)
-    phase_times(net, main_req, (tnet, trainer, batch),
-                {"inference": infer_counts, "train_step": train_counts}, errs, smi)
+    rnet, rtrainer, rbatch, resnet_counts, bn_shapes = phase_resnet_train(rehearsal=False)
+    phase_resnet_train_vs_cpu(rehearsal=False)
+    phase_times(net, main_req, (tnet, trainer, batch), (rnet, rtrainer, rbatch), bn_shapes,
+                {"inference": infer_counts, "train_step": train_counts,
+                 "resnet_train_step": resnet_counts}, errs, smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

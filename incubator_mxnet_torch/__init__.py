@@ -20,8 +20,9 @@ from . import ops
 from .ops.registry import nd
 from . import optimizer
 from . import gluon
+from . import amp
 from . import convert
 
 __all__ = ["MXNetError", "DeferredInitializationError", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "context", "autograd", "random",
-           "initializer", "init", "ops", "nd", "optimizer", "gluon", "convert"]
+           "initializer", "init", "ops", "nd", "optimizer", "gluon", "amp", "convert"]

@@ -1,0 +1,5 @@
+"""``mx.amp`` namespace (parity: [U:python/mxnet/contrib/amp/])."""
+from .amp import init, is_enabled, disable, disabled
+from . import lists
+
+__all__ = ["init", "is_enabled", "disable", "disabled", "lists"]

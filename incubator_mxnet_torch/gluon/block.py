@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``gluon/block.py``: the same name-scope
 and prefix discipline (parameter names match the JAX package's up to the
 global counters), ``collect_params``, the structural keys of
 ``_collect_params_with_prefix`` that ``save_parameters`` uses,
-``initialize`` and ``cast``.  Child blocks are the module's submodules.
+``initialize`` and ``cast``, and ``collect_aux_update`` for the running
+statistics of BatchNorm.  Child blocks are the module's submodules.
 ``hybridize`` records its flag and changes nothing: PyTorch runs eagerly,
 and the port's kernels are launched the same way either way.
 
@@ -24,7 +25,7 @@ from ..base import DeferredInitializationError
 from ..ops.registry import nd
 from .parameter import ParameterDict
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "collect_aux_update"]
 
 _tls = threading.local()
 
@@ -36,6 +37,13 @@ def _gen_prefix(hint):
     idx = counters.get(hint, 0)
     counters[hint] = idx + 1
     return f"{hint}{idx}_"
+
+
+def collect_aux_update(param, new_value):
+    """Give an auxiliary parameter (BatchNorm's running statistics) a new
+    value from a forward.  PyTorch runs eagerly, so the update is applied at
+    once, in place (``set_data`` records no graph)."""
+    param.set_data(new_value)
 
 
 class _BlockScope:

@@ -1,9 +1,13 @@
 """``gluon.nn`` layers of the port."""
 from .basic_layers import *  # noqa: F401,F403
+from .activations import *  # noqa: F401,F403
+from .conv_layers import *  # noqa: F401,F403
 from .transformer import *  # noqa: F401,F403
 from .basic_layers import __all__ as _basic_all
+from .activations import __all__ as _act_all
+from .conv_layers import __all__ as _conv_all
 from .transformer import __all__ as _tfm_all
 
-__all__ = list(_basic_all) + list(_tfm_all)
+__all__ = list(_basic_all) + list(_act_all) + list(_conv_all) + list(_tfm_all)
 
 from ..block import Block, HybridBlock  # noqa: E402,F401

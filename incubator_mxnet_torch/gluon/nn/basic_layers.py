@@ -1,4 +1,5 @@
-"""Basic layers BERT is built from: Dense, Dropout, LayerNorm, Embedding.
+"""Basic layers BERT and ResNet are built from: Sequential,
+HybridSequential, Dense, Dropout, BatchNorm, LayerNorm, Embedding, Flatten.
 
 Counterpart of the matching layers in
 the JAX package's ``gluon/nn/basic_layers.py``: same parameter names,
@@ -9,9 +10,47 @@ from __future__ import annotations
 
 import math
 
-from ..block import HybridBlock
+import torch
 
-__all__ = ["Dense", "Dropout", "LayerNorm", "Embedding"]
+from ... import autograd
+from ...base import dtype_name
+from ..block import Block, HybridBlock, collect_aux_update
+
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm", "LayerNorm",
+           "Embedding", "Flatten"]
+
+
+class Sequential(Block):
+    """Runs its children in the order they were added."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+
+    def add(self, *blocks):
+        for b in blocks:
+            self.register_child(b)
+
+    def forward(self, x, *args):
+        for child in self._modules.values():
+            x = child(x, *args)
+            args = ()
+        return x
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __getitem__(self, key):
+        layers = list(self._modules.values())
+        if isinstance(key, slice):
+            net = type(self)()
+            net.add(*layers[key])
+            return net
+        return layers[key]
+
+
+class HybridSequential(Sequential, HybridBlock):
+    """Sequential whose children are HybridBlocks; ``hybridize`` changes
+    nothing in the port (see ``gluon/block.py``)."""
 
 
 class Dense(HybridBlock):
@@ -58,6 +97,62 @@ class Dropout(HybridBlock):
         return F.Dropout(x, p=self._rate, axes=self._axes)
 
 
+class BatchNorm(HybridBlock):
+    """Batch normalization with running statistics.  In training the batch
+    statistics normalize and the running ones move as
+    ``running·momentum + batch·(1 − momentum)`` (biased batch variance);
+    otherwise, or with ``use_global_stats``, the running ones normalize."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True, scale=True,
+                 use_global_stats=False, beta_initializer="zeros", gamma_initializer="ones",
+                 running_mean_initializer="zeros", running_variance_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._axis = axis
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._scale = scale
+        self._use_global_stats = use_global_stats
+        self.in_channels = in_channels
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null", shape=(in_channels,),
+                init=gamma_initializer, allow_deferred_init=True, differentiable=scale)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null", shape=(in_channels,),
+                init=beta_initializer, allow_deferred_init=True, differentiable=center)
+            self.running_mean = self.params.get(
+                "running_mean", grad_req="null", shape=(in_channels,),
+                init=running_mean_initializer, allow_deferred_init=True, differentiable=False)
+            self.running_var = self.params.get(
+                "running_var", grad_req="null", shape=(in_channels,),
+                init=running_variance_initializer, allow_deferred_init=True,
+                differentiable=False)
+
+    def _shape_inference(self, x, *args):
+        c = x.shape[self._axis]
+        for p in (self.gamma, self.beta, self.running_mean, self.running_var):
+            p._finish_deferred_init((c,))
+
+    def cast(self, dtype):
+        if dtype_name(dtype) in ("float16", "bfloat16"):
+            dtype = "float32"  # the statistics and their parameters stay fp32
+        return super().cast(dtype)
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        use_global = self._use_global_stats or not autograd.is_training()
+        out, batch_mean, batch_var = F.BatchNorm(
+            x, gamma, beta, running_mean, running_var, eps=self._epsilon,
+            momentum=self._momentum, fix_gamma=not self._scale, use_global_stats=use_global,
+            axis=self._axis)
+        if not use_global:
+            m = self._momentum
+            with torch.no_grad():
+                collect_aux_update(self.running_mean, running_mean * m + batch_mean * (1 - m))
+                collect_aux_update(self.running_var, running_var * m + batch_var * (1 - m))
+        return out
+
+
 class LayerNorm(HybridBlock):
     def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
                  beta_initializer="zeros", gamma_initializer="ones", in_channels=0,
@@ -95,3 +190,10 @@ class Embedding(HybridBlock):
 
     def hybrid_forward(self, F, x, weight):
         return F.Embedding(x, weight, input_dim=self._input_dim, output_dim=self._output_dim)
+
+
+class Flatten(HybridBlock):
+    """To 2-D, keeping the batch axis."""
+
+    def hybrid_forward(self, F, x):
+        return F.Flatten(x)

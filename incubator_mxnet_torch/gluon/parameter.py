@@ -4,8 +4,10 @@ Counterpart of the JAX package's ``gluon/parameter.py``, with the same
 lifecycle: construct (a 0 in the shape means unknown), ``initialize``
 (deferred until the first forward infers the shape), ``data()``,
 ``set_data``, ``cast``, and the gradient API: ``grad()``, ``list_grad()``,
-``zero_grad()``, ``grad_req`` and ``lr_mult``/``wd_mult``.  A Parameter
-holds one ``torch.nn.Parameter`` on one device.
+``zero_grad()``, ``grad_req`` and ``lr_mult``/``wd_mult``; a parameter made
+with ``differentiable=False`` (BatchNorm's running statistics) has
+``grad_req="null"``.  A Parameter holds one ``torch.nn.Parameter`` on one
+device.
 
 Gradients follow MXNet, not PyTorch: a Parameter keeps its own gradient
 buffer, and a hook run after PyTorch accumulates the backward's gradient
@@ -44,14 +46,14 @@ class Parameter:
     """A trainable (or auxiliary) tensor of a Block."""
 
     def __init__(self, name, grad_req="write", shape=None, dtype="float32", lr_mult=1.0,
-                 wd_mult=1.0, init=None, allow_deferred_init=False):
+                 wd_mult=1.0, init=None, allow_deferred_init=False, differentiable=True):
         self.name = name
         self._data = None
         self._grad = None
         self._grad_version = 0
         self._hook = None
         self._grad_req = None
-        self.grad_req = grad_req
+        self.grad_req = grad_req if differentiable else "null"
         if isinstance(shape, int):
             shape = (shape,)
         self._shape = tuple(shape) if shape is not None else None

@@ -4,7 +4,8 @@ explicit per-device generators.
 Counterpart of the JAX package's ``initializer.py`` with the same
 name-suffix routing: an Initializer is called with a descriptor (the
 parameter name) and fills the tensor in place; ``*weight`` goes to the
-initializer's own rule, ``*bias``/``*beta`` to zero and ``*gamma`` to one.
+initializer's own rule, ``*bias``/``*beta`` and the running ``*mean`` to
+zero, ``*gamma`` and the running ``*var`` to one.
 Random draws are fp32 on the tensor's device, from that device's
 generator, then cast (a bf16 parameter gets the rounded fp32 draw).
 """
@@ -16,7 +17,7 @@ import torch
 
 from . import random as _random
 
-__all__ = ["InitDesc", "Initializer", "Zero", "One", "Uniform", "Normal",
+__all__ = ["InitDesc", "Initializer", "Zero", "One", "Constant", "Uniform", "Normal",
            "Xavier", "register", "create"]
 
 _REGISTRY = {}
@@ -51,12 +52,15 @@ class Initializer:
                 arr.fill_(0.0)
             elif name.endswith("gamma"):
                 arr.fill_(1.0)
+            elif name.endswith("mean"):
+                arr.fill_(0.0)
+            elif name.endswith("var"):
+                arr.fill_(1.0)
             else:
                 self._init_weight(desc, arr)
 
     def _init_weight(self, desc, arr):
         raise NotImplementedError
-
 
 
 @register
@@ -69,6 +73,15 @@ class Zero(Initializer):
 class One(Initializer):
     def _init_weight(self, _, arr):
         arr.fill_(1.0)
+
+
+@register
+class Constant(Initializer):
+    def __init__(self, value=0.0):
+        self.value = value
+
+    def _init_weight(self, _, arr):
+        arr.fill_(self.value)
 
 
 @register

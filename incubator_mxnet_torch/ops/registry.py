@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's ``ops/registry.py``.  An op is a plain
 function on ``torch.Tensor``s; registering it makes it reachable by name
-as ``nd.<name>`` (and ``nd.contrib.<name>``).  PyTorch runs eagerly, so the
+as ``nd.<name>`` (and ``nd.contrib.<name>``).  With ``amp.init()`` the lookup
+returns the op wrapped in AMP's input casts (``amp/amp.py``).  PyTorch runs eagerly, so the
 JAX package's dispatch accelerators (the level-1 jit cache, ``engine.py``
 bulking) have no counterpart here.
 """
@@ -13,6 +14,7 @@ import types
 __all__ = ["Op", "register", "alias", "get_op", "list_ops", "nd"]
 
 _REGISTRY: dict[str, "Op"] = {}
+_amp = None  # the AMP policy that amp.init() sets, or None
 
 
 class Op:
@@ -77,7 +79,7 @@ class _Namespace(types.ModuleType):
         for p in self._prefixes:
             op = _REGISTRY.get(p + name)
             if op is not None:
-                return op.fn
+                return op.fn if _amp is None else _amp.wrap(op)
         raise AttributeError(f"{self.__name__} has no op {name!r}")
 
     def __dir__(self):

@@ -1,9 +1,10 @@
-"""Tensor creation, shape, elementwise and reduction ops that BERT and the
-Gluon losses call.
+"""Tensor creation, shape, elementwise and reduction ops that BERT, ResNet
+and the Gluon losses call.
 
 Counterpart of the matching ops in the JAX package's ``ops/tensor.py``
-(``reshape``, ``slice_axis``, ``pick``, ``broadcast_mul``, ``square``,
-``sum``/``mean`` with MXNet's ``axis``/``keepdims``/``exclude``) and
+(``reshape``, ``Flatten``, ``slice_axis``, ``pick``, the ``broadcast_*``
+arithmetic and its ``elemwise_*`` aliases, ``relu``, ``sigmoid``,
+``square``, ``sum``/``mean`` with MXNet's ``axis``/``keepdims``/``exclude``) and
 ``ndarray/ndarray.py`` (``zeros``, ``arange``), including MXNet's special
 reshape codes.
 """
@@ -119,9 +120,52 @@ def slice_axis(x, axis, begin, end):
     return x[(slice(None),) * (axis % x.ndim) + (slice(begin, end),)]
 
 
+@register("flatten")
+def flatten(x):
+    """To 2-D keeping the batch axis (a 0-d input becomes [1, 1])."""
+    if x.ndim == 0:
+        return x.reshape(1, 1)
+    return x.reshape(x.shape[0], -1)
+
+
+alias("Flatten", "flatten")
+
+
+@register("broadcast_add")
+def broadcast_add(lhs, rhs):
+    return torch.add(lhs, rhs)
+
+
+@register("broadcast_sub")
+def broadcast_sub(lhs, rhs):
+    return torch.sub(lhs, rhs)
+
+
 @register("broadcast_mul")
 def broadcast_mul(lhs, rhs):
     return torch.mul(lhs, rhs)
+
+
+@register("broadcast_div")
+def broadcast_div(lhs, rhs):
+    return torch.div(lhs, rhs)
+
+
+alias("elemwise_add", "broadcast_add")
+alias("elemwise_sub", "broadcast_sub")
+alias("elemwise_mul", "broadcast_mul")
+alias("elemwise_div", "broadcast_div")
+alias("add", "broadcast_add")
+
+
+@register("relu")
+def relu(x):
+    return torch.relu(x)
+
+
+@register("sigmoid")
+def sigmoid(x):
+    return torch.sigmoid(x)
 
 
 @register("square")

@@ -54,14 +54,46 @@ print("OK")
     assert proc.returncode == 0 and "OK" in proc.stdout, proc.stderr
 
 
+def test_port_trains_small_resnet_under_amp_without_jax():
+    """Build a small ResNetV1, train one SGD-momentum step under AMP bf16,
+    with no JAX module ever imported."""
+    code = """
+import sys
+import torch
+import incubator_mxnet_torch as mx
+from incubator_mxnet_torch.gluon.model_zoo import vision
+from incubator_mxnet_torch.ops.nn import streaming_softmax_ce
+mx.amp.init("bfloat16")
+net = vision.ResNetV1(vision.BottleneckV1, [1, 1, 1, 1], [8, 16, 32, 64, 128], classes=10,
+                      thumbnail=True)
+net.initialize(ctx=mx.cpu())
+trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                           {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4})
+with mx.autograd.record():
+    logits = net(torch.rand(2, 3, 32, 32))
+    loss = streaming_softmax_ce(logits, torch.tensor([1, 7]))
+mx.autograd.backward(loss)
+trainer.step(2)
+assert logits.dtype == torch.bfloat16 and tuple(logits.shape) == (2, 10)
+assert net.features[0].weight.data().dtype == torch.float32
+assert bool(torch.isfinite(loss).all())
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "incubator_mxnet_tpu")))
+assert not bad, bad
+print("OK")
+"""
+    proc = _run(code)
+    assert proc.returncode == 0 and "OK" in proc.stdout, proc.stderr
+
+
 def test_sources_name_neither_jax_nor_the_jax_package():
     """Module names only: prose may say "the JAX package"."""
     pattern = re.compile(r"incubator_mxnet_tpu|\bjax\b")
     sources = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
     names = {str(p.relative_to(PKG)) for p in sources}
-    assert {"ops/csrc/flash_fwd.cu", "ops/csrc/flash_bwd.cu", "ops/optimizer_ops.py",
-            "optimizer/optimizer.py", "gluon/trainer.py", "gluon/loss.py",
-            "autograd.py"} <= names
+    assert {"ops/csrc/flash_fwd.cu", "ops/csrc/flash_bwd.cu", "ops/csrc/bn.cu", "ops/bn.py",
+            "ops/optimizer_ops.py", "optimizer/optimizer.py", "gluon/trainer.py",
+            "gluon/loss.py", "autograd.py", "amp/amp.py", "amp/lists.py",
+            "gluon/model_zoo/vision/resnet.py"} <= names
     offenders = [f"{p.relative_to(ROOT)}:{i}" for p in sources
                  for i, line in enumerate(p.read_text().splitlines(), 1) if pattern.search(line)]
     assert not offenders, offenders
