@@ -7,14 +7,17 @@
 Phases, each printing JSON lines; no phase's failure is caught:
 
 1. device: the card's name and count, and nvidia-smi's name and power limit;
-2. build: compile every kernel of the paths from ``ops/csrc`` (one nvcc
-   per source, all at once) with ``-Xptxas -v`` and report registers,
-   shared memory and spills; a spill fails the phase;
-3. kernel_vs_plain, kernel_vs_plain_bwd, kernel_vs_plain_bn: each kernel
-   against its plain PyTorch version on the card, at the main paths' shapes
-   and the edge cases, each against a stated bound (and bn_stats against
-   itself: two runs must be bit-identical); any miss exits non-zero after
-   the phase;
+2. build: compile every kernel of the paths from ``ops/csrc`` and the
+   user source ``RTC_SOURCE`` (one nvcc per source, all at once) with
+   ``-Xptxas -v`` and report registers, shared memory and spills, and the
+   user kernels' registers and local memory as the driver loaded them; a
+   spill fails the phase;
+3. kernel_vs_plain, kernel_vs_plain_bwd, kernel_vs_plain_bn,
+   kernel_vs_plain_rtc: each kernel against its plain PyTorch version on
+   the card, at the main paths' shapes and the edge cases, each against a
+   stated bound (and bn_stats against itself: two runs must be
+   bit-identical), and the rtc launcher's refusals; any miss exits non-zero
+   after the phase;
 4. slice: BERT-base (12 layers, 768 units, vocab 30522, bf16, random
    weights from a seed) answers inference requests through
    ``net(token_ids, token_types, masked_positions)``; the kernels' launch
@@ -25,6 +28,11 @@ Phases, each printing JSON lines; no phase's failure is caught:
    ``autograd.backward`` and ``gluon.Trainer.step``; launch counts around
    exactly one step, finite and falling losses; then the card's bf16
    gradients against the port's fp32 gradients on the CPU, per parameter;
+   rtc_train: the same net, weights and Trainer with every FFN activation
+   the user's ``rtc_gelu`` CustomOp (user kernels compiled by ``mx.rtc``):
+   its gradients against the same CPU ones and beside the built-in GELU's,
+   then steps with the launches counted around exactly one (12 gelu_fwd,
+   12 gelu_bwd);
 6. resnet_train: ResNet-50 v1 training steps as bench.py's bench_resnet50
    takes them (B=256, 224x224 synthetic images, AMP bf16 with fp32
    parameters, SGD lr 0.1 momentum 0.9 wd 1e-4, the streaming softmax
@@ -36,18 +44,20 @@ Phases, each printing JSON lines; no phase's failure is caught:
    parameter, beside the CPU's own sensitivity;
 7. times: each kernel, its plain version and the library call at the main
    paths' shapes, the kernel's bound; BERT forward and training-step time,
-   the ResNet-50 step's time, img/s, peak memory and its split; a
+   the ResNet-50 step's time, img/s, peak memory and its split; the
+   BERT step with the user's GELU beside the built-in one; a
    torch.profiler breakdown of device time by kernel family for one BERT
    forward, one BERT training step and one ResNet-50 step.
 
 The last line is ``{"ok": true, "device": {...}}``, printed only when every
-phase passed on a CUDA card.  The rehearsal runs the slice, train, ResNet
-and timing phases on the CPU at a tiny size, with the kernels' plain
+phase passed on a CUDA card.  The rehearsal runs the slice, train, rtc_train,
+ResNet and timing phases on the CPU at a tiny size, with the kernels' plain
 versions, and never prints it.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import re
@@ -65,6 +75,7 @@ import incubator_mxnet_torch as mx  # noqa: E402
 from incubator_mxnet_torch.convert import load_numpy_params  # noqa: E402
 from incubator_mxnet_torch.gluon.model_zoo import bert as bert_zoo  # noqa: E402
 from incubator_mxnet_torch.gluon.model_zoo import vision  # noqa: E402
+from incubator_mxnet_torch.gluon.nn.transformer import PositionwiseFFN  # noqa: E402
 from incubator_mxnet_torch.ops import _cuda  # noqa: E402
 from incubator_mxnet_torch.ops import attention as att  # noqa: E402
 from incubator_mxnet_torch.ops import bn  # noqa: E402
@@ -156,9 +167,251 @@ RESNET_B = 256
 TINY_RESNET = dict(layers=[1, 1, 1, 1], channels=[8, 16, 32, 64, 128], classes=10,
                    thumbnail=True)
 KERNELS = ("flash_fwd", "flash_bwd", "bn")  # sources under incubator_mxnet_torch/ops/csrc
+
+# -- user kernels (mx.rtc + mx.operator.CustomOp) -----------------------------
+# What a user of the framework writes: CUDA source handed to mx.rtc at
+# runtime (the kernels of tests/test_rtc.py, and an erf GELU pair), and a
+# CustomOp that puts the GELU pair under autograd.  The rtc_train phase
+# swaps it into every PositionwiseFFN of the slice-2 BERT-base.
+RTC_SOURCE = r"""
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+// Parameters: the inputs, then one pointer per declared output.
+extern "C" __global__ void scale_add(const float* x, const float* y, long long n, float* out) {
+    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+         i += (long long)gridDim.x * blockDim.x)
+        out[i] = 2.0f * x[i] + y[i];
+}
+
+// One (8, 128) tile per block, as the Pallas version's grid of blocks.
+extern "C" __global__ void saxpy_block(const float* x, const float* y, float* out) {
+    const long long base = (long long)blockIdx.x * 8 * 128;
+    for (int i = threadIdx.x; i < 8 * 128; i += blockDim.x)
+        out[base + i] = 0.5f * x[base + i] + y[base + i];
+}
+
+// Min and max of n values in one block of 256 threads: a shared-memory tree.
+extern "C" __global__ void minmax(const float* x, int n, float* lo, float* hi) {
+    __shared__ float smin[256], smax[256];
+    const int t = threadIdx.x;
+    float a = __int_as_float(0x7f800000), b = -a;
+    for (int i = t; i < n; i += blockDim.x) {
+        a = fminf(a, x[i]);
+        b = fmaxf(b, x[i]);
+    }
+    smin[t] = a;
+    smax[t] = b;
+    __syncthreads();
+    for (int s = blockDim.x / 2; s > 0; s >>= 1) {
+        if (t < s) {
+            smin[t] = fminf(smin[t], smin[t + s]);
+            smax[t] = fmaxf(smax[t], smax[t + s]);
+        }
+        __syncthreads();
+    }
+    if (t == 0) {
+        *lo = smin[0];
+        *hi = smax[0];
+    }
+}
+
+extern "C" __global__ void twice(const float* x, long long n, float* out) {
+    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+         i += (long long)gridDim.x * blockDim.x)
+        out[i] = 2.0f * x[i];
+}
+
+// Not extern "C": C++ mangles the name, and a lookup of "not_extern_c" fails.
+__global__ void not_extern_c(float* out) { *out = 1.0f; }
+
+// erf GELU and its gradient times dy, in fp32 as PyTorch's own CUDA GELU
+// computes them, rounded once to the I/O type.  A grid-stride loop of
+// 16-byte packs where x and the output are 16-byte aligned, then scalars.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store(float v, float& o) { o = v; }
+__device__ __forceinline__ void store(float v, __nv_bfloat16& o) { o = __float2bfloat16(v); }
+
+__device__ __forceinline__ float gelu(float x) {
+    return x * 0.5f * (1.0f + erff(x * 0.70710678118654752f));
+}
+
+__device__ __forceinline__ float gelu_grad(float x, float dy) {
+    const float cdf = 0.5f * (1.0f + erff(x * 0.70710678118654752f));
+    const float pdf = expf(-0.5f * x * x) * 0.39894228040143268f;
+    return dy * (cdf + x * pdf);
+}
+
+template <typename T, int V>
+struct alignas(16) Pack { T v[V]; };
+
+template <typename T>
+__device__ void gelu_fwd_impl(const T* __restrict__ x, long long n, T* __restrict__ y) {
+    constexpr int V = 16 / sizeof(T);
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) == 0;
+    const long long packs = aligned ? n / V : 0;
+    for (long long i = tid; i < packs; i += stride) {
+        const Pack<T, V> a = reinterpret_cast<const Pack<T, V>*>(x)[i];
+        Pack<T, V> b;
+#pragma unroll
+        for (int j = 0; j < V; ++j) store(gelu(to_f32(a.v[j])), b.v[j]);
+        reinterpret_cast<Pack<T, V>*>(y)[i] = b;
+    }
+    for (long long i = packs * V + tid; i < n; i += stride) store(gelu(to_f32(x[i])), y[i]);
+}
+
+template <typename T>
+__device__ void gelu_bwd_impl(const T* __restrict__ x, const T* __restrict__ dy, long long n,
+                              T* __restrict__ dx) {
+    constexpr int V = 16 / sizeof(T);
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy) |
+                           reinterpret_cast<uintptr_t>(dx)) & 15) == 0;
+    const long long packs = aligned ? n / V : 0;
+    for (long long i = tid; i < packs; i += stride) {
+        const Pack<T, V> a = reinterpret_cast<const Pack<T, V>*>(x)[i];
+        const Pack<T, V> g = reinterpret_cast<const Pack<T, V>*>(dy)[i];
+        Pack<T, V> b;
+#pragma unroll
+        for (int j = 0; j < V; ++j) store(gelu_grad(to_f32(a.v[j]), to_f32(g.v[j])), b.v[j]);
+        reinterpret_cast<Pack<T, V>*>(dx)[i] = b;
+    }
+    for (long long i = packs * V + tid; i < n; i += stride)
+        store(gelu_grad(to_f32(x[i]), to_f32(dy[i])), dx[i]);
+}
+
+extern "C" __global__ void gelu_fwd_bf16(const __nv_bfloat16* x, long long n, __nv_bfloat16* y) {
+    gelu_fwd_impl(x, n, y);
+}
+extern "C" __global__ void gelu_fwd_f32(const float* x, long long n, float* y) {
+    gelu_fwd_impl(x, n, y);
+}
+extern "C" __global__ void gelu_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* dy,
+                                         long long n, __nv_bfloat16* dx) {
+    gelu_bwd_impl(x, dy, n, dx);
+}
+extern "C" __global__ void gelu_bwd_f32(const float* x, const float* dy, long long n, float* dx) {
+    gelu_bwd_impl(x, dy, n, dx);
+}
+"""
+RTC = mx.rtc.CudaModule(RTC_SOURCE)
+GELU_THREADS = 256
+GELU_MAX_BLOCKS = 132 * 16  # a grid-stride loop: 16 blocks of 256 threads per SM
+
+
+def gelu_plain(x):
+    """The plain version of gelu_fwd: fp32 erf GELU, rounded once."""
+    x32 = x.float()
+    return (x32 * 0.5 * (1.0 + torch.erf(x32 * 0.7071067811865476))).to(x.dtype)
+
+
+def gelu_bwd_plain(x, dy):
+    """The plain version of gelu_bwd: dy · GELU'(x) in fp32, rounded once."""
+    x32 = x.float()
+    cdf = 0.5 * (1.0 + torch.erf(x32 * 0.7071067811865476))
+    pdf = torch.exp(-0.5 * x32 * x32) * 0.3989422804014327
+    return (dy.float() * (cdf + x32 * pdf)).to(x.dtype)
+
+
+class UserKernel:
+    """A GELU kernel of RTC_SOURCE as the user's op launches it: the bf16 or
+    fp32 instance by the input's dtype, over the input's element count.
+    ``get_kernel`` declares the output's shape, so there is one ``Kernel``
+    per shape and dtype; ``launches`` sums theirs."""
+
+    SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+    def __init__(self, stem):
+        self.stem, self.kernels, self._base = stem, {}, 0
+
+    def __call__(self, *tensors):
+        x = tensors[0]
+        key = (tuple(x.shape), x.dtype)
+        k = self.kernels.get(key)
+        if k is None:
+            blocks = max(1, min(-(-x.numel() // (8 * GELU_THREADS)), GELU_MAX_BLOCKS))
+            k = self.kernels[key] = RTC.get_kernel(
+                f"{self.stem}_{self.SUFFIX[x.dtype]}", out_shapes=[key[0]], out_dtypes=[x.dtype],
+                grid=(blocks,), block=(GELU_THREADS,))
+        return k.launch([*tensors, x.numel()])
+
+    @property
+    def launches(self):
+        return self._base + sum(k.launches for k in self.kernels.values())
+
+    @launches.setter
+    def launches(self, n):
+        for k in self.kernels.values():
+            k.launches = 0
+        self._base = n
+
+
+GELU_FWD, GELU_BWD = UserKernel("gelu_fwd"), UserKernel("gelu_bwd")
+
+
+@mx.operator.register("rtc_gelu")
+class RtcGeluProp(mx.operator.CustomOpProp):
+    def create_operator(self, ctx, in_shapes, in_dtypes):
+        return RtcGelu()
+
+
+class RtcGelu(mx.operator.CustomOp):
+    """erf GELU: the user's kernels on CUDA tensors, the plain version on
+    CPU tensors (``plain_calls`` counts those)."""
+
+    plain_calls = 0
+
+    def forward(self, is_train, req, in_data, out_data, aux):
+        x = in_data[0]
+        if x.is_cuda:
+            y = GELU_FWD(x)
+        else:
+            RtcGelu.plain_calls += 1
+            y = gelu_plain(x)
+        self.assign(out_data[0], req[0], y)
+
+    def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+        x, dy = in_data[0], out_grad[0]
+        if x.is_cuda:
+            dx = GELU_BWD(x, dy.contiguous())
+        else:
+            RtcGelu.plain_calls += 1
+            dx = gelu_bwd_plain(x, dy)
+        self.assign(in_grad[0], req[0], dx)
+
+
+class RtcGeluFFN(PositionwiseFFN):
+    """PositionwiseFFN whose activation is the user's ``rtc_gelu`` op."""
+
+    def forward(self, x):
+        h = mx.nd.Custom(self.ffn_1(x), op_type="rtc_gelu")
+        if self._dropout is not None:
+            h = self._dropout(h)
+        return self.ffn_2(h)
+
+
+@contextlib.contextmanager
+def rtc_gelu_ffn(net):
+    """Inside the scope every PositionwiseFFN of ``net`` runs RtcGeluFFN's
+    forward, with its own parameters; yields their number."""
+    cells = [m for m in net.modules() if type(m) is PositionwiseFFN]
+    for m in cells:
+        m.__class__ = RtcGeluFFN
+    try:
+        yield len(cells)
+    finally:
+        for m in cells:
+            m.__class__ = PositionwiseFFN
+
+
 ENTRIES = {"flash_fwd": att.flash_fwd, "flash_bwd_dq": att.flash_bwd_dq,
            "flash_bwd_dkv": att.flash_bwd_dkv, "bn_stats": bn.bn_stats,
-           "bn_apply": bn.bn_apply, "bn_apply_res": bn.bn_apply_res}
+           "bn_apply": bn.bn_apply, "bn_apply_res": bn.bn_apply_res,
+           "rtc_gelu_fwd": GELU_FWD, "rtc_gelu_bwd": GELU_BWD}
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
@@ -227,8 +480,10 @@ def _ptxas_report(log):
 def phase_build():
     """One nvcc per source, all started together; fails on a spill."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+        rtc = pool.submit(_cuda.build_cubin, RTC_SOURCE)
         builds = dict(zip(KERNELS, pool.map(_cuda.build, KERNELS)))
+        builds["rtc"] = rtc.result()
     spills = []
     for name, (_, log, seconds) in builds.items():
         entries = _ptxas_report(log)
@@ -243,6 +498,8 @@ def phase_build():
     att._entry()  # load all three once, outside any timing
     att._bwd_entry()
     bn._lib()
+    for name in sorted(RTC._kernels):  # the user's kernels, as the driver loaded them
+        emit("build", kernel="rtc", function=name, **RTC.attributes(name, 0))
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -494,6 +751,137 @@ def phase_kernel_vs_plain_bn(device):
     return main
 
 
+# The user's kernels against their plain versions.  scale_add, saxpy_block
+# and twice: 2x and 0.5x are exact in fp32, so the result is one rounding of
+# the exact value on both sides (nvcc contracts 2x + y into an fma, PyTorch
+# rounds the exact 2x + y once); the bound is one fp32 ulp of the plain
+# result.  minmax: exact.  GELU: both sides compute in fp32 and round once
+# to the output type, so they differ by at most one output ulp of the plain
+# result, plus what the fp32 arithmetic can move before the rounding: a few
+# fp32 roundings of the terms, and erff's error (2 fp32 ulps of erf's value
+# near ±1) where 1 + erf cancels in the negative tail.  GELU_FP32_TERM · |x|
+# (forward) and GELU_FP32_TERM · |dy|·(1 + |x|) (backward) hold those, with
+# GELU_FP32_TERM = 2**-21, four fp32 ulps at 1.  A wrong index, pack or
+# rounding moves values by their own size.
+GELU_FP32_TERM = 2.0 ** -21
+GELU_MAIN = (64, 128, 3072)  # the FFN activation of the BERT-base step: [B, S, 4·768]
+GELU_CASES = [
+    dict(name="main", shape=GELU_MAIN, dtype=torch.bfloat16, main=True),
+    dict(name="ragged_1000003", shape=(1_000_003,), dtype=torch.bfloat16),
+    dict(name="fp32_main", shape=GELU_MAIN, dtype=torch.float32),
+    dict(name="fp32_ragged_1000003", shape=(1_000_003,), dtype=torch.float32),
+    dict(name="offset_2_bytes", shape=(1_000_004,), dtype=torch.bfloat16, offset=1),
+]
+
+
+def _gelu_case(case, gen, device):
+    x = 2 * torch.randn(case["shape"], generator=gen, device=device)
+    dy = torch.randn(case["shape"], generator=gen, device=device)
+    x, dy = x.to(case["dtype"]), dy.to(case["dtype"])
+    if case.get("offset"):  # contiguous, not 16-byte aligned: the scalar loop
+        x, dy = x[case["offset"]:], dy[case["offset"]:]
+    y, dx = GELU_FWD(x), GELU_BWD(x, dy)
+    torch.cuda.synchronize()
+    x32, dy32 = x.float(), dy.float()
+    rec, errs = dict(case=case["name"], shape=list(x.shape),
+                     dtype=str(case["dtype"]).replace("torch.", "")), {}
+    for name, got, want, term in (
+            ("gelu_fwd", y, gelu_plain(x), GELU_FP32_TERM * x32.abs()),
+            ("gelu_bwd", dx, gelu_bwd_plain(x, dy),
+             GELU_FP32_TERM * dy32.abs() * (1 + x32.abs()))):
+        diff = (got.float() - want.float()).abs()
+        out_ulp = _ulps(want, case["dtype"])
+        errs[name] = diff.max().item()
+        rec.update({f"{name}_max_abs_err": errs[name],
+                    f"{name}_max_err_ulps": (diff / out_ulp).max().item(),
+                    f"{name}_err_over_bound": (diff / (out_ulp + term)).max().item()})
+    rec["ok"] = all(math.isfinite(rec[f"{n}_max_abs_err"]) and rec[f"{n}_err_over_bound"] <= 1
+                    for n in ("gelu_fwd", "gelu_bwd"))
+    return rec, errs
+
+
+def _raises(fn, exc, match):
+    """Whether ``fn()`` raises ``exc`` with ``match`` in its message."""
+    try:
+        fn()
+    except exc as e:
+        return match in str(e)
+    return False
+
+
+def phase_kernel_vs_plain_rtc(device):
+    """The user's kernels of RTC_SOURCE against their plain versions on the
+    card, and the launcher's refusals; returns the GELU kernels' max abs
+    error at the path's shape."""
+    gen = torch.Generator(device=device).manual_seed(1357)
+    misses, main = [], {}
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    x, y = rand(16, 128), rand(16, 128)
+    xb, yb = rand(32, 128), rand(32, 128)
+    x4 = rand(4, 8)
+    elementwise = (
+        ("scale_add", RTC.get_kernel("scale_add", out_shapes=[(16, 128)], grid=(4,),
+                                     block=(256,)).launch([x, y, x.numel()]), 2 * x + y),
+        ("saxpy_block", RTC.get_kernel("saxpy_block", out_shapes=[(8 * 4, 128)], grid=(4,),
+                                       block=(128,)).launch([xb, yb]), 0.5 * xb + yb),
+        ("twice", RTC.get_kernel("twice", out_shapes=[(4, 8)], grid=(1,),
+                                 block=(32,)).launch([x4, x4.numel()]), 2 * x4))
+    torch.cuda.synchronize()
+    for name, got, want in elementwise:
+        diff = (got - want).abs()
+        ok = bool((diff <= _ulps(want, torch.float32)).all().item())
+        emit("kernel_vs_plain_rtc", case=name, shape=list(got.shape), dtype="float32",
+             max_abs_err=diff.max().item(), bound="1 fp32 ulp of the plain result", ok=ok)
+        if not ok:
+            misses.append(name)
+    xm = rand(32, 32)
+    lo, hi = RTC.get_kernel("minmax", out_shapes=[(1, 1), (1, 1)], grid=(1,),
+                            block=(256,)).launch([xm, xm.numel()])
+    torch.cuda.synchronize()
+    ok = lo.item() == xm.min().item() and hi.item() == xm.max().item()
+    emit("kernel_vs_plain_rtc", case="minmax", shape=[32, 32], lo=lo.item(), hi=hi.item(),
+         bound="exact", ok=ok)
+    if not ok:
+        misses.append("minmax")
+
+    for case in GELU_CASES:
+        rec, errs = _gelu_case(case, gen, device)
+        emit("kernel_vs_plain_rtc", fp32_term=GELU_FP32_TERM, **rec)
+        if not rec["ok"]:
+            misses.append(case["name"])
+        if case.get("main"):
+            main = {"rtc_gelu_fwd": errs["gelu_fwd"], "rtc_gelu_bwd": errs["gelu_bwd"]}
+
+    # refusals, each before any launch
+    k = RTC.get_kernel("gelu_fwd_bf16", out_shapes=[(64,)], out_dtypes=["bfloat16"], grid=(1,),
+                       block=(32,))
+    xg = rand(64).bfloat16()
+    wide = rand(8, 16).bfloat16()
+    lost = RTC.get_kernel("not_extern_c", out_shapes=[(1,)], signature="float* out",
+                          grid=(1,), block=(1,))
+    refusals = {
+        "dtype_mismatch": _raises(lambda: k.launch([xg.float(), 64]), ValueError, "bfloat16"),
+        "wrong_arg_count": _raises(lambda: k.launch([xg]), ValueError, "takes 2 arguments"),
+        "non_contiguous": _raises(lambda: GELU_FWD(wide[:, ::2]), ValueError, "contiguous"),
+        "cpu_tensor": _raises(lambda: k.launch([xg.cpu(), 64]), RuntimeError, "CUDA tensors"),
+        "missing_extern_c": _raises(lambda: lost.launch([], ctx=mx.gpu(0)), RuntimeError,
+                                    'extern "C"'),
+    }
+    torch.cuda.synchronize()
+    ok = all(refusals.values()) and k.launches == 0 and lost.launches == 0
+    emit("kernel_vs_plain_rtc", case="refusals", raised=refusals, launches=k.launches + lost.launches,
+         ok=ok)
+    if not ok:
+        misses.append("refusals")
+    if misses:
+        emit("kernel_vs_plain_rtc", failed=misses)
+        sys.exit(1)
+    return main
+
+
 # -- phase 4 ----------------------------------------------------------------
 
 
@@ -632,9 +1020,24 @@ def phase_train(rehearsal):
     return net, trainer, batch, counts
 
 
+def _rel_l2(grads, ref):
+    """{key: |g − r| / |r|} per parameter."""
+    out = {}
+    for key, r in ref.items():
+        rn, dn = r.norm().item(), (grads[key] - r).norm().item()
+        out[key] = dn / rn if rn > 0 else (0.0 if dn == 0 else math.inf)
+    return out
+
+
+def _card_grads(net):
+    return {k: p.grad().detach().float().cpu().clone()
+            for k, p in net._collect_params_with_prefix().items()}
+
+
 def phase_train_vs_cpu(net, rehearsal):
     """The card's bf16 gradients against the port's fp32 gradients on the
-    CPU, same weights, dropout off; relative L2 error per parameter."""
+    CPU, same weights, dropout off; relative L2 error per parameter.
+    Returns (batch, the CPU's gradients, the card's gradients)."""
     cfg = TINY_BERT if rehearsal else BERT_BASE
     device = next(iter(net.collect_params().values())).data().device
     gen = torch.Generator(device=device).manual_seed(13)
@@ -645,23 +1048,66 @@ def phase_train_vs_cpu(net, rehearsal):
     load_numpy_params(ref_net, arrays)
     train_step(net, None, batch, train_mode=False)
     train_step(ref_net, None, tuple(x.cpu() for x in batch), train_mode=False)
-    got = net._collect_params_with_prefix()
-    ref = ref_net._collect_params_with_prefix()
-    worst, bad = [], []
-    for key, rp in ref.items():
-        r = rp.grad()
-        g = got[key].grad().float().cpu()
-        rn = r.norm().item()
-        rel = (g - r).norm().item() / rn if rn > 0 else (0.0 if g.norm().item() == 0 else math.inf)
-        worst.append((rel, key))
-        if not (math.isfinite(rel) and rel <= GRAD_REL_BOUND):
-            bad.append(key)
-    worst.sort(reverse=True)
-    emit("train_vs_cpu_fp32", b=2, params=len(worst), bound=GRAD_REL_BOUND,
-         worst=[[k, rel] for rel, k in worst[:6]], median_rel=worst[len(worst) // 2][0],
-         failed=bad, ok=not bad)
-    if bad:
+    got = _card_grads(net)
+    ref = {k: p.grad() for k, p in ref_net._collect_params_with_prefix().items()}
+    if not _grad_check("train_vs_cpu_fp32", got, ref):
         sys.exit(1)
+    return batch, ref, got
+
+
+def _grad_check(phase, got, ref, **extra):
+    """Emit the per-parameter relative L2 errors of ``got`` against ``ref``
+    and whether each is within GRAD_REL_BOUND."""
+    rels = _rel_l2(got, ref)
+    worst = sorted(((rel, k) for k, rel in rels.items()), reverse=True)
+    bad = [k for k, rel in rels.items() if not (math.isfinite(rel) and rel <= GRAD_REL_BOUND)]
+    emit(phase, b=2, params=len(worst), bound=GRAD_REL_BOUND,
+         worst=[[k, rel] for rel, k in worst[:6]], median_rel=worst[len(worst) // 2][0],
+         failed=bad, ok=not bad, **extra)
+    return not bad
+
+
+def phase_rtc_train(net, trainer, train_batch, vs_cpu, rehearsal):
+    """The slice-2 BERT-base step with each FFN activation the user's
+    ``rtc_gelu`` CustomOp (``gelu_fwd`` forward, ``gelu_bwd`` backward, on
+    the net's own weights and Trainer).  First the gradients of the batch
+    and weights of ``train_vs_cpu`` (``vs_cpu`` = (batch, CPU fp32
+    gradients, the card's built-in-GELU gradients)) against the CPU's,
+    within GRAD_REL_BOUND, and beside the built-in step's; then training
+    steps, with the launches counted around exactly one.  Returns those
+    counts."""
+    batch, ref, builtin = vs_cpu
+    num_layers = (TINY_BERT if rehearsal else BERT_BASE).get("num_layers", 12)
+    with rtc_gelu_ffn(net) as n_ffn:
+        train_step(net, None, batch, train_mode=False)
+        got = _card_grads(net)
+        vs_builtin = _rel_l2(got, builtin)
+        ok = _grad_check("rtc_train_vs_cpu_fp32", got, ref, ffn_swapped=n_ffn,
+                         vs_card_builtin_gelu_median_rel=sorted(vs_builtin.values())[
+                             len(vs_builtin) // 2],
+                         vs_card_builtin_gelu_max_rel=max(vs_builtin.values()))
+        if not ok or n_ffn != num_layers:
+            sys.exit(1)
+        losses = [train_step(net, trainer, train_batch).mean().item() for _ in range(2)]
+        reset_kernel_counts()
+        RtcGelu.plain_calls = 0
+        losses.append(train_step(net, trainer, train_batch).mean().item())  # syncs on .item()
+        counts, plain_calls = kernel_counts(), RtcGelu.plain_calls
+        losses += [train_step(net, trainer, train_batch).mean().item() for _ in range(3)]
+    finite = all(math.isfinite(x) for x in losses)
+    falling = losses[-1] < losses[0]
+    on_card = {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rtc_gelu_fwd", "rtc_gelu_bwd"}
+    want = {n: num_layers if n in on_card and not rehearsal else 0 for n in ENTRIES}
+    want_plain = 2 * num_layers if rehearsal else 0
+    b, s, p = train_batch[0].shape[0], train_batch[0].shape[1], train_batch[2].shape[1]
+    emit("rtc_train", model="BERTForPretrain(bert_base) bf16, Adam multi_precision, dropout "
+         "0.1, FFN activation = the user's rtc_gelu CustomOp" if not rehearsal
+         else "tiny BERT bf16 (CPU rehearsal), FFN activation = rtc_gelu", b=b, s=s, p=p,
+         losses=losses, finite=finite, falling=falling, launches_one_step=counts,
+         expected=want, plain_gelu_calls_one_step=plain_calls, expected_plain=want_plain)
+    if not (finite and falling) or counts != want or plain_calls != want_plain:
+        sys.exit(1)
+    return counts
 
 
 # -- phase 6 ----------------------------------------------------------------
@@ -776,13 +1222,7 @@ def _feeds_batchnorm(key, params):
 
 
 def _rel_errors(grads, ref):
-    out = {}
-    for key, r in ref.items():
-        if _feeds_batchnorm(key, ref):
-            continue
-        rn, dn = r.norm().item(), (grads[key] - r).norm().item()
-        out[key] = dn / rn if rn > 0 else (0.0 if dn == 0 else math.inf)
-    return out
+    return _rel_l2(grads, {k: r for k, r in ref.items() if not _feeds_batchnorm(k, ref)})
 
 
 def _grad_report(name, logits, grads, ref_logits, ref, bound, logit_bound, **extra):
@@ -877,6 +1317,8 @@ def _time(fn, arg_sets, iters):
 
 
 def _kernel_family(name):
+    if name.startswith(("gelu_fwd_", "gelu_bwd_")):  # the user's kernels of RTC_SOURCE
+        return "rtc_" + name[:8]
     for fam in ("flash_bwd_dkv", "flash_bwd_dq", "flash_fwd", "bn_stats", "bn_apply"):
         if fam in name:
             return fam
@@ -1064,6 +1506,73 @@ def _times_bn(shapes, smi):
     return step
 
 
+def _times_gelu(smi):
+    """The two user GELU kernels at the path's shape ([64, 128, 3072] bf16),
+    their plain versions and the library calls (``F.gelu`` and
+    ``aten.gelu_backward``, timed only), and the sums over one BERT step's
+    12 launches of each.  ``call_ms`` is the launcher's cost per call as the
+    user's op makes it (UserKernel, ``Kernel.launch``: checks, output
+    allocation, ctypes marshalling, ``cuLaunchKernel``) where it exceeds the
+    kernel's."""
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(4242)
+    n = math.prod(GELU_MAIN)
+    sets = [tuple(torch.randn(GELU_MAIN, generator=gen, device=device).bfloat16()
+                  for _ in range(2)) for _ in range(4)]  # 400 MB: beyond the 50 MB L2
+    fwd_sets = [(x,) for x, _ in sets]
+    with torch.no_grad():
+        rows = {
+            "rtc_gelu_fwd": (_time(GELU_FWD, fwd_sets, 200), _time(gelu_plain, fwd_sets, 20),
+                             _time(torch.nn.functional.gelu, fwd_sets, 200), "F.gelu",
+                             4 * n, 20 * n),
+            "rtc_gelu_bwd": (_time(GELU_BWD, sets, 200), _time(gelu_bwd_plain, sets, 20),
+                             _time(lambda x, dy: torch.ops.aten.gelu_backward(dy, x), sets, 200),
+                             "torch.ops.aten.gelu_backward", 6 * n, 30 * n)}
+        host = {"rtc_gelu_fwd": (_host_ms(GELU_FWD, fwd_sets), _host_ms(torch.nn.functional.gelu,
+                                                                       fwd_sets)),
+                "rtc_gelu_bwd": (_host_ms(GELU_BWD, sets), _host_ms(
+                    lambda x, dy: torch.ops.aten.gelu_backward(dy, x), sets))}
+    out = {}
+    for name, (kern, plain, lib, lib_name, nbytes, flops) in rows.items():
+        bound_ms, bound_by = _bound(nbytes, flops, torch.float32)
+        emit("times", kernel=name, shape=dict(n=n, dims=list(GELU_MAIN), dtype="bfloat16"),
+             ms=kern[0], call_ms=kern[1], host_ms=host[name][0],
+             library_host_ms=host[name][1], plain_ms=plain[0], library_ms=lib[0],
+             library=lib_name, library_kernels_us=lib[2], bound_ms=bound_ms,
+             bound_by=bound_by, bytes=nbytes, flops=flops, share_of_bound=bound_ms / kern[0],
+             achieved_bytes_per_s=nbytes / (kern[0] * 1e-3), step_ms_12_launches=12 * kern[0],
+             card=smi)
+        out[name] = dict(ms=kern[0], call_ms=kern[1], host_ms=host[name][0],
+                         plain_ms=plain[0], library_ms=lib[0], bound_ms=bound_ms,
+                         bound_by=bound_by)
+    return out
+
+
+def _host_ms(fn, arg_sets, iters=100):
+    """Host time per call of ``fn``: the loop issues ``iters`` calls and
+    returns before the card has run them (the queue holds far more than
+    ``iters`` launches), so the clock sees the caller's own cost."""
+    fn(*arg_sets[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(*arg_sets[i % len(arg_sets)])
+    host = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return host
+
+
+def _time_train_step(tnet, trainer, batch, iters):
+    """Mean wall ms of ``iters`` training steps after one warm-up."""
+    train_step(tnet, trainer, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        train_step(tnet, trainer, batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
 def _resnet_step_phases(net, trainer, batch, iters):
     """Mean wall ms of the ResNet step's three parts, each closed by a
     synchronize (as _step_phases does for BERT)."""
@@ -1155,6 +1664,7 @@ def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, smi):
     rows.update(_times_bwd(views, bhsd_sets, gen, smi))
     del qkv_sets, views, bhsd_sets
     rows.update(_times_bn(bn_shapes, smi))
+    rows.update(_times_gelu(smi))
 
     iters = 10
     torch.cuda.reset_peak_memory_stats()
@@ -1173,49 +1683,70 @@ def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, smi):
     tnet, trainer, batch = train
     tb = batch[0].shape[0]
     torch.cuda.reset_peak_memory_stats()
-    train_step(tnet, trainer, batch)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        train_step(tnet, trainer, batch)
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / iters
+    step_ms = _time_train_step(tnet, trainer, batch, iters)
     emit("times", train_step="BERTForPretrain(bert_base) bf16, Adam multi_precision, "
          "dropout 0.1", b=tb, s=batch[0].shape[1], p=batch[2].shape[1],
-         step_ms=step_s * 1e3, samples_per_s=tb / step_s,
+         step_ms=step_ms, samples_per_s=tb / step_ms * 1e3,
          peak_memory_bytes=torch.cuda.max_memory_allocated(), card=smi)
     emit("times", train_step_phases_ms=_step_phases(tnet, trainer, batch, 5), card=smi)
+    # The host-bound step drifts within a run: built-in and rtc in turns
+    # (built-in, rtc, rtc, built-in), each the mean of `iters` steps.
+    turns = {"builtin": [], "rtc": []}
+    for which in ("builtin", "rtc", "rtc", "builtin"):
+        with rtc_gelu_ffn(tnet) if which == "rtc" else contextlib.nullcontext():
+            turns[which].append(_time_train_step(tnet, trainer, batch, iters))
+    rtc_ms, builtin_ms = (sum(turns[k]) / 2 for k in ("rtc", "builtin"))
+    emit("times", train_step="the same, built-in GELU and the user's rtc_gelu CustomOp in "
+         "turns (built-in, rtc, rtc, built-in)", b=tb, turns_ms=turns, rtc_step_ms=rtc_ms,
+         rtc_samples_per_s=tb / rtc_ms * 1e3, builtin_step_ms=builtin_ms,
+         builtin_samples_per_s=tb / builtin_ms * 1e3, card=smi)
 
     with mx.autograd.predict_mode():
         phase_profile("forward: BERTForPretrain(bert_base) bf16 B=64 S=128 P=20",
                       lambda: net(*main_req), smi)
     phase_profile("train step: BERTForPretrain(bert_base) bf16 B=64 S=128 P=20, Adam mp",
                   lambda: train_step(tnet, trainer, batch), smi)
+    with rtc_gelu_ffn(tnet):
+        phase_profile("train step: the same, FFN activation = the user's rtc_gelu CustomOp",
+                      lambda: train_step(tnet, trainer, batch), smi)
     _times_resnet(resnet, smi)
     set_kernel_counts(before)  # timed and profiled launches are not the main paths'
 
-    sources = {"flash_fwd": ("flash_fwd.cu", "incubator_mxnet_tpu/ops/attention.py:85"),
-               "flash_bwd_dq": ("flash_bwd.cu", "incubator_mxnet_tpu/ops/attention.py:203"),
-               "flash_bwd_dkv": ("flash_bwd.cu", "incubator_mxnet_tpu/ops/attention.py:248"),
-               "bn_stats": ("bn.cu", "incubator_mxnet_tpu/ops/pallas_bn.py:33"),
-               "bn_apply": ("bn.cu", "incubator_mxnet_tpu/ops/pallas_bn.py:67"),
-               "bn_apply_res": ("bn.cu", "incubator_mxnet_tpu/ops/pallas_bn.py:75")}
+    csrc = "incubator_mxnet_torch/ops/csrc/"
+    sources = {"flash_fwd": (csrc + "flash_fwd.cu", "incubator_mxnet_tpu/ops/attention.py:85"),
+               "flash_bwd_dq": (csrc + "flash_bwd.cu",
+                                "incubator_mxnet_tpu/ops/attention.py:203"),
+               "flash_bwd_dkv": (csrc + "flash_bwd.cu",
+                                 "incubator_mxnet_tpu/ops/attention.py:248"),
+               "bn_stats": (csrc + "bn.cu", "incubator_mxnet_tpu/ops/pallas_bn.py:33"),
+               "bn_apply": (csrc + "bn.cu", "incubator_mxnet_tpu/ops/pallas_bn.py:67"),
+               "bn_apply_res": (csrc + "bn.cu", "incubator_mxnet_tpu/ops/pallas_bn.py:75"),
+               "rtc_gelu_fwd": ("chip_smoke.py", "incubator_mxnet_tpu/rtc.py:48"),
+               "rtc_gelu_bwd": ("chip_smoke.py", "incubator_mxnet_tpu/rtc.py:48")}
     main_path = {"flash_fwd": "inference", "flash_bwd_dq": "train_step",
                  "flash_bwd_dkv": "train_step", "bn_stats": "resnet_train_step",
-                 "bn_apply": "resnet_train_step", "bn_apply_res": "resnet_train_step"}
+                 "bn_apply": "resnet_train_step", "bn_apply_res": "resnet_train_step",
+                 "rtc_gelu_fwd": "rtc_train_step", "rtc_gelu_bwd": "rtc_train_step"}
     kernels = []
     for name, (src, replaces) in sources.items():
         path = main_path[name]
         row = rows[name]
+        per = {}
+        if name.startswith("bn_"):
+            per = {"per": "one ResNet-50 step (B=256): ms, plain_ms, bound_ms and library_ms "
+                          "sum the step's 53 BatchNorm shapes"}
+        elif name.startswith("rtc_"):
+            per = {"per": "one launch at [64, 128, 3072] bf16 (12 a step)",
+                   "call_ms": row["call_ms"], "host_ms": row["host_ms"],
+                   "compiled_by": "incubator_mxnet_torch/rtc.py (RTC_SOURCE, nvcc cubin, "
+                                  "CUDA driver launch)"}
         kernels.append({
-            "name": name, "route": "cuda", "source": f"incubator_mxnet_torch/ops/csrc/{src}",
+            "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": counts[path][name],
             "launches_by_path": {p: c[name] for p, c in counts.items()},
             "max_abs_err": errs[name], "max_err": errs[name], "ms": row["ms"],
             "kernel_ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            **({"per": "one ResNet-50 step (B=256): ms, plain_ms, bound_ms and library_ms "
-                       "sum the step's 53 BatchNorm shapes"} if name.startswith("bn_") else {})})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"], **per})
     print(json.dumps({"kernels": kernels}), flush=True)
 
 
@@ -1246,7 +1777,9 @@ def main():
     if args.cpu_rehearsal:
         net, main_req, _ = phase_slice(rehearsal=True)
         tnet, trainer, batch, _ = phase_train(rehearsal=True)
-        phase_train_vs_cpu(tnet, rehearsal=True)
+        vs_cpu = phase_train_vs_cpu(tnet, rehearsal=True)
+        phase_rtc_train(tnet, trainer, batch, vs_cpu, rehearsal=True)
+        del vs_cpu
         rnet, rtrainer, rbatch, _, _ = phase_resnet_train(rehearsal=True)
         phase_resnet_train_vs_cpu(rehearsal=True)
         rehearse_times(net, main_req, (tnet, trainer, batch), (rnet, rtrainer, rbatch))
@@ -1261,14 +1794,17 @@ def main():
     errs = {"flash_fwd": phase_kernel_vs_plain(device)}
     errs.update(phase_kernel_vs_plain_bwd(device))
     errs.update(phase_kernel_vs_plain_bn(device))
+    errs.update(phase_kernel_vs_plain_rtc(device))
     net, main_req, infer_counts = phase_slice(rehearsal=False)
     tnet, trainer, batch, train_counts = phase_train(rehearsal=False)
-    phase_train_vs_cpu(tnet, rehearsal=False)
+    vs_cpu = phase_train_vs_cpu(tnet, rehearsal=False)
+    rtc_counts = phase_rtc_train(tnet, trainer, batch, vs_cpu, rehearsal=False)
+    del vs_cpu
     rnet, rtrainer, rbatch, resnet_counts, bn_shapes = phase_resnet_train(rehearsal=False)
     phase_resnet_train_vs_cpu(rehearsal=False)
     phase_times(net, main_req, (tnet, trainer, batch), (rnet, rtrainer, rbatch), bn_shapes,
                 {"inference": infer_counts, "train_step": train_counts,
-                 "resnet_train_step": resnet_counts}, errs, smi)
+                 "resnet_train_step": resnet_counts, "rtc_train_step": rtc_counts}, errs, smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -22,7 +22,10 @@ from . import optimizer
 from . import gluon
 from . import amp
 from . import convert
+from . import operator
+from . import rtc
 
 __all__ = ["MXNetError", "DeferredInitializationError", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "context", "autograd", "random",
-           "initializer", "init", "ops", "nd", "optimizer", "gluon", "amp", "convert"]
+           "initializer", "init", "ops", "nd", "optimizer", "gluon", "amp", "convert", "operator",
+           "rtc"]

@@ -3,7 +3,9 @@
 Counterpart of the JAX package's ``ops/registry.py``.  An op is a plain
 function on ``torch.Tensor``s; registering it makes it reachable by name
 as ``nd.<name>`` (and ``nd.contrib.<name>``).  With ``amp.init()`` the lookup
-returns the op wrapped in AMP's input casts (``amp/amp.py``).  PyTorch runs eagerly, so the
+returns the op wrapped in AMP's input casts (``amp/amp.py``).  ``nd.Custom``
+resolves to ``operator.nd_custom``, whose gradient is the user's
+``CustomOp.backward``.  PyTorch runs eagerly, so the
 JAX package's dispatch accelerators (the level-1 jit cache, ``engine.py``
 bulking) have no counterpart here.
 """
@@ -76,6 +78,9 @@ class _Namespace(types.ModuleType):
     def __getattr__(self, name):
         if name.startswith("__"):
             raise AttributeError(name)
+        if name == "Custom":  # the user's backward, not an op of the registry
+            from ..operator import nd_custom
+            return nd_custom
         for p in self._prefixes:
             op = _REGISTRY.get(p + name)
             if op is not None:

@@ -93,10 +93,22 @@ def test_sources_name_neither_jax_nor_the_jax_package():
     assert {"ops/csrc/flash_fwd.cu", "ops/csrc/flash_bwd.cu", "ops/csrc/bn.cu", "ops/bn.py",
             "ops/optimizer_ops.py", "optimizer/optimizer.py", "gluon/trainer.py",
             "gluon/loss.py", "autograd.py", "amp/amp.py", "amp/lists.py",
-            "gluon/model_zoo/vision/resnet.py"} <= names
+            "gluon/model_zoo/vision/resnet.py", "rtc.py", "operator.py",
+            "ops/_driver.py"} <= names
     offenders = [f"{p.relative_to(ROOT)}:{i}" for p in sources
                  for i, line in enumerate(p.read_text().splitlines(), 1) if pattern.search(line)]
     assert not offenders, offenders
+
+
+def test_user_kernel_modules_are_exported_and_import_no_driver():
+    """``mx.rtc`` and ``mx.operator`` come with the package; ``nd.Custom``
+    resolves to the custom-op entry; importing binds no CUDA library."""
+    from incubator_mxnet_torch.ops import _driver
+
+    assert mx.rtc.CudaModule and mx.operator.CustomOp
+    assert {"rtc", "operator"} <= set(mx.__all__)
+    assert mx.nd.Custom is mx.operator.nd_custom
+    assert _driver._lib is None and _driver._contexts == {}
 
 
 def test_attention_imports_without_nvcc():
