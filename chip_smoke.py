@@ -14,8 +14,9 @@ Phases, each printing JSON lines; no phase's failure is caught:
    spill fails the phase;
 3. kernel_vs_plain, kernel_vs_plain_bwd, kernel_vs_plain_bn,
    kernel_vs_plain_rtc: each kernel against its plain PyTorch version on
-   the card, at the main paths' shapes and the edge cases, each against a
-   stated bound (and bn_stats against itself: two runs must be
+   the card, at the main paths' shapes and the edge cases (for flash_fwd
+   also its persistent schedule's), each against a stated bound (and
+   flash_fwd and bn_stats against themselves: two runs must be
    bit-identical), and the rtc launcher's refusals; any miss exits non-zero
    after the phase;
 4. slice: BERT-base (12 layers, 768 units, vocab 30522, bf16, random
@@ -43,7 +44,8 @@ Phases, each printing JSON lines; no phase's failure is caught:
    and AMP gradients against the port's fp32 gradients on the CPU, per
    parameter, beside the CPU's own sensitivity;
 7. times: each kernel, its plain version and the library call at the main
-   paths' shapes, the kernel's bound; BERT forward and training-step time,
+   paths' shapes (flash_fwd also at the S=512 request), the kernel's
+   bound; BERT forward and training-step time,
    the ResNet-50 step's time, img/s, peak memory and its split; the
    BERT step with the user's GELU beside the built-in one; a
    torch.profiler breakdown of device time by kernel family for one BERT
@@ -514,8 +516,11 @@ def _case_inputs(case, gen, device):
     if case.get("layout") == "qkv":  # the [B, S, 3, H, Dh] projection output
         x = _randn((b, sq, 3, h, d), dtype, gen, device)
         return x[:, :, 0], x[:, :, 1], x[:, :, 2], "bshd"
-    return (_randn((b, h, sq, d), dtype, gen, device), _randn((b, h, sk, d), dtype, gen, device),
-            _randn((b, h, sk, d), dtype, gen, device), "bhsd")
+    # k and v of one batch entry or one head, expanded (stride 0) over the rest
+    kv = (1 if case.get("expand") == "b" else b, 1 if case.get("expand") == "h" else h, sk, d)
+    return (_randn((b, h, sq, d), dtype, gen, device),
+            _randn(kv, dtype, gen, device).expand(b, h, sk, d),
+            _randn(kv, dtype, gen, device).expand(b, h, sk, d), "bhsd")
 
 
 MAIN = dict(b=64, sq=128, sk=128, h=12, d=64, dtype=torch.bfloat16, causal=False)
@@ -537,19 +542,57 @@ KERNEL_CASES = [
     dict(MAIN, name="fp32_dh128_causal", b=2, h=4, d=128, sq=200, sk=200,
          dtype=torch.float32, causal=True),
 ]
+# The 16-bit kernel's persistent schedule (128-row work items walked with a
+# static stride over a grid of one block per SM, K/V through a ring of TMA
+# stages): cases that exercise its bookkeeping.
+SCHEDULE_CASES = [
+    # 804 items over the grid: several rounds per block and a remainder, so
+    # the ring's stages and parities wrap across work items
+    dict(MAIN, name="items_over_grid_b67", b=67),
+    # one work item: one block, the others of a grid never launched
+    dict(MAIN, name="single_item", b=1, h=1),
+    # fewer query rows than one consumer warpgroup's 64: the second
+    # consumer's rows are all TMA zero fill and its store is skipped
+    dict(MAIN, name="sq40", b=4, sq=40, sk=40),
+    # eight K/V tiles an item, the last a 104-key tail, causal: many ring
+    # stages per item, the masked diagonal and tail tiles, lse
+    dict(MAIN, name="sk1000_causal_with_lse", b=2, h=4, sq=1000, sk=1000, causal=True,
+         lse=True),
+    # the inference request shape: four K/V stages per item, lse
+    dict(MAIN, name="seq512_with_lse", b=8, sq=512, sk=512, lse=True),
+]
+# Options and operands the 16-bit path takes beyond the main paths'.
+OPERAND_CASES = [
+    # a scale other than 1/sqrt(Dh) over a causal tail, with lse
+    dict(MAIN, name="scale_0.3_causal_tail", b=4, sq=200, sk=200, causal=True, lse=True,
+         scale=0.3),
+    # a negative scale turns the order of the scores around: the row max
+    # must be taken of the scaled scores, and masked keys stay at -inf
+    dict(MAIN, name="scale_-0.3_causal_tail", b=4, sq=200, sk=200, causal=True, lse=True,
+         scale=-0.3),
+    # scale 0: equal weights over the visible keys, masked keys still none
+    dict(MAIN, name="scale_0_causal_tail", b=4, sq=200, sk=200, causal=True, lse=True,
+         scale=0.0),
+    # k and v expanded over the batch and over the heads (stride 0): the
+    # tensor maps hold extent 1 there and the producer reads coordinate 0
+    dict(MAIN, name="kv_expanded_over_batch", b=4, sq=200, sk=200, expand="b"),
+    dict(MAIN, name="kv_expanded_over_heads_causal", b=4, sq=200, sk=200, causal=True,
+         expand="h"),
+]
 
 
 def phase_kernel_vs_plain(device):
     gen = torch.Generator(device=device).manual_seed(1234)
     misses, main_err = [], None
-    for case in KERNEL_CASES:
+    for case in KERNEL_CASES + SCHEDULE_CASES + OPERAND_CASES:
         q, k, v, layout = _case_inputs(case, gen, device)
-        want_lse = case.get("lse", False)
+        want_lse, scale = case.get("lse", False), case.get("scale")
         with torch.no_grad():
-            o, lse = att.flash_fwd(q, k, v, case["causal"], None, want_lse, layout)
+            o, lse = att.flash_fwd(q, k, v, case["causal"], scale, want_lse, layout)
             torch.cuda.synchronize()
             t = (lambda x: x.transpose(1, 2)) if layout == "bshd" else (lambda x: x)
-            o_ref, lse_ref = att.flash_fwd_plain(t(q), t(k), t(v), case["causal"], None, want_lse)
+            o_ref, lse_ref = att.flash_fwd_plain(t(q), t(k), t(v), case["causal"], scale,
+                                                 want_lse)
         err = (t(o).float() - o_ref.float()).abs().max().item()
         ref_max = o_ref.float().abs().max().item()
         bound = (FP32_FWD_BOUND if case["dtype"] == torch.float32
@@ -558,7 +601,8 @@ def phase_kernel_vs_plain(device):
         rec = dict(case=case["name"], dtype=str(case["dtype"]).replace("torch.", ""),
                    shape=dict(b=case["b"], h=case["h"], sq=case["sq"], sk=case["sk"], d=case["d"]),
                    causal=case["causal"], layout=layout, max_abs_err=err,
-                   ref_max_abs=ref_max, bound=bound)
+                   ref_max_abs=ref_max, bound=bound,
+                   **{key: case[key] for key in ("scale", "expand") if key in case})
         if want_lse:
             lerr = (lse - lse_ref).abs().max().item()
             rec.update(lse_max_abs_err=lerr, lse_bound=LSE_BOUND)
@@ -569,6 +613,24 @@ def phase_kernel_vs_plain(device):
             misses.append(case["name"])
         if case["name"] == "qkv_bshd_view":
             main_err = err
+    # The schedule is static (no atomics, fixed item order): two runs of the
+    # main case give the same bits, o and lse.
+    q, k, v, layout = _case_inputs(MAIN, gen, device)
+    with torch.no_grad():
+        runs = [att.flash_fwd(q, k, v, False, None, True, layout) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    emit("kernel_vs_plain", case="main_repeat_bitwise", identical=same, ok=same)
+    if not same:
+        misses.append("main_repeat_bitwise")
+    # A sequence of stride 0 (one row repeated) cannot be read by TMA boxes
+    # of rows: the wrapper refuses it before any launch.
+    k_rep = k[:, :, :1].expand(k.shape)  # [B, H, S, Dh]: S repeats one key
+    refused = _raises(lambda: att.flash_fwd(q, k_rep, v, layout=layout), ValueError,
+                      "stride 0")
+    emit("kernel_vs_plain", case="seq_stride0_refused", ok=refused)
+    if not refused:
+        misses.append("seq_stride0_refused")
     if misses:
         emit("kernel_vs_plain", failed=misses)
         sys.exit(1)
@@ -1285,14 +1347,18 @@ def phase_resnet_train_vs_cpu(rehearsal):
 # -- phase 7 ----------------------------------------------------------------
 
 
-def _time(fn, arg_sets, iters):
+def _time(fn, arg_sets, iters, uniform=False):
     """Per call of ``fn``, cycling through ``arg_sets`` (several input sets,
     so a call does not find the last one's inputs in the 50 MB L2):
-    ``(device_ms, call_ms, kernels_us)``.  device_ms is the time of the
-    kernels the calls launched (torch.profiler's CUDA trace), the kernel's
-    time; call_ms is the wall time between CUDA events around the calls,
-    which also holds host time where the host issues calls slower than the
-    card runs them; kernels_us splits device time by kernel name."""
+    ``(device_ms, call_ms, kernels_us, records)``.  device_ms is the time of
+    the kernels the calls launched (torch.profiler's CUDA trace, summed and
+    divided by ``iters``), the kernel's time; call_ms is the wall time
+    between CUDA events around the calls, which also holds host time where
+    the host issues calls slower than the card runs them; kernels_us splits
+    device time by kernel name, and records counts each name's records in
+    the trace.  With ``uniform`` every call launches the same kernels, so
+    each count must be a multiple of ``iters``: a trace that lost records is
+    taken again, at most three times in all, and then the timing fails."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(3):
@@ -1305,15 +1371,49 @@ def _time(fn, arg_sets, iters):
     end.record()
     torch.cuda.synchronize()
     call_ms = start.elapsed_time(end) / iters
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(*arg_sets[i % len(arg_sets)])
+            torch.cuda.synchronize()
+        kernels, records = {}, {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                name = ev.name[:90]
+                kernels[name] = kernels.get(name, 0.0) + ev.time_range.elapsed_us() / iters
+                records[name] = records.get(name, 0) + 1
+        if not uniform or all(n % iters == 0 for n in records.values()):
+            break
+    else:
+        raise RuntimeError(f"_time: the trace of {iters} identical calls lost records in "
+                           f"three tries: {records}")
+    return sum(kernels.values()) * 1e-3, call_ms, kernels, records
+
+
+def _graph_ms(fn, arg_sets, calls=40, replays=5):
+    """Device ms per call of ``fn`` by a second method: ``calls`` calls,
+    cycling through ``arg_sets``, captured in one CUDA graph and replayed
+    ``replays`` times between CUDA events.  No host work and no profiler
+    come between the kernels; the graph's own gaps between launches count."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for args in arg_sets:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
             fn(*arg_sets[i % len(arg_sets)])
-        torch.cuda.synchronize()
-    kernels = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[ev.name[:90]] = kernels.get(ev.name[:90], 0.0) + ev.time_range.elapsed_us() / iters
-    return sum(kernels.values()) * 1e-3, call_ms, kernels
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def _kernel_family(name):
@@ -1373,25 +1473,46 @@ def _bound(nbytes, flops, dtype=torch.bfloat16):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _times_fwd(views, bhsd_sets, smi):
-    b, s, h, d = MAIN["b"], MAIN["sq"], MAIN["h"], MAIN["d"]
+def _fwd_row(views, bhsd_sets, smi):
+    """flash_fwd, its plain version and SDPA on the same [B, S, H, Dh] views,
+    timed in one run; emits the row and returns it."""
+    b, s, h, d = views[0][0].shape
+    kernel = lambda q, k, v: att.flash_fwd(q, k, v, layout="bshd")  # noqa: E731
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     with torch.no_grad():
-        kernel_ms, call_ms, _ = _time(lambda q, k, v: att.flash_fwd(q, k, v, layout="bshd"),
-                                     views, 200)
-        plain_ms, _, _ = _time(lambda q, k, v: att.flash_fwd_plain(
+        kernel_ms, call_ms, _, records = _time(kernel, views, 200, uniform=True)
+        plain_ms, _, _, _ = _time(lambda q, k, v: att.flash_fwd_plain(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)), views, 20)
-        library_ms, _, lib_kernels = _time(torch.nn.functional.scaled_dot_product_attention,
-                                           bhsd_sets, 200)
+        library_ms, _, lib_kernels, lib_records = _time(sdpa, bhsd_sets, 200, uniform=True)
+        graph_ms, lib_graph_ms = _graph_ms(kernel, views), _graph_ms(sdpa, bhsd_sets)
     nbytes = 4 * b * s * h * d * 2              # q, k, v read once, o written once
     flops = 4 * b * h * s * s * d               # q·kᵀ and p·v
     bound_ms, bound_by = _bound(nbytes, flops)
     emit("times", kernel="flash_fwd", shape=dict(b=b, s=s, h=h, d=d, dtype="bfloat16"),
          ms=kernel_ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
-         library="SDPA", library_kernels_us=lib_kernels, bound_ms=bound_ms, bound_by=bound_by,
+         library="SDPA", library_kernels_us=lib_kernels, records=records,
+         library_records=lib_records, graph_ms=graph_ms, library_graph_ms=lib_graph_ms,
+         bound_ms=bound_ms, bound_by=bound_by,
          bytes=nbytes, flops=flops, share_of_bound=bound_ms / kernel_ms,
          achieved_bytes_per_s=nbytes / (kernel_ms * 1e-3), card=smi)
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
+
+
+def _times_fwd(views, bhsd_sets, smi):
+    """The main row (the training and inference batch) and a row at the
+    S=512 request shape, each beside SDPA in the same run; returns the
+    main row."""
+    row = _fwd_row(views, bhsd_sets, smi)
+    device = views[0][0].device
+    gen = torch.Generator(device=device).manual_seed(98)
+    b, s, h, d = 8, 512, MAIN["h"], MAIN["d"]  # the S=512 request of the slice phase
+    long_views = [(x[:, :, 0], x[:, :, 1], x[:, :, 2])
+                  for x in (_randn((b, s, 3, h, d), torch.bfloat16, gen, device)
+                            for _ in range(4))]  # 75 MB: beyond the 50 MB L2
+    _fwd_row(long_views, [tuple(t.transpose(1, 2).contiguous() for t in v) for v in long_views],
+             smi)
+    return row
 
 
 def _times_bwd(views, bhsd_sets, gen, smi):
@@ -1408,10 +1529,11 @@ def _times_bwd(views, bhsd_sets, gen, smi):
             do = _randn((b, s, h, d), torch.bfloat16, gen, device)
             o, lse = att.flash_fwd(q, k, v, with_lse=True, layout="bshd")
             sets.append((q, k, v, o, do, lse))
-        dq_ms, dq_call_ms, _ = _time(lambda *a: att.flash_bwd_dq(*a, layout="bshd"), sets, 200)
-        dkv_ms, dkv_call_ms, _ = _time(lambda *a: att.flash_bwd_dkv(*a, layout="bshd"), sets,
-                                       200)
-        plain_ms, _, _ = _time(lambda q, k, v, o, do, lse: att.flash_bwd_plain(
+        dq_ms, dq_call_ms, _, _ = _time(lambda *a: att.flash_bwd_dq(*a, layout="bshd"), sets,
+                                        200)
+        dkv_ms, dkv_call_ms, _, _ = _time(lambda *a: att.flash_bwd_dkv(*a, layout="bshd"),
+                                          sets, 200)
+        plain_ms, _, _, _ = _time(lambda q, k, v, o, do, lse: att.flash_bwd_plain(
             t(q), t(k), t(v), t(o), t(do), lse), sets, 20)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_sets = [tuple(x.detach().requires_grad_() for x in qkv) + (t(st[4]).contiguous(),)
@@ -1420,8 +1542,8 @@ def _times_bwd(views, bhsd_sets, gen, smi):
     def fwd_bwd(q, k, v, do):
         torch.autograd.grad(sdpa(q, k, v), (q, k, v), do)
 
-    lib_fb_ms, lib_fb_call_ms, lib_kernels = _time(fwd_bwd, lib_sets, 100)
-    lib_f_ms, _, _ = _time(lambda q, k, v, do: sdpa(q, k, v), lib_sets, 100)
+    lib_fb_ms, lib_fb_call_ms, lib_kernels, _ = _time(fwd_bwd, lib_sets, 100)
+    lib_f_ms, _, _, _ = _time(lambda q, k, v, do: sdpa(q, k, v), lib_sets, 100)
     library_ms = lib_fb_ms - lib_f_ms
 
     n = b * s * h * d * 2        # bytes of one [B, S, H, Dh] bf16 operand

@@ -177,6 +177,14 @@ def flash_fwd(q, k, v, causal=False, scale=None, with_lse=False, layout="bhsd"):
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd runs on CPU or CUDA tensors, got {q.device}")
     _check_cuda_operands("flash_fwd", q, k, v, bshd)
+    if q.dtype != torch.float32:
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            n, st = (x.shape[1], x.stride(1)) if bshd else (x.shape[2], x.stride(2))
+            if n > 1 and st == 0:
+                raise ValueError(
+                    f"flash_fwd: {name} repeats one row along the sequence (stride 0); the "
+                    f"16-bit kernel reads rows in TMA boxes, which cannot repeat a row: "
+                    f"pass {name}.contiguous()")
     b, d = q.shape[0], q.shape[3]
     h, sq = (q.shape[2], q.shape[1]) if bshd else (q.shape[1], q.shape[2])
     sk = k.shape[1] if bshd else k.shape[2]

@@ -174,19 +174,89 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+# name, B, H, Sq, Sk, Dh, dtype, causal, layout ("qkv": the [B, S, 3, H, Dh]
+# projection view).  Beside the path's own shapes, the 16-bit kernel's
+# persistent schedule: more 128-row work items than the grid holds, a single
+# item, fewer rows than a consumer warpgroup's 64, many K/V ring stages with
+# a key tail, and each head dim's swizzle.
+CARD_CASES = [
+    ("qkv_s200", 2, 4, 200, 200, 64, torch.bfloat16, False, "qkv"),
+    ("qkv_s200_causal", 2, 4, 200, 200, 64, torch.bfloat16, True, "qkv"),
+    ("items_over_grid", 67, 12, 128, 128, 64, torch.bfloat16, False, "bhsd"),
+    ("single_item", 1, 1, 128, 128, 64, torch.bfloat16, False, "bhsd"),
+    ("sq40", 4, 12, 40, 40, 64, torch.bfloat16, False, "bhsd"),
+    ("sk1000_causal", 2, 4, 1000, 1000, 64, torch.bfloat16, True, "bhsd"),
+    ("seq512", 8, 12, 512, 512, 64, torch.bfloat16, False, "qkv"),
+    ("cross_sq77_sk200", 4, 4, 77, 200, 64, torch.bfloat16, False, "bhsd"),
+    ("fp16_dh16", 2, 4, 128, 128, 16, torch.float16, False, "bhsd"),
+    ("dh32", 2, 4, 128, 128, 32, torch.bfloat16, False, "bhsd"),
+    ("dh128_causal", 2, 4, 200, 200, 128, torch.bfloat16, True, "bhsd"),
+]
+
+
+def _card_inputs(device, b, h, sq, sk, d, dtype, layout):
+    gen = torch.Generator(device=device).manual_seed(0)
+    if layout == "qkv":
+        x = torch.randn(b, sq, 3, h, d, generator=gen, device=device).to(dtype)
+        return x[:, :, 0], x[:, :, 1], x[:, :, 2], "bshd"
+    q = torch.randn(b, h, sq, d, generator=gen, device=device).to(dtype)
+    k, v = (torch.randn(b, h, sk, d, generator=gen, device=device).to(dtype) for _ in range(2))
+    return q, k, v, "bhsd"
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("causal", [False, True])
-def test_kernel_matches_plain_on_card(cuda_device, causal):
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    x = torch.randn(2, 200, 3, 4, 64, generator=gen, device=cuda_device).to(torch.bfloat16)
-    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+@pytest.mark.parametrize("name,b,h,sq,sk,d,dtype,causal,layout", CARD_CASES,
+                         ids=[c[0] for c in CARD_CASES])
+def test_kernel_matches_plain_on_card(cuda_device, name, b, h, sq, sk, d, dtype, causal, layout):
+    q, k, v, layout = _card_inputs(cuda_device, b, h, sq, sk, d, dtype, layout)
     before = tatt.flash_fwd.launches
-    o, lse = tatt.flash_fwd(q, k, v, causal=causal, with_lse=True, layout="bshd")
+    o, lse = tatt.flash_fwd(q, k, v, causal=causal, with_lse=True, layout=layout)
     assert tatt.flash_fwd.launches == before + 1
-    t = lambda a: a.transpose(1, 2)  # noqa: E731
+    t = (lambda a: a.transpose(1, 2)) if layout == "bshd" else (lambda a: a)
     o_ref, lse_ref = tatt.flash_fwd_plain(t(q), t(k), t(v), causal, with_lse=True)
     assert (t(o).float() - o_ref.float()).abs().max().item() <= BF16_KERNEL_TOL
     assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
+# A scale other than 1/sqrt(Dh), negative and zero too (the row max must be
+# that of the scaled scores, masked keys must stay at -inf), over a causal
+# tail; and k/v expanded over the batch or the heads (stride 0).
+OPTION_CASES = [("scale_0.3", 0.3, None), ("scale_-0.3", -0.3, None), ("scale_0", 0.0, None),
+                ("kv_expanded_over_batch", None, "b"), ("kv_expanded_over_heads", None, "h")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,scale,expand", OPTION_CASES, ids=[c[0] for c in OPTION_CASES])
+def test_kernel_options_on_card(cuda_device, name, scale, expand):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    b, h, s, d = 2, 4, 200, 64
+    kv = (1 if expand == "b" else b, 1 if expand == "h" else h, s, d)
+    q = torch.randn(b, h, s, d, generator=gen, device=cuda_device).to(torch.bfloat16)
+    k, v = (torch.randn(kv, generator=gen, device=cuda_device).to(torch.bfloat16)
+            .expand(b, h, s, d) for _ in range(2))
+    o, lse = tatt.flash_fwd(q, k, v, causal=True, scale=scale, with_lse=True)
+    o_ref, lse_ref = tatt.flash_fwd_plain(q, k, v, True, scale, with_lse=True)
+    assert (o.float() - o_ref.float()).abs().max().item() <= BF16_KERNEL_TOL
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_repeated_sequence_on_card(cuda_device):
+    """TMA reads rows in boxes and cannot repeat one: a k whose sequence
+    stride is 0 is refused before any launch."""
+    q = torch.randn(2, 4, 128, 64, device=cuda_device).to(torch.bfloat16)
+    before = tatt.flash_fwd.launches
+    with pytest.raises(ValueError, match="stride 0"):
+        tatt.flash_fwd(q, q[:, :, :1].expand(q.shape), q)
+    assert tatt.flash_fwd.launches == before
+
+
+@pytest.mark.cuda
+def test_kernel_is_deterministic_on_card(cuda_device):
+    """A static schedule with no atomics: two runs give the same bits."""
+    q, k, v, layout = _card_inputs(cuda_device, 67, 12, 128, 128, 64, torch.bfloat16, "qkv")
+    first, second = (tatt.flash_fwd(q, k, v, with_lse=True, layout=layout) for _ in range(2))
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 @pytest.mark.cuda
