@@ -14,11 +14,13 @@ Phases, each printing JSON lines; no phase's failure is caught:
    spill fails the phase;
 3. kernel_vs_plain, kernel_vs_plain_bwd, kernel_vs_plain_bn,
    kernel_vs_plain_rtc: each kernel against its plain PyTorch version on
-   the card, at the main paths' shapes and the edge cases (for flash_fwd
-   also its persistent schedule's), each against a stated bound (and
-   flash_fwd and bn_stats against themselves: two runs must be
-   bit-identical), and the rtc launcher's refusals; any miss exits non-zero
-   after the phase;
+   the card, at the main paths' shapes and the edge cases (for the
+   attention kernels also their persistent schedules' and the operand
+   domain the wrappers take: scales, expanded k/v, a sequence of stride 0,
+   padded head dims), each against a stated bound (and flash_fwd,
+   flash_bwd and bn_stats against themselves: two runs must be
+   bit-identical), and the refusals of the attention wrappers and the rtc
+   launcher; any miss exits non-zero after the phase;
 4. slice: BERT-base (12 layers, 768 units, vocab 30522, bf16, random
    weights from a seed) answers inference requests through
    ``net(token_ids, token_types, masked_positions)``; the kernels' launch
@@ -44,8 +46,8 @@ Phases, each printing JSON lines; no phase's failure is caught:
    and AMP gradients against the port's fp32 gradients on the CPU, per
    parameter, beside the CPU's own sensitivity;
 7. times: each kernel, its plain version and the library call at the main
-   paths' shapes (flash_fwd also at the S=512 request), the kernel's
-   bound; BERT forward and training-step time,
+   paths' shapes (the attention kernels also at the S=512 request, and by
+   CUDA-graph replay), the kernel's bound; BERT forward and training-step time,
    the ResNet-50 step's time, img/s, peak memory and its split; the
    BERT step with the user's GELU beside the built-in one; a
    torch.profiler breakdown of device time by kernel family for one BERT
@@ -65,6 +67,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -516,9 +519,11 @@ def _case_inputs(case, gen, device):
     if case.get("layout") == "qkv":  # the [B, S, 3, H, Dh] projection output
         x = _randn((b, sq, 3, h, d), dtype, gen, device)
         return x[:, :, 0], x[:, :, 1], x[:, :, 2], "bshd"
-    # k and v of one batch entry or one head, expanded (stride 0) over the rest
-    kv = (1 if case.get("expand") == "b" else b, 1 if case.get("expand") == "h" else h, sk, d)
-    return (_randn((b, h, sq, d), dtype, gen, device),
+    # k and v of one batch entry or one head expanded (stride 0) over the
+    # rest; or q of one row expanded over the sequence
+    expand = case.get("expand")
+    kv = (1 if expand == "b" else b, 1 if expand == "h" else h, sk, d)
+    return (_randn((b, h, 1 if expand == "s" else sq, d), dtype, gen, device).expand(b, h, sq, d),
             _randn(kv, dtype, gen, device).expand(b, h, sk, d),
             _randn(kv, dtype, gen, device).expand(b, h, sk, d), "bhsd")
 
@@ -579,12 +584,23 @@ OPERAND_CASES = [
     dict(MAIN, name="kv_expanded_over_heads_causal", b=4, sq=200, sk=200, causal=True,
          expand="h"),
 ]
+# The operand domain the wrappers take beyond the kernels' own: q repeating
+# one row along the sequence (stride 0; the wrapper hands it to the 16-bit
+# kernels contiguous), and head dims with no kernel instance (zero-padded
+# to the next one, sliced back).  (Repeated keys would make every visible
+# key score alike, and dq = scale·Σ ds·k exactly 0: a bound in ulps of the
+# largest |dq| says nothing there.)
+DOMAIN_CASES = [
+    dict(MAIN, name="q_seq_stride0_causal", b=4, sq=200, sk=200, causal=True, expand="s"),
+    dict(MAIN, name="dh48", b=4, h=4, sq=200, sk=200, d=48),
+    dict(MAIN, name="dh80_causal", b=4, h=4, sq=200, sk=200, d=80, causal=True),
+]
 
 
 def phase_kernel_vs_plain(device):
     gen = torch.Generator(device=device).manual_seed(1234)
     misses, main_err = [], None
-    for case in KERNEL_CASES + SCHEDULE_CASES + OPERAND_CASES:
+    for case in KERNEL_CASES + SCHEDULE_CASES + OPERAND_CASES + DOMAIN_CASES:
         q, k, v, layout = _case_inputs(case, gen, device)
         want_lse, scale = case.get("lse", False), case.get("scale")
         with torch.no_grad():
@@ -623,14 +639,14 @@ def phase_kernel_vs_plain(device):
     emit("kernel_vs_plain", case="main_repeat_bitwise", identical=same, ok=same)
     if not same:
         misses.append("main_repeat_bitwise")
-    # A sequence of stride 0 (one row repeated) cannot be read by TMA boxes
-    # of rows: the wrapper refuses it before any launch.
-    k_rep = k[:, :, :1].expand(k.shape)  # [B, H, S, Dh]: S repeats one key
-    refused = _raises(lambda: att.flash_fwd(q, k_rep, v, layout=layout), ValueError,
-                      "stride 0")
-    emit("kernel_vs_plain", case="seq_stride0_refused", ok=refused)
+    # A head dim above the widest instance is refused before any launch.
+    wide = torch.zeros(1, 1, 8, 256, dtype=torch.bfloat16, device=device)
+    before = att.flash_fwd.launches
+    refused = (_raises(lambda: att.flash_fwd(wide, wide, wide), ValueError, "head dim")
+               and att.flash_fwd.launches == before)
+    emit("kernel_vs_plain", case="dh256_refused", ok=refused)
     if not refused:
-        misses.append("seq_stride0_refused")
+        misses.append("dh256_refused")
     if misses:
         emit("kernel_vs_plain", failed=misses)
         sys.exit(1)
@@ -644,8 +660,9 @@ def _bwd_bound(ref, dtype, ulps=BWD_ULPS):
     return ref_max, ulps * ulp(ref_max, dtype)
 
 
-BWD_CASES = KERNEL_CASES + [dict(MAIN, name="dqkv_buffer", layout="qkv", dqkv=True),
-                            dict(MAIN, name="autograd_fused_qkv", layout="qkv", e2e=True)]
+BWD_CASES = (KERNEL_CASES + SCHEDULE_CASES + OPERAND_CASES + DOMAIN_CASES
+             + [dict(MAIN, name="dqkv_buffer", layout="qkv", dqkv=True),
+                dict(MAIN, name="autograd_fused_qkv", layout="qkv", e2e=True)])
 
 
 def _bwd_case(case, gen, device):
@@ -668,16 +685,17 @@ def _bwd_case(case, gen, device):
         ref = att.flash_bwd_plain(t(q), t(k), t(v), o_ref, t(do), lse_ref, causal)
         ulps = E2E_ULPS
     else:
+        scale = case.get("scale")
         with torch.no_grad():
-            o, lse = att.flash_fwd(q, k, v, causal, None, True, layout)
+            o, lse = att.flash_fwd(q, k, v, causal, scale, True, layout)
             out = None
             if case.get("dqkv"):
                 dqkv = torch.empty(b, sq, 3, h, d, dtype=dtype, device=device)
                 out = (dqkv[:, :, 0], dqkv[:, :, 1], dqkv[:, :, 2])
-            got = att.flash_bwd(q, k, v, o, do, lse, causal, None, layout, out=out)
+            got = att.flash_bwd(q, k, v, o, do, lse, causal, scale, layout, out=out)
             if out is not None and any(g.data_ptr() != w.data_ptr() for g, w in zip(got, out)):
                 raise AssertionError("flash_bwd did not write into the given buffers")
-            ref = att.flash_bwd_plain(t(q), t(k), t(v), t(o), t(do), lse, causal)
+            ref = att.flash_bwd_plain(t(q), t(k), t(v), t(o), t(do), lse, causal, scale)
         ulps = BWD_ULPS
     torch.cuda.synchronize()
     res = {}
@@ -699,6 +717,7 @@ def phase_kernel_vs_plain_bwd(device):
              dtype=str(case["dtype"]).replace("torch.", ""),
              shape=dict(b=case["b"], h=case["h"], sq=case["sq"], sk=case["sk"], d=case["d"]),
              causal=case["causal"],
+             **{key: case[key] for key in ("scale", "expand") if key in case},
              **{f"{n}_max_abs_err": e for n, (e, _, _) in res.items()},
              **{f"{n}_ref_max_abs": m for n, (_, _, m) in res.items()},
              **{f"{n}_bound": bound for n, (_, bound, _) in res.items()}, ok=ok)
@@ -707,6 +726,36 @@ def phase_kernel_vs_plain_bwd(device):
         if case["name"] == "dqkv_buffer":
             main_errs = {"flash_bwd_dq": res["dq"][0],
                          "flash_bwd_dkv": max(res["dk"][0], res["dv"][0])}
+    # The schedule is static (no atomics, fixed item order): two runs of the
+    # main case give the same bits, dq, dk and dv.
+    q, k, v, layout = _case_inputs(dict(MAIN, layout="qkv"), gen, device)
+    do = _randn(q.shape, MAIN["dtype"], gen, device)
+    with torch.no_grad():
+        o, lse = att.flash_fwd(q, k, v, False, None, True, layout)
+        runs = [att.flash_bwd(q, k, v, o, do, lse, False, None, layout) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    emit("kernel_vs_plain_bwd", case="main_repeat_bitwise", identical=same, ok=same)
+    if not same:
+        misses.append("main_repeat_bitwise")
+    # A thread that has made no CUDA call yet (as autograd's backward thread
+    # or a server's worker) gets the same bits from both kernels.
+    got = {}
+
+    def fresh_thread():
+        with torch.no_grad():
+            got["fwd"] = att.flash_fwd(q, k, v, False, None, True, layout)
+            got["bwd"] = att.flash_bwd(q, k, v, o, do, lse, False, None, layout)
+        torch.cuda.synchronize()
+
+    worker = threading.Thread(target=fresh_thread)
+    worker.start()
+    worker.join()
+    same = ("bwd" in got and all(torch.equal(a, b) for a, b in zip(got["bwd"], runs[0]))
+            and torch.equal(got["fwd"][0], o) and torch.equal(got["fwd"][1], lse))
+    emit("kernel_vs_plain_bwd", case="fresh_thread_bitwise", identical=same, ok=same)
+    if not same:
+        misses.append("fresh_thread_bitwise")
     if misses:
         emit("kernel_vs_plain_bwd", failed=misses)
         sys.exit(1)
@@ -1356,9 +1405,10 @@ def _time(fn, arg_sets, iters, uniform=False):
     between CUDA events around the calls, which also holds host time where
     the host issues calls slower than the card runs them; kernels_us splits
     device time by kernel name, and records counts each name's records in
-    the trace.  With ``uniform`` every call launches the same kernels, so
-    each count must be a multiple of ``iters``: a trace that lost records is
-    taken again, at most three times in all, and then the timing fails."""
+    the trace.  A trace with no device record is taken again, and with
+    ``uniform`` (every call launches the same kernels) so is one whose
+    counts are not multiples of ``iters``: at most three times in all, and
+    then the timing fails."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(3):
@@ -1382,11 +1432,11 @@ def _time(fn, arg_sets, iters, uniform=False):
                 name = ev.name[:90]
                 kernels[name] = kernels.get(name, 0.0) + ev.time_range.elapsed_us() / iters
                 records[name] = records.get(name, 0) + 1
-        if not uniform or all(n % iters == 0 for n in records.values()):
+        if records and (not uniform or all(n % iters == 0 for n in records.values())):
             break
     else:
-        raise RuntimeError(f"_time: the trace of {iters} identical calls lost records in "
-                           f"three tries: {records}")
+        raise RuntimeError(f"_time: the trace of {iters} calls lost records in three "
+                           f"tries: {records}")
     return sum(kernels.values()) * 1e-3, call_ms, kernels, records
 
 
@@ -1515,54 +1565,94 @@ def _times_fwd(views, bhsd_sets, smi):
     return row
 
 
-def _times_bwd(views, bhsd_sets, gen, smi):
-    """Both backward kernels at the main path's shape.  The plain version
+def _bwd_row(b, s, gen, smi):
+    """Both backward kernels at [B, S, 12, 64] bf16 (the [B, S, 3, H, Dh]
+    views of the main path), each alone and as the one ``flash_bwd`` call
+    the path makes, beside the plain version and SDPA's backward in the
+    same run; emits the rows and returns {kernel: row}.  The plain version
     and the library's backward compute dq, dk and dv together, so both
     rows carry the same; the library's is SDPA's, the device time of SDPA
-    forward+backward less that of SDPA forward, timed only."""
-    b, s, h, d = MAIN["b"], MAIN["sq"], MAIN["h"], MAIN["d"]
-    device = views[0][0].device
+    forward+backward less that of SDPA forward, timed only.  ``graph_ms``
+    times each by CUDA-graph replay as well; ``call_ms`` is the CUDA-event
+    time per call, which holds the wrapper's host cost where the host
+    issues calls slower than the card runs them, beside that of the
+    parent's two calls (``flash_bwd_dq`` then ``flash_bwd_dkv``)."""
+    h, d = MAIN["h"], MAIN["d"]
+    device = torch.device("cuda", 0)
     t = lambda x: x.transpose(1, 2)  # noqa: E731
     sets = []
     with torch.no_grad():
-        for q, k, v in views:
+        for _ in range(4):  # > 200 MB: beyond the 50 MB L2
+            x = _randn((b, s, 3, h, d), torch.bfloat16, gen, device)
+            q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
             do = _randn((b, s, h, d), torch.bfloat16, gen, device)
             o, lse = att.flash_fwd(q, k, v, with_lse=True, layout="bshd")
             sets.append((q, k, v, o, do, lse))
-        dq_ms, dq_call_ms, _, _ = _time(lambda *a: att.flash_bwd_dq(*a, layout="bshd"), sets,
-                                        200)
-        dkv_ms, dkv_call_ms, _, _ = _time(lambda *a: att.flash_bwd_dkv(*a, layout="bshd"),
-                                          sets, 200)
+        dq = lambda *a: att.flash_bwd_dq(*a, layout="bshd")  # noqa: E731
+        dkv = lambda *a: att.flash_bwd_dkv(*a, layout="bshd")  # noqa: E731
+        pair = lambda *a: att.flash_bwd(*a, layout="bshd")  # noqa: E731
+
+        def two_calls(*a):
+            dq(*a)
+            dkv(*a)
+
+        dq_ms, dq_call_ms, _, dq_records = _time(dq, sets, 200, uniform=True)
+        dkv_ms, dkv_call_ms, _, dkv_records = _time(dkv, sets, 200, uniform=True)
+        pair_ms, pair_call_ms, pair_kernels, _ = _time(pair, sets, 200, uniform=True)
+        two_call_ms = _time(two_calls, sets, 200, uniform=True)[1]
+        graph = {name: _graph_ms(fn, sets) for name, fn in
+                 (("flash_bwd_dq", dq), ("flash_bwd_dkv", dkv), ("pair", pair))}
         plain_ms, _, _, _ = _time(lambda q, k, v, o, do, lse: att.flash_bwd_plain(
             t(q), t(k), t(v), t(o), t(do), lse), sets, 20)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_sets = [tuple(x.detach().requires_grad_() for x in qkv) + (t(st[4]).contiguous(),)
-                for qkv, st in zip(bhsd_sets, sets)]
+    lib_sets = [tuple(t(x).contiguous().requires_grad_() for x in st[:3]) + (t(st[4]).contiguous(),)
+                for st in sets]
 
     def fwd_bwd(q, k, v, do):
         torch.autograd.grad(sdpa(q, k, v), (q, k, v), do)
 
+    def fwd(q, k, v, do):  # the training forward, as inside fwd_bwd
+        sdpa(q, k, v)
+
     lib_fb_ms, lib_fb_call_ms, lib_kernels, _ = _time(fwd_bwd, lib_sets, 100)
-    lib_f_ms, _, _, _ = _time(lambda q, k, v, do: sdpa(q, k, v), lib_sets, 100)
+    lib_f_ms, _, _, _ = _time(fwd, lib_sets, 100)
     library_ms = lib_fb_ms - lib_f_ms
+    library_graph_ms = _graph_ms(fwd_bwd, lib_sets) - _graph_ms(fwd, lib_sets)
 
     n = b * s * h * d * 2        # bytes of one [B, S, H, Dh] bf16 operand
     lse_bytes = b * h * s * 4
+    shape = dict(b=b, s=s, h=h, d=d, dtype="bfloat16")
     out = {}
-    for name, ms, call_ms, nbytes, flops in (
-            ("flash_bwd_dq", dq_ms, dq_call_ms, 6 * n + lse_bytes, 6 * b * h * s * s * d),
-            ("flash_bwd_dkv", dkv_ms, dkv_call_ms, 7 * n + lse_bytes, 8 * b * h * s * s * d)):
+    for name, ms, call_ms, records, nbytes, flops in (
+            ("flash_bwd_dq", dq_ms, dq_call_ms, dq_records, 6 * n + lse_bytes,
+             6 * b * h * s * s * d),
+            ("flash_bwd_dkv", dkv_ms, dkv_call_ms, dkv_records, 7 * n + lse_bytes,
+             8 * b * h * s * s * d)):
         bound_ms, bound_by = _bound(nbytes, flops)
-        emit("times", kernel=name, shape=dict(b=b, s=s, h=h, d=d, dtype="bfloat16"), ms=ms,
-             call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
-             library="SDPA backward (fwd+bwd - fwd)", library_fwd_bwd_ms=lib_fb_ms,
-             library_fwd_ms=lib_f_ms, library_fwd_bwd_call_ms=lib_fb_call_ms,
-             library_kernels_us=lib_kernels, bound_ms=bound_ms, bound_by=bound_by,
-             bytes=nbytes, flops=flops, share_of_bound=bound_ms / ms,
-             achieved_bytes_per_s=nbytes / (ms * 1e-3), card=smi)
+        emit("times", kernel=name, shape=shape, ms=ms, call_ms=call_ms,
+             graph_ms=graph[name], records=records, plain_ms=plain_ms, library_ms=library_ms,
+             library="SDPA backward (fwd+bwd - fwd)", library_graph_ms=library_graph_ms,
+             library_fwd_bwd_ms=lib_fb_ms, library_fwd_ms=lib_f_ms,
+             library_fwd_bwd_call_ms=lib_fb_call_ms, library_kernels_us=lib_kernels,
+             bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
+             share_of_bound=bound_ms / ms, achieved_bytes_per_s=nbytes / (ms * 1e-3), card=smi)
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                         bound_by=bound_by)
+                         bound_by=bound_by, graph_ms=graph[name], call_ms=call_ms)
+    pair_bound = out["flash_bwd_dq"]["bound_ms"] + out["flash_bwd_dkv"]["bound_ms"]
+    emit("times", kernel="flash_bwd (dq and dk/dv passes, one call)", shape=shape, ms=pair_ms,
+         kernels_us=pair_kernels, call_ms=pair_call_ms, parent_two_calls_call_ms=two_call_ms,
+         graph_ms=graph["pair"], library_ms=library_ms, library_graph_ms=library_graph_ms,
+         vs_library=pair_ms / library_ms, graph_vs_library=graph["pair"] / library_graph_ms,
+         bound_ms=pair_bound, share_of_bound=pair_bound / pair_ms, card=smi)
     return out
+
+
+def _times_bwd(gen, smi):
+    """The backward rows at the main path's shape (B=64, S=128), returned,
+    and at the S=512 request shape (B=8)."""
+    rows = _bwd_row(MAIN["b"], MAIN["sq"], gen, smi)
+    _bwd_row(8, 512, gen, smi)
+    return rows
 
 
 def _times_bn(shapes, smi):
@@ -1783,8 +1873,8 @@ def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, smi):
 
     before = kernel_counts()
     rows = {"flash_fwd": _times_fwd(views, bhsd_sets, smi)}
-    rows.update(_times_bwd(views, bhsd_sets, gen, smi))
     del qkv_sets, views, bhsd_sets
+    rows.update(_times_bwd(gen, smi))
     rows.update(_times_bn(bn_shapes, smi))
     rows.update(_times_gelu(smi))
 
@@ -1862,13 +1952,17 @@ def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, smi):
                    "call_ms": row["call_ms"], "host_ms": row["host_ms"],
                    "compiled_by": "incubator_mxnet_torch/rtc.py (RTC_SOURCE, nvcc cubin, "
                                   "CUDA driver launch)"}
+        headers = ([str(h.relative_to(Path(__file__).resolve().parent))
+                    for h in _cuda.includes(Path(__file__).resolve().parent / src)]
+                   if src.endswith(".cu") else [])
         kernels.append({
-            "name": name, "route": "cuda", "source": src,
+            "name": name, "route": "cuda", "source": src, "headers": headers,
             "replaces": replaces, "launches": counts[path][name],
             "launches_by_path": {p: c[name] for p, c in counts.items()},
             "max_abs_err": errs[name], "max_err": errs[name], "ms": row["ms"],
             "kernel_ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"], **per})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            **{key: row[key] for key in ("graph_ms", "call_ms") if key in row}, **per})
     print(json.dumps({"kernels": kernels}), flush=True)
 
 

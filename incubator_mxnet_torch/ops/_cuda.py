@@ -2,8 +2,9 @@
 
 Each kernel is one source under ``ops/csrc/`` with a plain C entry point.
 It is compiled by ``nvcc`` for ``sm_90a`` into a shared library under the
-checkout's ``build/kernels/`` at first use, keyed by a hash of the source
-and flags, and loaded with ``ctypes``.  Nothing here runs at import time,
+checkout's ``build/kernels/`` at first use, keyed by a hash of everything
+that goes into the compile (the source, every header it includes from
+``csrc/``, the flags and ``nvcc --version``), and loaded with ``ctypes``.  Nothing here runs at import time,
 so the package imports on a machine without ``nvcc``.
 
 ``build_cubin`` compiles a user's kernel source handed over at runtime
@@ -16,13 +17,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
 
-__all__ = ["build", "load", "build_cubin"]
+__all__ = ["build", "load", "build_cubin", "includes", "source_digest"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -33,6 +35,7 @@ CUBIN_FLAGS = ("-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17
                "-Xptxas", "-v")
 
 _lock = threading.Lock()
+_version_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _nvcc_versions: dict[str, str] = {}
 
@@ -46,17 +49,46 @@ def _nvcc():
     return path
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def includes(src):
+    """The headers that ``src`` includes with ``#include "..."``, found
+    beside it and followed through their own includes, in first-seen
+    order."""
+    found, todo = [], [Path(src)]
+    while todo:
+        here = todo.pop(0)
+        for name in _INCLUDE.findall(here.read_text()):
+            path = (here.parent / name).resolve()
+            if path.exists() and path not in found:
+                found.append(path)
+                todo.append(path)
+    return found
+
+
+def source_digest(src, flags, compiler_version):
+    """Key of a build of ``src``: its bytes and those of every header it
+    includes from its directory, the flags and the compiler's version
+    string."""
+    h = hashlib.sha256()
+    for path in (Path(src), *includes(src)):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(flags).encode() + b"\0" + compiler_version.encode())
+    return h.hexdigest()[:16]
+
+
 def build(name):
-    """Compile ``csrc/<name>.cu`` unless a library of the same source and
-    flags exists.  Returns ``(path, ptxas_log, seconds)``; ``seconds`` is 0.0
-    and the log the saved one when nothing was compiled."""
+    """Compile ``csrc/<name>.cu`` unless a library of the same source,
+    headers, flags and compiler exists.  Returns ``(path, ptxas_log,
+    seconds)``; ``seconds`` is 0.0 and the log the saved one when nothing
+    was compiled."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}-{digest}.so"
+    nvcc = _nvcc()
+    lib = BUILD_DIR / f"lib{name}-{source_digest(src, NVCC_FLAGS, _nvcc_version(nvcc))}.so"
     log = lib.with_suffix(".log")
     if lib.exists():
         return lib, log.read_text() if log.exists() else "", 0.0
-    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
@@ -81,7 +113,7 @@ def load(name):
 
 
 def _nvcc_version(nvcc):
-    with _lock:
+    with _version_lock:
         if nvcc not in _nvcc_versions:
             _nvcc_versions[nvcc] = subprocess.run([nvcc, "--version"], capture_output=True,
                                                   text=True, check=True).stdout

@@ -18,9 +18,19 @@ o lands in ``[B, S, H, Dh]`` for the output projection, and the backward
 writes dq, dk and dv straight into the three slices of one
 ``[B, S, 3, H, Dh]`` gradient.
 
+Operands: the wrappers take what the JAX functions take, up to a head
+dim of 128.  A head dim the kernels have no instance for (48, 80, ...) is
+zero-padded to the next one they have (zero columns add nothing to q·kᵀ,
+to rowsum(do∘o) or to any product), with the scale of the true head dim,
+and the outputs are sliced back.  A 16-bit operand that repeats one row
+along its sequence (stride 0) goes to the kernels contiguous, since TMA
+reads rows in boxes.  A head dim above 128 raises.
+
 Gradients: one ``torch.autograd.Function`` (``_FlashAttention``) holds
 the forward, which saves o and the per-row log-sum-exp when an input
-requires a gradient, and the backward, ``flash_bwd``.
+requires a gradient, and the backward, ``flash_bwd``: one call of the
+C entry point, which runs the dq and the dk/dv kernel on one set of
+tensor maps.
 """
 from __future__ import annotations
 
@@ -98,12 +108,13 @@ def _strides_bhs(x, bshd):
     return (st[0], st[2], st[1]) if bshd else (st[0], st[1], st[2])
 
 
-def _check_cuda_operands(fn, q, k, v, bshd, **like_q):
+def _check_cuda_operands(fn, q, k, v, bshd, like_k=(), **like_q):
     """What the kernels take: 4-D operands on q's device, of q's dtype (one
     of three), head dim 16/32/64/128, unit stride on Dh, 16-byte aligned
-    rows; ``like_q`` names further operands of q's shape (o, do, dq...)."""
+    rows; ``like_q`` names further operands of q's shape (o, do, dq...),
+    ``like_k`` (name, tensor) pairs of k's shape (dk, dv)."""
     dev = q.device
-    for name, x in (("q", q), ("k", k), ("v", v), *like_q.items()):
+    for name, x in (("q", q), ("k", k), ("v", v), *like_q.items(), *like_k):
         if x.device != dev:
             raise ValueError(f"{fn}: {name} is on {x.device}, q on {dev}")
         if x.dtype != q.dtype:
@@ -135,6 +146,51 @@ def _check_cuda_operands(fn, q, k, v, bshd, **like_q):
     for name, x in like_q.items():
         if x.shape != q.shape:
             raise ValueError(f"{fn}: {name} {tuple(x.shape)} differs from q {tuple(q.shape)}")
+    for name, x in like_k:
+        if x.shape != k.shape:
+            raise ValueError(f"{fn}: {name} {tuple(x.shape)} differs from k {tuple(k.shape)}")
+
+
+def _kernel_width(fn, q, k, v):
+    """The head dim the kernels run for the caller's: the caller's own when
+    the kernels have an instance for it, else the next one they have (the
+    operands are zero-padded to it).  Raises for unequal head dims and for
+    one above the widest instance."""
+    d = q.shape[-1]
+    if k.shape[-1] != d or v.shape[-1] != d:
+        raise ValueError(f"{fn}: head dim must be equal for q, k, v; got {d}, "
+                         f"{k.shape[-1]}, {v.shape[-1]}")
+    width = next((w for w in _HEAD_DIMS if w >= d), None)
+    if width is None:
+        raise ValueError(f"{fn}: head dim {d} is above {_HEAD_DIMS[-1]}, the widest the "
+                         f"kernels take")
+    return width
+
+
+def _pad_head(x, width):
+    """``x`` zero-padded along its last (head) dim to ``width`` columns; x
+    itself when it has them."""
+    return x if x.shape[-1] == width else torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+
+def _rows_readable(x, bshd):
+    """``x`` as the 16-bit kernels read it: TMA reads rows in boxes and
+    cannot repeat one, so an operand whose sequence stride is 0 (one row
+    expanded over S > 1) comes back contiguous; any other comes back as
+    it is."""
+    if x.dim() != 4:
+        return x
+    n, st = (x.shape[1], x.stride(1)) if bshd else (x.shape[2], x.stride(2))
+    return x.contiguous() if n > 1 and st == 0 else x
+
+
+def _kernel_operands(width, bshd, *xs):
+    """The operands as the kernels take them: padded to ``width`` and, for
+    the 16-bit kernels, with no repeated rows."""
+    xs = [_pad_head(x, width) for x in xs]
+    if xs[0].dtype != torch.float32:
+        xs = [_rows_readable(x, bshd) for x in xs]
+    return xs
 
 
 def _entry():
@@ -162,7 +218,9 @@ def flash_fwd(q, k, v, causal=False, scale=None, with_lse=False, layout="bhsd"):
     Returns ``(o, lse)`` with lse ``[B·H, Sq]`` fp32, or None.
 
     A CPU tensor takes :func:`flash_fwd_plain`; a CUDA tensor launches the
-    kernel (``flash_fwd.launches`` counts the launches) or raises."""
+    kernel (``flash_fwd.launches`` counts the launches) or raises.  On the
+    card a head dim the kernel has no instance for comes back as a slice
+    of the padded o."""
     if layout not in ("bhsd", "bshd"):
         raise ValueError(f"layout must be 'bhsd' or 'bshd', got {layout!r}")
     bshd = layout == "bshd"
@@ -176,15 +234,9 @@ def flash_fwd(q, k, v, causal=False, scale=None, with_lse=False, layout="bhsd"):
         return o.transpose(1, 2), lse
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd runs on CPU or CUDA tensors, got {q.device}")
+    d_caller = q.shape[-1]
+    q, k, v = _kernel_operands(_kernel_width("flash_fwd", q, k, v), bshd, q, k, v)
     _check_cuda_operands("flash_fwd", q, k, v, bshd)
-    if q.dtype != torch.float32:
-        for name, x in (("q", q), ("k", k), ("v", v)):
-            n, st = (x.shape[1], x.stride(1)) if bshd else (x.shape[2], x.stride(2))
-            if n > 1 and st == 0:
-                raise ValueError(
-                    f"flash_fwd: {name} repeats one row along the sequence (stride 0); the "
-                    f"16-bit kernel reads rows in TMA boxes, which cannot repeat a row: "
-                    f"pass {name}.contiguous()")
     b, d = q.shape[0], q.shape[3]
     h, sq = (q.shape[2], q.shape[1]) if bshd else (q.shape[1], q.shape[2])
     sk = k.shape[1] if bshd else k.shape[2]
@@ -200,7 +252,7 @@ def flash_fwd(q, k, v, causal=False, scale=None, with_lse=False, layout="bhsd"):
     if rc != 0:
         raise RuntimeError(f"flash_fwd launch failed with CUDA error {rc}")
     flash_fwd.launches += 1
-    return o, lse
+    return o[..., :d_caller] if d != d_caller else o, lse
 
 
 flash_fwd.launches = 0
@@ -208,12 +260,19 @@ flash_fwd.launches = 0
 
 def _bwd_launch(q, k, v, o, do, lse, dq, dk, dv, causal, scale, bshd):
     """One ctypes call of ``mx_flash_bwd``: the dq pass when ``dq`` is
-    given, the dk/dv pass when ``dk``/``dv`` are."""
-    _check_cuda_operands("flash_bwd", q, k, v, bshd, o=o, do=do,
-                         **({} if dq is None else {"dq": dq}))
-    if dk is not None:  # dk and dv: k's shape, dtype, device and stride rules
-        _check_cuda_operands("flash_bwd", k, k, v, bshd, dk=dk, dv=dv)
-    b, d = q.shape[0], q.shape[3]
+    given, the dk/dv pass when ``dk``/``dv`` are, both from one set of
+    tensor maps.  A padded head dim runs on padded buffers that are then
+    copied, sliced, into the given ones."""
+    d = q.shape[-1]
+    width = _kernel_width("flash_bwd", q, k, v)
+    q, k, v, o, do = _kernel_operands(width, bshd, q, k, v, o, do)
+    wanted = (dq, dk, dv)
+    if width != d:
+        dq, dk, dv = (None if g is None else _new_like(x) for g, x in zip(wanted, (q, k, v)))
+    _check_cuda_operands("flash_bwd", q, k, v, bshd,
+                         like_k=() if dk is None else (("dk", dk), ("dv", dv)),
+                         o=o, do=do, **({} if dq is None else {"dq": dq}))
+    b = q.shape[0]
     h, sq = (q.shape[2], q.shape[1]) if bshd else (q.shape[1], q.shape[2])
     sk = k.shape[1] if bshd else k.shape[2]
     if (lse.dtype != torch.float32 or lse.device != q.device
@@ -228,10 +287,14 @@ def _bwd_launch(q, k, v, o, do, lse, dq, dk, dv, causal, scale, bshd):
     with torch.cuda.device(q.device):
         rc = _bwd_entry()(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           o.data_ptr(), do.data_ptr(), lse.data_ptr(), ptr(dq), ptr(dk),
-                          ptr(dv), b, h, sq, sk, d, strides, float(scale),
+                          ptr(dv), b, h, sq, sk, width, strides, float(scale),
                           int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_bwd launch failed with CUDA error {rc}")
+    if width != d:
+        for dst, g in zip(wanted, (dq, dk, dv)):
+            if dst is not None:
+                dst.copy_(g[..., :d])
 
 
 def _bwd_args(q, layout, scale):
@@ -300,15 +363,18 @@ def flash_bwd(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd", out=
     ``[B, S, 3, H, Dh]`` gradient, say).
 
     A CPU tensor takes :func:`flash_bwd_plain` (once, for all three); a
-    CUDA tensor launches the two kernels, ``flash_bwd_dq`` then
-    ``flash_bwd_dkv``, or raises."""
+    CUDA tensor launches the two kernels, the dq pass then the dk/dv pass,
+    in one call (``flash_bwd_dq.launches`` and ``flash_bwd_dkv.launches``
+    each count one), or raises."""
     dq, dk, dv = out if out is not None else (None, None, None)
     bshd, scale = _bwd_args(q, layout, scale)
     if q.device.type == "cpu":
         grads = _bwd_plain(q, k, v, o, do, lse, causal, scale, bshd)
         return tuple(_into(dst, g) for dst, g in zip((dq, dk, dv), grads))
-    dq = flash_bwd_dq(q, k, v, o, do, lse, causal, scale, layout, dq=dq)
-    dk, dv = flash_bwd_dkv(q, k, v, o, do, lse, causal, scale, layout, dk=dk, dv=dv)
+    dq, dk, dv = (_new_like(x) if g is None else g for g, x in zip((dq, dk, dv), (q, k, v)))
+    _bwd_launch(q, k, v, o, do, lse, dq, dk, dv, causal, scale, bshd)
+    flash_bwd_dq.launches += 1
+    flash_bwd_dkv.launches += 1
     return dq, dk, dv
 
 

@@ -58,15 +58,11 @@
 // fp32 runs on the CUDA cores in full fp32 (flash_fwd_f32): a block of 4
 // warps per (batch*head, 64 query rows), K/V tiles staged synchronously.
 
-#include <cuda.h>  // CUtensorMap and its enums; the driver is reached at run time
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
-#include <atomic>
 #include <type_traits>
+
+#include "flash_tma.cuh"
 
 namespace {
 
@@ -83,16 +79,6 @@ struct Params {
   int causal;
 };
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // ---------------------------------------------------------------------------
 // 16-bit types: persistent, TMA-fed, warpgroup-MMA path
 // ---------------------------------------------------------------------------
@@ -105,16 +91,11 @@ constexpr int PRODUCER_REGS = 40;  // setmaxnreg: 40·128 + 232·256 <= 65536
 constexpr int CONSUMER_REGS = 232;
 
 template <int D>
-struct Tile {
-  static constexpr int BOX = D < 64 ? D : 64;  // columns of one TMA box
-  static constexpr int W = BOX * 2;            // bytes of a box row = swizzle span
-  static constexpr int PARTS = D / BOX;        // column boxes of a tile: 2 at Dh=128
-  static constexpr int PART = BN * W;          // bytes of one box of 128 rows
-  static constexpr int BYTES = BN * D * 2;     // bytes of a 128-row tile
+struct Tile : Box<D, BN> {
+  using Box<D, BN>::BYTES;
   static constexpr int OBYTES = BYTES / CONSUMERS;  // a consumer's o staging buffer
   static constexpr int QS = 2;                 // Q buffers
   static constexpr int KVS = 2;                // K/V stages
-  static constexpr int LAYOUT = W == 128 ? 1 : W == 64 ? 2 : 3;  // wgmma swizzle code
   static constexpr int BARRIERS = 2 * QS + 3 * KVS;
   // tiles, o staging, barriers, a 16-byte Item per Q buffer, and slack to
   // align the base to 1024 bytes
@@ -122,217 +103,18 @@ struct Tile {
       (QS + 2 * KVS) * BYTES + CONSUMERS * OBYTES + BARRIERS * 8 + QS * 16 + 1024;
 };
 
-// The n-th use of a slot of an N-slot ring: slot n % N, and the mbarrier
-// phase of that use has parity (n / N) & 1.  Consumers wait for that parity
-// on a "full" barrier; the producer waits for the opposite parity on an
-// "empty" one, which a fresh barrier passes at once.
-template <int N>
-struct Ring {
-  uint32_t n = 0;
-  __device__ __forceinline__ int slot() const { return (int)(n % N); }
-  __device__ __forceinline__ uint32_t parity() const { return (n / N) & 1u; }
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// A warp's arrival on an "empty" barrier (counted per warp), once all its
-// lanes are past their reads of the slot.
-__device__ __forceinline__ void release(uint32_t bar, int lane) {
-  __syncwarp();
-  if (lane == 0) mbar_arrive(bar);
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 4-D map at coordinates (column, row, head, batch).
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c, int row, int h, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(row), "r"(h), "r"(b)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c, int row,
-                                          int h, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::
-          "l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c), "r"(row), "r"(h), "r"(b)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor of wgmma: start address, leading and
-// stride byte offsets (16-byte units) and the swizzle layout code.
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                               int layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// 2^x in one MUFU instruction; results below 2^-126 flush to zero.
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi);
-
-template <>
-__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <>
-__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
-  __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// wgmma accumulator layout (m64nN, fp32): warp w of the warpgroup holds
-// rows 16w..16w+15; with g = lane / 4, t = lane % 4, d[4j], d[4j+1] are
-// (row g, cols 8j+2t, 8j+2t+1) and d[4j+2], d[4j+3] the same cols of row
-// g+8.  The register A operand of m64nNk16 has mma.m16n8k16's A layout:
-// a0 (row g, k 2t..2t+1), a1 (row g+8), a2 (row g, k 2t+8..), a3 (row g+8).
-template <typename T>
-struct Wgmma;
-
-// The accumulator operands d[i..i+n) of an asm statement.
-#define MX_D8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
-                 "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define MX_D16(i) MX_D8(i), MX_D8(i + 8)
-#define MX_D32(i) MX_D16(i), MX_D16(i + 16)
-#define MX_D64 MX_D32(0), MX_D32(32)
-
-// The asm names of those operands, %0 to %n-1.
-#define MX_R8 "%0, %1, %2, %3, %4, %5, %6, %7"
-#define MX_R16 MX_R8 ", %8, %9, %10, %11, %12, %13, %14, %15"
-#define MX_R32 \
-  MX_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-#define MX_R64 MX_R32 ", " \
-  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
-  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-
-// m64nNk16 with A from registers and B MN-major in shared memory:
-// d[N/2] += A·B.
-#define MX_WGMMA_RS(TY, N, DREGS, AREGS, B, SCALE, DOPS)                                    \
-  static __device__ __forceinline__ void rs(float (&d)[N / 2], const uint32_t (&a)[4],      \
-                                            uint64_t db) {                                  \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SCALE ", 0;\n"                         \
-                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " "            \
-                 DREGS ", " AREGS ", " B ", p, 1, 1, 1;\n}\n"                               \
-                 : DOPS                                                                     \
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));            \
-  }
-
-// One specialisation per 16-bit type, TY its PTX type suffix.
-#define MX_WGMMA(T, TY)                                                                     \
-  template <>                                                                               \
-  struct Wgmma<T> {                                                                         \
-    /* d[64] (+)= A·B, m64n128k16, A and B K-major in shared memory. */                     \
-    static __device__ __forceinline__ void ss128(float (&d)[64], uint64_t da,               \
-                                                 uint64_t db, int accumulate) {             \
-      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                             \
-                   "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "             \
-                   "{" MX_R64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                            \
-                   : MX_D64                                                                 \
-                   : "l"(da), "l"(db), "r"(accumulate));                                    \
-    }                                                                                       \
-    MX_WGMMA_RS(TY, 16, "{" MX_R8 "}", "{%8, %9, %10, %11}", "%12", "%13", MX_D8(0))        \
-    MX_WGMMA_RS(TY, 32, "{" MX_R16 "}", "{%16, %17, %18, %19}", "%20", "%21", MX_D16(0))    \
-    MX_WGMMA_RS(TY, 64, "{" MX_R32 "}", "{%32, %33, %34, %35}", "%36", "%37", MX_D32(0))    \
-    MX_WGMMA_RS(TY, 128, "{" MX_R64 "}", "{%64, %65, %66, %67}", "%68", "%69", MX_D64)      \
-  };
-
-MX_WGMMA(__nv_bfloat16, "bf16")
-MX_WGMMA(__half, "f16")
-#undef MX_WGMMA
-#undef MX_WGMMA_RS
-#undef MX_R64
-#undef MX_R32
-#undef MX_R16
-#undef MX_R8
-#undef MX_D64
-#undef MX_D32
-#undef MX_D16
-#undef MX_D8
-
-// The k-th 16-column step of a K-major operand: which box, and 32 bytes per
-// step along its swizzled rows.
-template <int D>
-__device__ __forceinline__ uint32_t kstep_offset(int k) {
-  return (k * 16 / Tile<D>::BOX) * Tile<D>::PART + (k * 16 % Tile<D>::BOX) * 2;
-}
-
-// Byte offset of 16-byte chunk `chunk` of row `row` in a TMA-swizzled box
-// whose rows are W bytes: the chunk index is XORed with address bits 7 and up.
-template <int W>
-__device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
-  return row * W + ((chunk ^ ((row * W / 128) % (W / 16))) << 4);
-}
-
 // The products of a consumer, each one fenced and committed wgmma group:
 // s = q·kᵀ (m64n128k16, K-major q and k) and o += p·v (m64nDhk16, p from
 // registers, MN-major v).
 template <typename T, int D>
 __device__ __forceinline__ void issue_qk(float (&sc)[BN / 2], uint32_t qa, uint32_t ks) {
-  using L = Tile<D>;
-  wgmma_fence();
-#pragma unroll
-  for (int k = 0; k < D / 16; ++k)
-    Wgmma<T>::ss128(sc, wgmma_desc(qa + kstep_offset<D>(k), 16, 8 * L::W, L::LAYOUT),
-                    wgmma_desc(ks + kstep_offset<D>(k), 16, 8 * L::W, L::LAYOUT), k > 0);
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  issue_ss<T, D, Tile<D>, Tile<D>, BN>(sc, qa, ks);
 }
 
 template <typename T, int D>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pf)[BN / 16][4],
                                          uint32_t vs) {
-  using L = Tile<D>;
-  wgmma_fence();
-#pragma unroll
-  for (int k = 0; k < BN / 16; ++k)
-    Wgmma<T>::rs(o, pf[k], wgmma_desc(vs + k * 16 * L::W, L::PART, 8 * L::W, L::LAYOUT));
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  issue_rs<T, D, Tile<D>, BN / 16>(o, pf, vs);
 }
 
 // Online softmax of one tile (online_softmax_update in the JAX package), in
@@ -394,13 +176,7 @@ __device__ __forceinline__ void rescale_and_pack(float (&o)[D / 2], uint32_t (&p
   for (int n = 0; n < D / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[4 * n + e] *= corr[e >> 1];
-#pragma unroll
-  for (int k = 0; k < BN / 16; ++k) {
-    pf[k][0] = pack2<T>(sc[8 * k + 0], sc[8 * k + 1]);
-    pf[k][1] = pack2<T>(sc[8 * k + 2], sc[8 * k + 3]);
-    pf[k][2] = pack2<T>(sc[8 * k + 4], sc[8 * k + 5]);
-    pf[k][3] = pack2<T>(sc[8 * k + 6], sc[8 * k + 7]);
-  }
+  pack_a<T>(pf, sc);
 }
 
 struct Item {
@@ -746,95 +522,6 @@ cudaError_t dispatch_f32(const Params& p, int d, cudaStream_t s) {
   }
 }
 
-// cuTensorMapEncodeTiled, found through the runtime so that the library
-// links no libcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)f;
-  }
-  return fn;
-}
-
-// A 4-D map over (Dh, S, H, B) of a 16-bit operand, boxes of `rows` rows by
-// Tile<D>::BOX columns, swizzled by the box row's bytes.  A dimension of
-// extent 1 is never stepped, so it gets a dense stride (a 16-byte multiple,
-// as TMA requires) whatever the caller's was.  A head or batch dimension of
-// stride 0 (an expanded tensor) becomes one of extent 1, which the producer
-// reads at coordinate 0; a sequence of stride 0 cannot be read by boxes of
-// rows, and fails (the wrapper refuses it first).
-template <int D>
-bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int S, int H, int B,
-            long long ss, long long sh, long long sb, int rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
-  const long long elem[3] = {ss, sh, sb};
-  cuuint64_t strides[3];
-  cuuint64_t dense = 2ull * D;
-  for (int i = 0; i < 3; ++i) {
-    if (elem[i] == 0 && dims[i + 1] > 1) {
-      if (i == 0) return false;
-      dims[i + 1] = 1;
-    }
-    strides[i] = dims[i + 1] == 1 ? dense : (cuuint64_t)(2 * elem[i]);
-    dense = strides[i] * dims[i + 1];
-  }
-  const cuuint32_t box[4] = {(cuuint32_t)Tile<D>::BOX, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle = Tile<D>::W == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : Tile<D>::W == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                        : CU_TENSOR_MAP_SWIZZLE_32B;
-  return fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box, step,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// Blocks of flash_fwd_tma<T, D> the current device holds at once (from the
-// kernel's shared memory and registers), with its shared-memory limit
-// raised; asked of the runtime once per device and kept.
-template <typename T, int D>
-cudaError_t grid_capacity(long long* blocks) {
-  constexpr int MAX_DEVICES = 64;
-  static std::atomic<int> known[MAX_DEVICES];  // 0: not asked yet
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const int cached = dev < MAX_DEVICES ? known[dev].load(std::memory_order_relaxed) : 0;
-  if (cached > 0) {
-    *blocks = cached;
-    return cudaSuccess;
-  }
-  auto kernel = flash_fwd_tma<T, D>;
-  if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                Tile<D>::SMEM)) != cudaSuccess)
-    return e;
-  int sms = 0, per_sm = 0;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, TMA_THREADS,
-                                                         Tile<D>::SMEM)) != cudaSuccess)
-    return e;
-  const int n = sms * (per_sm > 0 ? per_sm : 1);
-  if (dev < MAX_DEVICES) known[dev].store(n, std::memory_order_relaxed);
-  *blocks = n;
-  return cudaSuccess;
-}
-
 // The persistent grid: as many blocks as the card holds at once, at most
 // one per work item.  The tensor maps hold the call's pointers and are
 // encoded on every call.
@@ -844,9 +531,9 @@ cudaError_t launch_tma(const Params& p, cudaStream_t stream) {
   const long long items = (long long)p.B * p.H * ((p.Sq + BM - 1) / BM);
   if (items <= 0) return cudaSuccess;
   if (items > 0x7fffffff) return cudaErrorInvalidValue;
-  const CUtensorMapDataType type = std::is_same<T, __half>::value
-                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const cudaError_t bound = bind_context();
+  if (bound != cudaSuccess) return bound;
+  const CUtensorMapDataType type = map_type<T>();
   CUtensorMap tq, tk, tv, to;
   bool ok = encode<D>(&tq, type, p.q, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, BM) &&
             encode<D>(&to, type, p.o, p.Sq, p.H, p.B, p.o_ss, p.o_sh, p.o_sb, BM / CONSUMERS);
@@ -858,8 +545,10 @@ cudaError_t launch_tma(const Params& p, cudaStream_t stream) {
     tv = tq;
   }
   if (!ok) return cudaErrorInvalidValue;
+  static Capacity cache;
   long long capacity = 0;
-  const cudaError_t e = grid_capacity<T, D>(&capacity);
+  const cudaError_t e =
+      grid_capacity(cache, flash_fwd_tma<T, D>, TMA_THREADS, L::SMEM, &capacity);
   if (e != cudaSuccess) return e;
   const long long grid = items < capacity ? items : capacity;
   flash_fwd_tma<T, D><<<(unsigned)grid, TMA_THREADS, L::SMEM, stream>>>(tq, tk, tv, to, p);

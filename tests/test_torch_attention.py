@@ -167,6 +167,58 @@ def test_cpu_path_launches_nothing():
         tatt.flash_fwd(*arrs, layout="sbhd")
 
 
+# Head dims the kernels have no instance for: the wrapper zero-pads q, k
+# and v to the next one (8 -> 16, 48 -> 64, 80 and 96 -> 128) and
+# passes the scale of the true head dim; zero columns add nothing to q·kᵀ,
+# so the sliced o is the same function.
+PAD_DIMS = (8, 48, 80, 96)
+
+
+@pytest.mark.parametrize("d", PAD_DIMS)
+@pytest.mark.parametrize("causal", [False, True])
+def test_padded_head_dim_matches_jax_reference(d, causal):
+    arrs = _qkv(10, 2, 2, 40, 56, d)
+    ref = jatt.attention_reference(*map(jnp.asarray, arrs), causal=causal)
+    q, k, v = _port(arrs)
+    width = tatt._kernel_width("flash_fwd", q, k, v)
+    assert width in tatt._HEAD_DIMS and width >= d and (width == 16 or width // 2 < d)
+    qp, kp, vp = tatt._kernel_operands(width, False, q, k, v)
+    assert qp.shape[-1] == width and torch.equal(qp[..., d:], torch.zeros_like(qp[..., d:]))
+    o, _ = tatt.flash_fwd_plain(qp, kp, vp, causal, 1.0 / np.sqrt(d))
+    np.testing.assert_allclose(_np(o[..., :d]), _np(ref), rtol=FP32_TOL, atol=FP32_TOL)
+
+
+def test_head_dim_above_128_is_refused():
+    q = torch.zeros(1, 1, 4, 256)
+    with pytest.raises(ValueError, match="head dim 256"):
+        tatt._kernel_width("flash_fwd", q, q, q)
+    with pytest.raises(ValueError, match="equal"):
+        tatt._kernel_width("flash_fwd", q, q[..., :128], q)
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_sequence_stride0_operand_becomes_contiguous(layout):
+    """TMA reads rows in boxes: a 16-bit operand repeating one row along
+    its sequence is handed to the kernels contiguous, with the same
+    values; strides of 0 over batch or heads stay as they are (the tensor
+    maps read them at coordinate 0), and fp32 operands are not copied."""
+    bshd = layout == "bshd"
+    row = torch.randn(2, 1, 3, 16) if bshd else torch.randn(2, 3, 1, 16)
+    shape = (2, 40, 3, 16) if bshd else (2, 3, 40, 16)
+    rep = row.to(torch.bfloat16).expand(shape)
+    got = tatt._rows_readable(rep, bshd)
+    assert got.is_contiguous() and torch.equal(got, rep)
+    heads = torch.randn(2, 1, 40, 16).to(torch.bfloat16).expand(2, 3, 40, 16)
+    assert tatt._rows_readable(heads, False) is heads
+    (q,) = tatt._kernel_operands(16, bshd, rep)
+    assert q.is_contiguous() and torch.equal(q, rep)
+    (q32,) = tatt._kernel_operands(16, bshd, row.expand(shape))
+    assert q32.stride(1 if bshd else 2) == 0
+    o, _ = tatt.flash_fwd_plain(*(x.float() for x in (rep, rep, rep)))
+    o_ref, _ = tatt.flash_fwd_plain(*(x.float() for x in (got, got, got)))
+    torch.testing.assert_close(o, o_ref)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -243,11 +295,37 @@ def test_kernel_options_on_card(cuda_device, name, scale, expand):
 @pytest.mark.cuda
 def test_kernel_refuses_repeated_sequence_on_card(cuda_device):
     """TMA reads rows in boxes and cannot repeat one: a k whose sequence
-    stride is 0 is refused before any launch."""
+    stride is 0 is no longer refused but handed to the kernel contiguous,
+    with one launch and the plain version's result."""
     q = torch.randn(2, 4, 128, 64, device=cuda_device).to(torch.bfloat16)
+    k = q[:, :, :1].expand(q.shape)
     before = tatt.flash_fwd.launches
-    with pytest.raises(ValueError, match="stride 0"):
-        tatt.flash_fwd(q, q[:, :, :1].expand(q.shape), q)
+    o, lse = tatt.flash_fwd(q, k, q, with_lse=True)
+    assert tatt.flash_fwd.launches == before + 1
+    o_ref, lse_ref = tatt.flash_fwd_plain(q, k, q, with_lse=True)
+    assert (o.float() - o_ref.float()).abs().max().item() <= BF16_KERNEL_TOL
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [48, 80])
+def test_kernel_takes_padded_head_dim_on_card(cuda_device, d):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(2, 4, 200, d, generator=gen, device=cuda_device).to(torch.bfloat16)
+               for _ in range(3))
+    o, lse = tatt.flash_fwd(q, k, v, causal=True, with_lse=True)
+    assert o.shape == q.shape
+    o_ref, lse_ref = tatt.flash_fwd_plain(q, k, v, True, with_lse=True)
+    assert (o.float() - o_ref.float()).abs().max().item() <= BF16_KERNEL_TOL
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_head_dim_above_128_on_card(cuda_device):
+    q = torch.randn(1, 2, 64, 256, device=cuda_device).to(torch.bfloat16)
+    before = tatt.flash_fwd.launches
+    with pytest.raises(ValueError, match="head dim"):
+        tatt.flash_fwd(q, q, q)
     assert tatt.flash_fwd.launches == before
 
 

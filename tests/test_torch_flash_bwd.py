@@ -35,6 +35,14 @@ CASES = [  # name, BH, Sq, Sk, Dh, causal
     ("cross_sq64_sk128_causal", 2, 64, 128, 32, True),
     ("unaligned_s200", 1, 200, 200, 16, False),
     ("unaligned_s200_causal", 1, 200, 200, 16, True),
+    # the shapes the 16-bit kernels' tiling meets: 128-row items with a
+    # tail (64-row streamed tiles at Dh 128), fewer rows than one consumer
+    # warpgroup's 64, and a causal cross shape whose last key tile sees no
+    # query
+    ("s200_causal_dh64", 1, 200, 200, 64, True),
+    ("s200_causal_dh128", 1, 200, 200, 128, True),
+    ("sq40", 2, 40, 40, 64, False),
+    ("cross_sq77_sk200_causal", 1, 77, 200, 64, True),
 ]
 
 
@@ -169,6 +177,28 @@ def test_inference_saves_nothing_for_backward():
     assert "_FlashAttentionBackward" in names
 
 
+@pytest.mark.parametrize("d", (8, 48, 80, 96))
+@pytest.mark.parametrize("causal", [False, True])
+def test_padded_head_dim_backward_matches_jax_xla(d, causal):
+    """On the card a head dim the kernels have no instance for runs on q,
+    k, v, o and do zero-padded to the next one, with the scale of the true
+    head dim, and the gradients come back sliced: the same function."""
+    bh, sq, sk = 2, 40, 56
+    q, k, v, do = _inputs(6, bh, sq, sk, d)
+    scale = 1.0 / np.sqrt(d)
+    ref = jatt._flash_bwd_xla(causal, scale, tuple(map(jnp.asarray, (q, k, v))),
+                              jnp.asarray(do))
+    t = torch.from_numpy
+    o, lse = tatt.flash_fwd_plain(t(q), t(k), t(v), causal, scale, with_lse=True)
+    width = tatt._kernel_width("flash_bwd", t(q), t(k), t(v))
+    padded = tatt._kernel_operands(width, False, t(q), t(k), t(v), o, t(do))
+    assert all(x.shape[-1] == width for x in padded)
+    got = tatt.flash_bwd_plain(*padded, lse, causal, scale)
+    for g, r in zip(got, ref):
+        assert torch.equal(g[..., d:], torch.zeros_like(g[..., d:]))
+        np.testing.assert_allclose(g[..., :d].numpy(), np.asarray(r), rtol=RTOL, atol=ATOL)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -203,7 +233,63 @@ def test_kernels_match_plain_on_card(cuda_device, causal):
 
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_cannot_take(cuda_device):
-    q = torch.randn(1, 2, 64, 48, device=cuda_device)  # Dh 48
+    """Dh 48 is no longer refused: it runs padded to 64, once through each
+    kernel, and matches the plain version within 2 bf16 ulps of the
+    largest gradient."""
+    dtype = torch.bfloat16
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v, do = (torch.randn(1, 2, 100, 48, generator=gen, device=cuda_device).to(dtype)
+                   for _ in range(4))
+    o, lse = tatt.flash_fwd_plain(q, k, v, with_lse=True)
+    before = (tatt.flash_bwd_dq.launches, tatt.flash_bwd_dkv.launches)
+    got = tatt.flash_bwd(q, k, v, o, do, lse)
+    assert (tatt.flash_bwd_dq.launches, tatt.flash_bwd_dkv.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    for g, r in zip(got, tatt.flash_bwd_plain(q, k, v, o, do, lse)):
+        ref_max = r.float().abs().max().item()
+        bound = 2 * 2.0 ** (np.frexp(ref_max)[1] - 1 - 7)
+        assert g.shape == r.shape and (g.float() - r.float()).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_head_dim_above_128(cuda_device):
+    q = torch.randn(1, 2, 64, 256, device=cuda_device).to(torch.bfloat16)
     o, lse = tatt.flash_fwd_plain(q, q, q, with_lse=True)
+    before = (tatt.flash_bwd_dq.launches, tatt.flash_bwd_dkv.launches)
     with pytest.raises(ValueError, match="head dim"):
         tatt.flash_bwd(q, q, q, o, o, lse)
+    assert (tatt.flash_bwd_dq.launches, tatt.flash_bwd_dkv.launches) == before
+
+
+@pytest.mark.cuda
+def test_kernels_are_deterministic_on_card(cuda_device):
+    """A static schedule with no atomics: two runs give the same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn(8, 200, 3, 12, 64, generator=gen, device=cuda_device).to(torch.bfloat16)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    do = torch.randn(8, 200, 12, 64, generator=gen, device=cuda_device).to(torch.bfloat16)
+    o, lse = tatt.flash_fwd(q, k, v, causal=True, with_lse=True, layout="bshd")
+    first, second = (tatt.flash_bwd(q, k, v, o, do, lse, True, layout="bshd") for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_kernels_run_from_a_fresh_thread(cuda_device):
+    """The tensor maps need a current CUDA context, which a thread that has
+    made no CUDA call yet lacks (autograd's backward thread, a server's
+    worker): the kernels make the device's context current themselves."""
+    import threading
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v, do = (torch.randn(2, 4, 64, 64, generator=gen, device=cuda_device)
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = tatt.flash_fwd(q, k, v, with_lse=True)
+    want = tatt.flash_bwd(q, k, v, o, do, lse)
+    got = {}
+    worker = threading.Thread(target=lambda: got.update(
+        fwd=tatt.flash_fwd(q, k, v, with_lse=True), bwd=tatt.flash_bwd(q, k, v, o, do, lse)))
+    worker.start()
+    worker.join()
+    torch.cuda.synchronize()
+    assert torch.equal(got["fwd"][0], o) and torch.equal(got["fwd"][1], lse)
+    assert all(torch.equal(a, b) for a, b in zip(got["bwd"], want))
