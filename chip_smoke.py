@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # on a machine with a CUDA card
     python3 chip_smoke.py --cpu-rehearsal  # tiny BERT and ResNet on the CPU plain path
+    python3 chip_smoke.py --inference-turns ROOT_A ROOT_B  # two checkouts' BERT forward
 
 Phases, each printing JSON lines; no phase's failure is caught:
 
@@ -13,14 +14,17 @@ Phases, each printing JSON lines; no phase's failure is caught:
    user kernels' registers and local memory as the driver loaded them; a
    spill fails the phase;
 3. kernel_vs_plain, kernel_vs_plain_bwd, kernel_vs_plain_bn,
-   kernel_vs_plain_rtc: each kernel against its plain PyTorch version on
-   the card, at the main paths' shapes and the edge cases (for the
-   attention kernels also their persistent schedules' and the operand
-   domain the wrappers take: scales, expanded k/v, a sequence of stride 0,
-   padded head dims), each against a stated bound (and flash_fwd,
+   kernel_vs_plain_rtc, kernel_vs_plain_multi_tensor: each kernel against
+   its plain PyTorch version on the card, at the main paths' shapes and the
+   edge cases (for the attention kernels also their persistent schedules'
+   and the operand domain the wrappers take: scales, expanded k/v, a
+   sequence of stride 0, padded head dims, head dims 160-256 through the
+   column-slab launches), each against a stated bound (and flash_fwd,
    flash_bwd and bn_stats against themselves: two runs must be
-   bit-identical), and the refusals of the attention wrappers and the rtc
-   launcher; any miss exits non-zero after the phase;
+   bit-identical), and the refusals of the attention wrappers (Dh 320) and
+   the rtc launcher; the multi-tensor optimizer kernel in every variant and
+   weight dtype over one group of mixed sizes, whole and in chunks of 3,
+   bit-equal to the plain loop; any miss exits non-zero after the phase;
 4. slice: BERT-base (12 layers, 768 units, vocab 30522, bf16, random
    weights from a seed) answers inference requests through
    ``net(token_ids, token_types, masked_positions)``; the kernels' launch
@@ -31,6 +35,9 @@ Phases, each printing JSON lines; no phase's failure is caught:
    ``autograd.backward`` and ``gluon.Trainer.step``; launch counts around
    exactly one step, finite and falling losses; then the card's bf16
    gradients against the port's fp32 gradients on the CPU, per parameter;
+   the step's optimizer update is exactly one fused group update of all 159
+   parameters, one mp_adam launch of the multi-tensor kernel, none left to
+   the per-tensor loop;
    rtc_train: the same net, weights and Trainer with every FFN activation
    the user's ``rtc_gelu`` CustomOp (user kernels compiled by ``mx.rtc``):
    its gradients against the same CPU ones and beside the built-in GELU's,
@@ -41,22 +48,33 @@ Phases, each printing JSON lines; no phase's failure is caught:
    parameters, SGD lr 0.1 momentum 0.9 wd 1e-4, the streaming softmax
    cross-entropy) through ``autograd.record``, ``autograd.backward`` and
    ``gluon.Trainer.step``; launch counts around exactly one step (53
-   bn_stats, 53 bn_apply, 0 bn_apply_res, no BatchNorm reference call),
+   bn_stats, 53 bn_apply, 0 bn_apply_res, no BatchNorm reference call, one
+   sgd_mom launch of the multi-tensor kernel for all 193 parameters),
    finite losses, moved running statistics; then, at B=16, the card's fp32
    and AMP gradients against the port's fp32 gradients on the CPU, per
    parameter, beside the CPU's own sensitivity;
+   kernel_vs_plain_multi_tensor again, on the main paths' own groups: each
+   training step's one fused group (mp_adam over 159 tensors, fp32 sgd_mom
+   over 193) with its real gradients and states, two steps through the
+   kernel and through the plain loop, bit-equal;
 7. times: each kernel, its plain version and the library call at the main
    paths' shapes (the attention kernels also at the S=512 request, and by
    CUDA-graph replay), the kernel's bound; BERT forward and training-step time,
    the ResNet-50 step's time, img/s, peak memory and its split; the
    BERT step with the user's GELU beside the built-in one; a
    torch.profiler breakdown of device time by kernel family for one BERT
-   forward, one BERT training step and one ResNet-50 step.
+   forward, one BERT training step and one ResNet-50 step; the
+   multi-tensor kernel on each step's fused group beside its plain loop,
+   torch._fused_adam_ / torch._fused_sgd_ and its bound; both training
+   steps with the per-tensor loop and the fused update in turns
+   (Trainer.step ms, step ms, a breakdown of each).
 
 The last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed on a CUDA card.  The rehearsal runs the slice, train, rtc_train,
 ResNet and timing phases on the CPU at a tiny size, with the kernels' plain
-versions, and never prints it.
+versions, and never prints it.  ``--inference-turns`` times only the
+BERT-base inference forward of two checkouts, each turn a fresh process
+(A, B, B, A per round), and never prints it either.
 """
 from __future__ import annotations
 
@@ -65,6 +83,7 @@ import contextlib
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import threading
@@ -84,8 +103,11 @@ from incubator_mxnet_torch.gluon.nn.transformer import PositionwiseFFN  # noqa: 
 from incubator_mxnet_torch.ops import _cuda  # noqa: E402
 from incubator_mxnet_torch.ops import attention as att  # noqa: E402
 from incubator_mxnet_torch.ops import bn  # noqa: E402
+from incubator_mxnet_torch.ops import multi_tensor as mt  # noqa: E402
 from incubator_mxnet_torch.ops import nn as ops_nn  # noqa: E402
+from incubator_mxnet_torch.ops import optimizer_ops as opt_ops  # noqa: E402
 from incubator_mxnet_torch.ops.nn import streaming_softmax_ce  # noqa: E402
+from incubator_mxnet_torch.optimizer import fused  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a kernel
 # is the larger of its bytes over the memory rate and its operations over
@@ -171,7 +193,8 @@ RESNET_AMP_GRAD_REL_BOUND = 2.0
 RESNET_B = 256
 TINY_RESNET = dict(layers=[1, 1, 1, 1], channels=[8, 16, 32, 64, 128], classes=10,
                    thumbnail=True)
-KERNELS = ("flash_fwd", "flash_bwd", "bn")  # sources under incubator_mxnet_torch/ops/csrc
+# sources under incubator_mxnet_torch/ops/csrc
+KERNELS = ("flash_fwd", "flash_bwd", "bn", "multi_tensor")
 
 # -- user kernels (mx.rtc + mx.operator.CustomOp) -----------------------------
 # What a user of the framework writes: CUDA source handed to mx.rtc at
@@ -416,7 +439,8 @@ def rtc_gelu_ffn(net):
 ENTRIES = {"flash_fwd": att.flash_fwd, "flash_bwd_dq": att.flash_bwd_dq,
            "flash_bwd_dkv": att.flash_bwd_dkv, "bn_stats": bn.bn_stats,
            "bn_apply": bn.bn_apply, "bn_apply_res": bn.bn_apply_res,
-           "rtc_gelu_fwd": GELU_FWD, "rtc_gelu_bwd": GELU_BWD}
+           "rtc_gelu_fwd": GELU_FWD, "rtc_gelu_bwd": GELU_BWD,
+           "multi_tensor": mt.multi_tensor_update}
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
@@ -431,6 +455,33 @@ def kernel_counts():
 def reset_kernel_counts():
     for fn in ENTRIES.values():
         fn.launches = 0
+    mt.multi_tensor_update.launches_by_variant = {}
+
+
+def fused_counts():
+    """The fused optimizer step's host counters: group updates, parameters
+    they updated, parameters left to the per-tensor loop."""
+    f = fused.fused_update
+    return {"calls": f.calls, "params": f.params, "fallback_params": f.fallback_params}
+
+
+def _trainable(net):
+    return sum(p.grad_req != "null" for p in net.collect_params().values())
+
+
+def _optimizer_check(phase, net, before, variant, rehearsal):
+    """The fused update of one counted step: exactly one group update of
+    every trainable parameter, none left to the loop, and on the card
+    exactly one launch of the multi-tensor kernel, of ``variant``."""
+    after = fused_counts()
+    got = {k: after[k] - before[k] for k in after}
+    want = {"calls": 1, "params": _trainable(net), "fallback_params": 0}
+    variants = dict(mt.multi_tensor_update.launches_by_variant)
+    want_variants = {} if rehearsal else {variant: 1}
+    ok = got == want and variants == want_variants
+    emit(phase, fused_update_one_step=got, expected_fused_update=want,
+         multi_tensor_launches_by_variant=variants, expected_by_variant=want_variants, ok=ok)
+    return ok
 
 
 def set_kernel_counts(counts):
@@ -500,9 +551,10 @@ def phase_build():
     emit("build", wall_seconds=time.perf_counter() - t0, spills=spills)
     if spills:
         sys.exit(1)
-    att._entry()  # load all three once, outside any timing
+    att._entry()  # load all four once, outside any timing
     att._bwd_entry()
     bn._lib()
+    emit("build", kernel="multi_tensor", tensors_per_launch=mt._lib().mx_multi_tensor_capacity())
     for name in sorted(RTC._kernels):  # the user's kernels, as the driver loaded them
         emit("build", kernel="rtc", function=name, **RTC.attributes(name, 0))
 
@@ -595,17 +647,39 @@ DOMAIN_CASES = [
     dict(MAIN, name="dh48", b=4, h=4, sq=200, sk=200, d=48),
     dict(MAIN, name="dh80_causal", b=4, h=4, sq=200, sk=200, d=80, causal=True),
 ]
+# Head dims 129-256: padded to the widest instance, 256, which runs each
+# kernel as two launches of a 128-column output slab (ragged S, causal and
+# not, the QKV view, lse, fp32).
+WIDE_CASES = [
+    dict(MAIN, name="dh160", b=2, h=4, sq=200, sk=200, d=160),
+    dict(MAIN, name="dh192_causal", b=2, h=4, sq=200, sk=200, d=192, causal=True),
+    dict(MAIN, name="dh256", b=2, h=4, sq=200, sk=200, d=256),
+    dict(MAIN, name="dh256_causal_with_lse", b=2, h=4, sq=333, sk=333, d=256, causal=True,
+         lse=True),
+    dict(MAIN, name="dh256_qkv_view", b=3, h=2, sq=130, sk=130, d=256, layout="qkv"),
+    dict(MAIN, name="dh256_cross_sq77_sk200", b=2, h=2, sq=77, sk=200, d=256),
+    dict(MAIN, name="fp32_dh256_causal", b=1, h=2, sq=200, sk=200, d=256,
+         dtype=torch.float32, causal=True),
+]
+
+
+def _slab_launches(d):
+    """Launches of one attention kernel pass at head dim ``d``: one a
+    128-column output slab of the instance it runs."""
+    return 2 if d > 128 else 1
 
 
 def phase_kernel_vs_plain(device):
     gen = torch.Generator(device=device).manual_seed(1234)
     misses, main_err = [], None
-    for case in KERNEL_CASES + SCHEDULE_CASES + OPERAND_CASES + DOMAIN_CASES:
+    for case in KERNEL_CASES + SCHEDULE_CASES + OPERAND_CASES + DOMAIN_CASES + WIDE_CASES:
         q, k, v, layout = _case_inputs(case, gen, device)
         want_lse, scale = case.get("lse", False), case.get("scale")
+        before = att.flash_fwd.launches
         with torch.no_grad():
             o, lse = att.flash_fwd(q, k, v, case["causal"], scale, want_lse, layout)
             torch.cuda.synchronize()
+            launched = att.flash_fwd.launches - before
             t = (lambda x: x.transpose(1, 2)) if layout == "bshd" else (lambda x: x)
             o_ref, lse_ref = att.flash_fwd_plain(t(q), t(k), t(v), case["causal"], scale,
                                                  want_lse)
@@ -613,10 +687,12 @@ def phase_kernel_vs_plain(device):
         ref_max = o_ref.float().abs().max().item()
         bound = (FP32_FWD_BOUND if case["dtype"] == torch.float32
                  else FWD_ULPS * ulp(ref_max, case["dtype"]))
-        ok = math.isfinite(err) and err <= bound
+        want_launches = _slab_launches(case["d"])
+        ok = math.isfinite(err) and err <= bound and launched == want_launches
         rec = dict(case=case["name"], dtype=str(case["dtype"]).replace("torch.", ""),
                    shape=dict(b=case["b"], h=case["h"], sq=case["sq"], sk=case["sk"], d=case["d"]),
-                   causal=case["causal"], layout=layout, max_abs_err=err,
+                   causal=case["causal"], layout=layout, launches=launched,
+                   expected_launches=want_launches, max_abs_err=err,
                    ref_max_abs=ref_max, bound=bound,
                    **{key: case[key] for key in ("scale", "expand") if key in case})
         if want_lse:
@@ -640,13 +716,13 @@ def phase_kernel_vs_plain(device):
     if not same:
         misses.append("main_repeat_bitwise")
     # A head dim above the widest instance is refused before any launch.
-    wide = torch.zeros(1, 1, 8, 256, dtype=torch.bfloat16, device=device)
+    wide = torch.zeros(1, 1, 8, 320, dtype=torch.bfloat16, device=device)
     before = att.flash_fwd.launches
     refused = (_raises(lambda: att.flash_fwd(wide, wide, wide), ValueError, "head dim")
                and att.flash_fwd.launches == before)
-    emit("kernel_vs_plain", case="dh256_refused", ok=refused)
+    emit("kernel_vs_plain", case="dh320_refused", ok=refused)
     if not refused:
-        misses.append("dh256_refused")
+        misses.append("dh320_refused")
     if misses:
         emit("kernel_vs_plain", failed=misses)
         sys.exit(1)
@@ -660,13 +736,16 @@ def _bwd_bound(ref, dtype, ulps=BWD_ULPS):
     return ref_max, ulps * ulp(ref_max, dtype)
 
 
-BWD_CASES = (KERNEL_CASES + SCHEDULE_CASES + OPERAND_CASES + DOMAIN_CASES
+BWD_CASES = (KERNEL_CASES + SCHEDULE_CASES + OPERAND_CASES + DOMAIN_CASES + WIDE_CASES
              + [dict(MAIN, name="dqkv_buffer", layout="qkv", dqkv=True),
-                dict(MAIN, name="autograd_fused_qkv", layout="qkv", e2e=True)])
+                dict(MAIN, name="autograd_fused_qkv", layout="qkv", e2e=True),
+                dict(MAIN, name="dh256_autograd_fused_qkv", b=2, h=2, sq=130, sk=130, d=256,
+                     layout="qkv", e2e=True)])
 
 
 def _bwd_case(case, gen, device):
-    """(name -> (got, ref, bound, ref_max)) for dq, dk, dv of one case."""
+    """(name -> (err, bound, ref_max)) for dq, dk, dv of one case, and the
+    launches of the dq and the dk/dv kernels it counted."""
     b, sq, h, d, dtype, causal = (case[k] for k in ("b", "sq", "h", "d", "dtype", "causal"))
     if case.get("e2e"):  # the [B, S, 3·H·Dh] QKV projection output
         qkv = _randn((b, sq, 3 * h * d), dtype, gen, device).requires_grad_()
@@ -676,6 +755,7 @@ def _bwd_case(case, gen, device):
         q, k, v, layout = _case_inputs(case, gen, device)
     t = (lambda x: x.transpose(1, 2)) if layout == "bshd" else (lambda x: x)
     do = _randn((b, sq, h, d) if layout == "bshd" else (b, h, sq, d), dtype, gen, device)
+    before = (att.flash_bwd_dq.launches, att.flash_bwd_dkv.launches)
     if case.get("e2e"):
         out = att.fused_qkv_attention(qkv, num_heads=h, causal=causal)
         out.backward(do.reshape(b, sq, h * d))
@@ -698,11 +778,12 @@ def _bwd_case(case, gen, device):
             ref = att.flash_bwd_plain(t(q), t(k), t(v), t(o), t(do), lse, causal, scale)
         ulps = BWD_ULPS
     torch.cuda.synchronize()
+    launched = (att.flash_bwd_dq.launches - before[0], att.flash_bwd_dkv.launches - before[1])
     res = {}
     for name, g, r in zip(("dq", "dk", "dv"), got, ref):
         ref_max, bound = _bwd_bound(r, dtype, ulps)
         res[name] = ((t(g).float() - r.float()).abs().max().item(), bound, ref_max)
-    return res
+    return res, launched
 
 
 def phase_kernel_vs_plain_bwd(device):
@@ -711,9 +792,12 @@ def phase_kernel_vs_plain_bwd(device):
     gen = torch.Generator(device=device).manual_seed(4321)
     misses, main_errs = [], None
     for case in BWD_CASES:
-        res = _bwd_case(case, gen, device)
-        ok = all(math.isfinite(e) and e <= bound for e, bound, _ in res.values())
-        emit("kernel_vs_plain_bwd", case=case["name"],
+        res, launched = _bwd_case(case, gen, device)
+        want_launches = (_slab_launches(case["d"]),) * 2
+        ok = (all(math.isfinite(e) and e <= bound for e, bound, _ in res.values())
+              and launched == want_launches)
+        emit("kernel_vs_plain_bwd", case=case["name"], launches=list(launched),
+             expected_launches=list(want_launches),
              dtype=str(case["dtype"]).replace("torch.", ""),
              shape=dict(b=case["b"], h=case["h"], sq=case["sq"], sk=case["sk"], d=case["d"]),
              causal=case["causal"],
@@ -739,21 +823,32 @@ def phase_kernel_vs_plain_bwd(device):
     if not same:
         misses.append("main_repeat_bitwise")
     # A thread that has made no CUDA call yet (as autograd's backward thread
-    # or a server's worker) gets the same bits from both kernels.
+    # or a server's worker) gets the same bits from both kernels, at the main
+    # shape and at Dh=256 (the column-slab launches).
+    wq, wk, wv, wl = _case_inputs(WIDE_CASES[3], gen, device)
+    wdo = _randn(wq.shape, MAIN["dtype"], gen, device)
+    with torch.no_grad():
+        wo, wlse = att.flash_fwd(wq, wk, wv, True, None, True, wl)
+        wide = att.flash_bwd(wq, wk, wv, wo, wdo, wlse, True, None, wl)
     got = {}
 
     def fresh_thread():
         with torch.no_grad():
             got["fwd"] = att.flash_fwd(q, k, v, False, None, True, layout)
             got["bwd"] = att.flash_bwd(q, k, v, o, do, lse, False, None, layout)
+            got["wide_fwd"] = att.flash_fwd(wq, wk, wv, True, None, True, wl)
+            got["wide_bwd"] = att.flash_bwd(wq, wk, wv, wo, wdo, wlse, True, None, wl)
         torch.cuda.synchronize()
 
     worker = threading.Thread(target=fresh_thread)
     worker.start()
     worker.join()
-    same = ("bwd" in got and all(torch.equal(a, b) for a, b in zip(got["bwd"], runs[0]))
-            and torch.equal(got["fwd"][0], o) and torch.equal(got["fwd"][1], lse))
-    emit("kernel_vs_plain_bwd", case="fresh_thread_bitwise", identical=same, ok=same)
+    same = ("wide_bwd" in got and all(torch.equal(a, b) for a, b in zip(got["bwd"], runs[0]))
+            and torch.equal(got["fwd"][0], o) and torch.equal(got["fwd"][1], lse)
+            and all(torch.equal(a, b) for a, b in zip(got["wide_bwd"], wide))
+            and torch.equal(got["wide_fwd"][0], wo) and torch.equal(got["wide_fwd"][1], wlse))
+    emit("kernel_vs_plain_bwd", case="fresh_thread_bitwise", with_dh256=True, identical=same,
+         ok=same)
     if not same:
         misses.append("fresh_thread_bitwise")
     if misses:
@@ -993,6 +1088,86 @@ def phase_kernel_vs_plain_rtc(device):
     return main
 
 
+# The fused optimizer update: one group of mixed sizes (one element, a
+# 7-element tail, a bias, a BERT-base FFN weight, its word embedding, and a
+# view one element into its buffer: a 2-byte offset for 16-bit weights),
+# every variant and weight dtype, three steps (no clip as +inf, a clip, no
+# clip as -1).  The kernel computes the plain loop's arithmetic operation
+# by operation with no fma contraction: the bound is 0, bit-equal.
+MT_SIZES = (1, 7, 768, 3072 * 768, 30522 * 768, 3072)
+MT_STEPS = {"sgd": (opt_ops.sgd_step, {}),
+            "sgd_mom": (opt_ops.sgd_mom_step, {"momentum": 0.9}),
+            "mp_sgd": (opt_ops.mp_sgd_step, {}),
+            "mp_sgd_mom": (opt_ops.mp_sgd_mom_step, {"momentum": 0.9}),
+            "adam": (opt_ops.adam_step, {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}),
+            "mp_adam": (opt_ops.mp_adam_step, {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8})}
+MT_CLIPS = (math.inf, 0.05, -1.0)
+
+
+def _mt_group(start, states, dtype):
+    """A fresh copy of the group: weights in ``dtype`` (the last one a view
+    one element into its buffer) and their fp32 states."""
+    ws = [x.to(dtype, copy=True)[1:] if i == len(start) - 1 else x.to(dtype, copy=True)
+          for i, x in enumerate(start)]
+    return ws, [tuple(t.clone() for t in st) for st in states]
+
+
+def phase_kernel_vs_plain_multi_tensor(device):
+    """Every variant x weight dtype: the group through one launch, through
+    launches of 3 tensors (aggregate_num=3), and through the plain loop, on
+    the card; all three must agree bit for bit.  Returns the largest
+    absolute difference seen."""
+    gen = torch.Generator(device=device).manual_seed(77)
+    misses, worst = [], 0.0
+    n = len(MT_SIZES)
+    for variant, (step, extra) in MT_STEPS.items():
+        n_states = mt.VARIANTS[variant][1]
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            start = [_randn((m + (i == n - 1),), torch.float32, gen, device)
+                     for i, m in enumerate(MT_SIZES)]
+            states = [tuple(torch.rand(m, generator=gen, device=device) * 1e-2
+                            for _ in range(n_states)) for m in MT_SIZES]
+            one, chunked, plain = (_mt_group(start, states, dtype) for _ in range(3))
+            lrs = [1e-2 * (1 + i / 8) for i in range(n)]
+            wds = [1e-3 * (i % 2) for i in range(n)]
+            launches = mt.multi_tensor_update.launches
+            for t, clip in enumerate(MT_CLIPS, 1):
+                gbuf = [_randn((m + (i == n - 1),), dtype, gen, device) * 0.1
+                        for i, m in enumerate(MT_SIZES)]
+                gs = [g[1:] if i == n - 1 else g for i, g in enumerate(gbuf)]
+                S = {"rescale": 0.5, "clip": clip, **extra}
+                args = (lrs, wds, [t] * n, S)
+                opt_ops.group_apply(step, one[0], gs, one[1], *args)
+                for a in range(0, n, 3):
+                    z = slice(a, a + 3)
+                    opt_ops.group_apply(step, chunked[0][z], gs[z], chunked[1][z],
+                                        lrs[z], wds[z], [t] * len(chunked[0][z]), S)
+                opt_ops.group_apply_plain(step, plain[0], gs, plain[1], *args)
+            torch.cuda.synchronize()
+            launched = mt.multi_tensor_update.launches - launches
+            errs, equal = [], True
+            for got in (one, chunked):
+                for a, b in zip(got[0] + [x for st in got[1] for x in st],
+                                plain[0] + [x for st in plain[1] for x in st]):
+                    equal = equal and torch.equal(a, b)
+                    errs.append((a.float() - b.float()).abs().max().item())
+            err = max(errs)
+            worst = max(worst, err)
+            ok = equal and launched == 3 * (1 + 2)
+            emit("kernel_vs_plain_multi_tensor", variant=variant,
+                 dtype=str(dtype).replace("torch.", ""), sizes=list(MT_SIZES),
+                 view_offset_bytes=torch.finfo(dtype).bits // 8, steps=len(MT_CLIPS),
+                 clips=list(MT_CLIPS), launches=launched, expected_launches=9,
+                 bit_equal=equal, max_abs_err=err, bound=0.0, ok=ok)
+            if not ok:
+                misses.append(f"{variant}_{dtype}")
+            del start, states, one, chunked, plain
+    if misses:
+        emit("kernel_vs_plain_multi_tensor", failed=misses)
+        sys.exit(1)
+    return worst
+
+
 # -- phase 4 ----------------------------------------------------------------
 
 
@@ -1115,18 +1290,21 @@ def phase_train(rehearsal):
 
     losses = [train_step(net, trainer, batch).mean().item() for _ in range(2)]  # warm-up
     reset_kernel_counts()
+    before = fused_counts()
     losses.append(train_step(net, trainer, batch).mean().item())  # syncs on .item()
     counts = kernel_counts()
+    fused_ok = _optimizer_check("train", net, before, "mp_adam", rehearsal)
     losses += [train_step(net, trainer, batch).mean().item() for _ in range(9)]
     sync()
     finite = all(math.isfinite(x) for x in losses)
     falling = losses[-1] < losses[0]
     want = {n: num_layers if n in FLASH and not rehearsal else 0 for n in ENTRIES}
+    want["multi_tensor"] = 0 if rehearsal else 1
     emit("train", model="BERTForPretrain(bert_base) bf16, Adam multi_precision, dropout 0.1"
          if not rehearsal else "tiny BERT bf16 (CPU rehearsal)", b=b, s=s, p=p,
          losses=losses, finite=finite, falling=falling, launches_one_step=counts,
          expected=want)
-    if not (finite and falling) or counts != want:
+    if not (finite and falling and fused_ok) or counts != want:
         sys.exit(1)
     return net, trainer, batch, counts
 
@@ -1202,13 +1380,16 @@ def phase_rtc_train(net, trainer, train_batch, vs_cpu, rehearsal):
         losses = [train_step(net, trainer, train_batch).mean().item() for _ in range(2)]
         reset_kernel_counts()
         RtcGelu.plain_calls = 0
+        before = fused_counts()
         losses.append(train_step(net, trainer, train_batch).mean().item())  # syncs on .item()
         counts, plain_calls = kernel_counts(), RtcGelu.plain_calls
+        fused_ok = _optimizer_check("rtc_train", net, before, "mp_adam", rehearsal)
         losses += [train_step(net, trainer, train_batch).mean().item() for _ in range(3)]
     finite = all(math.isfinite(x) for x in losses)
     falling = losses[-1] < losses[0]
     on_card = {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rtc_gelu_fwd", "rtc_gelu_bwd"}
     want = {n: num_layers if n in on_card and not rehearsal else 0 for n in ENTRIES}
+    want["multi_tensor"] = 0 if rehearsal else 1
     want_plain = 2 * num_layers if rehearsal else 0
     b, s, p = train_batch[0].shape[0], train_batch[0].shape[1], train_batch[2].shape[1]
     emit("rtc_train", model="BERTForPretrain(bert_base) bf16, Adam multi_precision, dropout "
@@ -1216,7 +1397,7 @@ def phase_rtc_train(net, trainer, train_batch, vs_cpu, rehearsal):
          else "tiny BERT bf16 (CPU rehearsal), FFN activation = rtc_gelu", b=b, s=s, p=p,
          losses=losses, finite=finite, falling=falling, launches_one_step=counts,
          expected=want, plain_gelu_calls_one_step=plain_calls, expected_plain=want_plain)
-    if not (finite and falling) or counts != want or plain_calls != want_plain:
+    if not (finite and falling and fused_ok) or counts != want or plain_calls != want_plain:
         sys.exit(1)
     return counts
 
@@ -1282,8 +1463,10 @@ def phase_resnet_train(rehearsal):
     hooks = [m.register_forward_pre_hook(record_shape) for m in blocks]
     reset_kernel_counts()
     ops_nn.batch_norm.reference_calls = 0
+    before_fused = fused_counts()
     losses.append(resnet_step(net, trainer, batch).mean().item())  # syncs on .item()
     counts = kernel_counts()
+    fused_ok = _optimizer_check("resnet_train", net, before_fused, "sgd_mom", rehearsal)
     reference_calls = ops_nn.batch_norm.reference_calls
     for h in hooks:
         h.remove()
@@ -1295,13 +1478,14 @@ def phase_resnet_train(rehearsal):
     finite = all(math.isfinite(x) for x in losses)
     n_bn = len(blocks)
     want = {n: n_bn if n in ("bn_stats", "bn_apply") and not rehearsal else 0 for n in ENTRIES}
+    want["multi_tensor"] = 0 if rehearsal else 1
     emit("resnet_train", model="resnet50_v1(classes=1000), AMP bf16, fp32 parameters, SGD "
          "lr 0.1 momentum 0.9 wd 1e-4" if not rehearsal else "tiny ResNetV1 (CPU rehearsal)",
          b=b, batchnorm_layers=n_bn, losses=losses, finite=finite,
          running_stats_moved=f"{moved}/{n_bn}", launches_one_step=counts, expected=want,
          batchnorm_reference_calls=reference_calls,
          bn_shapes_one_step=[[c, hw, k] for (c, hw), k in sorted(shapes.items())])
-    if not finite or counts != want or reference_calls != 0 or moved != n_bn:
+    if not (finite and fused_ok) or counts != want or reference_calls != 0 or moved != n_bn:
         sys.exit(1)
     mx.amp.disable()
     return net, trainer, batch, counts, shapes
@@ -1469,7 +1653,8 @@ def _graph_ms(fn, arg_sets, calls=40, replays=5):
 def _kernel_family(name):
     if name.startswith(("gelu_fwd_", "gelu_bwd_")):  # the user's kernels of RTC_SOURCE
         return "rtc_" + name[:8]
-    for fam in ("flash_bwd_dkv", "flash_bwd_dq", "flash_fwd", "bn_stats", "bn_apply"):
+    for fam in ("flash_bwd_dkv", "flash_bwd_dq", "flash_fwd", "bn_stats", "bn_apply",
+                "multi_tensor"):
         if fam in name:
             return fam
     if re.search(r"conv|cudnn|fprop|dgrad|wgrad|nchw|nhwc", name, re.I):
@@ -1760,6 +1945,176 @@ def _times_gelu(smi):
     return out
 
 
+def _optimizer_group(trainer):
+    """The Trainer's one fused group as ``group_apply`` takes it, on copies
+    of its parameters, gradients and states (timed calls update in place):
+    ``(step, args)``."""
+    opt = trainer._optimizer
+    items = [(i, p.data(), p.grad()) for i, p in enumerate(trainer._params)
+             if p.grad_req != "null"]
+    groups, rest = fused.plan_groups(opt, items, trainer._states)
+    if len(groups) != 1 or rest:
+        raise RuntimeError(f"expected one fused group, got {len(groups)} and {len(rest)} left")
+    (step, _, _), members = next(iter(groups.items()))
+    return step, ([w.detach().clone() for _, w, _, _ in members],
+                  [g.detach().clone() for _, _, g, _ in members],
+                  [tuple(x.clone() for x in flat) for _, _, _, flat in members],
+                  [opt._get_lr(i) for i, _, _, _ in members],
+                  [opt._get_wd(i) for i, _, _, _ in members],
+                  [opt._index_update_count[i] for i, _, _, _ in members], fused._scalars(opt))
+
+
+def phase_main_groups_vs_plain(trainers):
+    """The multi-tensor kernel on the main paths' own groups: for each
+    training path (name -> trainer), two copies of its one fused group as
+    the step hands it to ``group_apply`` (the BERT step's mp_adam over 159
+    tensors, the ResNet-50 step's fp32 sgd_mom over 193, with their real
+    gradients, states, lr, wd and counts), one through ``group_apply`` (one
+    launch a step), the other through ``group_apply_plain``, for two steps;
+    every weight and state must agree bit for bit.  Returns the largest
+    absolute difference seen."""
+    worst, misses = 0.0, []
+    for what, trainer in trainers.items():
+        (step, kern), (_, plain) = _optimizer_group(trainer), _optimizer_group(trainer)
+        launches = mt.multi_tensor_update.launches
+        for extra in range(2):
+            for ws, gs, sts, lrs, wds, ts, S in (kern, plain):
+                fn = opt_ops.group_apply if ws is kern[0] else opt_ops.group_apply_plain
+                fn(step, ws, gs, sts, lrs, wds, [t + extra for t in ts], S)
+        torch.cuda.synchronize()
+        launched = mt.multi_tensor_update.launches - launches
+        equal, err = True, 0.0
+        for a, b in zip(kern[0] + [x for st in kern[2] for x in st],
+                        plain[0] + [x for st in plain[2] for x in st]):
+            equal = equal and torch.equal(a, b)
+            err = max(err, (a.float() - b.float()).abs().max().item())
+        worst = max(worst, err)
+        ok = equal and launched == 2
+        emit("kernel_vs_plain_multi_tensor", case=f"{what}_group", variant=step.variant,
+             tensors=len(kern[0]), elements=sum(w.numel() for w in kern[0]),
+             weight_dtype=str(kern[0][0].dtype).replace("torch.", ""), steps=2,
+             launches=launched, expected_launches=2, bit_equal=equal, max_abs_err=err,
+             bound=0.0, ok=ok)
+        if not ok:
+            misses.append(what)
+        del kern, plain
+    if misses:
+        emit("kernel_vs_plain_multi_tensor", failed=misses)
+        sys.exit(1)
+    return worst
+
+
+def _library_update(step, args):
+    """The nearest single PyTorch call to the group's update, over fp32
+    copies (``torch._fused_adam_`` / ``torch._fused_sgd_``): not the same
+    function (ε outside the bias correction, no 16-bit weight copy, its own
+    weight decay), timed only as a yardstick.  Returns (name, fn, arg
+    sets)."""
+    ws, gs, sts, lrs, wds, ts, S = args
+    p32 = [w.float() for w in ws]
+    g32 = [g.float() for g in gs]
+    if step.variant in ("adam", "mp_adam"):
+        m, v = [st[0].clone() for st in sts], [st[1].clone() for st in sts]
+        steps = [torch.tensor(float(t), device=ws[0].device) for t in ts]
+        return "torch._fused_adam_", lambda: torch._fused_adam_(
+            p32, g32, m, v, [], steps, lr=lrs[0], beta1=S["beta1"], beta2=S["beta2"],
+            weight_decay=0.0, eps=S["epsilon"], amsgrad=False, maximize=False), [()]
+    moms = [st[0].clone() for st in sts]
+    return "torch._fused_sgd_", lambda: torch._fused_sgd_(
+        p32, g32, moms, weight_decay=wds[0], momentum=S["momentum"], lr=lrs[0], dampening=0.0,
+        nesterov=False, maximize=False, is_first_step=False), [()]
+
+
+def _times_multi_tensor(train, resnet, smi):
+    """The multi-tensor kernel on each training path's one fused group (the
+    BERT-base step's mp_adam over 159 tensors, the ResNet-50 step's fp32
+    sgd_mom over 193), its plain loop, the nearest library call, and the
+    bound: the bytes the update must move (the gradient read, each fp32
+    state read and written, the weight written, and read too where no fp32
+    master holds it) over the memory rate.  Returns {path: row}."""
+    out = {}
+    for what, trainer in (("bert_train_step", train[1]), ("resnet_train_step", resnet[1])):
+        step, args = _optimizer_group(trainer)
+        ws, gs, sts = args[:3]
+        mp = step.variant.startswith("mp_")
+        numel = sum(w.numel() for w in ws)
+        nbytes = sum(g.numel() * g.element_size() + 8 * sum(x.numel() for x in st)
+                     + (1 if mp else 2) * w.numel() * w.element_size()
+                     for w, g, st in zip(ws, gs, sts))
+        flops = (15 if "adam" in step.variant else 7) * numel
+        kern = _time(lambda: opt_ops.group_apply(step, *args), [()], 20, uniform=True)
+        plain = _time(lambda: opt_ops.group_apply_plain(step, *args), [()], 3)
+        lib_name, lib_fn, lib_sets = _library_update(step, args)
+        lib = _time(lib_fn, lib_sets, 20)
+        del lib_fn, lib_sets
+        bound_ms, bound_by = _bound(nbytes, flops, torch.float32)
+        row = dict(variant=step.variant, tensors=len(ws), elements=numel,
+                   weight_dtype=str(ws[0].dtype).replace("torch.", ""), ms=kern[0],
+                   call_ms=kern[1], plain_ms=plain[0], library_ms=lib[0], bound_ms=bound_ms,
+                   bound_by=bound_by)
+        emit("times", kernel="multi_tensor", per=f"one {what}: its fused group", **row,
+             bytes=nbytes, bytes_per_element=nbytes / numel, flops=flops,
+             share_of_bound=bound_ms / kern[0], achieved_bytes_per_s=nbytes / (kern[0] * 1e-3),
+             kernels_us=kern[2], library=lib_name,
+             library_note="nearest single PyTorch call over fp32 copies, not the same function",
+             card=smi)
+        out[what] = row
+        del args, ws, gs, sts
+    return out
+
+
+def _time_steps(fn, iters):
+    """Mean wall ms of ``iters`` calls of ``fn`` after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def _times_optimizer_paths(train, resnet, smi):
+    """Before and after in one run: each training step with the optimizer's
+    per-tensor loop (aggregate_num 0) and with the fused update, in turns
+    (loop, fused, fused, loop), each turn the mean of 10 steps, with
+    Trainer.step's own ms; then a torch.profiler breakdown of one step of
+    each."""
+    paths = (("BERTForPretrain(bert_base) bf16 B=64 S=128 P=20, Adam mp", train, train_step,
+              _step_phases),
+             ("resnet50_v1 AMP bf16 B=256 224x224, SGD momentum", resnet, resnet_step,
+              _resnet_step_phases))
+    for label, (net, trainer, batch), step_fn, phases in paths:
+        amp = step_fn is resnet_step
+        if amp:
+            mx.amp.init("bfloat16")
+        opt = trainer._optimizer
+        agg = opt.aggregate_num
+        turns = {"loop": {"step_ms": [], "trainer_step_ms": []},
+                 "fused": {"step_ms": [], "trainer_step_ms": []}}
+        try:
+            for mode in ("loop", "fused", "fused", "loop"):
+                opt.aggregate_num = 0 if mode == "loop" else agg
+                turns[mode]["step_ms"].append(
+                    _time_steps(lambda: step_fn(net, trainer, batch), 10))
+                turns[mode]["trainer_step_ms"].append(
+                    phases(net, trainer, batch, 3)["trainer_step"])
+            for mode in ("loop", "fused"):
+                opt.aggregate_num = 0 if mode == "loop" else agg
+                phase_profile(f"train step: {label}, optimizer {mode}",
+                              lambda: step_fn(net, trainer, batch), smi)
+        finally:
+            opt.aggregate_num = agg
+            if amp:
+                mx.amp.disable()
+        mean = {m: {k: sum(v) / len(v) for k, v in t.items()} for m, t in turns.items()}
+        emit("times", optimizer_paths=label, turns=turns, mean=mean,
+             trainer_step_ms_loop=mean["loop"]["trainer_step_ms"],
+             trainer_step_ms_fused=mean["fused"]["trainer_step_ms"],
+             step_ms_loop=mean["loop"]["step_ms"], step_ms_fused=mean["fused"]["step_ms"],
+             card=smi)
+
+
 def _host_ms(fn, arg_sets, iters=100):
     """Host time per call of ``fn``: the loop issues ``iters`` calls and
     returns before the card has run them (the queue holds far more than
@@ -1877,6 +2232,8 @@ def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, smi):
     rows.update(_times_bwd(gen, smi))
     rows.update(_times_bn(bn_shapes, smi))
     rows.update(_times_gelu(smi))
+    mt_rows = _times_multi_tensor(train, resnet, smi)
+    rows["multi_tensor"] = mt_rows["bert_train_step"]
 
     iters = 10
     torch.cuda.reset_peak_memory_stats()
@@ -1922,6 +2279,7 @@ def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, smi):
         phase_profile("train step: the same, FFN activation = the user's rtc_gelu CustomOp",
                       lambda: train_step(tnet, trainer, batch), smi)
     _times_resnet(resnet, smi)
+    _times_optimizer_paths(train, resnet, smi)
     set_kernel_counts(before)  # timed and profiled launches are not the main paths'
 
     csrc = "incubator_mxnet_torch/ops/csrc/"
@@ -1934,11 +2292,14 @@ def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, smi):
                "bn_apply": (csrc + "bn.cu", "incubator_mxnet_tpu/ops/pallas_bn.py:67"),
                "bn_apply_res": (csrc + "bn.cu", "incubator_mxnet_tpu/ops/pallas_bn.py:75"),
                "rtc_gelu_fwd": ("chip_smoke.py", "incubator_mxnet_tpu/rtc.py:48"),
-               "rtc_gelu_bwd": ("chip_smoke.py", "incubator_mxnet_tpu/rtc.py:48")}
+               "rtc_gelu_bwd": ("chip_smoke.py", "incubator_mxnet_tpu/rtc.py:48"),
+               "multi_tensor": (csrc + "multi_tensor.cu",
+                                "incubator_mxnet_tpu/ops/optimizer_ops.py:367")}
     main_path = {"flash_fwd": "inference", "flash_bwd_dq": "train_step",
                  "flash_bwd_dkv": "train_step", "bn_stats": "resnet_train_step",
                  "bn_apply": "resnet_train_step", "bn_apply_res": "resnet_train_step",
-                 "rtc_gelu_fwd": "rtc_train_step", "rtc_gelu_bwd": "rtc_train_step"}
+                 "rtc_gelu_fwd": "rtc_train_step", "rtc_gelu_bwd": "rtc_train_step",
+                 "multi_tensor": "train_step"}
     kernels = []
     for name, (src, replaces) in sources.items():
         path = main_path[name]
@@ -1952,6 +2313,12 @@ def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, smi):
                    "call_ms": row["call_ms"], "host_ms": row["host_ms"],
                    "compiled_by": "incubator_mxnet_torch/rtc.py (RTC_SOURCE, nvcc cubin, "
                                   "CUDA driver launch)"}
+        elif name == "multi_tensor":
+            per = {"per": "one BERT-base step's fused group (mp_adam, 159 tensors); not a TPU "
+                          "kernel but the counterpart of group_apply's one XLA dispatch; "
+                          "library_ms is torch._fused_adam_ over fp32 copies, the nearest "
+                          "PyTorch call, not the same function",
+                   "resnet_train_step": mt_rows["resnet_train_step"]}
         headers = ([str(h.relative_to(Path(__file__).resolve().parent))
                     for h in _cuda.includes(Path(__file__).resolve().parent / src)]
                    if src.endswith(".cu") else [])
@@ -1983,10 +2350,83 @@ def rehearse_times(net, main_req, train, resnet):
          resnet_train_step_host_ms=(time.perf_counter() - t2) * 1e3)
 
 
+# One turn of --inference-turns, run as ``python -c`` from the checkout it
+# times (argv[1]), so it imports that checkout's package: the phase-4
+# network and main request (BERT-base bf16, seeds 0 and 7, B=64, S=128,
+# P=20) and phase 7's timing (the mean of 10 forwards), taken 10 times
+# after one warm-up; prints one JSON line.
+_INFERENCE_TURN = r'''
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+import incubator_mxnet_torch as mx
+from incubator_mxnet_torch.gluon.model_zoo import bert as bert_zoo
+torch.backends.cuda.matmul.allow_tf32 = False
+mx.random.seed(0)
+net = bert_zoo.BERTForPretrain(bert_zoo.bert_base(vocab_size=30522, max_length=512,
+                                                  dropout=0.1), vocab_size=30522)
+net.initialize()
+net.cast("bfloat16")
+dev = torch.device("cuda", 0)
+gen = torch.Generator(device=dev).manual_seed(7)
+req = [torch.randint(0, n, shape, generator=gen, device=dev, dtype=torch.int32)
+       for n, shape in ((30522, (64, 128)), (2, (64, 128)), (128, (64, 20)))]
+samples = []
+with mx.autograd.predict_mode():
+    net(*req)
+    torch.cuda.synchronize()
+    for _ in range(10):
+        t0 = time.perf_counter()
+        for _ in range(10):
+            net(*req)
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) / 10 * 1e3)
+print(json.dumps({"package": mx.__file__, "forward_ms": samples}))
+'''
+
+
+def inference_turns(roots, rounds):
+    """The BERT-base inference forward of two checkouts in turns (A, B, B,
+    A each round), each turn a fresh process on the card: host noise that
+    drifts within a call falls on both alike.  Emits every turn and every
+    pair; exits non-zero if a turn fails."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    a, b = (str(Path(r).resolve()) for r in roots)
+    turns = {a: [], b: []}
+    for r in range(rounds):
+        for root in (a, b, b, a):
+            run = subprocess.run([sys.executable, "-c", _INFERENCE_TURN, root], cwd=root,
+                                 capture_output=True, text=True, timeout=600)
+            if run.returncode != 0:
+                print(run.stderr[-4000:], file=sys.stderr)
+                emit("inference_turns", root=root, round=r, rc=run.returncode, ok=False)
+                sys.exit(1)
+            rec = json.loads(run.stdout.strip().splitlines()[-1])
+            if not rec["package"].startswith(root):
+                emit("inference_turns", root=root, package=rec["package"], ok=False)
+                sys.exit(1)
+            mean = sum(rec["forward_ms"]) / len(rec["forward_ms"])
+            turns[root].append(mean)
+            emit("inference_turns", root=root, round=r, forward_ms=rec["forward_ms"],
+                 mean_forward_ms=mean, samples_per_s=64 / mean * 1e3, card=smi)
+    pairs = [dict(a_ms=x, b_ms=y, b_over_a=y / x) for x, y in zip(turns[a], turns[b])]
+    qa, qb = (statistics.quantiles(turns[r], n=4) for r in (a, b))
+    emit("inference_turns", a=a, b=b, pairs=pairs, median_a_ms=qa[1], median_b_ms=qb[1],
+         quartiles_a_ms=[qa[0], qa[2]], quartiles_b_ms=[qb[0], qb[2]],
+         b_faster_pairs=sum(p["b_ms"] < p["a_ms"] for p in pairs), card=smi)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run phases 4-7 on the CPU at a tiny size; never prints ok")
+    ap.add_argument("--inference-turns", nargs=2, metavar=("ROOT_A", "ROOT_B"),
+                    help="only time the BERT-base inference forward of two checkouts in "
+                         "turns (A, B, B, A per round); never prints ok")
+    ap.add_argument("--rounds", type=int, default=3, help="rounds of --inference-turns")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2004,6 +2444,9 @@ def main():
         print("chip_smoke: no CUDA device; this script drives the port on the card",
               file=sys.stderr)
         return 2
+    if args.inference_turns:
+        inference_turns(args.inference_turns, args.rounds)
+        return 0
     smi = phase_device()
     phase_build()
     device = torch.device("cuda", 0)
@@ -2011,6 +2454,7 @@ def main():
     errs.update(phase_kernel_vs_plain_bwd(device))
     errs.update(phase_kernel_vs_plain_bn(device))
     errs.update(phase_kernel_vs_plain_rtc(device))
+    errs["multi_tensor"] = phase_kernel_vs_plain_multi_tensor(device)
     net, main_req, infer_counts = phase_slice(rehearsal=False)
     tnet, trainer, batch, train_counts = phase_train(rehearsal=False)
     vs_cpu = phase_train_vs_cpu(tnet, rehearsal=False)
@@ -2018,6 +2462,8 @@ def main():
     del vs_cpu
     rnet, rtrainer, rbatch, resnet_counts, bn_shapes = phase_resnet_train(rehearsal=False)
     phase_resnet_train_vs_cpu(rehearsal=False)
+    errs["multi_tensor"] = max(errs["multi_tensor"], phase_main_groups_vs_plain(
+        {"bert_train_step": trainer, "resnet_train_step": rtrainer}))
     phase_times(net, main_req, (tnet, trainer, batch), (rnet, rtrainer, rbatch), bn_shapes,
                 {"inference": infer_counts, "train_step": train_counts,
                  "resnet_train_step": resnet_counts, "rtc_train_step": rtc_counts}, errs, smi)

@@ -5,8 +5,12 @@ device: ``step(batch_size)`` runs ``allreduce_grads`` (nothing to reduce
 on one device) and then the optimizer on every parameter with a
 gradient, with ``rescale_grad = scale / batch_size``; ``save_states`` /
 ``load_states`` keep the optimizer state and the per-parameter update
-counts (Adam's ``t``).  The update is the per-tensor loop; the fused
-group update and distributed kvstores are later slices of the port.
+counts (Adam's ``t``).  The update goes through the fused group update
+(``optimizer/fused.py``: on the card one launch of the multi-tensor
+kernel per group of up to ``optimizer.aggregate_num`` parameters), and
+only what it leaves (an optimizer with no fused variant, or
+``aggregate_num`` <= 1) takes the per-tensor loop.  Distributed kvstores
+are a later slice of the port.
 
 The optimizer state is keyed by parameter index, and each step fetches
 ``param.data()`` and ``param.grad()`` afresh, so a ``cast`` between
@@ -21,6 +25,7 @@ import warnings
 import torch
 
 from .. import optimizer as opt_mod
+from ..optimizer import fused as _fused
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
@@ -115,6 +120,7 @@ class Trainer:
                 and self._grad_versions.get(i) == p.grad_version}
 
     def _update(self, ignore_stale_grad=False, stale=frozenset()):
+        items = []
         for i, p in enumerate(self._params):
             if p.grad_req == "null" or p._data is None:
                 continue
@@ -123,7 +129,10 @@ class Trainer:
             weight = p.data()
             if i not in self._states:
                 self._states[i] = self._optimizer.create_state_multi_precision(i, weight)
-            self._optimizer.update_multi_precision(i, weight, p.grad(), self._states[i])
+            items.append((i, weight, p.grad()))
+        # the fused group update; what it leaves takes the per-tensor loop
+        for i, weight, grad in _fused.fused_update(self._optimizer, items, self._states):
+            self._optimizer.update_multi_precision(i, weight, grad, self._states[i])
         for i, p in enumerate(self._params):
             if p.grad_req != "null" and p._data is not None:
                 self._grad_versions[i] = p.grad_version

@@ -19,12 +19,18 @@ writes dq, dk and dv straight into the three slices of one
 ``[B, S, 3, H, Dh]`` gradient.
 
 Operands: the wrappers take what the JAX functions take, up to a head
-dim of 128.  A head dim the kernels have no instance for (48, 80, ...) is
-zero-padded to the next one they have (zero columns add nothing to q·kᵀ,
-to rowsum(do∘o) or to any product), with the scale of the true head dim,
-and the outputs are sliced back.  A 16-bit operand that repeats one row
-along its sequence (stride 0) goes to the kernels contiguous, since TMA
-reads rows in boxes.  A head dim above 128 raises.
+dim of 256.  A head dim the kernels have no instance for (48, 80, 160,
+...) is zero-padded to the next one they have (zero columns add nothing
+to q·kᵀ, to rowsum(do∘o) or to any product), with the scale of the true
+head dim, and the outputs are sliced back.  The widest instance, 256,
+runs each kernel as two launches of a 128-column slab of its outputs,
+each reducing over the whole head (the sources say why).  A 16-bit
+operand that repeats one row along its sequence (stride 0) goes to the
+kernels contiguous, since TMA reads rows in boxes.  A head dim above 256
+raises: the next instance, 512, would need 128 KB for each 16-bit tile of
+128 rows, so the forward's whole-width Q and K tiles (or the dk/dv pass's
+K and V) alone would pass the 227 KB of shared memory a block has; such a
+head needs its reductions streamed in column blocks too.
 
 Gradients: one ``torch.autograd.Function`` (``_FlashAttention``) holds
 the forward, which saves o and the per-row log-sum-exp when an input
@@ -48,7 +54,13 @@ __all__ = ["flash_fwd", "flash_fwd_plain", "flash_bwd", "flash_bwd_dq", "flash_b
            "fused_kv_attention"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
+_SLAB = 128  # output columns of one launch: a wider instance makes one launch a slab
+
+
+def _launches(width):
+    """Launches of one kernel pass at the instance ``width``."""
+    return max(1, width // _SLAB)
 
 
 def flash_fwd_plain(q, k, v, causal=False, scale=None, with_lse=False):
@@ -110,7 +122,7 @@ def _strides_bhs(x, bshd):
 
 def _check_cuda_operands(fn, q, k, v, bshd, like_k=(), **like_q):
     """What the kernels take: 4-D operands on q's device, of q's dtype (one
-    of three), head dim 16/32/64/128, unit stride on Dh, 16-byte aligned
+    of three), head dim 16/32/64/128/256, unit stride on Dh, 16-byte aligned
     rows; ``like_q`` names further operands of q's shape (o, do, dq...),
     ``like_k`` (name, tensor) pairs of k's shape (dk, dv)."""
     dev = q.device
@@ -218,9 +230,9 @@ def flash_fwd(q, k, v, causal=False, scale=None, with_lse=False, layout="bhsd"):
     Returns ``(o, lse)`` with lse ``[B·H, Sq]`` fp32, or None.
 
     A CPU tensor takes :func:`flash_fwd_plain`; a CUDA tensor launches the
-    kernel (``flash_fwd.launches`` counts the launches) or raises.  On the
-    card a head dim the kernel has no instance for comes back as a slice
-    of the padded o."""
+    kernel (``flash_fwd.launches`` counts the launches: two at Dh 129-256,
+    one a slab) or raises.  On the card a head dim the kernel has no
+    instance for comes back as a slice of the padded o."""
     if layout not in ("bhsd", "bshd"):
         raise ValueError(f"layout must be 'bhsd' or 'bshd', got {layout!r}")
     bshd = layout == "bshd"
@@ -251,7 +263,7 @@ def flash_fwd(q, k, v, causal=False, scale=None, with_lse=False, layout="bhsd"):
                       torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_fwd launch failed with CUDA error {rc}")
-    flash_fwd.launches += 1
+    flash_fwd.launches += _launches(d)
     return o[..., :d_caller] if d != d_caller else o, lse
 
 
@@ -262,7 +274,8 @@ def _bwd_launch(q, k, v, o, do, lse, dq, dk, dv, causal, scale, bshd):
     """One ctypes call of ``mx_flash_bwd``: the dq pass when ``dq`` is
     given, the dk/dv pass when ``dk``/``dv`` are, both from one set of
     tensor maps.  A padded head dim runs on padded buffers that are then
-    copied, sliced, into the given ones."""
+    copied, sliced, into the given ones.  Returns the launches each pass
+    made."""
     d = q.shape[-1]
     width = _kernel_width("flash_bwd", q, k, v)
     q, k, v, o, do = _kernel_operands(width, bshd, q, k, v, o, do)
@@ -295,6 +308,7 @@ def _bwd_launch(q, k, v, o, do, lse, dq, dk, dv, causal, scale, bshd):
         for dst, g in zip(wanted, (dq, dk, dv)):
             if dst is not None:
                 dst.copy_(g[..., :d])
+    return _launches(width)
 
 
 def _bwd_args(q, layout, scale):
@@ -327,8 +341,8 @@ def flash_bwd_dq(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd", d
     if q.device.type == "cpu":
         return _into(dq, _bwd_plain(q, k, v, o, do, lse, causal, scale, bshd)[0])
     dq = _new_like(q) if dq is None else dq
-    _bwd_launch(q, k, v, o, do, lse, dq, None, None, causal, scale, bshd)
-    flash_bwd_dq.launches += 1
+    flash_bwd_dq.launches += _bwd_launch(q, k, v, o, do, lse, dq, None, None, causal, scale,
+                                         bshd)
     return dq
 
 
@@ -346,8 +360,8 @@ def flash_bwd_dkv(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd",
         return _into(dk, gk), _into(dv, gv)
     if dk is None:
         dk, dv = _new_like(k), _new_like(v)
-    _bwd_launch(q, k, v, o, do, lse, None, dk, dv, causal, scale, bshd)
-    flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.launches += _bwd_launch(q, k, v, o, do, lse, None, dk, dv, causal, scale,
+                                          bshd)
     return dk, dv
 
 
@@ -365,16 +379,16 @@ def flash_bwd(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd", out=
     A CPU tensor takes :func:`flash_bwd_plain` (once, for all three); a
     CUDA tensor launches the two kernels, the dq pass then the dk/dv pass,
     in one call (``flash_bwd_dq.launches`` and ``flash_bwd_dkv.launches``
-    each count one), or raises."""
+    each count one, two at Dh 129-256), or raises."""
     dq, dk, dv = out if out is not None else (None, None, None)
     bshd, scale = _bwd_args(q, layout, scale)
     if q.device.type == "cpu":
         grads = _bwd_plain(q, k, v, o, do, lse, causal, scale, bshd)
         return tuple(_into(dst, g) for dst, g in zip((dq, dk, dv), grads))
     dq, dk, dv = (_new_like(x) if g is None else g for g, x in zip((dq, dk, dv), (q, k, v)))
-    _bwd_launch(q, k, v, o, do, lse, dq, dk, dv, causal, scale, bshd)
-    flash_bwd_dq.launches += 1
-    flash_bwd_dkv.launches += 1
+    n = _bwd_launch(q, k, v, o, do, lse, dq, dk, dv, causal, scale, bshd)
+    flash_bwd_dq.launches += n
+    flash_bwd_dkv.launches += n
     return dq, dk, dv
 
 

@@ -62,7 +62,11 @@
 // Tiles and shared memory per (type, Dh): DqTiles<D>::SMEM and
 // DkvTiles<D>::SMEM; at Dh=128 the streamed tiles have 64 rows and the
 // item buffers are single, to keep the accumulators in registers
-// (setmaxnreg 56 / 224) and the stages in shared memory.
+// (setmaxnreg 56 / 224) and the stages in shared memory.  At Dh=256 each
+// pass runs as two launches of a 128-column slab of its gradients
+// (run_slabs), reducing s, dp and delta over all 256 columns, so the
+// accumulators stay those of Dh=128; one stage a ring, and the dq pass
+// passes O through its K/V stage (DqTiles::O_STAGED).
 //
 // What the card shows (PERF.md): at the BERT shape the dq pass reaches
 // about two thirds of its bytes bound and the dk/dv pass over half, the
@@ -90,6 +94,7 @@ struct Params {
   long long st[8][3];  // element strides (batch, head, sequence) of q,k,v,o,do,dq,dk,dv
   float scale;
   int causal;
+  int col0;  // the first column of the gradients' slab (0 unless Dh > 128)
 };
 
 // ---------------------------------------------------------------------------
@@ -110,27 +115,33 @@ constexpr int STAT_THREADS = 96;  // producer warps 1-3: delta and lse of a stag
 constexpr float LOG2E = 1.4426950408889634f;
 
 // dq pass.  Dynamic shared memory (SMEM, bytes): Dh 16: 42,064; 32:
-// 83,024; 64: 164,944; 128: 164,928.
+// 83,024; 64: 164,944; 128: 164,928; 256: 197,672.  Above Dh=128 an item
+// holds Q and dO only: O, which only delta reads, passes through the one
+// K/V stage (rows 0-63 in K's place, 64-127 in V's) before the item's
+// first K/V tile.
 template <int D>
 struct DqTiles {
-  using I = Box<D, BM>;                            // Q, dO, O of an item
+  using I = Box<D, BM>;                            // Q, dO (and O) of an item
   static constexpr int BKV = D >= 128 ? 64 : 128;  // keys of a K/V tile
   using KV = Box<D, BKV>;
+  static constexpr bool O_STAGED = D > 128;
+  static constexpr int ITEM = O_STAGED ? 2 : 3;    // tiles of an item buffer
   static constexpr int QS = D >= 128 ? 1 : 2;      // item buffers
-  static constexpr int KVS = 2;                    // K/V stages
+  static constexpr int KVS = D > 128 ? 1 : 2;      // K/V stages
   static constexpr int BARRIERS = 2 * QS + 3 * KVS;
-  static constexpr int SMEM = QS * 3 * I::BYTES + KVS * 2 * KV::BYTES + BARRIERS * 8 + 1024;
+  static constexpr int SMEM =
+      QS * ITEM * I::BYTES + KVS * 2 * KV::BYTES + BARRIERS * 8 + 1024;
 };
 
 // dk/dv pass.  Dynamic shared memory (SMEM, bytes): Dh 16: 44,112; 32:
-// 85,072; 64: 166,992; 128: 165,952.
+// 85,072; 64: 166,992; 128: 165,952; 256: 230,952.
 template <int D>
 struct DkvTiles {
   using I = Box<D, BM>;                           // K, V of an item
   static constexpr int BQ = D >= 128 ? 64 : 128;  // query rows of a streamed tile
   using QT = Box<D, BQ>;                          // Q, dO, O of a stage
   static constexpr int KS = D >= 128 ? 1 : 2;     // item buffers
-  static constexpr int QST = 2;                   // Q/dO/O stages
+  static constexpr int QST = D > 128 ? 1 : 2;     // Q/dO/O stages
   static constexpr int STAT_BYTES = 2 * BQ * 4;   // delta and lse·log2e of a stage
   static constexpr int BARRIERS = 2 * KS + 3 * QST;
   static constexpr int SMEM = KS * 2 * I::BYTES + QST * (3 * QT::BYTES + STAT_BYTES) +
@@ -138,10 +149,12 @@ struct DkvTiles {
 };
 
 static_assert(DqTiles<16>::SMEM == 42064 && DqTiles<32>::SMEM == 83024 &&
-                  DqTiles<64>::SMEM == 164944 && DqTiles<128>::SMEM == 164928,
+                  DqTiles<64>::SMEM == 164944 && DqTiles<128>::SMEM == 164928 &&
+                  DqTiles<256>::SMEM == 197672,
               "the sizes stated beside DqTiles");
 static_assert(DkvTiles<16>::SMEM == 44112 && DkvTiles<32>::SMEM == 85072 &&
-                  DkvTiles<64>::SMEM == 166992 && DkvTiles<128>::SMEM == 165952,
+                  DkvTiles<64>::SMEM == 166992 && DkvTiles<128>::SMEM == 165952 &&
+                  DkvTiles<256>::SMEM == 230952,
               "the sizes stated beside DkvTiles");
 
 __device__ __forceinline__ uint32_t lds32(uint32_t addr) {
@@ -255,7 +268,10 @@ __device__ __forceinline__ DkvItem dkv_item(int i, const Params& p, int nkt, int
   return it;
 }
 
-template <typename T, int D>
+// D: the width of q, k, v, o and do (the reductions of q·kᵀ, do·vᵀ and
+// delta); DS: the width of the dq slab one launch produces (D, or 128
+// columns from p.col0 of a wider head).
+template <typename T, int D, int DS>
 __global__ void __launch_bounds__(TMA_THREADS, 1)
     flash_bwd_dq_tma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
@@ -267,8 +283,8 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
   constexpr int BKV = L::BKV;
   extern __shared__ unsigned char smem_dq[];
   const uint32_t base = (smem_addr(smem_dq) + 1023u) & ~1023u;
-  const uint32_t sitem = base;                         // QS buffers of Q, dO, O
-  const uint32_t skv = sitem + L::QS * 3 * I::BYTES;   // KVS stages of K then V
+  const uint32_t sitem = base;                          // QS buffers of Q, dO (, O)
+  const uint32_t skv = sitem + L::QS * L::ITEM * I::BYTES;  // KVS stages of K then V
   const uint32_t bars = skv + L::KVS * 2 * KV::BYTES;
   const uint32_t q_full = bars, q_empty = q_full + 8 * L::QS;
   const uint32_t k_full = q_empty + 8 * L::QS, v_full = k_full + 8 * L::KVS;
@@ -304,13 +320,24 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
         const Coord co = coord(p, O, it.b, it.h), ck = coord(p, K, it.b, it.h);
         const Coord cv = coord(p, V, it.b, it.h);
         const int qs = qr.slot();
-        const uint32_t buf = sitem + qs * 3 * I::BYTES;
+        const uint32_t buf = sitem + qs * L::ITEM * I::BYTES;
         mbar_wait(q_empty + 8 * qs, qr.parity() ^ 1u);
-        mbar_expect_tx(q_full + 8 * qs, 3 * I::BYTES);
+        mbar_expect_tx(q_full + 8 * qs, L::ITEM * I::BYTES);
         tma_tile<I, BM>(buf, &tq, q_full + 8 * qs, it.q0, cq.h, cq.b);
         tma_tile<I, BM>(buf + I::BYTES, &tdo, q_full + 8 * qs, it.q0, cdo.h, cdo.b);
-        tma_tile<I, BM>(buf + 2 * I::BYTES, &to, q_full + 8 * qs, it.q0, co.h, co.b);
+        if constexpr (!L::O_STAGED)
+          tma_tile<I, BM>(buf + 2 * I::BYTES, &to, q_full + 8 * qs, it.q0, co.h, co.b);
         ++qr.n;
+        if constexpr (L::O_STAGED) {  // O's two halves in the K and V places of a stage
+          const int s = kvr.slot();
+          const uint32_t ks = skv + 2 * s * KV::BYTES;
+          mbar_wait(kv_empty + 8 * s, kvr.parity() ^ 1u);
+          mbar_expect_tx(k_full + 8 * s, KV::BYTES);
+          tma_tile<KV, BKV>(ks, &to, k_full + 8 * s, it.q0, co.h, co.b);
+          mbar_expect_tx(v_full + 8 * s, KV::BYTES);
+          tma_tile<KV, BKV>(ks + KV::BYTES, &to, v_full + 8 * s, it.q0 + BKV, co.h, co.b);
+          ++kvr.n;
+        }
         for (int j = 0; j < it.nk; ++j) {
           const int s = kvr.slot();
           const uint32_t ks = skv + 2 * s * KV::BYTES, vs = ks + KV::BYTES;
@@ -335,7 +362,7 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
     for (int i = blockIdx.x; i < items; i += gridDim.x) {
       const DqItem it = dq_item(i, p, nqt, BKV);
       const int qs = qr.slot();
-      const uint32_t buf = sitem + qs * 3 * I::BYTES;
+      const uint32_t buf = sitem + qs * L::ITEM * I::BYTES;
       const uint32_t qa = buf + 64 * wg * I::W;  // this consumer's q rows, then do's
       const uint32_t doa = qa + I::BYTES;
       const int wg_row0 = it.q0 + 64 * wg;
@@ -349,7 +376,24 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
 
       // delta = rowsum(do ∘ o): each of a row's four lanes sums D/4 columns
       float delta[2] = {0.f, 0.f};
-      if (it.nk > 0) {
+      if constexpr (L::O_STAGED) {  // this consumer's 64 rows of O in the stage
+        const int s = kvr.slot();
+        const uint32_t ob = skv + 2 * s * KV::BYTES + wg * KV::BYTES;
+        mbar_wait((wg == 0 ? k_full : v_full) + 8 * s, kvr.parity());
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float acc = 0.f;
+#pragma unroll
+          for (int c = t * (D / 4); c < (t + 1) * (D / 4); c += 2) {
+            const float2 d2 = unpack2<T>(lds32(buf + I::BYTES + tile_offset<I>(rl + 8 * r, c)));
+            const float2 o2 = unpack2<T>(lds32(ob + tile_offset<KV>(16 * warp + g + 8 * r, c)));
+            acc = fmaf(d2.x, o2.x, fmaf(d2.y, o2.y, acc));
+          }
+          delta[r] = quad_sum(acc);
+        }
+        release(kv_empty + 8 * s, lane);
+        ++kvr.n;
+      } else if (it.nk > 0) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           float acc = 0.f;
@@ -364,17 +408,22 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
         }
       }
 
-      float dq[D / 2];
+      float dq[DS / 2];
 #pragma unroll
-      for (int e = 0; e < D / 2; ++e) dq[e] = 0.f;
+      for (int e = 0; e < DS / 2; ++e) dq[e] = 0.f;
       for (int j = 0; j < it.nk; ++j) {
         const int s = kvr.slot();
         const uint32_t par = kvr.parity();
         const uint32_t ks = skv + 2 * s * KV::BYTES, vs = ks + KV::BYTES;
         const int k0 = j * BKV;
         // rows all past Sq, or (causal) a tile all after this consumer's
-        // rows: p = 0, nothing to add
+        // rows: p = 0, nothing to add.  The stage is still waited for before
+        // it is released: an arrival ahead of the loads would count toward
+        // the other consumer's use of the slot (and leave a load in flight
+        // when the block exits).
         if (wg_row0 >= p.Sq || (p.causal && k0 > wg_row0 + 63)) {
+          mbar_wait(k_full + 8 * s, par);
+          mbar_wait(v_full + 8 * s, par);
           release(kv_empty + 8 * s, lane);
           ++kvr.n;
           continue;
@@ -402,7 +451,7 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
           }
         uint32_t dsf[BKV / 16][4];
         pack_a<T>(dsf, dp);
-        issue_rs<T, D, KV, BKV / 16>(dq, dsf, ks);
+        issue_rs<T, DS, KV, BKV / 16>(dq, dsf, ks + p.col0 / KV::BOX * KV::PART);
         wgmma_wait();
         release(kv_empty + 8 * s, lane);
         ++kvr.n;
@@ -410,12 +459,12 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
 
       // Epilogue: dq·scale into this consumer's own q rows (no longer read),
       // then one TMA store per column box, which clips rows past Sq.
-      stage_rows<T, I, D>(buf, dq, p.scale, rl, t);
+      stage_rows<T, I, DS>(buf, dq, p.scale, rl, t);
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       named_sync(1 + wg);
       if (tid == 0) {
         if (wg_row0 < p.Sq) {
-          for (int c = 0; c < I::PARTS; ++c)
+          for (int c = 0; c < Box<DS, BM>::PARTS; ++c)
             tma_store(&tdq, buf + c * I::PART + 64 * wg * I::W, c * I::BOX, wg_row0, it.h, it.b);
           asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
           asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -427,7 +476,8 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
   }
 }
 
-template <typename T, int D>
+// D as for flash_bwd_dq_tma; DS: the width of the dk and dv slabs.
+template <typename T, int D, int DS>
 __global__ void __launch_bounds__(TMA_THREADS, 1)
     flash_bwd_dkv_tma(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
@@ -550,9 +600,10 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
       const uint32_t ka = kbuf + 64 * wg * I::W, va = vbuf + 64 * wg * I::W;
       const int wg_key0 = it.k0 + 64 * wg;
       const int key0 = it.k0 + rl;  // this thread's keys: key0, key0 + 8
-      float dk[D / 2], dv[D / 2];
+      float dk[DS / 2], dv[DS / 2];
 #pragma unroll
-      for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.f;
+      for (int e = 0; e < DS / 2; ++e) dk[e] = dv[e] = 0.f;
+      const uint32_t slab = p.col0 / QT::BOX * QT::PART;  // the slab's first column box
       mbar_wait(kv_full + 8 * ks, kr.parity());
       for (int j = it.j0; j < nqt; ++j) {
         const int s = sr.slot();
@@ -595,9 +646,9 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
           }
           uint32_t pf[NQ / 16][4], dsf[NQ / 16][4];
           pack_a<T>(pf, sc);
-          issue_rs<T, D, QT, NQ / 16>(dv, pf, dh);   // dv += pᵀ·do
+          issue_rs<T, DS, QT, NQ / 16>(dv, pf, dh + slab);   // dv += pᵀ·do
           pack_a<T>(dsf, dp);
-          issue_rs<T, D, QT, NQ / 16>(dk, dsf, qh);  // dk += dsᵀ·q
+          issue_rs<T, DS, QT, NQ / 16>(dk, dsf, qh + slab);  // dk += dsᵀ·q
           wgmma_wait();
         }
         release(s_empty + 8 * s, lane);
@@ -607,13 +658,13 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
       // Epilogue: dk·scale and dv into this consumer's own k and v rows (no
       // longer read), then one TMA store per column box of each, clipping
       // keys past Sk.
-      stage_rows<T, I, D>(kbuf, dk, p.scale, rl, t);
-      stage_rows<T, I, D>(vbuf, dv, 1.f, rl, t);
+      stage_rows<T, I, DS>(kbuf, dk, p.scale, rl, t);
+      stage_rows<T, I, DS>(vbuf, dv, 1.f, rl, t);
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       named_sync(1 + wg);
       if (tid == 0) {
         if (wg_key0 < p.Sk) {
-          for (int c = 0; c < I::PARTS; ++c) {
+          for (int c = 0; c < Box<DS, BM>::PARTS; ++c) {
             const uint32_t off = c * I::PART + 64 * wg * I::W;
             tma_store(&tdk, kbuf + off, c * I::BOX, wg_key0, it.h, it.b);
             tma_store(&tdv, vbuf + off, c * I::BOX, wg_key0, it.h, it.b);
@@ -635,9 +686,15 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
 // ---------------------------------------------------------------------------
 
 constexpr int ROWS = 64;      // rows of the owned operand per block
-constexpr int BK = 64;        // key rows per streamed tile of the dq pass
 constexpr int WARPS = 4;      // each warp owns ROWS / WARPS = 16 rows
 constexpr int THREADS = WARPS * 32;
+
+// Key rows streamed per tile by the dq pass: 32 above Dh=128, so that the
+// K and V tiles fit beside Q and dO in shared memory.
+template <int D>
+struct DqKeys {
+  static constexpr int value = D > 128 ? 32 : 64;
+};
 
 // Query rows streamed per tile by the dk/dv pass, chosen so that no
 // instance spills: two [Dh / 2] accumulators a thread beside its score rows.
@@ -711,10 +768,12 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
-template <int D>
+// D: the width of the operands; DS: the width of the dq slab, from p.col0.
+template <int D, int DS>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_f32(Params p) {
   constexpr int LD = Pitch<D>::value;
-  constexpr int HALF = D / 2;
+  constexpr int HALF = DS / 2;
+  constexpr int BK = DqKeys<D>::value;
   constexpr int KPL = BK / 2;  // keys scored per lane and tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sQ = reinterpret_cast<float*>(smem_raw);
@@ -779,7 +838,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_f32(Params p) {
       dp[i] = pe * (dp[i] - delta_r);  // ds
     }
 
-    const float* kcol = sK + half * HALF;
+    const float* kcol = sK + p.col0 + half * HALF;
 #pragma unroll 4
     for (int i = 0; i < KPL; ++i) {
       const float mine = dp[i];
@@ -798,10 +857,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_f32(Params p) {
   for (int c = 0; c < HALF; ++c) orow[c] = acc[c] * p.scale;
 }
 
-template <int D>
+template <int D, int DS>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_f32(Params p) {
   constexpr int LD = Pitch<D>::value;
-  constexpr int HALF = D / 2;
+  constexpr int HALF = DS / 2;
   constexpr int BQ = DkvRows<D>::value;
   constexpr int QPL = BQ / 2;  // queries scored per lane and tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -866,8 +925,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_f32(Params p) {
       dp[i] = pe * (dp[i] - sDelta[qc]);  // ds
     }
 
-    const float* qcol = sQ + half * HALF;
-    const float* dcol = sDO + half * HALF;
+    const float* qcol = sQ + p.col0 + half * HALF;
+    const float* dcol = sDO + p.col0 + half * HALF;
 #pragma unroll 2
     for (int i = 0; i < QPL; ++i) {
       const float p_mine = s[i], ds_mine = dp[i];
@@ -912,18 +971,21 @@ cudaError_t launch_f32(void (*kernel)(Params), const Params& p, int smem, int ti
   return cudaGetLastError();
 }
 
-template <int D>
+// Dynamic shared memory at Dh=256: dq pass 200,192 bytes, dk/dv pass 166,528.
+template <int D, int DS>
 cudaError_t run_f32(const Params& p, cudaStream_t s) {
   constexpr int LD = Pitch<D>::value;
   constexpr int BQ = DkvRows<D>::value;
+  constexpr int BK = DqKeys<D>::value;
   if (p.out[0] != nullptr) {
     const int smem = (2 * ROWS + 2 * BK) * LD * (int)sizeof(float) + 2 * ROWS * (int)sizeof(float);
-    const cudaError_t e = launch_f32(flash_bwd_dq_f32<D>, p, smem, (p.Sq + ROWS - 1) / ROWS, s);
+    const cudaError_t e =
+        launch_f32(flash_bwd_dq_f32<D, DS>, p, smem, (p.Sq + ROWS - 1) / ROWS, s);
     if (e != cudaSuccess) return e;
   }
   if (p.out[1] != nullptr) {
     const int smem = (2 * ROWS + 2 * BQ) * LD * (int)sizeof(float) + 2 * BQ * (int)sizeof(float);
-    return launch_f32(flash_bwd_dkv_f32<D>, p, smem, (p.Sk + ROWS - 1) / ROWS, s);
+    return launch_f32(flash_bwd_dkv_f32<D, DS>, p, smem, (p.Sk + ROWS - 1) / ROWS, s);
   }
   return cudaSuccess;
 }
@@ -945,8 +1007,8 @@ cudaError_t launch_tma(Capacity& cache, Kernel kernel, int smem, long long items
 
 // Both passes (or the one asked for) from one set of tensor maps, encoded
 // once per call: q, o, do (and dq) over Sq rows, k, v (and dk, dv) over Sk,
-// all with MAP_ROWS-row boxes.
-template <typename T, int D>
+// all with MAP_ROWS-row boxes; the gradients' maps DS columns wide.
+template <typename T, int D, int DS>
 cudaError_t run_tma(const Params& p, cudaStream_t stream) {
   if (p.Sq == 0 && p.Sk == 0) return cudaSuccess;
   const cudaError_t bound = bind_context();
@@ -955,8 +1017,10 @@ cudaError_t run_tma(const Params& p, cudaStream_t stream) {
   const CUtensorMapDataType type = map_type<T>();
   CUtensorMap m[8];
   auto enc = [&](int which, const void* ptr, int S) {
-    return encode<D>(&m[which], type, ptr, S, p.H, p.B, p.st[which][2], p.st[which][1],
-                     p.st[which][0], MAP_ROWS);
+    return which >= DQ ? encode<DS>(&m[which], type, ptr, S, p.H, p.B, p.st[which][2],
+                                    p.st[which][1], p.st[which][0], MAP_ROWS)
+                       : encode<D>(&m[which], type, ptr, S, p.H, p.B, p.st[which][2],
+                                   p.st[which][1], p.st[which][0], MAP_ROWS);
   };
   bool ok = true;
   if (p.Sq > 0) {
@@ -975,15 +1039,35 @@ cudaError_t run_tma(const Params& p, cudaStream_t stream) {
   if (dq) {
     static Capacity cache;
     const cudaError_t e =
-        launch_tma(cache, flash_bwd_dq_tma<T, D>, DqTiles<D>::SMEM, bh * ((p.Sq + BM - 1) / BM),
+        launch_tma(cache, flash_bwd_dq_tma<T, D, DS>, DqTiles<D>::SMEM,
+                   bh * ((p.Sq + BM - 1) / BM),
                    stream, p, m[Q], m[K], m[V], m[O], m[DO], m[DQ]);
     if (e != cudaSuccess) return e;
   }
   if (dkv) {
     static Capacity cache;
-    return launch_tma(cache, flash_bwd_dkv_tma<T, D>, DkvTiles<D>::SMEM,
+    return launch_tma(cache, flash_bwd_dkv_tma<T, D, DS>, DkvTiles<D>::SMEM,
                       bh * ((p.Sk + BM - 1) / BM), stream, p, m[Q], m[K], m[V], m[O], m[DO],
                       m[DK], m[DV]);
+  }
+  return cudaSuccess;
+}
+
+// A head wider than 128 runs each pass as launches of one SLAB-column slab
+// of its gradients: every launch reduces q·kᵀ, do·vᵀ and delta over the
+// whole head and writes its slab (p.col0 names it; the gradients' pointers
+// start at it), so the accumulators stay those of Dh=128.
+constexpr int SLAB = 128;
+
+cudaError_t run_slabs(cudaError_t (*run)(const Params&, cudaStream_t), Params p, int d,
+                      int esize, cudaStream_t stream) {
+  void* const out[3] = {p.out[0], p.out[1], p.out[2]};
+  for (int c = 0; c < d; c += SLAB) {
+    p.col0 = c;
+    for (int i = 0; i < 3; ++i)
+      p.out[i] = out[i] == nullptr ? nullptr : static_cast<char*>(out[i]) + (long long)c * esize;
+    const cudaError_t e = run(p, stream);
+    if (e != cudaSuccess) return e;
   }
   return cudaSuccess;
 }
@@ -991,20 +1075,22 @@ cudaError_t run_tma(const Params& p, cudaStream_t stream) {
 template <typename T>
 cudaError_t dispatch_tma(const Params& p, int d, cudaStream_t s) {
   switch (d) {
-    case 16: return run_tma<T, 16>(p, s);
-    case 32: return run_tma<T, 32>(p, s);
-    case 64: return run_tma<T, 64>(p, s);
-    case 128: return run_tma<T, 128>(p, s);
+    case 16: return run_tma<T, 16, 16>(p, s);
+    case 32: return run_tma<T, 32, 32>(p, s);
+    case 64: return run_tma<T, 64, 64>(p, s);
+    case 128: return run_tma<T, 128, 128>(p, s);
+    case 256: return run_slabs(run_tma<T, 256, SLAB>, p, d, sizeof(T), s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 cudaError_t dispatch_f32(const Params& p, int d, cudaStream_t s) {
   switch (d) {
-    case 16: return run_f32<16>(p, s);
-    case 32: return run_f32<32>(p, s);
-    case 64: return run_f32<64>(p, s);
-    case 128: return run_f32<128>(p, s);
+    case 16: return run_f32<16, 16>(p, s);
+    case 32: return run_f32<32, 32>(p, s);
+    case 64: return run_f32<64, 64>(p, s);
+    case 128: return run_f32<128, 128>(p, s);
+    case 256: return run_slabs(run_f32<256, SLAB>, p, d, sizeof(float), s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1041,6 +1127,7 @@ extern "C" int mx_flash_bwd(int dtype, const void* q, const void* k, const void*
     for (int j = 0; j < 3; ++j) p.st[i][j] = strides[3 * i + j];
   p.scale = scale;
   p.causal = causal;
+  p.col0 = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return (int)dispatch_f32(p, D, s);

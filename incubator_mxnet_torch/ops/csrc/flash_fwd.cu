@@ -48,6 +48,10 @@
 //   which clips rows past Sq; lse is written once per row.
 // Stage and phase counters live in one place (Ring): the n-th use of a
 // ring slot waits on parity (n / slots) & 1, producer and consumers alike.
+// A head of 256 columns does not fit that way (a Q and a K tile alone are
+// 64 KB each): it runs as two launches, each producing a 128-column slab of
+// o from a 128-column slab of v while q·kᵀ still reduces over all 256
+// columns (16 K-steps), with one Q buffer and one K/V stage (launch_slabs).
 //
 // What the card shows (PERF.md): at the BERT shape the kernel reaches
 // about three quarters of its bytes bound; at S=512, where each item
@@ -90,31 +94,43 @@ constexpr int TMA_THREADS = (CONSUMERS + 1) * 128;  // + the producer warpgroup
 constexpr int PRODUCER_REGS = 40;  // setmaxnreg: 40·128 + 232·256 <= 65536
 constexpr int CONSUMER_REGS = 232;
 
-template <int D>
-struct Tile : Box<D, BN> {
-  using Box<D, BN>::BYTES;
-  static constexpr int OBYTES = BYTES / CONSUMERS;  // a consumer's o staging buffer
-  static constexpr int QS = 2;                 // Q buffers
-  static constexpr int KVS = 2;                // K/V stages
+// D: the width of q and k (the reduction of q·kᵀ); DV: the width of the v
+// and o columns one launch produces (D itself, or a 128-column slab of a
+// wider head: see launch_slabs).
+template <int D, int DV>
+struct Tile {
+  using QK = Box<D, BN>;                        // a Q or K tile (BM = BN rows)
+  using VO = Box<DV, BN>;                       // a V tile; o of both consumers
+  static constexpr int OBYTES = VO::BYTES / CONSUMERS;  // a consumer's o staging buffer
+  static constexpr int QS = D > 128 ? 1 : 2;    // Q buffers
+  static constexpr int KVS = D > 128 ? 1 : 2;   // K/V stages
+  static constexpr int KVBYTES = QK::BYTES + VO::BYTES;  // one K/V stage
   static constexpr int BARRIERS = 2 * QS + 3 * KVS;
   // tiles, o staging, barriers, a 16-byte Item per Q buffer, and slack to
   // align the base to 1024 bytes
-  static constexpr int SMEM =
-      (QS + 2 * KVS) * BYTES + CONSUMERS * OBYTES + BARRIERS * 8 + QS * 16 + 1024;
+  static constexpr int SMEM = QS * QK::BYTES + KVS * KVBYTES + CONSUMERS * OBYTES +
+                              BARRIERS * 8 + QS * 16 + 1024;
 };
+
+// Dynamic shared memory of the widest instances (the limit is 232,448):
+// Dh=128, 230,512 bytes; a 256-wide q·kᵀ with a 128-column v/o slab, one Q
+// buffer and one K/V stage, 197,688.
+static_assert(Tile<128, 128>::SMEM == 230512 && Tile<256, 128>::SMEM == 197688,
+              "the sizes stated beside Tile");
 
 // The products of a consumer, each one fenced and committed wgmma group:
 // s = q·kᵀ (m64n128k16, K-major q and k) and o += p·v (m64nDhk16, p from
 // registers, MN-major v).
-template <typename T, int D>
+template <typename T, int D, int DV>
 __device__ __forceinline__ void issue_qk(float (&sc)[BN / 2], uint32_t qa, uint32_t ks) {
-  issue_ss<T, D, Tile<D>, Tile<D>, BN>(sc, qa, ks);
+  using QK = typename Tile<D, DV>::QK;
+  issue_ss<T, D, QK, QK, BN>(sc, qa, ks);
 }
 
-template <typename T, int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pf)[BN / 16][4],
+template <typename T, int D, int DV>
+__device__ __forceinline__ void issue_pv(float (&o)[DV / 2], const uint32_t (&pf)[BN / 16][4],
                                          uint32_t vs) {
-  issue_rs<T, D, Tile<D>, BN / 16>(o, pf, vs);
+  issue_rs<T, DV, typename Tile<D, DV>::VO, BN / 16>(o, pf, vs);
 }
 
 // Online softmax of one tile (online_softmax_update in the JAX package), in
@@ -205,17 +221,19 @@ __device__ __forceinline__ Item work_item(int i, const Params& p, int nqt) {
   return it;
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(TMA_THREADS, 1)
     flash_fwd_tma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
                   Params p) {
-  using L = Tile<D>;
+  using L = Tile<D, DV>;
+  using QK = typename L::QK;
+  using VO = typename L::VO;
   extern __shared__ unsigned char smem_tma[];
   const uint32_t base = (smem_addr(smem_tma) + 1023u) & ~1023u;
   const uint32_t sq = base;                                // QS buffers
-  const uint32_t skv = sq + L::QS * L::BYTES;               // KVS stages of K then V
-  const uint32_t so = skv + 2 * L::KVS * L::BYTES;          // o staging, one per consumer
+  const uint32_t skv = sq + L::QS * QK::BYTES;              // KVS stages of K then V
+  const uint32_t so = skv + L::KVS * L::KVBYTES;            // o staging, one per consumer
   const uint32_t bars = so + CONSUMERS * L::OBYTES;
   const uint32_t q_full = bars, q_empty = q_full + 8 * L::QS;
   const uint32_t k_full = q_empty + 8 * L::QS, v_full = k_full + 8 * L::KVS;
@@ -259,21 +277,21 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
         const int qs = qr.slot();
         mbar_wait(q_empty + 8 * qs, qr.parity() ^ 1u);
         items_of_q[qs] = it;
-        mbar_expect_tx(q_full + 8 * qs, L::BYTES);
-        for (int c = 0; c < L::PARTS; ++c)
-          tma_load(sq + qs * L::BYTES + c * L::PART, &tq, q_full + 8 * qs, c * L::BOX, it.q0,
+        mbar_expect_tx(q_full + 8 * qs, QK::BYTES);
+        for (int c = 0; c < QK::PARTS; ++c)
+          tma_load(sq + qs * QK::BYTES + c * QK::PART, &tq, q_full + 8 * qs, c * QK::BOX, it.q0,
                    qh, qb);
         ++qr.n;
         for (int j = 0; j < it.nk; ++j) {
           const int s = kvr.slot();
-          const uint32_t ks = skv + 2 * s * L::BYTES, vs = ks + L::BYTES;
+          const uint32_t ks = skv + s * L::KVBYTES, vs = ks + QK::BYTES;
           mbar_wait(kv_empty + 8 * s, kvr.parity() ^ 1u);
-          mbar_expect_tx(k_full + 8 * s, L::BYTES);
-          for (int c = 0; c < L::PARTS; ++c)
-            tma_load(ks + c * L::PART, &tk, k_full + 8 * s, c * L::BOX, j * BN, kh, kb);
-          mbar_expect_tx(v_full + 8 * s, L::BYTES);
-          for (int c = 0; c < L::PARTS; ++c)
-            tma_load(vs + c * L::PART, &tv, v_full + 8 * s, c * L::BOX, j * BN, vh, vb);
+          mbar_expect_tx(k_full + 8 * s, QK::BYTES);
+          for (int c = 0; c < QK::PARTS; ++c)
+            tma_load(ks + c * QK::PART, &tk, k_full + 8 * s, c * QK::BOX, j * BN, kh, kb);
+          mbar_expect_tx(v_full + 8 * s, VO::BYTES);
+          for (int c = 0; c < VO::PARTS; ++c)
+            tma_load(vs + c * VO::PART, &tv, v_full + 8 * s, c * VO::BOX, j * BN, vh, vb);
           ++kvr.n;
         }
       }
@@ -293,11 +311,11 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
       const Item it = items_of_q[qs];
       const int row0 = it.q0 + row_local;
       const int wg_row0 = it.q0 + 64 * wg;
-      const uint32_t qa = sq + qs * L::BYTES + 64 * wg * L::W;  // this consumer's q rows
+      const uint32_t qa = sq + qs * QK::BYTES + 64 * wg * QK::W;  // this consumer's q rows
 
-      float o[D / 2];
+      float o[DV / 2];
 #pragma unroll
-      for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+      for (int e = 0; e < DV / 2; ++e) o[e] = 0.f;
       float m[2] = {-INFINITY, -INFINITY};  // running row max, log2 units
       float l[2] = {0.f, 0.f};
 
@@ -305,17 +323,17 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
       for (int j = 0; j < it.nk; ++j) {
         const int s = kvr.slot();
         const uint32_t par = kvr.parity();
-        const uint32_t ks = skv + 2 * s * L::BYTES, vs = ks + L::BYTES;
+        const uint32_t ks = skv + s * L::KVBYTES, vs = ks + QK::BYTES;
         float sc[BN / 2], corr[2];
         uint32_t pf[BN / 16][4];
         mbar_wait(k_full + 8 * s, par);
-        issue_qk<T, D>(sc, qa, ks);
+        issue_qk<T, D, DV>(sc, qa, ks);
         wgmma_wait();
         if (j == it.nk - 1) release(q_empty + 8 * qs, lane);  // q is no longer read
         softmax_tile(sc, m, l, corr, j * BN, row0, wg_row0, p, sl2, t);
-        rescale_and_pack<T, D>(o, pf, sc, corr);
+        rescale_and_pack<T, DV>(o, pf, sc, corr);
         mbar_wait(v_full + 8 * s, par);
-        issue_pv<T, D>(o, pf, vs);
+        issue_pv<T, D, DV>(o, pf, vs);
         wgmma_wait();
         release(kv_empty + 8 * s, lane);
         ++kvr.n;
@@ -334,10 +352,10 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
         const float inv = 1.f / lsum;
         const int rl = 16 * warp + g + 8 * r;
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
+        for (int n = 0; n < DV / 8; ++n) {
           const int col = n * 8 + 2 * t;
-          const uint32_t at = obuf + (col / L::BOX) * (L::OBYTES / L::PARTS) +
-                              swizzled<L::W>(rl, (col % L::BOX) / 8) + (col % 8) * 2;
+          const uint32_t at = obuf + (col / VO::BOX) * (L::OBYTES / VO::PARTS) +
+                              swizzled<VO::W>(rl, (col % VO::BOX) / 8) + (col % 8) * 2;
           const uint32_t v = pack2<T>(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
           asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at), "r"(v) : "memory");
         }
@@ -349,8 +367,8 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
       if (tid == 0 && wg_row0 < p.Sq) {
-        for (int c = 0; c < L::PARTS; ++c)
-          tma_store(&to, obuf + c * (L::OBYTES / L::PARTS), c * L::BOX, wg_row0, it.h, it.b);
+        for (int c = 0; c < VO::PARTS; ++c)
+          tma_store(&to, obuf + c * (L::OBYTES / VO::PARTS), c * VO::BOX, wg_row0, it.h, it.b);
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
       }
       ++qr.n;
@@ -396,10 +414,11 @@ __device__ __forceinline__ void load_tile(T* smem, const T* g, long long ss, int
 // Lane pair (2i, 2i+1) of a warp owns one of the warp's 16 query rows: each
 // lane scores every other key of a tile and accumulates half of the row's Dh
 // output columns.
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS) flash_fwd_f32(Params p) {
   constexpr int LD = Pitch<float, D>::value;
-  constexpr int HALF = D / 2;
+  constexpr int LDV = Pitch<float, DV>::value;
+  constexpr int HALF = DV / 2;
   constexpr int KPL = BK / 2;  // keys scored per lane and tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sQ = reinterpret_cast<float*>(smem_raw);
@@ -434,7 +453,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32(Params p) {
     const int k0 = j * BK;
     __syncthreads();
     load_tile<float, D>(sK, kg, p.k_ss, k0, p.Sk);
-    load_tile<float, D>(sV, vg, p.v_ss, k0, p.Sk);
+    load_tile<float, DV>(sV, vg, p.v_ss, k0, p.Sk);
     __syncthreads();
 
     float s[KPL];
@@ -482,9 +501,9 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32(Params p) {
       const float other = __shfl_xor_sync(0xffffffffu, mine, 1);
       const float p0 = half ? other : mine;  // key 2i
       const float p1 = half ? mine : other;  // key 2i + 1
-      const float* v0 = vcol + (2 * i) * LD;
+      const float* v0 = vcol + (2 * i) * LDV;
 #pragma unroll
-      for (int c = 0; c < HALF; ++c) acc[c] = fmaf(p1, v0[LD + c], fmaf(p0, v0[c], acc[c]));
+      for (int c = 0; c < HALF; ++c) acc[c] = fmaf(p1, v0[LDV + c], fmaf(p0, v0[c], acc[c]));
     }
   }
 
@@ -498,26 +517,49 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32(Params p) {
 }
 
 
-template <int D>
+// Dynamic shared memory: Q and K tiles D wide, a V tile DV wide; at Dh=256
+// (DV = 128) 166,912 bytes.
+template <int D, int DV>
 cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
-  const int smem = (BQ + 2 * BK) * Pitch<float, D>::value * (int)sizeof(float);
+  const int smem =
+      ((BQ + BK) * Pitch<float, D>::value + BK * Pitch<float, DV>::value) * (int)sizeof(float);
   if (smem > 48 * 1024) {  // above 48 KB only after an explicit opt-in
-    const cudaError_t e = cudaFuncSetAttribute(flash_fwd_f32<D>,
+    const cudaError_t e = cudaFuncSetAttribute(flash_fwd_f32<D, DV>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
   const long long blocks = (long long)p.B * p.H * ((p.Sq + BQ - 1) / BQ);
   if (blocks <= 0) return cudaSuccess;
-  flash_fwd_f32<D><<<(unsigned)blocks, THREADS, smem, stream>>>(p);
+  flash_fwd_f32<D, DV><<<(unsigned)blocks, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// A head wider than 128 runs as launches of SLAB v/o columns each, every one
+// reducing q·kᵀ over the whole head: the accumulators and the V and o tiles
+// stay those of Dh=128.  Each launch reads its slab of v and writes that of o
+// (the maps and pointers start at the slab's first column); the lse, the
+// same from every launch, is written by the first.
+constexpr int SLAB = 128;
+
+cudaError_t launch_slabs(cudaError_t (*launch)(const Params&, cudaStream_t), Params p, int d,
+                         int esize, cudaStream_t stream) {
+  for (int c = 0; c < d; c += SLAB) {
+    const cudaError_t e = launch(p, stream);
+    if (e != cudaSuccess) return e;
+    p.v = static_cast<const char*>(p.v) + (long long)SLAB * esize;
+    p.o = static_cast<char*>(p.o) + (long long)SLAB * esize;
+    p.lse = nullptr;
+  }
+  return cudaSuccess;
 }
 
 cudaError_t dispatch_f32(const Params& p, int d, cudaStream_t s) {
   switch (d) {
-    case 16: return launch_f32<16>(p, s);
-    case 32: return launch_f32<32>(p, s);
-    case 64: return launch_f32<64>(p, s);
-    case 128: return launch_f32<128>(p, s);
+    case 16: return launch_f32<16, 16>(p, s);
+    case 32: return launch_f32<32, 32>(p, s);
+    case 64: return launch_f32<64, 64>(p, s);
+    case 128: return launch_f32<128, 128>(p, s);
+    case 256: return launch_slabs(launch_f32<256, SLAB>, p, d, sizeof(float), s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -525,9 +567,9 @@ cudaError_t dispatch_f32(const Params& p, int d, cudaStream_t s) {
 // The persistent grid: as many blocks as the card holds at once, at most
 // one per work item.  The tensor maps hold the call's pointers and are
 // encoded on every call.
-template <typename T, int D>
+template <typename T, int D, int DV>
 cudaError_t launch_tma(const Params& p, cudaStream_t stream) {
-  using L = Tile<D>;
+  using L = Tile<D, DV>;
   const long long items = (long long)p.B * p.H * ((p.Sq + BM - 1) / BM);
   if (items <= 0) return cudaSuccess;
   if (items > 0x7fffffff) return cudaErrorInvalidValue;
@@ -536,10 +578,10 @@ cudaError_t launch_tma(const Params& p, cudaStream_t stream) {
   const CUtensorMapDataType type = map_type<T>();
   CUtensorMap tq, tk, tv, to;
   bool ok = encode<D>(&tq, type, p.q, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, BM) &&
-            encode<D>(&to, type, p.o, p.Sq, p.H, p.B, p.o_ss, p.o_sh, p.o_sb, BM / CONSUMERS);
+            encode<DV>(&to, type, p.o, p.Sq, p.H, p.B, p.o_ss, p.o_sh, p.o_sb, BM / CONSUMERS);
   if (p.Sk > 0) {
     ok = ok && encode<D>(&tk, type, p.k, p.Sk, p.H, p.B, p.k_ss, p.k_sh, p.k_sb, BN) &&
-         encode<D>(&tv, type, p.v, p.Sk, p.H, p.B, p.v_ss, p.v_sh, p.v_sb, BN);
+         encode<DV>(&tv, type, p.v, p.Sk, p.H, p.B, p.v_ss, p.v_sh, p.v_sb, BN);
   } else {  // no K/V tile is ever loaded; a map needs a nonempty extent
     tk = tq;
     tv = tq;
@@ -548,20 +590,21 @@ cudaError_t launch_tma(const Params& p, cudaStream_t stream) {
   static Capacity cache;
   long long capacity = 0;
   const cudaError_t e =
-      grid_capacity(cache, flash_fwd_tma<T, D>, TMA_THREADS, L::SMEM, &capacity);
+      grid_capacity(cache, flash_fwd_tma<T, D, DV>, TMA_THREADS, L::SMEM, &capacity);
   if (e != cudaSuccess) return e;
   const long long grid = items < capacity ? items : capacity;
-  flash_fwd_tma<T, D><<<(unsigned)grid, TMA_THREADS, L::SMEM, stream>>>(tq, tk, tv, to, p);
+  flash_fwd_tma<T, D, DV><<<(unsigned)grid, TMA_THREADS, L::SMEM, stream>>>(tq, tk, tv, to, p);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_tma(const Params& p, int d, cudaStream_t s) {
   switch (d) {
-    case 16: return launch_tma<T, 16>(p, s);
-    case 32: return launch_tma<T, 32>(p, s);
-    case 64: return launch_tma<T, 64>(p, s);
-    case 128: return launch_tma<T, 128>(p, s);
+    case 16: return launch_tma<T, 16, 16>(p, s);
+    case 32: return launch_tma<T, 32, 32>(p, s);
+    case 64: return launch_tma<T, 64, 64>(p, s);
+    case 128: return launch_tma<T, 128, 128>(p, s);
+    case 256: return launch_slabs(launch_tma<T, 256, SLAB>, p, d, sizeof(T), s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -4,12 +4,15 @@ Counterpart of the JAX package's ``optimizer/optimizer.py`` (MXNet's
 ``mx.optimizer``): the registry, lr/wd multipliers, per-index update counts
 (Adam's ``t``), and ``multi_precision`` fp32 master weights for 16-bit
 parameters.  Updates call ``ops/optimizer_ops.py`` and change the weight
-and the state tensors in place.  An optimizer keys its state by parameter
-index; the caller hands it the current weight tensor at every update.
+and the state tensors in place.  ``aggregate_num`` caps the parameters of
+one fused group update (``optimizer/fused.py``, the Trainer's path).  An
+optimizer keys its state by parameter index; the caller hands it the
+current weight tensor at every update.
 """
 from __future__ import annotations
 
 import math
+import os
 import pickle
 
 import torch
@@ -26,6 +29,22 @@ def register(klass):
     return klass
 
 
+def _default_aggregate_num():
+    """The fused-update group cap from ``MXNET_OPTIMIZER_AGGREGATION``, read
+    as the JAX package reads it: 0/off/false/no/none keeps the per-tensor
+    loop, unset/on/true/yes/auto means 256, an integer caps the parameters
+    of one group update (anything else means 256)."""
+    v = os.environ.get("MXNET_OPTIMIZER_AGGREGATION", "").strip().lower()
+    if v in ("0", "off", "false", "no", "none"):
+        return 0
+    if v in ("", "on", "true", "yes", "auto"):
+        return 256
+    try:
+        return max(0, int(v))
+    except ValueError:
+        return 256
+
+
 def create(name, **kwargs):
     if isinstance(name, Optimizer):
         return name
@@ -40,7 +59,11 @@ class Optimizer:
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0, clip_gradient=None,
                  learning_rate=0.01, lr_scheduler=None, begin_num_update=0,
-                 multi_precision=False, param_dict=None, **kwargs):
+                 multi_precision=False, param_dict=None, aggregate_num=None, **kwargs):
+        # parameters of one fused group update (gluon.Trainer); <= 1 keeps the
+        # per-tensor loop
+        self.aggregate_num = (_default_aggregate_num() if aggregate_num is None
+                              else max(0, int(aggregate_num)))
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.lr_scheduler = lr_scheduler

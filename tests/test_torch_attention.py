@@ -168,10 +168,11 @@ def test_cpu_path_launches_nothing():
 
 
 # Head dims the kernels have no instance for: the wrapper zero-pads q, k
-# and v to the next one (8 -> 16, 48 -> 64, 80 and 96 -> 128) and
-# passes the scale of the true head dim; zero columns add nothing to q·kᵀ,
-# so the sliced o is the same function.
-PAD_DIMS = (8, 48, 80, 96)
+# and v to the next one (8 -> 16, 48 -> 64, 80 and 96 -> 128, 160 and 200
+# -> 256) and passes the scale of the true head dim; zero columns add
+# nothing to q·kᵀ, so the sliced o is the same function.  256, the widest
+# instance, runs as it is.
+PAD_DIMS = (8, 48, 80, 96, 160, 200, 256)
 
 
 @pytest.mark.parametrize("d", PAD_DIMS)
@@ -189,11 +190,29 @@ def test_padded_head_dim_matches_jax_reference(d, causal):
 
 
 def test_head_dim_above_128_is_refused():
-    q = torch.zeros(1, 1, 4, 256)
-    with pytest.raises(ValueError, match="head dim 256"):
+    """Above the widest instance (256 since the column-slab kernels)."""
+    q = torch.zeros(1, 1, 4, 320)
+    with pytest.raises(ValueError, match="head dim 320"):
         tatt._kernel_width("flash_fwd", q, q, q)
     with pytest.raises(ValueError, match="equal"):
         tatt._kernel_width("flash_fwd", q, q[..., :128], q)
+
+
+@pytest.mark.parametrize("d", [129, 160, 192, 200, 255, 256, 257, 512])
+def test_kernel_width_up_to_256(d):
+    q = torch.zeros(1, 1, 4, d)
+    if d > 256:
+        with pytest.raises(ValueError, match=f"head dim {d} is above 256"):
+            tatt._kernel_width("flash_bwd", q, q, q)
+    else:
+        assert tatt._kernel_width("flash_bwd", q, q, q) == 256
+
+
+@pytest.mark.parametrize("width,launches", [(16, 1), (32, 1), (64, 1), (128, 1), (256, 2)])
+def test_launches_per_pass(width, launches):
+    """The widest instance runs each pass as one launch per 128-column
+    output slab; the counters count each."""
+    assert tatt._launches(width) == launches
 
 
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
@@ -308,12 +327,14 @@ def test_kernel_refuses_repeated_sequence_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [48, 80])
+@pytest.mark.parametrize("d", [48, 80, 160, 256])
 def test_kernel_takes_padded_head_dim_on_card(cuda_device, d):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     q, k, v = (torch.randn(2, 4, 200, d, generator=gen, device=cuda_device).to(torch.bfloat16)
                for _ in range(3))
+    before = tatt.flash_fwd.launches
     o, lse = tatt.flash_fwd(q, k, v, causal=True, with_lse=True)
+    assert tatt.flash_fwd.launches == before + (2 if d > 128 else 1)  # a launch a slab
     assert o.shape == q.shape
     o_ref, lse_ref = tatt.flash_fwd_plain(q, k, v, True, with_lse=True)
     assert (o.float() - o_ref.float()).abs().max().item() <= BF16_KERNEL_TOL
@@ -322,7 +343,7 @@ def test_kernel_takes_padded_head_dim_on_card(cuda_device, d):
 
 @pytest.mark.cuda
 def test_kernel_refuses_head_dim_above_128_on_card(cuda_device):
-    q = torch.randn(1, 2, 64, 256, device=cuda_device).to(torch.bfloat16)
+    q = torch.randn(1, 2, 64, 320, device=cuda_device).to(torch.bfloat16)
     before = tatt.flash_fwd.launches
     with pytest.raises(ValueError, match="head dim"):
         tatt.flash_fwd(q, q, q)

@@ -46,5 +46,17 @@ def test_digest_changes_with_the_compiler_and_the_flags(csrc):
 
 def test_the_port_sources_name_their_shared_header():
     names = {name: [p.name for p in _cuda.includes(_cuda.CSRC / f"{name}.cu")]
-             for name in ("flash_fwd", "flash_bwd", "bn")}
-    assert names == {"flash_fwd": ["flash_tma.cuh"], "flash_bwd": ["flash_tma.cuh"], "bn": []}
+             for name in ("flash_fwd", "flash_bwd", "bn", "multi_tensor")}
+    assert names == {"flash_fwd": ["flash_tma.cuh"], "flash_bwd": ["flash_tma.cuh"], "bn": [],
+                     "multi_tensor": []}
+
+
+def test_every_source_is_built_and_keyed():
+    """Each kernel source of the port has a digest of its own; chip_smoke.py
+    builds every one of them."""
+    import chip_smoke
+
+    sources = sorted(p.stem for p in _cuda.CSRC.glob("*.cu"))
+    assert sources == sorted(chip_smoke.KERNELS)
+    digests = {_cuda.source_digest(_cuda.CSRC / f"{n}.cu", FLAGS, NVCC) for n in sources}
+    assert len(digests) == len(sources)
