@@ -19,12 +19,13 @@ Phases, each printing JSON lines; no phase's failure is caught:
    edge cases (for the attention kernels also their persistent schedules'
    and the operand domain the wrappers take: scales, expanded k/v, a
    sequence of stride 0, padded head dims, head dims 160-256 through the
-   column-slab launches), each against a stated bound (and flash_fwd,
-   flash_bwd and bn_stats against themselves: two runs must be
-   bit-identical), and the refusals of the attention wrappers (Dh 320) and
-   the rtc launcher; the multi-tensor optimizer kernel in every variant and
-   weight dtype over one group of mixed sizes, whole and in chunks of 3,
-   bit-equal to the plain loop; any miss exits non-zero after the phase;
+   column-slab launches, head dims 300-512 through flash_wide.cu), each
+   against a stated bound (and flash_fwd, flash_bwd, the flash_wide
+   kernels and bn_stats against themselves: two runs must be
+   bit-identical), and the refusals of the rtc launcher; the multi-tensor
+   optimizer kernel in every variant and weight dtype over one group of
+   mixed sizes, whole and in chunks of 3, bit-equal to the plain loop; any
+   miss exits non-zero after the phase;
 4. slice: BERT-base (12 layers, 768 units, vocab 30522, bf16, random
    weights from a seed) answers inference requests through
    ``net(token_ids, token_types, masked_positions)``; the kernels' launch
@@ -57,6 +58,18 @@ Phases, each printing JSON lines; no phase's failure is caught:
    training step's one fused group (mp_adam over 159 tensors, fp32 sgd_mom
    over 193) with its real gradients and states, two steps through the
    kernel and through the plain loop, bit-equal;
+6b. fold: both training steps through ``Trainer.fold_step`` (one
+   CUDA-graph replay a step after a warm-up and a capture): on fresh
+   dropout-free copies, 3 eager steps against 3 folded calls and 3
+   windows of ``fold_steps(k=4)`` against 12 eager steps, parameters,
+   optimizer states, losses and running statistics bit-equal (in
+   deterministic mode; a default-mode eager-vs-eager control beside it),
+   and ``fold_eval`` against the eager sums; two replays of the dropout-0.1
+   BERT step draw different masks at the dropout rate; then the main path
+   on the training phases' own nets: launch counts around warm-up,
+   capture and replay, the kernels of one replay counted by name in a
+   torch.profiler trace (12+12+12+1 BERT, 53+53+1 ResNet-50), each call
+   one replay, no fallback;
 7. times: each kernel, its plain version and the library call at the main
    paths' shapes (the attention kernels also at the S=512 request, and by
    CUDA-graph replay), the kernel's bound; BERT forward and training-step time,
@@ -67,11 +80,14 @@ Phases, each printing JSON lines; no phase's failure is caught:
    multi-tensor kernel on each step's fused group beside its plain loop,
    torch._fused_adam_ / torch._fused_sgd_ and its bound; both training
    steps with the per-tensor loop and the fused update in turns
-   (Trainer.step ms, step ms, a breakdown of each).
+   (Trainer.step ms, step ms, a breakdown of each); the flash_wide
+   kernels at Dh 512; both training steps eager and folded in turns
+   (step ms, samples/s or img/s, peak and reserved memory, capture time,
+   a breakdown of one folded step with its device busy share).
 
 The last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed on a CUDA card.  The rehearsal runs the slice, train, rtc_train,
-ResNet and timing phases on the CPU at a tiny size, with the kernels' plain
+ResNet, fold and timing phases on the CPU at a tiny size, with the kernels' plain
 versions, and never prints it.  ``--inference-turns`` times only the
 BERT-base inference forward of two checkouts, each turn a fresh process
 (A, B, B, A per round), and never prints it either.
@@ -82,6 +98,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -98,6 +115,7 @@ import torch  # noqa: E402
 import incubator_mxnet_torch as mx  # noqa: E402
 from incubator_mxnet_torch.convert import load_numpy_params  # noqa: E402
 from incubator_mxnet_torch.gluon.model_zoo import bert as bert_zoo  # noqa: E402
+from incubator_mxnet_torch.gluon import step_fold  # noqa: E402
 from incubator_mxnet_torch.gluon.model_zoo import vision  # noqa: E402
 from incubator_mxnet_torch.gluon.nn.transformer import PositionwiseFFN  # noqa: E402
 from incubator_mxnet_torch.ops import _cuda  # noqa: E402
@@ -194,7 +212,7 @@ RESNET_B = 256
 TINY_RESNET = dict(layers=[1, 1, 1, 1], channels=[8, 16, 32, 64, 128], classes=10,
                    thumbnail=True)
 # sources under incubator_mxnet_torch/ops/csrc
-KERNELS = ("flash_fwd", "flash_bwd", "bn", "multi_tensor")
+KERNELS = ("flash_fwd", "flash_bwd", "flash_wide", "bn", "multi_tensor")
 
 # -- user kernels (mx.rtc + mx.operator.CustomOp) -----------------------------
 # What a user of the framework writes: CUDA source handed to mx.rtc at
@@ -437,7 +455,9 @@ def rtc_gelu_ffn(net):
 
 
 ENTRIES = {"flash_fwd": att.flash_fwd, "flash_bwd_dq": att.flash_bwd_dq,
-           "flash_bwd_dkv": att.flash_bwd_dkv, "bn_stats": bn.bn_stats,
+           "flash_bwd_dkv": att.flash_bwd_dkv, "flash_wide_fwd": att.flash_wide_fwd,
+           "flash_wide_bwd_dq": att.flash_wide_bwd_dq,
+           "flash_wide_bwd_dkv": att.flash_wide_bwd_dkv, "bn_stats": bn.bn_stats,
            "bn_apply": bn.bn_apply, "bn_apply_res": bn.bn_apply_res,
            "rtc_gelu_fwd": GELU_FWD, "rtc_gelu_bwd": GELU_BWD,
            "multi_tensor": mt.multi_tensor_update}
@@ -551,8 +571,10 @@ def phase_build():
     emit("build", wall_seconds=time.perf_counter() - t0, spills=spills)
     if spills:
         sys.exit(1)
-    att._entry()  # load all four once, outside any timing
+    att._entry()  # load every library once, outside any timing
     att._bwd_entry()
+    att._entry(512)
+    att._bwd_entry(512)
     bn._lib()
     emit("build", kernel="multi_tensor", tensors_per_launch=mt._lib().mx_multi_tensor_capacity())
     for name in sorted(RTC._kernels):  # the user's kernels, as the driver loaded them
@@ -661,25 +683,46 @@ WIDE_CASES = [
     dict(MAIN, name="fp32_dh256_causal", b=1, h=2, sq=200, sk=200, d=256,
          dtype=torch.float32, causal=True),
 ]
+# Head dims above 256: flash_wide.cu (its reductions streamed over the head
+# in 64-column chunks, its outputs in 128-column slabs, one launch a pass),
+# at 320 and 512 and a padded 300, ragged S, causal and not, the QKV view,
+# a cross shape, lse, fp16 and fp32.
+WIDE_HEAD_CASES = [
+    dict(MAIN, name="dh320", b=2, h=4, sq=200, sk=200, d=320),
+    dict(MAIN, name="dh320_causal_with_lse", b=2, h=4, sq=200, sk=200, d=320, causal=True,
+         lse=True),
+    dict(MAIN, name="dh512", b=2, h=4, sq=200, sk=200, d=512),
+    dict(MAIN, name="dh512_causal_with_lse", b=1, h=4, sq=333, sk=333, d=512, causal=True,
+         lse=True),
+    dict(MAIN, name="dh512_qkv_view", b=2, h=2, sq=130, sk=130, d=512, layout="qkv"),
+    dict(MAIN, name="dh512_cross_sq77_sk200", b=2, h=2, sq=77, sk=200, d=512),
+    dict(MAIN, name="fp16_dh300_causal", b=2, h=2, sq=150, sk=150, d=300, causal=True,
+         dtype=torch.float16),
+    dict(MAIN, name="fp32_dh512_causal", b=1, h=2, sq=200, sk=200, d=512,
+         dtype=torch.float32, causal=True),
+]
 
 
 def _slab_launches(d):
     """Launches of one attention kernel pass at head dim ``d``: one a
-    128-column output slab of the instance it runs."""
-    return 2 if d > 128 else 1
+    128-column output slab of the instance it runs; one above 256, where
+    flash_wide.cu makes each slab a block of one launch."""
+    return 2 if 128 < d <= 256 else 1
 
 
 def phase_kernel_vs_plain(device):
     gen = torch.Generator(device=device).manual_seed(1234)
-    misses, main_err = [], None
-    for case in KERNEL_CASES + SCHEDULE_CASES + OPERAND_CASES + DOMAIN_CASES + WIDE_CASES:
+    misses, main_err, wide_err = [], None, None
+    for case in (KERNEL_CASES + SCHEDULE_CASES + OPERAND_CASES + DOMAIN_CASES + WIDE_CASES
+                 + WIDE_HEAD_CASES):
         q, k, v, layout = _case_inputs(case, gen, device)
         want_lse, scale = case.get("lse", False), case.get("scale")
-        before = att.flash_fwd.launches
+        counter = att._fwd_counter(case["d"])
+        before = counter.launches
         with torch.no_grad():
             o, lse = att.flash_fwd(q, k, v, case["causal"], scale, want_lse, layout)
             torch.cuda.synchronize()
-            launched = att.flash_fwd.launches - before
+            launched = counter.launches - before
             t = (lambda x: x.transpose(1, 2)) if layout == "bshd" else (lambda x: x)
             o_ref, lse_ref = att.flash_fwd_plain(t(q), t(k), t(v), case["causal"], scale,
                                                  want_lse)
@@ -689,7 +732,8 @@ def phase_kernel_vs_plain(device):
                  else FWD_ULPS * ulp(ref_max, case["dtype"]))
         want_launches = _slab_launches(case["d"])
         ok = math.isfinite(err) and err <= bound and launched == want_launches
-        rec = dict(case=case["name"], dtype=str(case["dtype"]).replace("torch.", ""),
+        rec = dict(case=case["name"], kernel=counter.__name__,
+                   dtype=str(case["dtype"]).replace("torch.", ""),
                    shape=dict(b=case["b"], h=case["h"], sq=case["sq"], sk=case["sk"], d=case["d"]),
                    causal=case["causal"], layout=layout, launches=launched,
                    expected_launches=want_launches, max_abs_err=err,
@@ -705,28 +749,26 @@ def phase_kernel_vs_plain(device):
             misses.append(case["name"])
         if case["name"] == "qkv_bshd_view":
             main_err = err
+        if case["name"] == "dh512":
+            wide_err = err
     # The schedule is static (no atomics, fixed item order): two runs of the
     # main case give the same bits, o and lse.
-    q, k, v, layout = _case_inputs(MAIN, gen, device)
-    with torch.no_grad():
-        runs = [att.flash_fwd(q, k, v, False, None, True, layout) for _ in range(2)]
-    torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for a, b in zip(*runs))
-    emit("kernel_vs_plain", case="main_repeat_bitwise", identical=same, ok=same)
-    if not same:
-        misses.append("main_repeat_bitwise")
-    # A head dim above the widest instance is refused before any launch.
-    wide = torch.zeros(1, 1, 8, 320, dtype=torch.bfloat16, device=device)
-    before = att.flash_fwd.launches
-    refused = (_raises(lambda: att.flash_fwd(wide, wide, wide), ValueError, "head dim")
-               and att.flash_fwd.launches == before)
-    emit("kernel_vs_plain", case="dh320_refused", ok=refused)
-    if not refused:
-        misses.append("dh320_refused")
+    # flash_wide_fwd's schedule is static too (no atomics): at Dh 320 and 512.
+    for name, case in (("main", MAIN), ("dh320", WIDE_HEAD_CASES[1]),
+                       ("dh512", WIDE_HEAD_CASES[3])):
+        q, k, v, layout = _case_inputs(case, gen, device)
+        with torch.no_grad():
+            runs = [att.flash_fwd(q, k, v, case["causal"], None, True, layout)
+                    for _ in range(2)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        emit("kernel_vs_plain", case=f"{name}_repeat_bitwise", identical=same, ok=same)
+        if not same:
+            misses.append(f"{name}_repeat_bitwise")
     if misses:
         emit("kernel_vs_plain", failed=misses)
         sys.exit(1)
-    return main_err
+    return {"flash_fwd": main_err, "flash_wide_fwd": wide_err}
 
 
 def _bwd_bound(ref, dtype, ulps=BWD_ULPS):
@@ -737,10 +779,15 @@ def _bwd_bound(ref, dtype, ulps=BWD_ULPS):
 
 
 BWD_CASES = (KERNEL_CASES + SCHEDULE_CASES + OPERAND_CASES + DOMAIN_CASES + WIDE_CASES
+             + WIDE_HEAD_CASES
              + [dict(MAIN, name="dqkv_buffer", layout="qkv", dqkv=True),
                 dict(MAIN, name="autograd_fused_qkv", layout="qkv", e2e=True),
                 dict(MAIN, name="dh256_autograd_fused_qkv", b=2, h=2, sq=130, sk=130, d=256,
-                     layout="qkv", e2e=True)])
+                     layout="qkv", e2e=True),
+                dict(MAIN, name="dh320_autograd_fused_qkv", b=2, h=2, sq=130, sk=130, d=320,
+                     layout="qkv", e2e=True),
+                dict(MAIN, name="dh512_autograd_fused_qkv_causal", b=2, h=2, sq=130, sk=130,
+                     d=512, layout="qkv", e2e=True, causal=True)])
 
 
 def _bwd_case(case, gen, device):
@@ -755,7 +802,8 @@ def _bwd_case(case, gen, device):
         q, k, v, layout = _case_inputs(case, gen, device)
     t = (lambda x: x.transpose(1, 2)) if layout == "bshd" else (lambda x: x)
     do = _randn((b, sq, h, d) if layout == "bshd" else (b, h, sq, d), dtype, gen, device)
-    before = (att.flash_bwd_dq.launches, att.flash_bwd_dkv.launches)
+    counters = att._bwd_counters(d)
+    before = tuple(c.launches for c in counters)
     if case.get("e2e"):
         out = att.fused_qkv_attention(qkv, num_heads=h, causal=causal)
         out.backward(do.reshape(b, sq, h * d))
@@ -778,7 +826,7 @@ def _bwd_case(case, gen, device):
             ref = att.flash_bwd_plain(t(q), t(k), t(v), t(o), t(do), lse, causal, scale)
         ulps = BWD_ULPS
     torch.cuda.synchronize()
-    launched = (att.flash_bwd_dq.launches - before[0], att.flash_bwd_dkv.launches - before[1])
+    launched = tuple(c.launches - n for c, n in zip(counters, before))
     res = {}
     for name, g, r in zip(("dq", "dk", "dv"), got, ref):
         ref_max, bound = _bwd_bound(r, dtype, ulps)
@@ -790,13 +838,14 @@ def phase_kernel_vs_plain_bwd(device):
     """Returns the max abs error of dq and of dk/dv at the main path's
     layout (the [B, S, 3, H, Dh] gradient buffer)."""
     gen = torch.Generator(device=device).manual_seed(4321)
-    misses, main_errs = [], None
+    misses, main_errs = [], {}
     for case in BWD_CASES:
         res, launched = _bwd_case(case, gen, device)
         want_launches = (_slab_launches(case["d"]),) * 2
         ok = (all(math.isfinite(e) and e <= bound for e, bound, _ in res.values())
               and launched == want_launches)
-        emit("kernel_vs_plain_bwd", case=case["name"], launches=list(launched),
+        emit("kernel_vs_plain_bwd", case=case["name"],
+             kernels=[c.__name__ for c in att._bwd_counters(case["d"])], launches=list(launched),
              expected_launches=list(want_launches),
              dtype=str(case["dtype"]).replace("torch.", ""),
              shape=dict(b=case["b"], h=case["h"], sq=case["sq"], sk=case["sk"], d=case["d"]),
@@ -808,20 +857,27 @@ def phase_kernel_vs_plain_bwd(device):
         if not ok:
             misses.append(case["name"])
         if case["name"] == "dqkv_buffer":
-            main_errs = {"flash_bwd_dq": res["dq"][0],
-                         "flash_bwd_dkv": max(res["dk"][0], res["dv"][0])}
+            main_errs.update(flash_bwd_dq=res["dq"][0],
+                             flash_bwd_dkv=max(res["dk"][0], res["dv"][0]))
+        if case["name"] == "dh512":
+            main_errs.update(flash_wide_bwd_dq=res["dq"][0],
+                             flash_wide_bwd_dkv=max(res["dk"][0], res["dv"][0]))
     # The schedule is static (no atomics, fixed item order): two runs of the
     # main case give the same bits, dq, dk and dv.
-    q, k, v, layout = _case_inputs(dict(MAIN, layout="qkv"), gen, device)
-    do = _randn(q.shape, MAIN["dtype"], gen, device)
-    with torch.no_grad():
-        o, lse = att.flash_fwd(q, k, v, False, None, True, layout)
-        runs = [att.flash_bwd(q, k, v, o, do, lse, False, None, layout) for _ in range(2)]
-    torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for a, b in zip(*runs))
-    emit("kernel_vs_plain_bwd", case="main_repeat_bitwise", identical=same, ok=same)
-    if not same:
-        misses.append("main_repeat_bitwise")
+    # So are flash_wide_bwd_dq's and flash_wide_bwd_dkv's, at Dh 320 and 512.
+    for name, case in (("dh320", WIDE_HEAD_CASES[1]), ("dh512", WIDE_HEAD_CASES[3]),
+                       ("main", dict(MAIN, layout="qkv"))):
+        q, k, v, layout = _case_inputs(case, gen, device)
+        do = _randn(q.shape, case["dtype"], gen, device)
+        with torch.no_grad():
+            o, lse = att.flash_fwd(q, k, v, case["causal"], None, True, layout)
+            runs = [att.flash_bwd(q, k, v, o, do, lse, case["causal"], None, layout)
+                    for _ in range(2)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        emit("kernel_vs_plain_bwd", case=f"{name}_repeat_bitwise", identical=same, ok=same)
+        if not same:
+            misses.append(f"{name}_repeat_bitwise")
     # A thread that has made no CUDA call yet (as autograd's backward thread
     # or a server's worker) gets the same bits from both kernels, at the main
     # shape and at Dh=256 (the column-slab launches).
@@ -1577,6 +1633,414 @@ def phase_resnet_train_vs_cpu(rehearsal):
         sys.exit(1)
 
 
+# -- phase 6b: the step fold --------------------------------------------------
+# The slice's main path: each BERT-base and ResNet-50 training step as one
+# CUDA-graph replay (gluon/step_fold.py).  Exact steps: eager and folded
+# runs from identical weights and states must agree bit for bit: the same
+# kernels on the same inputs.  Two eager runs agree only where the
+# backward is deterministic, so the exact runs take PyTorch's
+# deterministic algorithms (BERT: the MLM gather's backward otherwise adds
+# the gradients of repeated masked positions with atomics, in an order
+# that changes from run to run) and deterministic cuDNN (ResNet-50: the
+# default backward convolutions may accumulate with atomics).  A control
+# in the default mode, one eager step on each of two more copies, reports
+# what the default mode gives.  Eval: the register's fp32 sum of B·P (or B)
+# losses a call, three calls, against the same sums taken eagerly: the same
+# kernels, so the bound is 0 as well.
+FOLD_K = 4
+FOLD_DROPOUT = 0.1
+FOLD_DROPOUT_BAND = 0.005  # the dropped share of a probe: 0.1 ± 0.005
+# Kernels one replay of each main-path step launches, read from the
+# profiler's kernel names (substring -> family).
+REPLAY_FAMILIES = (("flash_bwd_dkv", "flash_bwd_dkv"), ("flash_bwd_dq", "flash_bwd_dq"),
+                   ("flash_fwd", "flash_fwd"), ("bn_stats_kernel", "bn_stats"),
+                   ("bn_apply_kernel", "bn_apply"), ("multi_tensor_update", "multi_tensor"))
+
+
+def bert_loss(net):
+    """The pretraining loss of ``train_step`` as a fold's loss_fn."""
+    def loss_fn(ids, types, pos, labels):
+        mlm, _ = net(ids, types, pos)
+        return streaming_softmax_ce(mlm, labels).mean(-1)
+    return loss_fn
+
+
+def resnet_loss(net):
+    """The loss of ``resnet_step`` as a fold's loss_fn."""
+    def loss_fn(img, labels):
+        return streaming_softmax_ce(net(img), labels)
+    return loss_fn
+
+
+def _eager_step(trainer, loss_fn, batch):
+    with mx.autograd.record():
+        loss = loss_fn(*batch)
+    mx.autograd.backward(loss)
+    trainer.step(batch[0].shape[0])
+    return loss.detach()
+
+
+def _flat_states(trainer):
+    out = []
+
+    def walk(st):
+        if isinstance(st, torch.Tensor):
+            out.append(st)
+        elif st is not None:
+            for s in st:
+                walk(s)
+
+    for i in sorted(trainer._states):
+        walk(trainer._states[i])
+    return out
+
+
+def _compare(a, b):
+    """(bit-equal, largest absolute difference) of two lists of tensors."""
+    equal, err = len(a) == len(b), 0.0
+    for x, y in zip(a, b):
+        equal = equal and torch.equal(x, y)
+        err = max(err, (x.float() - y.float()).abs().max().item())
+    return equal, err
+
+
+def _fold_counters():
+    sp, ev = step_fold.StepProgram, step_fold.EvalProgram
+    return {"calls": sp.calls, "replays": sp.replays, "captures": sp.captures,
+            "fallbacks": sum(sp.fallbacks.values()), "eval_calls": ev.calls,
+            "eval_replays": ev.replays}
+
+
+def _delta(before):
+    after = _fold_counters()
+    return {k: after[k] - before[k] for k in after}
+
+
+def _replay_kernels(fn, want):
+    """Kernels one call of ``fn`` (a replay) launches, by family, from
+    torch.profiler's CUDA trace, and the Python launch counts it moved
+    (none: a replay runs no wrapper).  A trace that lost a record is taken
+    again, three times at most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tries = []
+    for _ in range(3):
+        py_before = kernel_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        moved = {k: v - py_before[k] for k, v in kernel_counts().items() if v != py_before[k]}
+        got = {}
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CUDA or ev.name.startswith("mx."):
+                continue
+            fam = next((f for sub, f in REPLAY_FAMILIES if sub in ev.name), None)
+            if fam is not None:
+                got[fam] = got.get(fam, 0) + 1
+        tries.append(got)
+        if got == want:
+            break
+    return tries, moved
+
+
+@contextlib.contextmanager
+def _deterministic(bert):
+    """The exact runs' mode: PyTorch's deterministic algorithms (BERT) or
+    deterministic cuDNN (ResNet-50), restored on exit."""
+    if bert:
+        before = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(before)
+    else:
+        before = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.deterministic = before
+
+
+def _eager_repeat(make, loss_of, batch):
+    """The control: one eager step on each of two identical copies in the
+    default mode; (bit-equal, largest difference) of their parameters."""
+    params = []
+    for _ in range(2):
+        net, tr = make()
+        _eager_step(tr, loss_of(net), batch)
+        params.append([p.data().detach().clone() for p in net.collect_params().values()])
+        del net, tr
+    return _compare(*params)
+
+
+def _fold_exact(label, make, loss_of, batches, rehearsal):
+    """Eager against folded steps on two copies of one model: 3 steps
+    (warm-up, capture + replay, replay), then 3 windows of FOLD_K steps
+    through ``fold_steps``, then the folded eval against the eager sums.
+    Returns the record and whether it passed."""
+    sync = (lambda: None) if rehearsal else torch.cuda.synchronize
+    (net_a, tr_a), (net_b, tr_b) = make(), make()
+    start = _fold_counters()
+    loss_a = [_eager_step(tr_a, loss_of(net_a), batches[0]) for _ in range(3)]
+    prog = tr_b.fold_step(loss_of(net_b), block=net_b)
+    loss_b, captured, call_s = [], [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        loss_b.append(prog(*batches[0]))
+        sync()
+        call_s.append(time.perf_counter() - t0)
+        captured.append(prog.captured)
+    steps = _delta(start)
+    snap = lambda net, tr: ([p.data() for p in net.collect_params().values()],  # noqa: E731
+                            _flat_states(tr))
+    (pa, sa), (pb, sb) = snap(net_a, tr_a), snap(net_b, tr_b)
+    exact = {"params": _compare(pa, pb), "states": _compare(sa, sb),
+             "losses": _compare(loss_a, loss_b)}
+    folded = prog.folded
+    del prog  # its graph and pool: ResNet-50's B=256 step holds tens of GB
+    if not rehearsal:
+        torch.cuda.empty_cache()
+    window = [torch.stack([b[i] for b in batches]) for i in range(len(batches[0]))]
+    prog_k = tr_b.fold_steps(loss_of(net_b), k=FOLD_K, block=net_b)
+    win_a, win_b = [], []
+    for _ in range(3):
+        win_a.append(torch.stack([_eager_step(tr_a, loss_of(net_a), b) for b in batches]))
+        win_b.append(prog_k(*window))
+    sync()
+    (pa, sa), (pb, sb) = snap(net_a, tr_a), snap(net_b, tr_b)
+    windows = {"params": _compare(pa, pb), "states": _compare(sa, sb),
+               "losses": _compare(win_a, win_b)}
+    folded = folded and prog_k.folded
+    del prog_k
+    if not rehearsal:
+        torch.cuda.empty_cache()
+    ev = tr_b.fold_eval(loss_of(net_b), block=net_b)
+    for _ in range(3):
+        ev(*batches[0])
+    got = ev.result()
+    with mx.autograd.predict_mode():
+        acc, count = torch.zeros((), dtype=torch.float32, device=batches[0][0].device), 0
+        for _ in range(3):
+            loss = loss_of(net_b)(*batches[0])
+            acc += loss.float().sum()
+            count += loss.numel()
+    ref = acc.item() / count
+    counters = _delta(start)
+    status = {"folded": folded and ev.folded,
+              "captured_by_call": captured, "fallbacks": counters["fallbacks"]}
+    want_captured = [False] * 3 if rehearsal else [False, True, True]
+    ok = (all(eq for eq, _ in exact.values()) and all(eq for eq, _ in windows.values())
+          and got == ref and status["folded"] and captured == want_captured
+          and counters["fallbacks"] == 0
+          and (rehearsal or (steps["replays"], steps["captures"]) == (2, 1)))
+    rec = dict(model=label, exact_steps={k: dict(bit_equal=e, max_abs_err=x)
+                                         for k, (e, x) in exact.items()},
+               windows=dict(k=FOLD_K, windows=3, **{k: dict(bit_equal=e, max_abs_err=x)
+                                                     for k, (e, x) in windows.items()}),
+               eval=dict(fold_mean_loss=got, eager_mean_loss=ref, abs_err=abs(got - ref),
+                         bound=0.0),
+               call_s=call_s, counters=counters, **status, ok=ok)
+    del ev, net_a, net_b, tr_a, tr_b
+    if not rehearsal:
+        torch.cuda.empty_cache()
+    return rec, ok
+
+
+def _fold_update_check(make, loss_of, batch, rehearsal):
+    """``MXNET_STEP_FOLD=1``: three ``Trainer.step`` calls whose optimizer
+    tail is ``fold_update`` (eager, capture + replay, replay) against three
+    with the fused update, on two copies, bit for bit (deterministic mode,
+    as the exact steps)."""
+    params, before = [], dict(vars(step_fold.fold_update))
+    for env in ("", "1"):
+        prev = os.environ.get("MXNET_STEP_FOLD")
+        os.environ["MXNET_STEP_FOLD"] = env
+        try:
+            net, tr = make()
+            for _ in range(3):
+                _eager_step(tr, loss_of(net), batch)
+            params.append([p.data() for p in net.collect_params().values()]
+                          + _flat_states(tr))
+        finally:
+            if prev is None:
+                del os.environ["MXNET_STEP_FOLD"]
+            else:
+                os.environ["MXNET_STEP_FOLD"] = prev
+        del net, tr
+    counts = {k: v - before[k] for k, v in vars(step_fold.fold_update).items()}
+    equal, err = _compare(*params)
+    want = ({"calls": 3, "captures": 0, "replays": 0} if rehearsal
+            else {"calls": 3, "captures": 1, "replays": 2})
+    ok = equal and {k: counts[k] for k in want} == want
+    emit("fold", check="fold_update", bit_equal=equal, max_abs_err=err, counters=counts,
+         expected=want, ok=ok)
+    return ok
+
+
+def _fold_dropout(net, trainer, batch):
+    """Two replays of the dropout-0.1 step draw different masks: a probe
+    (a forward hook on the first Dropout, captured with the step) records
+    which elements it dropped, and each replay's dropped share lies within
+    FOLD_DROPOUT ± FOLD_DROPOUT_BAND."""
+    drop = next(m for m in net.modules() if isinstance(m, mx.gluon.nn.Dropout))
+    probe = {}
+
+    def hook(_, args, out):
+        if "dropped" not in probe:
+            probe["dropped"] = torch.empty(out.shape, dtype=torch.bool, device=out.device)
+        probe["dropped"].copy_((out == 0) & (args[0] != 0))
+
+    handle = drop.register_forward_hook(hook)
+    try:
+        prog = trainer.fold_step(bert_loss(net), block=net)
+        prog(*batch)
+        prog(*batch)
+        masks = [probe["dropped"].clone()]
+        prog(*batch)
+        masks.append(probe["dropped"].clone())
+        captured = prog.captured
+    finally:
+        handle.remove()
+    shares = [m.float().mean().item() for m in masks]
+    fresh = not torch.equal(masks[0], masks[1])
+    ok = (captured and fresh
+          and all(abs(s - FOLD_DROPOUT) <= FOLD_DROPOUT_BAND for s in shares))
+    emit("fold", check="dropout", probe_elements=masks[0].numel(), dropped_share=shares,
+         expected=FOLD_DROPOUT, band=FOLD_DROPOUT_BAND, masks_differ=fresh,
+         replayed=captured, ok=ok)
+    return ok
+
+
+def _fold_main(label, net, trainer, loss_fn, batch, want_replay, rehearsal):
+    """The main path: ``trainer.fold_step(loss_fn, block=net)`` and three
+    calls (warm-up, capture + replay, replay) with the launch counts set to
+    0 just before and read just after; then one more replay under the
+    profiler, whose kernels are counted by name.  Returns (program, counts,
+    record, ok)."""
+    prog = trainer.fold_step(loss_fn, block=net)
+    start = _fold_counters()
+    reset_kernel_counts()
+    call_s, losses = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        losses.append(prog(*batch))
+        if not rehearsal:
+            torch.cuda.synchronize()
+        call_s.append(time.perf_counter() - t0)
+    counts = kernel_counts()
+    tries, moved = ([], {}) if rehearsal else _replay_kernels(lambda: prog(*batch),
+                                                               want_replay)
+    counters = _delta(start)
+    finite = all(bool(torch.isfinite(x).all()) for x in losses)
+    # every call after the warm-up is one replay (the profiled ones too)
+    want_counters = ({"calls": 3, "replays": 0, "captures": 0} if rehearsal
+                     else {"calls": 3 + len(tries), "replays": 2 + len(tries), "captures": 1})
+    ok = (finite and prog.folded and counters["fallbacks"] == 0
+          and {k: counters[k] for k in want_counters} == want_counters
+          and (rehearsal or (tries[-1] == want_replay and not moved)))
+    rec = dict(path=label, launches_main_path=counts, call_s=call_s,
+               warm_up_s=call_s[0], capture_and_replay_s=call_s[1], replay_s=call_s[2],
+               replay_kernels=tries[-1] if tries else None, replay_kernel_tries=len(tries),
+               expected_replay_kernels=want_replay, python_counts_moved_by_replay=moved,
+               counters=counters, expected_counters=want_counters, folded=prog.folded,
+               captured=prog.captured, losses=[x.float().mean().item() for x in losses],
+               finite=finite, ok=ok)
+    return prog, counts, rec, ok
+
+
+def phase_fold(train, resnet, rehearsal):
+    """The step fold on BERT-base and ResNet-50 at the training phases'
+    shapes: exact steps, windows and eval on fresh dropout-free copies; the
+    dropout masks of replays; then the main path on the training phases'
+    own nets and trainers.  Returns ({path: launch counts}, {path: the
+    main-path program}, {path: record})."""
+    cfg = dict(TINY_BERT if rehearsal else BERT_BASE)
+    ctx = mx.cpu() if rehearsal else mx.gpu(0)
+    device = ctx.device
+    b, s, p = (4, 16, 3) if rehearsal else (64, 128, 20)
+    gen = torch.Generator(device=device).manual_seed(31)
+    bert_batches = [_train_batch(cfg, b, s, p, gen, device) for _ in range(FOLD_K)]
+
+    def make_bert():
+        net = _build_net(dict(cfg, dropout=0.0), ctx, "bfloat16")
+        with mx.autograd.predict_mode():  # finish the deferred shapes from the same seed
+            net(*bert_batches[0][:3])
+        return net, mx.gluon.Trainer(net.collect_params(), "adam",
+                                     {"learning_rate": 1e-4, "multi_precision": True})
+
+    def make_resnet():
+        net = _build_resnet(rehearsal, ctx, 0)
+        return net, mx.gluon.Trainer(net.collect_params(), "sgd",
+                                     {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4})
+
+    misses, records = [], {}
+    with _deterministic(bert=True):
+        rec, ok = _fold_exact("BERTForPretrain(bert_base) bf16, Adam mp, dropout 0 "
+                              "(deterministic algorithms)", make_bert, bert_loss, bert_batches,
+                              rehearsal)
+        if not _fold_update_check(make_bert, bert_loss, bert_batches[0], rehearsal):
+            misses.append("fold_update")
+    control = _eager_repeat(make_bert, bert_loss, bert_batches[0])
+    emit("fold", check="exact", **rec, control_default_mode_eager_vs_eager=dict(
+        bit_equal=control[0], max_abs_err=control[1]))
+    if not ok:
+        misses.append("bert_exact")
+    rb = 2 if rehearsal else RESNET_B
+    resnet_batches = [_image_batch(rehearsal, rb, gen, device) for _ in range(FOLD_K)]
+    mx.amp.init("bfloat16")
+    try:
+        with _deterministic(bert=False):
+            rec, ok = _fold_exact("resnet50_v1 AMP bf16, SGD momentum (cuDNN deterministic)",
+                                  make_resnet, resnet_loss, resnet_batches, rehearsal)
+        control = _eager_repeat(make_resnet, resnet_loss, resnet_batches[0])
+    finally:
+        mx.amp.disable()
+    emit("fold", check="exact", **rec, control_default_mode_eager_vs_eager=dict(
+        bit_equal=control[0], max_abs_err=control[1]))
+    if not ok:
+        misses.append("resnet_exact")
+    del bert_batches, resnet_batches
+    if not rehearsal:
+        torch.cuda.empty_cache()
+        tnet, trainer, batch = train
+        if not _fold_dropout(tnet, trainer, batch):
+            misses.append("dropout")
+        torch.cuda.empty_cache()
+
+    tnet, trainer, batch = train
+    num_layers = cfg.get("num_layers", 12)
+    bert_prog, bert_counts, rec, ok = _fold_main(
+        "fold_bert_step", tnet, trainer, bert_loss(tnet), batch,
+        {"flash_fwd": num_layers, "flash_bwd_dq": num_layers, "flash_bwd_dkv": num_layers,
+         "multi_tensor": 1}, rehearsal)
+    emit("fold", check="main_path", model="BERTForPretrain(bert_base) bf16, Adam mp, "
+         "dropout 0.1" if not rehearsal else "tiny BERT (CPU rehearsal)", **rec)
+    records["fold_bert_step"] = rec
+    if not ok:
+        misses.append("bert_main_path")
+    rnet, rtrainer, rbatch = resnet
+    n_bn = sum(isinstance(m, mx.gluon.nn.BatchNorm) for m in rnet.modules())
+    mx.amp.init("bfloat16")
+    try:
+        resnet_prog, resnet_counts, rec, ok = _fold_main(
+            "fold_resnet_step", rnet, rtrainer, resnet_loss(rnet), rbatch,
+            {"bn_stats": n_bn, "bn_apply": n_bn, "multi_tensor": 1}, rehearsal)
+    finally:
+        mx.amp.disable()
+    emit("fold", check="main_path", model="resnet50_v1 AMP bf16, SGD momentum"
+         if not rehearsal else "tiny ResNetV1 (CPU rehearsal)", **rec)
+    records["fold_resnet_step"] = rec
+    if not ok:
+        misses.append("resnet_main_path")
+    if misses:
+        emit("fold", failed=misses)
+        sys.exit(1)
+    return ({"fold_bert_step": bert_counts, "fold_resnet_step": resnet_counts},
+            {"fold_bert_step": bert_prog, "fold_resnet_step": resnet_prog}, records)
+
+
 # -- phase 7 ----------------------------------------------------------------
 
 
@@ -1653,8 +2117,8 @@ def _graph_ms(fn, arg_sets, calls=40, replays=5):
 def _kernel_family(name):
     if name.startswith(("gelu_fwd_", "gelu_bwd_")):  # the user's kernels of RTC_SOURCE
         return "rtc_" + name[:8]
-    for fam in ("flash_bwd_dkv", "flash_bwd_dq", "flash_fwd", "bn_stats", "bn_apply",
-                "multi_tensor"):
+    for fam in ("flash_wide_bwd_dkv", "flash_wide_bwd_dq", "flash_wide_fwd", "flash_bwd_dkv",
+                "flash_bwd_dq", "flash_fwd", "bn_stats", "bn_apply", "multi_tensor"):
         if fam in name:
             return fam
     if re.search(r"conv|cudnn|fprop|dgrad|wgrad|nchw|nhwc", name, re.I):
@@ -2042,7 +2506,11 @@ def _times_multi_tensor(train, resnet, smi):
                      + (1 if mp else 2) * w.numel() * w.element_size()
                      for w, g, st in zip(ws, gs, sts))
         flops = (15 if "adam" in step.variant else 7) * numel
-        kern = _time(lambda: opt_ops.group_apply(step, *args), [()], 20, uniform=True)
+        # the kernel alone: its values staged on the card once, as a replay
+        # finds them (an eager call adds their 0.1 KB host-to-device copy)
+        rows = torch.from_numpy(opt_ops.group_rows(step, *args[3:])).to(ws[0].device)
+        kern = _time(lambda: opt_ops.group_apply(step, *args, device_rows=rows), [()], 20,
+                     uniform=True)
         plain = _time(lambda: opt_ops.group_apply_plain(step, *args), [()], 3)
         lib_name, lib_fn, lib_sets = _library_update(step, args)
         lib = _time(lib_fn, lib_sets, 20)
@@ -2214,11 +2682,114 @@ def _step_phases(net, trainer, batch, iters):
     return spent
 
 
-def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, smi):
+WIDE_TIME_SHAPE = dict(b=4, s=512, h=8, d=512)  # a head wider than 256, bf16
+
+
+def _times_wide(gen, smi):
+    """The three flash_wide kernels at [B, S, H, Dh] = [4, 512, 8, 512]
+    bf16 (no main path has such a head): each kernel, the plain version and
+    SDPA (the forward; its backward as fwd+bwd - fwd), with the kernels'
+    bounds.  Returns {kernel: row}."""
+    b, s, h, d = (WIDE_TIME_SHAPE[k] for k in ("b", "s", "h", "d"))
+    device = torch.device("cuda", 0)
+    sets = []
+    with torch.no_grad():
+        for _ in range(2):
+            q, k, v, do = (_randn((b, h, s, d), torch.bfloat16, gen, device) for _ in range(4))
+            o, lse = att.flash_fwd(q, k, v, with_lse=True)
+            sets.append((q, k, v, o, do, lse))
+        fwd_ms, fwd_call_ms, _, fwd_records = _time(lambda q, k, v, *_: att.flash_fwd(q, k, v),
+                                                    sets, 20, uniform=True)
+        dq_ms, dq_call_ms, _, dq_records = _time(att.flash_bwd_dq, sets, 20, uniform=True)
+        dkv_ms, dkv_call_ms, _, dkv_records = _time(att.flash_bwd_dkv, sets, 20, uniform=True)
+        fwd_plain_ms = _time(lambda q, k, v, *_: att.flash_fwd_plain(q, k, v), sets, 5)[0]
+        bwd_plain_ms = _time(att.flash_bwd_plain, sets, 5)[0]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_sets = [tuple(x.clone().requires_grad_() for x in st[:3]) + (st[4],) for st in sets]
+
+    def fwd(q, k, v, do):
+        return sdpa(q, k, v)
+
+    def fwd_bwd(q, k, v, do):
+        torch.autograd.grad(sdpa(q, k, v), (q, k, v), do)
+
+    try:
+        lib_f_ms, _, lib_f_kernels, _ = _time(fwd, lib_sets, 20)
+        lib_fb_ms, _, lib_b_kernels, _ = _time(fwd_bwd, lib_sets, 20)
+        lib_b_ms = lib_fb_ms - lib_f_ms
+    except RuntimeError as e:  # no SDPA backend for this head dim on this build
+        lib_f_ms = lib_b_ms = lib_f_kernels = lib_b_kernels = None
+        emit("times", kernel="SDPA", shape=WIDE_TIME_SHAPE, library_error=repr(e)[:300])
+    n = b * s * h * d * 2
+    lse_bytes = b * h * s * 4
+    out = {}
+    for name, ms, call_ms, records, plain_ms, lib_ms, nbytes, flops in (
+            ("flash_wide_fwd", fwd_ms, fwd_call_ms, fwd_records, fwd_plain_ms, lib_f_ms,
+             4 * n + lse_bytes, 4 * b * h * s * s * d),
+            ("flash_wide_bwd_dq", dq_ms, dq_call_ms, dq_records, bwd_plain_ms, lib_b_ms,
+             6 * n + lse_bytes, 6 * b * h * s * s * d),
+            ("flash_wide_bwd_dkv", dkv_ms, dkv_call_ms, dkv_records, bwd_plain_ms, lib_b_ms,
+             7 * n + lse_bytes, 8 * b * h * s * s * d)):
+        bound_ms, bound_by = _bound(nbytes, flops)
+        emit("times", kernel=name, shape=dict(WIDE_TIME_SHAPE, dtype="bfloat16"), ms=ms,
+             call_ms=call_ms, records=records, plain_ms=plain_ms, library_ms=lib_ms,
+             library="SDPA (its own choice of backend)" if name.endswith("fwd")
+             else "SDPA backward (fwd+bwd - fwd)",
+             library_kernels_us=lib_f_kernels if name.endswith("fwd") else lib_b_kernels,
+             bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
+             share_of_bound=bound_ms / ms, card=smi)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, call_ms=call_ms)
+    del sets, lib_sets
+    return out
+
+
+def _times_fold(train, resnet, progs, records, smi):
+    """Each main-path step eager and folded, in turns (eager, fold, fold,
+    eager), each turn the mean wall ms of 10 steps; the fold's peak memory
+    over 10 steps and the memory its graphs reserve; the capture time from
+    the fold phase; a torch.profiler breakdown (device busy share) of one
+    folded step of each."""
+    paths = (("fold_bert_step", "BERTForPretrain(bert_base) bf16 B=64 S=128 P=20, Adam mp, "
+              "dropout 0.1", train, train_step, False),
+             ("fold_resnet_step", "resnet50_v1 AMP bf16 B=256 224x224, SGD momentum", resnet,
+              resnet_step, True))
+    for key, label, (net, trainer, batch), step_fn, amp in paths:
+        prog = progs[key]
+        b = batch[0].shape[0]
+        if amp:
+            mx.amp.init("bfloat16")
+        try:
+            turns = {"eager": [], "fold": []}
+            for mode in ("eager", "fold", "fold", "eager"):
+                fn = ((lambda: step_fn(net, trainer, batch)) if mode == "eager"
+                      else (lambda: prog(*batch)))
+                turns[mode].append(_time_steps(fn, 10))
+            torch.cuda.reset_peak_memory_stats()
+            _time_steps(lambda: prog(*batch), 10)
+            fold_peak = torch.cuda.max_memory_allocated()
+            reserved = torch.cuda.memory_reserved()
+            phase_profile(f"fold step: {label}", lambda: prog(*batch), smi)
+        finally:
+            if amp:
+                mx.amp.disable()
+        mean = {m: sum(v) / len(v) for m, v in turns.items()}
+        unit = "img_per_s" if amp else "samples_per_s"
+        rec = records[key]
+        emit("times", fold_step=label, b=b, turns_ms=turns, eager_step_ms=mean["eager"],
+             fold_step_ms=mean["fold"], **{f"eager_{unit}": b / mean["eager"] * 1e3,
+                                           f"fold_{unit}": b / mean["fold"] * 1e3},
+             fold_over_eager=mean["fold"] / mean["eager"], fold_peak_memory_bytes=fold_peak,
+             memory_reserved_bytes=reserved, warm_up_s=rec["warm_up_s"],
+             capture_and_replay_s=rec["capture_and_replay_s"], card=smi)
+
+
+def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, fold, smi):
     """``train`` and ``resnet`` = (net, trainer, batch) of the BERT and
     ResNet-50 training paths; ``bn_shapes`` = {(C, HW): launches in one
     ResNet-50 step}; ``counts`` = {path: launch counts}; ``errs`` =
-    {kernel: max abs error at the main paths' layouts and shapes}."""
+    {kernel: max abs error at the main paths' layouts and shapes}; ``fold``
+    = (programs, records) of the fold phase's main paths."""
     device = torch.device("cuda", 0)
     b, s, h, d = MAIN["b"], MAIN["sq"], MAIN["h"], MAIN["d"]
     gen = torch.Generator(device=device).manual_seed(99)
@@ -2230,6 +2801,7 @@ def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, smi):
     rows = {"flash_fwd": _times_fwd(views, bhsd_sets, smi)}
     del qkv_sets, views, bhsd_sets
     rows.update(_times_bwd(gen, smi))
+    rows.update(_times_wide(gen, smi))
     rows.update(_times_bn(bn_shapes, smi))
     rows.update(_times_gelu(smi))
     mt_rows = _times_multi_tensor(train, resnet, smi)
@@ -2280,6 +2852,7 @@ def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, smi):
                       lambda: train_step(tnet, trainer, batch), smi)
     _times_resnet(resnet, smi)
     _times_optimizer_paths(train, resnet, smi)
+    _times_fold(train, resnet, *fold, smi)
     set_kernel_counts(before)  # timed and profiled launches are not the main paths'
 
     csrc = "incubator_mxnet_torch/ops/csrc/"
@@ -2288,6 +2861,12 @@ def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, smi):
                                 "incubator_mxnet_tpu/ops/attention.py:203"),
                "flash_bwd_dkv": (csrc + "flash_bwd.cu",
                                  "incubator_mxnet_tpu/ops/attention.py:248"),
+               "flash_wide_fwd": (csrc + "flash_wide.cu",
+                                  "incubator_mxnet_tpu/ops/attention.py:85"),
+               "flash_wide_bwd_dq": (csrc + "flash_wide.cu",
+                                     "incubator_mxnet_tpu/ops/attention.py:203"),
+               "flash_wide_bwd_dkv": (csrc + "flash_wide.cu",
+                                      "incubator_mxnet_tpu/ops/attention.py:248"),
                "bn_stats": (csrc + "bn.cu", "incubator_mxnet_tpu/ops/pallas_bn.py:33"),
                "bn_apply": (csrc + "bn.cu", "incubator_mxnet_tpu/ops/pallas_bn.py:67"),
                "bn_apply_res": (csrc + "bn.cu", "incubator_mxnet_tpu/ops/pallas_bn.py:75"),
@@ -2295,11 +2874,14 @@ def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, smi):
                "rtc_gelu_bwd": ("chip_smoke.py", "incubator_mxnet_tpu/rtc.py:48"),
                "multi_tensor": (csrc + "multi_tensor.cu",
                                 "incubator_mxnet_tpu/ops/optimizer_ops.py:367")}
-    main_path = {"flash_fwd": "inference", "flash_bwd_dq": "train_step",
-                 "flash_bwd_dkv": "train_step", "bn_stats": "resnet_train_step",
-                 "bn_apply": "resnet_train_step", "bn_apply_res": "resnet_train_step",
-                 "rtc_gelu_fwd": "rtc_train_step", "rtc_gelu_bwd": "rtc_train_step",
-                 "multi_tensor": "train_step"}
+    # this slice's main path is the fold: each kernel's launches are those of
+    # its fold path (warm-up and capture; a replay runs no wrapper)
+    main_path = {"flash_fwd": "fold_bert_step", "flash_bwd_dq": "fold_bert_step",
+                 "flash_bwd_dkv": "fold_bert_step", "flash_wide_fwd": "fold_bert_step",
+                 "flash_wide_bwd_dq": "fold_bert_step", "flash_wide_bwd_dkv": "fold_bert_step",
+                 "bn_stats": "fold_resnet_step", "bn_apply": "fold_resnet_step",
+                 "bn_apply_res": "fold_resnet_step", "rtc_gelu_fwd": "rtc_train_step",
+                 "rtc_gelu_bwd": "rtc_train_step", "multi_tensor": "fold_bert_step"}
     kernels = []
     for name, (src, replaces) in sources.items():
         path = main_path[name]
@@ -2313,6 +2895,9 @@ def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, smi):
                    "call_ms": row["call_ms"], "host_ms": row["host_ms"],
                    "compiled_by": "incubator_mxnet_torch/rtc.py (RTC_SOURCE, nvcc cubin, "
                                   "CUDA driver launch)"}
+        elif name.startswith("flash_wide"):
+            per = {"per": "one launch at [B, S, H, Dh] = [4, 512, 8, 512] bf16; no main path "
+                          "has a head above 256, so its launches there are 0"}
         elif name == "multi_tensor":
             per = {"per": "one BERT-base step's fused group (mp_adam, 159 tensors); not a TPU "
                           "kernel but the counterpart of group_apply's one XLA dispatch; "
@@ -2438,6 +3023,7 @@ def main():
         del vs_cpu
         rnet, rtrainer, rbatch, _, _ = phase_resnet_train(rehearsal=True)
         phase_resnet_train_vs_cpu(rehearsal=True)
+        phase_fold((tnet, trainer, batch), (rnet, rtrainer, rbatch), rehearsal=True)
         rehearse_times(net, main_req, (tnet, trainer, batch), (rnet, rtrainer, rbatch))
         return 0
     if not torch.cuda.is_available():
@@ -2450,7 +3036,7 @@ def main():
     smi = phase_device()
     phase_build()
     device = torch.device("cuda", 0)
-    errs = {"flash_fwd": phase_kernel_vs_plain(device)}
+    errs = phase_kernel_vs_plain(device)
     errs.update(phase_kernel_vs_plain_bwd(device))
     errs.update(phase_kernel_vs_plain_bn(device))
     errs.update(phase_kernel_vs_plain_rtc(device))
@@ -2464,9 +3050,12 @@ def main():
     phase_resnet_train_vs_cpu(rehearsal=False)
     errs["multi_tensor"] = max(errs["multi_tensor"], phase_main_groups_vs_plain(
         {"bert_train_step": trainer, "resnet_train_step": rtrainer}))
+    fold_counts, fold_progs, fold_records = phase_fold(
+        (tnet, trainer, batch), (rnet, rtrainer, rbatch), rehearsal=False)
     phase_times(net, main_req, (tnet, trainer, batch), (rnet, rtrainer, rbatch), bn_shapes,
                 {"inference": infer_counts, "train_step": train_counts,
-                 "resnet_train_step": resnet_counts, "rtc_train_step": rtc_counts}, errs, smi)
+                 "resnet_train_step": resnet_counts, "rtc_train_step": rtc_counts,
+                 **fold_counts}, errs, (fold_progs, fold_records), smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -15,17 +15,24 @@ are a later slice of the port.
 The optimizer state is keyed by parameter index, and each step fetches
 ``param.data()`` and ``param.grad()`` afresh, so a ``cast`` between
 steps (which makes new tensors) is seen.
+
+``fold_step`` / ``fold_steps`` / ``fold_eval`` build the step fold
+(``gluon/step_fold.py``): a whole training step, or a window of K, or an
+evaluation pass, as one CUDA-graph replay on the card; ``MXNET_STEP_FOLD=1``
+makes ``step`` replay its optimizer tail (``step_fold.fold_update``).
 """
 from __future__ import annotations
 
 import os
 import pickle
 import warnings
+import weakref
 
 import torch
 
 from .. import optimizer as opt_mod
 from ..optimizer import fused as _fused
+from . import step_fold as _sf
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
@@ -57,6 +64,7 @@ class Trainer:
         self._states = {}
         self._last_scale_set = None  # the last rescale_grad this trainer wrote
         self._grad_versions = {}     # index -> grad_version at its last update
+        self._fold = None            # weakref to the last StepProgram built
 
     def _init_optimizer(self, optimizer, optimizer_params):
         param_dict = dict(enumerate(self._params))
@@ -103,6 +111,41 @@ class Trainer:
         self.allreduce_grads()
         self._update(ignore_stale_grad, stale)
 
+    def fold_step(self, loss_fn, block=None):
+        """The folded training step of this trainer: a
+        :class:`~.step_fold.StepProgram` whose call ``program(*batch)`` runs
+        forward, ``loss_fn(*batch)``, backward and the fused optimizer update
+        as one CUDA-graph replay on the card (after one eager warm-up call
+        and one capture) and returns a copy of the loss.  ``loss_fn`` calls
+        the Block(s) whose Parameters this trainer owns.  Gradients stay in
+        the Parameters' buffers, as after ``backward``.  Escape hatches
+        (``MXNET_STEP_FOLD=0``, ``block`` with ``_step_fold_opt_out``,
+        ``grad_req='add'``, an optimizer with no fused update, a capture
+        failure) fall back to the eager path with a warning, never an
+        error."""
+        sp = _sf.StepProgram(self, loss_fn, block=block)
+        self._fold = weakref.ref(sp)
+        return sp
+
+    def fold_steps(self, loss_fn, k=None, block=None):
+        """The K-step fold: like :meth:`fold_step`, but each call takes a
+        ``[K, batch, ...]`` window stacked by the caller and runs its K
+        logical steps as one replay of K captured step bodies, returning the
+        ``[K, ...]`` losses; ``k`` defaults to ``MXNET_STEP_FOLD_K`` (K=1 is
+        :meth:`fold_step`'s program).  ``program.step_one(*batch)`` runs one
+        step off the window boundary; ``save_states`` refuses until the
+        window is whole again."""
+        sp = _sf.StepProgram(self, loss_fn, block=block, k=k)
+        self._fold = weakref.ref(sp)
+        return sp
+
+    def fold_eval(self, loss_fn, block=None, k=None):
+        """The folded evaluation pass: an :class:`~.step_fold.EvalProgram`
+        whose call runs the forward-only loss of a batch (or a ``[K, ...]``
+        window) with training off as one replay, summing it on the card;
+        ``program.result()`` reads the mean once."""
+        return _sf.EvalProgram(self, loss_fn, block=block, k=k)
+
     def allreduce_grads(self):
         """Nothing to reduce: the gradients of one device are already whole."""
 
@@ -130,8 +173,10 @@ class Trainer:
             if i not in self._states:
                 self._states[i] = self._optimizer.create_state_multi_precision(i, weight)
             items.append((i, weight, p.grad()))
-        # the fused group update; what it leaves takes the per-tensor loop
-        for i, weight, grad in _fused.fused_update(self._optimizer, items, self._states):
+        # the fused group update (MXNET_STEP_FOLD=1: all its groups as one
+        # CUDA-graph replay); what it leaves takes the per-tensor loop
+        updater = _sf.fold_update if _sf.step_fast_path() else _fused.fused_update
+        for i, weight, grad in updater(self._optimizer, items, self._states):
             self._optimizer.update_multi_precision(i, weight, grad, self._states[i])
         for i, p in enumerate(self._params):
             if p.grad_req != "null" and p._data is not None:
@@ -139,7 +184,18 @@ class Trainer:
 
     def save_states(self, fname):
         """Optimizer state and per-index update counts (Adam's ``t``
-        resumes where it was), written atomically."""
+        resumes where it was), written atomically.  Refused while a K-step
+        fold is off its window boundary (``program.window_pos != 0``): such
+        a state is no point that K-step windows ever reach."""
+        fold = self._fold() if self._fold is not None else None
+        if fold is not None:
+            if fold.window_pos != 0:
+                raise RuntimeError(
+                    f"save_states refused mid-window: the K-step fold is {fold.window_pos} "
+                    f"step(s) past a K boundary (k={fold.k}); checkpoints land on K "
+                    "boundaries only: finish the window with step_one, or save before "
+                    "stepping off the boundary")
+            fold.sync()
         payload = {
             "states": {i: _to_numpy(st) for i, st in self._states.items()},
             "num_update": self._optimizer.num_update,

@@ -18,19 +18,22 @@ o lands in ``[B, S, H, Dh]`` for the output projection, and the backward
 writes dq, dk and dv straight into the three slices of one
 ``[B, S, 3, H, Dh]`` gradient.
 
-Operands: the wrappers take what the JAX functions take, up to a head
-dim of 256.  A head dim the kernels have no instance for (48, 80, 160,
-...) is zero-padded to the next one they have (zero columns add nothing
-to q·kᵀ, to rowsum(do∘o) or to any product), with the scale of the true
-head dim, and the outputs are sliced back.  The widest instance, 256,
-runs each kernel as two launches of a 128-column slab of its outputs,
-each reducing over the whole head (the sources say why).  A 16-bit
-operand that repeats one row along its sequence (stride 0) goes to the
-kernels contiguous, since TMA reads rows in boxes.  A head dim above 256
-raises: the next instance, 512, would need 128 KB for each 16-bit tile of
-128 rows, so the forward's whole-width Q and K tiles (or the dk/dv pass's
-K and V) alone would pass the 227 KB of shared memory a block has; such a
-head needs its reductions streamed in column blocks too.
+Operands: the wrappers take what the JAX functions take, any head dim.
+A head dim the kernels have no instance for (48, 80, 160, ...) is
+zero-padded to the next one they have (zero columns add nothing to q·kᵀ,
+to rowsum(do∘o) or to any product), with the scale of the true head dim,
+and the outputs are sliced back.  The widest instance of ``flash_fwd.cu``
+and ``flash_bwd.cu``, 256, runs each kernel as two launches of a
+128-column slab of its outputs, each reducing over the whole head (the
+sources say why).  A 16-bit operand that repeats one row along its
+sequence (stride 0) goes to the kernels contiguous, since TMA reads rows
+in boxes.  A head dim above 256 goes to ``ops/csrc/flash_wide.cu``
+(padded to a multiple of 64): there a 16-bit tile of 128 rows would take
+80-128 KB, so whole-width tiles no longer fit in the 227 KB of shared
+memory a block has, and its three kernels (``flash_wide_fwd``,
+``flash_wide_bwd_dq``, ``flash_wide_bwd_dkv``, one launch a pass, each
+with its own count) stream every reduction over the head in 64-column
+chunks and write each output in 128-column slabs.
 
 Gradients: one ``torch.autograd.Function`` (``_FlashAttention``) holds
 the forward, which saves o and the per-row log-sum-exp when an input
@@ -49,18 +52,25 @@ from . import _cuda
 from .registry import register
 
 __all__ = ["flash_fwd", "flash_fwd_plain", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv",
-           "flash_bwd_plain", "flash_attention", "attention_reference",
+           "flash_bwd_plain", "flash_wide_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv",
+           "flash_attention", "attention_reference",
            "attention_reference_bshd", "fused_attention", "fused_qkv_attention",
            "fused_kv_attention"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _HEAD_DIMS = (16, 32, 64, 128, 256)
 _SLAB = 128  # output columns of one launch: a wider instance makes one launch a slab
+_WIDE_STEP = 64  # flash_wide.cu takes head dims above 256 in multiples of this
+
+
+def _is_wide(width):
+    return width > _HEAD_DIMS[-1]
 
 
 def _launches(width):
-    """Launches of one kernel pass at the instance ``width``."""
-    return max(1, width // _SLAB)
+    """Launches of one kernel pass at the instance ``width`` (one at the
+    widths of flash_wide.cu, whose slabs are blocks of one launch)."""
+    return 1 if _is_wide(width) else max(1, width // _SLAB)
 
 
 def flash_fwd_plain(q, k, v, causal=False, scale=None, with_lse=False):
@@ -122,9 +132,10 @@ def _strides_bhs(x, bshd):
 
 def _check_cuda_operands(fn, q, k, v, bshd, like_k=(), **like_q):
     """What the kernels take: 4-D operands on q's device, of q's dtype (one
-    of three), head dim 16/32/64/128/256, unit stride on Dh, 16-byte aligned
-    rows; ``like_q`` names further operands of q's shape (o, do, dq...),
-    ``like_k`` (name, tensor) pairs of k's shape (dk, dv)."""
+    of three), head dim 16/32/64/128/256 or a multiple of 64 above 256, unit
+    stride on Dh, 16-byte aligned rows; ``like_q`` names further operands of
+    q's shape (o, do, dq...), ``like_k`` (name, tensor) pairs of k's shape
+    (dk, dv)."""
     dev = q.device
     for name, x in (("q", q), ("k", k), ("v", v), *like_q.items(), *like_k):
         if x.device != dev:
@@ -146,9 +157,11 @@ def _check_cuda_operands(fn, q, k, v, bshd, like_k=(), **like_q):
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"{fn}: unsupported dtype {q.dtype}")
     d = q.shape[-1]
-    if d not in _HEAD_DIMS or k.shape[-1] != d or v.shape[-1] != d:
-        raise ValueError(f"{fn}: head dim must be one of {_HEAD_DIMS} and equal "
-                         f"for q, k, v; got {q.shape[-1]}, {k.shape[-1]}, {v.shape[-1]}")
+    taken = d in _HEAD_DIMS or (_is_wide(d) and d % _WIDE_STEP == 0)
+    if not taken or k.shape[-1] != d or v.shape[-1] != d:
+        raise ValueError(f"{fn}: head dim must be one of {_HEAD_DIMS} or a multiple of "
+                         f"{_WIDE_STEP} above {_HEAD_DIMS[-1]}, and equal for q, k, v; got "
+                         f"{q.shape[-1]}, {k.shape[-1]}, {v.shape[-1]}")
     if k.shape != v.shape:
         raise ValueError(f"{fn}: k {tuple(k.shape)} and v {tuple(v.shape)} differ")
     bh_q = (q.shape[0], q.shape[2] if bshd else q.shape[1])
@@ -166,17 +179,15 @@ def _check_cuda_operands(fn, q, k, v, bshd, like_k=(), **like_q):
 def _kernel_width(fn, q, k, v):
     """The head dim the kernels run for the caller's: the caller's own when
     the kernels have an instance for it, else the next one they have (the
-    operands are zero-padded to it).  Raises for unequal head dims and for
-    one above the widest instance."""
+    operands are zero-padded to it); above 256, the next multiple of 64,
+    which flash_wide.cu takes.  Raises for unequal head dims."""
     d = q.shape[-1]
     if k.shape[-1] != d or v.shape[-1] != d:
         raise ValueError(f"{fn}: head dim must be equal for q, k, v; got {d}, "
                          f"{k.shape[-1]}, {v.shape[-1]}")
-    width = next((w for w in _HEAD_DIMS if w >= d), None)
-    if width is None:
-        raise ValueError(f"{fn}: head dim {d} is above {_HEAD_DIMS[-1]}, the widest the "
-                         f"kernels take")
-    return width
+    if _is_wide(d):
+        return -(-d // _WIDE_STEP) * _WIDE_STEP
+    return next(w for w in _HEAD_DIMS if w >= d)
 
 
 def _pad_head(x, width):
@@ -205,8 +216,10 @@ def _kernel_operands(width, bshd, *xs):
     return xs
 
 
-def _entry():
-    fn = _cuda.load("flash_fwd").mx_flash_fwd
+def _entry(width=64):
+    """The forward's C entry for the instance ``width``."""
+    fn = (_cuda.load("flash_wide").mx_flash_wide_fwd if _is_wide(width)
+          else _cuda.load("flash_fwd").mx_flash_fwd)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -214,8 +227,10 @@ def _entry():
     return fn
 
 
-def _bwd_entry():
-    fn = _cuda.load("flash_bwd").mx_flash_bwd
+def _bwd_entry(width=64):
+    """The backward's C entry for the instance ``width``."""
+    fn = (_cuda.load("flash_wide").mx_flash_wide_bwd if _is_wide(width)
+          else _cuda.load("flash_bwd").mx_flash_bwd)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -231,8 +246,9 @@ def flash_fwd(q, k, v, causal=False, scale=None, with_lse=False, layout="bhsd"):
 
     A CPU tensor takes :func:`flash_fwd_plain`; a CUDA tensor launches the
     kernel (``flash_fwd.launches`` counts the launches: two at Dh 129-256,
-    one a slab) or raises.  On the card a head dim the kernel has no
-    instance for comes back as a slice of the padded o."""
+    one a slab; above 256 ``flash_wide_fwd.launches`` counts its one) or
+    raises.  On the card a head dim the kernel has no instance for comes
+    back as a slice of the padded o."""
     if layout not in ("bhsd", "bshd"):
         raise ValueError(f"layout must be 'bhsd' or 'bshd', got {layout!r}")
     bshd = layout == "bshd"
@@ -257,17 +273,27 @@ def flash_fwd(q, k, v, causal=False, scale=None, with_lse=False, layout="bhsd"):
     strides = (ctypes.c_longlong * 12)(*(_strides_bhs(q, bshd) + _strides_bhs(k, bshd)
                                         + _strides_bhs(v, bshd) + _strides_bhs(o, bshd)))
     with torch.cuda.device(q.device):
-        rc = _entry()(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      o.data_ptr(), lse.data_ptr() if with_lse else None,
-                      b, h, sq, sk, d, strides, float(scale), int(bool(causal)),
-                      torch.cuda.current_stream(q.device).cuda_stream)
+        rc = _entry(d)(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       o.data_ptr(), lse.data_ptr() if with_lse else None,
+                       b, h, sq, sk, d, strides, float(scale), int(bool(causal)),
+                       torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_fwd launch failed with CUDA error {rc}")
-    flash_fwd.launches += _launches(d)
+    _fwd_counter(d).launches += _launches(d)
     return o[..., :d_caller] if d != d_caller else o, lse
 
 
+def flash_wide_fwd(q, k, v, causal=False, scale=None, with_lse=False, layout="bhsd"):
+    """:func:`flash_fwd` at a head dim above 256, which it routes to the
+    ``flash_wide_fwd`` kernel (``flash_wide_fwd.launches`` counts)."""
+    if q.shape[-1] <= _HEAD_DIMS[-1]:
+        raise ValueError(f"flash_wide_fwd takes head dims above {_HEAD_DIMS[-1]}, got "
+                         f"{q.shape[-1]}")
+    return flash_fwd(q, k, v, causal, scale, with_lse, layout)
+
+
 flash_fwd.launches = 0
+flash_wide_fwd.launches = 0
 
 
 def _bwd_launch(q, k, v, o, do, lse, dq, dk, dv, causal, scale, bshd):
@@ -298,7 +324,7 @@ def _bwd_launch(q, k, v, o, do, lse, dq, dk, dv, causal, scale, bshd):
     strides = (ctypes.c_longlong * 24)(*(st for x in ops for st in _strides_bhs(x, bshd)))
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     with torch.cuda.device(q.device):
-        rc = _bwd_entry()(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        rc = _bwd_entry(width)(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           o.data_ptr(), do.data_ptr(), lse.data_ptr(), ptr(dq), ptr(dk),
                           ptr(dv), b, h, sq, sk, width, strides, float(scale),
                           int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
@@ -336,13 +362,14 @@ def _new_like(x):
 def flash_bwd_dq(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd", dq=None):
     """The dq pass of :func:`flash_bwd`; writes into ``dq`` when given and
     returns dq.  A CPU tensor takes :func:`flash_bwd_plain`; a CUDA tensor
-    launches the dq kernel (``flash_bwd_dq.launches`` counts) or raises."""
+    launches the dq kernel (``flash_bwd_dq.launches`` counts, above Dh 256
+    ``flash_wide_bwd_dq.launches``) or raises."""
     bshd, scale = _bwd_args(q, layout, scale)
     if q.device.type == "cpu":
         return _into(dq, _bwd_plain(q, k, v, o, do, lse, causal, scale, bshd)[0])
     dq = _new_like(q) if dq is None else dq
-    flash_bwd_dq.launches += _bwd_launch(q, k, v, o, do, lse, dq, None, None, causal, scale,
-                                         bshd)
+    n = _bwd_launch(q, k, v, o, do, lse, dq, None, None, causal, scale, bshd)
+    _bwd_counters(q.shape[-1])[0].launches += n
     return dq
 
 
@@ -351,7 +378,8 @@ def flash_bwd_dkv(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd",
     """The dk/dv pass of :func:`flash_bwd`; writes into ``dk``/``dv`` when
     given and returns (dk, dv).  A CPU tensor takes
     :func:`flash_bwd_plain`; a CUDA tensor launches the dk/dv kernel
-    (``flash_bwd_dkv.launches`` counts) or raises."""
+    (``flash_bwd_dkv.launches`` counts, above Dh 256
+    ``flash_wide_bwd_dkv.launches``) or raises."""
     if (dk is None) != (dv is None):
         raise ValueError("flash_bwd_dkv: give both dk and dv or neither")
     bshd, scale = _bwd_args(q, layout, scale)
@@ -360,13 +388,48 @@ def flash_bwd_dkv(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd",
         return _into(dk, gk), _into(dv, gv)
     if dk is None:
         dk, dv = _new_like(k), _new_like(v)
-    flash_bwd_dkv.launches += _bwd_launch(q, k, v, o, do, lse, None, dk, dv, causal, scale,
-                                          bshd)
+    n = _bwd_launch(q, k, v, o, do, lse, None, dk, dv, causal, scale, bshd)
+    _bwd_counters(q.shape[-1])[1].launches += n
     return dk, dv
+
+
+def flash_wide_bwd_dq(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd", dq=None):
+    """:func:`flash_bwd_dq` at a head dim above 256: the ``flash_wide_bwd_dq``
+    kernel (``flash_wide_bwd_dq.launches`` counts)."""
+    if q.shape[-1] <= _HEAD_DIMS[-1]:
+        raise ValueError(f"flash_wide_bwd_dq takes head dims above {_HEAD_DIMS[-1]}, got "
+                         f"{q.shape[-1]}")
+    return flash_bwd_dq(q, k, v, o, do, lse, causal, scale, layout, dq)
+
+
+def flash_wide_bwd_dkv(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd",
+                       dk=None, dv=None):
+    """:func:`flash_bwd_dkv` at a head dim above 256: the
+    ``flash_wide_bwd_dkv`` kernel (``flash_wide_bwd_dkv.launches`` counts)."""
+    if q.shape[-1] <= _HEAD_DIMS[-1]:
+        raise ValueError(f"flash_wide_bwd_dkv takes head dims above {_HEAD_DIMS[-1]}, got "
+                         f"{q.shape[-1]}")
+    return flash_bwd_dkv(q, k, v, o, do, lse, causal, scale, layout, dk, dv)
+
+
+def _fwd_counter(d):
+    """The wrapper whose ``launches`` count the forward kernel of head dim
+    ``d``."""
+    return flash_wide_fwd if _is_wide(d) else flash_fwd
+
+
+def _bwd_counters(d):
+    """The (dq, dk/dv) wrappers whose ``launches`` count the backward
+    kernels of head dim ``d``."""
+    if _is_wide(d):
+        return flash_wide_bwd_dq, flash_wide_bwd_dkv
+    return flash_bwd_dq, flash_bwd_dkv
 
 
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
+flash_wide_bwd_dq.launches = 0
+flash_wide_bwd_dkv.launches = 0
 
 
 def flash_bwd(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd", out=None):
@@ -379,7 +442,8 @@ def flash_bwd(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd", out=
     A CPU tensor takes :func:`flash_bwd_plain` (once, for all three); a
     CUDA tensor launches the two kernels, the dq pass then the dk/dv pass,
     in one call (``flash_bwd_dq.launches`` and ``flash_bwd_dkv.launches``
-    each count one, two at Dh 129-256), or raises."""
+    each count one, two at Dh 129-256; above 256 the ``flash_wide_*``
+    wrappers' counts take their one each), or raises."""
     dq, dk, dv = out if out is not None else (None, None, None)
     bshd, scale = _bwd_args(q, layout, scale)
     if q.device.type == "cpu":
@@ -387,8 +451,8 @@ def flash_bwd(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd", out=
         return tuple(_into(dst, g) for dst, g in zip((dq, dk, dv), grads))
     dq, dk, dv = (_new_like(x) if g is None else g for g, x in zip((dq, dk, dv), (q, k, v)))
     n = _bwd_launch(q, k, v, o, do, lse, dq, dk, dv, causal, scale, bshd)
-    flash_bwd_dq.launches += n
-    flash_bwd_dkv.launches += n
+    for counter in _bwd_counters(q.shape[-1]):
+        counter.launches += n
     return dq, dk, dv
 
 

@@ -15,11 +15,16 @@
 // mean, var and the master read and written, the 16-bit weight written:
 // 28 B an element, 3.74 GB for BERT-base's 133.5 M parameters, 1.12 ms).
 // The design moves each byte once, with every SM busy:
-// * The whole chunk's table (pointers, sizes, per-tensor lr, wd and Adam
-//   rate, the prefix sums of block counts) is one kernel parameter block
-//   (__grid_constant__, up to 32 KB on Hopper with CUDA 12.1+), so a launch
-//   needs no copy of its own and a 23.4 M-element embedding shares it with
-//   a 768-element bias.
+// * The chunk's pointers and sizes and the prefix sums of its block counts
+//   are one kernel parameter block (__grid_constant__, up to 32 KB on
+//   Hopper with CUDA 12.1+), so a 23.4 M-element embedding shares a launch
+//   with a 768-element bias.
+// * The values that change from step to step (each tensor's lr, wd and
+//   Adam rate, and the group's eight scalars, rescale = scale/batch_size
+//   among them) are read from device memory (the table holds the pointer),
+//   which the host refreshes before each step: so a launch captured in a
+//   CUDA graph reads each replay's values, not those of the step it was
+//   captured in.  Each block loads its tensor's values once.
 // * Block b finds its tensor by a binary search of the prefix sums and
 //   takes the b-th CHUNK-element slice of it; every tensor is cut into
 //   CHUNK-element slices, so a large tensor spreads over the whole card.
@@ -45,8 +50,8 @@
 namespace {
 
 static_assert(CUDART_VERSION >= 12010,
-              "the table is a launch parameter of 16 KB: CUDA 12.1+ takes up to 32 KB");
-constexpr int MAX_TENSORS = 256;  // 16.4 KB of launch parameters
+              "the table is a launch parameter of 12 KB: CUDA 12.1+ takes up to 32 KB");
+constexpr int MAX_TENSORS = 256;  // 12.3 KB of launch parameters
 constexpr int THREADS = 256;
 constexpr int VEC = 8;                     // elements a thread moves per step
 constexpr int CHUNK = THREADS * VEC * 8;  // elements of one block: 16,384
@@ -60,16 +65,37 @@ struct Table {
   float* s[STATES][MAX_TENSORS];  // sgd_mom: mom; mp_sgd: w32; mp_sgd_mom: mom, w32;
                                   // adam: mean, var; mp_adam: mean, var, w32
   long long numel[MAX_TENSORS];
-  float lr[MAX_TENSORS], wd[MAX_TENSORS], lrt[MAX_TENSORS];
   int start[MAX_TENSORS + 1];     // start[i]: the first block of tensor i
   int n;
-  float rescale, clip;            // clip < 0: no clipping
+  const float* vals;              // device: lr[n], wd[n], lrt[n], then the 8 scalars
+};
+
+constexpr int SCALARS = 8;
+
+// One tensor's values and the group's scalars, as a block loads them.
+struct Hyper {
+  float lr, wd, lrt;
+  float rescale, clip;  // clip < 0: no clipping
   float momentum, beta1, one_minus_beta1, beta2, one_minus_beta2, eps;
 };
 
-struct Hyper {
-  float lr, wd, lrt;
-};
+__device__ __forceinline__ Hyper load_hyper(const Table& t, int i) {
+  const float* v = t.vals;
+  const float* sc = v + 3 * t.n;
+  Hyper h;
+  h.lr = v[i];
+  h.wd = v[t.n + i];
+  h.lrt = v[2 * t.n + i];
+  h.rescale = sc[0];
+  h.clip = sc[1];
+  h.momentum = sc[2];
+  h.beta1 = sc[3];
+  h.one_minus_beta1 = sc[4];
+  h.beta2 = sc[5];
+  h.one_minus_beta2 = sc[6];
+  h.eps = sc[7];
+  return h;
+}
 
 // MXNet's clip, as torch.clamp computes it: NaN stays NaN.
 __device__ __forceinline__ float clip_to(float g, float c) {
@@ -77,29 +103,28 @@ __device__ __forceinline__ float clip_to(float g, float c) {
 }
 
 // rescale·g, clipped, plus wd·w (w the weight or its fp32 master copy).
-__device__ __forceinline__ float prep(float g, float w, const Table& t, const Hyper& h) {
-  float x = __fmul_rn(g, t.rescale);
-  if (t.clip >= 0.f) x = clip_to(x, t.clip);
+__device__ __forceinline__ float prep(float g, float w, const Hyper& h) {
+  float x = __fmul_rn(g, h.rescale);
+  if (h.clip >= 0.f) x = clip_to(x, h.clip);
   return __fadd_rn(x, __fmul_rn(h.wd, w));
 }
 
 // One element: w the weight as fp32 (in and out), s its states.
 template <int V>
-__device__ __forceinline__ void update(float& w, float g, float (&s)[STATES], const Table& t,
-                                       const Hyper& h) {
+__device__ __forceinline__ void update(float& w, float g, float (&s)[STATES], const Hyper& h) {
   constexpr bool MP = V == MP_SGD || V == MP_SGD_MOM || V == MP_ADAM;
   constexpr int MASTER = V == MP_SGD ? 0 : V == MP_SGD_MOM ? 1 : 2;
   float& w32 = MP ? s[MASTER] : w;
-  const float x = prep(g, w32, t, h);
+  const float x = prep(g, w32, h);
   if (V == SGD || V == MP_SGD) {
     w32 = __fsub_rn(w32, __fmul_rn(h.lr, x));
   } else if (V == SGD_MOM || V == MP_SGD_MOM) {
-    s[0] = __fsub_rn(__fmul_rn(s[0], t.momentum), __fmul_rn(h.lr, x));
+    s[0] = __fsub_rn(__fmul_rn(s[0], h.momentum), __fmul_rn(h.lr, x));
     w32 = __fadd_rn(w32, s[0]);
   } else {
-    s[0] = __fadd_rn(__fmul_rn(s[0], t.beta1), __fmul_rn(t.one_minus_beta1, x));
-    s[1] = __fadd_rn(__fmul_rn(s[1], t.beta2), __fmul_rn(t.one_minus_beta2, __fmul_rn(x, x)));
-    const float upd = __fdiv_rn(__fmul_rn(h.lrt, s[0]), __fadd_rn(__fsqrt_rn(s[1]), t.eps));
+    s[0] = __fadd_rn(__fmul_rn(s[0], h.beta1), __fmul_rn(h.one_minus_beta1, x));
+    s[1] = __fadd_rn(__fmul_rn(s[1], h.beta2), __fmul_rn(h.one_minus_beta2, __fmul_rn(x, x)));
+    const float upd = __fdiv_rn(__fmul_rn(h.lrt, s[0]), __fadd_rn(__fsqrt_rn(s[1]), h.eps));
     w32 = __fsub_rn(w32, upd);
   }
   if (MP) w = w32;
@@ -181,7 +206,7 @@ __global__ void __launch_bounds__(THREADS)
   float* s[STATES];
 #pragma unroll
   for (int k = 0; k < STATES; ++k) s[k] = t.s[k][i];
-  const Hyper h = {t.lr[i], t.wd[i], t.lrt[i]};
+  const Hyper h = load_hyper(t, i);
 
   uintptr_t bits = reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(g);
 #pragma unroll
@@ -201,7 +226,7 @@ __global__ void __launch_bounds__(THREADS)
         float st[STATES];
 #pragma unroll
         for (int k = 0; k < NS; ++k) st[k] = sv[k][j];
-        update<V>(wv[j], gv[j], st, t, h);
+        update<V>(wv[j], gv[j], st, h);
 #pragma unroll
         for (int k = 0; k < NS; ++k) sv[k][j] = st[k];
       }
@@ -215,7 +240,7 @@ __global__ void __launch_bounds__(THREADS)
     float wv = to_f<W>(w[e]), st[STATES];
 #pragma unroll
     for (int k = 0; k < NS; ++k) st[k] = s[k][e];
-    update<V>(wv, to_f<W>(g[e]), st, t, h);
+    update<V>(wv, to_f<W>(g[e]), st, h);
     w[e] = from_f<W>(wv);
 #pragma unroll
     for (int k = 0; k < NS; ++k) s[k][e] = st[k];
@@ -238,21 +263,26 @@ cudaError_t launch_variant(int dtype, const Table& t, int blocks, cudaStream_t s
 // The kernel's capacity: the tensors one launch takes.
 extern "C" int mx_multi_tensor_capacity() { return MAX_TENSORS; }
 
+// The fp32 values a chunk of n tensors reads from device memory.
+extern "C" int mx_multi_tensor_values(int n) { return 3 * n + SCALARS; }
+
 // variant: 0 sgd, 1 sgd_mom, 2 mp_sgd, 3 mp_sgd_mom, 4 adam, 5 mp_adam.
 // dtype of the weights and gradients: 0 float32, 1 float16, 2 bfloat16.
 // n tensors (1..capacity): ptrs holds 5 rows of n pointers (weight, grad,
 // then up to three fp32 states, null where the variant has fewer), numel
-// their sizes, lr, wd and lrt (Adam's bias-corrected rate) n fp32 values
-// each; scalars: rescale, clip (< 0: none), momentum, beta1, 1 − beta1,
-// beta2, 1 − beta2, epsilon.  Returns the cudaError_t of the launch (0 on
-// success, cudaErrorInvalidValue for a chunk it cannot take); launches
-// nothing when every tensor is empty; never synchronises.
+// their sizes (host memory, read here).  vals: DEVICE memory of 3n + 8 fp32
+// values, read by the kernel when it runs: lr, wd and lrt (Adam's
+// bias-corrected rate) n values each, then the scalars rescale, clip (< 0:
+// none), momentum, beta1, 1 − beta1, beta2, 1 − beta2, epsilon.  Returns
+// the cudaError_t of the launch (0 on success, cudaErrorInvalidValue for a
+// chunk it cannot take); launches nothing when every tensor is empty;
+// never synchronises.
 extern "C" int mx_multi_tensor(int variant, int dtype, int n, void* const* ptrs,
-                               const long long* numel, const float* lr, const float* wd,
-                               const float* lrt, const float* scalars, void* stream) {
-  if (n < 1 || n > MAX_TENSORS) return (int)cudaErrorInvalidValue;
+                               const long long* numel, const float* vals, void* stream) {
+  if (n < 1 || n > MAX_TENSORS || vals == nullptr) return (int)cudaErrorInvalidValue;
   Table t;
   t.n = n;
+  t.vals = vals;
   long long blocks = 0;
   for (int i = 0; i < n; ++i) {
     if (numel[i] < 0) return (int)cudaErrorInvalidValue;
@@ -260,22 +290,11 @@ extern "C" int mx_multi_tensor(int variant, int dtype, int n, void* const* ptrs,
     t.g[i] = ptrs[n + i];
     for (int k = 0; k < STATES; ++k) t.s[k][i] = static_cast<float*>(ptrs[(2 + k) * n + i]);
     t.numel[i] = numel[i];
-    t.lr[i] = lr[i];
-    t.wd[i] = wd[i];
-    t.lrt[i] = lrt[i];
     t.start[i] = (int)blocks;
     blocks += (numel[i] + CHUNK - 1) / CHUNK;
     if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;  // beyond one grid
   }
   t.start[n] = (int)blocks;
-  t.rescale = scalars[0];
-  t.clip = scalars[1];
-  t.momentum = scalars[2];
-  t.beta1 = scalars[3];
-  t.one_minus_beta1 = scalars[4];
-  t.beta2 = scalars[5];
-  t.one_minus_beta2 = scalars[6];
-  t.eps = scalars[7];
   if (blocks == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (variant) {

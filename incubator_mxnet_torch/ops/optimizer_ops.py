@@ -34,6 +34,7 @@ from .registry import register
 __all__ = ["sgd_update", "sgd_mom_update", "adam_update", "mp_sgd_update",
            "mp_sgd_mom_update", "mp_adam_update", "sgd_step", "sgd_mom_step", "mp_sgd_step",
            "mp_sgd_mom_step", "adam_step", "mp_adam_step", "group_apply", "group_apply_plain",
+           "group_rows",
            "multi_sgd_update", "multi_sgd_mom_update", "multi_mp_sgd_update",
            "multi_mp_sgd_mom_update", "preloaded_multi_sgd_update",
            "preloaded_multi_sgd_mom_update", "preloaded_multi_mp_sgd_update",
@@ -199,7 +200,16 @@ def _rates(step, lrs, ts, scalars):
     return out
 
 
-def group_apply(step, weights, grads, states, lrs, wds, ts, scalars):
+def group_rows(step, lrs, wds, ts, scalars):
+    """The fp32 values the multi-tensor kernel reads from device memory
+    for a group updated by ``step`` (``multi_tensor.rows``: each chunk's lr,
+    wd and Adam rate rows, then the scalars), computed on the host as
+    :func:`group_apply` computes them."""
+    lrs, wds = _host_values(lrs), _host_values(wds)
+    return multi_tensor.rows(lrs, wds, _rates(step, lrs, ts, scalars), scalars)
+
+
+def group_apply(step, weights, grads, states, lrs, wds, ts, scalars, device_rows=None):
     """Apply a step adapter (``sgd_step`` ... ``mp_adam_step``) to a whole
     parameter group in place.  ``states`` holds each tensor's tuple of fp32
     states, ``lrs``/``wds``/``ts`` one value per tensor (``lrs``/``wds``
@@ -208,8 +218,12 @@ def group_apply(step, weights, grads, states, lrs, wds, ts, scalars):
 
     On the CPU this is :func:`group_apply_plain`; a CUDA group launches the
     multi-tensor kernel once per chunk of up to 256 tensors
-    (``multi_tensor.multi_tensor_update.launches`` counts) or raises.
-    Returns ``(weights, states)``, the same tensors, updated."""
+    (``multi_tensor.multi_tensor_update.launches`` counts) or raises.  The
+    kernel reads the values from device memory: those of
+    :func:`group_rows`, copied there on the launch stream, or, where a
+    caller passes ``device_rows`` (a CUDA graph's buffer that it fills
+    before each replay), those.  Returns ``(weights, states)``, the same
+    tensors, updated."""
     weights = list(weights)
     if not weights:
         return weights, list(states)
@@ -221,7 +235,8 @@ def group_apply(step, weights, grads, states, lrs, wds, ts, scalars):
     lrs, wds = _host_values(lrs), _host_values(wds)
     return multi_tensor.multi_tensor_update(step.variant, weights, grads,
                                             [tuple(s) for s in states], lrs, wds,
-                                            _rates(step, lrs, ts, scalars), scalars)
+                                            _rates(step, lrs, ts, scalars), scalars,
+                                            device_rows=device_rows)
 
 
 # -- the public grouped ops (MXNet's multi_sgd_update and kin) ---------------

@@ -3,7 +3,10 @@
 Counterpart of the JAX package's ``random.py``.  The reference keeps one
 RNG state per device; so does the port: one ``torch.Generator`` per device,
 made on first use from the last ``seed()``.  Every draw in the port names
-its generator, so PyTorch's global RNG is never read.
+its generator, so PyTorch's global RNG is never read.  A CUDA graph of the
+step fold (``gluon/step_fold.py``) registers its device's generator, so
+each replay draws fresh numbers and advances it as an eager step does;
+``seed()`` makes new generators, and a fold captures anew for them.
 """
 from __future__ import annotations
 

@@ -190,20 +190,52 @@ def test_padded_head_dim_matches_jax_reference(d, causal):
 
 
 def test_head_dim_above_128_is_refused():
-    """Above the widest instance (256 since the column-slab kernels)."""
+    """No head dim the JAX function takes is refused: above the widest
+    instance of flash_fwd.cu (256) the head goes to flash_wide.cu, padded to
+    a multiple of 64.  Only unequal head dims are refused."""
     q = torch.zeros(1, 1, 4, 320)
-    with pytest.raises(ValueError, match="head dim 320"):
-        tatt._kernel_width("flash_fwd", q, q, q)
+    assert tatt._kernel_width("flash_fwd", q, q, q) == 320
+    assert tatt._kernel_width("flash_fwd", *(q[..., :300],) * 3) == 320
+    assert tatt._kernel_width("flash_fwd", *(q[..., :257],) * 3) == 320
     with pytest.raises(ValueError, match="equal"):
         tatt._kernel_width("flash_fwd", q, q[..., :128], q)
 
 
+@pytest.mark.parametrize("d", [300, 320, 512])
+@pytest.mark.parametrize("causal", [False, True])
+def test_wide_head_dim_matches_jax_reference(d, causal):
+    """Above Dh 256 the card runs flash_wide.cu on operands padded to a
+    multiple of 64 with the true head dim's scale: the padded plain route
+    against the JAX attention_reference (o) and _flash_bwd_xla (dq, dk,
+    dv)."""
+    arrs = _qkv(11, 2, 2, 40, 56, d)
+    do = np.random.RandomState(12).randn(2, 2, 40, d).astype(np.float32)
+    scale = 1.0 / np.sqrt(d)
+    ref = jatt.attention_reference(*map(jnp.asarray, arrs), causal=causal)
+    ref_grads = jatt._flash_bwd_xla(causal, scale, tuple(map(jnp.asarray, arrs)),
+                                    jnp.asarray(do))
+    q, k, v = _port(arrs)
+    width = tatt._kernel_width("flash_fwd", q, k, v)
+    assert width % 64 == 0 and width - 64 < d <= width
+    qp, kp, vp = tatt._kernel_operands(width, False, q, k, v)
+    o, lse = tatt.flash_fwd_plain(qp, kp, vp, causal, scale, with_lse=True)
+    assert torch.equal(o[..., d:], torch.zeros_like(o[..., d:]))
+    np.testing.assert_allclose(_np(o[..., :d]), _np(ref), rtol=FP32_TOL, atol=FP32_TOL)
+    dop = tatt._kernel_operands(width, False, torch.from_numpy(do))[0]
+    grads = tatt.flash_bwd_plain(qp, kp, vp, o, dop, lse, causal, scale)
+    for g, r in zip(grads, ref_grads):
+        assert torch.equal(g[..., d:], torch.zeros_like(g[..., d:]))
+        np.testing.assert_allclose(_np(g[..., :d]), _np(r), rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.parametrize("d", [129, 160, 192, 200, 255, 256, 257, 512])
 def test_kernel_width_up_to_256(d):
+    """Dh 129-256 runs the 256 instance; above it, flash_wide.cu at the
+    next multiple of 64 (257 -> 320, 512 -> 512), where the wrappers used to
+    refuse."""
     q = torch.zeros(1, 1, 4, d)
     if d > 256:
-        with pytest.raises(ValueError, match=f"head dim {d} is above 256"):
-            tatt._kernel_width("flash_bwd", q, q, q)
+        assert tatt._kernel_width("flash_bwd", q, q, q) == -(-d // 64) * 64
     else:
         assert tatt._kernel_width("flash_bwd", q, q, q) == 256
 
@@ -342,12 +374,20 @@ def test_kernel_takes_padded_head_dim_on_card(cuda_device, d):
 
 
 @pytest.mark.cuda
-def test_kernel_refuses_head_dim_above_128_on_card(cuda_device):
-    q = torch.randn(1, 2, 64, 320, device=cuda_device).to(torch.bfloat16)
-    before = tatt.flash_fwd.launches
-    with pytest.raises(ValueError, match="head dim"):
-        tatt.flash_fwd(q, q, q)
-    assert tatt.flash_fwd.launches == before
+@pytest.mark.parametrize("d", [300, 320, 512])
+def test_kernel_refuses_head_dim_above_128_on_card(cuda_device, d):
+    """Dh above 256 is no longer refused: one launch of flash_wide_fwd,
+    against the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = (torch.randn(2, 2, 200, d, generator=gen, device=cuda_device).to(torch.bfloat16)
+               for _ in range(3))
+    before = (tatt.flash_fwd.launches, tatt.flash_wide_fwd.launches)
+    o, lse = tatt.flash_fwd(q, q, v, causal=True, with_lse=True)
+    assert (tatt.flash_fwd.launches, tatt.flash_wide_fwd.launches) == (before[0], before[1] + 1)
+    o_ref, lse_ref = tatt.flash_fwd_plain(q, q, v, True, with_lse=True)
+    assert o.shape == q.shape
+    assert (o.float() - o_ref.float()).abs().max().item() <= BF16_KERNEL_TOL
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
 
 
 @pytest.mark.cuda

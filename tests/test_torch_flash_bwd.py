@@ -276,13 +276,24 @@ def test_wide_head_dims_on_card(cuda_device, d):
 
 
 @pytest.mark.cuda
-def test_kernels_refuse_head_dim_above_128(cuda_device):
-    q = torch.randn(1, 2, 64, 320, device=cuda_device).to(torch.bfloat16)
-    o, lse = tatt.flash_fwd_plain(q, q, q, with_lse=True)
-    before = (tatt.flash_bwd_dq.launches, tatt.flash_bwd_dkv.launches)
-    with pytest.raises(ValueError, match="head dim"):
-        tatt.flash_bwd(q, q, q, o, o, lse)
-    assert (tatt.flash_bwd_dq.launches, tatt.flash_bwd_dkv.launches) == before
+@pytest.mark.parametrize("d", [300, 320, 512])
+def test_kernels_refuse_head_dim_above_128(cuda_device, d):
+    """Dh above 256 is no longer refused: one launch each of
+    flash_wide_bwd_dq and flash_wide_bwd_dkv, against the plain version
+    within two bf16 ulps of each gradient's largest value."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v, do = (torch.randn(2, 2, 150, d, generator=gen, device=cuda_device)
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = tatt.flash_fwd_plain(q, k, v, True, with_lse=True)
+    wide = (tatt.flash_wide_bwd_dq, tatt.flash_wide_bwd_dkv)
+    before = [c.launches for c in (tatt.flash_bwd_dq, tatt.flash_bwd_dkv, *wide)]
+    got = tatt.flash_bwd(q, k, v, o, do, lse, True)
+    after = [c.launches for c in (tatt.flash_bwd_dq, tatt.flash_bwd_dkv, *wide)]
+    assert [x - y for x, y in zip(after, before)] == [0, 0, 1, 1]
+    for g, r in zip(got, tatt.flash_bwd_plain(q, k, v, o, do, lse, True)):
+        ref_max = r.float().abs().max().item()
+        bound = 2 * 2.0 ** (np.frexp(ref_max)[1] - 1 - 7)
+        assert g.shape == r.shape and (g.float() - r.float()).abs().max().item() <= bound
 
 
 @pytest.mark.cuda
