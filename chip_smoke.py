@@ -19,8 +19,10 @@ Phases, each printing JSON lines; no phase's failure is caught:
    edge cases (for the attention kernels also their persistent schedules'
    and the operand domain the wrappers take: scales, expanded k/v, a
    sequence of stride 0, padded head dims, head dims 160-256 through the
-   column-slab launches, head dims 300-512 through flash_wide.cu), each
-   against a stated bound (and flash_fwd, flash_bwd, the flash_wide
+   column-slab launches, head dims 300-1024 through flash_wide.cu: its
+   16-bit forward and dk/dv pass on TMA and wgmma, streamed above 512,
+   fp32 and dq on the CUDA cores), each against a stated bound (and
+   flash_fwd, flash_bwd, the flash_wide
    kernels and bn_stats against themselves: two runs must be
    bit-identical), and the refusals of the rtc launcher; the multi-tensor
    optimizer kernel in every variant and weight dtype over one group of
@@ -81,7 +83,9 @@ Phases, each printing JSON lines; no phase's failure is caught:
    torch._fused_adam_ / torch._fused_sgd_ and its bound; both training
    steps with the per-tensor loop and the fused update in turns
    (Trainer.step ms, step ms, a breakdown of each); the flash_wide
-   kernels at Dh 512; both training steps eager and folded in turns
+   kernels at [B, S, H, Dh] = [4, 512, 8, 512], [4, 512, 8, 320] and
+   [4, 512, 8, 1024] in bf16 and at Dh 512 in fp32; both training steps
+   eager and folded in turns
    (step ms, samples/s or img/s, peak and reserved memory, capture time,
    a breakdown of one folded step with its device busy share).
 
@@ -157,6 +161,20 @@ FP32_BWD_REL = 1e-4
 # delta = rowsum(do * o) moves by up to the forward's 2 ulps of o.
 E2E_ULPS = 8
 LSE_BOUND = 1e-4  # fp32 log-sum-exp of scores of |s| < ~10, other sum order
+# One visible key a row (Sk = 1): p = 1, o = v exactly, and the exact dq and
+# dk are 0, since o does not depend on q or k.  What both sides compute is
+# the rounding of dp − delta, two fp32 sums of the same Dh products do∘v
+# (in orders that differ), so a bound in ulps of the largest |dq| or |dk|
+# has no scale: each is held to 0 within what that rounding allows.  Each
+# of the Dh additions of a sum errs by at most one fp32 ulp (2^-23 of a
+# partial sum, truncation included) of at most S_i = Σ|do_i∘v|, so |dp_i −
+# delta_i| <= E_i = 2·Dh·2^-23·S_i; ds_i = p_i·(dp_i − delta_i) with p_i
+# within 2^-16 of 1 (exp of s − lse, both fp32), rounded to 16 bits (2^-8),
+# and the gradient rounded once more:
+# |dq_ic| <= ONE_KEY_SLACK·scale·E_i·|k_c| and |dk_c| <=
+# ONE_KEY_SLACK·scale·Σ_i E_i·|q_ic|.  A wrong delta, mask or row makes
+# dp − delta of the size of dp itself, hundreds of times E.
+ONE_KEY_SLACK = 1.02
 # BERT-base bf16 on the card vs the port's fp32 run on the CPU, as a share
 # of the largest fp32 logit: bf16 roundings compounded through 12 post-LN
 # layers.  A wrong layout or mask gives errors of the order of the logits.
@@ -683,10 +701,14 @@ WIDE_CASES = [
     dict(MAIN, name="fp32_dh256_causal", b=1, h=2, sq=200, sk=200, d=256,
          dtype=torch.float32, causal=True),
 ]
-# Head dims above 256: flash_wide.cu (its reductions streamed over the head
-# in 64-column chunks, its outputs in 128-column slabs, one launch a pass),
-# at 320 and 512 and a padded 300, ragged S, causal and not, the QKV view,
-# a cross shape, lse, fp16 and fp32.
+# Head dims above 256: flash_wide.cu (in bf16 and fp16 its forward and dk/dv
+# pass on TMA rings and wgmma, the dk/dv pass after a delta launch, both
+# streamed above 512; fp32 and dq on the CUDA cores), at 320, 384, 448
+# (256 + 192 columns), 512, 576, 640 and 1024 and a padded 300, ragged S,
+# causal and not, causal with Sk < Sq, a causal S=1024 (sixteen key tiles
+# an item), the QKV view, a cross shape, lse, fp16 and fp32.  With one key
+# (Sk = 1) every row's softmax is 1 whatever q and k: o = v, and the exact
+# dq and dk are 0 (``one_key``, held by ONE_KEY_SLACK's rule).
 WIDE_HEAD_CASES = [
     dict(MAIN, name="dh320", b=2, h=4, sq=200, sk=200, d=320),
     dict(MAIN, name="dh320_causal_with_lse", b=2, h=4, sq=200, sk=200, d=320, causal=True,
@@ -698,9 +720,23 @@ WIDE_HEAD_CASES = [
     dict(MAIN, name="dh512_cross_sq77_sk200", b=2, h=2, sq=77, sk=200, d=512),
     dict(MAIN, name="fp16_dh300_causal", b=2, h=2, sq=150, sk=150, d=300, causal=True,
          dtype=torch.float16),
+    dict(MAIN, name="dh384", b=2, h=4, sq=200, sk=200, d=384),
+    dict(MAIN, name="dh512_causal_s1024_with_lse", b=1, h=4, sq=1024, sk=1024, d=512,
+         causal=True, lse=True),
     dict(MAIN, name="fp32_dh512_causal", b=1, h=2, sq=200, sk=200, d=512,
          dtype=torch.float32, causal=True),
+    dict(MAIN, name="dh448_causal_sq130_sk65", b=2, h=2, sq=130, sk=65, d=448, causal=True),
+    dict(MAIN, name="dh448_causal_sq130_sk1", b=2, h=2, sq=130, sk=1, d=448, causal=True,
+         one_key=True),
+    dict(MAIN, name="dh576", b=2, h=2, sq=200, sk=200, d=576),
+    dict(MAIN, name="dh640_causal_with_lse", b=2, h=2, sq=333, sk=333, d=640, causal=True,
+         lse=True),
+    dict(MAIN, name="dh1024_qkv_view_causal", b=2, h=2, sq=130, sk=130, d=1024, layout="qkv",
+         causal=True),
 ]
+WIDE_REPEAT_CASES = [c for c in WIDE_HEAD_CASES  # two runs bit-identical: 320, 512, streamed
+                     if c["name"] in ("dh320_causal_with_lse", "dh512_causal_with_lse",
+                                      "dh640_causal_with_lse")]
 
 
 def _slab_launches(d):
@@ -708,6 +744,13 @@ def _slab_launches(d):
     128-column output slab of the instance it runs; one above 256, where
     flash_wide.cu makes each slab a block of one launch."""
     return 2 if 128 < d <= 256 else 1
+
+
+def _bwd_launches(d, dtype):
+    """Launches of the dq and the dk/dv pass at head dim ``d``: above 256 in
+    bf16 and fp16 the dk/dv pass is flash_wide.cu's delta launch and its
+    kernel."""
+    return _slab_launches(d), _slab_launches(d) + int(d > 256 and dtype != torch.float32)
 
 
 def phase_kernel_vs_plain(device):
@@ -753,9 +796,9 @@ def phase_kernel_vs_plain(device):
             wide_err = err
     # The schedule is static (no atomics, fixed item order): two runs of the
     # main case give the same bits, o and lse.
-    # flash_wide_fwd's schedule is static too (no atomics): at Dh 320 and 512.
-    for name, case in (("main", MAIN), ("dh320", WIDE_HEAD_CASES[1]),
-                       ("dh512", WIDE_HEAD_CASES[3])):
+    # flash_wide_fwd's schedule is static too (no atomics): at Dh 320, 512
+    # and 640.
+    for name, case in (("main", MAIN), *((c["name"], c) for c in WIDE_REPEAT_CASES)):
         q, k, v, layout = _case_inputs(case, gen, device)
         with torch.no_grad():
             runs = [att.flash_fwd(q, k, v, case["causal"], None, True, layout)
@@ -831,7 +874,22 @@ def _bwd_case(case, gen, device):
     for name, g, r in zip(("dq", "dk", "dv"), got, ref):
         ref_max, bound = _bwd_bound(r, dtype, ulps)
         res[name] = ((t(g).float() - r.float()).abs().max().item(), bound, ref_max)
+    if case.get("one_key"):  # dq and dk: distance from the exact 0
+        bounds = one_key_bounds(t(q), t(k), t(v), t(do), case.get("scale"))
+        for name, g, r, bound in zip(("dq", "dk"), got, ref, bounds):
+            res[name] = (g.float().abs().max().item(), bound, r.float().abs().max().item())
     return res, launched
+
+
+def one_key_bounds(q, k, v, do, scale=None):
+    """ONE_KEY_SLACK's bounds on max|dq| and max|dk| of attention over one
+    key ([..., S, Dh] operands, k and v of one row)."""
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d) if scale is None else abs(scale)
+    e = 2 * d * 2.0 ** -23 * (do.double() * v.double()).abs().sum(-1, keepdim=True)
+    dq = ONE_KEY_SLACK * scale * (e * k.double().abs()).amax().item()
+    dk = ONE_KEY_SLACK * scale * (e * q.double().abs()).sum(-2).amax().item()
+    return dq, dk
 
 
 def phase_kernel_vs_plain_bwd(device):
@@ -841,7 +899,7 @@ def phase_kernel_vs_plain_bwd(device):
     misses, main_errs = [], {}
     for case in BWD_CASES:
         res, launched = _bwd_case(case, gen, device)
-        want_launches = (_slab_launches(case["d"]),) * 2
+        want_launches = _bwd_launches(case["d"], case["dtype"])
         ok = (all(math.isfinite(e) and e <= bound for e, bound, _ in res.values())
               and launched == want_launches)
         emit("kernel_vs_plain_bwd", case=case["name"],
@@ -864,8 +922,9 @@ def phase_kernel_vs_plain_bwd(device):
                              flash_wide_bwd_dkv=max(res["dk"][0], res["dv"][0]))
     # The schedule is static (no atomics, fixed item order): two runs of the
     # main case give the same bits, dq, dk and dv.
-    # So are flash_wide_bwd_dq's and flash_wide_bwd_dkv's, at Dh 320 and 512.
-    for name, case in (("dh320", WIDE_HEAD_CASES[1]), ("dh512", WIDE_HEAD_CASES[3]),
+    # So are flash_wide_bwd_dq's and flash_wide_bwd_dkv's, at Dh 320, 512 and
+    # 640.
+    for name, case in (*((c["name"], c) for c in WIDE_REPEAT_CASES),
                        ("main", dict(MAIN, layout="qkv"))):
         q, k, v, layout = _case_inputs(case, gen, device)
         do = _randn(q.shape, case["dtype"], gen, device)
@@ -2682,26 +2741,29 @@ def _step_phases(net, trainer, batch, iters):
     return spent
 
 
-WIDE_TIME_SHAPE = dict(b=4, s=512, h=8, d=512)  # a head wider than 256, bf16
+WIDE_TIME_SHAPE = dict(b=4, s=512, h=8, d=512)  # a head wider than 256
+WIDE_TIME_SHAPES = (  # (shape, dtype, timed calls): the TMA kernels, the 256 + 64 split,
+    # streamed (Dh 1024), fp32
+    (WIDE_TIME_SHAPE, torch.bfloat16, 20), (dict(WIDE_TIME_SHAPE, d=320), torch.bfloat16, 20),
+    (dict(WIDE_TIME_SHAPE, d=1024), torch.bfloat16, 5), (WIDE_TIME_SHAPE, torch.float32, 5))
 
 
-def _times_wide(gen, smi):
-    """The three flash_wide kernels at [B, S, H, Dh] = [4, 512, 8, 512]
-    bf16 (no main path has such a head): each kernel, the plain version and
-    SDPA (the forward; its backward as fwd+bwd - fwd), with the kernels'
-    bounds.  Returns {kernel: row}."""
-    b, s, h, d = (WIDE_TIME_SHAPE[k] for k in ("b", "s", "h", "d"))
+def _wide_rows(shape, dtype, iters, gen, smi):
+    """The three flash_wide kernels at one [B, S, H, Dh] shape and dtype:
+    each kernel, the plain version and SDPA (the forward; its backward as
+    fwd+bwd - fwd), with the kernels' bounds.  Returns {kernel: row}."""
+    b, s, h, d = (shape[k] for k in ("b", "s", "h", "d"))
     device = torch.device("cuda", 0)
     sets = []
     with torch.no_grad():
         for _ in range(2):
-            q, k, v, do = (_randn((b, h, s, d), torch.bfloat16, gen, device) for _ in range(4))
+            q, k, v, do = (_randn((b, h, s, d), dtype, gen, device) for _ in range(4))
             o, lse = att.flash_fwd(q, k, v, with_lse=True)
             sets.append((q, k, v, o, do, lse))
         fwd_ms, fwd_call_ms, _, fwd_records = _time(lambda q, k, v, *_: att.flash_fwd(q, k, v),
-                                                    sets, 20, uniform=True)
-        dq_ms, dq_call_ms, _, dq_records = _time(att.flash_bwd_dq, sets, 20, uniform=True)
-        dkv_ms, dkv_call_ms, _, dkv_records = _time(att.flash_bwd_dkv, sets, 20, uniform=True)
+                                                    sets, iters, uniform=True)
+        dq_ms, dq_call_ms, _, dq_records = _time(att.flash_bwd_dq, sets, iters, uniform=True)
+        dkv_ms, dkv_call_ms, _, dkv_records = _time(att.flash_bwd_dkv, sets, iters, uniform=True)
         fwd_plain_ms = _time(lambda q, k, v, *_: att.flash_fwd_plain(q, k, v), sets, 5)[0]
         bwd_plain_ms = _time(att.flash_bwd_plain, sets, 5)[0]
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2714,14 +2776,15 @@ def _times_wide(gen, smi):
         torch.autograd.grad(sdpa(q, k, v), (q, k, v), do)
 
     try:
-        lib_f_ms, _, lib_f_kernels, _ = _time(fwd, lib_sets, 20)
-        lib_fb_ms, _, lib_b_kernels, _ = _time(fwd_bwd, lib_sets, 20)
+        lib_f_ms, _, lib_f_kernels, _ = _time(fwd, lib_sets, iters)
+        lib_fb_ms, _, lib_b_kernels, _ = _time(fwd_bwd, lib_sets, iters)
         lib_b_ms = lib_fb_ms - lib_f_ms
     except RuntimeError as e:  # no SDPA backend for this head dim on this build
         lib_f_ms = lib_b_ms = lib_f_kernels = lib_b_kernels = None
-        emit("times", kernel="SDPA", shape=WIDE_TIME_SHAPE, library_error=repr(e)[:300])
-    n = b * s * h * d * 2
+        emit("times", kernel="SDPA", shape=shape, library_error=repr(e)[:300])
+    n = b * s * h * d * torch.finfo(dtype).bits // 8
     lse_bytes = b * h * s * 4
+    label = dict(shape, dtype=str(dtype).replace("torch.", ""))
     out = {}
     for name, ms, call_ms, records, plain_ms, lib_ms, nbytes, flops in (
             ("flash_wide_fwd", fwd_ms, fwd_call_ms, fwd_records, fwd_plain_ms, lib_f_ms,
@@ -2730,18 +2793,34 @@ def _times_wide(gen, smi):
              6 * n + lse_bytes, 6 * b * h * s * s * d),
             ("flash_wide_bwd_dkv", dkv_ms, dkv_call_ms, dkv_records, bwd_plain_ms, lib_b_ms,
              7 * n + lse_bytes, 8 * b * h * s * s * d)):
-        bound_ms, bound_by = _bound(nbytes, flops)
-        emit("times", kernel=name, shape=dict(WIDE_TIME_SHAPE, dtype="bfloat16"), ms=ms,
-             call_ms=call_ms, records=records, plain_ms=plain_ms, library_ms=lib_ms,
+        bound_ms, bound_by = _bound(nbytes, flops, dtype)
+        emit("times", kernel=name, shape=label, ms=ms, call_ms=call_ms, records=records,
+             plain_ms=plain_ms, library_ms=lib_ms,
              library="SDPA (its own choice of backend)" if name.endswith("fwd")
              else "SDPA backward (fwd+bwd - fwd)",
              library_kernels_us=lib_f_kernels if name.endswith("fwd") else lib_b_kernels,
              bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
              share_of_bound=bound_ms / ms, card=smi)
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, call_ms=call_ms)
+                         bound_by=bound_by, call_ms=call_ms, shape=label,
+                         functions=sorted({_function_name(f) for f in records}))
     del sets, lib_sets
     return out
+
+
+def _function_name(record):
+    """The kernel's name and template arguments in a trace record's name."""
+    m = re.search(r"(\w+<[^>(]*>|\w+)\(", record)
+    return m.group(1) if m else record
+
+
+def _times_wide(gen, smi):
+    """The flash_wide kernels at each of WIDE_TIME_SHAPES (no main path has
+    a head above 256).  Returns {kernel: row} at the first, bf16 Dh 512, with
+    the other shapes' rows under "other_shapes"."""
+    rows = [_wide_rows(shape, dtype, iters, gen, smi) for shape, dtype, iters in WIDE_TIME_SHAPES]
+    return {name: dict(row, other_shapes=[r[name] for r in rows[1:]])
+            for name, row in rows[0].items()}
 
 
 def _times_fold(train, resnet, progs, records, smi):
@@ -2896,8 +2975,10 @@ def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, fold, smi
                    "compiled_by": "incubator_mxnet_torch/rtc.py (RTC_SOURCE, nvcc cubin, "
                                   "CUDA driver launch)"}
         elif name.startswith("flash_wide"):
-            per = {"per": "one launch at [B, S, H, Dh] = [4, 512, 8, 512] bf16; no main path "
-                          "has a head above 256, so its launches there are 0"}
+            per = {"per": "one call at [B, S, H, Dh] = [4, 512, 8, 512] bf16 (other_shapes: "
+                          "the same at Dh 320 and 1024, and fp32 at Dh 512); no main path "
+                          "has a head above 256, so its launches there are 0",
+                   "functions": row["functions"], "other_shapes": row["other_shapes"]}
         elif name == "multi_tensor":
             per = {"per": "one BERT-base step's fused group (mp_adam, 159 tensors); not a TPU "
                           "kernel but the counterpart of group_apply's one XLA dispatch; "

@@ -28,12 +28,18 @@ and ``flash_bwd.cu``, 256, runs each kernel as two launches of a
 sources say why).  A 16-bit operand that repeats one row along its
 sequence (stride 0) goes to the kernels contiguous, since TMA reads rows
 in boxes.  A head dim above 256 goes to ``ops/csrc/flash_wide.cu``
-(padded to a multiple of 64): there a 16-bit tile of 128 rows would take
-80-128 KB, so whole-width tiles no longer fit in the 227 KB of shared
-memory a block has, and its three kernels (``flash_wide_fwd``,
-``flash_wide_bwd_dq``, ``flash_wide_bwd_dkv``, one launch a pass, each
-with its own count) stream every reduction over the head in 64-column
-chunks and write each output in 128-column slabs.
+(padded to a multiple of 64), whose launches count on their own wrappers
+(``flash_wide_fwd``, ``flash_wide_bwd_dq``, ``flash_wide_bwd_dkv``).  In
+bf16 and fp16 its forward and dk/dv pass are TMA-fed warpgroup-MMA kernels
+on 64-row tiles: the forward's two consumer warpgroups split the head's
+columns and swap partial scores, the dk/dv pass gives each key tile two
+items (a slab of dk and dv each) and runs after a launch of its own that
+computes delta = rowsum(do∘o) once a query row into a buffer the wrapper
+allocates (two launches a pass).  Above 512 columns the same kernels
+stream k and v (and q) through their rings box by box and make each slab
+of the outputs a work item of its own, so every head dim runs on them.
+fp32, and the dq pass of every type, stay on CUDA-core kernels (one launch
+a pass) that stream each reduction over the head in 64-column chunks.
 
 Gradients: one ``torch.autograd.Function`` (``_FlashAttention``) holds
 the forward, which saves o and the per-row log-sum-exp when an input
@@ -71,6 +77,18 @@ def _launches(width):
     """Launches of one kernel pass at the instance ``width`` (one at the
     widths of flash_wide.cu, whose slabs are blocks of one launch)."""
     return 1 if _is_wide(width) else max(1, width // _SLAB)
+
+
+def _has_delta_pass(width, dtype):
+    """Whether the dk/dv pass at ``width`` runs flash_wide.cu's delta pass
+    first (a 16-bit head above 256)."""
+    return _is_wide(width) and dtype != torch.float32
+
+
+def _dkv_launches(width, dtype):
+    """Launches of the dk/dv pass: at a 16-bit head above 256, the delta
+    pass and the dk/dv kernel."""
+    return _launches(width) + int(_has_delta_pass(width, dtype))
 
 
 def flash_fwd_plain(q, k, v, causal=False, scale=None, with_lse=False):
@@ -228,12 +246,15 @@ def _entry(width=64):
 
 
 def _bwd_entry(width=64):
-    """The backward's C entry for the instance ``width``."""
-    fn = (_cuda.load("flash_wide").mx_flash_wide_bwd if _is_wide(width)
+    """The backward's C entry for the instance ``width``: flash_wide.cu's
+    takes one more pointer, the delta buffer, after lse."""
+    wide = _is_wide(width)
+    fn = (_cuda.load("flash_wide").mx_flash_wide_bwd if wide
           else _cuda.load("flash_bwd").mx_flash_bwd)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
-            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * (10 if wide else 9) + [
+            ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                                 ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -300,8 +321,9 @@ def _bwd_launch(q, k, v, o, do, lse, dq, dk, dv, causal, scale, bshd):
     """One ctypes call of ``mx_flash_bwd``: the dq pass when ``dq`` is
     given, the dk/dv pass when ``dk``/``dv`` are, both from one set of
     tensor maps.  A padded head dim runs on padded buffers that are then
-    copied, sliced, into the given ones.  Returns the launches each pass
-    made."""
+    copied, sliced, into the given ones; the 16-bit dk/dv pass above Dh 256
+    gets an fp32 buffer for delta.  Returns the launches of the dq pass and
+    of the dk/dv pass, 0 for a pass not asked for."""
     d = q.shape[-1]
     width = _kernel_width("flash_bwd", q, k, v)
     q, k, v, o, do = _kernel_operands(width, bshd, q, k, v, o, do)
@@ -323,18 +345,23 @@ def _bwd_launch(q, k, v, o, do, lse, dq, dk, dv, causal, scale, bshd):
            dk if dk is not None else k, dv if dv is not None else v)
     strides = (ctypes.c_longlong * 24)(*(st for x in ops for st in _strides_bhs(x, bshd)))
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    delta = (torch.empty(b * h, sq, dtype=torch.float32, device=q.device)
+             if dk is not None and _has_delta_pass(width, q.dtype) else None)
+    scratch = (ptr(delta),) if _is_wide(width) else ()
     with torch.cuda.device(q.device):
         rc = _bwd_entry(width)(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          o.data_ptr(), do.data_ptr(), lse.data_ptr(), ptr(dq), ptr(dk),
-                          ptr(dv), b, h, sq, sk, width, strides, float(scale),
-                          int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
+                               o.data_ptr(), do.data_ptr(), lse.data_ptr(), *scratch, ptr(dq),
+                               ptr(dk), ptr(dv), b, h, sq, sk, width, strides, float(scale),
+                               int(bool(causal)),
+                               torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_bwd launch failed with CUDA error {rc}")
     if width != d:
         for dst, g in zip(wanted, (dq, dk, dv)):
             if dst is not None:
                 dst.copy_(g[..., :d])
-    return _launches(width)
+    return (0 if dq is None else _launches(width),
+            0 if dk is None else _dkv_launches(width, q.dtype))
 
 
 def _bwd_args(q, layout, scale):
@@ -368,7 +395,7 @@ def flash_bwd_dq(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd", d
     if q.device.type == "cpu":
         return _into(dq, _bwd_plain(q, k, v, o, do, lse, causal, scale, bshd)[0])
     dq = _new_like(q) if dq is None else dq
-    n = _bwd_launch(q, k, v, o, do, lse, dq, None, None, causal, scale, bshd)
+    n, _ = _bwd_launch(q, k, v, o, do, lse, dq, None, None, causal, scale, bshd)
     _bwd_counters(q.shape[-1])[0].launches += n
     return dq
 
@@ -379,7 +406,8 @@ def flash_bwd_dkv(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd",
     given and returns (dk, dv).  A CPU tensor takes
     :func:`flash_bwd_plain`; a CUDA tensor launches the dk/dv kernel
     (``flash_bwd_dkv.launches`` counts, above Dh 256
-    ``flash_wide_bwd_dkv.launches``) or raises."""
+    ``flash_wide_bwd_dkv.launches``: two in bf16 and fp16, the delta pass
+    and the kernel) or raises."""
     if (dk is None) != (dv is None):
         raise ValueError("flash_bwd_dkv: give both dk and dv or neither")
     bshd, scale = _bwd_args(q, layout, scale)
@@ -388,7 +416,7 @@ def flash_bwd_dkv(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd",
         return _into(dk, gk), _into(dv, gv)
     if dk is None:
         dk, dv = _new_like(k), _new_like(v)
-    n = _bwd_launch(q, k, v, o, do, lse, None, dk, dv, causal, scale, bshd)
+    _, n = _bwd_launch(q, k, v, o, do, lse, None, dk, dv, causal, scale, bshd)
     _bwd_counters(q.shape[-1])[1].launches += n
     return dk, dv
 
@@ -443,15 +471,16 @@ def flash_bwd(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd", out=
     CUDA tensor launches the two kernels, the dq pass then the dk/dv pass,
     in one call (``flash_bwd_dq.launches`` and ``flash_bwd_dkv.launches``
     each count one, two at Dh 129-256; above 256 the ``flash_wide_*``
-    wrappers' counts take their one each), or raises."""
+    wrappers' counts take theirs: one for dq, and for dk/dv two in bf16
+    and fp16, the delta pass and the kernel), or raises."""
     dq, dk, dv = out if out is not None else (None, None, None)
     bshd, scale = _bwd_args(q, layout, scale)
     if q.device.type == "cpu":
         grads = _bwd_plain(q, k, v, o, do, lse, causal, scale, bshd)
         return tuple(_into(dst, g) for dst, g in zip((dq, dk, dv), grads))
     dq, dk, dv = (_new_like(x) if g is None else g for g, x in zip((dq, dk, dv), (q, k, v)))
-    n = _bwd_launch(q, k, v, o, do, lse, dq, dk, dv, causal, scale, bshd)
-    for counter in _bwd_counters(q.shape[-1]):
+    launched = _bwd_launch(q, k, v, o, do, lse, dq, dk, dv, causal, scale, bshd)
+    for counter, n in zip(_bwd_counters(q.shape[-1]), launched):
         counter.launches += n
     return dq, dk, dv
 

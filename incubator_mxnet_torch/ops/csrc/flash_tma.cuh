@@ -1,5 +1,6 @@
-// What the Hopper attention kernels share (flash_fwd.cu's forward and
-// flash_bwd.cu's dq and dk/dv passes): the layout of a 16-bit tile as TMA
+// What the Hopper attention kernels share (flash_fwd.cu's forward,
+// flash_bwd.cu's dq and dk/dv passes, and flash_wide.cu's forward and dk/dv
+// pass for heads above 256): the layout of a 16-bit tile as TMA
 // writes it into shared memory, the ring arithmetic of a pipeline of
 // stages, mbarrier, TMA and warpgroup-MMA (wgmma) wrappers, the 4-D tensor
 // maps over (Dh, S, H, B) and the persistent grid's size.
@@ -133,6 +134,13 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// Waits until at most N of the executing warp's committed wgmma groups are
+// still pending: with N = 1, the group before the last one has finished.
+template <int N>
+__device__ __forceinline__ void wgmma_wait_pending() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
 // 2^x in one MUFU instruction; results below 2^-126 flush to zero.
 __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
@@ -185,6 +193,8 @@ struct Wgmma;
 #define MX_D16(i) MX_D8(i), MX_D8(i + 8)
 #define MX_D32(i) MX_D16(i), MX_D16(i + 16)
 #define MX_D64 MX_D32(0), MX_D32(32)
+#define MX_D96 MX_D64, MX_D32(64)
+#define MX_D128 MX_D96, MX_D32(96)
 
 // The asm names of those operands, %0 to %n-1.
 #define MX_R8 "%0, %1, %2, %3, %4, %5, %6, %7"
@@ -194,6 +204,13 @@ struct Wgmma;
 #define MX_R64 MX_R32 ", " \
   "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
   "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define MX_R96 MX_R64 ", " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+#define MX_R128 MX_R96 ", " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, " \
+  "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, " \
+  "%124, %125, %126, %127"
 
 // m64nNk16 with A and B K-major in shared memory: d[N/2] (+)= A·Bᵀ.
 #define MX_WGMMA_SS(TY, N, DREGS, DA, DB, SCALE, DOPS)                                      \
@@ -228,6 +245,9 @@ struct Wgmma;
     MX_WGMMA_RS(TY, 32, "{" MX_R16 "}", "{%16, %17, %18, %19}", "%20", "%21", MX_D16(0))    \
     MX_WGMMA_RS(TY, 64, "{" MX_R32 "}", "{%32, %33, %34, %35}", "%36", "%37", MX_D32(0))    \
     MX_WGMMA_RS(TY, 128, "{" MX_R64 "}", "{%64, %65, %66, %67}", "%68", "%69", MX_D64)      \
+    MX_WGMMA_RS(TY, 192, "{" MX_R96 "}", "{%96, %97, %98, %99}", "%100", "%101", MX_D96)    \
+    MX_WGMMA_RS(TY, 256, "{" MX_R128 "}", "{%128, %129, %130, %131}", "%132", "%133",       \
+                MX_D128)                                                                    \
   };
 
 MX_WGMMA(__nv_bfloat16, "bf16")
@@ -235,10 +255,14 @@ MX_WGMMA(__half, "f16")
 #undef MX_WGMMA
 #undef MX_WGMMA_RS
 #undef MX_WGMMA_SS
+#undef MX_R128
+#undef MX_R96
 #undef MX_R64
 #undef MX_R32
 #undef MX_R16
 #undef MX_R8
+#undef MX_D128
+#undef MX_D96
 #undef MX_D64
 #undef MX_D32
 #undef MX_D16
@@ -335,8 +359,9 @@ inline cudaError_t bind_context() {
   return e != cudaSuccess ? e : cudaSetDevice(dev);
 }
 
-// A 4-D map over (Dh, S, H, B) of a 16-bit operand, boxes of `rows` rows by
-// Box<D, rows>::BOX columns, swizzled by the box row's bytes.  A dimension
+// A 4-D map over (Dh, S, H, B) of a 16-bit operand of `cols` columns (D
+// unless given), boxes of `rows` rows by Box<D, rows>::BOX columns,
+// swizzled by the box row's bytes.  A dimension
 // of extent 1 is never stepped, so it gets a dense stride (a 16-byte
 // multiple, as TMA requires) whatever the caller's was.  A head or batch
 // dimension of stride 0 (an expanded tensor) becomes one of extent 1, which
@@ -345,14 +370,14 @@ inline cudaError_t bind_context() {
 // contiguous).
 template <int D>
 bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int S, int H, int B,
-            long long ss, long long sh, long long sb, int rows) {
+            long long ss, long long sh, long long sb, int rows, int cols = D) {
   using L = Box<D, 64>;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
   const long long elem[3] = {ss, sh, sb};
   cuuint64_t strides[3];
-  cuuint64_t dense = 2ull * D;
+  cuuint64_t dense = 2ull * cols;
   for (int i = 0; i < 3; ++i) {
     if (elem[i] == 0 && dims[i + 1] > 1) {
       if (i == 0) return false;

@@ -16,37 +16,105 @@
 // q_pos >= k_pos (top-left aligned); a row with no visible key gets o = 0
 // and lse = 0.
 //
-// What bounds it on an H100 SXM: at these widths a whole 128-row 16-bit tile
-// is 64 KB (Dh 256) to 128 KB (Dh 512), so the whole-width tiles of the
-// other kernels would not fit in the 227 KB of shared memory a block has.
-// This design streams instead, and is simple first (CUDA-core fp32 FMA, no
-// TMA, no warpgroup MMA):
-// * every q*k^T and do*v^T reduction runs over Dh in 64-column chunks of
-//   both operands, staged in shared memory as fp32 (the scores of a tile
-//   stay in registers across the chunks);
-// * every output is produced in 128-column slabs (the last one 64 wide
-//   where Dh is an odd multiple of 64), one slab a block (blockIdx.z),
-//   recomputing the scores for each slab; the dk/dv pass gives dv and dk
-//   slabs blocks of their own;
-// * 256 threads a block, 64 output rows by 32 keys (or queries) a score
-//   tile, each thread 4 rows by 2 columns of scores and 4 rows by 8 columns
-//   of its slab; under 48 KB of static shared memory, so no opt-in call.
-// It is bound by operations on the CUDA cores (67 TFLOP/s fp32), which the
-// slab recomputation multiplies: PERF.md gives its time beside its bound.
+// What bounds it on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense): at
+// [B, S, H, Dh] = [4, 512, 8, 512] bf16 the forward must move 67 MB (20 us)
+// for 17.2 GFLOP (17 us), the dk/dv pass 118 MB (35 us) for 34 GFLOP
+// (35 us): both sit where bytes and tensor-core operations take about the
+// same time, so the products must run on wgmma, fed by loads kept in
+// flight.  What makes a wide head hard is room: a 64-row 16-bit tile is
+// 40-64 KB at Dh 320-512 (a block has 227 KB of shared memory), and a
+// 64 x 512 fp32 accumulator is 256 registers a thread of a warpgroup (the
+// most a thread may hold is 255).
+//
+// The 16-bit forward (flash_wide_fwd_tma), Dh = 64·P, P = 5..8:
+// * A work item is 64 query rows of one (batch, head), walked by a
+//   persistent grid with a static stride (no atomics; causal launches take
+//   the items with the most key tiles first).  Two consumer warpgroups share
+//   the item's rows and split the head's P column boxes: consumer 0 takes
+//   the first ceil(P/2) (N0 = 64·ceil(P/2) columns), consumer 1 the rest
+//   (N1).  Each computes its part of s = q·kᵀ over its own columns (wgmma
+//   m64n64k16, q and k K-major in shared memory), hands the fp32 partial
+//   to the other through shared memory and adds the other's: fp32 addition
+//   commutes, so both hold the same scores, run the same online softmax and
+//   accumulate o over their own columns (wgmma m64nN0k16, p from registers
+//   rounded to v's type, v MN-major): o is 64 x N0 fp32, N0/2 <= 128
+//   registers a thread beside 32 of scores and 16 of p.  Nothing is
+//   computed twice but the softmax.
+// * Shared memory at Dh 512: the item's Q tile (64 KB, released after its
+//   last q·kᵀ), for each consumer a ring of two slots of 64 x N0 (its half
+//   of a 64-key K tile, then of the V tile: 4 x 32 KB), and the two
+//   partial-score buffers (2 x 16 KB): 224 KB, plus barriers and alignment
+//   230,480 bytes of the 232,448.  A producer thread fills the rings by TMA
+//   (128-byte swizzle, 64-column boxes) and runs ahead: K of tile j+1 loads
+//   while p·v of tile j runs, V of tile j+1 while q·kᵀ of tile j+1 runs.  o
+//   is divided by the row sums, staged in the consumer's last V slot and
+//   written by TMA stores, which clip rows past Sq.
+// The 16-bit dk/dv pass (flash_wide_bwd_dkv_tma):
+// * A work item is 64 keys of one (batch, head) and one slab of dk and dv:
+//   slab 0 the first ceil(P/2) column boxes, slab 1 the rest, so the two
+//   items of a key tile sit side by side in the item order.  Consumer 0
+//   computes sᵀ = k·qᵀ over the whole head, pᵀ = exp(s·scale − lse), and
+//   accumulates dv += pᵀ·do over its slab; consumer 1 computes dpᵀ = v·doᵀ,
+//   takes pᵀ (fp32) from consumer 0 through shared memory, forms dsᵀ =
+//   pᵀ·(dpᵀ − delta) and accumulates dk += dsᵀ·q over the slab.  Per 64 x 64
+//   block of scores a slab item does 2·(64·64·Dh) multiply-adds for sᵀ and
+//   dpᵀ and 2·(64·64·Dh/2) for its slab of dv and dk; the two slab items
+//   together do 6 units where 4 are needed (1.5x), since no warpgroup can
+//   hold dk or dv whole (64 x 512 fp32).
+// * K and V of the item stay in shared memory (2 x 64 KB at Dh 512); q and
+//   do stream through a ring of slots, each one 64-column box of 64 query
+//   rows of both (16 KB): for every query tile the head's P boxes for the
+//   reductions, then the slab's boxes again for the products.  With the
+//   fp32 p buffer (16 KB) that leaves 5 slots at Dh 512, 8 at Dh 320
+//   (DkvTiles::SLOTS).  Each consumer releases a slot as soon as its
+//   product is done (wait_group 1 keeps one group in flight).  The
+//   gradients are staged in the consumer's own K or V tile, no longer
+//   read, and written by TMA stores that clip keys past Sk.
+// * delta = rowsum(do∘o) is computed once a query row by a pass of its own
+//   before the dk/dv kernel (flash_wide_bwd_dkv_delta, one warp a row, into
+//   an fp32 buffer the wrapper allocates), so o is never loaded into the
+//   dk/dv kernel and no item recomputes it.
+// * setmaxnreg 40 / 232 moves registers from the producer to the
+//   consumers (40·128 + 232·256 <= 65536).
+// Both kernels are persistent (a block an SM), deterministic and hold one
+// item's state in a block at a time.
+// A 16-bit head above 512 (P > 8) runs the same two kernels instantiated at
+// D = 512 and streamed (STREAM): no warpgroup can hold more than 256
+// columns of o, dk or dv (wgmma's widest N), and no whole-width tile fits
+// beside the rings any more (64 rows of Dh 640 are 80 KB).
+// * Forward: the slab of o becomes part of the work item, ceil(P/8) even
+//   slabs of at most 8 boxes a query tile (4 a consumer).  Each slab item
+//   computes the whole head's scores again: consumer 0 reduces over the
+//   first ceil(P/2) boxes, consumer 1 over the rest, 4 boxes a round, each
+//   round's q boxes in its half of the Q tile's room and its k boxes in its
+//   K slot, behind the same full/empty pair; then the swap, softmax and p·v
+//   over its boxes of the slab, as above.  q·kᵀ is done ceil(P/8) times.
+// * dk/dv: ceil(P/4) even slabs of at most 4 boxes a key tile, an item
+//   each; K and V are no longer resident: each reduction slot carries a box
+//   of k and of v beside q's and do's (32 KB, 4 slots), and the gradients
+//   are staged in two slab buffers (2 x 32 KB) where K and V were.
+//
+// What the card shows (PERF.md): at [4, 512, 8, 512] bf16 the forward
+// reaches about two fifths of its bound and runs about 2.8x faster than
+// SDPA's forward; probes that took parts out of copies of this source
+// found its time in the chain of score swap and softmax (both consumers run
+// it while the tensor cores wait), not in its loads.  The dk/dv pass, delta
+// launch included, reaches about a fifth of its bound.
+//
+// What stays on the CUDA cores: fp32 (flash_wide_fwd_f32,
+// flash_wide_bwd_dkv_f32), as the fp32 paths of flash_fwd.cu and
+// flash_bwd.cu, since wgmma has no full-fp32 product; and the dq pass
+// (flash_wide_bwd_dq, every type), whose redesign is the next in line.
+// They stream every reduction over Dh in 64-column chunks staged in shared
+// memory as fp32, produce each output in 128-column slabs (one slab a
+// block, recomputing the scores for each slab; dk/dv gives dv and dk slabs
+// blocks of their own), 256 threads and 64 x 32 scores a block.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 
-namespace {
+#include "flash_tma.cuh"
 
-constexpr int THREADS = 256;
-constexpr int ROWS = 64;   // output rows of a block: queries (fwd, dq) or keys (dk/dv)
-constexpr int COLS = 32;   // keys (fwd, dq) or queries (dk/dv) of a score tile
-constexpr int CHUNK = 64;  // Dh columns of one reduction step
-constexpr int SLAB = 128;  // output columns of a block
-constexpr int PITCH = CHUNK + 1;
+namespace {
 
 struct Params {
   const void* q;
@@ -54,8 +122,9 @@ struct Params {
   const void* v;
   const void* o;
   const void* dout;
-  float* lse;  // written by the forward (or null), read by the backward
-  void* out;   // o (fwd) or dq
+  float* lse;    // written by the forward (or null), read by the backward
+  float* delta;  // rowsum(do*o), [B*H, Sq]: written by the delta pass, read by dk/dv
+  void* out;     // o (fwd) or dq
   void* dk;
   void* dv;
   int B, H, Sq, Sk, D;  // D: the padded head dim, a multiple of 64
@@ -66,6 +135,24 @@ struct Params {
 };
 
 enum { Q = 0, K = 1, V = 2, O = 3, DO = 4, OUT = 5, DK = 6, DV = 7 };
+
+// The first element of (batch b, head h) of operand `which`.
+template <typename T>
+__device__ __forceinline__ const T* base(const Params& p, int which, const void* ptr, int b,
+                                         int h) {
+  return static_cast<const T*>(ptr) + b * p.st[which][0] + h * p.st[which][1];
+}
+
+// ---------------------------------------------------------------------------
+// CUDA cores: fp32, and the dq pass of every type
+// ---------------------------------------------------------------------------
+
+constexpr int THREADS = 256;
+constexpr int ROWS = 64;   // output rows of a block: queries (fwd, dq) or keys (dk/dv)
+constexpr int COLS = 32;   // keys (fwd, dq) or queries (dk/dv) of a score tile
+constexpr int CHUNK = 64;  // Dh columns of one reduction step
+constexpr int SLAB = 128;  // output columns of a block
+constexpr int PITCH = CHUNK + 1;
 
 template <typename T>
 __device__ __forceinline__ float to_f(T x);
@@ -92,13 +179,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 // x rounded to T and back: where the plain version casts to the 16-bit type.
 template <typename T>
 __device__ __forceinline__ float round_to(float x) { return to_f<T>(from_f<T>(x)); }
-
-// The first element of (batch b, head h) of operand `which`.
-template <typename T>
-__device__ __forceinline__ const T* base(const Params& p, int which, const void* ptr, int b,
-                                         int h) {
-  return static_cast<const T*>(ptr) + b * p.st[which][0] + h * p.st[which][1];
-}
 
 // rows [row0, row0 + n) x columns [c0, c0 + w) of a [S, Dh] operand (sequence
 // stride ss) into dst[n][pitch] as fp32; rows at or past `nrows` read as 0.
@@ -186,8 +266,7 @@ static_assert(SMEM_FLOATS * 4 + 2 * COLS * 4 <= 48 * 1024, "static shared memory
 
 // Block (batch*head x, query tile y, slab z): o[rows, slab] and, from slab
 // 0, lse[rows].
-template <typename T>
-__global__ void __launch_bounds__(THREADS) flash_wide_fwd(Params p) {
+__global__ void __launch_bounds__(THREADS) flash_wide_fwd_f32(Params p) {
   __shared__ float smem[SMEM_FLOATS];
   float* sa = smem;
   float* sb = smem + ROWS * PITCH;
@@ -195,9 +274,9 @@ __global__ void __launch_bounds__(THREADS) flash_wide_fwd(Params p) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int q0 = blockIdx.y * ROWS, bh = blockIdx.x, c0 = blockIdx.z * SLAB;
   const int b = bh / p.H, h = bh % p.H;
-  const T* q = base<T>(p, Q, p.q, b, h);
-  const T* k = base<T>(p, K, p.k, b, h);
-  const T* v = base<T>(p, V, p.v, b, h);
+  const float* q = base<float>(p, Q, p.q, b, h);
+  const float* k = base<float>(p, K, p.k, b, h);
+  const float* v = base<float>(p, V, p.v, b, h);
 
   float acc[4][8] = {}, m[4], l[4];
 #pragma unroll
@@ -207,7 +286,7 @@ __global__ void __launch_bounds__(THREADS) flash_wide_fwd(Params p) {
   for (int t = 0; t < nk; ++t) {
     const int k0 = t * COLS;
     float s[4][2] = {};
-    reduce_dh<T>(s, sa, sb, q, p.st[Q][2], q0, p.Sq, k, p.st[K][2], k0, p.Sk, p.D);
+    reduce_dh<float>(s, sa, sb, q, p.st[Q][2], q0, p.Sq, k, p.st[K][2], k0, p.Sk, p.D);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q0 + 4 * ty + i;
@@ -227,7 +306,7 @@ __global__ void __launch_bounds__(THREADS) flash_wide_fwd(Params p) {
       for (int j = 0; j < 2; ++j) {
         const float e = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - m_safe);
         rs += e;
-        sp[(4 * ty + i) * (COLS + 1) + 2 * tx + j] = round_to<T>(e);
+        sp[(4 * ty + i) * (COLS + 1) + 2 * tx + j] = e;
       }
       l[i] = l[i] * corr + row_sum(rs);
       m[i] = m_new;
@@ -235,9 +314,9 @@ __global__ void __launch_bounds__(THREADS) flash_wide_fwd(Params p) {
       for (int c = 0; c < 8; ++c) acc[i][c] *= corr;
     }
     // sp is complete after the barrier inside slab_product's staging
-    slab_product<T>(acc, sp, sa, v, p.st[V][2], k0, p.Sk, c0, p.D);
+    slab_product<float>(acc, sp, sa, v, p.st[V][2], k0, p.Sk, c0, p.D);
   }
-  T* o = static_cast<T*>(p.out) + b * p.st[OUT][0] + h * p.st[OUT][1];
+  float* o = static_cast<float*>(p.out) + b * p.st[OUT][0] + h * p.st[OUT][1];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
@@ -246,7 +325,7 @@ __global__ void __launch_bounds__(THREADS) flash_wide_fwd(Params p) {
 #pragma unroll
     for (int c = 0; c < 8; ++c)
       if (c0 + tx + 16 * c < p.D)
-        o[row * p.st[OUT][2] + c0 + tx + 16 * c] = from_f<T>(acc[i][c] / lsum);
+        o[row * p.st[OUT][2] + c0 + tx + 16 * c] = acc[i][c] / lsum;
     if (p.lse != nullptr && blockIdx.z == 0 && tx == 0)
       p.lse[(long long)bh * p.Sq + row] = (m[i] == -INFINITY ? 0.f : m[i]) + logf(lsum);
   }
@@ -316,8 +395,7 @@ __global__ void __launch_bounds__(THREADS) flash_wide_bwd_dq(Params p) {
 // Block (batch*head x, key tile y, z): z < slabs gives dv[keys, slab z],
 // the rest dk[keys, slab z - slabs].  Scores are held transposed: rows are
 // keys, columns queries.
-template <typename T>
-__global__ void __launch_bounds__(THREADS) flash_wide_bwd_dkv(Params p) {
+__global__ void __launch_bounds__(THREADS) flash_wide_bwd_dkv_f32(Params p) {
   __shared__ float smem[SMEM_FLOATS];
   __shared__ float s_delta[COLS], s_lse[COLS];
   float* sa = smem;
@@ -329,11 +407,11 @@ __global__ void __launch_bounds__(THREADS) flash_wide_bwd_dkv(Params p) {
   const bool is_dk = (int)blockIdx.z >= slabs;
   const int c0 = (blockIdx.z % slabs) * SLAB;
   const int b = bh / p.H, h = bh % p.H;
-  const T* q = base<T>(p, Q, p.q, b, h);
-  const T* k = base<T>(p, K, p.k, b, h);
-  const T* v = base<T>(p, V, p.v, b, h);
-  const T* o = base<T>(p, O, p.o, b, h);
-  const T* dout = base<T>(p, DO, p.dout, b, h);
+  const float* q = base<float>(p, Q, p.q, b, h);
+  const float* k = base<float>(p, K, p.k, b, h);
+  const float* v = base<float>(p, V, p.v, b, h);
+  const float* o = base<float>(p, O, p.o, b, h);
+  const float* dout = base<float>(p, DO, p.dout, b, h);
 
   float acc[4][8] = {};
   // causal: queries before the block's first key see none of its keys
@@ -345,7 +423,7 @@ __global__ void __launch_bounds__(THREADS) flash_wide_bwd_dkv(Params p) {
       float part = 0.f;
       if (is_dk && row < p.Sq)
         for (int c = part_id; c < p.D; c += 8)
-          part = fmaf(to_f<T>(dout[row * p.st[DO][2] + c]), to_f<T>(o[row * p.st[O][2] + c]),
+          part = fmaf(dout[row * p.st[DO][2] + c], o[row * p.st[O][2] + c],
                       part);
 #pragma unroll
       for (int off = 4; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
@@ -356,9 +434,9 @@ __global__ void __launch_bounds__(THREADS) flash_wide_bwd_dkv(Params p) {
     }
     float s[4][2] = {}, dp[4][2] = {};
     // the barriers inside reduce_dh publish s_delta and s_lse
-    reduce_dh<T>(s, sa, sb, k, p.st[K][2], k0, p.Sk, q, p.st[Q][2], q0, p.Sq, p.D);
+    reduce_dh<float>(s, sa, sb, k, p.st[K][2], k0, p.Sk, q, p.st[Q][2], q0, p.Sq, p.D);
     if (is_dk)
-      reduce_dh<T>(dp, sa, sb, v, p.st[V][2], k0, p.Sk, dout, p.st[DO][2], q0, p.Sq, p.D);
+      reduce_dh<float>(dp, sa, sb, v, p.st[V][2], k0, p.Sk, dout, p.st[DO][2], q0, p.Sq, p.D);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int key = k0 + 4 * ty + i;
@@ -368,14 +446,14 @@ __global__ void __launch_bounds__(THREADS) flash_wide_bwd_dkv(Params p) {
         const bool masked = row >= p.Sq || key >= p.Sk || (p.causal && key > row);
         const float pr = masked ? 0.f : expf(s[i][j] * p.scale - s_lse[jq]);
         sw[(4 * ty + i) * (COLS + 1) + jq] =
-            is_dk ? round_to<T>(pr * (dp[i][j] - s_delta[jq])) : round_to<T>(pr);
+            is_dk ? pr * (dp[i][j] - s_delta[jq]) : pr;
       }
     }
-    slab_product<T>(acc, sw, sa, is_dk ? q : dout, is_dk ? p.st[Q][2] : p.st[DO][2], q0, p.Sq,
+    slab_product<float>(acc, sw, sa, is_dk ? q : dout, is_dk ? p.st[Q][2] : p.st[DO][2], q0, p.Sq,
                     c0, p.D);
   }
   const int which = is_dk ? DK : DV;
-  T* g = static_cast<T*>(is_dk ? p.dk : p.dv) + b * p.st[which][0] + h * p.st[which][1];
+  float* g = static_cast<float*>(is_dk ? p.dk : p.dv) + b * p.st[which][0] + h * p.st[which][1];
   const float mul = is_dk ? p.scale : 1.f;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -384,25 +462,868 @@ __global__ void __launch_bounds__(THREADS) flash_wide_bwd_dkv(Params p) {
 #pragma unroll
     for (int c = 0; c < 8; ++c)
       if (c0 + tx + 16 * c < p.D)
-        g[key * p.st[which][2] + c0 + tx + 16 * c] = from_f<T>(acc[i][c] * mul);
+        g[key * p.st[which][2] + c0 + tx + 16 * c] = acc[i][c] * mul;
   }
 }
 
+// The dq pass on the CUDA cores, every type.
 template <typename T>
-cudaError_t launch(const Params& p, int pass, cudaStream_t stream) {
+cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
+  const dim3 grid((unsigned)(p.B * p.H), (p.Sq + ROWS - 1) / ROWS, (p.D + SLAB - 1) / SLAB);
+  flash_wide_bwd_dq<T><<<grid, THREADS, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// One fp32 pass on the CUDA cores: 0 the forward, 1 dq, 2 dk/dv.
+cudaError_t launch_f32(const Params& p, int pass, cudaStream_t stream) {
   const unsigned slabs = (unsigned)((p.D + SLAB - 1) / SLAB);
   const unsigned bh = (unsigned)(p.B * p.H);
   if (pass == 0) {
     const dim3 grid(bh, (p.Sq + ROWS - 1) / ROWS, slabs);
-    flash_wide_fwd<T><<<grid, THREADS, 0, stream>>>(p);
+    flash_wide_fwd_f32<<<grid, THREADS, 0, stream>>>(p);
   } else if (pass == 1) {
-    const dim3 grid(bh, (p.Sq + ROWS - 1) / ROWS, slabs);
-    flash_wide_bwd_dq<T><<<grid, THREADS, 0, stream>>>(p);
+    return launch_dq<float>(p, stream);
   } else {
     const dim3 grid(bh, (p.Sk + ROWS - 1) / ROWS, 2 * slabs);
-    flash_wide_bwd_dkv<T><<<grid, THREADS, 0, stream>>>(p);
+    flash_wide_bwd_dkv_f32<<<grid, THREADS, 0, stream>>>(p);
   }
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// 16-bit types: TMA rings and warpgroup MMA
+// ---------------------------------------------------------------------------
+
+constexpr int TMA_THREADS = 384;   // two consumer warpgroups, then the producer's
+constexpr int PRODUCER_REGS = 40;  // setmaxnreg: 40·128 + 232·256 <= 65536
+constexpr int CONSUMER_REGS = 232;
+constexpr int TILE = 64;           // query rows or keys of a tile (wgmma's M)
+constexpr int SMEM_LIMIT = 232448;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Named barriers (0 is __syncthreads): 1 + w a consumer warpgroup's own;
+// 3 and 4 shared by both consumers.
+enum { BAR_WG = 1, BAR_FREE = 3, BAR_FULL = 4 };
+
+using BX = Box<64, TILE>;  // one 64-column box of a 64-row tile: 8 KB, 128-byte swizzle
+
+// The head's P column boxes split between two warpgroups: B0 = ceil(P/2)
+// for the first (its columns of q·kᵀ and o in the forward, slab 0 of dk and
+// dv), B1 = floor(P/2) for the second.  The streamed instance (a head above
+// 512) is D = 512: its shapes are the most one item holds, P comes from the
+// call.
+template <int D>
+struct Split {
+  static_assert(D % 64 == 0 && D > 256 && D <= 512, "16-bit instances: Dh 320-512");
+  static constexpr int P = D / 64;
+  static constexpr int B0 = (P + 1) / 2;
+  static constexpr int B1 = P / 2;
+};
+
+// Column boxes [first, first + n) of the head.
+struct Span {
+  int first, n;
+};
+
+// Slab s of `slabs` even slabs of the head's P boxes.
+__device__ __forceinline__ Span slab_of(int s, int slabs, int P) {
+  const int a = s * P / slabs;
+  return {a, (s + 1) * P / slabs - a};
+}
+
+// Forward shared memory: the Q tile of an item, a ring of two slots (K
+// half, V half) for each consumer, two fp32 partial-score buffers.  The
+// streamed instance uses the same room: the Q tile's halves hold each
+// consumer's q boxes of a round, beside its k boxes in its K slot.
+template <int D>
+struct FwdTiles {
+  using QT = Box<D, TILE>;
+  static constexpr int SLOT = Split<D>::B0 * BX::BYTES;  // 64 keys x N0 columns
+  static constexpr int PART = TILE * TILE;                // floats of partial scores
+  static constexpr int BARRIERS = 2 + 8;  // Q full, empty; K, V full, empty per consumer
+  static constexpr int SMEM = QT::BYTES + 4 * SLOT + 2 * PART * 4 + BARRIERS * 8 + 1024;
+};
+
+// dk/dv shared memory: K and V of an item, the fp32 p of a tile, and a
+// ring of SLOTS slots, each a 64-column box of a query tile's q and do.
+// Streamed (a head above 512): in place of K and V, one slab of dv and of
+// dk to stage the gradients in (4 boxes each), and slots of four boxes, a
+// box of q, do, k and v.
+template <int D, bool STREAM = false>
+struct DkvTiles {
+  static constexpr int KV = STREAM ? 4 * BX::BYTES : Box<D, TILE>::BYTES;
+  static constexpr int SLOT = (STREAM ? 4 : 2) * BX::BYTES;
+  static constexpr int PFLOATS = TILE * TILE;
+  static constexpr int FIXED = 2 * KV + PFLOATS * 4 + 1024 + 8 * (2 + 2 * 8);
+  static constexpr int ROOM = (SMEM_LIMIT - FIXED) / SLOT;
+  static constexpr int SLOTS = ROOM < 8 ? ROOM : 8;
+  static constexpr int BARRIERS = 2 + 2 * SLOTS;
+  static constexpr int SMEM = 2 * KV + PFLOATS * 4 + SLOTS * SLOT + BARRIERS * 8 + 1024;
+};
+
+// Dynamic shared memory (bytes) at Dh 320 / 384 / 448 / 512 (the limit is
+// 232,448): forward 173,136 / 181,328 / 222,288 / 230,480 (and streamed);
+// dk/dv (8 / 7 / 6 / 5 slots) 230,544 / 230,528 / 230,512 / 230,496,
+// streamed (4 slots) 214,096.
+static_assert(FwdTiles<320>::SMEM == 173136 && FwdTiles<384>::SMEM == 181328 &&
+                  FwdTiles<448>::SMEM == 222288 && FwdTiles<512>::SMEM == 230480,
+              "the sizes stated beside FwdTiles");
+static_assert(DkvTiles<320>::SLOTS == 8 && DkvTiles<512>::SLOTS == 5 &&
+                  DkvTiles<320>::SMEM == 230544 && DkvTiles<384>::SMEM == 230528 &&
+                  DkvTiles<448>::SMEM == 230512 && DkvTiles<512>::SMEM == 230496 &&
+                  DkvTiles<512, true>::SLOTS == 4 && DkvTiles<512, true>::SMEM == 214096,
+              "the sizes stated beside DkvTiles");
+
+// wgmma descriptors of a BX box: K-major (its columns the reduction) and
+// MN-major (its rows the reduction).
+__device__ __forceinline__ uint64_t k_major(uint32_t addr) {
+  return wgmma_desc(addr, 16, 8 * BX::W, BX::LAYOUT);
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void sts32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// Head and batch coordinates of operand `which` for (b, h): an operand
+// expanded over heads or batch (stride 0) has extent 1 there in its map.
+struct Coord {
+  int h, b;
+};
+
+__device__ __forceinline__ Coord coord(const Params& p, int which, int b, int h) {
+  return {p.st[which][1] ? h : 0, p.st[which][0] ? b : 0};
+}
+
+// An fp32 accumulator of a warpgroup (32 values a thread: a 64 x 64 block)
+// to or from shared memory, thread-major so that both warpgroups' threads of
+// one index hold the same elements.
+__device__ __forceinline__ void put_block(float* buf, const float (&x)[32], int tid) {
+#pragma unroll
+  for (int v = 0; v < 8; ++v)
+    *reinterpret_cast<float4*>(buf + v * 512 + 4 * tid) =
+        make_float4(x[4 * v], x[4 * v + 1], x[4 * v + 2], x[4 * v + 3]);
+}
+
+__device__ __forceinline__ float4 get4(const float* buf, int v, int tid) {
+  return *reinterpret_cast<const float4*>(buf + v * 512 + 4 * tid);
+}
+
+// Gradient or output columns of a warpgroup's 64 rows (accumulator layout,
+// times `mul`), rounded to T, into boxes [0, nb) at `tile` (swizzled as BX).
+template <typename T, int NB>
+__device__ __forceinline__ void stage_boxes(uint32_t tile, const float (&acc)[32 * NB], float mul,
+                                            int nb, int rl, int t) {
+#pragma unroll
+  for (int x = 0; x < NB; ++x) {
+    if (x >= nb) break;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        sts32(tile + x * BX::BYTES + tile_offset<BX>(rl + 8 * r, n * 8 + 2 * t),
+              pack2<T>(acc[32 * x + 4 * n + 2 * r] * mul, acc[32 * x + 4 * n + 2 * r + 1] * mul));
+  }
+}
+
+struct FwdItem {
+  int b, h, q0, nk;
+  Span slab;  // the item's columns of o
+};
+
+// Work item i of the forward: causal launches walk the query tiles from the
+// last (most key tiles) down; the others keep a head's tiles side by side.
+// Streamed, a query tile has `slabs` items side by side, one a slab of o.
+__device__ __forceinline__ FwdItem fwd_item(int i, const Params& p, int nqt, int slabs) {
+  const int bhn = p.B * p.H;
+  const int s = i % slabs;
+  i /= slabs;
+  int bh, qt;
+  if (p.causal) {
+    qt = nqt - 1 - i / bhn;
+    bh = i % bhn;
+  } else {
+    bh = i / nqt;
+    qt = i % nqt;
+  }
+  FwdItem it;
+  it.b = bh / p.H;
+  it.h = bh % p.H;
+  it.q0 = qt * TILE;
+  it.nk = (p.Sk + TILE - 1) / TILE;
+  if (p.causal) it.nk = min(it.nk, (min(it.q0 + TILE, p.Sq) + TILE - 1) / TILE);
+  it.slab = slab_of(s, slabs, p.D / 64);
+  return it;
+}
+
+// Slabs of o of a streamed forward item: at most 8 boxes, two
+// warpgroups' 4.
+__host__ __device__ __forceinline__ int fwd_slabs(const Params& p, bool stream) {
+  return stream ? (p.D / 64 + 7) / 8 : 1;
+}
+
+// Online softmax of one 64-key tile in log2 units (flash_fwd.cu's
+// softmax_tile at 64 keys): sc becomes p = 2^(s·scale·log2e − m), masked
+// only where a key tail or the causal diagonal cuts the tile; m and l move
+// on, and corr is what the earlier o must be multiplied by.
+__device__ __forceinline__ void softmax64(float (&sc)[32], float (&m)[2], float (&l)[2],
+                                          float (&corr)[2], int k0, int row0, int q0,
+                                          const Params& p, float sl2, int t) {
+  float mul = sl2;
+  if (!(sl2 > 0.f)) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] *= sl2;
+    mul = 1.f;
+  }
+  if (k0 + TILE > p.Sk || (p.causal && k0 + TILE - 1 > q0)) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + (e >> 1) * 8;
+        const int col = k0 + n * 8 + 2 * t + (e & 1);
+        if (col >= p.Sk || (p.causal && col > row)) sc[4 * n + e] = -INFINITY;
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) mx = fmaxf(mx, fmaxf(sc[4 * n + 2 * r], sc[4 * n + 2 * r + 1]));
+    const float m_new = fmaxf(m[r], quad_max(mx) * mul);
+    const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+    corr[r] = exp2_ftz(m[r] - m_safe);
+    float rs = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e) {
+        const float pe = exp2_ftz(fmaf(sc[4 * n + e], mul, -m_safe));
+        sc[4 * n + e] = pe;
+        rs += pe;
+      }
+    l[r] = l[r] * corr[r] + quad_sum(rs);
+    m[r] = m_new;
+  }
+}
+
+// Consumer warpgroup C of the forward: all 64 rows of each item, its share
+// of the item's slab of o (the first ceil(n/2) boxes for C = 0, the rest
+// for C = 1).  Its part of the scores: over the same boxes from the
+// resident Q tile; streamed, over half the head (C = 0 the first ceil(P/2)
+// boxes), 4 boxes a round, q and k boxes both in its K slot's round.
+template <typename T, int D, int C, bool STREAM>
+__device__ __forceinline__ void fwd_consumer(const CUtensorMap* to, const Params& p, uint32_t sq,
+                                             uint32_t sring, float* exch, uint32_t bars,
+                                             int items, int nqt, int tid) {
+  using L = FwdTiles<D>;
+  using QT = typename L::QT;
+  constexpr int NB = C ? Split<D>::B1 : Split<D>::B0;  // most boxes of o it holds
+  constexpr int N = 64 * NB;
+  using OT = Box<N, TILE>;  // its half of a K or V tile, and of o
+  const uint32_t kslot = sring + 2 * C * L::SLOT, vslot = kslot + L::SLOT;
+  const uint32_t sqc = sq + C * (QT::BYTES / 2);  // streamed: its q boxes of a round
+  const uint32_t q_full = bars, q_empty = bars + 8;
+  const uint32_t k_full = bars + 16 + 16 * C, v_full = k_full + 8;
+  const uint32_t k_empty = bars + 48 + 16 * C, v_empty = k_empty + 8;
+  float* const mine = exch + C * L::PART;
+  const float* const other = exch + (1 - C) * L::PART;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int rl = 16 * warp + g;  // this thread's rows of the item: rl, rl + 8
+  const float sl2 = p.scale * LOG2E;
+  const int P = STREAM ? p.D / 64 : Split<D>::P, P0 = (P + 1) / 2;
+  const int s0 = C ? P0 : 0, s1 = C ? P : P0;  // streamed: its boxes of the scores
+  const int slabs = fwd_slabs(p, STREAM);
+  uint32_t nitem = 0, ntile = 0, nround = 0;
+  for (int i = blockIdx.x; i < items; i += gridDim.x, ++nitem) {
+    const FwdItem it = fwd_item(i, p, nqt, slabs);
+    const int half = (it.slab.n + 1) / 2;
+    const int fb = STREAM ? it.slab.first + (C ? half : 0) : (C ? Split<D>::B0 : 0);
+    const int nb = STREAM ? (C ? it.slab.n - half : half) : NB;
+    const int row0 = it.q0 + rl;
+    float o[N / 2];
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) o[e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};  // running row max, log2 units
+    float l[2] = {0.f, 0.f};
+    if (!STREAM) {
+      mbar_wait(q_full, nitem & 1u);
+      if (it.nk == 0) release(q_empty, lane);
+    }
+    for (int j = 0; j < it.nk; ++j, ++ntile) {
+      float sc[32];
+      if (STREAM) {
+        for (int c0 = s0; c0 < s1; c0 += 4, ++nround) {
+          const int n = min(4, s1 - c0);
+          mbar_wait(k_full, nround & 1u);
+          wgmma_fence();
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            if (x >= n) break;
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              Wgmma<T>::ss(sc, k_major(sqc + x * BX::BYTES + 32 * k),
+                           k_major(kslot + x * BX::BYTES + 32 * k), c0 > s0 || x + k > 0);
+          }
+          wgmma_commit();
+          wgmma_wait();
+          release(k_empty, lane);
+        }
+      } else {
+        mbar_wait(k_full, ntile & 1u);
+        wgmma_fence();
+#pragma unroll
+        for (int x = 0; x < NB; ++x)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            Wgmma<T>::ss(sc, k_major(sq + (fb + x) * QT::PART + 32 * k),
+                         k_major(kslot + x * BX::BYTES + 32 * k), x + k > 0);
+        wgmma_commit();
+        wgmma_wait();
+        release(k_empty, lane);
+        if (j == it.nk - 1) release(q_empty, lane);  // q is no longer read
+      }
+      // The partial scores to the other consumer and its part added: both
+      // hold s0 + s1 = s1 + s0.  BAR_FREE: the other has read the last ones.
+      named_sync(BAR_FREE, 256);
+      put_block(mine, sc, tid);
+      named_sync(BAR_FULL, 256);
+#pragma unroll
+      for (int v = 0; v < 8; ++v) {
+        const float4 w = get4(other, v, tid);
+        sc[4 * v] += w.x;
+        sc[4 * v + 1] += w.y;
+        sc[4 * v + 2] += w.z;
+        sc[4 * v + 3] += w.w;
+      }
+      float corr[2];
+      softmax64(sc, m, l, corr, j * TILE, row0, it.q0, p, sl2, t);
+#pragma unroll
+      for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[4 * n + e] *= corr[e >> 1];
+      uint32_t pf[4][4];
+      pack_a<T>(pf, sc);
+      mbar_wait(v_full, ntile & 1u);
+      // streamed, columns past its nb boxes come from stale slot bytes and
+      // are never stored
+      issue_rs<T, N, OT, 4>(o, pf, vslot);
+      wgmma_wait();
+      if (j < it.nk - 1) release(v_empty, lane);  // the last one holds o's staging
+    }
+
+    // Epilogue: o / l into the V slot (in o's swizzled layout), then one TMA
+    // store a box, which clips rows past Sq; the slot is released once the
+    // stores have read it.  (With Sk = 0 no tile is ever loaded: the slot
+    // is free.)
+    named_sync(BAR_WG + C, 128);  // every warp's p·v has read the slot
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float lsum = l[r] == 0.f ? 1.f : l[r];
+      const float inv = 1.f / lsum;
+#pragma unroll
+      for (int n = 0; n < N / 8; ++n)
+        sts32(vslot + tile_offset<OT>(rl + 8 * r, n * 8 + 2 * t),
+              pack2<T>(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv));
+      const int row = row0 + 8 * r;
+      if (C == 0 && it.slab.first == 0 && p.lse != nullptr && t == 0 && row < p.Sq)
+        p.lse[(long long)(it.b * p.H + it.h) * p.Sq + row] =
+            (m[r] == -INFINITY ? 0.f : m[r] * 0.6931471805599453f) + logf(lsum);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_sync(BAR_WG + C, 128);
+    if (tid == 0 && it.q0 < p.Sq) {
+#pragma unroll
+      for (int x = 0; x < NB; ++x)
+        if (x < nb) tma_store(to, vslot + x * BX::BYTES, (fb + x) * 64, it.q0, it.h, it.b);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
+    named_sync(BAR_WG + C, 128);
+    if (it.nk > 0) release(v_empty, lane);
+  }
+}
+
+template <typename T, int D, bool STREAM>
+__global__ void __launch_bounds__(TMA_THREADS, 1)
+    flash_wide_fwd_tma(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap to, Params p) {
+  using L = FwdTiles<D>;
+  using QT = typename L::QT;
+  using S = Split<D>;
+  extern __shared__ unsigned char smem_fwd[];
+  const uint32_t base_addr = (smem_addr(smem_fwd) + 1023u) & ~1023u;
+  const uint32_t sq = base_addr;                     // the Q tile
+  const uint32_t sring = sq + QT::BYTES;             // consumer 0's K, V slots, then 1's
+  const uint32_t sexch = sring + 4 * L::SLOT;        // partial scores of consumer 0, then 1
+  const uint32_t bars = sexch + 2 * L::PART * 4;
+  float* const exch = reinterpret_cast<float*>(smem_fwd + (sexch - smem_addr(smem_fwd)));
+
+  const int nqt = (p.Sq + TILE - 1) / TILE;
+  const int slabs = fwd_slabs(p, STREAM);
+  const int items = p.B * p.H * nqt * slabs;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);      // Q full
+    mbar_init(bars + 8, 8);  // Q empty: one arrival per consumer warp
+    for (int i = 0; i < 4; ++i) {
+      mbar_init(bars + 16 + 8 * i, 1);  // K, V full of each consumer
+      mbar_init(bars + 48 + 8 * i, 4);  // K, V empty: that consumer's warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // Producer warpgroup: one thread keeps the rings full.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tid == 0) {
+      const int P = STREAM ? p.D / 64 : S::P, P0 = (P + 1) / 2;
+      uint32_t nitem = 0, ntile = 0, nround[2] = {0, 0};
+      for (int i = blockIdx.x; i < items; i += gridDim.x, ++nitem) {
+        const FwdItem it = fwd_item(i, p, nqt, slabs);
+        const Coord cq = coord(p, Q, it.b, it.h), ck = coord(p, K, it.b, it.h);
+        const Coord cv = coord(p, V, it.b, it.h);
+        const int half = (it.slab.n + 1) / 2;
+        if (!STREAM) {
+          mbar_wait(bars + 8, (nitem & 1u) ^ 1u);
+          mbar_expect_tx(bars, QT::BYTES);
+          for (int x = 0; x < S::P; ++x)
+            tma_load(sq + x * QT::PART, &tq, bars, x * 64, it.q0, cq.h, cq.b);
+        }
+        for (int j = 0; j < it.nk; ++j, ++ntile) {
+          const uint32_t par = (ntile & 1u) ^ 1u;
+          for (int w = 0; w < 2; ++w) {
+            const uint32_t slot = sring + 2 * w * L::SLOT;
+            const uint32_t full = bars + 16 + 16 * w, empty = bars + 48 + 16 * w;
+            if (STREAM) {  // its half of the head's q and k boxes, 4 a round
+              const int s1 = w ? P : P0;
+              for (int c0 = w ? P0 : 0; c0 < s1; c0 += 4, ++nround[w]) {
+                const int n = min(4, s1 - c0);
+                mbar_wait(empty, (nround[w] & 1u) ^ 1u);
+                mbar_expect_tx(full, 2 * n * BX::BYTES);
+                for (int x = 0; x < n; ++x) {
+                  tma_load(sq + w * (QT::BYTES / 2) + x * BX::BYTES, &tq, full, (c0 + x) * 64,
+                           it.q0, cq.h, cq.b);
+                  tma_load(slot + x * BX::BYTES, &tk, full, (c0 + x) * 64, j * TILE, ck.h, ck.b);
+                }
+              }
+            } else {  // its half of the K tile
+              mbar_wait(empty, par);
+              const int nb = w ? S::B1 : S::B0, fb = w ? S::B0 : 0;
+              mbar_expect_tx(full, nb * BX::BYTES);
+              for (int x = 0; x < nb; ++x)
+                tma_load(slot + x * BX::BYTES, &tk, full, (fb + x) * 64, j * TILE, ck.h, ck.b);
+            }
+          }
+          for (int w = 0; w < 2; ++w) {  // its boxes of the slab of the V tile
+            const int nb = w ? it.slab.n - half : half, fb = it.slab.first + (w ? half : 0);
+            const uint32_t slot = sring + (2 * w + 1) * L::SLOT;
+            const uint32_t full = bars + 24 + 16 * w;
+            mbar_wait(bars + 56 + 16 * w, par);
+            mbar_expect_tx(full, nb * BX::BYTES);
+            for (int x = 0; x < nb; ++x)
+              tma_load(slot + x * BX::BYTES, &tv, full, (fb + x) * 64, j * TILE, cv.h, cv.b);
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    if (wg == 0)
+      fwd_consumer<T, D, 0, STREAM>(&to, p, sq, sring, exch, bars, items, nqt, tid);
+    else
+      fwd_consumer<T, D, 1, STREAM>(&to, p, sq, sring, exch, bars, items, nqt, tid);
+  }
+}
+
+// delta = rowsum(do∘o) in fp32, one warp a row of [B·H·Sq], 16 bytes a lane
+// and step: the dk/dv pass reads it instead of o.
+template <typename T>
+__global__ void __launch_bounds__(256) flash_wide_bwd_dkv_delta(Params p) {
+  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= (long long)p.B * p.H * p.Sq) return;
+  const int s = (int)(row % p.Sq), bh = (int)(row / p.Sq);
+  const int b = bh / p.H, h = bh % p.H;
+  const T* o = base<T>(p, O, p.o, b, h) + s * p.st[O][2];
+  const T* d = base<T>(p, DO, p.dout, b, h) + s * p.st[DO][2];
+  float acc = 0.f;
+  for (int c = 8 * lane; c < p.D; c += 256) {
+    const uint4 o4 = *reinterpret_cast<const uint4*>(o + c);
+    const uint4 d4 = *reinterpret_cast<const uint4*>(d + c);
+    const uint32_t ow[4] = {o4.x, o4.y, o4.z, o4.w}, dw[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 a = unpack2<T>(dw[e]), bb = unpack2<T>(ow[e]);
+      acc = fmaf(a.x, bb.x, fmaf(a.y, bb.y, acc));
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) p.delta[row] = acc;
+}
+
+struct DkvItem {
+  int b, h, k0, j0;
+  Span slab;  // the item's columns of dk and dv
+};
+
+// Slabs of dk and dv a key tile: two, the warpgroups' split of the head;
+// streamed, as many even slabs of at most 4 boxes as the head needs.
+__host__ __device__ __forceinline__ int dkv_slabs(const Params& p, bool stream) {
+  return stream ? (p.D / 64 + 3) / 4 : 2;
+}
+
+// Work item i of the dk/dv pass: the slabs of a key tile side by side;
+// causal launches walk the key tiles from the first (most query tiles) up.
+// j0: the first query tile that sees the item's keys.
+template <int D, bool STREAM>
+__device__ __forceinline__ DkvItem dkv_item(int i, const Params& p, int nkt) {
+  const int bhn = p.B * p.H, slabs = dkv_slabs(p, STREAM);
+  const int s = i % slabs;
+  i /= slabs;
+  int bh, kt;
+  if (p.causal) {
+    kt = i / bhn;
+    bh = i % bhn;
+  } else {
+    bh = i / nkt;
+    kt = i % nkt;
+  }
+  DkvItem it;
+  it.b = bh / p.H;
+  it.h = bh % p.H;
+  it.k0 = kt * TILE;
+  it.j0 = p.causal ? it.k0 / TILE : 0;
+  using S = Split<D>;
+  it.slab = STREAM ? slab_of(s, slabs, p.D / 64) : (s ? Span{S::B0, S::B1} : Span{0, S::B0});
+  return it;
+}
+
+// Consumer warpgroup W of the dk/dv pass, over the item's 64 keys: W = 0
+// computes sᵀ = k·qᵀ, pᵀ, and dv += pᵀ·do over the item's slab; W = 1
+// computes dpᵀ = v·doᵀ, dsᵀ = pᵀ∘(dpᵀ − delta) with pᵀ from W = 0, and
+// dk += dsᵀ·q.  `tout` is dv's map (W = 0) or dk's.  Its reduction's A
+// operand (k or v) is the item's resident tile, or streamed, the slot's box.
+template <typename T, int D, int W, bool STREAM>
+__device__ __forceinline__ void dkv_consumer(const CUtensorMap* tout, const Params& p,
+                                             uint32_t skv, uint32_t sring, float* pbuf,
+                                             uint32_t bars, int items, int nkt, int nqt,
+                                             int tid) {
+  using L = DkvTiles<D, STREAM>;
+  using S = Split<D>;
+  const uint32_t mine = skv + W * L::KV;  // K (W = 0) or V, or streamed, its staging
+  const uint32_t kv_full = bars, kv_empty = bars + 8;
+  const uint32_t full = bars + 16, empty = full + 8 * L::SLOTS;
+  const float* const stat = W ? p.delta : p.lse;
+  const float stat_mul = W ? 1.f : LOG2E;  // delta, or lse in log2 units
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int rl = 16 * warp + g;  // this thread's keys of the item: rl, rl + 8
+  const float sl2 = p.scale * LOG2E;
+  const int P = STREAM ? p.D / 64 : S::P;
+  Ring<L::SLOTS> ring;
+  uint32_t nitem = 0, ntile = 0;
+  for (int i = blockIdx.x; i < items; i += gridDim.x, ++nitem) {
+    const DkvItem it = dkv_item<D, STREAM>(i, p, nkt);
+    const int nb = it.slab.n, fb = it.slab.first;
+    const int key0 = it.k0 + rl;
+    const long long bh = (long long)it.b * p.H + it.h;
+    float acc[32 * S::B0];  // dv (W = 0) or dk over the slab's boxes
+#pragma unroll
+    for (int e = 0; e < 32 * S::B0; ++e) acc[e] = 0.f;
+    if (!STREAM) mbar_wait(kv_full, nitem & 1u);
+    for (int j = it.j0; j < (p.Sq + TILE - 1) / TILE; ++j, ++ntile) {
+      const int q0 = j * TILE;
+      float2 st[8];  // lse·log2e (W = 0) or delta of this thread's 16 queries
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int qi = q0 + n * 8 + 2 * t;
+        st[n].x = qi < p.Sq ? stat[bh * p.Sq + qi] * stat_mul : 0.f;
+        st[n].y = qi + 1 < p.Sq ? stat[bh * p.Sq + qi + 1] * stat_mul : 0.f;
+      }
+      // sᵀ (W = 0) or dpᵀ over the head's boxes, one ring slot each
+      float sc[32];
+      int prev = 0;
+#pragma unroll 1
+      for (int x = 0; x < P; ++x) {
+        const int s = ring.slot();
+        mbar_wait(full + 8 * s, ring.parity());
+        const uint32_t slot = sring + s * L::SLOT;
+        const uint32_t a = STREAM ? slot + (2 + W) * BX::BYTES : mine + x * BX::BYTES;
+        const uint32_t b = slot + W * BX::BYTES;  // q box (W = 0) or do box
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          Wgmma<T>::ss(sc, k_major(a + 32 * k), k_major(b + 32 * k), x + k > 0);
+        wgmma_commit();
+        if (x > 0) {
+          wgmma_wait_pending<1>();
+          release(empty + 8 * prev, lane);
+        }
+        prev = s;
+        ++ring.n;
+      }
+      wgmma_wait();
+      release(empty + 8 * prev, lane);
+
+      // masked only where a query tail or the causal diagonal cuts the block
+      const bool edge = q0 + TILE > p.Sq || (p.causal && q0 < it.k0 + TILE - 1);
+      if (W == 0) {
+        // pᵀ = 2^(sᵀ·scale·log2e − lse·log2e), to the other warpgroup in fp32
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = e & 1;
+            float pe = exp2_ftz(fmaf(sc[4 * n + e], sl2, -(c ? st[n].y : st[n].x)));
+            if (edge) {
+              const int qi = q0 + n * 8 + 2 * t + c;
+              if (qi >= p.Sq || (p.causal && qi < key0 + 8 * (e >> 1))) pe = 0.f;
+            }
+            sc[4 * n + e] = pe;
+          }
+        if (ntile > 0) named_sync(BAR_FREE, 256);  // the other has read the last pᵀ
+        put_block(pbuf, sc, tid);
+        named_arrive(BAR_FULL, 256);
+      } else {
+        // dsᵀ = pᵀ∘(dpᵀ − delta), pᵀ as the other warpgroup computed it
+        named_sync(BAR_FULL, 256);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float4 pv = get4(pbuf, n, tid);
+          sc[4 * n] = pv.x * (sc[4 * n] - st[n].x);
+          sc[4 * n + 1] = pv.y * (sc[4 * n + 1] - st[n].y);
+          sc[4 * n + 2] = pv.z * (sc[4 * n + 2] - st[n].x);
+          sc[4 * n + 3] = pv.w * (sc[4 * n + 3] - st[n].y);
+        }
+        named_arrive(BAR_FREE, 256);
+      }
+      // dv += pᵀ·do (W = 0) or dk += dsᵀ·q over the slab, a box a slot:
+      // pᵀ rounded to do's type, dsᵀ to q's
+      uint32_t af[4][4];
+      pack_a<T>(af, sc);
+#pragma unroll
+      for (int x = 0; x < S::B0; ++x) {
+        if (x < nb) {
+          const int s = ring.slot();
+          mbar_wait(full + 8 * s, ring.parity());
+          const uint32_t b = sring + s * L::SLOT + (1 - W) * BX::BYTES;  // do box (W = 0) or q
+          issue_rs<T, 64, BX, 4>(*reinterpret_cast<float(*)[32]>(acc + 32 * x), af, b);
+          if (x > 0) {
+            wgmma_wait_pending<1>();
+            release(empty + 8 * prev, lane);
+          }
+          prev = s;
+          ++ring.n;
+        }
+      }
+      wgmma_wait();
+      release(empty + 8 * prev, lane);
+    }
+
+    // Epilogue: the gradient (dk times scale) into this warpgroup's own K or
+    // V tile (no longer read), then one TMA store a box, clipping keys past
+    // Sk; the item's tiles are released once both warpgroups' stores have
+    // read them.
+    named_sync(BAR_WG + W, 128);  // every warp's reduction has read the tile
+    stage_boxes<T, S::B0>(mine, acc, W ? p.scale : 1.f, nb, rl, t);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_sync(BAR_WG + W, 128);
+    if (tid == 0) {
+      if (it.k0 < p.Sk) {
+        for (int x = 0; x < nb; ++x)
+          tma_store(tout, mine + x * BX::BYTES, (fb + x) * 64, it.k0, it.h, it.b);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      }
+      if (!STREAM) mbar_arrive(kv_empty);
+    }
+  }
+  // the other warpgroup's last arrival on BAR_FREE
+  if (W == 0 && ntile > 0) named_sync(BAR_FREE, 256);
+}
+
+template <typename T, int D, bool STREAM>
+__global__ void __launch_bounds__(TMA_THREADS, 1)
+    flash_wide_bwd_dkv_tma(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const __grid_constant__ CUtensorMap tdk,
+                           const __grid_constant__ CUtensorMap tdv, Params p) {
+  using L = DkvTiles<D, STREAM>;
+  using S = Split<D>;
+  extern __shared__ unsigned char smem_dkv[];
+  const uint32_t base_addr = (smem_addr(smem_dkv) + 1023u) & ~1023u;
+  const uint32_t skv = base_addr;            // K, then V (streamed: dv's staging, then dk's)
+  const uint32_t sring = skv + 2 * L::KV;    // SLOTS slots of a q box and a do box (and k, v)
+  const uint32_t spbuf = sring + L::SLOTS * L::SLOT;
+  const uint32_t bars = spbuf + L::PFLOATS * 4;
+  float* const pbuf = reinterpret_cast<float*>(smem_dkv + (spbuf - smem_addr(smem_dkv)));
+
+  const int nkt = (p.Sk + TILE - 1) / TILE;
+  const int nqt = (p.Sq + TILE - 1) / TILE;
+  const int items = dkv_slabs(p, STREAM) * p.B * p.H * nkt;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);      // K/V full
+    mbar_init(bars + 8, 2);  // K/V empty: each consumer, after its stores read
+    for (int i = 0; i < L::SLOTS; ++i) {
+      mbar_init(bars + 16 + 8 * i, 1);
+      mbar_init(bars + 16 + 8 * L::SLOTS + 8 * i, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tid == 0) {
+      const uint32_t full = bars + 16, empty = full + 8 * L::SLOTS;
+      const int P = STREAM ? p.D / 64 : S::P;
+      Ring<L::SLOTS> ring;
+      uint32_t nitem = 0;
+      for (int i = blockIdx.x; i < items; i += gridDim.x, ++nitem) {
+        const DkvItem it = dkv_item<D, STREAM>(i, p, nkt);
+        const Coord cq = coord(p, Q, it.b, it.h), cdo = coord(p, DO, it.b, it.h);
+        const Coord ck = coord(p, K, it.b, it.h), cv = coord(p, V, it.b, it.h);
+        if (!STREAM) {
+          mbar_wait(bars + 8, (nitem & 1u) ^ 1u);
+          mbar_expect_tx(bars, 2 * L::KV);
+          for (int x = 0; x < S::P; ++x) {
+            tma_load(skv + x * BX::BYTES, &tk, bars, x * 64, it.k0, ck.h, ck.b);
+            tma_load(skv + L::KV + x * BX::BYTES, &tv, bars, x * 64, it.k0, cv.h, cv.b);
+          }
+        }
+        for (int j = it.j0; j < nqt; ++j) {
+          // the head's boxes for the reductions (streamed, with k's and v's),
+          // then the slab's for the products
+          for (int x = 0; x < P + it.slab.n; ++x) {
+            const bool reduction = x < P;
+            const int col = 64 * (reduction ? x : it.slab.first + x - P);
+            const int s = ring.slot();
+            const uint32_t slot = sring + s * L::SLOT;
+            mbar_wait(empty + 8 * s, ring.parity() ^ 1u);
+            mbar_expect_tx(full + 8 * s, (STREAM && reduction ? 4 : 2) * BX::BYTES);
+            tma_load(slot, &tq, full + 8 * s, col, j * TILE, cq.h, cq.b);
+            tma_load(slot + BX::BYTES, &tdo, full + 8 * s, col, j * TILE, cdo.h, cdo.b);
+            if (STREAM && reduction) {
+              tma_load(slot + 2 * BX::BYTES, &tk, full + 8 * s, col, it.k0, ck.h, ck.b);
+              tma_load(slot + 3 * BX::BYTES, &tv, full + 8 * s, col, it.k0, cv.h, cv.b);
+            }
+            ++ring.n;
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    if (wg == 0)
+      dkv_consumer<T, D, 0, STREAM>(&tdv, p, skv, sring, pbuf, bars, items, nkt, nqt, tid);
+    else
+      dkv_consumer<T, D, 1, STREAM>(&tdk, p, skv, sring, pbuf, bars, items, nkt, nqt, tid);
+  }
+}
+
+// A 4-D map of operand `which` over rows [0, S) of the head's D columns,
+// 64-row boxes of 64 columns.
+template <typename T>
+bool map_of(CUtensorMap* map, const Params& p, int which, const void* ptr, int S) {
+  return encode<64>(map, map_type<T>(), ptr, S, p.H, p.B, p.st[which][2], p.st[which][1],
+                    p.st[which][0], TILE, p.D);
+}
+
+// The persistent grid: as many blocks as the card holds at once, at most
+// one per work item.
+template <typename Kernel, typename... Maps>
+cudaError_t launch_persistent(Capacity& cache, Kernel kernel, int smem, long long items,
+                              cudaStream_t stream, const Params& p, const Maps&... maps) {
+  if (items <= 0) return cudaSuccess;
+  if (items > 0x7fffffff) return cudaErrorInvalidValue;
+  long long capacity = 0;
+  const cudaError_t e = grid_capacity(cache, kernel, TMA_THREADS, smem, &capacity);
+  if (e != cudaSuccess) return e;
+  const long long grid = items < capacity ? items : capacity;
+  kernel<<<(unsigned)grid, TMA_THREADS, smem, stream>>>(maps..., p);
+  return cudaGetLastError();
+}
+
+// The forward at a head of D columns, or streamed (D = 512) at a wider one.
+template <typename T, int D, bool STREAM>
+cudaError_t run_fwd_tma(const Params& p, cudaStream_t stream) {
+  const cudaError_t bound = bind_context();
+  if (bound != cudaSuccess) return bound;
+  CUtensorMap tq, tk, tv, to;
+  bool ok = map_of<T>(&tq, p, Q, p.q, p.Sq) && map_of<T>(&to, p, OUT, p.out, p.Sq);
+  if (p.Sk > 0) {
+    ok = ok && map_of<T>(&tk, p, K, p.k, p.Sk) && map_of<T>(&tv, p, V, p.v, p.Sk);
+  } else {  // no K/V tile is ever loaded; a map needs a nonempty extent
+    tk = tq;
+    tv = tq;
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  static Capacity cache;
+  const long long items =
+      (long long)fwd_slabs(p, STREAM) * p.B * p.H * ((p.Sq + TILE - 1) / TILE);
+  return launch_persistent(cache, flash_wide_fwd_tma<T, D, STREAM>, FwdTiles<D>::SMEM, items,
+                           stream, p, tq, tk, tv, to);
+}
+
+// The delta pass, then the dk/dv kernel (streamed at D = 512 for a wider
+// head).
+template <typename T, int D, bool STREAM>
+cudaError_t run_dkv_tma(const Params& p, cudaStream_t stream) {
+  if (p.delta == nullptr) return cudaErrorInvalidValue;
+  const long long blocks = ((long long)p.B * p.H * p.Sq + 7) / 8;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  flash_wide_bwd_dkv_delta<T><<<(unsigned)blocks, 256, 0, stream>>>(p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  if ((e = bind_context()) != cudaSuccess) return e;
+  CUtensorMap tq, tk, tv, tdo, tdk, tdv;
+  const bool ok = map_of<T>(&tq, p, Q, p.q, p.Sq) && map_of<T>(&tdo, p, DO, p.dout, p.Sq) &&
+                  map_of<T>(&tk, p, K, p.k, p.Sk) && map_of<T>(&tv, p, V, p.v, p.Sk) &&
+                  map_of<T>(&tdk, p, DK, p.dk, p.Sk) && map_of<T>(&tdv, p, DV, p.dv, p.Sk);
+  if (!ok) return cudaErrorInvalidValue;
+  static Capacity cache;
+  const long long items =
+      (long long)dkv_slabs(p, STREAM) * p.B * p.H * ((p.Sk + TILE - 1) / TILE);
+  return launch_persistent(cache, flash_wide_bwd_dkv_tma<T, D, STREAM>,
+                           DkvTiles<D, STREAM>::SMEM, items, stream, p, tq, tk, tv, tdo, tdk,
+                           tdv);
+}
+
+// pass 0: the forward, 2: dk/dv.
+template <typename T, int D, bool STREAM = false>
+cudaError_t run_tma(const Params& p, int pass, cudaStream_t s) {
+  return pass == 0 ? run_fwd_tma<T, D, STREAM>(p, s) : run_dkv_tma<T, D, STREAM>(p, s);
+}
+
+// At a 16-bit head of D columns: an instance a width up to 512, the
+// streamed one above.
+template <typename T>
+cudaError_t dispatch_tma(const Params& p, int pass, cudaStream_t s) {
+  switch (p.D) {
+    case 320: return run_tma<T, 320>(p, pass, s);
+    case 384: return run_tma<T, 384>(p, pass, s);
+    case 448: return run_tma<T, 448>(p, pass, s);
+    case 512: return run_tma<T, 512>(p, pass, s);
+    default: return run_tma<T, 512, true>(p, pass, s);
+  }
 }
 
 // pass 0: the forward, 1: dq, 2: dk/dv.  Nothing to launch for an empty
@@ -410,12 +1331,15 @@ cudaError_t launch(const Params& p, int pass, cudaStream_t stream) {
 cudaError_t dispatch(int dtype, const Params& p, int pass, cudaStream_t s) {
   if (p.D <= 0 || p.D % CHUNK != 0) return cudaErrorInvalidValue;
   if (p.B <= 0 || p.H <= 0 || p.Sq <= 0 || (pass == 2 && p.Sk <= 0)) return cudaSuccess;
-  if ((long long)p.B * p.H > 0x7fffffffLL || p.Sq > 65535 * ROWS || p.Sk > 65535 * ROWS)
-    return cudaErrorInvalidValue;
+  if ((long long)p.B * p.H > 0x7fffffffLL) return cudaErrorInvalidValue;
+  // the CUDA-core grids' y extent
+  const bool cores = dtype == 0 || pass == 1;
+  if (cores && (p.Sq > 65535 * ROWS || p.Sk > 65535 * ROWS)) return cudaErrorInvalidValue;
   switch (dtype) {
-    case 0: return launch<float>(p, pass, s);
-    case 1: return launch<__half>(p, pass, s);
-    case 2: return launch<__nv_bfloat16>(p, pass, s);
+    case 0: return launch_f32(p, pass, s);
+    case 1: return pass == 1 ? launch_dq<__half>(p, s) : dispatch_tma<__half>(p, pass, s);
+    case 2:
+      return pass == 1 ? launch_dq<__nv_bfloat16>(p, s) : dispatch_tma<__nv_bfloat16>(p, pass, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -428,9 +1352,10 @@ void read_strides(Params& p, const long long* strides, int n) {
 }  // namespace
 
 // dtype: 0 float32, 1 float16, 2 bfloat16.  D: the (padded) head dim, a
-// multiple of 64.  strides: 12 element strides, (batch, head, sequence) of
-// q, k, v and o.  lse: [B*H, Sq] fp32 or null.  Returns the cudaError_t of
-// the launch (0 on success); never synchronises.
+// multiple of 64 above 256.  strides: 12 element
+// strides, (batch, head, sequence) of q, k, v and o.  lse: [B*H, Sq] fp32 or
+// null.  Returns the cudaError_t of the launch (0 on success); never
+// synchronises.
 extern "C" int mx_flash_wide_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
                                  float* lse, int B, int H, int Sq, int Sk, int D,
                                  const long long* strides, float scale, int causal,
@@ -450,17 +1375,20 @@ extern "C" int mx_flash_wide_fwd(int dtype, const void* q, const void* k, const 
 // The backward: the dq pass when dq is given, then the dk/dv pass when dk
 // and dv are.  strides: 24 element strides, (batch, head, sequence) of q, k,
 // v, o, do, dq, dk and dv (those of absent outputs are ignored).  lse: the
-// forward's [B*H, Sq] fp32.  Returns the first nonzero cudaError_t, or 0.
+// forward's [B*H, Sq] fp32.  delta: [B*H, Sq] fp32 scratch that the 16-bit
+// dk/dv pass fills and reads (null otherwise).  Returns the first nonzero
+// cudaError_t, or 0.
 extern "C" int mx_flash_wide_bwd(int dtype, const void* q, const void* k, const void* v,
-                                 const void* o, const void* dout, const float* lse, void* dq,
-                                 void* dk, void* dv, int B, int H, int Sq, int Sk, int D,
-                                 const long long* strides, float scale, int causal,
-                                 void* stream) {
+                                 const void* o, const void* dout, const float* lse,
+                                 float* delta, void* dq, void* dk, void* dv, int B, int H,
+                                 int Sq, int Sk, int D, const long long* strides, float scale,
+                                 int causal, void* stream) {
   if (lse == nullptr || (dk == nullptr) != (dv == nullptr))
     return (int)cudaErrorInvalidValue;
   Params p = {};
   p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
   p.lse = const_cast<float*>(lse);
+  p.delta = delta;
   p.out = dq; p.dk = dk; p.dv = dv;
   p.B = B; p.H = H; p.Sq = Sq; p.Sk = Sk; p.D = D;
   read_strides(p, strides, 8);

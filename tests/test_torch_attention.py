@@ -201,7 +201,7 @@ def test_head_dim_above_128_is_refused():
         tatt._kernel_width("flash_fwd", q, q[..., :128], q)
 
 
-@pytest.mark.parametrize("d", [300, 320, 512])
+@pytest.mark.parametrize("d", [300, 320, 384, 448, 512])
 @pytest.mark.parametrize("causal", [False, True])
 def test_wide_head_dim_matches_jax_reference(d, causal):
     """Above Dh 256 the card runs flash_wide.cu on operands padded to a
@@ -245,6 +245,29 @@ def test_launches_per_pass(width, launches):
     """The widest instance runs each pass as one launch per 128-column
     output slab; the counters count each."""
     assert tatt._launches(width) == launches
+
+
+@pytest.mark.parametrize("width,dtype,launches", [
+    (64, torch.bfloat16, 1), (256, torch.bfloat16, 2), (320, torch.bfloat16, 2),
+    (512, torch.float16, 2), (512, torch.float32, 1), (576, torch.float32, 1)])
+def test_dkv_launches_per_pass(width, dtype, launches):
+    """Above Dh 256 the 16-bit dk/dv pass is two launches, flash_wide.cu's
+    delta pass and its kernel; fp32 keeps one."""
+    assert tatt._dkv_launches(width, dtype) == launches
+    assert tatt._has_delta_pass(width, dtype) == (width > 256 and dtype != torch.float32)
+
+
+@pytest.mark.parametrize("d,dtype", [
+    (512, torch.bfloat16), (576, torch.bfloat16), (1024, torch.float16), (576, torch.float32)])
+def test_wide_16bit_head_above_512_is_taken(d, dtype):
+    """flash_wide.cu takes every multiple of 64 above 256 in each dtype:
+    above 512 its 16-bit kernels stream k and v through their rings and
+    make each slab of the outputs a work item.  A head dim that is not a
+    multiple of 64 there is the wrappers' to pad, and the check refuses it."""
+    q = torch.zeros(1, 2, 8, d, dtype=dtype)
+    tatt._check_cuda_operands("flash_fwd", q, q, q, False)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        tatt._check_cuda_operands("flash_fwd", *(q[..., :d - 8],) * 3, False)
 
 
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
@@ -373,20 +396,62 @@ def test_kernel_takes_padded_head_dim_on_card(cuda_device, d):
     assert (lse - lse_ref).abs().max().item() <= 1e-4
 
 
+# name, B, H, Sq, Sk, Dh, dtype, causal, layout ("s0": q repeating one row
+# along the sequence): flash_wide.cu above Dh 256 (tests/test_torch_flash_bwd.py
+# runs the same cases through the backward).  In 16 bits its forward and
+# dk/dv pass run on TMA and wgmma at each consumer split (320: 192 + 128
+# columns, 384: 192 + 192, 448: 256 + 192, 512: 256 + 256) and streamed
+# above 512 (576, 640, 1024), with a ragged S, causal and not, causal with
+# Sk < Sq and with one key, in bf16 and fp16; a cross shape, the QKV view, a
+# sequence of stride 0 and a padded 300; fp32 on the CUDA cores.
+WIDE_CARD_CASES = [
+    (f"{str(dt)[6:]}_dh{d}{'_causal' if c else ''}", 2, 2, 200, 200, d, dt, c, "bhsd")
+    for d in (320, 384, 512) for dt in (torch.bfloat16, torch.float16) for c in (False, True)
+] + [
+    ("cross_sq77_sk200_dh512", 2, 2, 77, 200, 512, torch.bfloat16, False, "bhsd"),
+    ("cross_sq200_sk77_dh320_causal", 2, 2, 200, 77, 320, torch.bfloat16, True, "bhsd"),
+    ("qkv_dh512_causal", 2, 2, 130, 130, 512, torch.bfloat16, True, "qkv"),
+    ("q_seq_stride0_dh384", 2, 2, 130, 130, 384, torch.bfloat16, False, "s0"),
+    ("fp16_dh300_causal", 2, 2, 150, 150, 300, torch.float16, True, "bhsd"),
+    ("fp32_dh512_causal", 1, 2, 200, 200, 512, torch.float32, True, "bhsd"),
+    ("dh448_causal_sq130_sk65", 2, 2, 130, 65, 448, torch.bfloat16, True, "bhsd"),
+    ("dh448_causal_sq130_sk1", 2, 2, 130, 1, 448, torch.bfloat16, True, "bhsd"),
+    ("bfloat16_dh576", 2, 2, 200, 200, 576, torch.bfloat16, False, "bhsd"),
+    ("float16_dh640_causal", 2, 2, 200, 200, 640, torch.float16, True, "bhsd"),
+    ("qkv_dh1024_causal", 2, 2, 130, 130, 1024, torch.bfloat16, True, "qkv"),
+]
+
+
+def _ulps(ref, dtype, n=2):
+    """n units in the last place of the largest |ref| in ``dtype``."""
+    mantissa = {torch.bfloat16: 7, torch.float16: 10}[dtype]
+    return n * 2.0 ** (np.frexp(ref.float().abs().max().item())[1] - 1 - mantissa)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [300, 320, 512])
-def test_kernel_refuses_head_dim_above_128_on_card(cuda_device, d):
-    """Dh above 256 is no longer refused: one launch of flash_wide_fwd,
-    against the plain version."""
-    gen = torch.Generator(device=cuda_device).manual_seed(5)
-    q, k, v = (torch.randn(2, 2, 200, d, generator=gen, device=cuda_device).to(torch.bfloat16)
-               for _ in range(3))
+@pytest.mark.parametrize("name,b,h,sq,sk,d,dtype,causal,layout", WIDE_CARD_CASES,
+                         ids=[c[0] for c in WIDE_CARD_CASES])
+def test_kernel_refuses_head_dim_above_128_on_card(cuda_device, name, b, h, sq, sk, d, dtype,
+                                                   causal, layout):
+    """Dh above 256 is no longer refused: flash_wide_fwd against the plain
+    version, o within 2 ulps of its largest value in 16 bits (fp32:
+    chip_smoke.py's 2e-5), lse within 1e-4, one launch counted on
+    flash_wide_fwd and none on flash_fwd, and two runs bit-identical (a
+    static schedule, no atomics)."""
+    q, k, v, layout = _card_inputs(cuda_device, b, h, sq, sk, d, dtype,
+                                   "bhsd" if layout == "s0" else layout)
+    if name.startswith("q_seq_stride0"):
+        q = q[:, :, :1].expand(q.shape)
     before = (tatt.flash_fwd.launches, tatt.flash_wide_fwd.launches)
-    o, lse = tatt.flash_fwd(q, q, v, causal=True, with_lse=True)
+    o, lse = tatt.flash_fwd(q, k, v, causal=causal, with_lse=True, layout=layout)
     assert (tatt.flash_fwd.launches, tatt.flash_wide_fwd.launches) == (before[0], before[1] + 1)
-    o_ref, lse_ref = tatt.flash_fwd_plain(q, q, v, True, with_lse=True)
+    again = tatt.flash_wide_fwd(q, k, v, causal=causal, with_lse=True, layout=layout)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    t = (lambda a: a.transpose(1, 2)) if layout == "bshd" else (lambda a: a)
+    o_ref, lse_ref = tatt.flash_fwd_plain(t(q), t(k), t(v), causal, with_lse=True)
+    bound = 2e-5 if dtype == torch.float32 else _ulps(o_ref, dtype)
     assert o.shape == q.shape
-    assert (o.float() - o_ref.float()).abs().max().item() <= BF16_KERNEL_TOL
+    assert (t(o).float() - o_ref.float()).abs().max().item() <= bound
     assert (lse - lse_ref).abs().max().item() <= 1e-4
 
 

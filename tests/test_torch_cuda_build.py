@@ -46,9 +46,9 @@ def test_digest_changes_with_the_compiler_and_the_flags(csrc):
 
 def test_the_port_sources_name_their_shared_header():
     names = {name: [p.name for p in _cuda.includes(_cuda.CSRC / f"{name}.cu")]
-             for name in ("flash_fwd", "flash_bwd", "bn", "multi_tensor")}
-    assert names == {"flash_fwd": ["flash_tma.cuh"], "flash_bwd": ["flash_tma.cuh"], "bn": [],
-                     "multi_tensor": []}
+             for name in ("flash_fwd", "flash_bwd", "flash_wide", "bn", "multi_tensor")}
+    assert names == {"flash_fwd": ["flash_tma.cuh"], "flash_bwd": ["flash_tma.cuh"],
+                     "flash_wide": ["flash_tma.cuh"], "bn": [], "multi_tensor": []}
 
 
 def test_every_source_is_built_and_keyed():

@@ -9,6 +9,9 @@ compared with ``jax.grad`` of the JAX functions on their Pallas path.  The
 kernels themselves are compared with the plain version by the ``cuda``
 tests below, which skip here, and by ``chip_smoke.py``.
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +21,10 @@ import jax.numpy as jnp
 
 from incubator_mxnet_tpu.ops import attention as jatt
 from incubator_mxnet_torch.ops import attention as tatt
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the one-key bound on dq and dk)
+from test_torch_attention import WIDE_CARD_CASES  # noqa: E402  (the cases of the forward)
 
 # fp32 gradients: both sides compute in fp32 (JAX at "highest" matmul
 # precision) with the same algebra in another summation order; the
@@ -276,24 +283,54 @@ def test_wide_head_dims_on_card(cuda_device, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [300, 320, 512])
-def test_kernels_refuse_head_dim_above_128(cuda_device, d):
-    """Dh above 256 is no longer refused: one launch each of
-    flash_wide_bwd_dq and flash_wide_bwd_dkv, against the plain version
-    within two bf16 ulps of each gradient's largest value."""
-    gen = torch.Generator(device=cuda_device).manual_seed(6)
-    q, k, v, do = (torch.randn(2, 2, 150, d, generator=gen, device=cuda_device)
-                   .to(torch.bfloat16) for _ in range(4))
-    o, lse = tatt.flash_fwd_plain(q, k, v, True, with_lse=True)
-    wide = (tatt.flash_wide_bwd_dq, tatt.flash_wide_bwd_dkv)
-    before = [c.launches for c in (tatt.flash_bwd_dq, tatt.flash_bwd_dkv, *wide)]
-    got = tatt.flash_bwd(q, k, v, o, do, lse, True)
-    after = [c.launches for c in (tatt.flash_bwd_dq, tatt.flash_bwd_dkv, *wide)]
-    assert [x - y for x, y in zip(after, before)] == [0, 0, 1, 1]
-    for g, r in zip(got, tatt.flash_bwd_plain(q, k, v, o, do, lse, True)):
-        ref_max = r.float().abs().max().item()
-        bound = 2 * 2.0 ** (np.frexp(ref_max)[1] - 1 - 7)
-        assert g.shape == r.shape and (g.float() - r.float()).abs().max().item() <= bound
+@pytest.mark.parametrize("name,b,h,sq,sk,d,dtype,causal,layout", WIDE_CARD_CASES,
+                         ids=[c[0] for c in WIDE_CARD_CASES])
+def test_kernels_refuse_head_dim_above_128(cuda_device, name, b, h, sq, sk, d, dtype, causal,
+                                           layout):
+    """Dh above 256 is no longer refused: flash_wide_bwd_dq and
+    flash_wide_bwd_dkv against the plain version, each gradient within 2
+    ulps of its largest value in 16 bits (fp32: 1e-4 of it, chip_smoke.py's
+    FP32_BWD_REL); with one key (Sk = 1) dq and dk, exactly 0, within
+    chip_smoke.py's bound on the rounding of dp − delta.  The counters take
+    one dq launch and, in 16 bits, two dk/dv launches (the delta pass and
+    the kernel); each pass alone counts the same; two runs are
+    bit-identical."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    if layout == "qkv":
+        x = torch.randn(b, sq, 3, h, d, generator=gen, device=cuda_device).to(dtype)
+        q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+        do = torch.randn(b, sq, h, d, generator=gen, device=cuda_device).to(dtype)
+    else:
+        q, do = (torch.randn(b, h, sq, d, generator=gen, device=cuda_device).to(dtype)
+                 for _ in range(2))
+        k, v = (torch.randn(b, h, sk, d, generator=gen, device=cuda_device).to(dtype)
+                for _ in range(2))
+        if layout == "s0":
+            q = q[:, :, :1].expand(q.shape)
+    lay = "bshd" if layout == "qkv" else "bhsd"
+    t = (lambda a: a.transpose(1, 2)) if lay == "bshd" else (lambda a: a)
+    o, lse = tatt.flash_fwd(q, k, v, causal=causal, with_lse=True, layout=lay)
+    counters = (tatt.flash_bwd_dq, tatt.flash_bwd_dkv, tatt.flash_wide_bwd_dq,
+                tatt.flash_wide_bwd_dkv)
+    dkv_launches = 1 if dtype == torch.float32 else 2
+    before = [c.launches for c in counters]
+    got = tatt.flash_bwd(q, k, v, o, do, lse, causal, layout=lay)
+    assert [c.launches - n for c, n in zip(counters, before)] == [0, 0, 1, dkv_launches]
+    dq = tatt.flash_wide_bwd_dq(q, k, v, o, do, lse, causal, layout=lay)
+    dk, dv = tatt.flash_wide_bwd_dkv(q, k, v, o, do, lse, causal, layout=lay)
+    assert [c.launches - n for c, n in zip(counters, before)] == [0, 0, 2, 2 * dkv_launches]
+    assert all(torch.equal(a, b) for a, b in zip(got, (dq, dk, dv)))
+    ref = tatt.flash_bwd_plain(t(q), t(k), t(v), t(o), t(do), lse, causal)
+    zero = chip_smoke.one_key_bounds(t(q), t(k), t(v), t(do)) if sk == 1 else ()
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.shape == t(r).shape
+        if i < len(zero):  # dq, dk with one key: exactly 0
+            assert g.float().abs().max().item() <= zero[i]
+            continue
+        bound = (1e-4 * r.float().abs().max().item() if dtype == torch.float32
+                 else 2 * 2.0 ** (np.frexp(r.float().abs().max().item())[1] - 1
+                                  - (7 if dtype == torch.bfloat16 else 10)))
+        assert (t(g).float() - r.float()).abs().max().item() <= bound
 
 
 @pytest.mark.cuda
