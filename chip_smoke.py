@@ -20,8 +20,8 @@ Phases, each printing JSON lines; no phase's failure is caught:
    and the operand domain the wrappers take: scales, expanded k/v, a
    sequence of stride 0, padded head dims, head dims 160-256 through the
    column-slab launches, head dims 300-1024 through flash_wide.cu: its
-   16-bit forward and dk/dv pass on TMA and wgmma, streamed above 512,
-   fp32 and dq on the CUDA cores), each against a stated bound (and
+   16-bit forward, dq and dk/dv passes on TMA and wgmma, streamed above
+   512, fp32 on the CUDA cores), each against a stated bound (and
    flash_fwd, flash_bwd, the flash_wide
    kernels and bn_stats against themselves: two runs must be
    bit-identical), and the refusals of the rtc launcher; the multi-tensor
@@ -73,8 +73,9 @@ Phases, each printing JSON lines; no phase's failure is caught:
    torch.profiler trace (12+12+12+1 BERT, 53+53+1 ResNet-50), each call
    one replay, no fallback;
 7. times: each kernel, its plain version and the library call at the main
-   paths' shapes (the attention kernels also at the S=512 request, and by
-   CUDA-graph replay), the kernel's bound; BERT forward and training-step time,
+   paths' shapes (the attention kernels also at the S=512 request, in fp32
+   at the main shape, and by CUDA-graph replay), the kernel's bound; BERT
+   forward and training-step time,
    the ResNet-50 step's time, img/s, peak memory and its split; the
    BERT step with the user's GELU beside the built-in one; a
    torch.profiler breakdown of device time by kernel family for one BERT
@@ -701,9 +702,9 @@ WIDE_CASES = [
     dict(MAIN, name="fp32_dh256_causal", b=1, h=2, sq=200, sk=200, d=256,
          dtype=torch.float32, causal=True),
 ]
-# Head dims above 256: flash_wide.cu (in bf16 and fp16 its forward and dk/dv
-# pass on TMA rings and wgmma, the dk/dv pass after a delta launch, both
-# streamed above 512; fp32 and dq on the CUDA cores), at 320, 384, 448
+# Head dims above 256: flash_wide.cu (in bf16 and fp16 its forward, dq and
+# dk/dv passes on TMA rings and wgmma, the backward after one delta launch,
+# all streamed above 512; fp32 on the CUDA cores), at 320, 384, 448
 # (256 + 192 columns), 512, 576, 640 and 1024 and a padded 300, ragged S,
 # causal and not, causal with Sk < Sq, a causal S=1024 (sixteen key tiles
 # an item), the QKV view, a cross shape, lse, fp16 and fp32.  With one key
@@ -747,10 +748,11 @@ def _slab_launches(d):
 
 
 def _bwd_launches(d, dtype):
-    """Launches of the dq and the dk/dv pass at head dim ``d``: above 256 in
-    bf16 and fp16 the dk/dv pass is flash_wide.cu's delta launch and its
-    kernel."""
-    return _slab_launches(d), _slab_launches(d) + int(d > 256 and dtype != torch.float32)
+    """Launches counted on the dq and the dk/dv pass of one backward call
+    that runs both, at head dim ``d``: above 256 in bf16 and fp16 the call
+    launches flash_wide.cu's delta pass once, before both, and it counts on
+    the dq pass (three launches in all)."""
+    return _slab_launches(d) + int(d > 256 and dtype != torch.float32), _slab_launches(d)
 
 
 def phase_kernel_vs_plain(device):
@@ -2176,7 +2178,8 @@ def _graph_ms(fn, arg_sets, calls=40, replays=5):
 def _kernel_family(name):
     if name.startswith(("gelu_fwd_", "gelu_bwd_")):  # the user's kernels of RTC_SOURCE
         return "rtc_" + name[:8]
-    for fam in ("flash_wide_bwd_dkv", "flash_wide_bwd_dq", "flash_wide_fwd", "flash_bwd_dkv",
+    for fam in ("flash_wide_bwd_dkv", "flash_wide_bwd_dq", "flash_wide_bwd_delta",
+                "flash_wide_fwd", "flash_bwd_dkv",
                 "flash_bwd_dq", "flash_fwd", "bn_stats", "bn_apply", "multi_tensor"):
         if fam in name:
             return fam
@@ -2231,10 +2234,22 @@ def _bound(nbytes, flops, dtype=torch.bfloat16):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _sdpa_backend(kernels):
+    """The backend SDPA picked, read from the names of the kernels it
+    launched in the trace (cuDNN's own kernels carry "flash" too)."""
+    names = " ".join(kernels or ()).lower()
+    for key, backend in (("cudnn", "cudnn"), ("fmha_cutlass", "efficient"), ("flash", "flash")):
+        if key in names:
+            return backend
+    return "math (matmul and softmax kernels)"
+
+
 def _fwd_row(views, bhsd_sets, smi):
-    """flash_fwd, its plain version and SDPA on the same [B, S, H, Dh] views,
-    timed in one run; emits the row and returns it."""
+    """flash_fwd, its plain version and SDPA on the same [B, S, H, Dh] views
+    (of any of the kernel's dtypes), timed in one run; emits the row and
+    returns it."""
     b, s, h, d = views[0][0].shape
+    dtype = views[0][0].dtype
     kernel = lambda q, k, v: att.flash_fwd(q, k, v, layout="bshd")  # noqa: E731
     sdpa = torch.nn.functional.scaled_dot_product_attention
     with torch.no_grad():
@@ -2243,27 +2258,38 @@ def _fwd_row(views, bhsd_sets, smi):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)), views, 20)
         library_ms, _, lib_kernels, lib_records = _time(sdpa, bhsd_sets, 200, uniform=True)
         graph_ms, lib_graph_ms = _graph_ms(kernel, views), _graph_ms(sdpa, bhsd_sets)
-    nbytes = 4 * b * s * h * d * 2              # q, k, v read once, o written once
+    nbytes = 4 * b * s * h * d * views[0][0].element_size()  # q, k, v read, o written once
     flops = 4 * b * h * s * s * d               # q·kᵀ and p·v
-    bound_ms, bound_by = _bound(nbytes, flops)
-    emit("times", kernel="flash_fwd", shape=dict(b=b, s=s, h=h, d=d, dtype="bfloat16"),
+    bound_ms, bound_by = _bound(nbytes, flops, dtype)
+    shape = dict(b=b, s=s, h=h, d=d, dtype=str(dtype).replace("torch.", ""))
+    backend = _sdpa_backend(lib_kernels)
+    emit("times", kernel="flash_fwd", shape=shape,
          ms=kernel_ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
-         library="SDPA", library_kernels_us=lib_kernels, records=records,
+         library="SDPA", library_backend=backend, library_kernels_us=lib_kernels,
+         records=records,
          library_records=lib_records, graph_ms=graph_ms, library_graph_ms=lib_graph_ms,
          bound_ms=bound_ms, bound_by=bound_by,
          bytes=nbytes, flops=flops, share_of_bound=bound_ms / kernel_ms,
          achieved_bytes_per_s=nbytes / (kernel_ms * 1e-3), card=smi)
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by, shape=shape, library_backend=backend)
 
 
 def _times_fwd(views, bhsd_sets, smi):
-    """The main row (the training and inference batch) and a row at the
-    S=512 request shape, each beside SDPA in the same run; returns the
-    main row."""
+    """The main row (the training and inference batch), the same shape in
+    fp32 (flash_fwd_f32; MXNet's default dtype) and a row at the S=512
+    request shape, each beside SDPA in the same run; returns the main row,
+    the fp32 one under "other_shapes"."""
     row = _fwd_row(views, bhsd_sets, smi)
     device = views[0][0].device
     gen = torch.Generator(device=device).manual_seed(98)
+    fp32_views = [(x[:, :, 0], x[:, :, 1], x[:, :, 2])
+                  for x in (_randn(tuple(views[0][0].shape[:2]) + (3,)
+                                   + tuple(views[0][0].shape[2:]), torch.float32, gen, device)
+                            for _ in range(4))]  # 302 MB: beyond the 50 MB L2
+    row["other_shapes"] = [_fwd_row(
+        fp32_views, [tuple(t.transpose(1, 2).contiguous() for t in v) for v in fp32_views], smi)]
+    del fp32_views
     b, s, h, d = 8, 512, MAIN["h"], MAIN["d"]  # the S=512 request of the slice phase
     long_views = [(x[:, :, 0], x[:, :, 1], x[:, :, 2])
                   for x in (_randn((b, s, 3, h, d), torch.bfloat16, gen, device)
@@ -2273,9 +2299,9 @@ def _times_fwd(views, bhsd_sets, smi):
     return row
 
 
-def _bwd_row(b, s, gen, smi):
-    """Both backward kernels at [B, S, 12, 64] bf16 (the [B, S, 3, H, Dh]
-    views of the main path), each alone and as the one ``flash_bwd`` call
+def _bwd_row(b, s, gen, smi, dtype=torch.bfloat16):
+    """Both backward kernels at [B, S, 12, 64] in ``dtype`` (the [B, S, 3,
+    H, Dh] views of the main path), each alone and as the one ``flash_bwd`` call
     the path makes, beside the plain version and SDPA's backward in the
     same run; emits the rows and returns {kernel: row}.  The plain version
     and the library's backward compute dq, dk and dv together, so both
@@ -2291,9 +2317,9 @@ def _bwd_row(b, s, gen, smi):
     sets = []
     with torch.no_grad():
         for _ in range(4):  # > 200 MB: beyond the 50 MB L2
-            x = _randn((b, s, 3, h, d), torch.bfloat16, gen, device)
+            x = _randn((b, s, 3, h, d), dtype, gen, device)
             q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
-            do = _randn((b, s, h, d), torch.bfloat16, gen, device)
+            do = _randn((b, s, h, d), dtype, gen, device)
             o, lse = att.flash_fwd(q, k, v, with_lse=True, layout="bshd")
             sets.append((q, k, v, o, do, lse))
         dq = lambda *a: att.flash_bwd_dq(*a, layout="bshd")  # noqa: E731
@@ -2327,25 +2353,28 @@ def _bwd_row(b, s, gen, smi):
     library_ms = lib_fb_ms - lib_f_ms
     library_graph_ms = _graph_ms(fwd_bwd, lib_sets) - _graph_ms(fwd, lib_sets)
 
-    n = b * s * h * d * 2        # bytes of one [B, S, H, Dh] bf16 operand
+    n = b * s * h * d * torch.finfo(dtype).bits // 8  # bytes of one [B, S, H, Dh] operand
     lse_bytes = b * h * s * 4
-    shape = dict(b=b, s=s, h=h, d=d, dtype="bfloat16")
+    shape = dict(b=b, s=s, h=h, d=d, dtype=str(dtype).replace("torch.", ""))
+    backend = _sdpa_backend(lib_kernels)
     out = {}
     for name, ms, call_ms, records, nbytes, flops in (
             ("flash_bwd_dq", dq_ms, dq_call_ms, dq_records, 6 * n + lse_bytes,
              6 * b * h * s * s * d),
             ("flash_bwd_dkv", dkv_ms, dkv_call_ms, dkv_records, 7 * n + lse_bytes,
              8 * b * h * s * s * d)):
-        bound_ms, bound_by = _bound(nbytes, flops)
+        bound_ms, bound_by = _bound(nbytes, flops, dtype)
         emit("times", kernel=name, shape=shape, ms=ms, call_ms=call_ms,
              graph_ms=graph[name], records=records, plain_ms=plain_ms, library_ms=library_ms,
-             library="SDPA backward (fwd+bwd - fwd)", library_graph_ms=library_graph_ms,
+             library="SDPA backward (fwd+bwd - fwd)", library_backend=backend,
+             library_graph_ms=library_graph_ms,
              library_fwd_bwd_ms=lib_fb_ms, library_fwd_ms=lib_f_ms,
              library_fwd_bwd_call_ms=lib_fb_call_ms, library_kernels_us=lib_kernels,
              bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
              share_of_bound=bound_ms / ms, achieved_bytes_per_s=nbytes / (ms * 1e-3), card=smi)
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, graph_ms=graph[name], call_ms=call_ms)
+                         bound_by=bound_by, graph_ms=graph[name], call_ms=call_ms, shape=shape,
+                         library_backend=backend)
     pair_bound = out["flash_bwd_dq"]["bound_ms"] + out["flash_bwd_dkv"]["bound_ms"]
     emit("times", kernel="flash_bwd (dq and dk/dv passes, one call)", shape=shape, ms=pair_ms,
          kernels_us=pair_kernels, call_ms=pair_call_ms, parent_two_calls_call_ms=two_call_ms,
@@ -2356,9 +2385,13 @@ def _bwd_row(b, s, gen, smi):
 
 
 def _times_bwd(gen, smi):
-    """The backward rows at the main path's shape (B=64, S=128), returned,
-    and at the S=512 request shape (B=8)."""
+    """The backward rows at the main path's shape (B=64, S=128), returned
+    with the same shape in fp32 (flash_bwd_dq_f32, flash_bwd_dkv_f32) under
+    "other_shapes", and at the S=512 request shape (B=8)."""
     rows = _bwd_row(MAIN["b"], MAIN["sq"], gen, smi)
+    fp32 = _bwd_row(MAIN["b"], MAIN["sq"], gen, smi, torch.float32)
+    for name, row in rows.items():
+        row["other_shapes"] = [fp32[name]]
     _bwd_row(8, 512, gen, smi)
     return rows
 
@@ -2751,7 +2784,10 @@ WIDE_TIME_SHAPES = (  # (shape, dtype, timed calls): the TMA kernels, the 256 + 
 def _wide_rows(shape, dtype, iters, gen, smi):
     """The three flash_wide kernels at one [B, S, H, Dh] shape and dtype:
     each kernel, the plain version and SDPA (the forward; its backward as
-    fwd+bwd - fwd), with the kernels' bounds.  Returns {kernel: row}."""
+    fwd+bwd - fwd), with the kernels' bounds, and the backward as the one
+    ``flash_bwd`` call (delta, dq and dk/dv) beside SDPA's backward.  A dq
+    or dk/dv call alone holds, in bf16 and fp16, the delta launch too.
+    Returns {kernel: row}."""
     b, s, h, d = (shape[k] for k in ("b", "s", "h", "d"))
     device = torch.device("cuda", 0)
     sets = []
@@ -2764,6 +2800,7 @@ def _wide_rows(shape, dtype, iters, gen, smi):
                                                     sets, iters, uniform=True)
         dq_ms, dq_call_ms, _, dq_records = _time(att.flash_bwd_dq, sets, iters, uniform=True)
         dkv_ms, dkv_call_ms, _, dkv_records = _time(att.flash_bwd_dkv, sets, iters, uniform=True)
+        bwd_ms, bwd_call_ms, bwd_kernels, _ = _time(att.flash_bwd, sets, iters, uniform=True)
         fwd_plain_ms = _time(lambda q, k, v, *_: att.flash_fwd_plain(q, k, v), sets, 5)[0]
         bwd_plain_ms = _time(att.flash_bwd_plain, sets, 5)[0]
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2785,6 +2822,13 @@ def _wide_rows(shape, dtype, iters, gen, smi):
     n = b * s * h * d * torch.finfo(dtype).bits // 8
     lse_bytes = b * h * s * 4
     label = dict(shape, dtype=str(dtype).replace("torch.", ""))
+    # the call's bound: q, k, v, o, do and lse read once, dq, dk, dv written
+    bwd_bound_ms, bwd_bound_by = _bound(8 * n + lse_bytes, 10 * b * h * s * s * d, dtype)
+    emit("times", kernel="flash_wide_bwd (one call: delta, dq, dk/dv)", shape=label, ms=bwd_ms,
+         call_ms=bwd_call_ms, kernels_us=bwd_kernels, library_ms=lib_b_ms,
+         library="SDPA backward (fwd+bwd - fwd)",
+         vs_library=None if lib_b_ms is None else bwd_ms / lib_b_ms, bound_ms=bwd_bound_ms,
+         bound_by=bwd_bound_by, share_of_bound=bwd_bound_ms / bwd_ms, card=smi)
     out = {}
     for name, ms, call_ms, records, plain_ms, lib_ms, nbytes, flops in (
             ("flash_wide_fwd", fwd_ms, fwd_call_ms, fwd_records, fwd_plain_ms, lib_f_ms,
@@ -2794,13 +2838,14 @@ def _wide_rows(shape, dtype, iters, gen, smi):
             ("flash_wide_bwd_dkv", dkv_ms, dkv_call_ms, dkv_records, bwd_plain_ms, lib_b_ms,
              7 * n + lse_bytes, 8 * b * h * s * s * d)):
         bound_ms, bound_by = _bound(nbytes, flops, dtype)
+        lib_kernels = lib_f_kernels if name.endswith("fwd") else lib_b_kernels
         emit("times", kernel=name, shape=label, ms=ms, call_ms=call_ms, records=records,
              plain_ms=plain_ms, library_ms=lib_ms,
              library="SDPA (its own choice of backend)" if name.endswith("fwd")
              else "SDPA backward (fwd+bwd - fwd)",
-             library_kernels_us=lib_f_kernels if name.endswith("fwd") else lib_b_kernels,
-             bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
-             share_of_bound=bound_ms / ms, card=smi)
+             library_backend=None if lib_kernels is None else _sdpa_backend(lib_kernels),
+             library_kernels_us=lib_kernels, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+             flops=flops, share_of_bound=bound_ms / ms, card=smi)
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                          bound_by=bound_by, call_ms=call_ms, shape=label,
                          functions=sorted({_function_name(f) for f in records}))
@@ -2976,9 +3021,13 @@ def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, fold, smi
                                   "CUDA driver launch)"}
         elif name.startswith("flash_wide"):
             per = {"per": "one call at [B, S, H, Dh] = [4, 512, 8, 512] bf16 (other_shapes: "
-                          "the same at Dh 320 and 1024, and fp32 at Dh 512); no main path "
+                          "the same at Dh 320 and 1024, and fp32 at Dh 512); in bf16 and fp16 "
+                          "a dq or a dk/dv call alone holds the delta launch too; no main path "
                           "has a head above 256, so its launches there are 0",
                    "functions": row["functions"], "other_shapes": row["other_shapes"]}
+        elif "other_shapes" in row:
+            per = {"per": "one call at the main path's [64, 128, 12, 64] bf16 (other_shapes: "
+                          "the same in fp32)", "other_shapes": row["other_shapes"]}
         elif name == "multi_tensor":
             per = {"per": "one BERT-base step's fused group (mp_adam, 159 tensors); not a TPU "
                           "kernel but the counterpart of group_apply's one XLA dispatch; "

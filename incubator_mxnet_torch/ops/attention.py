@@ -30,16 +30,19 @@ sequence (stride 0) goes to the kernels contiguous, since TMA reads rows
 in boxes.  A head dim above 256 goes to ``ops/csrc/flash_wide.cu``
 (padded to a multiple of 64), whose launches count on their own wrappers
 (``flash_wide_fwd``, ``flash_wide_bwd_dq``, ``flash_wide_bwd_dkv``).  In
-bf16 and fp16 its forward and dk/dv pass are TMA-fed warpgroup-MMA kernels
-on 64-row tiles: the forward's two consumer warpgroups split the head's
-columns and swap partial scores, the dk/dv pass gives each key tile two
-items (a slab of dk and dv each) and runs after a launch of its own that
-computes delta = rowsum(do∘o) once a query row into a buffer the wrapper
-allocates (two launches a pass).  Above 512 columns the same kernels
-stream k and v (and q) through their rings box by box and make each slab
-of the outputs a work item of its own, so every head dim runs on them.
-fp32, and the dq pass of every type, stay on CUDA-core kernels (one launch
-a pass) that stream each reduction over the head in 64-column chunks.
+bf16 and fp16 all three passes are TMA-fed warpgroup-MMA kernels on
+64-row tiles: the forward's two consumer warpgroups split the head's
+columns and swap partial scores; the dq pass keeps a query tile's q and
+do in shared memory, its warpgroups swap p and dp − delta and split the
+columns of dq; the dk/dv pass gives each key tile two items (a slab of dk
+and dv each).  Before either backward pass, one launch a call computes
+delta = rowsum(do∘o) once a query row into a buffer the wrapper
+allocates; it counts on the dq pass when the call runs it, else on the
+dk/dv pass (``_dq_launches``, ``_dkv_launches``).  Above 512 columns the
+same kernels stream their operands through their rings box by box and
+make each slab of the outputs a work item of its own, so every head dim
+runs on them.  fp32 stays on CUDA-core kernels (one launch a pass) that
+stream each reduction over the head in 64-column chunks.
 
 Gradients: one ``torch.autograd.Function`` (``_FlashAttention``) holds
 the forward, which saves o and the per-row log-sum-exp when an input
@@ -80,15 +83,24 @@ def _launches(width):
 
 
 def _has_delta_pass(width, dtype):
-    """Whether the dk/dv pass at ``width`` runs flash_wide.cu's delta pass
-    first (a 16-bit head above 256)."""
+    """Whether a backward call at ``width`` launches flash_wide.cu's delta
+    pass (a 16-bit head above 256): once a call, before whichever of its
+    passes the call runs, both of which read it."""
     return _is_wide(width) and dtype != torch.float32
 
 
-def _dkv_launches(width, dtype):
-    """Launches of the dk/dv pass: at a 16-bit head above 256, the delta
-    pass and the dk/dv kernel."""
+def _dq_launches(width, dtype):
+    """Launches counted on the dq pass of a backward call that runs it: its
+    kernel's, and the delta pass's where there is one."""
     return _launches(width) + int(_has_delta_pass(width, dtype))
+
+
+def _dkv_launches(width, dtype, with_dq=False):
+    """Launches counted on the dk/dv pass of a backward call: its kernel's,
+    and the delta pass's where there is one and the call runs no dq pass
+    (``with_dq``), which counts it otherwise.  So a 16-bit call above 256
+    that runs both passes counts 2 + 1: three launches, delta once."""
+    return _launches(width) + int(_has_delta_pass(width, dtype) and not with_dq)
 
 
 def flash_fwd_plain(q, k, v, causal=False, scale=None, with_lse=False):
@@ -321,9 +333,10 @@ def _bwd_launch(q, k, v, o, do, lse, dq, dk, dv, causal, scale, bshd):
     """One ctypes call of ``mx_flash_bwd``: the dq pass when ``dq`` is
     given, the dk/dv pass when ``dk``/``dv`` are, both from one set of
     tensor maps.  A padded head dim runs on padded buffers that are then
-    copied, sliced, into the given ones; the 16-bit dk/dv pass above Dh 256
-    gets an fp32 buffer for delta.  Returns the launches of the dq pass and
-    of the dk/dv pass, 0 for a pass not asked for."""
+    copied, sliced, into the given ones; a 16-bit call above Dh 256 gets an
+    fp32 buffer for delta, which one launch fills before the passes.
+    Returns the launches counted on the dq pass and on the dk/dv pass
+    (``_dq_launches``, ``_dkv_launches``), 0 for a pass not asked for."""
     d = q.shape[-1]
     width = _kernel_width("flash_bwd", q, k, v)
     q, k, v, o, do = _kernel_operands(width, bshd, q, k, v, o, do)
@@ -346,7 +359,7 @@ def _bwd_launch(q, k, v, o, do, lse, dq, dk, dv, causal, scale, bshd):
     strides = (ctypes.c_longlong * 24)(*(st for x in ops for st in _strides_bhs(x, bshd)))
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     delta = (torch.empty(b * h, sq, dtype=torch.float32, device=q.device)
-             if dk is not None and _has_delta_pass(width, q.dtype) else None)
+             if _has_delta_pass(width, q.dtype) else None)
     scratch = (ptr(delta),) if _is_wide(width) else ()
     with torch.cuda.device(q.device):
         rc = _bwd_entry(width)(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -360,8 +373,8 @@ def _bwd_launch(q, k, v, o, do, lse, dq, dk, dv, causal, scale, bshd):
         for dst, g in zip(wanted, (dq, dk, dv)):
             if dst is not None:
                 dst.copy_(g[..., :d])
-    return (0 if dq is None else _launches(width),
-            0 if dk is None else _dkv_launches(width, q.dtype))
+    return (0 if dq is None else _dq_launches(width, q.dtype),
+            0 if dk is None else _dkv_launches(width, q.dtype, with_dq=dq is not None))
 
 
 def _bwd_args(q, layout, scale):
@@ -390,7 +403,8 @@ def flash_bwd_dq(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd", d
     """The dq pass of :func:`flash_bwd`; writes into ``dq`` when given and
     returns dq.  A CPU tensor takes :func:`flash_bwd_plain`; a CUDA tensor
     launches the dq kernel (``flash_bwd_dq.launches`` counts, above Dh 256
-    ``flash_wide_bwd_dq.launches``) or raises."""
+    ``flash_wide_bwd_dq.launches``: two in bf16 and fp16, the delta pass
+    and the kernel) or raises."""
     bshd, scale = _bwd_args(q, layout, scale)
     if q.device.type == "cpu":
         return _into(dq, _bwd_plain(q, k, v, o, do, lse, causal, scale, bshd)[0])
@@ -407,7 +421,7 @@ def flash_bwd_dkv(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd",
     :func:`flash_bwd_plain`; a CUDA tensor launches the dk/dv kernel
     (``flash_bwd_dkv.launches`` counts, above Dh 256
     ``flash_wide_bwd_dkv.launches``: two in bf16 and fp16, the delta pass
-    and the kernel) or raises."""
+    and the kernel, as this call runs no dq pass) or raises."""
     if (dk is None) != (dv is None):
         raise ValueError("flash_bwd_dkv: give both dk and dv or neither")
     bshd, scale = _bwd_args(q, layout, scale)
@@ -423,7 +437,8 @@ def flash_bwd_dkv(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd",
 
 def flash_wide_bwd_dq(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd", dq=None):
     """:func:`flash_bwd_dq` at a head dim above 256: the ``flash_wide_bwd_dq``
-    kernel (``flash_wide_bwd_dq.launches`` counts)."""
+    kernel (``flash_wide_bwd_dq.launches`` counts; in bf16 and fp16 the
+    delta pass too)."""
     if q.shape[-1] <= _HEAD_DIMS[-1]:
         raise ValueError(f"flash_wide_bwd_dq takes head dims above {_HEAD_DIMS[-1]}, got "
                          f"{q.shape[-1]}")
@@ -433,7 +448,8 @@ def flash_wide_bwd_dq(q, k, v, o, do, lse, causal=False, scale=None, layout="bhs
 def flash_wide_bwd_dkv(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd",
                        dk=None, dv=None):
     """:func:`flash_bwd_dkv` at a head dim above 256: the
-    ``flash_wide_bwd_dkv`` kernel (``flash_wide_bwd_dkv.launches`` counts)."""
+    ``flash_wide_bwd_dkv`` kernel (``flash_wide_bwd_dkv.launches`` counts; in
+    bf16 and fp16 the delta pass too)."""
     if q.shape[-1] <= _HEAD_DIMS[-1]:
         raise ValueError(f"flash_wide_bwd_dkv takes head dims above {_HEAD_DIMS[-1]}, got "
                          f"{q.shape[-1]}")
@@ -471,8 +487,9 @@ def flash_bwd(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd", out=
     CUDA tensor launches the two kernels, the dq pass then the dk/dv pass,
     in one call (``flash_bwd_dq.launches`` and ``flash_bwd_dkv.launches``
     each count one, two at Dh 129-256; above 256 the ``flash_wide_*``
-    wrappers' counts take theirs: one for dq, and for dk/dv two in bf16
-    and fp16, the delta pass and the kernel), or raises."""
+    wrappers' counts take theirs: one each, and in bf16 and fp16 the one
+    delta pass of the call on ``flash_wide_bwd_dq``, three launches in
+    all), or raises."""
     dq, dk, dv = out if out is not None else (None, None, None)
     bshd, scale = _bwd_args(q, layout, scale)
     if q.device.type == "cpu":

@@ -18,13 +18,15 @@
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense): at
 // [B, S, H, Dh] = [4, 512, 8, 512] bf16 the forward must move 67 MB (20 us)
-// for 17.2 GFLOP (17 us), the dk/dv pass 118 MB (35 us) for 34 GFLOP
-// (35 us): both sit where bytes and tensor-core operations take about the
-// same time, so the products must run on wgmma, fed by loads kept in
-// flight.  What makes a wide head hard is room: a 64-row 16-bit tile is
-// 40-64 KB at Dh 320-512 (a block has 227 KB of shared memory), and a
-// 64 x 512 fp32 accumulator is 256 registers a thread of a warpgroup (the
-// most a thread may hold is 255).
+// for 17.2 GFLOP (17 us), the dq pass 101 MB (30 us) for 25.8 GFLOP
+// (26 us), the dk/dv pass 118 MB (35 us) for 34 GFLOP (35 us): all sit
+// where bytes and tensor-core operations take about the same time, so the
+// products must run on wgmma, fed by loads kept in flight.  What makes a
+// wide head hard is room: a 64-row 16-bit tile is 40-64 KB at Dh 320-512
+// (a block has 227 KB of shared memory), and a 64 x 512 fp32 accumulator
+// is 256 registers a thread of a warpgroup (the most a thread may hold is
+// 255), so no warpgroup holds a whole row of o, dq, dk or dv: each output
+// is split by columns between the two consumer warpgroups.
 //
 // The 16-bit forward (flash_wide_fwd_tma), Dh = 64·P, P = 5..8:
 // * A work item is 64 query rows of one (batch, head), walked by a
@@ -49,6 +51,29 @@
 //   while p·v of tile j runs, V of tile j+1 while q·kᵀ of tile j+1 runs.  o
 //   is divided by the row sums, staged in the consumer's last V slot and
 //   written by TMA stores, which clip rows past Sq.
+// The 16-bit dq pass (flash_wide_bwd_dq_tma):
+// * A work item is 64 query rows of one (batch, head), as the forward's
+//   (the same order; each stops at its last visible key tile).  The item's
+//   Q and dO tiles stay in shared memory (2 x 64 KB at Dh 512), loaded once.
+//   For each 64-key tile, consumer 0 computes s = q·kᵀ over the head and p
+//   = 2^(s·scale·log2e − lse·log2e), consumer 1 dp = do·vᵀ and dp − delta
+//   (both wgmma m64n64k16 from shared memory, a k box or a v box a ring
+//   slot); the two swap p and dp − delta through two fp32 buffers (2 x 16
+//   KB; two named barriers a tile) and both form ds = p∘(dp − delta), the
+//   same fp32 products, so the same bits, rounded to q's type.  Each then
+//   accumulates its half of dq's columns, dq += ds·k (wgmma m64n64k16, ds
+//   the register A operand, the k box MN-major): consumer 0 the first
+//   ceil(P/2) boxes, consumer 1 the rest, each box from a product slot that
+//   carries k boxes x and ceil(P/2) + x side by side, so every slot has one
+//   size (16 KB).  Each product is done once: s, dp and ds·k are the three
+//   S²·Dh products the pass needs.  The swap rather than a hand-over of p
+//   one way and ds back: one exchange point a tile, not two in series.
+// * Shared memory at Dh 512: Q and dO 128 KB, the exchange 32 KB and 4
+//   slots of 16 KB: 230,480 bytes (7 slots at Dh 320).  Registers: dq is
+//   64 x 256 fp32, 128 a thread, beside 32 of scores and 16 of ds
+//   fragments, the forward's budget.  At the end each consumer stages its
+//   dq boxes (times scale) in the tile only it read, consumer 0 in Q and 1
+//   in dO, and TMA stores clip rows past Sq.
 // The 16-bit dk/dv pass (flash_wide_bwd_dkv_tma):
 // * A work item is 64 keys of one (batch, head) and one slab of dk and dv:
 //   slab 0 the first ceil(P/2) column boxes, slab 1 the rest, so the two
@@ -70,18 +95,18 @@
 //   product is done (wait_group 1 keeps one group in flight).  The
 //   gradients are staged in the consumer's own K or V tile, no longer
 //   read, and written by TMA stores that clip keys past Sk.
-// * delta = rowsum(do∘o) is computed once a query row by a pass of its own
-//   before the dk/dv kernel (flash_wide_bwd_dkv_delta, one warp a row, into
-//   an fp32 buffer the wrapper allocates), so o is never loaded into the
-//   dk/dv kernel and no item recomputes it.
+// * delta = rowsum(do∘o) is computed once a query row by one launch of its
+//   own (flash_wide_bwd_delta, one warp a row, into an fp32 buffer the
+//   wrapper allocates) before whichever backward passes a call runs, so
+//   neither loads o and no item recomputes it.
 // * setmaxnreg 40 / 232 moves registers from the producer to the
 //   consumers (40·128 + 232·256 <= 65536).
-// Both kernels are persistent (a block an SM), deterministic and hold one
-// item's state in a block at a time.
-// A 16-bit head above 512 (P > 8) runs the same two kernels instantiated at
-// D = 512 and streamed (STREAM): no warpgroup can hold more than 256
-// columns of o, dk or dv (wgmma's widest N), and no whole-width tile fits
-// beside the rings any more (64 rows of Dh 640 are 80 KB).
+// All three kernels are persistent (a block an SM), deterministic and hold
+// one item's state in a block at a time.
+// A 16-bit head above 512 (P > 8) runs the same three kernels instantiated
+// at D = 512 and streamed (STREAM): no warpgroup can hold more than 256
+// columns of o, dq, dk or dv (wgmma's widest N), and no whole-width tile
+// fits beside the rings any more (64 rows of Dh 640 are 80 KB).
 // * Forward: the slab of o becomes part of the work item, ceil(P/8) even
 //   slabs of at most 8 boxes a query tile (4 a consumer).  Each slab item
 //   computes the whole head's scores again: consumer 0 reduces over the
@@ -89,6 +114,10 @@
 //   round's q boxes in its half of the Q tile's room and its k boxes in its
 //   K slot, behind the same full/empty pair; then the swap, softmax and p·v
 //   over its boxes of the slab, as above.  q·kᵀ is done ceil(P/8) times.
+// * dq: the same slabs of dq as items; s and dp are redone for each slab,
+//   each reduction slot carrying a box of q, do, k and v (32 KB, 4 slots),
+//   and each consumer stages its dq boxes in a buffer of 4 (2 x 32 KB) in
+//   place of the Q and dO tiles.
 // * dk/dv: ceil(P/4) even slabs of at most 4 boxes a key tile, an item
 //   each; K and V are no longer resident: each reduction slot carries a box
 //   of k and of v beside q's and do's (32 KB, 4 slots), and the gradients
@@ -98,17 +127,21 @@
 // reaches about two fifths of its bound and runs about 2.8x faster than
 // SDPA's forward; probes that took parts out of copies of this source
 // found its time in the chain of score swap and softmax (both consumers run
-// it while the tensor cores wait), not in its loads.  The dk/dv pass, delta
-// launch included, reaches about a fifth of its bound.
+// it while the tensor cores wait), not in its loads.  The dq pass, its
+// delta launch included, reaches about three tenths of its bound; taking
+// out any one part (the reductions' or the products' wgmmas, the swap, the
+// k and v loads) moved it by at most an eighth, so its time is the chain of
+// small steps a key tile (a ring slot a box, one wgmma group in flight,
+// two barriers), not one resource.  The dk/dv pass, delta launch included,
+// reaches about a fifth of its bound.
 //
 // What stays on the CUDA cores: fp32 (flash_wide_fwd_f32,
-// flash_wide_bwd_dkv_f32), as the fp32 paths of flash_fwd.cu and
-// flash_bwd.cu, since wgmma has no full-fp32 product; and the dq pass
-// (flash_wide_bwd_dq, every type), whose redesign is the next in line.
+// flash_wide_bwd_dq_f32, flash_wide_bwd_dkv_f32), as the fp32 paths of
+// flash_fwd.cu and flash_bwd.cu, since wgmma has no full-fp32 product.
 // They stream every reduction over Dh in 64-column chunks staged in shared
-// memory as fp32, produce each output in 128-column slabs (one slab a
-// block, recomputing the scores for each slab; dk/dv gives dv and dk slabs
-// blocks of their own), 256 threads and 64 x 32 scores a block.
+// memory, produce each output in 128-column slabs (one slab a block,
+// recomputing the scores for each slab; dk/dv gives dv and dk slabs blocks
+// of their own), 256 threads and 64 x 32 scores a block.
 
 #include <math.h>
 
@@ -123,7 +156,7 @@ struct Params {
   const void* o;
   const void* dout;
   float* lse;    // written by the forward (or null), read by the backward
-  float* delta;  // rowsum(do*o), [B*H, Sq]: written by the delta pass, read by dk/dv
+  float* delta;  // rowsum(do*o), [B*H, Sq]: written by the delta pass, read by dq and dk/dv
   void* out;     // o (fwd) or dq
   void* dk;
   void* dv;
@@ -144,7 +177,7 @@ __device__ __forceinline__ const T* base(const Params& p, int which, const void*
 }
 
 // ---------------------------------------------------------------------------
-// CUDA cores: fp32, and the dq pass of every type
+// CUDA cores: fp32
 // ---------------------------------------------------------------------------
 
 constexpr int THREADS = 256;
@@ -154,54 +187,27 @@ constexpr int CHUNK = 64;  // Dh columns of one reduction step
 constexpr int SLAB = 128;  // output columns of a block
 constexpr int PITCH = CHUNK + 1;
 
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f<__half>(__half x) { return __half2float(x); }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __half from_f<__half>(float x) { return __float2half_rn(x); }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x rounded to T and back: where the plain version casts to the 16-bit type.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f<T>(from_f<T>(x)); }
-
 // rows [row0, row0 + n) x columns [c0, c0 + w) of a [S, Dh] operand (sequence
-// stride ss) into dst[n][pitch] as fp32; rows at or past `nrows` read as 0.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, int pitch, const T* g, long long ss, int row0,
-                                      int n, int nrows, int c0, int w) {
+// stride ss) into dst[n][pitch]; rows at or past `nrows` read as 0.
+__device__ __forceinline__ void stage(float* dst, int pitch, const float* g, long long ss,
+                                      int row0, int n, int nrows, int c0, int w) {
   for (int idx = threadIdx.x; idx < n * w; idx += THREADS) {
     const int r = idx / w, c = idx % w;
     const int row = row0 + r;
-    dst[r * pitch + c] = row < nrows ? to_f<T>(g[row * ss + c0 + c]) : 0.f;
+    dst[r * pitch + c] = row < nrows ? g[row * ss + c0 + c] : 0.f;
   }
 }
 
 // acc[i][j] += sum over Dh of a[row0 + 4ty + i] * b[col0 + 2tx + j]: a ROWS x
 // COLS product of two [S, Dh] operands, streamed through sa and sb in
 // CHUNK-column steps.  Ends with a barrier, so the buffers may be reused.
-template <typename T>
-__device__ void reduce_dh(float (&acc)[4][2], float* sa, float* sb, const T* a, long long a_ss,
-                          int a0, int na, const T* b, long long b_ss, int b0, int nb, int D) {
+__device__ void reduce_dh(float (&acc)[4][2], float* sa, float* sb, const float* a,
+                          long long a_ss, int a0, int na, const float* b, long long b_ss, int b0,
+                          int nb, int D) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   for (int c0 = 0; c0 < D; c0 += CHUNK) {
-    stage<T>(sa, PITCH, a, a_ss, a0, ROWS, na, c0, CHUNK);
-    stage<T>(sb, PITCH, b, b_ss, b0, COLS, nb, c0, CHUNK);
+    stage(sa, PITCH, a, a_ss, a0, ROWS, na, c0, CHUNK);
+    stage(sb, PITCH, b, b_ss, b0, COLS, nb, c0, CHUNK);
     __syncthreads();
 #pragma unroll 8
     for (int d = 0; d < CHUNK; ++d) {
@@ -224,11 +230,10 @@ __device__ void reduce_dh(float (&acc)[4][2], float* sa, float* sb, const T* a, 
 // COLS rows of an operand's slab, staged into sv.  The last slab of a head
 // dim that is not a multiple of SLAB is 64 columns wide: the columns past D
 // are never written out.  Ends with a barrier.
-template <typename T>
-__device__ void slab_product(float (&out)[4][8], const float* sw, float* sv, const T* g,
+__device__ void slab_product(float (&out)[4][8], const float* sw, float* sv, const float* g,
                              long long ss, int row0, int nrows, int c0, int D) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  stage<T>(sv, SLAB, g, ss, row0, COLS, nrows, c0, min(SLAB, D - c0));
+  stage(sv, SLAB, g, ss, row0, COLS, nrows, c0, min(SLAB, D - c0));
   __syncthreads();
 #pragma unroll 4
   for (int j = 0; j < COLS; ++j) {
@@ -286,7 +291,7 @@ __global__ void __launch_bounds__(THREADS) flash_wide_fwd_f32(Params p) {
   for (int t = 0; t < nk; ++t) {
     const int k0 = t * COLS;
     float s[4][2] = {};
-    reduce_dh<float>(s, sa, sb, q, p.st[Q][2], q0, p.Sq, k, p.st[K][2], k0, p.Sk, p.D);
+    reduce_dh(s, sa, sb, q, p.st[Q][2], q0, p.Sq, k, p.st[K][2], k0, p.Sk, p.D);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q0 + 4 * ty + i;
@@ -314,7 +319,7 @@ __global__ void __launch_bounds__(THREADS) flash_wide_fwd_f32(Params p) {
       for (int c = 0; c < 8; ++c) acc[i][c] *= corr;
     }
     // sp is complete after the barrier inside slab_product's staging
-    slab_product<float>(acc, sp, sa, v, p.st[V][2], k0, p.Sk, c0, p.D);
+    slab_product(acc, sp, sa, v, p.st[V][2], k0, p.Sk, c0, p.D);
   }
   float* o = static_cast<float*>(p.out) + b * p.st[OUT][0] + h * p.st[OUT][1];
 #pragma unroll
@@ -332,8 +337,7 @@ __global__ void __launch_bounds__(THREADS) flash_wide_fwd_f32(Params p) {
 }
 
 // Block (batch*head x, query tile y, slab z): dq[rows, slab].
-template <typename T>
-__global__ void __launch_bounds__(THREADS) flash_wide_bwd_dq(Params p) {
+__global__ void __launch_bounds__(THREADS) flash_wide_bwd_dq_f32(Params p) {
   __shared__ float smem[SMEM_FLOATS];
   float* sa = smem;
   float* sb = smem + ROWS * PITCH;
@@ -341,11 +345,11 @@ __global__ void __launch_bounds__(THREADS) flash_wide_bwd_dq(Params p) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int q0 = blockIdx.y * ROWS, bh = blockIdx.x, c0 = blockIdx.z * SLAB;
   const int b = bh / p.H, h = bh % p.H;
-  const T* q = base<T>(p, Q, p.q, b, h);
-  const T* k = base<T>(p, K, p.k, b, h);
-  const T* v = base<T>(p, V, p.v, b, h);
-  const T* o = base<T>(p, O, p.o, b, h);
-  const T* dout = base<T>(p, DO, p.dout, b, h);
+  const float* q = base<float>(p, Q, p.q, b, h);
+  const float* k = base<float>(p, K, p.k, b, h);
+  const float* v = base<float>(p, V, p.v, b, h);
+  const float* o = base<float>(p, O, p.o, b, h);
+  const float* dout = base<float>(p, DO, p.dout, b, h);
 
   // delta = rowsum(do * o) and the lse of this thread's four rows
   float delta[4], lse[4];
@@ -355,7 +359,7 @@ __global__ void __launch_bounds__(THREADS) flash_wide_bwd_dq(Params p) {
     float part = 0.f;
     if (row < p.Sq)
       for (int c = tx; c < p.D; c += 16)
-        part = fmaf(to_f<T>(dout[row * p.st[DO][2] + c]), to_f<T>(o[row * p.st[O][2] + c]), part);
+        part = fmaf(dout[row * p.st[DO][2] + c], o[row * p.st[O][2] + c], part);
     delta[i] = row_sum(part);
     lse[i] = row < p.Sq ? p.lse[(long long)bh * p.Sq + row] : 0.f;
   }
@@ -365,8 +369,8 @@ __global__ void __launch_bounds__(THREADS) flash_wide_bwd_dq(Params p) {
   for (int t = 0; t < nk; ++t) {
     const int k0 = t * COLS;
     float s[4][2] = {}, dp[4][2] = {};
-    reduce_dh<T>(s, sa, sb, q, p.st[Q][2], q0, p.Sq, k, p.st[K][2], k0, p.Sk, p.D);
-    reduce_dh<T>(dp, sa, sb, dout, p.st[DO][2], q0, p.Sq, v, p.st[V][2], k0, p.Sk, p.D);
+    reduce_dh(s, sa, sb, q, p.st[Q][2], q0, p.Sq, k, p.st[K][2], k0, p.Sk, p.D);
+    reduce_dh(dp, sa, sb, dout, p.st[DO][2], q0, p.Sq, v, p.st[V][2], k0, p.Sk, p.D);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q0 + 4 * ty + i;
@@ -375,12 +379,12 @@ __global__ void __launch_bounds__(THREADS) flash_wide_bwd_dq(Params p) {
         const int key = k0 + 2 * tx + j;
         const bool masked = row >= p.Sq || key >= p.Sk || (p.causal && key > row);
         const float pr = masked ? 0.f : expf(s[i][j] * p.scale - lse[i]);
-        sds[(4 * ty + i) * (COLS + 1) + 2 * tx + j] = round_to<T>(pr * (dp[i][j] - delta[i]));
+        sds[(4 * ty + i) * (COLS + 1) + 2 * tx + j] = pr * (dp[i][j] - delta[i]);
       }
     }
-    slab_product<T>(acc, sds, sa, k, p.st[K][2], k0, p.Sk, c0, p.D);
+    slab_product(acc, sds, sa, k, p.st[K][2], k0, p.Sk, c0, p.D);
   }
-  T* dq = static_cast<T*>(p.out) + b * p.st[OUT][0] + h * p.st[OUT][1];
+  float* dq = static_cast<float*>(p.out) + b * p.st[OUT][0] + h * p.st[OUT][1];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
@@ -388,7 +392,7 @@ __global__ void __launch_bounds__(THREADS) flash_wide_bwd_dq(Params p) {
 #pragma unroll
     for (int c = 0; c < 8; ++c)
       if (c0 + tx + 16 * c < p.D)
-        dq[row * p.st[OUT][2] + c0 + tx + 16 * c] = from_f<T>(acc[i][c] * p.scale);
+        dq[row * p.st[OUT][2] + c0 + tx + 16 * c] = acc[i][c] * p.scale;
   }
 }
 
@@ -434,9 +438,9 @@ __global__ void __launch_bounds__(THREADS) flash_wide_bwd_dkv_f32(Params p) {
     }
     float s[4][2] = {}, dp[4][2] = {};
     // the barriers inside reduce_dh publish s_delta and s_lse
-    reduce_dh<float>(s, sa, sb, k, p.st[K][2], k0, p.Sk, q, p.st[Q][2], q0, p.Sq, p.D);
+    reduce_dh(s, sa, sb, k, p.st[K][2], k0, p.Sk, q, p.st[Q][2], q0, p.Sq, p.D);
     if (is_dk)
-      reduce_dh<float>(dp, sa, sb, v, p.st[V][2], k0, p.Sk, dout, p.st[DO][2], q0, p.Sq, p.D);
+      reduce_dh(dp, sa, sb, v, p.st[V][2], k0, p.Sk, dout, p.st[DO][2], q0, p.Sq, p.D);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int key = k0 + 4 * ty + i;
@@ -449,7 +453,7 @@ __global__ void __launch_bounds__(THREADS) flash_wide_bwd_dkv_f32(Params p) {
             is_dk ? pr * (dp[i][j] - s_delta[jq]) : pr;
       }
     }
-    slab_product<float>(acc, sw, sa, is_dk ? q : dout, is_dk ? p.st[Q][2] : p.st[DO][2], q0, p.Sq,
+    slab_product(acc, sw, sa, is_dk ? q : dout, is_dk ? p.st[Q][2] : p.st[DO][2], q0, p.Sq,
                     c0, p.D);
   }
   const int which = is_dk ? DK : DV;
@@ -466,23 +470,15 @@ __global__ void __launch_bounds__(THREADS) flash_wide_bwd_dkv_f32(Params p) {
   }
 }
 
-// The dq pass on the CUDA cores, every type.
-template <typename T>
-cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
-  const dim3 grid((unsigned)(p.B * p.H), (p.Sq + ROWS - 1) / ROWS, (p.D + SLAB - 1) / SLAB);
-  flash_wide_bwd_dq<T><<<grid, THREADS, 0, stream>>>(p);
-  return cudaGetLastError();
-}
-
 // One fp32 pass on the CUDA cores: 0 the forward, 1 dq, 2 dk/dv.
 cudaError_t launch_f32(const Params& p, int pass, cudaStream_t stream) {
   const unsigned slabs = (unsigned)((p.D + SLAB - 1) / SLAB);
   const unsigned bh = (unsigned)(p.B * p.H);
+  const dim3 query_tiles(bh, (p.Sq + ROWS - 1) / ROWS, slabs);
   if (pass == 0) {
-    const dim3 grid(bh, (p.Sq + ROWS - 1) / ROWS, slabs);
-    flash_wide_fwd_f32<<<grid, THREADS, 0, stream>>>(p);
+    flash_wide_fwd_f32<<<query_tiles, THREADS, 0, stream>>>(p);
   } else if (pass == 1) {
-    return launch_dq<float>(p, stream);
+    flash_wide_bwd_dq_f32<<<query_tiles, THREADS, 0, stream>>>(p);
   } else {
     const dim3 grid(bh, (p.Sk + ROWS - 1) / ROWS, 2 * slabs);
     flash_wide_bwd_dkv_f32<<<grid, THREADS, 0, stream>>>(p);
@@ -561,13 +557,38 @@ struct DkvTiles {
   static constexpr int SMEM = 2 * KV + PFLOATS * 4 + SLOTS * SLOT + BARRIERS * 8 + 1024;
 };
 
+// dq shared memory: the item's Q and dO tiles, which each warpgroup's dq
+// boxes are staged in at its end (Q: warpgroup 0's, dO: 1's), the two fp32
+// exchange buffers of a key tile (p, and dp − delta), and a ring of SLOTS
+// slots of two boxes: a k box and a v box of a key tile for the reductions,
+// k boxes x and ceil(n/2) + x of the slab for the products.  Streamed (a
+// head above 512): in place of Q and dO, each warpgroup's staging (4 boxes),
+// and slots of four boxes, q's and do's beside k's and v's.
+template <int D, bool STREAM = false>
+struct DqTiles {
+  static constexpr int TILE_BYTES = STREAM ? 4 * BX::BYTES : Box<D, TILE>::BYTES;
+  static constexpr int SLOT = (STREAM ? 4 : 2) * BX::BYTES;
+  static constexpr int PART = TILE * TILE;  // floats of one exchange buffer
+  static constexpr int FIXED = 2 * TILE_BYTES + 2 * PART * 4 + 1024 + 8 * (2 + 2 * 8);
+  static constexpr int ROOM = (SMEM_LIMIT - FIXED) / SLOT;
+  static constexpr int SLOTS = ROOM < 8 ? ROOM : 8;
+  static constexpr int BARRIERS = 2 + 2 * SLOTS;
+  static constexpr int SMEM = 2 * TILE_BYTES + 2 * PART * 4 + SLOTS * SLOT + BARRIERS * 8 + 1024;
+};
+
 // Dynamic shared memory (bytes) at Dh 320 / 384 / 448 / 512 (the limit is
 // 232,448): forward 173,136 / 181,328 / 222,288 / 230,480 (and streamed);
-// dk/dv (8 / 7 / 6 / 5 slots) 230,544 / 230,528 / 230,512 / 230,496,
-// streamed (4 slots) 214,096.
+// dq (7 / 6 / 5 / 4 slots) 230,528 / 230,512 / 230,496 / 230,480, streamed
+// (4 slots) 230,480; dk/dv (8 / 7 / 6 / 5 slots) 230,544 / 230,528 /
+// 230,512 / 230,496, streamed (4 slots) 214,096.
 static_assert(FwdTiles<320>::SMEM == 173136 && FwdTiles<384>::SMEM == 181328 &&
                   FwdTiles<448>::SMEM == 222288 && FwdTiles<512>::SMEM == 230480,
               "the sizes stated beside FwdTiles");
+static_assert(DqTiles<320>::SLOTS == 7 && DqTiles<512>::SLOTS == 4 &&
+                  DqTiles<320>::SMEM == 230528 && DqTiles<384>::SMEM == 230512 &&
+                  DqTiles<448>::SMEM == 230496 && DqTiles<512>::SMEM == 230480 &&
+                  DqTiles<512, true>::SLOTS == 4 && DqTiles<512, true>::SMEM == 230480,
+              "the sizes stated beside DqTiles");
 static_assert(DkvTiles<320>::SLOTS == 8 && DkvTiles<512>::SLOTS == 5 &&
                   DkvTiles<320>::SMEM == 230544 && DkvTiles<384>::SMEM == 230528 &&
                   DkvTiles<448>::SMEM == 230512 && DkvTiles<512>::SMEM == 230496 &&
@@ -638,9 +659,10 @@ struct FwdItem {
   Span slab;  // the item's columns of o
 };
 
-// Work item i of the forward: causal launches walk the query tiles from the
-// last (most key tiles) down; the others keep a head's tiles side by side.
-// Streamed, a query tile has `slabs` items side by side, one a slab of o.
+// Work item i of the forward and of the dq pass: causal launches walk the
+// query tiles from the last (most key tiles) down; the others keep a head's
+// tiles side by side.  Streamed, a query tile has `slabs` items side by
+// side, one a slab of o (or dq).
 __device__ __forceinline__ FwdItem fwd_item(int i, const Params& p, int nqt, int slabs) {
   const int bhn = p.B * p.H;
   const int s = i % slabs;
@@ -663,7 +685,7 @@ __device__ __forceinline__ FwdItem fwd_item(int i, const Params& p, int nqt, int
   return it;
 }
 
-// Slabs of o of a streamed forward item: at most 8 boxes, two
+// Slabs of o (or dq) of a streamed item: at most 8 boxes, two
 // warpgroups' 4.
 __host__ __device__ __forceinline__ int fwd_slabs(const Params& p, bool stream) {
   return stream ? (p.D / 64 + 7) / 8 : 1;
@@ -949,9 +971,10 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
 }
 
 // delta = rowsum(do∘o) in fp32, one warp a row of [B·H·Sq], 16 bytes a lane
-// and step: the dk/dv pass reads it instead of o.
+// and step: launched once a backward call, the dq and dk/dv passes read it
+// instead of o.
 template <typename T>
-__global__ void __launch_bounds__(256) flash_wide_bwd_dkv_delta(Params p) {
+__global__ void __launch_bounds__(256) flash_wide_bwd_delta(Params p) {
   const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= (long long)p.B * p.H * p.Sq) return;
@@ -973,6 +996,249 @@ __global__ void __launch_bounds__(256) flash_wide_bwd_dkv_delta(Params p) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) p.delta[row] = acc;
+}
+
+// Consumer warpgroup W of the dq pass, over all 64 rows of each item: W = 0
+// computes s = q·kᵀ over the head and p = 2^(s·scale·log2e − lse·log2e),
+// W = 1 dp = do·vᵀ and dp − delta; the two swap these through shared memory
+// and both form ds = p∘(dp − delta) (the same fp32 products in both, so the
+// same bits), rounded to T.  Each then accumulates its boxes of the item's
+// slab of dq (W = 0 the first ceil(n/2)), dq += ds·k, ds the register A
+// operand and the product slot's k box MN-major.  `stile` is its own
+// resident tile, Q (W = 0) or dO, whose boxes it reduces over and stages
+// its dq boxes in at the end; streamed, its staging, q and do boxes coming
+// through the reduction slots.
+template <typename T, int D, int W, bool STREAM>
+__device__ __forceinline__ void dq_consumer(const CUtensorMap* tdq, const Params& p,
+                                            uint32_t stile, uint32_t sring, float* exch,
+                                            uint32_t bars, int items, int nqt, int tid) {
+  using L = DqTiles<D, STREAM>;
+  constexpr int NB = Split<D>::B0;  // the most dq boxes a warpgroup holds
+  const uint32_t full = bars + 16, empty = full + 8 * L::SLOTS;
+  float* const mine = exch + W * L::PART;
+  const float* const other = exch + (1 - W) * L::PART;
+  const float* const stat = W ? p.delta : p.lse;
+  const float stat_mul = W ? 1.f : LOG2E;  // delta, or lse in log2 units
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int rl = 16 * warp + g;  // this thread's rows of the item: rl, rl + 8
+  const float sl2 = p.scale * LOG2E;
+  const int P = STREAM ? p.D / 64 : Split<D>::P;
+  const int slabs = fwd_slabs(p, STREAM);
+  Ring<L::SLOTS> ring;
+  uint32_t nitem = 0;
+  for (int i = blockIdx.x; i < items; i += gridDim.x, ++nitem) {
+    const FwdItem it = fwd_item(i, p, nqt, slabs);
+    const int half = (it.slab.n + 1) / 2;
+    const int nb = W ? it.slab.n - half : half;  // its dq boxes
+    const int fb = it.slab.first + (W ? half : 0);
+    const int row0 = it.q0 + rl;
+    const long long bh = (long long)it.b * p.H + it.h;
+    float st[2];  // lse·log2e (W = 0) or delta of this thread's two rows
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      st[r] = row0 + 8 * r < p.Sq ? stat[bh * p.Sq + row0 + 8 * r] * stat_mul : 0.f;
+    float acc[32 * NB];  // its dq boxes
+#pragma unroll
+    for (int e = 0; e < 32 * NB; ++e) acc[e] = 0.f;
+    if (!STREAM) mbar_wait(bars, nitem & 1u);  // the item's Q and dO tiles
+    for (int j = 0; j < it.nk; ++j) {
+      const int k0 = j * TILE;
+      // s (W = 0) or dp over the head's boxes, one ring slot each
+      float sc[32];
+      int prev = 0;
+#pragma unroll 1
+      for (int x = 0; x < P; ++x) {
+        const int s = ring.slot();
+        mbar_wait(full + 8 * s, ring.parity());
+        const uint32_t slot = sring + s * L::SLOT;
+        const uint32_t a = STREAM ? slot + (2 + W) * BX::BYTES : stile + x * BX::BYTES;
+        const uint32_t b = slot + W * BX::BYTES;  // k box (W = 0) or v box
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          Wgmma<T>::ss(sc, k_major(a + 32 * k), k_major(b + 32 * k), x + k > 0);
+        wgmma_commit();
+        if (x > 0) {
+          wgmma_wait_pending<1>();
+          release(empty + 8 * prev, lane);
+        }
+        prev = s;
+        ++ring.n;
+      }
+      wgmma_wait();
+      release(empty + 8 * prev, lane);
+
+      // W = 0: p, masked only where a key tail or the causal diagonal cuts
+      // the tile; W = 1: dp − delta
+      const bool edge = k0 + TILE > p.Sk || (p.causal && k0 + TILE - 1 > it.q0);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          if (W == 0) {
+            float pe = exp2_ftz(fmaf(sc[4 * n + e], sl2, -st[r]));
+            if (edge) {
+              const int key = k0 + n * 8 + 2 * t + (e & 1);
+              if (key >= p.Sk || (p.causal && key > row0 + 8 * r)) pe = 0.f;
+            }
+            sc[4 * n + e] = pe;
+          } else {
+            sc[4 * n + e] -= st[r];
+          }
+        }
+      // The swap; BAR_FREE: the other has read the last one.  Both then
+      // hold ds = p∘(dp − delta).
+      named_sync(BAR_FREE, 256);
+      put_block(mine, sc, tid);
+      named_sync(BAR_FULL, 256);
+#pragma unroll
+      for (int v = 0; v < 8; ++v) {
+        const float4 w = get4(other, v, tid);
+        sc[4 * v] *= w.x;
+        sc[4 * v + 1] *= w.y;
+        sc[4 * v + 2] *= w.z;
+        sc[4 * v + 3] *= w.w;
+      }
+      uint32_t af[4][4];  // ds rounded to q's type
+      pack_a<T>(af, sc);
+      // dq += ds·k over its boxes; product slot x holds k boxes first + x
+      // and first + half + x (the second when the slab has it).  Each
+      // warpgroup waits for and releases every slot, its own or not.
+#pragma unroll
+      for (int x = 0; x < NB; ++x) {
+        if (x < half) {
+          const int s = ring.slot();
+          mbar_wait(full + 8 * s, ring.parity());
+          if (x < nb)
+            issue_rs<T, 64, BX, 4>(*reinterpret_cast<float(*)[32]>(acc + 32 * x), af,
+                                   sring + s * L::SLOT + W * BX::BYTES);
+          if (x > 0) {
+            if (x < nb)
+              wgmma_wait_pending<1>();
+            else
+              wgmma_wait();
+            release(empty + 8 * prev, lane);
+          }
+          prev = s;
+          ++ring.n;
+        }
+      }
+      wgmma_wait();
+      release(empty + 8 * prev, lane);
+    }
+
+    // Epilogue: dq times scale into the warpgroup's own tile (no longer
+    // read) or staging, then one TMA store a box, which clips rows past Sq;
+    // the producer reloads the tiles once both warpgroups' stores have read
+    // them.
+    named_sync(BAR_WG + W, 128);  // every warp's reductions have read the tile
+    stage_boxes<T, NB>(stile, acc, p.scale, nb, rl, t);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_sync(BAR_WG + W, 128);
+    if (tid == 0) {
+      if (it.q0 < p.Sq) {
+        for (int x = 0; x < nb; ++x)
+          tma_store(tdq, stile + x * BX::BYTES, (fb + x) * 64, it.q0, it.h, it.b);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      }
+      if (!STREAM) mbar_arrive(bars + 8);
+    }
+  }
+}
+
+template <typename T, int D, bool STREAM>
+__global__ void __launch_bounds__(TMA_THREADS, 1)
+    flash_wide_bwd_dq_tma(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const __grid_constant__ CUtensorMap tdq, Params p) {
+  using L = DqTiles<D, STREAM>;
+  extern __shared__ unsigned char smem_dq[];
+  const uint32_t base_addr = (smem_addr(smem_dq) + 1023u) & ~1023u;
+  const uint32_t stiles = base_addr;  // Q, then dO (streamed: the warpgroups' staging)
+  const uint32_t sring = stiles + 2 * L::TILE_BYTES;
+  const uint32_t sexch = sring + L::SLOTS * L::SLOT;  // p, then dp − delta
+  const uint32_t bars = sexch + 2 * L::PART * 4;
+  float* const exch = reinterpret_cast<float*>(smem_dq + (sexch - smem_addr(smem_dq)));
+
+  const int nqt = (p.Sq + TILE - 1) / TILE;
+  const int slabs = fwd_slabs(p, STREAM);
+  const int items = p.B * p.H * nqt * slabs;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);      // Q/dO full
+    mbar_init(bars + 8, 2);  // Q/dO empty: each consumer, after its stores read its tile
+    for (int i = 0; i < L::SLOTS; ++i) {
+      mbar_init(bars + 16 + 8 * i, 1);
+      mbar_init(bars + 16 + 8 * L::SLOTS + 8 * i, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tid == 0) {
+      const uint32_t full = bars + 16, empty = full + 8 * L::SLOTS;
+      const int P = STREAM ? p.D / 64 : Split<D>::P;
+      Ring<L::SLOTS> ring;
+      uint32_t nitem = 0;
+      for (int i = blockIdx.x; i < items; i += gridDim.x, ++nitem) {
+        const FwdItem it = fwd_item(i, p, nqt, slabs);
+        const Coord cq = coord(p, Q, it.b, it.h), cdo = coord(p, DO, it.b, it.h);
+        const Coord ck = coord(p, K, it.b, it.h), cv = coord(p, V, it.b, it.h);
+        const int half = (it.slab.n + 1) / 2;
+        if (!STREAM) {
+          mbar_wait(bars + 8, (nitem & 1u) ^ 1u);
+          mbar_expect_tx(bars, 2 * L::TILE_BYTES);
+          for (int x = 0; x < P; ++x) {
+            tma_load(stiles + x * BX::BYTES, &tq, bars, x * 64, it.q0, cq.h, cq.b);
+            tma_load(stiles + L::TILE_BYTES + x * BX::BYTES, &tdo, bars, x * 64, it.q0, cdo.h,
+                     cdo.b);
+          }
+        }
+        // a key tile: the head's k and v boxes (streamed, with q's and
+        // do's) for the reductions, then the slab's k boxes for the products
+        for (int j = 0; j < it.nk; ++j) {
+          for (int x = 0; x < P + half; ++x) {
+            const int s = ring.slot();
+            const uint32_t slot = sring + s * L::SLOT, bar = full + 8 * s;
+            mbar_wait(empty + 8 * s, ring.parity() ^ 1u);
+            if (x < P) {
+              mbar_expect_tx(bar, (STREAM ? 4 : 2) * BX::BYTES);
+              tma_load(slot, &tk, bar, x * 64, j * TILE, ck.h, ck.b);
+              tma_load(slot + BX::BYTES, &tv, bar, x * 64, j * TILE, cv.h, cv.b);
+              if (STREAM) {
+                tma_load(slot + 2 * BX::BYTES, &tq, bar, x * 64, it.q0, cq.h, cq.b);
+                tma_load(slot + 3 * BX::BYTES, &tdo, bar, x * 64, it.q0, cdo.h, cdo.b);
+              }
+            } else {
+              const int y = x - P;
+              const bool second = y < it.slab.n - half;
+              mbar_expect_tx(bar, (second ? 2 : 1) * BX::BYTES);
+              tma_load(slot, &tk, bar, (it.slab.first + y) * 64, j * TILE, ck.h, ck.b);
+              if (second)
+                tma_load(slot + BX::BYTES, &tk, bar, (it.slab.first + half + y) * 64, j * TILE,
+                         ck.h, ck.b);
+            }
+            ++ring.n;
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    if (wg == 0)
+      dq_consumer<T, D, 0, STREAM>(&tdq, p, stiles, sring, exch, bars, items, nqt, tid);
+    else
+      dq_consumer<T, D, 1, STREAM>(&tdq, p, stiles + L::TILE_BYTES, sring, exch, bars, items,
+                                   nqt, tid);
+  }
 }
 
 struct DkvItem {
@@ -1283,17 +1549,34 @@ cudaError_t run_fwd_tma(const Params& p, cudaStream_t stream) {
                            stream, p, tq, tk, tv, to);
 }
 
-// The delta pass, then the dk/dv kernel (streamed at D = 512 for a wider
-// head).
+// The dq kernel (streamed at D = 512 for a wider head).  With Sk = 0 no
+// k or v box is ever loaded (a map needs a nonempty extent) and dq is 0.
+template <typename T, int D, bool STREAM>
+cudaError_t run_dq_tma(const Params& p, cudaStream_t stream) {
+  const cudaError_t bound = bind_context();
+  if (bound != cudaSuccess) return bound;
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  bool ok = map_of<T>(&tq, p, Q, p.q, p.Sq) && map_of<T>(&tdo, p, DO, p.dout, p.Sq) &&
+            map_of<T>(&tdq, p, OUT, p.out, p.Sq);
+  if (p.Sk > 0) {
+    ok = ok && map_of<T>(&tk, p, K, p.k, p.Sk) && map_of<T>(&tv, p, V, p.v, p.Sk);
+  } else {
+    tk = tq;
+    tv = tq;
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  static Capacity cache;
+  const long long items =
+      (long long)fwd_slabs(p, STREAM) * p.B * p.H * ((p.Sq + TILE - 1) / TILE);
+  return launch_persistent(cache, flash_wide_bwd_dq_tma<T, D, STREAM>, DqTiles<D, STREAM>::SMEM,
+                           items, stream, p, tq, tk, tv, tdo, tdq);
+}
+
+// The dk/dv kernel (streamed at D = 512 for a wider head).
 template <typename T, int D, bool STREAM>
 cudaError_t run_dkv_tma(const Params& p, cudaStream_t stream) {
-  if (p.delta == nullptr) return cudaErrorInvalidValue;
-  const long long blocks = ((long long)p.B * p.H * p.Sq + 7) / 8;
-  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  flash_wide_bwd_dkv_delta<T><<<(unsigned)blocks, 256, 0, stream>>>(p);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  if ((e = bind_context()) != cudaSuccess) return e;
+  const cudaError_t bound = bind_context();
+  if (bound != cudaSuccess) return bound;
   CUtensorMap tq, tk, tv, tdo, tdk, tdv;
   const bool ok = map_of<T>(&tq, p, Q, p.q, p.Sq) && map_of<T>(&tdo, p, DO, p.dout, p.Sq) &&
                   map_of<T>(&tk, p, K, p.k, p.Sk) && map_of<T>(&tv, p, V, p.v, p.Sk) &&
@@ -1307,10 +1590,11 @@ cudaError_t run_dkv_tma(const Params& p, cudaStream_t stream) {
                            tdv);
 }
 
-// pass 0: the forward, 2: dk/dv.
+// pass 0: the forward, 1: dq, 2: dk/dv.
 template <typename T, int D, bool STREAM = false>
 cudaError_t run_tma(const Params& p, int pass, cudaStream_t s) {
-  return pass == 0 ? run_fwd_tma<T, D, STREAM>(p, s) : run_dkv_tma<T, D, STREAM>(p, s);
+  if (pass == 0) return run_fwd_tma<T, D, STREAM>(p, s);
+  return pass == 1 ? run_dq_tma<T, D, STREAM>(p, s) : run_dkv_tma<T, D, STREAM>(p, s);
 }
 
 // At a 16-bit head of D columns: an instance a width up to 512, the
@@ -1326,22 +1610,27 @@ cudaError_t dispatch_tma(const Params& p, int pass, cudaStream_t s) {
   }
 }
 
-// pass 0: the forward, 1: dq, 2: dk/dv.  Nothing to launch for an empty
-// grid (Sq or Sk 0 leaves the outputs to the wrapper).
-cudaError_t dispatch(int dtype, const Params& p, int pass, cudaStream_t s) {
-  if (p.D <= 0 || p.D % CHUNK != 0) return cudaErrorInvalidValue;
-  if (p.B <= 0 || p.H <= 0 || p.Sq <= 0 || (pass == 2 && p.Sk <= 0)) return cudaSuccess;
+// The 16-bit backward: delta = rowsum(do∘o) once, then the dq pass and the
+// dk/dv pass, each when asked for.
+template <typename T>
+cudaError_t backward_tma(const Params& p, bool dq, bool dkv, cudaStream_t s) {
+  if (!dq && !dkv) return cudaSuccess;
+  const long long blocks = ((long long)p.B * p.H * p.Sq + 7) / 8;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  flash_wide_bwd_delta<T><<<(unsigned)blocks, 256, 0, s>>>(p);
+  cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess && dq) e = dispatch_tma<T>(p, 1, s);
+  if (e == cudaSuccess && dkv) e = dispatch_tma<T>(p, 2, s);
+  return e;
+}
+
+// What every call must be: a head dim the kernels take, a known dtype, and
+// for fp32 query and key tiles that the CUDA-core grids' y extent holds.
+cudaError_t check(int dtype, const Params& p) {
+  if (p.D <= 0 || p.D % CHUNK != 0 || dtype < 0 || dtype > 2) return cudaErrorInvalidValue;
   if ((long long)p.B * p.H > 0x7fffffffLL) return cudaErrorInvalidValue;
-  // the CUDA-core grids' y extent
-  const bool cores = dtype == 0 || pass == 1;
-  if (cores && (p.Sq > 65535 * ROWS || p.Sk > 65535 * ROWS)) return cudaErrorInvalidValue;
-  switch (dtype) {
-    case 0: return launch_f32(p, pass, s);
-    case 1: return pass == 1 ? launch_dq<__half>(p, s) : dispatch_tma<__half>(p, pass, s);
-    case 2:
-      return pass == 1 ? launch_dq<__nv_bfloat16>(p, s) : dispatch_tma<__nv_bfloat16>(p, pass, s);
-    default: return cudaErrorInvalidValue;
-  }
+  if (dtype == 0 && (p.Sq > 65535 * ROWS || p.Sk > 65535 * ROWS)) return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 void read_strides(Params& p, const long long* strides, int n) {
@@ -1354,8 +1643,8 @@ void read_strides(Params& p, const long long* strides, int n) {
 // dtype: 0 float32, 1 float16, 2 bfloat16.  D: the (padded) head dim, a
 // multiple of 64 above 256.  strides: 12 element
 // strides, (batch, head, sequence) of q, k, v and o.  lse: [B*H, Sq] fp32 or
-// null.  Returns the cudaError_t of the launch (0 on success); never
-// synchronises.
+// null.  Nothing is launched for Sq = 0.  Returns the cudaError_t of the
+// launch (0 on success); never synchronises.
 extern "C" int mx_flash_wide_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
                                  float* lse, int B, int H, int Sq, int Sk, int D,
                                  const long long* strides, float scale, int causal,
@@ -1369,21 +1658,30 @@ extern "C" int mx_flash_wide_fwd(int dtype, const void* q, const void* k, const 
   read_strides(p, st, 8);
   p.scale = scale;
   p.causal = causal;
-  return (int)dispatch(dtype, p, 0, static_cast<cudaStream_t>(stream));
+  const cudaError_t e = check(dtype, p);
+  if (e != cudaSuccess || B <= 0 || H <= 0 || Sq <= 0) return (int)e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return (int)launch_f32(p, 0, s);
+    case 1: return (int)dispatch_tma<__half>(p, 0, s);
+    default: return (int)dispatch_tma<__nv_bfloat16>(p, 0, s);
+  }
 }
 
-// The backward: the dq pass when dq is given, then the dk/dv pass when dk
-// and dv are.  strides: 24 element strides, (batch, head, sequence) of q, k,
-// v, o, do, dq, dk and dv (those of absent outputs are ignored).  lse: the
-// forward's [B*H, Sq] fp32.  delta: [B*H, Sq] fp32 scratch that the 16-bit
-// dk/dv pass fills and reads (null otherwise).  Returns the first nonzero
-// cudaError_t, or 0.
+// The backward: the dq pass when dq is given, the dk/dv pass when dk and dv
+// are.  strides: 24 element strides, (batch, head, sequence) of q, k, v, o,
+// do, dq, dk and dv (those of absent outputs are ignored).  lse: the
+// forward's [B*H, Sq] fp32.  delta: [B*H, Sq] fp32 scratch, required in
+// bf16 and fp16 (null in fp32), where one launch fills it with rowsum(do∘o)
+// before the passes, which read it.  fp32 runs the CUDA-core kernels, dq
+// then dk/dv.  Nothing is launched for Sq = 0, nor the dk/dv pass for
+// Sk = 0.  Returns the first nonzero cudaError_t, or 0.
 extern "C" int mx_flash_wide_bwd(int dtype, const void* q, const void* k, const void* v,
                                  const void* o, const void* dout, const float* lse,
                                  float* delta, void* dq, void* dk, void* dv, int B, int H,
                                  int Sq, int Sk, int D, const long long* strides, float scale,
                                  int causal, void* stream) {
-  if (lse == nullptr || (dk == nullptr) != (dv == nullptr))
+  if (lse == nullptr || (dk == nullptr) != (dv == nullptr) || (dtype != 0 && delta == nullptr))
     return (int)cudaErrorInvalidValue;
   Params p = {};
   p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
@@ -1394,11 +1692,16 @@ extern "C" int mx_flash_wide_bwd(int dtype, const void* q, const void* k, const 
   read_strides(p, strides, 8);
   p.scale = scale;
   p.causal = causal;
+  cudaError_t e = check(dtype, p);
+  if (e != cudaSuccess || B <= 0 || H <= 0 || Sq <= 0) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dq != nullptr) {
-    const cudaError_t e = dispatch(dtype, p, 1, s);
-    if (e != cudaSuccess) return (int)e;
+  const bool dkv = dk != nullptr && Sk > 0;
+  switch (dtype) {
+    case 0:
+      if (dq != nullptr) e = launch_f32(p, 1, s);
+      if (e == cudaSuccess && dkv) e = launch_f32(p, 2, s);
+      return (int)e;
+    case 1: return (int)backward_tma<__half>(p, dq != nullptr, dkv, s);
+    default: return (int)backward_tma<__nv_bfloat16>(p, dq != nullptr, dkv, s);
   }
-  if (dk != nullptr) return (int)dispatch(dtype, p, 2, s);
-  return 0;
 }

@@ -201,13 +201,13 @@ def test_head_dim_above_128_is_refused():
         tatt._kernel_width("flash_fwd", q, q[..., :128], q)
 
 
-@pytest.mark.parametrize("d", [300, 320, 384, 448, 512])
+@pytest.mark.parametrize("d", [300, 320, 384, 448, 512, 576, 640, 1024])
 @pytest.mark.parametrize("causal", [False, True])
 def test_wide_head_dim_matches_jax_reference(d, causal):
     """Above Dh 256 the card runs flash_wide.cu on operands padded to a
-    multiple of 64 with the true head dim's scale: the padded plain route
-    against the JAX attention_reference (o) and _flash_bwd_xla (dq, dk,
-    dv)."""
+    multiple of 64 with the true head dim's scale (above 512 its streamed
+    16-bit instances): the padded plain route against the JAX
+    attention_reference (o) and _flash_bwd_xla (dq, dk, dv)."""
     arrs = _qkv(11, 2, 2, 40, 56, d)
     do = np.random.RandomState(12).randn(2, 2, 40, d).astype(np.float32)
     scale = 1.0 / np.sqrt(d)
@@ -247,14 +247,46 @@ def test_launches_per_pass(width, launches):
     assert tatt._launches(width) == launches
 
 
-@pytest.mark.parametrize("width,dtype,launches", [
-    (64, torch.bfloat16, 1), (256, torch.bfloat16, 2), (320, torch.bfloat16, 2),
-    (512, torch.float16, 2), (512, torch.float32, 1), (576, torch.float32, 1)])
-def test_dkv_launches_per_pass(width, dtype, launches):
-    """Above Dh 256 the 16-bit dk/dv pass is two launches, flash_wide.cu's
-    delta pass and its kernel; fp32 keeps one."""
-    assert tatt._dkv_launches(width, dtype) == launches
+@pytest.mark.parametrize("width,dtype,with_dq,launches", [
+    (64, torch.bfloat16, False, 1), (256, torch.bfloat16, False, 2),
+    (320, torch.bfloat16, False, 2), (512, torch.float16, False, 2),
+    (512, torch.float32, False, 1), (576, torch.float32, False, 1),
+    (64, torch.bfloat16, True, 1), (256, torch.bfloat16, True, 2),
+    (320, torch.bfloat16, True, 1), (1024, torch.float16, True, 1),
+    (512, torch.float32, True, 1)])
+def test_dkv_launches_per_pass(width, dtype, with_dq, launches):
+    """Above Dh 256 a 16-bit backward call launches flash_wide.cu's delta
+    pass once, before its passes: a dk/dv pass alone counts two launches,
+    the delta pass and its kernel, and beside a dq pass one (the dq pass
+    counts the delta); fp32 keeps one."""
+    assert tatt._dkv_launches(width, dtype, with_dq) == launches
     assert tatt._has_delta_pass(width, dtype) == (width > 256 and dtype != torch.float32)
+
+
+@pytest.mark.parametrize("width,dtype,launches", [
+    (64, torch.bfloat16, 1), (256, torch.float16, 2), (320, torch.bfloat16, 2),
+    (576, torch.float16, 2), (1024, torch.bfloat16, 2), (512, torch.float32, 1)])
+def test_dq_launches_per_pass(width, dtype, launches):
+    """The dq pass counts its kernel's launches and, in bf16 and fp16 above
+    Dh 256, the call's one delta launch."""
+    assert tatt._dq_launches(width, dtype) == launches
+
+
+@pytest.mark.parametrize("width", [64, 256, 320, 448, 640])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_backward_call_launches_delta_once(width, dtype):
+    """The counting rule of one backward call: the delta launch counts once
+    whichever passes the call runs (on dq when it runs, else on dk/dv), so a
+    call running both counts what the two single-pass calls count less one
+    delta launch (three at a 16-bit head above 256, not four)."""
+    delta = int(tatt._has_delta_pass(width, dtype))
+    kernels = tatt._launches(width)
+    pair = tatt._dq_launches(width, dtype) + tatt._dkv_launches(width, dtype, with_dq=True)
+    alone = tatt._dq_launches(width, dtype) + tatt._dkv_launches(width, dtype)
+    assert pair == 2 * kernels + delta and alone == pair + delta
+    assert delta == (width > 256 and dtype != torch.float32)
+    if delta:
+        assert pair == 3
 
 
 @pytest.mark.parametrize("d,dtype", [

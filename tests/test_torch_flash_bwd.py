@@ -184,6 +184,44 @@ def test_inference_saves_nothing_for_backward():
     assert "_FlashAttentionBackward" in names
 
 
+# bf16 above Dh 256, where the card runs flash_wide.cu's dq pass on TMA and
+# wgmma: an unpadded 320 and a streamed 576 (more than 512 columns), a
+# causal cross shape too.  Both sides round ds to bf16 before ds·k (p stays
+# fp32 in the dq pass) and accumulate in fp32; their sums run in other
+# orders, which can flip a rounding of ds by one bf16 ulp and moves dq by a
+# fraction of an ulp: measured up to 0.25 ulp of the largest |dq|.  The
+# bound is chip_smoke.py's BWD_ULPS, 2 bf16 ulps of the largest |dq|; a
+# wrong mask, delta or scale moves dq by its own size.
+WIDE_BF16_CASES = [  # name, BH, Sq, Sk, Dh, causal
+    ("dh320", 2, 72, 72, 320, False),
+    ("dh320_causal", 2, 72, 72, 320, True),
+    ("dh576", 2, 72, 72, 576, False),
+    ("dh576_causal_sq64_sk128", 2, 64, 128, 576, True),
+]
+
+
+@pytest.mark.parametrize("name,bh,sq,sk,d,causal", WIDE_BF16_CASES,
+                         ids=[c[0] for c in WIDE_BF16_CASES])
+def test_plain_bf16_dq_above_256_matches_pallas_interpret(name, bh, sq, sk, d, causal):
+    q, k, v, do = _inputs(7, bh, sq, sk, d)
+    scale = 1.0 / np.sqrt(d)
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v, do))
+    blocks = dict(block_q=sq if sq % 128 else 128, block_k=sk if sk % 128 else 128)
+    o, lse = jatt._flash_fwd_pallas(jq, jk, jv, causal, scale, True, with_lse=True, **blocks)
+    ref = np.asarray(jatt._flash_bwd_pallas(jq, jk, jv, jdo, o, lse, causal, scale, True,
+                                            **blocks)[0], np.float32)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+
+    assert tatt._kernel_width("flash_bwd", t(jq), t(jk), t(jv)) == d
+    dq = tatt.flash_bwd_plain(t(jq), t(jk), t(jv), t(o), t(jdo),
+                              torch.from_numpy(np.array(lse)[..., 0]), causal, scale)[0]
+    assert dq.dtype == torch.bfloat16
+    bound = chip_smoke.BWD_ULPS * chip_smoke.ulp(np.abs(ref).max(), torch.bfloat16)
+    assert np.abs(dq.float().numpy() - ref).max() <= bound
+
+
 @pytest.mark.parametrize("d", (8, 48, 80, 96, 160, 200, 256))
 @pytest.mark.parametrize("causal", [False, True])
 def test_padded_head_dim_backward_matches_jax_xla(d, causal):
@@ -292,9 +330,9 @@ def test_kernels_refuse_head_dim_above_128(cuda_device, name, b, h, sq, sk, d, d
     ulps of its largest value in 16 bits (fp32: 1e-4 of it, chip_smoke.py's
     FP32_BWD_REL); with one key (Sk = 1) dq and dk, exactly 0, within
     chip_smoke.py's bound on the rounding of dp − delta.  The counters take
-    one dq launch and, in 16 bits, two dk/dv launches (the delta pass and
-    the kernel); each pass alone counts the same; two runs are
-    bit-identical."""
+    one launch a pass and, in 16 bits, the call's one delta launch on dq
+    (three in all); each pass alone counts its kernel and, in 16 bits, a
+    delta launch of its own; two runs are bit-identical."""
     gen = torch.Generator(device=cuda_device).manual_seed(7)
     if layout == "qkv":
         x = torch.randn(b, sq, 3, h, d, generator=gen, device=cuda_device).to(dtype)
@@ -312,13 +350,14 @@ def test_kernels_refuse_head_dim_above_128(cuda_device, name, b, h, sq, sk, d, d
     o, lse = tatt.flash_fwd(q, k, v, causal=causal, with_lse=True, layout=lay)
     counters = (tatt.flash_bwd_dq, tatt.flash_bwd_dkv, tatt.flash_wide_bwd_dq,
                 tatt.flash_wide_bwd_dkv)
-    dkv_launches = 1 if dtype == torch.float32 else 2
+    delta = 0 if dtype == torch.float32 else 1
     before = [c.launches for c in counters]
     got = tatt.flash_bwd(q, k, v, o, do, lse, causal, layout=lay)
-    assert [c.launches - n for c, n in zip(counters, before)] == [0, 0, 1, dkv_launches]
+    assert [c.launches - n for c, n in zip(counters, before)] == [0, 0, 1 + delta, 1]
     dq = tatt.flash_wide_bwd_dq(q, k, v, o, do, lse, causal, layout=lay)
     dk, dv = tatt.flash_wide_bwd_dkv(q, k, v, o, do, lse, causal, layout=lay)
-    assert [c.launches - n for c, n in zip(counters, before)] == [0, 0, 2, 2 * dkv_launches]
+    assert [c.launches - n for c, n in zip(counters, before)] == [0, 0, 2 + 2 * delta,
+                                                                  2 + delta]
     assert all(torch.equal(a, b) for a, b in zip(got, (dq, dk, dv)))
     ref = tatt.flash_bwd_plain(t(q), t(k), t(v), t(o), t(do), lse, causal)
     zero = chip_smoke.one_key_bounds(t(q), t(k), t(v), t(do)) if sk == 1 else ()
@@ -331,6 +370,57 @@ def test_kernels_refuse_head_dim_above_128(cuda_device, name, b, h, sq, sk, d, d
                  else 2 * 2.0 ** (np.frexp(r.float().abs().max().item())[1] - 1
                                   - (7 if dtype == torch.bfloat16 else 10)))
         assert (t(g).float() - r.float()).abs().max().item() <= bound
+
+
+# The three calls a user makes above Dh 256: the dq pass alone, the dk/dv
+# pass alone and the pair (flash_bwd), at a head of 320, 512 and 640
+# (streamed), causal and not, in each dtype.
+WIDE_PASS_CASES = [(passes, d, dtype, causal)
+                   for passes in ("dq", "dkv", "pair")
+                   for d, dtype, causal in ((320, torch.bfloat16, True),
+                                            (512, torch.float16, False),
+                                            (640, torch.bfloat16, True),
+                                            (512, torch.float32, True))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes,d,dtype,causal", WIDE_PASS_CASES,
+                         ids=[f"{p}_dh{d}_{str(dt)[6:]}{'_causal' if c else ''}"
+                              for p, d, dt, c in WIDE_PASS_CASES])
+def test_wide_backward_passes_on_card(cuda_device, passes, d, dtype, causal):
+    """Each pass alone and the pair: the counts of the rule (in 16 bits one
+    delta launch a call, on dq when the call runs it, else on dk/dv; fp32
+    none), nothing counted on flash_bwd_dq/flash_bwd_dkv, and the same bits
+    as the pair's gradients, which are held to the plain version within 2
+    ulps of each gradient's largest value (fp32: 1e-4 of it)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    q, k, v, do = (torch.randn(2, 2, 150, d, generator=gen, device=cuda_device).to(dtype)
+                   for _ in range(4))
+    o, lse = tatt.flash_fwd(q, k, v, causal=causal, with_lse=True)
+    ref = tatt.flash_bwd_plain(q, k, v, o, do, lse, causal)
+    pair = tatt.flash_bwd(q, k, v, o, do, lse, causal)
+    counters = (tatt.flash_bwd_dq, tatt.flash_bwd_dkv, tatt.flash_wide_bwd_dq,
+                tatt.flash_wide_bwd_dkv)
+    delta = 0 if dtype == torch.float32 else 1
+    before = [c.launches for c in counters]
+    if passes == "dq":
+        got = (tatt.flash_wide_bwd_dq(q, k, v, o, do, lse, causal), None, None)
+        want = [0, 0, 1 + delta, 0]
+    elif passes == "dkv":
+        got = (None, *tatt.flash_wide_bwd_dkv(q, k, v, o, do, lse, causal))
+        want = [0, 0, 0, 1 + delta]
+    else:
+        got = tatt.flash_bwd(q, k, v, o, do, lse, causal)
+        want = [0, 0, 1 + delta, 1]
+    assert [c.launches - n for c, n in zip(counters, before)] == want
+    for g, p, r in zip(got, pair, ref):
+        ref_max = r.float().abs().max().item()
+        bound = (1e-4 * ref_max if dtype == torch.float32
+                 else 2 * 2.0 ** (np.frexp(ref_max)[1] - 1
+                                  - (7 if dtype == torch.bfloat16 else 10)))
+        assert (p.float() - r.float()).abs().max().item() <= bound
+        if g is not None:
+            assert torch.equal(g, p)
 
 
 @pytest.mark.cuda
