@@ -136,7 +136,11 @@ from incubator_mxnet_torch.optimizer import fused  # noqa: E402
 # is the larger of its bytes over the memory rate and its operations over
 # the peak rate of their type.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
+# fp32 on the CUDA cores (67 TFLOP/s); "split_tf32": an fp32 product as three
+# TF32 products on the tensor cores (495 TFLOP/s), 165 TFLOP/s of the
+# function's own operations.
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12,
+                  "split_tf32": 495e12 / 3}
 
 # Kernel vs plain: the largest absolute difference allowed.
 # 16-bit forward: p rounds to the 16-bit type unnormalized in the kernel and
@@ -703,8 +707,9 @@ WIDE_CASES = [
          dtype=torch.float32, causal=True),
 ]
 # Head dims above 256: flash_wide.cu (in bf16 and fp16 its forward, dq and
-# dk/dv passes on TMA rings and wgmma, the backward after one delta launch,
-# all streamed above 512; fp32 on the CUDA cores), at 320, 384, 448
+# dk/dv passes on TMA rings and wgmma, all streamed above 512; in fp32 the
+# forward and dk/dv on TMA rings and split-TF32 mma.sync, dq on the CUDA
+# cores; the backward after one delta launch in every dtype), at 320, 384, 448
 # (256 + 192 columns), 512, 576, 640 and 1024 and a padded 300, ragged S,
 # causal and not, causal with Sk < Sq, a causal S=1024 (sixteen key tiles
 # an item), the QKV view, a cross shape, lse, fp16 and fp32.  With one key
@@ -734,10 +739,20 @@ WIDE_HEAD_CASES = [
          lse=True),
     dict(MAIN, name="dh1024_qkv_view_causal", b=2, h=2, sq=130, sk=130, d=1024, layout="qkv",
          causal=True),
+    # fp32 (split TF32 on the tensor cores): P odd, above 512, a cross shape
+    # and the QKV view
+    dict(MAIN, name="fp32_dh320_causal_with_lse", b=2, h=2, sq=200, sk=200, d=320,
+         dtype=torch.float32, causal=True, lse=True),
+    dict(MAIN, name="fp32_dh640", b=1, h=2, sq=150, sk=150, d=640, dtype=torch.float32),
+    dict(MAIN, name="fp32_dh512_cross_sq77_sk200", b=2, h=2, sq=77, sk=200, d=512,
+         dtype=torch.float32),
+    dict(MAIN, name="fp32_dh512_qkv_view", b=2, h=2, sq=130, sk=130, d=512, layout="qkv",
+         dtype=torch.float32),
 ]
 WIDE_REPEAT_CASES = [c for c in WIDE_HEAD_CASES  # two runs bit-identical: 320, 512, streamed
                      if c["name"] in ("dh320_causal_with_lse", "dh512_causal_with_lse",
-                                      "dh640_causal_with_lse")]
+                                      "dh640_causal_with_lse", "fp32_dh512_causal",
+                                      "fp32_dh320_causal_with_lse")]
 
 
 def _slab_launches(d):
@@ -747,12 +762,12 @@ def _slab_launches(d):
     return 2 if 128 < d <= 256 else 1
 
 
-def _bwd_launches(d, dtype):
+def _bwd_launches(d):
     """Launches counted on the dq and the dk/dv pass of one backward call
-    that runs both, at head dim ``d``: above 256 in bf16 and fp16 the call
+    that runs both, at head dim ``d``: above 256, in every dtype, the call
     launches flash_wide.cu's delta pass once, before both, and it counts on
     the dq pass (three launches in all)."""
-    return _slab_launches(d) + int(d > 256 and dtype != torch.float32), _slab_launches(d)
+    return _slab_launches(d) + int(d > 256), _slab_launches(d)
 
 
 def phase_kernel_vs_plain(device):
@@ -901,7 +916,7 @@ def phase_kernel_vs_plain_bwd(device):
     misses, main_errs = [], {}
     for case in BWD_CASES:
         res, launched = _bwd_case(case, gen, device)
-        want_launches = _bwd_launches(case["d"], case["dtype"])
+        want_launches = _bwd_launches(case["d"])
         ok = (all(math.isfinite(e) and e <= bound for e, bound, _ in res.values())
               and launched == want_launches)
         emit("kernel_vs_plain_bwd", case=case["name"],
@@ -2230,6 +2245,9 @@ def phase_profile(what, fn, smi):
 
 
 def _bound(nbytes, flops, dtype=torch.bfloat16):
+    """The least ms of a kernel moving ``nbytes`` and doing ``flops`` of its
+    function's operations, at the peak rate of ``dtype`` (a key of
+    PEAK_OPS_PER_S: a dtype, or the route "split_tf32"), and which bounds it."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_OPS_PER_S[dtype]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -2784,9 +2802,10 @@ WIDE_TIME_SHAPES = (  # (shape, dtype, timed calls): the TMA kernels, the 256 + 
 def _wide_rows(shape, dtype, iters, gen, smi):
     """The three flash_wide kernels at one [B, S, H, Dh] shape and dtype:
     each kernel, the plain version and SDPA (the forward; its backward as
-    fwd+bwd - fwd), with the kernels' bounds, and the backward as the one
-    ``flash_bwd`` call (delta, dq and dk/dv) beside SDPA's backward.  A dq
-    or dk/dv call alone holds, in bf16 and fp16, the delta launch too.
+    fwd+bwd - fwd), with the kernels' bounds (in fp32 both: the CUDA cores'
+    and split TF32's, the share taken against the route's), and the
+    backward as the one ``flash_bwd`` call (delta, dq and dk/dv) beside
+    SDPA's backward.  A dq or dk/dv call alone holds the delta launch too.
     Returns {kernel: row}."""
     b, s, h, d = (shape[k] for k in ("b", "s", "h", "d"))
     device = torch.device("cuda", 0)
@@ -2837,9 +2856,18 @@ def _wide_rows(shape, dtype, iters, gen, smi):
              6 * n + lse_bytes, 6 * b * h * s * s * d),
             ("flash_wide_bwd_dkv", dkv_ms, dkv_call_ms, dkv_records, bwd_plain_ms, lib_b_ms,
              7 * n + lse_bytes, 8 * b * h * s * s * d)):
-        bound_ms, bound_by = _bound(nbytes, flops, dtype)
+        # the route: wgmma in 16 bits; in fp32 split TF32 on the tensor cores,
+        # but the dq pass on the CUDA cores.  The share of bound is taken
+        # against the route's bound; fp32 also states the CUDA cores' one.
+        route = ("wgmma" if dtype != torch.float32
+                 else "cuda_cores" if name == "flash_wide_bwd_dq" else "split_tf32")
+        bound_ms, bound_by = _bound(nbytes, flops, dtype if route != "split_tf32" else route)
+        bounds = {}
+        if dtype == torch.float32:
+            bounds = dict(route=route, cuda_core_bound_ms=_bound(nbytes, flops, dtype)[0],
+                          split_tf32_bound_ms=_bound(nbytes, flops, "split_tf32")[0])
         lib_kernels = lib_f_kernels if name.endswith("fwd") else lib_b_kernels
-        emit("times", kernel=name, shape=label, ms=ms, call_ms=call_ms, records=records,
+        emit("times", kernel=name, shape=label, ms=ms, call_ms=call_ms, records=records, **bounds,
              plain_ms=plain_ms, library_ms=lib_ms,
              library="SDPA (its own choice of backend)" if name.endswith("fwd")
              else "SDPA backward (fwd+bwd - fwd)",
@@ -2847,7 +2875,7 @@ def _wide_rows(shape, dtype, iters, gen, smi):
              library_kernels_us=lib_kernels, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
              flops=flops, share_of_bound=bound_ms / ms, card=smi)
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, call_ms=call_ms, shape=label,
+                         bound_by=bound_by, call_ms=call_ms, shape=label, **bounds,
                          functions=sorted({_function_name(f) for f in records}))
     del sets, lib_sets
     return out
@@ -3021,8 +3049,9 @@ def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, fold, smi
                                   "CUDA driver launch)"}
         elif name.startswith("flash_wide"):
             per = {"per": "one call at [B, S, H, Dh] = [4, 512, 8, 512] bf16 (other_shapes: "
-                          "the same at Dh 320 and 1024, and fp32 at Dh 512); in bf16 and fp16 "
-                          "a dq or a dk/dv call alone holds the delta launch too; no main path "
+                          "the same at Dh 320 and 1024, and fp32 at Dh 512, whose rows give "
+                          "the route and both bounds, the CUDA cores' and split TF32's); a dq "
+                          "or a dk/dv call alone holds the delta launch too; no main path "
                           "has a head above 256, so its launches there are 0",
                    "functions": row["functions"], "other_shapes": row["other_shapes"]}
         elif "other_shapes" in row:

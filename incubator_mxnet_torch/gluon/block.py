@@ -154,10 +154,12 @@ class Block(torch.nn.Module):
             ret.update(child._collect_params_with_prefix(prefix + cname))
         return ret
 
-    def initialize(self, init=None, ctx=None, force_reinit=False):
+    def initialize(self, init=None, ctx=None, verbose=False, force_reinit=False):
         """Initialize every parameter on ``ctx``; without one, on the current
-        context (``gpu(0)``), which raises on a machine with no card."""
-        self.collect_params().initialize(init, ctx, force_reinit)
+        context (``gpu(0)``), which raises on a machine with no card.  The
+        reference's parameters in its order: ``verbose`` is passed along and
+        changes no value."""
+        self.collect_params().initialize(init, ctx, verbose, force_reinit)
         return self
 
     def cast(self, dtype):

@@ -178,8 +178,18 @@ class LayerNorm(HybridBlock):
 
 
 class Embedding(HybridBlock):
+    """Lookup of rows of a ``(input_dim, output_dim)`` weight.  The
+    reference's parameters in its order; ``sparse_grad=True`` raises: the
+    reference's row-sparse gradient drives the lazy optimizer updates,
+    which touch only the rows a batch has, and the port has no row-sparse
+    storage yet, so a dense gradient would silently change the update."""
+
     def __init__(self, input_dim, output_dim, dtype="float32", weight_initializer=None,
-                 prefix=None, params=None):
+                 sparse_grad=False, prefix=None, params=None):
+        if sparse_grad:
+            raise NotImplementedError(
+                "Embedding(sparse_grad=True): row-sparse gradients (and the lazy optimizer "
+                "updates they drive) are not in the port; use sparse_grad=False")
         super().__init__(prefix=prefix, params=params)
         self._input_dim = input_dim
         self._output_dim = output_dim

@@ -1,5 +1,5 @@
-"""Transformer encoder layers (BERT conventions: post-LN, GELU, learned
-positions).
+"""Transformer encoder layers (BERT conventions by default: post-LN, GELU,
+learned positions; pre-LN on request).
 
 Counterpart of the encoder half of
 the JAX package's ``gluon/nn/transformer.py``, with the same parameter
@@ -82,12 +82,15 @@ class PositionwiseFFN(HybridBlock):
 
 
 class TransformerEncoderCell(HybridBlock):
-    """Post-LN encoder layer (the BERT convention).  The residual dropout is
-    applied once, by this cell."""
+    """Encoder layer: post-LN by default (the BERT convention), pre-LN with
+    ``pre_norm=True`` (LayerNorm before attention and before the FFN, the
+    residual added outside).  The residual dropout is applied once, by
+    this cell."""
 
-    def __init__(self, units, hidden_size, num_heads, dropout=0.0, activation="gelu",
-                 dtype="float32", prefix=None, params=None):
+    def __init__(self, units, hidden_size, num_heads, dropout=0.0, pre_norm=False,
+                 activation="gelu", dtype="float32", prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
+        self._pre_norm = pre_norm
         with self.name_scope():
             self.attention = MultiHeadAttention(units, num_heads, dropout=0.0, dtype=dtype, prefix="attn_")
             self.ln_attn = LayerNorm(prefix="ln1_")
@@ -99,18 +102,21 @@ class TransformerEncoderCell(HybridBlock):
 
     def forward(self, x):
         d = self._drop if self._drop is not None else (lambda t: t)
+        if self._pre_norm:
+            x = x + d(self.attention(self.ln_attn(x)))
+            return x + d(self.ffn(self.ln_ffn(x)))
         x = self.ln_attn(x + d(self.attention(x)))
         return self.ln_ffn(x + d(self.ffn(x)))
 
 
 class TransformerEncoder(HybridBlock):
-    def __init__(self, num_layers, units, hidden_size, num_heads, dropout=0.0,
+    def __init__(self, num_layers, units, hidden_size, num_heads, dropout=0.0, pre_norm=False,
                  activation="gelu", dtype="float32", prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         self._layers = []
         with self.name_scope():
             for i in range(num_layers):
-                cell = TransformerEncoderCell(units, hidden_size, num_heads, dropout,
+                cell = TransformerEncoderCell(units, hidden_size, num_heads, dropout, pre_norm,
                                               activation, dtype=dtype, prefix=f"layer{i}_")
                 self.register_child(cell, f"layer{i}")
                 self._layers.append(cell)

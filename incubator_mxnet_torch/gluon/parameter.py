@@ -282,7 +282,9 @@ class ParameterDict:
                                  f"different Parameters with the same name {k}")
             self._params[k] = v
 
-    def initialize(self, init=None, ctx=None, force_reinit=False):
+    def initialize(self, init=None, ctx=None, verbose=False, force_reinit=False):
+        """Initialize every parameter (the reference's parameters in its
+        order; ``verbose`` changes no value)."""
         if init is None:
             init = _init_mod.Uniform()
         for v in self.values():

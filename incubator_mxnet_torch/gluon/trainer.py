@@ -111,14 +111,18 @@ class Trainer:
         self.allreduce_grads()
         self._update(ignore_stale_grad, stale)
 
-    def fold_step(self, loss_fn, block=None):
+    def fold_step(self, loss_fn, block=None, keep_grads=False):
         """The folded training step of this trainer: a
         :class:`~.step_fold.StepProgram` whose call ``program(*batch)`` runs
         forward, ``loss_fn(*batch)``, backward and the fused optimizer update
         as one CUDA-graph replay on the card (after one eager warm-up call
         and one capture) and returns a copy of the loss.  ``loss_fn`` calls
-        the Block(s) whose Parameters this trainer owns.  Gradients stay in
-        the Parameters' buffers, as after ``backward``.  Escape hatches
+        the Block(s) whose Parameters this trainer owns.  ``keep_grads=True``
+        guarantees each Parameter's gradient after the call, as after
+        ``backward``; with ``False`` (the reference's default) the program
+        promises nothing about the gradients.  The port keeps them in the
+        Parameters' buffers either way, and both values give the same
+        parameters and optimizer states.  Escape hatches
         (``MXNET_STEP_FOLD=0``, ``block`` with ``_step_fold_opt_out``,
         ``grad_req='add'``, an optimizer with no fused update, a capture
         failure) fall back to the eager path with a warning, never an
@@ -127,14 +131,17 @@ class Trainer:
         self._fold = weakref.ref(sp)
         return sp
 
-    def fold_steps(self, loss_fn, k=None, block=None):
+    def fold_steps(self, loss_fn, k=None, block=None, keep_grads=False, donate_window=False):
         """The K-step fold: like :meth:`fold_step`, but each call takes a
         ``[K, batch, ...]`` window stacked by the caller and runs its K
         logical steps as one replay of K captured step bodies, returning the
         ``[K, ...]`` losses; ``k`` defaults to ``MXNET_STEP_FOLD_K`` (K=1 is
         :meth:`fold_step`'s program).  ``program.step_one(*batch)`` runs one
         step off the window boundary; ``save_states`` refuses until the
-        window is whole again."""
+        window is whole again.  ``keep_grads`` as in :meth:`fold_step`.
+        ``donate_window`` is accepted and donates nothing: the program
+        copies each window into its graph's static input buffers, so the
+        caller's window stays valid whatever its value."""
         sp = _sf.StepProgram(self, loss_fn, block=block, k=k)
         self._fold = weakref.ref(sp)
         return sp

@@ -41,8 +41,12 @@ allocates; it counts on the dq pass when the call runs it, else on the
 dk/dv pass (``_dq_launches``, ``_dkv_launches``).  Above 512 columns the
 same kernels stream their operands through their rings box by box and
 make each slab of the outputs a work item of its own, so every head dim
-runs on them.  fp32 stays on CUDA-core kernels (one launch a pass) that
-stream each reduction over the head in 64-column chunks.
+runs on them.  In fp32 the forward and the dk/dv pass have the same item
+structure (TMA rings, two consumer warpgroups) and run every product on
+the tensor cores in split TF32 (hi·hi′ + hi·lo′ + lo·hi′, which keeps fp32
+accuracy); the fp32 dq pass stays on the CUDA cores, 64-column chunks of
+the head a reduction step.  The delta launch precedes every backward call
+above 256, in each dtype, and counts by the same rule.
 
 Gradients: one ``torch.autograd.Function`` (``_FlashAttention``) holds
 the forward, which saves o and the per-row log-sum-exp when an input
@@ -82,25 +86,25 @@ def _launches(width):
     return 1 if _is_wide(width) else max(1, width // _SLAB)
 
 
-def _has_delta_pass(width, dtype):
+def _has_delta_pass(width):
     """Whether a backward call at ``width`` launches flash_wide.cu's delta
-    pass (a 16-bit head above 256): once a call, before whichever of its
-    passes the call runs, both of which read it."""
-    return _is_wide(width) and dtype != torch.float32
+    pass (a head above 256, in every dtype): once a call, before whichever
+    of its passes the call runs, both of which read it."""
+    return _is_wide(width)
 
 
-def _dq_launches(width, dtype):
+def _dq_launches(width):
     """Launches counted on the dq pass of a backward call that runs it: its
     kernel's, and the delta pass's where there is one."""
-    return _launches(width) + int(_has_delta_pass(width, dtype))
+    return _launches(width) + int(_has_delta_pass(width))
 
 
-def _dkv_launches(width, dtype, with_dq=False):
+def _dkv_launches(width, with_dq=False):
     """Launches counted on the dk/dv pass of a backward call: its kernel's,
     and the delta pass's where there is one and the call runs no dq pass
-    (``with_dq``), which counts it otherwise.  So a 16-bit call above 256
-    that runs both passes counts 2 + 1: three launches, delta once."""
-    return _launches(width) + int(_has_delta_pass(width, dtype) and not with_dq)
+    (``with_dq``), which counts it otherwise.  So a call above 256 that runs
+    both passes counts 2 + 1: three launches, delta once."""
+    return _launches(width) + int(_has_delta_pass(width) and not with_dq)
 
 
 def flash_fwd_plain(q, k, v, causal=False, scale=None, with_lse=False):
@@ -227,7 +231,7 @@ def _pad_head(x, width):
 
 
 def _rows_readable(x, bshd):
-    """``x`` as the 16-bit kernels read it: TMA reads rows in boxes and
+    """``x`` as the TMA-fed kernels read it: TMA reads rows in boxes and
     cannot repeat one, so an operand whose sequence stride is 0 (one row
     expanded over S > 1) comes back contiguous; any other comes back as
     it is."""
@@ -239,9 +243,10 @@ def _rows_readable(x, bshd):
 
 def _kernel_operands(width, bshd, *xs):
     """The operands as the kernels take them: padded to ``width`` and, for
-    the 16-bit kernels, with no repeated rows."""
+    the TMA-fed kernels (16-bit, and every dtype above 256), with no
+    repeated rows."""
     xs = [_pad_head(x, width) for x in xs]
-    if xs[0].dtype != torch.float32:
+    if xs[0].dtype != torch.float32 or _is_wide(width):
         xs = [_rows_readable(x, bshd) for x in xs]
     return xs
 
@@ -333,8 +338,8 @@ def _bwd_launch(q, k, v, o, do, lse, dq, dk, dv, causal, scale, bshd):
     """One ctypes call of ``mx_flash_bwd``: the dq pass when ``dq`` is
     given, the dk/dv pass when ``dk``/``dv`` are, both from one set of
     tensor maps.  A padded head dim runs on padded buffers that are then
-    copied, sliced, into the given ones; a 16-bit call above Dh 256 gets an
-    fp32 buffer for delta, which one launch fills before the passes.
+    copied, sliced, into the given ones; a call above Dh 256 gets an fp32
+    buffer for delta, which one launch fills before the passes.
     Returns the launches counted on the dq pass and on the dk/dv pass
     (``_dq_launches``, ``_dkv_launches``), 0 for a pass not asked for."""
     d = q.shape[-1]
@@ -359,7 +364,7 @@ def _bwd_launch(q, k, v, o, do, lse, dq, dk, dv, causal, scale, bshd):
     strides = (ctypes.c_longlong * 24)(*(st for x in ops for st in _strides_bhs(x, bshd)))
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     delta = (torch.empty(b * h, sq, dtype=torch.float32, device=q.device)
-             if _has_delta_pass(width, q.dtype) else None)
+             if _has_delta_pass(width) else None)
     scratch = (ptr(delta),) if _is_wide(width) else ()
     with torch.cuda.device(q.device):
         rc = _bwd_entry(width)(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -373,8 +378,8 @@ def _bwd_launch(q, k, v, o, do, lse, dq, dk, dv, causal, scale, bshd):
         for dst, g in zip(wanted, (dq, dk, dv)):
             if dst is not None:
                 dst.copy_(g[..., :d])
-    return (0 if dq is None else _dq_launches(width, q.dtype),
-            0 if dk is None else _dkv_launches(width, q.dtype, with_dq=dq is not None))
+    return (0 if dq is None else _dq_launches(width),
+            0 if dk is None else _dkv_launches(width, with_dq=dq is not None))
 
 
 def _bwd_args(q, layout, scale):
@@ -403,8 +408,8 @@ def flash_bwd_dq(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd", d
     """The dq pass of :func:`flash_bwd`; writes into ``dq`` when given and
     returns dq.  A CPU tensor takes :func:`flash_bwd_plain`; a CUDA tensor
     launches the dq kernel (``flash_bwd_dq.launches`` counts, above Dh 256
-    ``flash_wide_bwd_dq.launches``: two in bf16 and fp16, the delta pass
-    and the kernel) or raises."""
+    ``flash_wide_bwd_dq.launches``: two, the delta pass and the kernel) or
+    raises."""
     bshd, scale = _bwd_args(q, layout, scale)
     if q.device.type == "cpu":
         return _into(dq, _bwd_plain(q, k, v, o, do, lse, causal, scale, bshd)[0])
@@ -420,8 +425,8 @@ def flash_bwd_dkv(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd",
     given and returns (dk, dv).  A CPU tensor takes
     :func:`flash_bwd_plain`; a CUDA tensor launches the dk/dv kernel
     (``flash_bwd_dkv.launches`` counts, above Dh 256
-    ``flash_wide_bwd_dkv.launches``: two in bf16 and fp16, the delta pass
-    and the kernel, as this call runs no dq pass) or raises."""
+    ``flash_wide_bwd_dkv.launches``: two, the delta pass and the kernel, as
+    this call runs no dq pass) or raises."""
     if (dk is None) != (dv is None):
         raise ValueError("flash_bwd_dkv: give both dk and dv or neither")
     bshd, scale = _bwd_args(q, layout, scale)
@@ -437,8 +442,7 @@ def flash_bwd_dkv(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd",
 
 def flash_wide_bwd_dq(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd", dq=None):
     """:func:`flash_bwd_dq` at a head dim above 256: the ``flash_wide_bwd_dq``
-    kernel (``flash_wide_bwd_dq.launches`` counts; in bf16 and fp16 the
-    delta pass too)."""
+    kernel (``flash_wide_bwd_dq.launches`` counts, the delta pass too)."""
     if q.shape[-1] <= _HEAD_DIMS[-1]:
         raise ValueError(f"flash_wide_bwd_dq takes head dims above {_HEAD_DIMS[-1]}, got "
                          f"{q.shape[-1]}")
@@ -448,8 +452,8 @@ def flash_wide_bwd_dq(q, k, v, o, do, lse, causal=False, scale=None, layout="bhs
 def flash_wide_bwd_dkv(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd",
                        dk=None, dv=None):
     """:func:`flash_bwd_dkv` at a head dim above 256: the
-    ``flash_wide_bwd_dkv`` kernel (``flash_wide_bwd_dkv.launches`` counts; in
-    bf16 and fp16 the delta pass too)."""
+    ``flash_wide_bwd_dkv`` kernel (``flash_wide_bwd_dkv.launches`` counts,
+    the delta pass too)."""
     if q.shape[-1] <= _HEAD_DIMS[-1]:
         raise ValueError(f"flash_wide_bwd_dkv takes head dims above {_HEAD_DIMS[-1]}, got "
                          f"{q.shape[-1]}")
@@ -487,9 +491,8 @@ def flash_bwd(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd", out=
     CUDA tensor launches the two kernels, the dq pass then the dk/dv pass,
     in one call (``flash_bwd_dq.launches`` and ``flash_bwd_dkv.launches``
     each count one, two at Dh 129-256; above 256 the ``flash_wide_*``
-    wrappers' counts take theirs: one each, and in bf16 and fp16 the one
-    delta pass of the call on ``flash_wide_bwd_dq``, three launches in
-    all), or raises."""
+    wrappers' counts take theirs: one each, and the one delta pass of the
+    call on ``flash_wide_bwd_dq``, three launches in all), or raises."""
     dq, dk, dv = out if out is not None else (None, None, None)
     bshd, scale = _bwd_args(q, layout, scale)
     if q.device.type == "cpu":

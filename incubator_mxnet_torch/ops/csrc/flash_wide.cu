@@ -135,13 +135,45 @@
 // two barriers), not one resource.  The dk/dv pass, delta launch included,
 // reaches about a fifth of its bound.
 //
-// What stays on the CUDA cores: fp32 (flash_wide_fwd_f32,
-// flash_wide_bwd_dq_f32, flash_wide_bwd_dkv_f32), as the fp32 paths of
-// flash_fwd.cu and flash_bwd.cu, since wgmma has no full-fp32 product.
-// They stream every reduction over Dh in 64-column chunks staged in shared
-// memory, produce each output in 128-column slabs (one slab a block,
-// recomputing the scores for each slab; dk/dv gives dv and dk slabs blocks
-// of their own), 256 threads and 64 x 32 scores a block.
+// fp32 (MXNet's default dtype): wgmma has no full-fp32 product and plain
+// TF32 keeps 10 bits of mantissa, far outside the fp32 bounds; so the fp32
+// forward (flash_wide_fwd_f32) and dk/dv pass (flash_wide_bwd_dkv_f32) run
+// every product in split TF32 on the tensor cores: x = hi + lo, each fp32
+// product hi·hi′ + hi·lo′ + lo·hi′ (three TF32 products, fp32 sums; lo·lo′
+// dropped), which errs by about 2^-20 of a product.  The tensor core reads
+// a raw fp32 word as TF32 by truncation (probed on the card), so the raw
+// word is hi and only lo = x − hi is formed, in registers: two
+// instructions an element.  What bounds them: 3 x 17.2 (forward) and 3 x
+// 34.4 (dk/dv) GFLOP of TF32 at [4, 512, 8, 512], 0.104 and 0.208 ms at 495
+// TFLOP/s, against 67 / 101 MB of bytes (0.02-0.03 ms).
+// * The items are the 16-bit kernels': the forward's 64 query rows and a
+//   slab of at most 6 boxes of o (3 a consumer: 4, 128 registers of o beside
+//   32 of scores, made ptxas spill; so Dh 448 and 512 take two slab items,
+//   each computing the scores), the consumers splitting the head's boxes
+//   and swapping fp32 partial scores; dk/dv's slab items of a key tile
+//   (ceil(P/4) slabs of at most 4 boxes), consumer 0 computing sᵀ, pᵀ and
+//   dv, consumer 1 dpᵀ, dsᵀ (taking pᵀ through shared memory) and dk.  Each
+//   score is computed once an item; persistent grid, static stride, one
+//   producer thread, setmaxnreg 24 / 240 (all the block's registers).
+// * A 64 x 64 fp32 box is two 32-column TMA boxes (128-byte swizzle), and no
+//   whole fp32 tile fits (64 rows of Dh 512 are 128 KB), so every operand
+//   streams: each consumer has its own ring of 3 slots of two boxes (a
+//   reduction's A and B box, or a product's B box), which also keeps the
+//   producer's count of a consumer's slots exact when P is odd.
+// * wgmma takes TF32 operands K-major only, and p·v, pᵀ·do and dsᵀ·q reduce
+//   over the sequence (v, do and q MN-major).  So the products run on
+//   mma.sync.m16n8k8.tf32, whose fragments each lane reads itself: by
+//   ldmatrix for the K-major reductions (a 16-byte row of 16-bit pairs is 4
+//   fp32 values, a TF32 fragment row), by 32-bit loads for the MN-major
+//   ones, both conflict-free in the swizzled rows.  The accumulator's pairs
+//   (columns 2t, 2t + 1) become the A fragment of the next product (columns
+//   t, t + 4) by permuting the reduction index within each step of 8.
+// * o, dk and dv are stored straight from the registers (row and key tails
+//   masked); delta = rowsum(do∘o) comes from the call's one delta launch.
+// Only flash_wide_bwd_dq_f32 stays on the CUDA cores (reduce_dh,
+// slab_product): 64-column chunks of the head staged in shared memory, dq
+// in 128-column slabs, a block a (batch·head, query tile, slab), 256
+// threads and 64 x 32 scores a block, recomputing the scores for each slab.
 
 #include <math.h>
 
@@ -177,7 +209,7 @@ __device__ __forceinline__ const T* base(const Params& p, int which, const void*
 }
 
 // ---------------------------------------------------------------------------
-// CUDA cores: fp32
+// CUDA cores: the fp32 dq pass
 // ---------------------------------------------------------------------------
 
 constexpr int THREADS = 256;
@@ -250,91 +282,13 @@ __device__ void slab_product(float (&out)[4][8], const float* sw, float* sv, con
   __syncthreads();
 }
 
-// max and sum over the 16 lanes of a half warp (one row's threads)
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Shared memory of every kernel: two reduction chunks (ROWS and COLS rows),
-// which a slab tile of COLS x SLAB reuses, and a ROWS x COLS weight tile.
+// Shared memory of the dq kernel: two reduction chunks (ROWS and COLS
+// rows), which a slab tile of COLS x SLAB reuses, and a ROWS x COLS weight
+// tile.
 constexpr int CHUNK_FLOATS = (ROWS + COLS) * PITCH;
 static_assert(CHUNK_FLOATS >= COLS * SLAB, "the slab tile reuses the chunk buffers");
 constexpr int SMEM_FLOATS = CHUNK_FLOATS + ROWS * (COLS + 1);
 static_assert(SMEM_FLOATS * 4 + 2 * COLS * 4 <= 48 * 1024, "static shared memory");
-
-// Block (batch*head x, query tile y, slab z): o[rows, slab] and, from slab
-// 0, lse[rows].
-__global__ void __launch_bounds__(THREADS) flash_wide_fwd_f32(Params p) {
-  __shared__ float smem[SMEM_FLOATS];
-  float* sa = smem;
-  float* sb = smem + ROWS * PITCH;
-  float* sp = smem + CHUNK_FLOATS;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int q0 = blockIdx.y * ROWS, bh = blockIdx.x, c0 = blockIdx.z * SLAB;
-  const int b = bh / p.H, h = bh % p.H;
-  const float* q = base<float>(p, Q, p.q, b, h);
-  const float* k = base<float>(p, K, p.k, b, h);
-  const float* v = base<float>(p, V, p.v, b, h);
-
-  float acc[4][8] = {}, m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = 0.f;
-  int nk = (p.Sk + COLS - 1) / COLS;
-  if (p.causal) nk = min(nk, (min(q0 + ROWS, p.Sq) + COLS - 1) / COLS);
-  for (int t = 0; t < nk; ++t) {
-    const int k0 = t * COLS;
-    float s[4][2] = {};
-    reduce_dh(s, sa, sb, q, p.st[Q][2], q0, p.Sq, k, p.st[K][2], k0, p.Sk, p.D);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * ty + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int key = k0 + 2 * tx + j;
-        const bool masked = key >= p.Sk || (p.causal && key > row);
-        s[i][j] = masked ? -INFINITY : s[i][j] * p.scale;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = m[i] == -INFINITY ? 0.f : expf(m[i] - m_safe);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float e = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - m_safe);
-        rs += e;
-        sp[(4 * ty + i) * (COLS + 1) + 2 * tx + j] = e;
-      }
-      l[i] = l[i] * corr + row_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[i][c] *= corr;
-    }
-    // sp is complete after the barrier inside slab_product's staging
-    slab_product(acc, sp, sa, v, p.st[V][2], k0, p.Sk, c0, p.D);
-  }
-  float* o = static_cast<float*>(p.out) + b * p.st[OUT][0] + h * p.st[OUT][1];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row >= p.Sq) continue;
-    const float lsum = l[i] == 0.f ? 1.f : l[i];
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      if (c0 + tx + 16 * c < p.D)
-        o[row * p.st[OUT][2] + c0 + tx + 16 * c] = acc[i][c] / lsum;
-    if (p.lse != nullptr && blockIdx.z == 0 && tx == 0)
-      p.lse[(long long)bh * p.Sq + row] = (m[i] == -INFINITY ? 0.f : m[i]) + logf(lsum);
-  }
-}
 
 // Block (batch*head x, query tile y, slab z): dq[rows, slab].
 __global__ void __launch_bounds__(THREADS) flash_wide_bwd_dq_f32(Params p) {
@@ -348,19 +302,15 @@ __global__ void __launch_bounds__(THREADS) flash_wide_bwd_dq_f32(Params p) {
   const float* q = base<float>(p, Q, p.q, b, h);
   const float* k = base<float>(p, K, p.k, b, h);
   const float* v = base<float>(p, V, p.v, b, h);
-  const float* o = base<float>(p, O, p.o, b, h);
   const float* dout = base<float>(p, DO, p.dout, b, h);
 
-  // delta = rowsum(do * o) and the lse of this thread's four rows
+  // delta = rowsum(do * o), from the call's delta launch, and the lse of
+  // this thread's four rows
   float delta[4], lse[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
-    float part = 0.f;
-    if (row < p.Sq)
-      for (int c = tx; c < p.D; c += 16)
-        part = fmaf(dout[row * p.st[DO][2] + c], o[row * p.st[O][2] + c], part);
-    delta[i] = row_sum(part);
+    delta[i] = row < p.Sq ? p.delta[(long long)bh * p.Sq + row] : 0.f;
     lse[i] = row < p.Sq ? p.lse[(long long)bh * p.Sq + row] : 0.f;
   }
   float acc[4][8] = {};
@@ -396,93 +346,12 @@ __global__ void __launch_bounds__(THREADS) flash_wide_bwd_dq_f32(Params p) {
   }
 }
 
-// Block (batch*head x, key tile y, z): z < slabs gives dv[keys, slab z],
-// the rest dk[keys, slab z - slabs].  Scores are held transposed: rows are
-// keys, columns queries.
-__global__ void __launch_bounds__(THREADS) flash_wide_bwd_dkv_f32(Params p) {
-  __shared__ float smem[SMEM_FLOATS];
-  __shared__ float s_delta[COLS], s_lse[COLS];
-  float* sa = smem;
-  float* sb = smem + ROWS * PITCH;
-  float* sw = smem + CHUNK_FLOATS;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int k0 = blockIdx.y * ROWS, bh = blockIdx.x;
-  const int slabs = (p.D + SLAB - 1) / SLAB;
-  const bool is_dk = (int)blockIdx.z >= slabs;
-  const int c0 = (blockIdx.z % slabs) * SLAB;
-  const int b = bh / p.H, h = bh % p.H;
-  const float* q = base<float>(p, Q, p.q, b, h);
-  const float* k = base<float>(p, K, p.k, b, h);
-  const float* v = base<float>(p, V, p.v, b, h);
-  const float* o = base<float>(p, O, p.o, b, h);
-  const float* dout = base<float>(p, DO, p.dout, b, h);
-
-  float acc[4][8] = {};
-  // causal: queries before the block's first key see none of its keys
-  const int first = p.causal ? k0 / COLS * COLS : 0;
-  for (int q0 = first; q0 < p.Sq; q0 += COLS) {
-    // delta and lse of the tile's queries: 8 threads a query
-    {
-      const int r = threadIdx.x / 8, part_id = threadIdx.x % 8, row = q0 + r;
-      float part = 0.f;
-      if (is_dk && row < p.Sq)
-        for (int c = part_id; c < p.D; c += 8)
-          part = fmaf(dout[row * p.st[DO][2] + c], o[row * p.st[O][2] + c],
-                      part);
-#pragma unroll
-      for (int off = 4; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
-      if (part_id == 0) {
-        s_delta[r] = part;
-        s_lse[r] = row < p.Sq ? p.lse[(long long)bh * p.Sq + row] : 0.f;
-      }
-    }
-    float s[4][2] = {}, dp[4][2] = {};
-    // the barriers inside reduce_dh publish s_delta and s_lse
-    reduce_dh(s, sa, sb, k, p.st[K][2], k0, p.Sk, q, p.st[Q][2], q0, p.Sq, p.D);
-    if (is_dk)
-      reduce_dh(dp, sa, sb, v, p.st[V][2], k0, p.Sk, dout, p.st[DO][2], q0, p.Sq, p.D);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = k0 + 4 * ty + i;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int jq = 2 * tx + j, row = q0 + jq;
-        const bool masked = row >= p.Sq || key >= p.Sk || (p.causal && key > row);
-        const float pr = masked ? 0.f : expf(s[i][j] * p.scale - s_lse[jq]);
-        sw[(4 * ty + i) * (COLS + 1) + jq] =
-            is_dk ? pr * (dp[i][j] - s_delta[jq]) : pr;
-      }
-    }
-    slab_product(acc, sw, sa, is_dk ? q : dout, is_dk ? p.st[Q][2] : p.st[DO][2], q0, p.Sq,
-                    c0, p.D);
-  }
-  const int which = is_dk ? DK : DV;
-  float* g = static_cast<float*>(is_dk ? p.dk : p.dv) + b * p.st[which][0] + h * p.st[which][1];
-  const float mul = is_dk ? p.scale : 1.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + 4 * ty + i;
-    if (key >= p.Sk) continue;
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      if (c0 + tx + 16 * c < p.D)
-        g[key * p.st[which][2] + c0 + tx + 16 * c] = acc[i][c] * mul;
-  }
-}
-
-// One fp32 pass on the CUDA cores: 0 the forward, 1 dq, 2 dk/dv.
-cudaError_t launch_f32(const Params& p, int pass, cudaStream_t stream) {
+// The fp32 dq pass on the CUDA cores: a block a (batch·head, query tile,
+// slab).
+cudaError_t launch_dq_f32(const Params& p, cudaStream_t stream) {
   const unsigned slabs = (unsigned)((p.D + SLAB - 1) / SLAB);
-  const unsigned bh = (unsigned)(p.B * p.H);
-  const dim3 query_tiles(bh, (p.Sq + ROWS - 1) / ROWS, slabs);
-  if (pass == 0) {
-    flash_wide_fwd_f32<<<query_tiles, THREADS, 0, stream>>>(p);
-  } else if (pass == 1) {
-    flash_wide_bwd_dq_f32<<<query_tiles, THREADS, 0, stream>>>(p);
-  } else {
-    const dim3 grid(bh, (p.Sk + ROWS - 1) / ROWS, 2 * slabs);
-    flash_wide_bwd_dkv_f32<<<grid, THREADS, 0, stream>>>(p);
-  }
+  const dim3 query_tiles((unsigned)(p.B * p.H), (p.Sq + ROWS - 1) / ROWS, slabs);
+  flash_wide_bwd_dq_f32<<<query_tiles, THREADS, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -971,8 +840,8 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
 }
 
 // delta = rowsum(do∘o) in fp32, one warp a row of [B·H·Sq], 16 bytes a lane
-// and step: launched once a backward call, the dq and dk/dv passes read it
-// instead of o.
+// and step (8 elements of a 16-bit type, 4 of fp32): launched once a
+// backward call, the dq and dk/dv passes read it instead of o.
 template <typename T>
 __global__ void __launch_bounds__(256) flash_wide_bwd_delta(Params p) {
   const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
@@ -983,14 +852,22 @@ __global__ void __launch_bounds__(256) flash_wide_bwd_delta(Params p) {
   const T* o = base<T>(p, O, p.o, b, h) + s * p.st[O][2];
   const T* d = base<T>(p, DO, p.dout, b, h) + s * p.st[DO][2];
   float acc = 0.f;
-  for (int c = 8 * lane; c < p.D; c += 256) {
-    const uint4 o4 = *reinterpret_cast<const uint4*>(o + c);
-    const uint4 d4 = *reinterpret_cast<const uint4*>(d + c);
-    const uint32_t ow[4] = {o4.x, o4.y, o4.z, o4.w}, dw[4] = {d4.x, d4.y, d4.z, d4.w};
+  if constexpr (std::is_same<T, float>::value) {
+    for (int c = 4 * lane; c < p.D; c += 128) {
+      const float4 o4 = *reinterpret_cast<const float4*>(o + c);
+      const float4 d4 = *reinterpret_cast<const float4*>(d + c);
+      acc = fmaf(d4.x, o4.x, fmaf(d4.y, o4.y, fmaf(d4.z, o4.z, fmaf(d4.w, o4.w, acc))));
+    }
+  } else {
+    for (int c = 8 * lane; c < p.D; c += 256) {
+      const uint4 o4 = *reinterpret_cast<const uint4*>(o + c);
+      const uint4 d4 = *reinterpret_cast<const uint4*>(d + c);
+      const uint32_t ow[4] = {o4.x, o4.y, o4.z, o4.w}, dw[4] = {d4.x, d4.y, d4.z, d4.w};
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 a = unpack2<T>(dw[e]), bb = unpack2<T>(ow[e]);
-      acc = fmaf(a.x, bb.x, fmaf(a.y, bb.y, acc));
+      for (int e = 0; e < 4; ++e) {
+        const float2 a = unpack2<T>(dw[e]), bb = unpack2<T>(ow[e]);
+        acc = fmaf(a.x, bb.x, fmaf(a.y, bb.y, acc));
+      }
     }
   }
 #pragma unroll
@@ -1505,6 +1382,606 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// fp32: split TF32 on the tensor cores (mma.sync)
+// ---------------------------------------------------------------------------
+
+// An fp32 box: 64 rows by 64 columns as two TMA boxes of 32 columns, each
+// 64 rows of 128 bytes swizzled by TMA over 128 bytes (16 KB).
+constexpr int F_HALF = TILE * 128;
+constexpr int F_BOX = 2 * F_HALF;
+// Each consumer warpgroup has a ring of F_SLOTS slots of two boxes: a
+// reduction's A and B boxes, or a product's B box in the first.
+constexpr int F_SLOTS = 3;
+constexpr int F_SLOT = 2 * F_BOX;
+// setmaxnreg of the producer and the consumers: 24·128 + 240·256 = 168·384,
+// all the registers the block holds at launch (a consumer holds 128 of
+// accumulator and 32 of scores beside split fragments).
+constexpr int F_PRODUCER_REGS = 24;
+constexpr int F_CONSUMER_REGS = 240;
+constexpr int F_PART = TILE * TILE;  // floats of one exchange buffer
+constexpr int F_BARRIERS = 2 * 2 * F_SLOTS;  // full and empty of each slot of each ring
+// Shared memory, as offsets from its 1024-byte-aligned base (so one
+// register addresses all of it): consumer 0's ring, consumer 1's, then in
+// the forward two exchange buffers (partial scores), in the dk/dv pass one
+// (pᵀ), then the barriers.  230,496 and 214,112 bytes.
+constexpr int F_EXCH = 2 * F_SLOTS * F_SLOT;
+constexpr int F_FWD_BARS = F_EXCH + 2 * F_PART * 4;
+constexpr int F_DKV_BARS = F_EXCH + F_PART * 4;
+constexpr int F_FWD_SMEM = F_FWD_BARS + F_BARRIERS * 8 + 1024;
+constexpr int F_DKV_SMEM = F_DKV_BARS + F_BARRIERS * 8 + 1024;
+static_assert(F_FWD_SMEM == 230496 && F_DKV_SMEM == 214112 && F_FWD_SMEM <= SMEM_LIMIT,
+              "the sizes stated beside F_FWD_SMEM");
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t x;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(x) : "r"(addr));
+  return x;
+}
+
+// The split of an fp32 word x into hi + lo: the tensor core reads a raw
+// fp32 word as TF32 by dropping its low 13 bits (a probe on the card found
+// truncation, not rounding), so the raw word is hi, and lo = x − hi is
+// exact in fp32 (|lo| < 2^-10·|x|; read as TF32 in turn it loses at most
+// 2^-20·|x|).
+__device__ __forceinline__ uint32_t lo_of(uint32_t x) {
+  return __float_as_uint(__uint_as_float(x) - __uint_as_float(x & 0xffffe000u));
+}
+
+// d (16 x 8, fp32) += a (16 x 8) · b (8 x 8) in TF32.  Fragments (g = lane
+// / 4, t = lane % 4): a0 (row g, k t), a1 (g + 8, t), a2 (g, t + 4), a3
+// (g + 8, t + 4); b0 (k t, column g), b1 (k t + 4, g); d as wgmma's
+// accumulator: d0, d1 (row g, columns 2t, 2t + 1), d2, d3 (row g + 8).
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a·b in split TF32: hi·lo′, lo·hi′ and hi·hi′ (lo·lo′, below 2^-20
+// of the product, is dropped), small ones first.  a as hi words and lo
+// words, b as raw words.
+__device__ __forceinline__ void mma3(float* d, const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                     uint32_t b0, uint32_t b1) {
+  mma_tf32(d, ah, lo_of(b0), lo_of(b1));
+  mma_tf32(d, al, b0, b1);
+  mma_tf32(d, ah, b0, b1);
+}
+
+// i itself, as a value the compiler cannot tie to i: what is computed from
+// it is computed anew where it is used, not held in a register through the
+// consumers' hot loops (a consumer holds 128 or 96 registers of
+// accumulator and 32 of scores; ptxas spilled when it held more).
+__device__ __forceinline__ int opaque(int i) {
+  asm volatile("" : "+r"(i));
+  return i;
+}
+
+// A consumer thread's index in its warpgroup, read afresh where it is used.
+__device__ __forceinline__ int ctid() { return opaque((int)threadIdx.x) % 128; }
+
+// A lane's byte offsets into an fp32 box (64 rows by two 32-column halves,
+// rows of 128 bytes swizzled as TMA writes them: 16-byte chunk c of row r
+// at r·128 + ((c ^ r % 8) << 4)).  For the lane's row, step m of a half's
+// four 8-column steps lies at offset ^ (m << 5), since only the chunk's
+// bits 1-2 change with m (the address bits 5-6); a box starts on a
+// 1024-byte boundary, so (box + offset) ^ (m << 5) is the address.  a, b:
+// the ldmatrix row of reduce_box's A and B operands (an 8 x 8 matrix of
+// 16-bit pairs is 8 rows of 4 fp32 values, which is how TF32 fragments
+// lie); e: product_box's element of column tile 0 in the lane's even row
+// of a step of 8 (its odd row: bit 4 flipped and 128 on).  Every read is
+// conflict-free.
+struct Frag {
+  uint32_t a, b, e;
+};
+
+__device__ __forceinline__ Frag frag_offsets() {
+  // computed afresh at each box (a few instructions) rather than held in
+  // three registers through the consumer's loops
+  const int tid = ctid(), warp = tid / 32, lane = tid % 32;
+  const int mi = lane >> 3, ri = lane & 7, g = lane >> 2, t = lane & 3;
+  return {(16 * warp + ri + 8 * (mi & 1)) * 128u | (ri >> 1) << 5 | (((mi >> 1) ^ ri) & 1) << 4,
+          (ri + 8 * (mi >> 1)) * 128u | (ri >> 1) << 5 | (((mi & 1) ^ ri) & 1) << 4,
+          2 * t * 128u | t << 5 | (g >> 2) << 4 | (g & 3) << 2};
+}
+
+// sc (this warp's 16 rows of a 64 x 64 block) += a·bᵀ over the 64 columns
+// of two boxes, both K-major: a's rows (the warp's), b's 64 rows.
+__device__ __forceinline__ void reduce_box(float (&sc)[32], uint32_t a, uint32_t b) {
+  const Frag f = frag_offsets();
+  a += f.a;
+  b += f.b;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const uint32_t step = (k & 3) << 5, half = (k >> 2) * F_HALF;
+    uint32_t ah[4], al[4];
+    ldsm4(ah, (a ^ step) + half);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) al[e] = lo_of(ah[e]);
+#pragma unroll
+    for (int n = 0; n < 8; n += 2) {
+      uint32_t bf[4];  // b0 and b1 of column tiles n and n + 1
+      ldsm4(bf, (b ^ step) + n * 1024 + half);
+      mma3(sc + 4 * n, ah, al, bf[0], bf[1]);
+      mma3(sc + 4 * n + 4, ah, al, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc (this warp's 16 rows by a box's 64 columns) += w·b: w (the warp's 16
+// rows by the tile's 64 keys or queries, in accumulator layout) and b a box
+// whose 64 rows are the reduction (MN-major), its fragments read by hand.
+// The reduction index is permuted within each step of 8 so that w's
+// accumulator pairs are its A fragments: step j's k = t is row 8j + 2t, k =
+// t + 4 row 8j + 2t + 1, for w's columns and b's rows alike.
+__device__ __forceinline__ void product_box(float (&acc)[32], const float (&w)[32], uint32_t b) {
+  b += frag_offsets().e;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint32_t ah[4] = {__float_as_uint(w[4 * j]), __float_as_uint(w[4 * j + 2]),
+                            __float_as_uint(w[4 * j + 1]), __float_as_uint(w[4 * j + 3])};
+    uint32_t al[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) al[e] = lo_of(ah[e]);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const uint32_t step = (n & 3) << 5, at = j * 1024 + (n >> 2) * F_HALF;
+      mma3(acc + 4 * n, ah, al, lds32((b ^ step) + at), lds32((b ^ step ^ 16) + 128 + at));
+    }
+  }
+}
+
+// put_block and get4 on a 32-bit shared-memory address.
+__device__ __forceinline__ void put_block_s(uint32_t buf, const float (&x)[32], int tid) {
+#pragma unroll
+  for (int v = 0; v < 8; ++v)
+    asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(buf + (v * 512 + 4 * tid) * 4),
+                 "f"(x[4 * v]), "f"(x[4 * v + 1]), "f"(x[4 * v + 2]), "f"(x[4 * v + 3])
+                 : "memory");
+}
+
+__device__ __forceinline__ float4 get4_s(uint32_t buf, int v, int tid) {
+  float4 r;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(r.x), "=f"(r.y), "=f"(r.z), "=f"(r.w)
+               : "r"(buf + (v * 512 + 4 * tid) * 4)
+               : "memory");
+  return r;
+}
+
+// One 64-column box of a 4-D fp32 map: two TMA boxes of 32 columns.
+__device__ __forceinline__ void load_box(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int row, Coord c) {
+  tma_load(dst, map, bar, col, row, c.h, c.b);
+  tma_load(dst + F_HALF, map, bar, col + 32, row, c.h, c.b);
+}
+
+// The barriers of slot s of consumer w's ring: full (the producer's loads
+// landed), empty (each of the consumer's warps is past its reads).
+__device__ __forceinline__ uint32_t f_full(uint32_t bars, int w, int s) {
+  return bars + 8 * (2 * F_SLOTS * w + s);
+}
+__device__ __forceinline__ uint32_t f_empty(uint32_t bars, int w, int s) {
+  return bars + 8 * (2 * F_SLOTS * w + F_SLOTS + s);
+}
+
+// Every slot's full barrier takes the producer's one arrival (with its
+// bytes), every empty one an arrival of each of its consumer's four warps.
+__device__ __forceinline__ void f_init(uint32_t bars) {
+  for (int w = 0; w < 2; ++w)
+    for (int s = 0; s < F_SLOTS; ++s) {
+      mbar_init(f_full(bars, w, s), 1);
+      mbar_init(f_empty(bars, w, s), 4);
+    }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Consumer W's side of its ring (barriers at base + BARS): wait for the
+// next slot, then its address; release it.
+template <int W, int BARS>
+struct FRing {
+  Ring<F_SLOTS> r;
+  uint32_t base;
+  __device__ __forceinline__ uint32_t acquire() {
+    mbar_wait(f_full(base + BARS, W, r.slot()), r.parity());
+    return base + (W * F_SLOTS + r.slot()) * F_SLOT;
+  }
+  __device__ __forceinline__ void release_slot(int lane) {
+    release(f_empty(base + BARS, W, r.slot()), lane);
+    ++r.n;
+  }
+};
+
+// The producer's side of consumer w's ring: wait until the next slot is
+// free and expect `bytes` on its full barrier.
+struct FFill {
+  uint32_t slot, full;
+};
+
+__device__ __forceinline__ FFill f_fill(Ring<F_SLOTS>& r, uint32_t base, uint32_t bars, int w,
+                                        uint32_t bytes) {
+  const int s = r.slot();
+  mbar_wait(f_empty(bars, w, s), r.parity() ^ 1u);
+  const FFill f = {base + (w * F_SLOTS + s) * F_SLOT, f_full(bars, w, s)};
+  mbar_expect_tx(f.full, bytes);
+  ++r.n;
+  return f;
+}
+
+// The forward's boxes of one consumer in one key tile: reductions over
+// [r0, r0 + nr) of the head (q box and k box a slot), then the products
+// over its nb boxes of o from fb (a v box a slot).
+struct FwdShare {
+  int r0, nr, fb, nb;
+};
+
+__device__ __forceinline__ FwdShare fwd_share(const FwdItem& it, int P, int C) {
+  const int P0 = (P + 1) / 2, half = (it.slab.n + 1) / 2;
+  return {C ? P0 : 0, C ? P - P0 : P0, it.slab.first + (C ? half : 0),
+          C ? it.slab.n - half : half};
+}
+
+// Slabs of o of an fp32 forward item: at most 6 boxes, a consumer's 3.  (A
+// consumer holding 4 boxes, 128 registers of o beside 32 of scores, left
+// ptxas too few registers: it spilled at every setmaxnreg split tried.)
+__host__ __device__ __forceinline__ int fwd_f32_slabs(int P) { return (P + 5) / 6; }
+
+// The counts of an fp32 call: head boxes P, slabs an item, tiles and items,
+// computed afresh from opaque copies of the parameters at each item.
+struct FShape {
+  int P, slabs, tiles, items;
+};
+
+__device__ __forceinline__ FShape fwd_shape(const Params& p) {
+  const int P = opaque(p.D) / 64, slabs = fwd_f32_slabs(P);
+  const int tiles = (opaque(p.Sq) + TILE - 1) / TILE;
+  return {P, slabs, tiles, p.B * p.H * tiles * slabs};
+}
+
+// Consumer warpgroup C of the fp32 forward: all 64 rows of each item, its
+// boxes of the item's slab of o; its part of the scores over its half of
+// the head, swapped with the other's as in flash_wide_fwd_tma.
+template <int C>
+__device__ __forceinline__ void fwd_f32_consumer(const Params& p, uint32_t base, int tid) {
+  constexpr int MINE = F_EXCH + C * F_PART * 4, OTHER = F_EXCH + (1 - C) * F_PART * 4;
+  const int lane = tid % 32, t = lane & 3;
+  const int rl = 16 * (tid / 32) + lane / 4;  // this thread's rows of the item: rl, rl + 8
+  const float sl2 = p.scale * LOG2E;
+  FRing<C, F_FWD_BARS> rg{{}, base};
+  for (int i = blockIdx.x; i < fwd_shape(p).items; i += gridDim.x) {
+    const FShape sp = fwd_shape(p);
+    const FwdItem it = fwd_item(i, p, sp.tiles, sp.slabs);
+    const FwdShare sh = fwd_share(it, sp.P, C);
+    const int row0 = it.q0 + rl;
+    float o[96];
+#pragma unroll
+    for (int e = 0; e < 96; ++e) o[e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};  // running row max, log2 units
+    float l[2] = {0.f, 0.f};
+    for (int j = 0; j < it.nk; ++j) {
+      float sc[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+#pragma unroll 1
+      for (int x = 0; x < sh.nr; ++x) {
+        const uint32_t slot = rg.acquire();
+        reduce_box(sc, slot, slot + F_BOX);
+        rg.release_slot(lane);
+      }
+      // the swap: both then hold s0 + s1 = s1 + s0
+      named_sync(BAR_FREE, 256);
+      put_block_s(base + MINE, sc, tid);
+      named_sync(BAR_FULL, 256);
+#pragma unroll
+      for (int v = 0; v < 8; ++v) {
+        const float4 w = get4_s(base + OTHER, v, tid);
+        sc[4 * v] += w.x;
+        sc[4 * v + 1] += w.y;
+        sc[4 * v + 2] += w.z;
+        sc[4 * v + 3] += w.w;
+      }
+      float corr[2];
+      softmax64(sc, m, l, corr, j * TILE, row0, it.q0, p, sl2, t);
+#pragma unroll
+      for (int n = 0; n < 24; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[4 * n + e] *= corr[e >> 1];
+#pragma unroll
+      for (int x = 0; x < 3; ++x) {
+        if (x >= sh.nb) break;
+        const uint32_t slot = rg.acquire();
+        product_box(*reinterpret_cast<float(*)[32]>(o + 32 * x), sc, slot);
+        rg.release_slot(lane);
+      }
+    }
+    // o / l straight from the registers, rows past Sq not written
+    float* const out = static_cast<float*>(p.out) + it.b * p.st[OUT][0] + it.h * p.st[OUT][1];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float lsum = l[r] == 0.f ? 1.f : l[r];
+      const float inv = 1.f / lsum;
+      const int row = row0 + 8 * r;
+      if (row >= p.Sq) continue;
+#pragma unroll
+      for (int x = 0; x < 3; ++x) {
+        if (x >= sh.nb) break;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          *reinterpret_cast<float2*>(out + row * p.st[OUT][2] + (sh.fb + x) * 64 + 8 * n + 2 * t) =
+              make_float2(o[32 * x + 4 * n + 2 * r] * inv, o[32 * x + 4 * n + 2 * r + 1] * inv);
+      }
+      if (C == 0 && it.slab.first == 0 && p.lse != nullptr && t == 0)
+        p.lse[(long long)(it.b * p.H + it.h) * p.Sq + row] =
+            (m[r] == -INFINITY ? 0.f : m[r] * 0.6931471805599453f) + logf(lsum);
+    }
+  }
+}
+
+// The fp32 forward's producer thread: keeps both rings full, each
+// consumer's loads of a key tile in its own order, the two interleaved.
+__device__ __forceinline__ void fwd_f32_producer(const CUtensorMap* tq, const CUtensorMap* tk,
+                                                 const CUtensorMap* tv, const Params& p,
+                                                 uint32_t base) {
+  const uint32_t bars = base + F_FWD_BARS;
+  const FShape sp = fwd_shape(p);
+  const int P = sp.P;
+  Ring<F_SLOTS> r0, r1;
+  for (int i = blockIdx.x; i < sp.items; i += gridDim.x) {
+    const FwdItem it = fwd_item(i, p, sp.tiles, sp.slabs);
+    const int half = (it.slab.n + 1) / 2;
+    const int n = max((P + 1) / 2 + half, P / 2 + it.slab.n - half);
+    for (int j = 0; j < it.nk; ++j)
+      for (int x = 0; x < n; ++x)
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+          const FwdShare s = fwd_share(it, P, w);
+          if (x >= s.nr + s.nb) continue;
+          Ring<F_SLOTS>& r = w ? r1 : r0;
+          if (x < s.nr) {
+            const FFill f = f_fill(r, base, bars, w, 2 * F_BOX);
+            load_box(f.slot, tq, f.full, (s.r0 + x) * 64, it.q0, coord(p, Q, it.b, it.h));
+            load_box(f.slot + F_BOX, tk, f.full, (s.r0 + x) * 64, j * TILE,
+                     coord(p, K, it.b, it.h));
+          } else {
+            const FFill f = f_fill(r, base, bars, w, F_BOX);
+            load_box(f.slot, tv, f.full, (s.fb + x - s.nr) * 64, j * TILE,
+                     coord(p, V, it.b, it.h));
+          }
+        }
+  }
+}
+
+__global__ void __launch_bounds__(TMA_THREADS, 1)
+    flash_wide_fwd_f32(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, Params p) {
+  extern __shared__ unsigned char smem_ff[];
+  const uint32_t base = (smem_addr(smem_ff) + 1023u) & ~1023u;
+  if (threadIdx.x == 0) f_init(base + F_FWD_BARS);
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(F_PRODUCER_REGS));
+    if (threadIdx.x == 256) fwd_f32_producer(&tq, &tk, &tv, p, base);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(F_CONSUMER_REGS));
+    if (wg == 0)
+      fwd_f32_consumer<0>(p, base, threadIdx.x % 128);
+    else
+      fwd_f32_consumer<1>(p, base, threadIdx.x % 128);
+  }
+}
+
+// Work item i of the fp32 dk/dv pass: slab s of `slabs` even slabs (at most
+// 4 boxes each) of a key tile, the slabs side by side; causal launches walk
+// the key tiles from the first (most query tiles) up.  (The streamed 16-bit
+// pass's items, dkv_item<512, true>, with the counts passed in: computed
+// there from the parameters, they cost the dk/dv consumers a register
+// spill.)
+__device__ __forceinline__ DkvItem dkv_f32_item(int i, const Params& p, int nkt, int slabs) {
+  const int bhn = p.B * p.H;
+  const int s = i % slabs;
+  i /= slabs;
+  int bh, kt;
+  if (p.causal) {
+    kt = i / bhn;
+    bh = i % bhn;
+  } else {
+    bh = i / nkt;
+    kt = i % nkt;
+  }
+  DkvItem it;
+  it.b = bh / p.H;
+  it.h = bh % p.H;
+  it.k0 = kt * TILE;
+  it.j0 = p.causal ? it.k0 / TILE : 0;
+  it.slab = slab_of(s, slabs, p.D / 64);
+  return it;
+}
+
+__host__ __device__ __forceinline__ int dkv_f32_slabs(int P) { return (P + 3) / 4; }
+
+__device__ __forceinline__ FShape dkv_shape(const Params& p) {
+  const int P = opaque(p.D) / 64, slabs = dkv_f32_slabs(P);
+  const int tiles = (opaque(p.Sk) + TILE - 1) / TILE;
+  return {P, slabs, tiles, p.B * p.H * tiles * slabs};
+}
+
+// Consumer warpgroup W of the fp32 dk/dv pass, over the item's 64 keys: W =
+// 0 computes sᵀ = k·qᵀ over the head, pᵀ, and dv += pᵀ·do over the item's
+// slab; W = 1 dpᵀ = v·doᵀ, dsᵀ = pᵀ∘(dpᵀ − delta) with pᵀ from W = 0, and
+// dk += dsᵀ·q.  Each reduction slot holds its k (or v) box and q (or do)
+// box, each product slot its do (or q) box.
+template <int W>
+__device__ __forceinline__ void dkv_f32_consumer(const Params& p, uint32_t base, int tid) {
+  const float stat_mul = W ? 1.f : LOG2E;  // delta, or lse in log2 units
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int rl = 16 * warp + g;  // this thread's keys of the item: rl, rl + 8
+  const float sl2 = p.scale * LOG2E;
+  FRing<W, F_DKV_BARS> rg{{}, base};
+  uint32_t ntile = 0;
+  for (int i = blockIdx.x; i < dkv_shape(p).items; i += gridDim.x) {
+    float acc[128];  // dv (W = 0) or dk over the slab's boxes
+#pragma unroll
+    for (int e = 0; e < 128; ++e) acc[e] = 0.f;
+    {
+      const FShape sp = dkv_shape(p);
+      const int P = sp.P, nqt = (p.Sq + TILE - 1) / TILE;
+      const DkvItem it = dkv_f32_item(i, p, sp.tiles, sp.slabs);
+      const int key0 = it.k0 + rl;
+      for (int j = it.j0; j < nqt; ++j, ++ntile) {
+        const int q0 = j * TILE;
+        float sc[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+#pragma unroll 1
+        for (int x = 0; x < P; ++x) {
+          const uint32_t slot = rg.acquire();
+          reduce_box(sc, slot, slot + F_BOX);
+          rg.release_slot(lane);
+        }
+        // lse·log2e (W = 0) or delta of this thread's 16 queries
+        const float* const stat = (W ? p.delta : p.lse) + ((long long)it.b * p.H + it.h) * p.Sq;
+        float2 st[8];
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int qi = q0 + n * 8 + 2 * t;
+          st[n].x = qi < p.Sq ? stat[qi] * stat_mul : 0.f;
+          st[n].y = qi + 1 < p.Sq ? stat[qi + 1] * stat_mul : 0.f;
+        }
+        // masked only where a query tail or the causal diagonal cuts the block
+        const bool edge = q0 + TILE > p.Sq || (p.causal && q0 < it.k0 + TILE - 1);
+        if (W == 0) {
+          // pᵀ = 2^(sᵀ·scale·log2e − lse·log2e), to the other warpgroup in fp32
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int c = e & 1;
+              float pe = exp2_ftz(fmaf(sc[4 * n + e], sl2, -(c ? st[n].y : st[n].x)));
+              if (edge) {
+                const int qi = q0 + n * 8 + 2 * t + c;
+                if (qi >= p.Sq || (p.causal && qi < key0 + 8 * (e >> 1))) pe = 0.f;
+              }
+              sc[4 * n + e] = pe;
+            }
+          if (ntile > 0) named_sync(BAR_FREE, 256);  // the other has read the last pᵀ
+          put_block_s(base + F_EXCH, sc, tid);
+          named_arrive(BAR_FULL, 256);
+        } else {
+          // dsᵀ = pᵀ∘(dpᵀ − delta), pᵀ as the other warpgroup computed it
+          named_sync(BAR_FULL, 256);
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            const float4 pv = get4_s(base + F_EXCH, n, tid);
+            sc[4 * n] = pv.x * (sc[4 * n] - st[n].x);
+            sc[4 * n + 1] = pv.y * (sc[4 * n + 1] - st[n].y);
+            sc[4 * n + 2] = pv.z * (sc[4 * n + 2] - st[n].x);
+            sc[4 * n + 3] = pv.w * (sc[4 * n + 3] - st[n].y);
+          }
+          named_arrive(BAR_FREE, 256);
+        }
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          if (x >= it.slab.n) break;
+          const uint32_t slot = rg.acquire();
+          product_box(*reinterpret_cast<float(*)[32]>(acc + 32 * x), sc, slot);
+          rg.release_slot(lane);
+        }
+      }
+    }
+    // dv, or dk times scale, straight from the registers; keys past Sk not
+    // written (the item's coordinates computed again, not held through the
+    // loop)
+    const FShape sp = dkv_shape(p);
+    const DkvItem it = dkv_f32_item(i, p, sp.tiles, sp.slabs);
+    const int which = W ? DK : DV;
+    float* const out = static_cast<float*>(W ? p.dk : p.dv) + it.b * p.st[which][0] +
+                       it.h * p.st[which][1];
+    const float mul = W ? p.scale : 1.f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = it.k0 + rl + 8 * r;
+      if (key >= p.Sk) continue;
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        if (x >= it.slab.n) break;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          *reinterpret_cast<float2*>(out + key * p.st[which][2] + (it.slab.first + x) * 64 +
+                                     8 * n + 2 * t) =
+              make_float2(acc[32 * x + 4 * n + 2 * r] * mul, acc[32 * x + 4 * n + 2 * r + 1] * mul);
+      }
+    }
+  }
+  // the other warpgroup's last arrival on BAR_FREE
+  if (W == 0 && ntile > 0) named_sync(BAR_FREE, 256);
+}
+
+// The fp32 dk/dv pass's producer thread: for each query tile of an item,
+// the head's boxes for the reductions (k and q to consumer 0, v and do to
+// 1), then the slab's for the products (do to 0, q to 1), the two
+// consumers' loads interleaved.
+__device__ __forceinline__ void dkv_f32_producer(const CUtensorMap* tq, const CUtensorMap* tk,
+                                                 const CUtensorMap* tv, const CUtensorMap* tdo,
+                                                 const Params& p, uint32_t base) {
+  const uint32_t bars = base + F_DKV_BARS;
+  const FShape sp = dkv_shape(p);
+  const int P = sp.P, nqt = (p.Sq + TILE - 1) / TILE;
+  Ring<F_SLOTS> r0, r1;
+  for (int i = blockIdx.x; i < sp.items; i += gridDim.x) {
+    const DkvItem it = dkv_f32_item(i, p, sp.tiles, sp.slabs);
+    for (int j = it.j0; j < nqt; ++j)
+      for (int x = 0; x < P + it.slab.n; ++x)
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+          Ring<F_SLOTS>& r = w ? r1 : r0;
+          if (x < P) {
+            const FFill f = f_fill(r, base, bars, w, 2 * F_BOX);
+            load_box(f.slot, w ? tv : tk, f.full, x * 64, it.k0, coord(p, w ? V : K, it.b, it.h));
+            load_box(f.slot + F_BOX, w ? tdo : tq, f.full, x * 64, j * TILE,
+                     coord(p, w ? DO : Q, it.b, it.h));
+          } else {
+            const FFill f = f_fill(r, base, bars, w, F_BOX);
+            load_box(f.slot, w ? tq : tdo, f.full, (it.slab.first + x - P) * 64, j * TILE,
+                     coord(p, w ? Q : DO, it.b, it.h));
+          }
+        }
+  }
+}
+
+__global__ void __launch_bounds__(TMA_THREADS, 1)
+    flash_wide_bwd_dkv_f32(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo, Params p) {
+  extern __shared__ unsigned char smem_fd[];
+  const uint32_t base = (smem_addr(smem_fd) + 1023u) & ~1023u;
+  if (threadIdx.x == 0) f_init(base + F_DKV_BARS);
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(F_PRODUCER_REGS));
+    if (threadIdx.x == 256) dkv_f32_producer(&tq, &tk, &tv, &tdo, p, base);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(F_CONSUMER_REGS));
+    if (wg == 0)
+      dkv_f32_consumer<0>(p, base, threadIdx.x % 128);
+    else
+      dkv_f32_consumer<1>(p, base, threadIdx.x % 128);
+  }
+}
+
 // A 4-D map of operand `which` over rows [0, S) of the head's D columns,
 // 64-row boxes of 64 columns.
 template <typename T>
@@ -1590,6 +2067,66 @@ cudaError_t run_dkv_tma(const Params& p, cudaStream_t stream) {
                            tdv);
 }
 
+// A 4-D map of an fp32 operand over (Dh, S, H, B): 64-row boxes of 32
+// columns (128 bytes), swizzled over 128 bytes; strides as encode<> takes
+// them (an expanded head or batch becomes extent 1, an expanded sequence
+// fails).
+bool map_f32(CUtensorMap* map, const Params& p, int which, const void* ptr, int S) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t dims[4] = {(cuuint64_t)p.D, (cuuint64_t)S, (cuuint64_t)p.H, (cuuint64_t)p.B};
+  const long long elem[3] = {p.st[which][2], p.st[which][1], p.st[which][0]};
+  cuuint64_t strides[3];
+  cuuint64_t dense = 4ull * p.D;
+  for (int i = 0; i < 3; ++i) {
+    if (elem[i] == 0 && dims[i + 1] > 1) {
+      if (i == 0) return false;
+      dims[i + 1] = 1;
+    }
+    strides[i] = dims[i + 1] == 1 ? dense : (cuuint64_t)(4 * elem[i]);
+    dense = strides[i] * dims[i + 1];
+  }
+  const cuuint32_t box[4] = {32, TILE, 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr), dims, strides, box,
+            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The fp32 forward (split TF32).  With Sk = 0 no k or v box is ever loaded.
+cudaError_t run_fwd_f32(const Params& p, cudaStream_t stream) {
+  const cudaError_t bound = bind_context();
+  if (bound != cudaSuccess) return bound;
+  CUtensorMap tq, tk, tv;
+  bool ok = map_f32(&tq, p, Q, p.q, p.Sq);
+  if (p.Sk > 0) {
+    ok = ok && map_f32(&tk, p, K, p.k, p.Sk) && map_f32(&tv, p, V, p.v, p.Sk);
+  } else {
+    tk = tq;
+    tv = tq;
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  static Capacity cache;
+  const long long items =
+      (long long)fwd_f32_slabs(p.D / 64) * p.B * p.H * ((p.Sq + TILE - 1) / TILE);
+  return launch_persistent(cache, flash_wide_fwd_f32, F_FWD_SMEM, items, stream, p, tq, tk, tv);
+}
+
+// The fp32 dk/dv pass (split TF32).
+cudaError_t run_dkv_f32(const Params& p, cudaStream_t stream) {
+  const cudaError_t bound = bind_context();
+  if (bound != cudaSuccess) return bound;
+  CUtensorMap tq, tk, tv, tdo;
+  const bool ok = map_f32(&tq, p, Q, p.q, p.Sq) && map_f32(&tdo, p, DO, p.dout, p.Sq) &&
+                  map_f32(&tk, p, K, p.k, p.Sk) && map_f32(&tv, p, V, p.v, p.Sk);
+  if (!ok) return cudaErrorInvalidValue;
+  static Capacity cache;
+  const long long items =
+      (long long)dkv_f32_slabs(p.D / 64) * p.B * p.H * ((p.Sk + TILE - 1) / TILE);
+  return launch_persistent(cache, flash_wide_bwd_dkv_f32, F_DKV_SMEM, items, stream, p, tq, tk,
+                           tv, tdo);
+}
+
 // pass 0: the forward, 1: dq, 2: dk/dv.
 template <typename T, int D, bool STREAM = false>
 cudaError_t run_tma(const Params& p, int pass, cudaStream_t s) {
@@ -1610,26 +2147,31 @@ cudaError_t dispatch_tma(const Params& p, int pass, cudaStream_t s) {
   }
 }
 
-// The 16-bit backward: delta = rowsum(do∘o) once, then the dq pass and the
-// dk/dv pass, each when asked for.
+// The backward: delta = rowsum(do∘o) once, then the dq pass and the dk/dv
+// pass, each when asked for.
 template <typename T>
-cudaError_t backward_tma(const Params& p, bool dq, bool dkv, cudaStream_t s) {
+cudaError_t backward(const Params& p, bool dq, bool dkv, cudaStream_t s) {
   if (!dq && !dkv) return cudaSuccess;
   const long long blocks = ((long long)p.B * p.H * p.Sq + 7) / 8;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
   flash_wide_bwd_delta<T><<<(unsigned)blocks, 256, 0, s>>>(p);
   cudaError_t e = cudaGetLastError();
-  if (e == cudaSuccess && dq) e = dispatch_tma<T>(p, 1, s);
-  if (e == cudaSuccess && dkv) e = dispatch_tma<T>(p, 2, s);
+  if constexpr (std::is_same<T, float>::value) {
+    if (e == cudaSuccess && dq) e = launch_dq_f32(p, s);
+    if (e == cudaSuccess && dkv) e = run_dkv_f32(p, s);
+  } else {
+    if (e == cudaSuccess && dq) e = dispatch_tma<T>(p, 1, s);
+    if (e == cudaSuccess && dkv) e = dispatch_tma<T>(p, 2, s);
+  }
   return e;
 }
 
 // What every call must be: a head dim the kernels take, a known dtype, and
-// for fp32 query and key tiles that the CUDA-core grids' y extent holds.
+// for fp32 query tiles that the CUDA-core dq grid's y extent holds.
 cudaError_t check(int dtype, const Params& p) {
   if (p.D <= 0 || p.D % CHUNK != 0 || dtype < 0 || dtype > 2) return cudaErrorInvalidValue;
   if ((long long)p.B * p.H > 0x7fffffffLL) return cudaErrorInvalidValue;
-  if (dtype == 0 && (p.Sq > 65535 * ROWS || p.Sk > 65535 * ROWS)) return cudaErrorInvalidValue;
+  if (dtype == 0 && p.Sq > 65535 * ROWS) return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
@@ -1662,7 +2204,7 @@ extern "C" int mx_flash_wide_fwd(int dtype, const void* q, const void* k, const 
   if (e != cudaSuccess || B <= 0 || H <= 0 || Sq <= 0) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)launch_f32(p, 0, s);
+    case 0: return (int)run_fwd_f32(p, s);
     case 1: return (int)dispatch_tma<__half>(p, 0, s);
     default: return (int)dispatch_tma<__nv_bfloat16>(p, 0, s);
   }
@@ -1671,17 +2213,16 @@ extern "C" int mx_flash_wide_fwd(int dtype, const void* q, const void* k, const 
 // The backward: the dq pass when dq is given, the dk/dv pass when dk and dv
 // are.  strides: 24 element strides, (batch, head, sequence) of q, k, v, o,
 // do, dq, dk and dv (those of absent outputs are ignored).  lse: the
-// forward's [B*H, Sq] fp32.  delta: [B*H, Sq] fp32 scratch, required in
-// bf16 and fp16 (null in fp32), where one launch fills it with rowsum(do∘o)
-// before the passes, which read it.  fp32 runs the CUDA-core kernels, dq
-// then dk/dv.  Nothing is launched for Sq = 0, nor the dk/dv pass for
-// Sk = 0.  Returns the first nonzero cudaError_t, or 0.
+// forward's [B*H, Sq] fp32.  delta: [B*H, Sq] fp32 scratch, which one
+// launch fills with rowsum(do∘o) before the passes, which read it.  Nothing
+// is launched for Sq = 0, nor the dk/dv pass for Sk = 0.  Returns the first
+// nonzero cudaError_t, or 0.
 extern "C" int mx_flash_wide_bwd(int dtype, const void* q, const void* k, const void* v,
                                  const void* o, const void* dout, const float* lse,
                                  float* delta, void* dq, void* dk, void* dv, int B, int H,
                                  int Sq, int Sk, int D, const long long* strides, float scale,
                                  int causal, void* stream) {
-  if (lse == nullptr || (dk == nullptr) != (dv == nullptr) || (dtype != 0 && delta == nullptr))
+  if (lse == nullptr || delta == nullptr || (dk == nullptr) != (dv == nullptr))
     return (int)cudaErrorInvalidValue;
   Params p = {};
   p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
@@ -1697,11 +2238,8 @@ extern "C" int mx_flash_wide_bwd(int dtype, const void* q, const void* k, const 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool dkv = dk != nullptr && Sk > 0;
   switch (dtype) {
-    case 0:
-      if (dq != nullptr) e = launch_f32(p, 1, s);
-      if (e == cudaSuccess && dkv) e = launch_f32(p, 2, s);
-      return (int)e;
-    case 1: return (int)backward_tma<__half>(p, dq != nullptr, dkv, s);
-    default: return (int)backward_tma<__nv_bfloat16>(p, dq != nullptr, dkv, s);
+    case 0: return (int)backward<float>(p, dq != nullptr, dkv, s);
+    case 1: return (int)backward<__half>(p, dq != nullptr, dkv, s);
+    default: return (int)backward<__nv_bfloat16>(p, dq != nullptr, dkv, s);
   }
 }

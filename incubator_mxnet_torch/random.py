@@ -29,9 +29,10 @@ def _device(ctx):
     return dev
 
 
-def seed(seed_state):
+def seed(seed_state, ctx="all"):
     """Parity: ``mx.random.seed``: every device's generator restarts from
-    ``seed_state``."""
+    ``seed_state``.  ``ctx`` is accepted, as in the JAX package, and every
+    device restarts whatever it names."""
     with _lock:
         _state["seed"] = int(seed_state)
         _state["generators"].clear()

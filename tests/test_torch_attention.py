@@ -250,26 +250,27 @@ def test_launches_per_pass(width, launches):
 @pytest.mark.parametrize("width,dtype,with_dq,launches", [
     (64, torch.bfloat16, False, 1), (256, torch.bfloat16, False, 2),
     (320, torch.bfloat16, False, 2), (512, torch.float16, False, 2),
-    (512, torch.float32, False, 1), (576, torch.float32, False, 1),
+    (512, torch.float32, False, 2), (576, torch.float32, False, 2),
     (64, torch.bfloat16, True, 1), (256, torch.bfloat16, True, 2),
     (320, torch.bfloat16, True, 1), (1024, torch.float16, True, 1),
     (512, torch.float32, True, 1)])
 def test_dkv_launches_per_pass(width, dtype, with_dq, launches):
-    """Above Dh 256 a 16-bit backward call launches flash_wide.cu's delta
-    pass once, before its passes: a dk/dv pass alone counts two launches,
-    the delta pass and its kernel, and beside a dq pass one (the dq pass
-    counts the delta); fp32 keeps one."""
-    assert tatt._dkv_launches(width, dtype, with_dq) == launches
-    assert tatt._has_delta_pass(width, dtype) == (width > 256 and dtype != torch.float32)
+    """Above Dh 256 a backward call launches flash_wide.cu's delta pass
+    once, before its passes, in every dtype (fp32 too, since its dk/dv pass
+    reads delta as the 16-bit one does): a dk/dv pass alone counts two
+    launches, the delta pass and its kernel, and beside a dq pass one (the
+    dq pass counts the delta).  The rule does not depend on the dtype."""
+    assert tatt._dkv_launches(width, with_dq) == launches
+    assert tatt._has_delta_pass(width) == (width > 256)
 
 
 @pytest.mark.parametrize("width,dtype,launches", [
     (64, torch.bfloat16, 1), (256, torch.float16, 2), (320, torch.bfloat16, 2),
-    (576, torch.float16, 2), (1024, torch.bfloat16, 2), (512, torch.float32, 1)])
+    (576, torch.float16, 2), (1024, torch.bfloat16, 2), (512, torch.float32, 2)])
 def test_dq_launches_per_pass(width, dtype, launches):
-    """The dq pass counts its kernel's launches and, in bf16 and fp16 above
-    Dh 256, the call's one delta launch."""
-    assert tatt._dq_launches(width, dtype) == launches
+    """The dq pass counts its kernel's launches and, above Dh 256 in every
+    dtype, the call's one delta launch."""
+    assert tatt._dq_launches(width) == launches
 
 
 @pytest.mark.parametrize("width", [64, 256, 320, 448, 640])
@@ -278,15 +279,87 @@ def test_backward_call_launches_delta_once(width, dtype):
     """The counting rule of one backward call: the delta launch counts once
     whichever passes the call runs (on dq when it runs, else on dk/dv), so a
     call running both counts what the two single-pass calls count less one
-    delta launch (three at a 16-bit head above 256, not four)."""
-    delta = int(tatt._has_delta_pass(width, dtype))
+    delta launch (three above 256, in every dtype, not four)."""
+    delta = int(tatt._has_delta_pass(width))
     kernels = tatt._launches(width)
-    pair = tatt._dq_launches(width, dtype) + tatt._dkv_launches(width, dtype, with_dq=True)
-    alone = tatt._dq_launches(width, dtype) + tatt._dkv_launches(width, dtype)
+    pair = tatt._dq_launches(width) + tatt._dkv_launches(width, with_dq=True)
+    alone = tatt._dq_launches(width) + tatt._dkv_launches(width)
     assert pair == 2 * kernels + delta and alone == pair + delta
-    assert delta == (width > 256 and dtype != torch.float32)
+    assert delta == (width > 256)
     if delta:
         assert pair == 3
+
+
+def _tf32(x, mode):
+    """x with its fp32 mantissa cut to TF32's 10 bits: to nearest (ties
+    away from zero, as cvt.rna) or by truncation (how the card's tensor
+    core reads a raw fp32 word)."""
+    bits = x.contiguous().view(torch.int32)
+    if mode == "nearest":
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_matmul(a, b, mode, split):
+    """a·b on emulated tensor cores: TF32 operands (exact products in fp32)
+    and fp32 sums.  ``split``: three products hi·hi′ + hi·lo′ + lo·hi′ with
+    x = hi + lo, lo = x − hi cut to TF32 in turn (lo·lo′ dropped), as the
+    fp32 wide kernels compute; else one product of the operands cut to TF32."""
+    ah, bh = _tf32(a, mode), _tf32(b, mode)
+    if not split:
+        return ah @ bh
+    al, bl = _tf32(a - ah, mode), _tf32(b - bh, mode)
+    return (ah @ bl + al @ bh) + ah @ bh
+
+
+def _emulated_attention(q, k, v, do, o_ref, mm):
+    """o, lse, dk and dv with every product of the fp32 forward and dk/dv
+    kernels (q·kᵀ, p·v, k·qᵀ, v·doᵀ, pᵀ·do, dsᵀ·q) through ``mm``; the
+    softmax, exponentials and rowsums in fp32."""
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    s = mm(q, k.transpose(-1, -2)) * scale
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = mm(p, v) / l
+    lse = m + torch.log(l)
+    st = mm(k, q.transpose(-1, -2)) * scale  # sᵀ, as the dk/dv kernel reduces it
+    pt = torch.exp(st - lse.transpose(-1, -2))
+    delta = (do * o_ref).sum(-1, keepdim=True)
+    dpt = mm(v, do.transpose(-1, -2))
+    dst = pt * (dpt - delta.transpose(-1, -2))
+    return o, lse.reshape(-1, q.shape[-2]), mm(dst, q) * scale, mm(pt, do)
+
+
+@pytest.mark.parametrize("d", [512, 320])
+@pytest.mark.parametrize("mode", ["nearest", "truncate"])
+def test_split_tf32_keeps_the_fp32_bounds(d, mode):
+    """The arithmetic of flash_wide.cu's fp32 forward and dk/dv pass: with
+    every product in split TF32, o and lse stay within chip_smoke.py's
+    FP32_FWD_BOUND and LSE_BOUND of the fp32 plain version and dk, dv within
+    FP32_BWD_REL of their largest value, whether the card rounds or
+    truncates to TF32; one TF32 product does not."""
+    import chip_smoke
+
+    rng = np.random.RandomState(11)
+    q, k, v, do = (torch.from_numpy(rng.randn(1, 2, 128, d).astype(np.float32))
+                   for _ in range(4))
+    o_ref, lse_ref = tatt.flash_fwd_plain(q, k, v, with_lse=True)
+    _, dk_ref, dv_ref = tatt.flash_bwd_plain(q, k, v, o_ref, do, lse_ref)
+
+    def within(split):
+        o, lse, dk, dv = _emulated_attention(
+            q, k, v, do, o_ref, lambda a, b: _tf32_matmul(a, b, mode, split))
+        return [(o - o_ref).abs().max().item() <= chip_smoke.FP32_FWD_BOUND,
+                (lse - lse_ref).abs().max().item() <= chip_smoke.LSE_BOUND,
+                (dk - dk_ref).abs().max().item()
+                <= chip_smoke.FP32_BWD_REL * dk_ref.abs().max().item(),
+                (dv - dv_ref).abs().max().item()
+                <= chip_smoke.FP32_BWD_REL * dv_ref.abs().max().item()]
+
+    assert all(within(split=True))
+    one = within(split=False)
+    assert not one[0] and not one[1] and not all(one)
 
 
 @pytest.mark.parametrize("d,dtype", [
@@ -323,6 +396,22 @@ def test_sequence_stride0_operand_becomes_contiguous(layout):
     o, _ = tatt.flash_fwd_plain(*(x.float() for x in (rep, rep, rep)))
     o_ref, _ = tatt.flash_fwd_plain(*(x.float() for x in (got, got, got)))
     torch.testing.assert_close(o, o_ref)
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_wide_fp32_operand_with_repeated_rows_becomes_contiguous(layout):
+    """Above Dh 256 the fp32 kernels read rows by TMA too: an fp32 operand
+    repeating one row along its sequence goes to them contiguous, with the
+    same values; at a narrow width the fp32 kernels read it as it is."""
+    bshd = layout == "bshd"
+    row = torch.randn(1, 1, 2, 320) if bshd else torch.randn(1, 2, 1, 320)
+    rep = row.expand((1, 30, 2, 320) if bshd else (1, 2, 30, 320))
+    (q,) = tatt._kernel_operands(320, bshd, rep)
+    assert q.is_contiguous() and torch.equal(q, rep)
+    (q,) = tatt._kernel_operands(512, bshd, rep)
+    assert q.is_contiguous() and q.shape[-1] == 512 and torch.equal(q[..., :320], rep)
+    (narrow,) = tatt._kernel_operands(64, bshd, rep[..., :64])
+    assert narrow.stride(1 if bshd else 2) == 0
 
 
 @pytest.fixture
@@ -435,7 +524,8 @@ def test_kernel_takes_padded_head_dim_on_card(cuda_device, d):
 # columns, 384: 192 + 192, 448: 256 + 192, 512: 256 + 256) and streamed
 # above 512 (576, 640, 1024), with a ragged S, causal and not, causal with
 # Sk < Sq and with one key, in bf16 and fp16; a cross shape, the QKV view, a
-# sequence of stride 0 and a padded 300; fp32 on the CUDA cores.
+# sequence of stride 0 and a padded 300; fp32 (split TF32 on the tensor
+# cores) at 320, 512 and 640, the QKV view and a sequence of stride 0.
 WIDE_CARD_CASES = [
     (f"{str(dt)[6:]}_dh{d}{'_causal' if c else ''}", 2, 2, 200, 200, d, dt, c, "bhsd")
     for d in (320, 384, 512) for dt in (torch.bfloat16, torch.float16) for c in (False, True)
@@ -451,6 +541,10 @@ WIDE_CARD_CASES = [
     ("bfloat16_dh576", 2, 2, 200, 200, 576, torch.bfloat16, False, "bhsd"),
     ("float16_dh640_causal", 2, 2, 200, 200, 640, torch.float16, True, "bhsd"),
     ("qkv_dh1024_causal", 2, 2, 130, 130, 1024, torch.bfloat16, True, "qkv"),
+    ("fp32_dh320_causal", 2, 2, 200, 200, 320, torch.float32, True, "bhsd"),
+    ("fp32_dh640", 1, 2, 150, 150, 640, torch.float32, False, "bhsd"),
+    ("fp32_qkv_dh512", 2, 2, 130, 130, 512, torch.float32, False, "qkv"),
+    ("q_seq_stride0_dh384_fp32", 2, 2, 130, 130, 384, torch.float32, False, "s0"),
 ]
 
 

@@ -330,9 +330,9 @@ def test_kernels_refuse_head_dim_above_128(cuda_device, name, b, h, sq, sk, d, d
     ulps of its largest value in 16 bits (fp32: 1e-4 of it, chip_smoke.py's
     FP32_BWD_REL); with one key (Sk = 1) dq and dk, exactly 0, within
     chip_smoke.py's bound on the rounding of dp − delta.  The counters take
-    one launch a pass and, in 16 bits, the call's one delta launch on dq
-    (three in all); each pass alone counts its kernel and, in 16 bits, a
-    delta launch of its own; two runs are bit-identical."""
+    one launch a pass and the call's one delta launch on dq (three in all,
+    in every dtype); each pass alone counts its kernel and a delta launch
+    of its own; two runs are bit-identical."""
     gen = torch.Generator(device=cuda_device).manual_seed(7)
     if layout == "qkv":
         x = torch.randn(b, sq, 3, h, d, generator=gen, device=cuda_device).to(dtype)
@@ -350,7 +350,7 @@ def test_kernels_refuse_head_dim_above_128(cuda_device, name, b, h, sq, sk, d, d
     o, lse = tatt.flash_fwd(q, k, v, causal=causal, with_lse=True, layout=lay)
     counters = (tatt.flash_bwd_dq, tatt.flash_bwd_dkv, tatt.flash_wide_bwd_dq,
                 tatt.flash_wide_bwd_dkv)
-    delta = 0 if dtype == torch.float32 else 1
+    delta = int(tatt._has_delta_pass(d))  # one a call above 256, every dtype
     before = [c.launches for c in counters]
     got = tatt.flash_bwd(q, k, v, o, do, lse, causal, layout=lay)
     assert [c.launches - n for c, n in zip(counters, before)] == [0, 0, 1 + delta, 1]
@@ -388,9 +388,9 @@ WIDE_PASS_CASES = [(passes, d, dtype, causal)
                          ids=[f"{p}_dh{d}_{str(dt)[6:]}{'_causal' if c else ''}"
                               for p, d, dt, c in WIDE_PASS_CASES])
 def test_wide_backward_passes_on_card(cuda_device, passes, d, dtype, causal):
-    """Each pass alone and the pair: the counts of the rule (in 16 bits one
-    delta launch a call, on dq when the call runs it, else on dk/dv; fp32
-    none), nothing counted on flash_bwd_dq/flash_bwd_dkv, and the same bits
+    """Each pass alone and the pair: the counts of the rule (one delta
+    launch a call in every dtype, on dq when the call runs it, else on
+    dk/dv), nothing counted on flash_bwd_dq/flash_bwd_dkv, and the same bits
     as the pair's gradients, which are held to the plain version within 2
     ulps of each gradient's largest value (fp32: 1e-4 of it)."""
     gen = torch.Generator(device=cuda_device).manual_seed(9)
@@ -401,7 +401,7 @@ def test_wide_backward_passes_on_card(cuda_device, passes, d, dtype, causal):
     pair = tatt.flash_bwd(q, k, v, o, do, lse, causal)
     counters = (tatt.flash_bwd_dq, tatt.flash_bwd_dkv, tatt.flash_wide_bwd_dq,
                 tatt.flash_wide_bwd_dkv)
-    delta = 0 if dtype == torch.float32 else 1
+    delta = int(tatt._has_delta_pass(d))  # one a call above 256, every dtype
     before = [c.launches for c in counters]
     if passes == "dq":
         got = (tatt.flash_wide_bwd_dq(q, k, v, o, do, lse, causal), None, None)

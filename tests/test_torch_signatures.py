@@ -1,0 +1,216 @@
+"""The port's public signatures against the JAX package's, on the CPU.
+
+Each function takes the reference's parameters in the reference's order
+and with its defaults, so a call written for the reference (positional
+arguments included) does in the port what it does there: ``Block`` and
+``ParameterDict.initialize``, the encoder's ``pre_norm``, ``Embedding``'s
+``sparse_grad``, the fold's ``keep_grads`` and ``donate_window``, and
+``random.seed``'s ``ctx``.  A value the port cannot honour raises and
+names itself.
+"""
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+import incubator_mxnet_tpu as mxj
+from incubator_mxnet_tpu.gluon import parameter as jparameter
+from incubator_mxnet_tpu.gluon.nn import transformer as jtransformer
+import incubator_mxnet_torch as mx
+from incubator_mxnet_torch.convert import load_numpy_params
+from incubator_mxnet_torch.gluon import nn
+from incubator_mxnet_torch.gluon import parameter as tparameter
+from incubator_mxnet_torch.gluon.nn import transformer as ttransformer
+
+# fp32 through 2 layers in another summation order: tests/test_torch_bert.py's
+# tolerance.
+FP32_TOL = 1e-4
+
+PAIRS = [
+    ("Block.initialize", mxj.gluon.Block.initialize, mx.gluon.Block.initialize),
+    ("ParameterDict.initialize", jparameter.ParameterDict.initialize,
+     tparameter.ParameterDict.initialize),
+    ("TransformerEncoderCell", jtransformer.TransformerEncoderCell.__init__,
+     ttransformer.TransformerEncoderCell.__init__),
+    ("TransformerEncoder", jtransformer.TransformerEncoder.__init__,
+     ttransformer.TransformerEncoder.__init__),
+    ("Embedding", mxj.gluon.nn.Embedding.__init__, nn.Embedding.__init__),
+    ("Trainer.fold_step", mxj.gluon.Trainer.fold_step, mx.gluon.Trainer.fold_step),
+    ("Trainer.fold_steps", mxj.gluon.Trainer.fold_steps, mx.gluon.Trainer.fold_steps),
+    ("random.seed", mxj.random.seed, mx.random.seed),
+]
+
+
+@pytest.mark.parametrize("name,ref,port", PAIRS, ids=[p[0] for p in PAIRS])
+def test_parameters_in_the_reference_order(name, ref, port):
+    """The port's parameters begin with the reference's, in its order and
+    with its defaults, up to the reference's last."""
+    want = list(inspect.signature(ref).parameters.values())
+    got = list(inspect.signature(port).parameters.values())[:len(want)]
+    assert [p.name for p in got] == [p.name for p in want], name
+    assert [p.default for p in got] == [p.default for p in want], name
+
+
+def _dense(seed=0):
+    mx.random.seed(seed)
+    net = nn.Dense(4, in_units=3)
+    net.initialize(ctx=mx.cpu())
+    return net
+
+
+def _values(net):
+    return [p.data().clone() for p in net.collect_params().values()]
+
+
+def test_positional_verbose_does_not_reinitialize():
+    """``initialize(init, ctx, True)`` is ``verbose=True`` as in the
+    reference: an initialized parameter keeps its values."""
+    net = _dense()
+    before = _values(net)
+    mx.random.seed(99)
+    net.initialize(mx.init.Uniform(), mx.cpu(), True)
+    assert all(torch.equal(a, b) for a, b in zip(before, _values(net)))
+    net.collect_params().initialize(mx.init.Uniform(), mx.cpu(), True)
+    assert all(torch.equal(a, b) for a, b in zip(before, _values(net)))
+    mx.random.seed(99)
+    net.initialize(mx.init.Uniform(), mx.cpu(), True, True)  # force_reinit in fourth place
+    assert not all(torch.equal(a, b) for a, b in zip(before, _values(net)))
+
+
+def test_verbose_changes_no_value():
+    quiet = _values(_dense(5))
+    mx.random.seed(5)
+    net = nn.Dense(4, in_units=3)
+    net.initialize(ctx=mx.cpu(), verbose=True)
+    assert all(torch.equal(a, b) for a, b in zip(quiet, _values(net)))
+
+
+ENC = dict(num_layers=2, units=32, hidden_size=64, num_heads=2, dropout=0.0, pre_norm=True)
+
+
+@pytest.fixture(scope="module")
+def pre_norm_ref():
+    """The JAX pre-norm encoder: its parameters, and its output and
+    parameter gradients for a weighted sum of the output."""
+    mxj.random.seed(3)
+    jnet = jtransformer.TransformerEncoder(**ENC)
+    jnet.initialize()
+    rng = np.random.RandomState(4)
+    x = rng.randn(2, 9, 32).astype(np.float32)
+    w = rng.randn(2, 9, 32).astype(np.float32)
+    jnet(mxj.nd.array(x))  # materialize deferred shapes
+    arrays = {k: p.data().asnumpy() for k, p in jnet._collect_params_with_prefix().items()}
+    with mxj.autograd.record():
+        y = jnet(mxj.nd.array(x))
+        loss = (y * mxj.nd.array(w)).sum()
+    loss.backward()
+    grads = {k: p.grad().asnumpy() for k, p in jnet._collect_params_with_prefix().items()}
+    return arrays, x, w, y.asnumpy(), grads
+
+
+def test_pre_norm_encoder_matches_jax(pre_norm_ref):
+    """A pre-LN encoder (2 layers, units 32, 2 heads) on the JAX one's
+    weights: the same output and the same parameter gradients in fp32."""
+    arrays, x, w, y_ref, grads_ref = pre_norm_ref
+    net = ttransformer.TransformerEncoder(**ENC)
+    load_numpy_params(net, arrays, ctx=mx.cpu())
+    with mx.autograd.record():
+        y = net(torch.from_numpy(x))
+        loss = (y * torch.from_numpy(w)).sum()
+    mx.autograd.backward(loss)
+    np.testing.assert_allclose(y.detach().numpy(), y_ref, rtol=FP32_TOL, atol=FP32_TOL)
+    params = net._collect_params_with_prefix()
+    assert sorted(params) == sorted(grads_ref)
+    for key, ref in grads_ref.items():
+        np.testing.assert_allclose(params[key].grad().numpy(), ref, rtol=FP32_TOL,
+                                   atol=FP32_TOL, err_msg=key)
+
+
+def test_pre_norm_differs_from_post_norm(pre_norm_ref):
+    """``pre_norm`` reaches the cells: on the same weights the post-LN
+    encoder gives another output."""
+    arrays, x, _, y_ref, _ = pre_norm_ref
+    net = ttransformer.TransformerEncoder(**dict(ENC, pre_norm=False))
+    load_numpy_params(net, arrays, ctx=mx.cpu())
+    with mx.autograd.predict_mode():
+        y = net(torch.from_numpy(x)).numpy()
+    assert np.abs(y - y_ref).max() > 1e-2
+
+
+def test_embedding_sparse_grad_raises():
+    with pytest.raises(NotImplementedError, match="sparse_grad"):
+        nn.Embedding(10, 4, sparse_grad=True)
+    assert nn.Embedding(10, 4, "float32", None, False).weight.shape == (10, 4)
+
+
+def _mlp():
+    mx.random.seed(3)
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Dense(8, activation="relu", in_units=6), nn.Dense(4, in_units=8))
+    net.initialize(ctx=mx.cpu())
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd", {"learning_rate": 0.05, "momentum": 0.9})
+    loss_fn = lambda a, b: mx.gluon.loss.L2Loss()(net(a), b)  # noqa: E731
+    return net, tr, loss_fn
+
+
+def _batches():
+    rng = np.random.RandomState(0)
+    return [(torch.from_numpy(rng.rand(8, 6).astype(np.float32)),
+             torch.from_numpy(rng.rand(8, 4).astype(np.float32))) for _ in range(2)]
+
+
+def _fold_run(flags, window):
+    net, tr, loss_fn = _mlp()
+    batches = _batches()
+    if window:
+        prog = tr.fold_steps(loss_fn, 2, net, **flags)
+        losses = list(prog(*[torch.stack(parts) for parts in zip(*batches)]))
+    else:
+        prog = tr.fold_step(loss_fn, net, **flags)
+        losses = [prog(*batches[j % 2]) for j in range(3)]
+    states = [s for i in sorted(tr._states) for s in (tr._states[i] if isinstance(
+        tr._states[i], (list, tuple)) else [tr._states[i]]) if isinstance(s, torch.Tensor)]
+    return losses, _values(net) + states
+
+
+@pytest.mark.parametrize("window,flags", [
+    (False, dict(keep_grads=True)), (False, dict(keep_grads=False)),
+    (True, dict(donate_window=True)), (True, dict(keep_grads=True, donate_window=True))],
+    ids=["fold_step_keep_grads", "fold_step_no_keep_grads", "fold_steps_donate_window",
+         "fold_steps_both"])
+def test_fold_flags_are_bit_equal_to_the_defaults(window, flags):
+    """``keep_grads`` and ``donate_window`` are accepted and change no bit
+    of the losses, the parameters or the optimizer states."""
+    want_losses, want = _fold_run({}, window)
+    got_losses, got = _fold_run(flags, window)
+    assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(got_losses, want_losses))
+
+
+def test_fold_step_keep_grads_keeps_the_gradients():
+    """After a ``keep_grads=True`` step each Parameter holds the step's
+    gradient, the one an eager backward from the same weights gives."""
+    batch = _batches()[0]
+    net, tr, loss_fn = _mlp()
+    with mx.autograd.record():
+        loss = loss_fn(*batch)
+    mx.autograd.backward(loss)
+    want = [p.grad().clone() for p in net.collect_params().values()]
+    net, tr, loss_fn = _mlp()
+    tr.fold_step(loss_fn, net, keep_grads=True)(*batch)
+    got = [p.grad() for p in net.collect_params().values()]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert any(bool(g.abs().sum() > 0) for g in got)
+
+
+@pytest.mark.parametrize("ctx", ["all", mx.cpu()], ids=["all", "cpu"])
+def test_seed_ctx_gives_the_same_draws(ctx):
+    mx.random.seed(17)
+    want = mx.random.normal(shape=(5,), ctx=mx.cpu())
+    mx.random.seed(17, ctx=ctx)
+    got = mx.random.normal(shape=(5,), ctx=mx.cpu())
+    assert torch.equal(got, want)
+    mx.random.seed(17, ctx)
+    assert torch.equal(mx.random.normal(shape=(5,), ctx=mx.cpu()), want)
