@@ -21,7 +21,10 @@ Phases, each printing JSON lines; no phase's failure is caught:
    sequence of stride 0, padded head dims, head dims 160-256 through the
    column-slab launches, head dims 300-1024 through flash_wide.cu: its
    16-bit forward, dq and dk/dv passes on TMA and wgmma, streamed above
-   512, fp32 on the CUDA cores), each against a stated bound (and
+   512, fp32 in split TF32 on the tensor cores; and every fp32 backward,
+   at every head dim, through flash_wide.cu's delta launch and split-TF32
+   dq and dk/dv kernels, with the narrow cases' edges and one key), each
+   against a stated bound (and
    flash_fwd, flash_bwd, the flash_wide
    kernels and bn_stats against themselves: two runs must be
    bit-identical), and the refusals of the rtc launcher; the multi-tensor
@@ -179,6 +182,19 @@ LSE_BOUND = 1e-4  # fp32 log-sum-exp of scores of |s| < ~10, other sum order
 # |dq_ic| <= ONE_KEY_SLACK·scale·E_i·|k_c| and |dk_c| <=
 # ONE_KEY_SLACK·scale·Σ_i E_i·|q_ic|.  A wrong delta, mask or row makes
 # dp − delta of the size of dp itself, hundreds of times E.
+# fp32 runs the backward in split TF32 (flash_wide.cu): dp_i is a sum of
+# exact products of TF32 operands, three a column (hi·lo′, lo·hi′, hi·hi′
+# with x = hi + lo), which drops lo·lo′ and the truncation of lo to TF32,
+# each below 2^-20·|do_ic·v_c|: at most 3·2^-20·S_i = 24·2^-23·S_i in all.
+# An mma.sync adds its 8 exact products to the accumulator as one fused sum,
+# rounded once (an ulp at most, truncation included), so dp_i takes 3·Dh/8
+# roundings and delta_i (the delta launch's fp32 fmas) at most Dh:
+# |dp_i − delta_i| <= (24 + 11·Dh/8)·2^-23·S_i, inside E_i for Dh >= 39 (the
+# fp32 one-key case runs Dh 64; zero-padded columns add exact zeros).  p_i
+# = exp(s_i − lse_i) with s_i the dq pass's split-TF32 q·kᵀ and lse_i the
+# forward's fp32 one differs from 1 by a few 2^-20 of scale·Σ_c|q_ic·k_c|
+# (about 1e-5 there), ds is not rounded, and the split-TF32 products ds·k
+# and dsᵀ·q err by a few 2^-20: inside the slack's 2 %.
 ONE_KEY_SLACK = 1.02
 # BERT-base bf16 on the card vs the port's fp32 run on the CPU, as a share
 # of the largest fp32 logit: bf16 roundings compounded through 12 post-LN
@@ -749,32 +765,55 @@ WIDE_HEAD_CASES = [
     dict(MAIN, name="fp32_dh512_qkv_view", b=2, h=2, sq=130, sk=130, d=512, layout="qkv",
          dtype=torch.float32),
 ]
+# Every fp32 backward runs flash_wide.cu's delta launch and split-TF32 dq and
+# dk/dv kernels, at every head dim (padded to a multiple of 64: 16 and 48 to
+# 64): the narrow 16-bit cases' edges in fp32 (a cross shape, the QKV view,
+# k and v expanded over the batch, q of one row expanded over the sequence,
+# padded heads, more items than the grid holds) and one key (Sk = 1, where
+# the exact dq and dk are 0: ``one_key``, held by ONE_KEY_SLACK's rule,
+# whose derivation covers split TF32 at this head dim).
+FP32_CASES = [
+    dict(MAIN, name="fp32_cross_sq77_sk200", b=4, sq=77, sk=200, dtype=torch.float32),
+    dict(MAIN, name="fp32_qkv_bshd_view", layout="qkv", dtype=torch.float32),
+    dict(MAIN, name="fp32_kv_expanded_over_batch", b=4, sq=200, sk=200, expand="b",
+         dtype=torch.float32),
+    dict(MAIN, name="fp32_q_seq_stride0_causal", b=4, sq=200, sk=200, causal=True, expand="s",
+         dtype=torch.float32),
+    dict(MAIN, name="fp32_dh16", b=8, h=4, d=16, dtype=torch.float32),
+    dict(MAIN, name="fp32_dh48", b=4, h=4, sq=200, sk=200, d=48, dtype=torch.float32),
+    dict(MAIN, name="fp32_items_over_grid_b67", b=67, dtype=torch.float32),
+    dict(MAIN, name="fp32_causal_sq130_sk1", b=2, h=4, sq=130, sk=1, causal=True, one_key=True,
+         dtype=torch.float32),
+]
 WIDE_REPEAT_CASES = [c for c in WIDE_HEAD_CASES  # two runs bit-identical: 320, 512, streamed
                      if c["name"] in ("dh320_causal_with_lse", "dh512_causal_with_lse",
                                       "dh640_causal_with_lse", "fp32_dh512_causal",
                                       "fp32_dh320_causal_with_lse")]
 
 
-def _slab_launches(d):
+def _slab_launches(d, dtype=None):
     """Launches of one attention kernel pass at head dim ``d``: one a
-    128-column output slab of the instance it runs; one above 256, where
-    flash_wide.cu makes each slab a block of one launch."""
-    return 2 if 128 < d <= 256 else 1
+    128-column output slab of the instance it runs; one on flash_wide.cu,
+    which makes each slab a block of one launch: above 256, and for a
+    backward pass (given its ``dtype``) in fp32 at every head dim."""
+    return 2 if 128 < d <= 256 and dtype != torch.float32 else 1
 
 
-def _bwd_launches(d):
+def _bwd_launches(d, dtype):
     """Launches counted on the dq and the dk/dv pass of one backward call
-    that runs both, at head dim ``d``: above 256, in every dtype, the call
-    launches flash_wide.cu's delta pass once, before both, and it counts on
-    the dq pass (three launches in all)."""
-    return _slab_launches(d) + int(d > 256), _slab_launches(d)
+    that runs both, at head dim ``d`` in ``dtype``: on flash_wide.cu (above
+    256 in every dtype, fp32 at every head dim) the call launches its delta
+    pass once, before both, and it counts on the dq pass (three launches in
+    all)."""
+    delta = int(d > 256 or dtype == torch.float32)
+    return _slab_launches(d, dtype) + delta, _slab_launches(d, dtype)
 
 
 def phase_kernel_vs_plain(device):
     gen = torch.Generator(device=device).manual_seed(1234)
     misses, main_err, wide_err = [], None, None
     for case in (KERNEL_CASES + SCHEDULE_CASES + OPERAND_CASES + DOMAIN_CASES + WIDE_CASES
-                 + WIDE_HEAD_CASES):
+                 + WIDE_HEAD_CASES + FP32_CASES):
         q, k, v, layout = _case_inputs(case, gen, device)
         want_lse, scale = case.get("lse", False), case.get("scale")
         counter = att._fwd_counter(case["d"])
@@ -839,7 +878,7 @@ def _bwd_bound(ref, dtype, ulps=BWD_ULPS):
 
 
 BWD_CASES = (KERNEL_CASES + SCHEDULE_CASES + OPERAND_CASES + DOMAIN_CASES + WIDE_CASES
-             + WIDE_HEAD_CASES
+             + WIDE_HEAD_CASES + FP32_CASES
              + [dict(MAIN, name="dqkv_buffer", layout="qkv", dqkv=True),
                 dict(MAIN, name="autograd_fused_qkv", layout="qkv", e2e=True),
                 dict(MAIN, name="dh256_autograd_fused_qkv", b=2, h=2, sq=130, sk=130, d=256,
@@ -916,7 +955,7 @@ def phase_kernel_vs_plain_bwd(device):
     misses, main_errs = [], {}
     for case in BWD_CASES:
         res, launched = _bwd_case(case, gen, device)
-        want_launches = _bwd_launches(case["d"])
+        want_launches = _bwd_launches(case["d"], case["dtype"])
         ok = (all(math.isfinite(e) and e <= bound for e, bound, _ in res.values())
               and launched == want_launches)
         emit("kernel_vs_plain_bwd", case=case["name"],
@@ -2376,13 +2415,24 @@ def _bwd_row(b, s, gen, smi, dtype=torch.bfloat16):
     shape = dict(b=b, s=s, h=h, d=d, dtype=str(dtype).replace("torch.", ""))
     backend = _sdpa_backend(lib_kernels)
     out = {}
+    # bytes: q, k, v, o (in fp32 read by the call's delta launch, in 16 bits
+    # by the kernel itself), do and lse read once, the gradients written once
     for name, ms, call_ms, records, nbytes, flops in (
             ("flash_bwd_dq", dq_ms, dq_call_ms, dq_records, 6 * n + lse_bytes,
              6 * b * h * s * s * d),
             ("flash_bwd_dkv", dkv_ms, dkv_call_ms, dkv_records, 7 * n + lse_bytes,
              8 * b * h * s * s * d)):
-        bound_ms, bound_by = _bound(nbytes, flops, dtype)
-        emit("times", kernel=name, shape=shape, ms=ms, call_ms=call_ms,
+        # the route: wgmma in 16 bits (flash_bwd.cu); in fp32 flash_wide.cu's
+        # delta launch and split-TF32 kernel, whose bound is taken, the CUDA
+        # cores' stated beside it
+        route = "split_tf32" if dtype == torch.float32 else "wgmma"
+        bound_ms, bound_by = _bound(nbytes, flops, route if route == "split_tf32" else dtype)
+        bounds = {}
+        if dtype == torch.float32:
+            bounds = dict(route=route, cuda_core_bound_ms=_bound(nbytes, flops, dtype)[0],
+                          split_tf32_bound_ms=bound_ms,
+                          functions=sorted({_function_name(f) for f in records}))
+        emit("times", kernel=name, shape=shape, ms=ms, call_ms=call_ms, **bounds,
              graph_ms=graph[name], records=records, plain_ms=plain_ms, library_ms=library_ms,
              library="SDPA backward (fwd+bwd - fwd)", library_backend=backend,
              library_graph_ms=library_graph_ms,
@@ -2392,7 +2442,7 @@ def _bwd_row(b, s, gen, smi, dtype=torch.bfloat16):
              share_of_bound=bound_ms / ms, achieved_bytes_per_s=nbytes / (ms * 1e-3), card=smi)
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                          bound_by=bound_by, graph_ms=graph[name], call_ms=call_ms, shape=shape,
-                         library_backend=backend)
+                         library_backend=backend, **bounds)
     pair_bound = out["flash_bwd_dq"]["bound_ms"] + out["flash_bwd_dkv"]["bound_ms"]
     emit("times", kernel="flash_bwd (dq and dk/dv passes, one call)", shape=shape, ms=pair_ms,
          kernels_us=pair_kernels, call_ms=pair_call_ms, parent_two_calls_call_ms=two_call_ms,
@@ -2404,8 +2454,10 @@ def _bwd_row(b, s, gen, smi, dtype=torch.bfloat16):
 
 def _times_bwd(gen, smi):
     """The backward rows at the main path's shape (B=64, S=128), returned
-    with the same shape in fp32 (flash_bwd_dq_f32, flash_bwd_dkv_f32) under
-    "other_shapes", and at the S=512 request shape (B=8)."""
+    with the same shape in fp32 (flash_wide.cu's delta launch and its
+    split-TF32 flash_wide_bwd_dq_f32 and flash_wide_bwd_dkv_f32, counted on
+    flash_bwd_dq and flash_bwd_dkv) under "other_shapes", and at the S=512
+    request shape (B=8)."""
     rows = _bwd_row(MAIN["b"], MAIN["sq"], gen, smi)
     fp32 = _bwd_row(MAIN["b"], MAIN["sq"], gen, smi, torch.float32)
     for name, row in rows.items():
@@ -2841,8 +2893,10 @@ def _wide_rows(shape, dtype, iters, gen, smi):
     n = b * s * h * d * torch.finfo(dtype).bits // 8
     lse_bytes = b * h * s * 4
     label = dict(shape, dtype=str(dtype).replace("torch.", ""))
-    # the call's bound: q, k, v, o, do and lse read once, dq, dk, dv written
-    bwd_bound_ms, bwd_bound_by = _bound(8 * n + lse_bytes, 10 * b * h * s * s * d, dtype)
+    # the call's bound: q, k, v, o, do and lse read once, dq, dk, dv written;
+    # in fp32 at split TF32's rate, the route of all three kernels
+    bwd_bound_ms, bwd_bound_by = _bound(8 * n + lse_bytes, 10 * b * h * s * s * d,
+                                        "split_tf32" if dtype == torch.float32 else dtype)
     emit("times", kernel="flash_wide_bwd (one call: delta, dq, dk/dv)", shape=label, ms=bwd_ms,
          call_ms=bwd_call_ms, kernels_us=bwd_kernels, library_ms=lib_b_ms,
          library="SDPA backward (fwd+bwd - fwd)",
@@ -2856,11 +2910,10 @@ def _wide_rows(shape, dtype, iters, gen, smi):
              6 * n + lse_bytes, 6 * b * h * s * s * d),
             ("flash_wide_bwd_dkv", dkv_ms, dkv_call_ms, dkv_records, bwd_plain_ms, lib_b_ms,
              7 * n + lse_bytes, 8 * b * h * s * s * d)):
-        # the route: wgmma in 16 bits; in fp32 split TF32 on the tensor cores,
-        # but the dq pass on the CUDA cores.  The share of bound is taken
-        # against the route's bound; fp32 also states the CUDA cores' one.
-        route = ("wgmma" if dtype != torch.float32
-                 else "cuda_cores" if name == "flash_wide_bwd_dq" else "split_tf32")
+        # the route: wgmma in 16 bits; in fp32 split TF32 on the tensor cores
+        # (all three passes).  The share of bound is taken against the
+        # route's bound; fp32 also states the CUDA cores' one.
+        route = "wgmma" if dtype != torch.float32 else "split_tf32"
         bound_ms, bound_by = _bound(nbytes, flops, dtype if route != "split_tf32" else route)
         bounds = {}
         if dtype == torch.float32:
@@ -3055,8 +3108,11 @@ def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, fold, smi
                           "has a head above 256, so its launches there are 0",
                    "functions": row["functions"], "other_shapes": row["other_shapes"]}
         elif "other_shapes" in row:
+            fp32 = ("flash_fwd_f32 on the CUDA cores" if name == "flash_fwd" else
+                    "flash_wide.cu's delta launch and split-TF32 kernel, with the route and "
+                    "both bounds; the call's time holds the delta launch")
             per = {"per": "one call at the main path's [64, 128, 12, 64] bf16 (other_shapes: "
-                          "the same in fp32)", "other_shapes": row["other_shapes"]}
+                          f"the same in fp32: {fp32})", "other_shapes": row["other_shapes"]}
         elif name == "multi_tensor":
             per = {"per": "one BERT-base step's fused group (mp_adam, 159 tensors); not a TPU "
                           "kernel but the counterpart of group_apply's one XLA dispatch; "

@@ -41,12 +41,20 @@ allocates; it counts on the dq pass when the call runs it, else on the
 dk/dv pass (``_dq_launches``, ``_dkv_launches``).  Above 512 columns the
 same kernels stream their operands through their rings box by box and
 make each slab of the outputs a work item of its own, so every head dim
-runs on them.  In fp32 the forward and the dk/dv pass have the same item
-structure (TMA rings, two consumer warpgroups) and run every product on
-the tensor cores in split TF32 (hi·hi′ + hi·lo′ + lo·hi′, which keeps fp32
-accuracy); the fp32 dq pass stays on the CUDA cores, 64-column chunks of
-the head a reduction step.  The delta launch precedes every backward call
-above 256, in each dtype, and counts by the same rule.
+runs on them.  In fp32 the three passes have the same item structure (TMA
+rings, two consumer warpgroups) and run every product on the tensor cores
+in split TF32 (hi·hi′ + hi·lo′ + lo·hi′, which keeps fp32 accuracy).
+
+fp32 backward: every fp32 backward call, at every head dim, runs on
+``flash_wide.cu``: one delta launch, then the split-TF32 dq pass
+(``flash_wide_bwd_dq_f32``) and dk/dv pass (``flash_wide_bwd_dkv_f32``),
+on operands padded to a multiple of 64 columns (16, 32 and 48 to 64, 80 to
+128, 160 to 192) and handed over with no repeated rows, since the kernels
+read them by TMA.  The launches still count on the wrappers of the
+caller's head dim: ``flash_bwd_dq`` (the delta launch too) and
+``flash_bwd_dkv`` up to 256, the ``flash_wide_*`` ones above.  The fp32
+forward up to 256 stays on ``flash_fwd.cu``, and the 16-bit backward up to
+256 on ``flash_bwd.cu``.
 
 Gradients: one ``torch.autograd.Function`` (``_FlashAttention``) holds
 the forward, which saves o and the per-row log-sum-exp when an input
@@ -76,35 +84,41 @@ _SLAB = 128  # output columns of one launch: a wider instance makes one launch a
 _WIDE_STEP = 64  # flash_wide.cu takes head dims above 256 in multiples of this
 
 
-def _is_wide(width):
-    return width > _HEAD_DIMS[-1]
+def _is_wide(width, dtype=None):
+    """Whether a pass at the instance ``width`` runs on flash_wide.cu: a
+    head above 256 in every dtype; and, for a backward pass (whose callers
+    give its ``dtype``), every fp32 one, at every width.  The forward gives
+    no dtype: its fp32 up to 256 runs on flash_fwd.cu."""
+    return width > _HEAD_DIMS[-1] or dtype == torch.float32
 
 
-def _launches(width):
-    """Launches of one kernel pass at the instance ``width`` (one at the
-    widths of flash_wide.cu, whose slabs are blocks of one launch)."""
-    return 1 if _is_wide(width) else max(1, width // _SLAB)
+def _launches(width, dtype=None):
+    """Launches of one kernel pass at the instance ``width`` (``dtype`` as
+    ``_is_wide`` takes it): one on flash_wide.cu, whose slabs are blocks of
+    one launch, else one a 128-column slab."""
+    return 1 if _is_wide(width, dtype) else max(1, width // _SLAB)
 
 
-def _has_delta_pass(width):
-    """Whether a backward call at ``width`` launches flash_wide.cu's delta
-    pass (a head above 256, in every dtype): once a call, before whichever
-    of its passes the call runs, both of which read it."""
-    return _is_wide(width)
+def _has_delta_pass(width, dtype):
+    """Whether a backward call at ``width`` in ``dtype`` launches
+    flash_wide.cu's delta pass (a head above 256 in every dtype, and every
+    fp32 call): once a call, before whichever of its passes the call runs,
+    both of which read it."""
+    return _is_wide(width, dtype)
 
 
-def _dq_launches(width):
+def _dq_launches(width, dtype):
     """Launches counted on the dq pass of a backward call that runs it: its
     kernel's, and the delta pass's where there is one."""
-    return _launches(width) + int(_has_delta_pass(width))
+    return _launches(width, dtype) + int(_has_delta_pass(width, dtype))
 
 
-def _dkv_launches(width, with_dq=False):
+def _dkv_launches(width, dtype, with_dq=False):
     """Launches counted on the dk/dv pass of a backward call: its kernel's,
     and the delta pass's where there is one and the call runs no dq pass
-    (``with_dq``), which counts it otherwise.  So a call above 256 that runs
-    both passes counts 2 + 1: three launches, delta once."""
-    return _launches(width) + int(_has_delta_pass(width) and not with_dq)
+    (``with_dq``), which counts it otherwise.  So a call on flash_wide.cu
+    that runs both passes counts 2 + 1: three launches, delta once."""
+    return _launches(width, dtype) + int(_has_delta_pass(width, dtype) and not with_dq)
 
 
 def flash_fwd_plain(q, k, v, causal=False, scale=None, with_lse=False):
@@ -164,12 +178,13 @@ def _strides_bhs(x, bshd):
     return (st[0], st[2], st[1]) if bshd else (st[0], st[1], st[2])
 
 
-def _check_cuda_operands(fn, q, k, v, bshd, like_k=(), **like_q):
+def _check_cuda_operands(fn, q, k, v, bshd, like_k=(), bwd=False, **like_q):
     """What the kernels take: 4-D operands on q's device, of q's dtype (one
-    of three), head dim 16/32/64/128/256 or a multiple of 64 above 256, unit
-    stride on Dh, 16-byte aligned rows; ``like_q`` names further operands of
-    q's shape (o, do, dq...), ``like_k`` (name, tensor) pairs of k's shape
-    (dk, dv)."""
+    of three), head dim 16/32/64/128/256 or a multiple of 64 above 256 (any
+    multiple of 64 in an fp32 backward, ``bwd``), unit stride on Dh,
+    16-byte aligned rows; ``like_q`` names further operands of q's shape
+    (o, do, dq...), ``like_k`` (name, tensor) pairs of k's shape (dk,
+    dv)."""
     dev = q.device
     for name, x in (("q", q), ("k", k), ("v", v), *like_q.items(), *like_k):
         if x.device != dev:
@@ -191,7 +206,7 @@ def _check_cuda_operands(fn, q, k, v, bshd, like_k=(), **like_q):
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"{fn}: unsupported dtype {q.dtype}")
     d = q.shape[-1]
-    taken = d in _HEAD_DIMS or (_is_wide(d) and d % _WIDE_STEP == 0)
+    taken = d in _HEAD_DIMS or (_is_wide(d, q.dtype if bwd else None) and d % _WIDE_STEP == 0)
     if not taken or k.shape[-1] != d or v.shape[-1] != d:
         raise ValueError(f"{fn}: head dim must be one of {_HEAD_DIMS} or a multiple of "
                          f"{_WIDE_STEP} above {_HEAD_DIMS[-1]}, and equal for q, k, v; got "
@@ -210,16 +225,17 @@ def _check_cuda_operands(fn, q, k, v, bshd, like_k=(), **like_q):
             raise ValueError(f"{fn}: {name} {tuple(x.shape)} differs from k {tuple(k.shape)}")
 
 
-def _kernel_width(fn, q, k, v):
+def _kernel_width(fn, q, k, v, bwd=False):
     """The head dim the kernels run for the caller's: the caller's own when
     the kernels have an instance for it, else the next one they have (the
-    operands are zero-padded to it); above 256, the next multiple of 64,
-    which flash_wide.cu takes.  Raises for unequal head dims."""
+    operands are zero-padded to it); on flash_wide.cu (above 256, and every
+    fp32 backward, ``bwd``), the next multiple of 64.  Raises for unequal
+    head dims."""
     d = q.shape[-1]
     if k.shape[-1] != d or v.shape[-1] != d:
         raise ValueError(f"{fn}: head dim must be equal for q, k, v; got {d}, "
                          f"{k.shape[-1]}, {v.shape[-1]}")
-    if _is_wide(d):
+    if _is_wide(d, q.dtype if bwd else None):
         return -(-d // _WIDE_STEP) * _WIDE_STEP
     return next(w for w in _HEAD_DIMS if w >= d)
 
@@ -241,12 +257,14 @@ def _rows_readable(x, bshd):
     return x.contiguous() if n > 1 and st == 0 else x
 
 
-def _kernel_operands(width, bshd, *xs):
+def _kernel_operands(width, bshd, *xs, bwd=False):
     """The operands as the kernels take them: padded to ``width`` and, for
-    the TMA-fed kernels (16-bit, and every dtype above 256), with no
-    repeated rows."""
+    the TMA-fed kernels (16-bit, every dtype above 256 and every fp32
+    backward, ``bwd``), with no repeated rows.  Only the fp32 forward up to
+    256 (flash_fwd.cu's CUDA-core kernel) reads a repeated row as it is."""
     xs = [_pad_head(x, width) for x in xs]
-    if xs[0].dtype != torch.float32 or _is_wide(width):
+    dtype = xs[0].dtype
+    if dtype != torch.float32 or _is_wide(width, dtype if bwd else None):
         xs = [_rows_readable(x, bshd) for x in xs]
     return xs
 
@@ -262,10 +280,11 @@ def _entry(width=64):
     return fn
 
 
-def _bwd_entry(width=64):
-    """The backward's C entry for the instance ``width``: flash_wide.cu's
-    takes one more pointer, the delta buffer, after lse."""
-    wide = _is_wide(width)
+def _bwd_entry(width=64, dtype=torch.bfloat16):
+    """The backward's C entry for the instance ``width`` in ``dtype``:
+    flash_wide.cu's (above 256, and every fp32 call) takes one more
+    pointer, the delta buffer, after lse."""
+    wide = _is_wide(width, dtype)
     fn = (_cuda.load("flash_wide").mx_flash_wide_bwd if wide
           else _cuda.load("flash_bwd").mx_flash_bwd)
     if fn.argtypes is None:
@@ -335,21 +354,22 @@ flash_wide_fwd.launches = 0
 
 
 def _bwd_launch(q, k, v, o, do, lse, dq, dk, dv, causal, scale, bshd):
-    """One ctypes call of ``mx_flash_bwd``: the dq pass when ``dq`` is
-    given, the dk/dv pass when ``dk``/``dv`` are, both from one set of
-    tensor maps.  A padded head dim runs on padded buffers that are then
-    copied, sliced, into the given ones; a call above Dh 256 gets an fp32
-    buffer for delta, which one launch fills before the passes.
+    """One ctypes call of ``mx_flash_bwd`` (16-bit up to Dh 256) or
+    ``mx_flash_wide_bwd`` (above 256, and every fp32 call): the dq pass when
+    ``dq`` is given, the dk/dv pass when ``dk``/``dv`` are, both from one
+    set of tensor maps.  A padded head dim runs on padded buffers that are
+    then copied, sliced, into the given ones; a call on flash_wide.cu gets
+    an fp32 buffer for delta, which one launch fills before the passes.
     Returns the launches counted on the dq pass and on the dk/dv pass
     (``_dq_launches``, ``_dkv_launches``), 0 for a pass not asked for."""
-    d = q.shape[-1]
-    width = _kernel_width("flash_bwd", q, k, v)
-    q, k, v, o, do = _kernel_operands(width, bshd, q, k, v, o, do)
+    d, dtype = q.shape[-1], q.dtype
+    width = _kernel_width("flash_bwd", q, k, v, bwd=True)
+    q, k, v, o, do = _kernel_operands(width, bshd, q, k, v, o, do, bwd=True)
     wanted = (dq, dk, dv)
     if width != d:
         dq, dk, dv = (None if g is None else _new_like(x) for g, x in zip(wanted, (q, k, v)))
     _check_cuda_operands("flash_bwd", q, k, v, bshd,
-                         like_k=() if dk is None else (("dk", dk), ("dv", dv)),
+                         like_k=() if dk is None else (("dk", dk), ("dv", dv)), bwd=True,
                          o=o, do=do, **({} if dq is None else {"dq": dq}))
     b = q.shape[0]
     h, sq = (q.shape[2], q.shape[1]) if bshd else (q.shape[1], q.shape[2])
@@ -364,10 +384,10 @@ def _bwd_launch(q, k, v, o, do, lse, dq, dk, dv, causal, scale, bshd):
     strides = (ctypes.c_longlong * 24)(*(st for x in ops for st in _strides_bhs(x, bshd)))
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     delta = (torch.empty(b * h, sq, dtype=torch.float32, device=q.device)
-             if _has_delta_pass(width) else None)
-    scratch = (ptr(delta),) if _is_wide(width) else ()
+             if _has_delta_pass(width, dtype) else None)
+    scratch = (ptr(delta),) if _is_wide(width, dtype) else ()
     with torch.cuda.device(q.device):
-        rc = _bwd_entry(width)(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        rc = _bwd_entry(width, dtype)(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                o.data_ptr(), do.data_ptr(), lse.data_ptr(), *scratch, ptr(dq),
                                ptr(dk), ptr(dv), b, h, sq, sk, width, strides, float(scale),
                                int(bool(causal)),
@@ -378,8 +398,8 @@ def _bwd_launch(q, k, v, o, do, lse, dq, dk, dv, causal, scale, bshd):
         for dst, g in zip(wanted, (dq, dk, dv)):
             if dst is not None:
                 dst.copy_(g[..., :d])
-    return (0 if dq is None else _dq_launches(width),
-            0 if dk is None else _dkv_launches(width, with_dq=dq is not None))
+    return (0 if dq is None else _dq_launches(width, dtype),
+            0 if dk is None else _dkv_launches(width, dtype, with_dq=dq is not None))
 
 
 def _bwd_args(q, layout, scale):
@@ -408,8 +428,9 @@ def flash_bwd_dq(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd", d
     """The dq pass of :func:`flash_bwd`; writes into ``dq`` when given and
     returns dq.  A CPU tensor takes :func:`flash_bwd_plain`; a CUDA tensor
     launches the dq kernel (``flash_bwd_dq.launches`` counts, above Dh 256
-    ``flash_wide_bwd_dq.launches``: two, the delta pass and the kernel) or
-    raises."""
+    ``flash_wide_bwd_dq.launches``: on flash_wide.cu, above 256 and in fp32
+    at every width, two, the delta pass and the split-TF32 or wgmma kernel)
+    or raises."""
     bshd, scale = _bwd_args(q, layout, scale)
     if q.device.type == "cpu":
         return _into(dq, _bwd_plain(q, k, v, o, do, lse, causal, scale, bshd)[0])
@@ -425,8 +446,9 @@ def flash_bwd_dkv(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd",
     given and returns (dk, dv).  A CPU tensor takes
     :func:`flash_bwd_plain`; a CUDA tensor launches the dk/dv kernel
     (``flash_bwd_dkv.launches`` counts, above Dh 256
-    ``flash_wide_bwd_dkv.launches``: two, the delta pass and the kernel, as
-    this call runs no dq pass) or raises."""
+    ``flash_wide_bwd_dkv.launches``: on flash_wide.cu, above 256 and in
+    fp32 at every width, two, the delta pass and the kernel, as this call
+    runs no dq pass) or raises."""
     if (dk is None) != (dv is None):
         raise ValueError("flash_bwd_dkv: give both dk and dv or neither")
     bshd, scale = _bwd_args(q, layout, scale)
@@ -468,7 +490,9 @@ def _fwd_counter(d):
 
 def _bwd_counters(d):
     """The (dq, dk/dv) wrappers whose ``launches`` count the backward
-    kernels of head dim ``d``."""
+    kernels of the caller's head dim ``d``, whatever kernels run: an fp32
+    call up to 256 runs flash_wide.cu's and counts on ``flash_bwd_dq`` and
+    ``flash_bwd_dkv``."""
     if _is_wide(d):
         return flash_wide_bwd_dq, flash_wide_bwd_dkv
     return flash_bwd_dq, flash_bwd_dkv
@@ -489,10 +513,13 @@ def flash_bwd(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd", out=
 
     A CPU tensor takes :func:`flash_bwd_plain` (once, for all three); a
     CUDA tensor launches the two kernels, the dq pass then the dk/dv pass,
-    in one call (``flash_bwd_dq.launches`` and ``flash_bwd_dkv.launches``
-    each count one, two at Dh 129-256; above 256 the ``flash_wide_*``
-    wrappers' counts take theirs: one each, and the one delta pass of the
-    call on ``flash_wide_bwd_dq``, three launches in all), or raises."""
+    in one call, or raises.  In bf16 and fp16 up to Dh 256 they are
+    flash_bwd.cu's (``flash_bwd_dq.launches`` and ``flash_bwd_dkv.launches``
+    each count one, two at Dh 129-256); above 256, and in fp32 at every
+    width, flash_wide.cu's delta launch, then its dq and dk/dv kernels
+    (split TF32 in fp32): one each, and the delta launch on the dq counter
+    of the caller's head dim (``flash_bwd_dq`` up to 256, else
+    ``flash_wide_bwd_dq``), three launches in all."""
     dq, dk, dv = out if out is not None else (None, None, None)
     bshd, scale = _bwd_args(q, layout, scale)
     if q.device.type == "cpu":

@@ -1,5 +1,5 @@
-// Flash-attention backward for NVIDIA Hopper (sm_90a): two kernels with one
-// plain C entry point, loaded through ctypes by
+// Flash-attention backward for NVIDIA Hopper (sm_90a) in bf16 and fp16:
+// two kernels with one plain C entry point, loaded through ctypes by
 // incubator_mxnet_torch/ops/attention.py.
 //
 // Replaces: the JAX package's ops/attention.py:_bwd_dq_kernel and
@@ -74,9 +74,9 @@
 // tiles, a consumer's products and its p/ds math run in series and the
 // pair is slower than SDPA's.
 //
-// fp32 runs on the CUDA cores in full fp32 (flash_bwd_dq_f32,
-// flash_bwd_dkv_f32): 4 warps a block, each warp owning 16 of the block's
-// 64 rows, the streamed operand staged synchronously through shared memory.
+// fp32 is not taken here: every fp32 backward, at every head dim, runs
+// flash_wide.cu's split-TF32 dq and dk/dv kernels after its delta launch
+// (the head padded to a multiple of 64), and mx_flash_bwd refuses dtype 0.
 
 #include <math.h>
 
@@ -679,317 +679,6 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
   }
 }
 
-// ---------------------------------------------------------------------------
-// fp32: CUDA-core path.  Lane pair (2i, 2i+1) of a warp owns one of the
-// warp's 16 rows: each lane takes every other row of the streamed tile and
-// accumulates half of the owned row's Dh gradient columns.
-// ---------------------------------------------------------------------------
-
-constexpr int ROWS = 64;      // rows of the owned operand per block
-constexpr int WARPS = 4;      // each warp owns ROWS / WARPS = 16 rows
-constexpr int THREADS = WARPS * 32;
-
-// Key rows streamed per tile by the dq pass: 32 above Dh=128, so that the
-// K and V tiles fit beside Q and dO in shared memory.
-template <int D>
-struct DqKeys {
-  static constexpr int value = D > 128 ? 32 : 64;
-};
-
-// Query rows streamed per tile by the dk/dv pass, chosen so that no
-// instance spills: two [Dh / 2] accumulators a thread beside its score rows.
-template <int D>
-struct DkvRows {
-  static constexpr int value = D >= 128 ? 16 : 32;
-};
-
-template <int D>
-struct Pitch {  // 4 floats of padding a row: no bank conflicts, 16-byte rows
-  static constexpr int value = D + 4;
-};
-
-template <typename T>
-__device__ __forceinline__ const T* base(const Params& p, int which, int b, int h) {
-  return static_cast<const T*>(p.in[which]) + b * p.st[which][0] + h * p.st[which][1];
-}
-
-template <typename T>
-__device__ __forceinline__ T* out_base(const Params& p, int which, int b, int h) {
-  return static_cast<T*>(p.out[which - DQ]) + b * p.st[which][0] + h * p.st[which][1];
-}
-
-// Copy rows [row0, row0 + NR) of one (batch, head) into shared memory, 16
-// bytes per thread and step; rows at or past `nrows` become zeros.
-template <int D, int NR>
-__device__ __forceinline__ void load_tile(float* smem, const float* g, long long ss, int row0,
-                                          int nrows) {
-  constexpr int CHUNKS = D / 4;
-  constexpr int LD = Pitch<D>::value;
-  for (int idx = threadIdx.x; idx < NR * CHUNKS; idx += THREADS) {
-    const int r = idx / CHUNKS;
-    const int c = (idx % CHUNKS) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < nrows) val = *reinterpret_cast<const float4*>(g + (row0 + r) * ss + c);
-    *reinterpret_cast<float4*>(smem + r * LD + c) = val;
-  }
-}
-
-// For the NR query rows [row0, row0 + NR) whose do is in sDO: lse into sLse
-// and delta = sum_d do·o (o read from device memory) into sDelta; 0 for
-// both past `nrows`.  THREADS / NR threads share a row.
-template <int D, int NR>
-__device__ __forceinline__ void row_stats(float* sLse, float* sDelta, const float* sDO,
-                                          const float* og, long long o_ss, const float* lse,
-                                          int row0, int nrows) {
-  constexpr int TPR = THREADS / NR;
-  constexpr int PER = D / TPR;
-  constexpr int LD = Pitch<D>::value;
-  const int r = threadIdx.x / TPR, part = threadIdx.x % TPR;
-  const int row = row0 + r;
-  float acc = 0.f;
-  if (row < nrows) {
-    const float* orow = og + row * o_ss + part * PER;
-    const float* drow = sDO + r * LD + part * PER;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) acc = fmaf(drow[i], orow[i], acc);
-  }
-#pragma unroll
-  for (int off = TPR / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (part == 0) {
-    sDelta[r] = acc;
-    sLse[r] = row < nrows ? lse[row] : 0.f;
-  }
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// D: the width of the operands; DS: the width of the dq slab, from p.col0.
-template <int D, int DS>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_f32(Params p) {
-  constexpr int LD = Pitch<D>::value;
-  constexpr int HALF = DS / 2;
-  constexpr int BK = DqKeys<D>::value;
-  constexpr int KPL = BK / 2;  // keys scored per lane and tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);
-  float* sDO = sQ + ROWS * LD;
-  float* sK = sDO + ROWS * LD;
-  float* sV = sK + BK * LD;
-  float* sLse = sV + BK * LD;
-  float* sDelta = sLse + ROWS;
-
-  const int nq = (p.Sq + ROWS - 1) / ROWS;
-  const int bh = blockIdx.x / nq;
-  const int q0 = (blockIdx.x % nq) * ROWS;
-  const int b = bh / p.H, h = bh % p.H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int half = lane & 1;
-  const int lrow = warp * 16 + (lane >> 1);
-  const int row = q0 + lrow;
-
-  const float* kg = base<float>(p, K, b, h);
-  const float* vg = base<float>(p, V, b, h);
-  load_tile<D, ROWS>(sQ, base<float>(p, Q, b, h), p.st[Q][2], q0, p.Sq);
-  load_tile<D, ROWS>(sDO, base<float>(p, DO, b, h), p.st[DO][2], q0, p.Sq);
-  __syncthreads();
-  row_stats<D, ROWS>(sLse, sDelta, sDO, base<float>(p, O, b, h), p.st[O][2],
-                            p.lse + (long long)bh * p.Sq, q0, p.Sq);
-  __syncthreads();
-  const float lse_r = sLse[lrow], delta_r = sDelta[lrow];
-
-  float acc[HALF];
-#pragma unroll
-  for (int c = 0; c < HALF; ++c) acc[c] = 0.f;
-
-  int nk = (p.Sk + BK - 1) / BK;
-  if (p.causal) nk = min(nk, (min(q0 + ROWS, p.Sq) + BK - 1) / BK);
-
-  const float4* q4 = reinterpret_cast<const float4*>(sQ + lrow * LD);
-  const float4* do4 = reinterpret_cast<const float4*>(sDO + lrow * LD);
-  for (int j = 0; j < nk; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();
-    load_tile<D, BK>(sK, kg, p.st[K][2], k0, p.Sk);
-    load_tile<D, BK>(sV, vg, p.st[V][2], k0, p.Sk);
-    __syncthreads();
-
-    float s[KPL], dp[KPL];
-#pragma unroll
-    for (int i = 0; i < KPL; ++i) s[i] = dp[i] = 0.f;
-#pragma unroll 2
-    for (int d4 = 0; d4 < D / 4; ++d4) {
-      const float4 qv = q4[d4], dv = do4[d4];
-#pragma unroll
-      for (int i = 0; i < KPL; ++i) {
-        s[i] = dot4(qv, reinterpret_cast<const float4*>(sK + (2 * i + half) * LD)[d4], s[i]);
-        dp[i] = dot4(dv, reinterpret_cast<const float4*>(sV + (2 * i + half) * LD)[d4], dp[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < KPL; ++i) {
-      const int col = k0 + 2 * i + half;
-      const bool masked = col >= p.Sk || (p.causal && col > row);
-      const float pe = masked ? 0.f : expf(s[i] * p.scale - lse_r);
-      dp[i] = pe * (dp[i] - delta_r);  // ds
-    }
-
-    const float* kcol = sK + p.col0 + half * HALF;
-#pragma unroll 4
-    for (int i = 0; i < KPL; ++i) {
-      const float mine = dp[i];
-      const float other = __shfl_xor_sync(0xffffffffu, mine, 1);
-      const float d0 = half ? other : mine;  // key 2i
-      const float d1 = half ? mine : other;  // key 2i + 1
-      const float* k0p = kcol + (2 * i) * LD;
-#pragma unroll
-      for (int c = 0; c < HALF; ++c) acc[c] = fmaf(d1, k0p[LD + c], fmaf(d0, k0p[c], acc[c]));
-    }
-  }
-
-  if (row >= p.Sq) return;
-  float* orow = out_base<float>(p, DQ, b, h) + row * p.st[DQ][2] + half * HALF;
-#pragma unroll
-  for (int c = 0; c < HALF; ++c) orow[c] = acc[c] * p.scale;
-}
-
-template <int D, int DS>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_f32(Params p) {
-  constexpr int LD = Pitch<D>::value;
-  constexpr int HALF = DS / 2;
-  constexpr int BQ = DkvRows<D>::value;
-  constexpr int QPL = BQ / 2;  // queries scored per lane and tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sK = reinterpret_cast<float*>(smem_raw);
-  float* sV = sK + ROWS * LD;
-  float* sQ = sV + ROWS * LD;
-  float* sDO = sQ + BQ * LD;
-  float* sLse = sDO + BQ * LD;
-  float* sDelta = sLse + BQ;
-
-  const int nkb = (p.Sk + ROWS - 1) / ROWS;
-  const int bh = blockIdx.x / nkb;
-  const int k0 = (blockIdx.x % nkb) * ROWS;
-  const int b = bh / p.H, h = bh % p.H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int half = lane & 1;
-  const int lrow = warp * 16 + (lane >> 1);
-  const int key = k0 + lrow;
-
-  const float* qg = base<float>(p, Q, b, h);
-  const float* dog = base<float>(p, DO, b, h);
-  const float* og = base<float>(p, O, b, h);
-  const float* lse = p.lse + (long long)bh * p.Sq;
-  load_tile<D, ROWS>(sK, base<float>(p, K, b, h), p.st[K][2], k0, p.Sk);
-  load_tile<D, ROWS>(sV, base<float>(p, V, b, h), p.st[V][2], k0, p.Sk);
-
-  float dk[HALF], dv[HALF];
-#pragma unroll
-  for (int c = 0; c < HALF; ++c) dk[c] = dv[c] = 0.f;
-
-  const float4* k4 = reinterpret_cast<const float4*>(sK + lrow * LD);
-  const float4* v4 = reinterpret_cast<const float4*>(sV + lrow * LD);
-  const int nq = (p.Sq + BQ - 1) / BQ;
-  for (int j = p.causal ? k0 / BQ : 0; j < nq; ++j) {
-    const int qs = j * BQ;
-    __syncthreads();
-    load_tile<D, BQ>(sQ, qg, p.st[Q][2], qs, p.Sq);
-    load_tile<D, BQ>(sDO, dog, p.st[DO][2], qs, p.Sq);
-    __syncthreads();
-    row_stats<D, BQ>(sLse, sDelta, sDO, og, p.st[O][2], lse, qs, p.Sq);
-    __syncthreads();
-
-    float s[QPL], dp[QPL];
-#pragma unroll
-    for (int i = 0; i < QPL; ++i) s[i] = dp[i] = 0.f;
-#pragma unroll 2
-    for (int d4 = 0; d4 < D / 4; ++d4) {
-      const float4 kv = k4[d4], vv = v4[d4];
-#pragma unroll
-      for (int i = 0; i < QPL; ++i) {
-        s[i] = dot4(kv, reinterpret_cast<const float4*>(sQ + (2 * i + half) * LD)[d4], s[i]);
-        dp[i] = dot4(vv, reinterpret_cast<const float4*>(sDO + (2 * i + half) * LD)[d4], dp[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < QPL; ++i) {
-      const int qc = 2 * i + half;
-      const int qi = qs + qc;
-      const bool masked = qi >= p.Sq || (p.causal && qi < key);
-      const float pe = masked ? 0.f : expf(s[i] * p.scale - sLse[qc]);
-      s[i] = pe;
-      dp[i] = pe * (dp[i] - sDelta[qc]);  // ds
-    }
-
-    const float* qcol = sQ + p.col0 + half * HALF;
-    const float* dcol = sDO + p.col0 + half * HALF;
-#pragma unroll 2
-    for (int i = 0; i < QPL; ++i) {
-      const float p_mine = s[i], ds_mine = dp[i];
-      const float p_other = __shfl_xor_sync(0xffffffffu, p_mine, 1);
-      const float ds_other = __shfl_xor_sync(0xffffffffu, ds_mine, 1);
-      const float p0 = half ? p_other : p_mine, p1 = half ? p_mine : p_other;
-      const float s0 = half ? ds_other : ds_mine, s1 = half ? ds_mine : ds_other;
-      const float* q0p = qcol + (2 * i) * LD;
-      const float* d0p = dcol + (2 * i) * LD;
-#pragma unroll
-      for (int c = 0; c < HALF; ++c) {
-        dv[c] = fmaf(p1, d0p[LD + c], fmaf(p0, d0p[c], dv[c]));
-        dk[c] = fmaf(s1, q0p[LD + c], fmaf(s0, q0p[c], dk[c]));
-      }
-    }
-  }
-
-  if (key >= p.Sk) return;
-  float* krow = out_base<float>(p, DK, b, h) + key * p.st[DK][2] + half * HALF;
-  float* vrow = out_base<float>(p, DV, b, h) + key * p.st[DV][2] + half * HALF;
-#pragma unroll
-  for (int c = 0; c < HALF; ++c) {
-    krow[c] = dk[c] * p.scale;
-    vrow[c] = dv[c];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// launch
-// ---------------------------------------------------------------------------
-
-cudaError_t launch_f32(void (*kernel)(Params), const Params& p, int smem, int tiles,
-                       cudaStream_t stream) {
-  if (smem > 48 * 1024) {  // above 48 KB only after an explicit opt-in
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-  }
-  const long long blocks = (long long)p.B * p.H * tiles;
-  if (blocks <= 0) return cudaSuccess;
-  kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-// Dynamic shared memory at Dh=256: dq pass 200,192 bytes, dk/dv pass 166,528.
-template <int D, int DS>
-cudaError_t run_f32(const Params& p, cudaStream_t s) {
-  constexpr int LD = Pitch<D>::value;
-  constexpr int BQ = DkvRows<D>::value;
-  constexpr int BK = DqKeys<D>::value;
-  if (p.out[0] != nullptr) {
-    const int smem = (2 * ROWS + 2 * BK) * LD * (int)sizeof(float) + 2 * ROWS * (int)sizeof(float);
-    const cudaError_t e =
-        launch_f32(flash_bwd_dq_f32<D, DS>, p, smem, (p.Sq + ROWS - 1) / ROWS, s);
-    if (e != cudaSuccess) return e;
-  }
-  if (p.out[1] != nullptr) {
-    const int smem = (2 * ROWS + 2 * BQ) * LD * (int)sizeof(float) + 2 * BQ * (int)sizeof(float);
-    return launch_f32(flash_bwd_dkv_f32<D, DS>, p, smem, (p.Sk + ROWS - 1) / ROWS, s);
-  }
-  return cudaSuccess;
-}
-
 // The persistent grid of one pass: as many blocks as the card holds at
 // once, at most one per work item.
 template <typename Kernel, typename... Maps>
@@ -1084,21 +773,11 @@ cudaError_t dispatch_tma(const Params& p, int d, cudaStream_t s) {
   }
 }
 
-cudaError_t dispatch_f32(const Params& p, int d, cudaStream_t s) {
-  switch (d) {
-    case 16: return run_f32<16, 16>(p, s);
-    case 32: return run_f32<32, 32>(p, s);
-    case 64: return run_f32<64, 64>(p, s);
-    case 128: return run_f32<128, 128>(p, s);
-    case 256: return run_slabs(run_f32<256, SLAB>, p, d, sizeof(float), s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16.  Inputs q, k, v, o, do and
+// dtype: 1 = float16, 2 = bfloat16 (0, float32, is refused: flash_wide.cu's
+// mx_flash_wide_bwd takes it at every head dim).  Inputs q, k, v, o, do and
 // lse ([B*H, Sq] fp32, from the forward); outputs dq, dk, dv.  A null dq
 // skips the dq pass, a null dk (and dv) the dk/dv pass.  strides: 24
 // element strides, (batch, head, sequence) for q, k, v, o, do, dq, dk, dv
@@ -1130,7 +809,6 @@ extern "C" int mx_flash_bwd(int dtype, const void* q, const void* k, const void*
   p.col0 = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)dispatch_f32(p, D, s);
     case 1: return (int)dispatch_tma<__half>(p, D, s);
     case 2: return (int)dispatch_tma<__nv_bfloat16>(p, D, s);
     default: return (int)cudaErrorInvalidValue;

@@ -1,11 +1,12 @@
 // Flash attention for head dims above 256 on NVIDIA Hopper (sm_90a): the
 // forward (flash_wide_fwd: o and lse) and the two backward passes
 // (flash_wide_bwd_dq: dq; flash_wide_bwd_dkv: dk and dv), with plain C entry
-// points loaded through ctypes by incubator_mxnet_torch/ops/attention.py.
+// points loaded through ctypes by incubator_mxnet_torch/ops/attention.py;
+// and the fp32 backward at every head dim.
 //
 // Replaces: the JAX package's ops/attention.py:_fwd_kernel, _bwd_dq_kernel
 // and _bwd_dkv_kernel at the head dims that flash_fwd.cu and flash_bwd.cu
-// have no instance for.  The JAX function takes any head dim; the wrapper
+// have no instance for, and in fp32 the two backward kernels at all.  The JAX function takes any head dim; the wrapper
 // zero-pads one that is not a multiple of 64 up to the next (zero columns add
 // nothing to any product or to rowsum(do*o)) and passes the true head dim's
 // scale.  Same function as the other kernels: fp32 scores, softmax and sums;
@@ -96,7 +97,7 @@
 //   gradients are staged in the consumer's own K or V tile, no longer
 //   read, and written by TMA stores that clip keys past Sk.
 // * delta = rowsum(do∘o) is computed once a query row by one launch of its
-//   own (flash_wide_bwd_delta, one warp a row, into an fp32 buffer the
+//   own (flash_wide_bwd_delta, a warp a row or two, into an fp32 buffer the
 //   wrapper allocates) before whichever backward passes a call runs, so
 //   neither loads o and no item recomputes it.
 // * setmaxnreg 40 / 232 moves registers from the producer to the
@@ -137,43 +138,57 @@
 //
 // fp32 (MXNet's default dtype): wgmma has no full-fp32 product and plain
 // TF32 keeps 10 bits of mantissa, far outside the fp32 bounds; so the fp32
-// forward (flash_wide_fwd_f32) and dk/dv pass (flash_wide_bwd_dkv_f32) run
-// every product in split TF32 on the tensor cores: x = hi + lo, each fp32
-// product hi·hi′ + hi·lo′ + lo·hi′ (three TF32 products, fp32 sums; lo·lo′
-// dropped), which errs by about 2^-20 of a product.  The tensor core reads
-// a raw fp32 word as TF32 by truncation (probed on the card), so the raw
-// word is hi and only lo = x − hi is formed, in registers: two
-// instructions an element.  What bounds them: 3 x 17.2 (forward) and 3 x
-// 34.4 (dk/dv) GFLOP of TF32 at [4, 512, 8, 512], 0.104 and 0.208 ms at 495
-// TFLOP/s, against 67 / 101 MB of bytes (0.02-0.03 ms).
-// * The items are the 16-bit kernels': the forward's 64 query rows and a
-//   slab of at most 6 boxes of o (3 a consumer: 4, 128 registers of o beside
-//   32 of scores, made ptxas spill; so Dh 448 and 512 take two slab items,
+// forward (flash_wide_fwd_f32), dq pass (flash_wide_bwd_dq_f32) and dk/dv
+// pass (flash_wide_bwd_dkv_f32) run every product in split TF32 on the
+// tensor cores: x = hi + lo, each fp32 product hi·hi′ + hi·lo′ + lo·hi′
+// (three TF32 products, fp32 sums; lo·lo′ dropped), which errs by about
+// 2^-20 of a product.  The tensor core reads a raw fp32 word as TF32 by
+// truncation (probed on the card), so the raw word is hi and only lo = x −
+// hi is formed, in registers: two instructions an element.  What bounds
+// them: 3 x 17.2 (forward), 3 x 25.8 (dq) and 3 x 34.4 (dk/dv) GFLOP of
+// TF32 at [4, 512, 8, 512], 0.104, 0.156 and 0.208 ms at 495 TFLOP/s,
+// against 67 / 101 / 118 MB of bytes (0.02-0.035 ms).
+// * The fp32 backward runs here at every head dim, not only above 256: the
+//   wrapper pads a narrow head to a multiple of 64 (16, 32, 48 to 64; 80
+//   to 128; 160 to 192), and the kernels take any count P of 64-column
+//   boxes from the call (P = 1 at BERT-base's Dh 64).
+// * The forward's items are the 16-bit kernels': 64 query rows and a slab
+//   of at most 6 boxes of o (3 a consumer: 4, 128 registers of o beside 32
+//   of scores, made ptxas spill; so Dh 448 and 512 take two slab items,
 //   each computing the scores), the consumers splitting the head's boxes
-//   and swapping fp32 partial scores; dk/dv's slab items of a key tile
-//   (ceil(P/4) slabs of at most 4 boxes), consumer 0 computing sᵀ, pᵀ and
-//   dv, consumer 1 dpᵀ, dsᵀ (taking pᵀ through shared memory) and dk.  Each
-//   score is computed once an item; persistent grid, static stride, one
-//   producer thread, setmaxnreg 24 / 240 (all the block's registers).
+//   and swapping fp32 partial scores.  The dq pass has the same items with
+//   slabs of at most 8 boxes (one slab up to Dh 512): for each key tile
+//   consumer 0 reduces s = q·kᵀ and consumer 1 dp = do·vᵀ over the whole
+//   head, they swap p and dp − delta (as the 16-bit dq pass does) and each
+//   accumulates the 32-column half of its own of every box of the slab, dq
+//   += ds·k (128 registers at 8 boxes, as a dk/dv consumer holds; heads of
+//   at most 2 boxes run an instance of 2, which holds the item's
+//   coordinates where the one of 8 recomputes them a tile): the two do
+//   equal products at every P, odd and P = 1 too, where a split by boxes
+//   would leave one idle.  dk/dv's slab
+//   items of a key tile (ceil(P/4) slabs of at most 4 boxes; one at P <=
+//   4), consumer 0 computing sᵀ, pᵀ and dv, consumer 1 dpᵀ, dsᵀ (taking pᵀ
+//   through shared memory) and dk.  Each score is computed once an item;
+//   persistent grid, static stride, one producer thread, setmaxnreg 24 /
+//   240 (all the block's registers).
 // * A 64 x 64 fp32 box is two 32-column TMA boxes (128-byte swizzle), and no
 //   whole fp32 tile fits (64 rows of Dh 512 are 128 KB), so every operand
 //   streams: each consumer has its own ring of 3 slots of two boxes (a
-//   reduction's A and B box, or a product's B box), which also keeps the
-//   producer's count of a consumer's slots exact when P is odd.
-// * wgmma takes TF32 operands K-major only, and p·v, pᵀ·do and dsᵀ·q reduce
-//   over the sequence (v, do and q MN-major).  So the products run on
-//   mma.sync.m16n8k8.tf32, whose fragments each lane reads itself: by
-//   ldmatrix for the K-major reductions (a 16-byte row of 16-bit pairs is 4
-//   fp32 values, a TF32 fragment row), by 32-bit loads for the MN-major
-//   ones, both conflict-free in the swizzled rows.  The accumulator's pairs
-//   (columns 2t, 2t + 1) become the A fragment of the next product (columns
-//   t, t + 4) by permuting the reduction index within each step of 8.
-// * o, dk and dv are stored straight from the registers (row and key tails
-//   masked); delta = rowsum(do∘o) comes from the call's one delta launch.
-// Only flash_wide_bwd_dq_f32 stays on the CUDA cores (reduce_dh,
-// slab_product): 64-column chunks of the head staged in shared memory, dq
-// in 128-column slabs, a block a (batch·head, query tile, slab), 256
-// threads and 64 x 32 scores a block, recomputing the scores for each slab.
+//   reduction's A and B box, a product's B box, or up to four of the dq
+//   pass's 32-column k halves), which also keeps the producer's count of a
+//   consumer's slots exact when P is odd.
+// * wgmma takes TF32 operands K-major only, and p·v, ds·k, pᵀ·do and dsᵀ·q
+//   reduce over the sequence (v, k, do and q MN-major).  So the products
+//   run on mma.sync.m16n8k8.tf32, whose fragments each lane reads itself:
+//   by ldmatrix for the K-major reductions (a 16-byte row of 16-bit pairs
+//   is 4 fp32 values, a TF32 fragment row), by 32-bit loads for the
+//   MN-major ones, both conflict-free in the swizzled rows.  The
+//   accumulator's pairs (columns 2t, 2t + 1) become the A fragment of the
+//   next product (columns t, t + 4) by permuting the reduction index within
+//   each step of 8.
+// * o, dq, dk and dv are stored straight from the registers (row and key
+//   tails masked); delta = rowsum(do∘o) comes from the call's one delta
+//   launch.
 
 #include <math.h>
 
@@ -206,153 +221,6 @@ template <typename T>
 __device__ __forceinline__ const T* base(const Params& p, int which, const void* ptr, int b,
                                          int h) {
   return static_cast<const T*>(ptr) + b * p.st[which][0] + h * p.st[which][1];
-}
-
-// ---------------------------------------------------------------------------
-// CUDA cores: the fp32 dq pass
-// ---------------------------------------------------------------------------
-
-constexpr int THREADS = 256;
-constexpr int ROWS = 64;   // output rows of a block: queries (fwd, dq) or keys (dk/dv)
-constexpr int COLS = 32;   // keys (fwd, dq) or queries (dk/dv) of a score tile
-constexpr int CHUNK = 64;  // Dh columns of one reduction step
-constexpr int SLAB = 128;  // output columns of a block
-constexpr int PITCH = CHUNK + 1;
-
-// rows [row0, row0 + n) x columns [c0, c0 + w) of a [S, Dh] operand (sequence
-// stride ss) into dst[n][pitch]; rows at or past `nrows` read as 0.
-__device__ __forceinline__ void stage(float* dst, int pitch, const float* g, long long ss,
-                                      int row0, int n, int nrows, int c0, int w) {
-  for (int idx = threadIdx.x; idx < n * w; idx += THREADS) {
-    const int r = idx / w, c = idx % w;
-    const int row = row0 + r;
-    dst[r * pitch + c] = row < nrows ? g[row * ss + c0 + c] : 0.f;
-  }
-}
-
-// acc[i][j] += sum over Dh of a[row0 + 4ty + i] * b[col0 + 2tx + j]: a ROWS x
-// COLS product of two [S, Dh] operands, streamed through sa and sb in
-// CHUNK-column steps.  Ends with a barrier, so the buffers may be reused.
-__device__ void reduce_dh(float (&acc)[4][2], float* sa, float* sb, const float* a,
-                          long long a_ss, int a0, int na, const float* b, long long b_ss, int b0,
-                          int nb, int D) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  for (int c0 = 0; c0 < D; c0 += CHUNK) {
-    stage(sa, PITCH, a, a_ss, a0, ROWS, na, c0, CHUNK);
-    stage(sb, PITCH, b, b_ss, b0, COLS, nb, c0, CHUNK);
-    __syncthreads();
-#pragma unroll 8
-    for (int d = 0; d < CHUNK; ++d) {
-      float av[4], bv[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = sa[(4 * ty + i) * PITCH + d];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) bv[j] = sb[(2 * tx + j) * PITCH + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-// out[4ty + i][tx + 16c] += sum over the COLS columns of w[4ty + i][.] *
-// rows[.][tx + 16c]: the slab product of a ROWS x COLS weight tile (sw) with
-// COLS rows of an operand's slab, staged into sv.  The last slab of a head
-// dim that is not a multiple of SLAB is 64 columns wide: the columns past D
-// are never written out.  Ends with a barrier.
-__device__ void slab_product(float (&out)[4][8], const float* sw, float* sv, const float* g,
-                             long long ss, int row0, int nrows, int c0, int D) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  stage(sv, SLAB, g, ss, row0, COLS, nrows, c0, min(SLAB, D - c0));
-  __syncthreads();
-#pragma unroll 4
-  for (int j = 0; j < COLS; ++j) {
-    float wv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) wv[i] = sw[(4 * ty + i) * (COLS + 1) + j];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float x = sv[j * SLAB + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) out[i][c] = fmaf(wv[i], x, out[i][c]);
-    }
-  }
-  __syncthreads();
-}
-
-// Shared memory of the dq kernel: two reduction chunks (ROWS and COLS
-// rows), which a slab tile of COLS x SLAB reuses, and a ROWS x COLS weight
-// tile.
-constexpr int CHUNK_FLOATS = (ROWS + COLS) * PITCH;
-static_assert(CHUNK_FLOATS >= COLS * SLAB, "the slab tile reuses the chunk buffers");
-constexpr int SMEM_FLOATS = CHUNK_FLOATS + ROWS * (COLS + 1);
-static_assert(SMEM_FLOATS * 4 + 2 * COLS * 4 <= 48 * 1024, "static shared memory");
-
-// Block (batch*head x, query tile y, slab z): dq[rows, slab].
-__global__ void __launch_bounds__(THREADS) flash_wide_bwd_dq_f32(Params p) {
-  __shared__ float smem[SMEM_FLOATS];
-  float* sa = smem;
-  float* sb = smem + ROWS * PITCH;
-  float* sds = smem + CHUNK_FLOATS;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int q0 = blockIdx.y * ROWS, bh = blockIdx.x, c0 = blockIdx.z * SLAB;
-  const int b = bh / p.H, h = bh % p.H;
-  const float* q = base<float>(p, Q, p.q, b, h);
-  const float* k = base<float>(p, K, p.k, b, h);
-  const float* v = base<float>(p, V, p.v, b, h);
-  const float* dout = base<float>(p, DO, p.dout, b, h);
-
-  // delta = rowsum(do * o), from the call's delta launch, and the lse of
-  // this thread's four rows
-  float delta[4], lse[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    delta[i] = row < p.Sq ? p.delta[(long long)bh * p.Sq + row] : 0.f;
-    lse[i] = row < p.Sq ? p.lse[(long long)bh * p.Sq + row] : 0.f;
-  }
-  float acc[4][8] = {};
-  int nk = (p.Sk + COLS - 1) / COLS;
-  if (p.causal) nk = min(nk, (min(q0 + ROWS, p.Sq) + COLS - 1) / COLS);
-  for (int t = 0; t < nk; ++t) {
-    const int k0 = t * COLS;
-    float s[4][2] = {}, dp[4][2] = {};
-    reduce_dh(s, sa, sb, q, p.st[Q][2], q0, p.Sq, k, p.st[K][2], k0, p.Sk, p.D);
-    reduce_dh(dp, sa, sb, dout, p.st[DO][2], q0, p.Sq, v, p.st[V][2], k0, p.Sk, p.D);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * ty + i;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int key = k0 + 2 * tx + j;
-        const bool masked = row >= p.Sq || key >= p.Sk || (p.causal && key > row);
-        const float pr = masked ? 0.f : expf(s[i][j] * p.scale - lse[i]);
-        sds[(4 * ty + i) * (COLS + 1) + 2 * tx + j] = pr * (dp[i][j] - delta[i]);
-      }
-    }
-    slab_product(acc, sds, sa, k, p.st[K][2], k0, p.Sk, c0, p.D);
-  }
-  float* dq = static_cast<float*>(p.out) + b * p.st[OUT][0] + h * p.st[OUT][1];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row >= p.Sq) continue;
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      if (c0 + tx + 16 * c < p.D)
-        dq[row * p.st[OUT][2] + c0 + tx + 16 * c] = acc[i][c] * p.scale;
-  }
-}
-
-// The fp32 dq pass on the CUDA cores: a block a (batch·head, query tile,
-// slab).
-cudaError_t launch_dq_f32(const Params& p, cudaStream_t stream) {
-  const unsigned slabs = (unsigned)((p.D + SLAB - 1) / SLAB);
-  const dim3 query_tiles((unsigned)(p.B * p.H), (p.Sq + ROWS - 1) / ROWS, slabs);
-  flash_wide_bwd_dq_f32<<<query_tiles, THREADS, 0, stream>>>(p);
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -839,40 +707,53 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
   }
 }
 
-// delta = rowsum(do∘o) in fp32, one warp a row of [B·H·Sq], 16 bytes a lane
-// and step (8 elements of a 16-bit type, 4 of fp32): launched once a
-// backward call, the dq and dk/dv passes read it instead of o.
+// Lanes a row of the delta launch: 16 where a row is at most 256 bytes
+// (fp32 Dh 64), so that every lane of a warp loads (two rows a warp), else
+// 32.  The sums are the same bits either way: the lanes a row of 256 bytes
+// would leave idle add zeros.
+template <typename T>
+__host__ __device__ __forceinline__ int delta_lanes(int D) {
+  return D * (int)sizeof(T) <= 256 ? 16 : 32;
+}
+
+// delta = rowsum(do∘o) in fp32 over the rows of [B·H·Sq], delta_lanes a row,
+// 16 bytes a lane and step (8 elements of a 16-bit type, 4 of fp32):
+// launched once a backward call, the dq and dk/dv passes read it instead of
+// o.
 template <typename T>
 __global__ void __launch_bounds__(256) flash_wide_bwd_delta(Params p) {
-  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= (long long)p.B * p.H * p.Sq) return;
-  const int s = (int)(row % p.Sq), bh = (int)(row / p.Sq);
-  const int b = bh / p.H, h = bh % p.H;
-  const T* o = base<T>(p, O, p.o, b, h) + s * p.st[O][2];
-  const T* d = base<T>(p, DO, p.dout, b, h) + s * p.st[DO][2];
+  const int lanes = delta_lanes<T>(p.D);
+  const long long row =
+      ((long long)blockIdx.x * 8 + threadIdx.x / 32) * (32 / lanes) + threadIdx.x % 32 / lanes;
+  const int lane = threadIdx.x % lanes;
+  const bool live = row < (long long)p.B * p.H * p.Sq;  // every lane takes the shuffles
   float acc = 0.f;
-  if constexpr (std::is_same<T, float>::value) {
-    for (int c = 4 * lane; c < p.D; c += 128) {
-      const float4 o4 = *reinterpret_cast<const float4*>(o + c);
-      const float4 d4 = *reinterpret_cast<const float4*>(d + c);
-      acc = fmaf(d4.x, o4.x, fmaf(d4.y, o4.y, fmaf(d4.z, o4.z, fmaf(d4.w, o4.w, acc))));
-    }
-  } else {
-    for (int c = 8 * lane; c < p.D; c += 256) {
-      const uint4 o4 = *reinterpret_cast<const uint4*>(o + c);
-      const uint4 d4 = *reinterpret_cast<const uint4*>(d + c);
-      const uint32_t ow[4] = {o4.x, o4.y, o4.z, o4.w}, dw[4] = {d4.x, d4.y, d4.z, d4.w};
+  if (live) {
+    const int s = (int)(row % p.Sq), bh = (int)(row / p.Sq);
+    const int b = bh / p.H, h = bh % p.H;
+    const T* o = base<T>(p, O, p.o, b, h) + s * p.st[O][2];
+    const T* d = base<T>(p, DO, p.dout, b, h) + s * p.st[DO][2];
+    if constexpr (std::is_same<T, float>::value) {
+      for (int c = 4 * lane; c < p.D; c += 4 * lanes) {
+        const float4 o4 = *reinterpret_cast<const float4*>(o + c);
+        const float4 d4 = *reinterpret_cast<const float4*>(d + c);
+        acc = fmaf(d4.x, o4.x, fmaf(d4.y, o4.y, fmaf(d4.z, o4.z, fmaf(d4.w, o4.w, acc))));
+      }
+    } else {
+      for (int c = 8 * lane; c < p.D; c += 8 * lanes) {
+        const uint4 o4 = *reinterpret_cast<const uint4*>(o + c);
+        const uint4 d4 = *reinterpret_cast<const uint4*>(d + c);
+        const uint32_t ow[4] = {o4.x, o4.y, o4.z, o4.w}, dw[4] = {d4.x, d4.y, d4.z, d4.w};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 a = unpack2<T>(dw[e]), bb = unpack2<T>(ow[e]);
-        acc = fmaf(a.x, bb.x, fmaf(a.y, bb.y, acc));
+        for (int e = 0; e < 4; ++e) {
+          const float2 a = unpack2<T>(dw[e]), bb = unpack2<T>(ow[e]);
+          acc = fmaf(a.x, bb.x, fmaf(a.y, bb.y, acc));
+        }
       }
     }
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) p.delta[row] = acc;
+  for (int off = lanes / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (live && lane == 0) p.delta[row] = acc;
 }
 
 // Consumer warpgroup W of the dq pass, over all 64 rows of each item: W = 0
@@ -1403,8 +1284,9 @@ constexpr int F_PART = TILE * TILE;  // floats of one exchange buffer
 constexpr int F_BARRIERS = 2 * 2 * F_SLOTS;  // full and empty of each slot of each ring
 // Shared memory, as offsets from its 1024-byte-aligned base (so one
 // register addresses all of it): consumer 0's ring, consumer 1's, then in
-// the forward two exchange buffers (partial scores), in the dk/dv pass one
-// (pᵀ), then the barriers.  230,496 and 214,112 bytes.
+// the forward two exchange buffers (partial scores), in the dq pass the same
+// two (p, and dp − delta), in the dk/dv pass one (pᵀ), then the barriers.
+// 230,496 bytes (forward and dq) and 214,112 (dk/dv).
 constexpr int F_EXCH = 2 * F_SLOTS * F_SLOT;
 constexpr int F_FWD_BARS = F_EXCH + 2 * F_PART * 4;
 constexpr int F_DKV_BARS = F_EXCH + F_PART * 4;
@@ -1517,13 +1399,17 @@ __device__ __forceinline__ void reduce_box(float (&sc)[32], uint32_t a, uint32_t
   }
 }
 
-// acc (this warp's 16 rows by a box's 64 columns) += w·b: w (the warp's 16
-// rows by the tile's 64 keys or queries, in accumulator layout) and b a box
-// whose 64 rows are the reduction (MN-major), its fragments read by hand.
-// The reduction index is permuted within each step of 8 so that w's
+// acc (this warp's 16 rows by N 8-column tiles: N = 8, a box's 64 columns,
+// or N = 4, one 32-column half of it at b) += w·b: w (the warp's 16 rows by
+// the tile's 64 keys or queries, in accumulator layout) and b a box whose
+// 64 rows are the reduction (MN-major), its fragments read by hand.  The
+// reduction index is permuted within each step of 8 so that w's
 // accumulator pairs are its A fragments: step j's k = t is row 8j + 2t, k =
 // t + 4 row 8j + 2t + 1, for w's columns and b's rows alike.
-__device__ __forceinline__ void product_box(float (&acc)[32], const float (&w)[32], uint32_t b) {
+template <int N>
+__device__ __forceinline__ void product_box(float (&acc)[4 * N], const float (&w)[32],
+                                            uint32_t b) {
+  static_assert(N == 4 || N == 8, "a box or a half");
   b += frag_offsets().e;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -1533,7 +1419,7 @@ __device__ __forceinline__ void product_box(float (&acc)[32], const float (&w)[3
 #pragma unroll
     for (int e = 0; e < 4; ++e) al[e] = lo_of(ah[e]);
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < N; ++n) {
       const uint32_t step = (n & 3) << 5, at = j * 1024 + (n >> 2) * F_HALF;
       mma3(acc + 4 * n, ah, al, lds32((b ^ step) + at), lds32((b ^ step ^ 16) + 128 + at));
     }
@@ -1630,19 +1516,33 @@ __device__ __forceinline__ FwdShare fwd_share(const FwdItem& it, int P, int C) {
           C ? it.slab.n - half : half};
 }
 
-// Slabs of o of an fp32 forward item: at most 6 boxes, a consumer's 3.  (A
+// The most boxes of an fp32 forward item's slab of o: 6, a consumer's 3.  (A
 // consumer holding 4 boxes, 128 registers of o beside 32 of scores, left
 // ptxas too few registers: it spilled at every setmaxnreg split tried.)
-__host__ __device__ __forceinline__ int fwd_f32_slabs(int P) { return (P + 5) / 6; }
+constexpr int F_FWD_SLAB = 6;
+// The most boxes of an fp32 dq item's slab: 8, a 32-column half of each a
+// consumer, 128 registers of dq beside 32 of scores (as dk/dv holds).  A
+// head of at most 2 boxes (Dh 64 and 128) runs an instance of 2, 32
+// registers of dq, which has room to hold the item's coordinates: 121
+// against 140 us for the instance of 8 at [64, 128, 12, 64] (125 for one of
+// 4; H100 80GB HBM3, 700 W).
+constexpr int F_DQ_SLAB = 8;
+constexpr int F_DQ_NARROW = 2;
 
-// The counts of an fp32 call: head boxes P, slabs an item, tiles and items,
-// computed afresh from opaque copies of the parameters at each item.
+// Even slabs of at most `most` boxes over a head of P.
+__host__ __device__ __forceinline__ int f32_slabs(int P, int most) {
+  return (P + most - 1) / most;
+}
+
+// The counts of an fp32 forward or dq call (slabs of at most `most` boxes):
+// head boxes P, slabs an item, tiles and items, computed afresh from opaque
+// copies of the parameters at each item.
 struct FShape {
   int P, slabs, tiles, items;
 };
 
-__device__ __forceinline__ FShape fwd_shape(const Params& p) {
-  const int P = opaque(p.D) / 64, slabs = fwd_f32_slabs(P);
+__device__ __forceinline__ FShape fwd_shape(const Params& p, int most = F_FWD_SLAB) {
+  const int P = opaque(p.D) / 64, slabs = f32_slabs(P, most);
   const int tiles = (opaque(p.Sq) + TILE - 1) / TILE;
   return {P, slabs, tiles, p.B * p.H * tiles * slabs};
 }
@@ -1699,7 +1599,7 @@ __device__ __forceinline__ void fwd_f32_consumer(const Params& p, uint32_t base,
       for (int x = 0; x < 3; ++x) {
         if (x >= sh.nb) break;
         const uint32_t slot = rg.acquire();
-        product_box(*reinterpret_cast<float(*)[32]>(o + 32 * x), sc, slot);
+        product_box<8>(*reinterpret_cast<float(*)[32]>(o + 32 * x), sc, slot);
         rg.release_slot(lane);
       }
     }
@@ -1778,6 +1678,189 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
       fwd_f32_consumer<0>(p, base, threadIdx.x % 128);
     else
       fwd_f32_consumer<1>(p, base, threadIdx.x % 128);
+  }
+}
+
+// Consumer warpgroup W of the fp32 dq pass, over all 64 rows of each item
+// (the forward's items, 64 query rows and a slab of dq, with slabs of at
+// most MAXB boxes):
+// W = 0 reduces s = q·kᵀ over the head (a q box and a k box a slot) and
+// forms p = 2^(s·scale·log2e − lse·log2e), W = 1 dp = do·vᵀ (a do box and a
+// v box) and dp − delta; they swap these through the two exchange buffers
+// and both form ds = p∘(dp − delta), the same fp32 products, so the same
+// bits.  Each then accumulates the 32-column half W of every box of the
+// slab, dq += ds·k (k MN-major, 4 halves a slot), so the two do the same
+// products whatever the slab's count of boxes (one at Dh 64).
+template <int W, int MAXB>
+__device__ __forceinline__ void dq_f32_consumer(const Params& p, uint32_t base, int tid) {
+  constexpr int MINE = F_EXCH + W * F_PART * 4, OTHER = F_EXCH + (1 - W) * F_PART * 4;
+  const int lane = tid % 32;
+  FRing<W, F_FWD_BARS> rg{{}, base};
+  for (int i = blockIdx.x; i < fwd_shape(p, MAXB).items; i += gridDim.x) {
+    float acc[16 * MAXB];  // half W of each of the slab's boxes, 16 values a half
+#pragma unroll
+    for (int e = 0; e < 16 * MAXB; ++e) acc[e] = 0.f;
+    const FShape sp0 = fwd_shape(p, MAXB);
+    const FwdItem it0 = fwd_item(i, p, sp0.tiles, sp0.slabs);
+    const int nk = it0.nk, nb = it0.slab.n;  // the item's key tiles and boxes of dq
+    for (int j = 0; j < nk; ++j) {
+      float sc[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+#pragma unroll 1
+      for (int x = 0; x < opaque(p.D) / 64; ++x) {
+        const uint32_t slot = rg.acquire();
+        reduce_box(sc, slot, slot + F_BOX);
+        rg.release_slot(lane);
+      }
+      {
+        // W = 0: p = 2^(s·scale·log2e − lse·log2e), masked only where a key
+        // tail or the causal diagonal cuts the tile (and 0 past Sq: lse is
+        // taken as +inf there); W = 1: dp − delta (0 past Sq).  At 8 boxes
+        // the item's coordinates and the thread's rows are computed afresh
+        // here, not held through the products (128 registers of dq leave no
+        // room for them: holding them spilled 20 bytes); at 2 they are the
+        // item's.
+        const FwdItem it = MAXB > F_DQ_NARROW
+                               ? fwd_item(opaque(i), p, fwd_shape(p, MAXB).tiles,
+                                          fwd_shape(p, MAXB).slabs)
+                               : it0;
+        const int c = MAXB > F_DQ_NARROW ? ctid() : tid;
+        const int t = c % 4, row0 = it.q0 + 16 * (c / 32) + c % 32 / 4;
+        const float* const stat =
+            (W ? p.delta : p.lse) + ((long long)it.b * p.H + it.h) * p.Sq;
+        float st[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = row0 + 8 * r;
+          st[r] = row < p.Sq ? stat[row] * (W ? 1.f : LOG2E) : (W ? 0.f : INFINITY);
+        }
+        const int k0 = j * TILE;
+        const bool edge = k0 + TILE > p.Sk || (p.causal && k0 + TILE - 1 > it.q0);
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            if (W == 0) {
+              float pe = exp2_ftz(fmaf(sc[4 * n + e], p.scale * LOG2E, -st[r]));
+              if (edge) {
+                const int key = k0 + n * 8 + 2 * t + (e & 1);
+                if (key >= p.Sk || (p.causal && key > row0 + 8 * r)) pe = 0.f;
+              }
+              sc[4 * n + e] = pe;
+            } else {
+              sc[4 * n + e] -= st[r];
+            }
+          }
+      }
+      // the swap (BAR_FREE: the other has read the last one); both then
+      // hold ds = p∘(dp − delta)
+      named_sync(BAR_FREE, 256);
+      put_block_s(base + MINE, sc, tid);
+      named_sync(BAR_FULL, 256);
+#pragma unroll
+      for (int v = 0; v < 8; ++v) {
+        const float4 w = get4_s(base + OTHER, v, tid);
+        sc[4 * v] *= w.x;
+        sc[4 * v + 1] *= w.y;
+        sc[4 * v + 2] *= w.z;
+        sc[4 * v + 3] *= w.w;
+      }
+      // dq += ds·k over half W of each of the slab's boxes, 4 halves a slot
+      uint32_t slot = 0;
+#pragma unroll
+      for (int x = 0; x < MAXB; ++x) {
+        if (x >= nb) break;
+        if (x % 4 == 0) slot = rg.acquire();
+        product_box<4>(*reinterpret_cast<float(*)[16]>(acc + 16 * x), sc,
+                       slot + (x % 4) * F_HALF);
+        if (x % 4 == 3 || x == nb - 1) rg.release_slot(lane);
+      }
+    }
+    // dq times scale straight from the registers, rows past Sq not written
+    // (at 8 boxes the item's coordinates computed again, not held through
+    // the loop)
+    const FwdItem it = MAXB > F_DQ_NARROW
+                           ? fwd_item(opaque(i), p, fwd_shape(p, MAXB).tiles,
+                                      fwd_shape(p, MAXB).slabs)
+                           : it0;
+    const int t = lane & 3;
+    float* const out = static_cast<float*>(p.out) + it.b * p.st[OUT][0] + it.h * p.st[OUT][1];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = it.q0 + 16 * (tid / 32) + lane / 4 + 8 * r;
+      if (row >= p.Sq) continue;
+#pragma unroll
+      for (int x = 0; x < MAXB; ++x) {
+        if (x >= it.slab.n) break;
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          *reinterpret_cast<float2*>(out + row * p.st[OUT][2] + (it.slab.first + x) * 64 +
+                                     32 * W + 8 * n + 2 * t) =
+              make_float2(acc[16 * x + 4 * n + 2 * r] * p.scale,
+                          acc[16 * x + 4 * n + 2 * r + 1] * p.scale);
+      }
+    }
+  }
+}
+
+// The fp32 dq pass's producer thread: for each key tile of an item, the
+// head's boxes for the reductions (q and k to consumer 0, do and v to 1),
+// then the slab's k halves for the products (half w of each box to
+// consumer w, 4 a slot), the two consumers' loads interleaved.
+template <int MAXB>
+__device__ __forceinline__ void dq_f32_producer(const CUtensorMap* tq, const CUtensorMap* tk,
+                                                const CUtensorMap* tv, const CUtensorMap* tdo,
+                                                const Params& p, uint32_t base) {
+  const uint32_t bars = base + F_FWD_BARS;
+  const FShape sp = fwd_shape(p, MAXB);
+  const int P = sp.P;
+  Ring<F_SLOTS> r0, r1;
+  for (int i = blockIdx.x; i < sp.items; i += gridDim.x) {
+    const FwdItem it = fwd_item(i, p, sp.tiles, sp.slabs);
+    const Coord ck = coord(p, K, it.b, it.h);
+    for (int j = 0; j < it.nk; ++j)
+      for (int x = 0; x < P + (it.slab.n + 3) / 4; ++x)
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+          Ring<F_SLOTS>& r = w ? r1 : r0;
+          if (x < P) {
+            const FFill f = f_fill(r, base, bars, w, 2 * F_BOX);
+            load_box(f.slot, w ? tdo : tq, f.full, x * 64, it.q0, coord(p, w ? DO : Q, it.b, it.h));
+            load_box(f.slot + F_BOX, w ? tv : tk, f.full, x * 64, j * TILE,
+                     coord(p, w ? V : K, it.b, it.h));
+          } else {
+            const int y0 = 4 * (x - P), n = min(4, it.slab.n - y0);
+            const FFill f = f_fill(r, base, bars, w, n * F_HALF);
+            for (int y = 0; y < n; ++y)
+              tma_load(f.slot + y * F_HALF, tk, f.full, (it.slab.first + y0 + y) * 64 + 32 * w,
+                       j * TILE, ck.h, ck.b);
+          }
+        }
+  }
+}
+
+template <int MAXB>
+__global__ void __launch_bounds__(TMA_THREADS, 1)
+    flash_wide_bwd_dq_f32(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo, Params p) {
+  extern __shared__ unsigned char smem_fq[];
+  const uint32_t base = (smem_addr(smem_fq) + 1023u) & ~1023u;
+  if (threadIdx.x == 0) f_init(base + F_FWD_BARS);
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(F_PRODUCER_REGS));
+    if (threadIdx.x == 256) dq_f32_producer<MAXB>(&tq, &tk, &tv, &tdo, p, base);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(F_CONSUMER_REGS));
+    if (wg == 0)
+      dq_f32_consumer<0, MAXB>(p, base, threadIdx.x % 128);
+    else
+      dq_f32_consumer<1, MAXB>(p, base, threadIdx.x % 128);
   }
 }
 
@@ -1895,7 +1978,7 @@ __device__ __forceinline__ void dkv_f32_consumer(const Params& p, uint32_t base,
         for (int x = 0; x < 4; ++x) {
           if (x >= it.slab.n) break;
           const uint32_t slot = rg.acquire();
-          product_box(*reinterpret_cast<float(*)[32]>(acc + 32 * x), sc, slot);
+          product_box<8>(*reinterpret_cast<float(*)[32]>(acc + 32 * x), sc, slot);
           rg.release_slot(lane);
         }
       }
@@ -2108,8 +2191,33 @@ cudaError_t run_fwd_f32(const Params& p, cudaStream_t stream) {
   if (!ok) return cudaErrorInvalidValue;
   static Capacity cache;
   const long long items =
-      (long long)fwd_f32_slabs(p.D / 64) * p.B * p.H * ((p.Sq + TILE - 1) / TILE);
+      (long long)f32_slabs(p.D / 64, F_FWD_SLAB) * p.B * p.H * ((p.Sq + TILE - 1) / TILE);
   return launch_persistent(cache, flash_wide_fwd_f32, F_FWD_SMEM, items, stream, p, tq, tk, tv);
+}
+
+// The fp32 dq pass (split TF32).  With Sk = 0 no k or v box is ever loaded
+// and dq is 0.
+cudaError_t run_dq_f32(const Params& p, cudaStream_t stream) {
+  const cudaError_t bound = bind_context();
+  if (bound != cudaSuccess) return bound;
+  CUtensorMap tq, tk, tv, tdo;
+  bool ok = map_f32(&tq, p, Q, p.q, p.Sq) && map_f32(&tdo, p, DO, p.dout, p.Sq);
+  if (p.Sk > 0) {
+    ok = ok && map_f32(&tk, p, K, p.k, p.Sk) && map_f32(&tv, p, V, p.v, p.Sk);
+  } else {
+    tk = tq;
+    tv = tq;
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  const long long tiles = (long long)p.B * p.H * ((p.Sq + TILE - 1) / TILE);
+  if (p.D / 64 <= F_DQ_NARROW) {
+    static Capacity cache;
+    return launch_persistent(cache, flash_wide_bwd_dq_f32<F_DQ_NARROW>, F_FWD_SMEM, tiles,
+                             stream, p, tq, tk, tv, tdo);
+  }
+  static Capacity cache;
+  return launch_persistent(cache, flash_wide_bwd_dq_f32<F_DQ_SLAB>, F_FWD_SMEM,
+                           f32_slabs(p.D / 64, F_DQ_SLAB) * tiles, stream, p, tq, tk, tv, tdo);
 }
 
 // The fp32 dk/dv pass (split TF32).
@@ -2152,12 +2260,13 @@ cudaError_t dispatch_tma(const Params& p, int pass, cudaStream_t s) {
 template <typename T>
 cudaError_t backward(const Params& p, bool dq, bool dkv, cudaStream_t s) {
   if (!dq && !dkv) return cudaSuccess;
-  const long long blocks = ((long long)p.B * p.H * p.Sq + 7) / 8;
+  const long long per_block = 8 * (32 / delta_lanes<T>(p.D));  // rows: 8 warps
+  const long long blocks = ((long long)p.B * p.H * p.Sq + per_block - 1) / per_block;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
   flash_wide_bwd_delta<T><<<(unsigned)blocks, 256, 0, s>>>(p);
   cudaError_t e = cudaGetLastError();
   if constexpr (std::is_same<T, float>::value) {
-    if (e == cudaSuccess && dq) e = launch_dq_f32(p, s);
+    if (e == cudaSuccess && dq) e = run_dq_f32(p, s);
     if (e == cudaSuccess && dkv) e = run_dkv_f32(p, s);
   } else {
     if (e == cudaSuccess && dq) e = dispatch_tma<T>(p, 1, s);
@@ -2166,12 +2275,13 @@ cudaError_t backward(const Params& p, bool dq, bool dkv, cudaStream_t s) {
   return e;
 }
 
-// What every call must be: a head dim the kernels take, a known dtype, and
-// for fp32 query tiles that the CUDA-core dq grid's y extent holds.
+// The head dims the kernels take: multiples of one column box.
+constexpr int D_STEP = 64;
+
+// What every call must be: a head dim the kernels take and a known dtype.
 cudaError_t check(int dtype, const Params& p) {
-  if (p.D <= 0 || p.D % CHUNK != 0 || dtype < 0 || dtype > 2) return cudaErrorInvalidValue;
+  if (p.D <= 0 || p.D % D_STEP != 0 || dtype < 0 || dtype > 2) return cudaErrorInvalidValue;
   if ((long long)p.B * p.H > 0x7fffffffLL) return cudaErrorInvalidValue;
-  if (dtype == 0 && p.Sq > 65535 * ROWS) return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
@@ -2183,7 +2293,8 @@ void read_strides(Params& p, const long long* strides, int n) {
 }  // namespace
 
 // dtype: 0 float32, 1 float16, 2 bfloat16.  D: the (padded) head dim, a
-// multiple of 64 above 256.  strides: 12 element
+// multiple of 64 (above 256: the wrapper sends narrower heads to
+// flash_fwd.cu).  strides: 12 element
 // strides, (batch, head, sequence) of q, k, v and o.  lse: [B*H, Sq] fp32 or
 // null.  Nothing is launched for Sq = 0.  Returns the cudaError_t of the
 // launch (0 on success); never synchronises.
@@ -2211,7 +2322,8 @@ extern "C" int mx_flash_wide_fwd(int dtype, const void* q, const void* k, const 
 }
 
 // The backward: the dq pass when dq is given, the dk/dv pass when dk and dv
-// are.  strides: 24 element strides, (batch, head, sequence) of q, k, v, o,
+// are.  D: the (padded) head dim, a multiple of 64; the wrapper sends a
+// 16-bit head here above 256 and an fp32 one at every width.  strides: 24 element strides, (batch, head, sequence) of q, k, v, o,
 // do, dq, dk and dv (those of absent outputs are ignored).  lse: the
 // forward's [B*H, Sq] fp32.  delta: [B*H, Sq] fp32 scratch, which one
 // launch fills with rowsum(do∘o) before the passes, which read it.  Nothing

@@ -247,30 +247,47 @@ def test_launches_per_pass(width, launches):
     assert tatt._launches(width) == launches
 
 
+@pytest.mark.parametrize("width,dtype,launches", [
+    (256, torch.bfloat16, 2), (64, torch.float32, 1), (192, torch.float32, 1),
+    (256, torch.float32, 1), (512, torch.float32, 1)])
+def test_backward_launches_per_pass_by_dtype(width, dtype, launches):
+    """A backward pass (given its dtype) in fp32 runs on flash_wide.cu at
+    every width, one launch a pass (its slabs are blocks of that launch);
+    a 16-bit one up to 256 keeps flash_bwd.cu's launch a slab, as the
+    forward (no dtype) does in every dtype."""
+    assert tatt._launches(width, dtype) == launches
+    assert tatt._launches(width) == (2 if width == 256 else 1)
+
+
 @pytest.mark.parametrize("width,dtype,with_dq,launches", [
     (64, torch.bfloat16, False, 1), (256, torch.bfloat16, False, 2),
     (320, torch.bfloat16, False, 2), (512, torch.float16, False, 2),
     (512, torch.float32, False, 2), (576, torch.float32, False, 2),
     (64, torch.bfloat16, True, 1), (256, torch.bfloat16, True, 2),
     (320, torch.bfloat16, True, 1), (1024, torch.float16, True, 1),
-    (512, torch.float32, True, 1)])
+    (512, torch.float32, True, 1), (64, torch.float32, False, 2),
+    (192, torch.float32, False, 2), (64, torch.float32, True, 1),
+    (256, torch.float32, True, 1)])
 def test_dkv_launches_per_pass(width, dtype, with_dq, launches):
-    """Above Dh 256 a backward call launches flash_wide.cu's delta pass
-    once, before its passes, in every dtype (fp32 too, since its dk/dv pass
-    reads delta as the 16-bit one does): a dk/dv pass alone counts two
-    launches, the delta pass and its kernel, and beside a dq pass one (the
-    dq pass counts the delta).  The rule does not depend on the dtype."""
-    assert tatt._dkv_launches(width, with_dq) == launches
-    assert tatt._has_delta_pass(width) == (width > 256)
+    """A backward call on flash_wide.cu (above Dh 256 in every dtype, and
+    in fp32 at every width) launches its delta pass once, before its
+    passes: a dk/dv pass alone counts two launches, the delta pass and its
+    kernel, and beside a dq pass one (the dq pass counts the delta).  A
+    16-bit call up to 256 runs flash_bwd.cu, with no delta pass."""
+    assert tatt._dkv_launches(width, dtype, with_dq) == launches
+    assert tatt._has_delta_pass(width, dtype) == (width > 256 or dtype == torch.float32)
 
 
 @pytest.mark.parametrize("width,dtype,launches", [
     (64, torch.bfloat16, 1), (256, torch.float16, 2), (320, torch.bfloat16, 2),
-    (576, torch.float16, 2), (1024, torch.bfloat16, 2), (512, torch.float32, 2)])
+    (576, torch.float16, 2), (1024, torch.bfloat16, 2), (512, torch.float32, 2),
+    (64, torch.float32, 2), (128, torch.float32, 2), (256, torch.float32, 2)])
 def test_dq_launches_per_pass(width, dtype, launches):
-    """The dq pass counts its kernel's launches and, above Dh 256 in every
-    dtype, the call's one delta launch."""
-    assert tatt._dq_launches(width) == launches
+    """The dq pass counts its kernel's launches and, on flash_wide.cu
+    (above Dh 256 in every dtype, in fp32 at every width), the call's one
+    delta launch: at fp32 Dh 256 that is the delta launch and one dq
+    launch, where flash_bwd.cu's CUDA-core pair took two slab launches."""
+    assert tatt._dq_launches(width, dtype) == launches
 
 
 @pytest.mark.parametrize("width", [64, 256, 320, 448, 640])
@@ -279,15 +296,55 @@ def test_backward_call_launches_delta_once(width, dtype):
     """The counting rule of one backward call: the delta launch counts once
     whichever passes the call runs (on dq when it runs, else on dk/dv), so a
     call running both counts what the two single-pass calls count less one
-    delta launch (three above 256, in every dtype, not four)."""
-    delta = int(tatt._has_delta_pass(width))
-    kernels = tatt._launches(width)
-    pair = tatt._dq_launches(width) + tatt._dkv_launches(width, with_dq=True)
-    alone = tatt._dq_launches(width) + tatt._dkv_launches(width)
+    delta launch (three on flash_wide.cu, not four: above 256 in every
+    dtype, and in fp32 at every width)."""
+    delta = int(tatt._has_delta_pass(width, dtype))
+    kernels = tatt._launches(width, dtype)
+    pair = tatt._dq_launches(width, dtype) + tatt._dkv_launches(width, dtype, with_dq=True)
+    alone = tatt._dq_launches(width, dtype) + tatt._dkv_launches(width, dtype)
     assert pair == 2 * kernels + delta and alone == pair + delta
-    assert delta == (width > 256)
+    assert delta == (width > 256 or dtype == torch.float32)
     if delta:
         assert pair == 3
+
+
+class _FakeEntry:
+    """A C entry point as ctypes gives it, before its argtypes are set."""
+
+    def __init__(self, name):
+        self.name, self.argtypes, self.restype = name, None, None
+
+
+@pytest.mark.parametrize("d", (16, 32, 48, 64, 80, 128, 160, 256, 320))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_fp32_backward_routes_to_flash_wide(d, dtype, monkeypatch):
+    """Every fp32 backward, at every head dim the wrappers take, goes to
+    flash_wide.cu's entry (``mx_flash_wide_bwd``, which takes the delta
+    buffer) at the head dim padded to a multiple of 64, its operands with
+    no repeated rows (TMA); a 16-bit backward up to 256 keeps flash_bwd.cu's
+    entry and instance.  The counters stay those of the caller's head dim.
+    Pure Python: the library is a stand-in."""
+    libs = {name: type("Lib", (), {"mx_flash_bwd": _FakeEntry("mx_flash_bwd"),
+                                   "mx_flash_wide_bwd": _FakeEntry("mx_flash_wide_bwd")})()
+            for name in ("flash_bwd", "flash_wide")}
+    monkeypatch.setattr(tatt._cuda, "load", lambda name: libs[name])
+    q = torch.zeros(1, 2, 8, d, dtype=dtype)
+    width = tatt._kernel_width("flash_bwd", q, q, q, bwd=True)
+    fn = tatt._bwd_entry(width, dtype)
+    if dtype == torch.float32 or d > 256:
+        assert width == -(-d // 64) * 64
+        assert fn.name == "mx_flash_wide_bwd" and len(fn.argtypes) == 20
+    else:
+        assert width == tatt._kernel_width("flash_fwd", q, q, q)
+        assert width in tatt._HEAD_DIMS and fn.name == "mx_flash_bwd" and len(fn.argtypes) == 19
+    tatt._check_cuda_operands("flash_bwd", *tatt._kernel_operands(width, False, q, q, q),
+                              False, bwd=True)
+    rep = q[:, :, :1].expand(q.shape)
+    (got,) = tatt._kernel_operands(width, False, rep, bwd=True)
+    assert got.is_contiguous() and torch.equal(got[..., :d], rep)
+    want = ((tatt.flash_wide_bwd_dq, tatt.flash_wide_bwd_dkv) if d > 256
+            else (tatt.flash_bwd_dq, tatt.flash_bwd_dkv))
+    assert tatt._bwd_counters(d) == want
 
 
 def _tf32(x, mode):
@@ -313,9 +370,10 @@ def _tf32_matmul(a, b, mode, split):
 
 
 def _emulated_attention(q, k, v, do, o_ref, mm):
-    """o, lse, dk and dv with every product of the fp32 forward and dk/dv
-    kernels (q·kᵀ, p·v, k·qᵀ, v·doᵀ, pᵀ·do, dsᵀ·q) through ``mm``; the
-    softmax, exponentials and rowsums in fp32."""
+    """o, lse, dq, dk and dv with every product of flash_wide.cu's fp32
+    kernels through ``mm``: the forward's q·kᵀ and p·v, the dq pass's q·kᵀ,
+    do·vᵀ and ds·k, the dk/dv pass's k·qᵀ, v·doᵀ, pᵀ·do and dsᵀ·q; the
+    softmax, exponentials and rowsums (delta) in fp32."""
     scale = 1.0 / np.sqrt(q.shape[-1])
     s = mm(q, k.transpose(-1, -2)) * scale
     m = s.amax(-1, keepdim=True)
@@ -323,43 +381,45 @@ def _emulated_attention(q, k, v, do, o_ref, mm):
     l = p.sum(-1, keepdim=True)
     o = mm(p, v) / l
     lse = m + torch.log(l)
+    delta = (do * o_ref).sum(-1, keepdim=True)
+    ds = torch.exp(s - lse) * (mm(do, v.transpose(-1, -2)) - delta)  # as the dq pass forms it
     st = mm(k, q.transpose(-1, -2)) * scale  # sᵀ, as the dk/dv kernel reduces it
     pt = torch.exp(st - lse.transpose(-1, -2))
-    delta = (do * o_ref).sum(-1, keepdim=True)
     dpt = mm(v, do.transpose(-1, -2))
     dst = pt * (dpt - delta.transpose(-1, -2))
-    return o, lse.reshape(-1, q.shape[-2]), mm(dst, q) * scale, mm(pt, do)
+    return (o, lse.reshape(-1, q.shape[-2]), mm(ds, k) * scale, mm(dst, q) * scale,
+            mm(pt, do))
 
 
-@pytest.mark.parametrize("d", [512, 320])
+@pytest.mark.parametrize("d", [512, 320, 128, 64])
 @pytest.mark.parametrize("mode", ["nearest", "truncate"])
 def test_split_tf32_keeps_the_fp32_bounds(d, mode):
-    """The arithmetic of flash_wide.cu's fp32 forward and dk/dv pass: with
-    every product in split TF32, o and lse stay within chip_smoke.py's
-    FP32_FWD_BOUND and LSE_BOUND of the fp32 plain version and dk, dv within
-    FP32_BWD_REL of their largest value, whether the card rounds or
-    truncates to TF32; one TF32 product does not."""
+    """The arithmetic of flash_wide.cu's fp32 kernels: with every product in
+    split TF32, o and lse stay within chip_smoke.py's FP32_FWD_BOUND and
+    LSE_BOUND of the fp32 plain version and dq, dk, dv within FP32_BWD_REL
+    of their largest value, whether the card rounds or truncates to TF32;
+    one TF32 product does not.  At Dh 64 and 128 the fp32 backward runs
+    these kernels too (padded to a multiple of 64), so the narrow widths
+    are held to the same bounds."""
     import chip_smoke
 
     rng = np.random.RandomState(11)
     q, k, v, do = (torch.from_numpy(rng.randn(1, 2, 128, d).astype(np.float32))
                    for _ in range(4))
     o_ref, lse_ref = tatt.flash_fwd_plain(q, k, v, with_lse=True)
-    _, dk_ref, dv_ref = tatt.flash_bwd_plain(q, k, v, o_ref, do, lse_ref)
+    grads_ref = tatt.flash_bwd_plain(q, k, v, o_ref, do, lse_ref)
 
     def within(split):
-        o, lse, dk, dv = _emulated_attention(
+        o, lse, *grads = _emulated_attention(
             q, k, v, do, o_ref, lambda a, b: _tf32_matmul(a, b, mode, split))
         return [(o - o_ref).abs().max().item() <= chip_smoke.FP32_FWD_BOUND,
                 (lse - lse_ref).abs().max().item() <= chip_smoke.LSE_BOUND,
-                (dk - dk_ref).abs().max().item()
-                <= chip_smoke.FP32_BWD_REL * dk_ref.abs().max().item(),
-                (dv - dv_ref).abs().max().item()
-                <= chip_smoke.FP32_BWD_REL * dv_ref.abs().max().item()]
+                *((g - r).abs().max().item() <= chip_smoke.FP32_BWD_REL * r.abs().max().item()
+                  for g, r in zip(grads, grads_ref))]
 
     assert all(within(split=True))
     one = within(split=False)
-    assert not one[0] and not one[1] and not all(one)
+    assert not one[0] and not one[1] and not any(one[2:])
 
 
 @pytest.mark.parametrize("d,dtype", [
@@ -380,7 +440,9 @@ def test_sequence_stride0_operand_becomes_contiguous(layout):
     """TMA reads rows in boxes: a 16-bit operand repeating one row along
     its sequence is handed to the kernels contiguous, with the same
     values; strides of 0 over batch or heads stay as they are (the tensor
-    maps read them at coordinate 0), and fp32 operands are not copied."""
+    maps read them at coordinate 0).  An fp32 operand of the forward up to
+    256 (flash_fwd.cu's CUDA-core kernel) is not copied; one of the
+    backward, which runs flash_wide.cu's TMA-fed kernels, is."""
     bshd = layout == "bshd"
     row = torch.randn(2, 1, 3, 16) if bshd else torch.randn(2, 3, 1, 16)
     shape = (2, 40, 3, 16) if bshd else (2, 3, 40, 16)
@@ -393,6 +455,8 @@ def test_sequence_stride0_operand_becomes_contiguous(layout):
     assert q.is_contiguous() and torch.equal(q, rep)
     (q32,) = tatt._kernel_operands(16, bshd, row.expand(shape))
     assert q32.stride(1 if bshd else 2) == 0
+    (q32,) = tatt._kernel_operands(64, bshd, row.expand(shape), bwd=True)
+    assert q32.is_contiguous() and torch.equal(q32[..., :16], row.expand(shape))
     o, _ = tatt.flash_fwd_plain(*(x.float() for x in (rep, rep, rep)))
     o_ref, _ = tatt.flash_fwd_plain(*(x.float() for x in (got, got, got)))
     torch.testing.assert_close(o, o_ref)
@@ -402,7 +466,9 @@ def test_sequence_stride0_operand_becomes_contiguous(layout):
 def test_wide_fp32_operand_with_repeated_rows_becomes_contiguous(layout):
     """Above Dh 256 the fp32 kernels read rows by TMA too: an fp32 operand
     repeating one row along its sequence goes to them contiguous, with the
-    same values; at a narrow width the fp32 kernels read it as it is."""
+    same values; at a narrow width the fp32 forward (flash_fwd.cu) reads it
+    as it is, and the fp32 backward (flash_wide.cu at every width) takes it
+    contiguous."""
     bshd = layout == "bshd"
     row = torch.randn(1, 1, 2, 320) if bshd else torch.randn(1, 2, 1, 320)
     rep = row.expand((1, 30, 2, 320) if bshd else (1, 2, 30, 320))
@@ -412,6 +478,8 @@ def test_wide_fp32_operand_with_repeated_rows_becomes_contiguous(layout):
     assert q.is_contiguous() and q.shape[-1] == 512 and torch.equal(q[..., :320], rep)
     (narrow,) = tatt._kernel_operands(64, bshd, rep[..., :64])
     assert narrow.stride(1 if bshd else 2) == 0
+    (narrow,) = tatt._kernel_operands(64, bshd, rep[..., :64], bwd=True)
+    assert narrow.is_contiguous() and torch.equal(narrow, rep[..., :64])
 
 
 @pytest.fixture
@@ -593,10 +661,12 @@ def test_kernel_is_deterministic_on_card(cuda_device):
 def test_kernel_gradients_on_card(cuda_device):
     """On the card, autograd through flash_attention runs the forward with
     lse and both backward kernels (tests/test_torch_flash_bwd.py holds
-    their values to the plain version)."""
+    their values to the plain version); in fp32 the backward is
+    flash_wide.cu's delta launch and split-TF32 pair, counted on
+    flash_bwd_dq (delta and dq) and flash_bwd_dkv."""
     q = torch.randn(1, 2, 64, 32, device=cuda_device, requires_grad=True)
     before = (tatt.flash_fwd.launches, tatt.flash_bwd_dq.launches, tatt.flash_bwd_dkv.launches)
     tatt.flash_attention(q, q, q).sum().backward()
     assert q.grad.shape == q.shape and torch.isfinite(q.grad).all()
     assert (tatt.flash_fwd.launches, tatt.flash_bwd_dq.launches,
-            tatt.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+            tatt.flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 2, before[2] + 1)

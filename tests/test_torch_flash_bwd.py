@@ -252,27 +252,32 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal", [False, True])
-def test_kernels_match_plain_on_card(cuda_device, causal):
-    """dq, dk and dv written into one [B, S, 3, H, Dh] buffer, unaligned S,
-    bf16: within 2 bf16 ulps of the largest gradient (chip_smoke.py's
-    BWD_ULPS, with its reasoning)."""
+def test_kernels_match_plain_on_card(cuda_device, causal, dtype):
+    """dq, dk and dv written into one [B, S, 3, H, Dh] buffer, unaligned S:
+    bf16 within 2 bf16 ulps of the largest gradient (chip_smoke.py's
+    BWD_ULPS, with its reasoning); fp32, which runs flash_wide.cu's delta
+    launch and split-TF32 dq and dk/dv kernels (the delta launch counted on
+    flash_bwd_dq), within FP32_BWD_REL of it."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    x = torch.randn(2, 200, 3, 4, 64, generator=gen, device=cuda_device).to(torch.bfloat16)
+    x = torch.randn(2, 200, 3, 4, 64, generator=gen, device=cuda_device).to(dtype)
     q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
-    do = torch.randn(2, 200, 4, 64, generator=gen, device=cuda_device).to(torch.bfloat16)
+    do = torch.randn(2, 200, 4, 64, generator=gen, device=cuda_device).to(dtype)
     o, lse = tatt.flash_fwd(q, k, v, causal=causal, with_lse=True, layout="bshd")
     before = (tatt.flash_bwd_dq.launches, tatt.flash_bwd_dkv.launches)
     dqkv = torch.empty_like(x)
     tatt.flash_bwd(q, k, v, o, do, lse, causal, layout="bshd",
                    out=(dqkv[:, :, 0], dqkv[:, :, 1], dqkv[:, :, 2]))
-    assert (tatt.flash_bwd_dq.launches, tatt.flash_bwd_dkv.launches) == (before[0] + 1,
+    delta = int(dtype == torch.float32)
+    assert (tatt.flash_bwd_dq.launches, tatt.flash_bwd_dkv.launches) == (before[0] + 1 + delta,
                                                                          before[1] + 1)
     t = lambda a: a.transpose(1, 2)  # noqa: E731
     ref = tatt.flash_bwd_plain(t(q), t(k), t(v), t(o), t(do), lse, causal)
     for i, r in enumerate(ref):
         ref_max = r.float().abs().max().item()
-        bound = 2 * 2.0 ** (np.frexp(ref_max)[1] - 1 - 7)
+        bound = (chip_smoke.FP32_BWD_REL * ref_max if dtype == torch.float32
+                 else 2 * 2.0 ** (np.frexp(ref_max)[1] - 1 - 7))
         assert (t(dqkv[:, :, i]).float() - r.float()).abs().max().item() <= bound
 
 
@@ -350,7 +355,7 @@ def test_kernels_refuse_head_dim_above_128(cuda_device, name, b, h, sq, sk, d, d
     o, lse = tatt.flash_fwd(q, k, v, causal=causal, with_lse=True, layout=lay)
     counters = (tatt.flash_bwd_dq, tatt.flash_bwd_dkv, tatt.flash_wide_bwd_dq,
                 tatt.flash_wide_bwd_dkv)
-    delta = int(tatt._has_delta_pass(d))  # one a call above 256, every dtype
+    delta = int(tatt._has_delta_pass(d, dtype))  # one a call above 256, every dtype
     before = [c.launches for c in counters]
     got = tatt.flash_bwd(q, k, v, o, do, lse, causal, layout=lay)
     assert [c.launches - n for c, n in zip(counters, before)] == [0, 0, 1 + delta, 1]
@@ -380,7 +385,8 @@ WIDE_PASS_CASES = [(passes, d, dtype, causal)
                    for d, dtype, causal in ((320, torch.bfloat16, True),
                                             (512, torch.float16, False),
                                             (640, torch.bfloat16, True),
-                                            (512, torch.float32, True))]
+                                            (512, torch.float32, True),
+                                            (320, torch.float32, False))]
 
 
 @pytest.mark.cuda
@@ -401,7 +407,7 @@ def test_wide_backward_passes_on_card(cuda_device, passes, d, dtype, causal):
     pair = tatt.flash_bwd(q, k, v, o, do, lse, causal)
     counters = (tatt.flash_bwd_dq, tatt.flash_bwd_dkv, tatt.flash_wide_bwd_dq,
                 tatt.flash_wide_bwd_dkv)
-    delta = int(tatt._has_delta_pass(d))  # one a call above 256, every dtype
+    delta = int(tatt._has_delta_pass(d, dtype))  # one a call above 256, every dtype
     before = [c.launches for c in counters]
     if passes == "dq":
         got = (tatt.flash_wide_bwd_dq(q, k, v, o, do, lse, causal), None, None)
@@ -419,6 +425,52 @@ def test_wide_backward_passes_on_card(cuda_device, passes, d, dtype, causal):
                  else 2 * 2.0 ** (np.frexp(ref_max)[1] - 1
                                   - (7 if dtype == torch.bfloat16 else 10)))
         assert (p.float() - r.float()).abs().max().item() <= bound
+        if g is not None:
+            assert torch.equal(g, p)
+
+
+# An fp32 backward up to Dh 256 runs flash_wide.cu too (padded to a
+# multiple of 64: 48 to 64, 80 to 128, 160 to 192), counted on the narrow
+# wrappers: each pass alone and the pair, causal and not, one key.
+NARROW_FP32_CASES = [(passes, d, causal, sk)
+                     for passes in ("dq", "dkv", "pair")
+                     for d, causal, sk in ((64, False, 150), (48, True, 150), (160, True, 150),
+                                           (256, False, 77), (128, True, 1))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes,d,causal,sk", NARROW_FP32_CASES,
+                         ids=[f"{p}_dh{d}{'_causal' if c else ''}_sk{sk}"
+                              for p, d, c, sk in NARROW_FP32_CASES])
+def test_narrow_fp32_backward_passes_on_card(cuda_device, passes, d, causal, sk):
+    """The fp32 backward up to Dh 256: one delta launch a call and the
+    split-TF32 dq and dk/dv kernels, counted on flash_bwd_dq (delta and dq)
+    and flash_bwd_dkv, nothing on the flash_wide_* counters; the pair's
+    gradients within FP32_BWD_REL of the plain version's largest value
+    (with one key, dq and dk within the one-key bound of the exact 0), and
+    each pass alone gives the pair's bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    q, do = (torch.randn(2, 3, 150, d, generator=gen, device=cuda_device) for _ in range(2))
+    k, v = (torch.randn(2, 3, sk, d, generator=gen, device=cuda_device) for _ in range(2))
+    o, lse = tatt.flash_fwd(q, k, v, causal=causal, with_lse=True)
+    ref = tatt.flash_bwd_plain(q, k, v, o, do, lse, causal)
+    pair = tatt.flash_bwd(q, k, v, o, do, lse, causal)
+    counters = (tatt.flash_bwd_dq, tatt.flash_bwd_dkv, tatt.flash_wide_bwd_dq,
+                tatt.flash_wide_bwd_dkv)
+    before = [c.launches for c in counters]
+    if passes == "dq":
+        got, want = (tatt.flash_bwd_dq(q, k, v, o, do, lse, causal), None, None), [2, 0, 0, 0]
+    elif passes == "dkv":
+        got, want = (None, *tatt.flash_bwd_dkv(q, k, v, o, do, lse, causal)), [0, 2, 0, 0]
+    else:
+        got, want = tatt.flash_bwd(q, k, v, o, do, lse, causal), [2, 1, 0, 0]
+    assert [c.launches - n for c, n in zip(counters, before)] == want
+    zero = chip_smoke.one_key_bounds(q, k, v, do) if sk == 1 else ()
+    for i, (g, p, r) in enumerate(zip(got, pair, ref)):
+        if i < len(zero):
+            assert p.abs().max().item() <= zero[i]
+        else:
+            assert (p - r).abs().max().item() <= chip_smoke.FP32_BWD_REL * r.abs().max().item()
         if g is not None:
             assert torch.equal(g, p)
 
