@@ -200,6 +200,13 @@ ONE_KEY_SLACK = 1.02
 # of the largest fp32 logit: bf16 roundings compounded through 12 post-LN
 # layers.  A wrong layout or mask gives errors of the order of the logits.
 SLICE_REL_BOUND = 1e-1
+# BERT-base fp32 on the card vs the same fp32 weights on the CPU, as a share
+# of the largest fp32 logit: both compute in fp32 (matmuls with TF32 off),
+# the card's attention in split TF32, whose products err by a few 2^-20 of
+# each; so the two differ by summation order, about one fp32 rounding an
+# op, compounded through 12 post-LN layers: some 1e-5 of the logits.  A
+# wrong layout, mask or kernel moves them by their own order.
+FP32_SLICE_REL_BOUND = 1e-3
 # Training gradients, bf16 on the card vs fp32 on the CPU, same weights,
 # dropout off: relative L2 error per parameter.  bf16 keeps 8 significant
 # bits (unit roundoff 2**-8); one step rounds each activation and each
@@ -708,9 +715,9 @@ DOMAIN_CASES = [
     dict(MAIN, name="dh48", b=4, h=4, sq=200, sk=200, d=48),
     dict(MAIN, name="dh80_causal", b=4, h=4, sq=200, sk=200, d=80, causal=True),
 ]
-# Head dims 129-256: padded to the widest instance, 256, which runs each
-# kernel as two launches of a 128-column output slab (ragged S, causal and
-# not, the QKV view, lse, fp32).
+# Head dims 129-256: in 16 bits padded to the widest instance, 256, which
+# runs each kernel as two launches of a 128-column output slab (ragged S,
+# causal and not, the QKV view, lse); fp32 runs flash_wide.cu, one launch.
 WIDE_CASES = [
     dict(MAIN, name="dh160", b=2, h=4, sq=200, sk=200, d=160),
     dict(MAIN, name="dh192_causal", b=2, h=4, sq=200, sk=200, d=192, causal=True),
@@ -723,9 +730,9 @@ WIDE_CASES = [
          dtype=torch.float32, causal=True),
 ]
 # Head dims above 256: flash_wide.cu (in bf16 and fp16 its forward, dq and
-# dk/dv passes on TMA rings and wgmma, all streamed above 512; in fp32 the
-# forward and dk/dv on TMA rings and split-TF32 mma.sync, dq on the CUDA
-# cores; the backward after one delta launch in every dtype), at 320, 384, 448
+# dk/dv passes on TMA rings and wgmma, all streamed above 512; in fp32 all
+# three on TMA rings and split-TF32 mma.sync; the backward after one delta
+# launch in every dtype), at 320, 384, 448
 # (256 + 192 columns), 512, 576, 640 and 1024 and a padded 300, ragged S,
 # causal and not, causal with Sk < Sq, a causal S=1024 (sixteen key tiles
 # an item), the QKV view, a cross shape, lse, fp16 and fp32.  With one key
@@ -765,13 +772,18 @@ WIDE_HEAD_CASES = [
     dict(MAIN, name="fp32_dh512_qkv_view", b=2, h=2, sq=130, sk=130, d=512, layout="qkv",
          dtype=torch.float32),
 ]
-# Every fp32 backward runs flash_wide.cu's delta launch and split-TF32 dq and
-# dk/dv kernels, at every head dim (padded to a multiple of 64: 16 and 48 to
-# 64): the narrow 16-bit cases' edges in fp32 (a cross shape, the QKV view,
-# k and v expanded over the batch, q of one row expanded over the sequence,
-# padded heads, more items than the grid holds) and one key (Sk = 1, where
-# the exact dq and dk are 0: ``one_key``, held by ONE_KEY_SLACK's rule,
-# whose derivation covers split TF32 at this head dim).
+# Every fp32 call runs flash_wide.cu's split-TF32 kernels at every head dim
+# (padded to a multiple of 64: 16, 32 and 48 to 64, 80 to 128): the forward
+# one launch (flash_wide_fwd_f32_rows up to 256: 128-row items, Q resident,
+# k and v through one ring both consumers read), the backward one delta
+# launch and the dq and dk/dv kernels.  The narrow 16-bit cases' edges in
+# fp32 (a cross shape, the QKV view, k and v expanded over the batch, q of
+# one row expanded over the sequence, padded heads, more items than the grid
+# holds), the forward's instances (P = 1-4 column boxes: Dh 32, 80 with lse,
+# 192, 256 with lse), S=512 (eight key tiles an item), causal with Sk < Sq
+# and one key (Sk = 1, where the exact dq and dk are 0: ``one_key``, held
+# by ONE_KEY_SLACK's rule, whose derivation covers split TF32 at this head
+# dim).
 FP32_CASES = [
     dict(MAIN, name="fp32_cross_sq77_sk200", b=4, sq=77, sk=200, dtype=torch.float32),
     dict(MAIN, name="fp32_qkv_bshd_view", layout="qkv", dtype=torch.float32),
@@ -784,18 +796,33 @@ FP32_CASES = [
     dict(MAIN, name="fp32_items_over_grid_b67", b=67, dtype=torch.float32),
     dict(MAIN, name="fp32_causal_sq130_sk1", b=2, h=4, sq=130, sk=1, causal=True, one_key=True,
          dtype=torch.float32),
+    dict(MAIN, name="fp32_dh32", b=8, h=4, d=32, dtype=torch.float32),
+    dict(MAIN, name="fp32_dh192_causal", b=2, h=4, sq=200, sk=200, d=192, causal=True,
+         dtype=torch.float32),
+    dict(MAIN, name="fp32_dh256_causal_with_lse", b=2, h=4, sq=333, sk=333, d=256, causal=True,
+         lse=True, dtype=torch.float32),
+    dict(MAIN, name="fp32_seq512", b=8, sq=512, sk=512, dtype=torch.float32),
+    dict(MAIN, name="fp32_causal_sq130_sk65", b=2, h=4, sq=130, sk=65, causal=True,
+         dtype=torch.float32),
+    dict(MAIN, name="fp32_dh80_with_lse", b=4, h=4, sq=200, sk=200, d=80, lse=True,
+         dtype=torch.float32),
 ]
-WIDE_REPEAT_CASES = [c for c in WIDE_HEAD_CASES  # two runs bit-identical: 320, 512, streamed
+# Two runs bit-identical (static schedules, no atomics): flash_wide.cu at
+# 320, 512 and streamed, and its fp32 kernels at the main shape and Dh 256
+# (flash_wide_fwd_f32_rows at P = 1 and 4).
+WIDE_REPEAT_CASES = [c for c in WIDE_HEAD_CASES + KERNEL_CASES + FP32_CASES
                      if c["name"] in ("dh320_causal_with_lse", "dh512_causal_with_lse",
                                       "dh640_causal_with_lse", "fp32_dh512_causal",
-                                      "fp32_dh320_causal_with_lse")]
+                                      "fp32_dh320_causal_with_lse", "fp32",
+                                      "fp32_dh256_causal_with_lse")]
 
 
 def _slab_launches(d, dtype=None):
-    """Launches of one attention kernel pass at head dim ``d``: one a
-    128-column output slab of the instance it runs; one on flash_wide.cu,
-    which makes each slab a block of one launch: above 256, and for a
-    backward pass (given its ``dtype``) in fp32 at every head dim."""
+    """Launches of one attention kernel pass at head dim ``d`` in ``dtype``
+    (no dtype: the 16-bit count): one a 128-column output slab of the
+    instance it runs; one on flash_wide.cu, which makes each slab a block of
+    one launch: above 256, and in fp32, forward and backward, at every head
+    dim."""
     return 2 if 128 < d <= 256 and dtype != torch.float32 else 1
 
 
@@ -829,7 +856,7 @@ def phase_kernel_vs_plain(device):
         ref_max = o_ref.float().abs().max().item()
         bound = (FP32_FWD_BOUND if case["dtype"] == torch.float32
                  else FWD_ULPS * ulp(ref_max, case["dtype"]))
-        want_launches = _slab_launches(case["d"])
+        want_launches = _slab_launches(case["d"], case["dtype"])
         ok = math.isfinite(err) and err <= bound and launched == want_launches
         rec = dict(case=case["name"], kernel=counter.__name__,
                    dtype=str(case["dtype"]).replace("torch.", ""),
@@ -852,8 +879,8 @@ def phase_kernel_vs_plain(device):
             wide_err = err
     # The schedule is static (no atomics, fixed item order): two runs of the
     # main case give the same bits, o and lse.
-    # flash_wide_fwd's schedule is static too (no atomics): at Dh 320, 512
-    # and 640.
+    # flash_wide.cu's schedules are static too (no atomics): at Dh 320, 512
+    # and 640, and in fp32 at the main shape and Dh 256.
     for name, case in (("main", MAIN), *((c["name"], c) for c in WIDE_REPEAT_CASES)):
         q, k, v, layout = _case_inputs(case, gen, device)
         with torch.no_grad():
@@ -978,8 +1005,8 @@ def phase_kernel_vs_plain_bwd(device):
                              flash_wide_bwd_dkv=max(res["dk"][0], res["dv"][0]))
     # The schedule is static (no atomics, fixed item order): two runs of the
     # main case give the same bits, dq, dk and dv.
-    # So are flash_wide_bwd_dq's and flash_wide_bwd_dkv's, at Dh 320, 512 and
-    # 640.
+    # So are flash_wide.cu's delta, dq and dk/dv kernels, at Dh 320, 512 and
+    # 640, and in fp32 at the main shape and Dh 256.
     for name, case in (*((c["name"], c) for c in WIDE_REPEAT_CASES),
                        ("main", dict(MAIN, layout="qkv"))):
         q, k, v, layout = _case_inputs(case, gen, device)
@@ -2170,8 +2197,12 @@ def _time(fn, arg_sets, iters, uniform=False):
     device time by kernel name, and records counts each name's records in
     the trace.  A trace with no device record is taken again, and with
     ``uniform`` (every call launches the same kernels) so is one whose
-    counts are not multiples of ``iters``: at most three times in all, and
-    then the timing fails."""
+    counts are not multiples of ``iters``: at most three times in all.  The
+    trace can come back empty on the card for the rest of a process; then
+    device_ms is call_ms, the CUDA events' time (an upper bound of the
+    kernels' own, since it also holds the gaps between launches),
+    kernels_us and records are empty, and a ``timing_fallback`` line says
+    so."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(3):
@@ -2196,11 +2227,10 @@ def _time(fn, arg_sets, iters, uniform=False):
                 kernels[name] = kernels.get(name, 0.0) + ev.time_range.elapsed_us() / iters
                 records[name] = records.get(name, 0) + 1
         if records and (not uniform or all(n % iters == 0 for n in records.values())):
-            break
-    else:
-        raise RuntimeError(f"_time: the trace of {iters} calls lost records in three "
-                           f"tries: {records}")
-    return sum(kernels.values()) * 1e-3, call_ms, kernels, records
+            return sum(kernels.values()) * 1e-3, call_ms, kernels, records
+    emit("times", timing_fallback=getattr(fn, "__qualname__", repr(fn)), iters=iters,
+         lost_records=records, device_ms_from="CUDA events around the calls")
+    return call_ms, call_ms, {}, {}
 
 
 def _graph_ms(fn, arg_sets, calls=40, replays=5):
@@ -2294,7 +2324,9 @@ def _bound(nbytes, flops, dtype=torch.bfloat16):
 def _sdpa_backend(kernels):
     """The backend SDPA picked, read from the names of the kernels it
     launched in the trace (cuDNN's own kernels carry "flash" too)."""
-    names = " ".join(kernels or ()).lower()
+    if not kernels:
+        return "not measured (no trace)"
+    names = " ".join(kernels).lower()
     for key, backend in (("cudnn", "cudnn"), ("fmha_cutlass", "efficient"), ("flash", "flash")):
         if key in names:
             return backend
@@ -2317,10 +2349,18 @@ def _fwd_row(views, bhsd_sets, smi):
         graph_ms, lib_graph_ms = _graph_ms(kernel, views), _graph_ms(sdpa, bhsd_sets)
     nbytes = 4 * b * s * h * d * views[0][0].element_size()  # q, k, v read, o written once
     flops = 4 * b * h * s * s * d               # q·kᵀ and p·v
-    bound_ms, bound_by = _bound(nbytes, flops, dtype)
+    # the route: wgmma in 16 bits (flash_fwd.cu); in fp32 flash_wide.cu's
+    # split-TF32 kernel, whose bound is taken, the CUDA cores' stated beside it
+    route = "split_tf32" if dtype == torch.float32 else "wgmma"
+    bound_ms, bound_by = _bound(nbytes, flops, route if route == "split_tf32" else dtype)
+    bounds = {}
+    if dtype == torch.float32:
+        bounds = dict(route=route, cuda_core_bound_ms=_bound(nbytes, flops, dtype)[0],
+                      split_tf32_bound_ms=bound_ms,
+                      functions=sorted({_function_name(f) for f in records}))
     shape = dict(b=b, s=s, h=h, d=d, dtype=str(dtype).replace("torch.", ""))
     backend = _sdpa_backend(lib_kernels)
-    emit("times", kernel="flash_fwd", shape=shape,
+    emit("times", kernel="flash_fwd", shape=shape, **bounds,
          ms=kernel_ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
          library="SDPA", library_backend=backend, library_kernels_us=lib_kernels,
          records=records,
@@ -2329,14 +2369,14 @@ def _fwd_row(views, bhsd_sets, smi):
          bytes=nbytes, flops=flops, share_of_bound=bound_ms / kernel_ms,
          achieved_bytes_per_s=nbytes / (kernel_ms * 1e-3), card=smi)
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by, shape=shape, library_backend=backend)
+                bound_by=bound_by, shape=shape, library_backend=backend, **bounds)
 
 
 def _times_fwd(views, bhsd_sets, smi):
     """The main row (the training and inference batch), the same shape in
-    fp32 (flash_fwd_f32; MXNet's default dtype) and a row at the S=512
-    request shape, each beside SDPA in the same run; returns the main row,
-    the fp32 one under "other_shapes"."""
+    fp32 (flash_wide_fwd_f32_rows<1>; MXNet's default dtype) and a row at
+    the S=512 request shape, each beside SDPA in the same run; returns the
+    main row, the fp32 one under "other_shapes"."""
     row = _fwd_row(views, bhsd_sets, smi)
     device = views[0][0].device
     gen = torch.Generator(device=device).manual_seed(98)
@@ -3058,6 +3098,9 @@ def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, fold, smi
     _times_resnet(resnet, smi)
     _times_optimizer_paths(train, resnet, smi)
     _times_fold(train, resnet, *fold, smi)
+    # last, so that its net, its CPU reference run and their memory come
+    # after every row the parent's runs also take
+    _times_fp32_forward(main_req, iters, smi)
     set_kernel_counts(before)  # timed and profiled launches are not the main paths'
 
     csrc = "incubator_mxnet_torch/ops/csrc/"
@@ -3108,7 +3151,8 @@ def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, fold, smi
                           "has a head above 256, so its launches there are 0",
                    "functions": row["functions"], "other_shapes": row["other_shapes"]}
         elif "other_shapes" in row:
-            fp32 = ("flash_fwd_f32 on the CUDA cores" if name == "flash_fwd" else
+            fp32 = ("flash_wide.cu's split-TF32 flash_wide_fwd_f32_rows<1> on the tensor "
+                    "cores, with the route and both bounds" if name == "flash_fwd" else
                     "flash_wide.cu's delta launch and split-TF32 kernel, with the route and "
                     "both bounds; the call's time holds the delta launch")
             per = {"per": "one call at the main path's [64, 128, 12, 64] bf16 (other_shapes: "
@@ -3133,6 +3177,53 @@ def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, fold, smi
     print(json.dumps({"kernels": kernels}), flush=True)
 
 
+def _times_fp32_forward(main_req, iters, smi):
+    """The BERT-base inference forward in fp32 (MXNet's default dtype) at
+    the main request (B=64, S=128, P=20), beside the bf16 row: the same
+    seed's weights, not cast, so its 12 attention forwards a call run
+    flash_wide.cu's split-TF32 kernel (counted on flash_fwd).  Timed as the
+    bf16 row, the mean of ``iters`` forwards; its logits on a B=2 batch
+    held to the port's fp32 run of the same weights on the CPU
+    (FP32_SLICE_REL_BOUND)."""
+    device = main_req[0].device
+    net = _build_net(BERT_BASE, None, "float32")
+    torch.cuda.reset_peak_memory_stats()
+    with mx.autograd.predict_mode():
+        before = att.flash_fwd.launches
+        net(*main_req)
+        torch.cuda.synchronize()
+        launches = att.flash_fwd.launches - before
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            net(*main_req)
+        torch.cuda.synchronize()
+        fwd_s = (time.perf_counter() - t0) / iters
+    b, s = main_req[0].shape
+    emit("times", forward="BERTForPretrain(bert_base) fp32", b=b, s=s, p=main_req[2].shape[1],
+         forward_ms=fwd_s * 1e3, samples_per_s=b / fwd_s, flash_fwd_launches=launches,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(), card=smi)
+    arrays = {k: p.data().detach().cpu().numpy()
+              for k, p in net._collect_params_with_prefix().items()}
+    ref_net = _build_net(BERT_BASE, mx.cpu(), "float32")
+    load_numpy_params(ref_net, arrays)
+    gen = torch.Generator(device=device).manual_seed(17)
+    small = _requests([(2, s, main_req[2].shape[1])], BERT_BASE["vocab_size"], gen, device)[0]
+    with mx.autograd.predict_mode():
+        got = net(*small)
+        ref = ref_net(*(x.cpu() for x in small))
+    ok = launches == 12
+    for name, g, r in zip(("mlm_logits", "nsp_logits"), got, ref):
+        err = (g.float().cpu() - r).abs().max().item()
+        rel = err / r.abs().max().item()
+        fine = g.dtype == torch.float32 and math.isfinite(rel) and rel <= FP32_SLICE_REL_BOUND
+        emit("fp32_forward_vs_cpu_fp32", output=name, max_abs_err=err,
+             ref_max_abs=r.abs().max().item(), rel_err=rel, bound=FP32_SLICE_REL_BOUND, ok=fine)
+        ok = ok and fine
+    del net, ref_net
+    if not ok:
+        sys.exit(1)
+
+
 def rehearse_times(net, main_req, train, resnet):
     """CPU stand-in for phase 7: host times of the plain paths, labelled as
     CPU numbers, never as the card's."""
@@ -3152,9 +3243,10 @@ def rehearse_times(net, main_req, train, resnet):
 
 # One turn of --inference-turns, run as ``python -c`` from the checkout it
 # times (argv[1]), so it imports that checkout's package: the phase-4
-# network and main request (BERT-base bf16, seeds 0 and 7, B=64, S=128,
-# P=20) and phase 7's timing (the mean of 10 forwards), taken 10 times
-# after one warm-up; prints one JSON line.
+# network and main request (BERT-base, seeds 0 and 7, B=64, S=128, P=20)
+# in the dtype argv[2] (bfloat16, or float32 uncast) and phase 7's timing
+# (the mean of 10 forwards), taken 10 times after one warm-up; prints one
+# JSON line.
 _INFERENCE_TURN = r'''
 import json, sys, time
 sys.path.insert(0, sys.argv[1])
@@ -3166,7 +3258,8 @@ mx.random.seed(0)
 net = bert_zoo.BERTForPretrain(bert_zoo.bert_base(vocab_size=30522, max_length=512,
                                                   dropout=0.1), vocab_size=30522)
 net.initialize()
-net.cast("bfloat16")
+if sys.argv[2] != "float32":
+    net.cast(sys.argv[2])
 dev = torch.device("cuda", 0)
 gen = torch.Generator(device=dev).manual_seed(7)
 req = [torch.randint(0, n, shape, generator=gen, device=dev, dtype=torch.int32)
@@ -3181,15 +3274,15 @@ with mx.autograd.predict_mode():
             net(*req)
         torch.cuda.synchronize()
         samples.append((time.perf_counter() - t0) / 10 * 1e3)
-print(json.dumps({"package": mx.__file__, "forward_ms": samples}))
+print(json.dumps({"package": mx.__file__, "dtype": sys.argv[2], "forward_ms": samples}))
 '''
 
 
-def inference_turns(roots, rounds):
-    """The BERT-base inference forward of two checkouts in turns (A, B, B,
-    A each round), each turn a fresh process on the card: host noise that
-    drifts within a call falls on both alike.  Emits every turn and every
-    pair; exits non-zero if a turn fails."""
+def inference_turns(roots, rounds, dtype="bfloat16"):
+    """The BERT-base inference forward in ``dtype`` of two checkouts in
+    turns (A, B, B, A each round), each turn a fresh process on the card:
+    host noise that drifts within a call falls on both alike.  Emits every
+    turn and every pair; exits non-zero if a turn fails."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -3198,7 +3291,7 @@ def inference_turns(roots, rounds):
     turns = {a: [], b: []}
     for r in range(rounds):
         for root in (a, b, b, a):
-            run = subprocess.run([sys.executable, "-c", _INFERENCE_TURN, root], cwd=root,
+            run = subprocess.run([sys.executable, "-c", _INFERENCE_TURN, root, dtype], cwd=root,
                                  capture_output=True, text=True, timeout=600)
             if run.returncode != 0:
                 print(run.stderr[-4000:], file=sys.stderr)
@@ -3210,11 +3303,12 @@ def inference_turns(roots, rounds):
                 sys.exit(1)
             mean = sum(rec["forward_ms"]) / len(rec["forward_ms"])
             turns[root].append(mean)
-            emit("inference_turns", root=root, round=r, forward_ms=rec["forward_ms"],
+            emit("inference_turns", root=root, round=r, dtype=dtype, forward_ms=rec["forward_ms"],
                  mean_forward_ms=mean, samples_per_s=64 / mean * 1e3, card=smi)
     pairs = [dict(a_ms=x, b_ms=y, b_over_a=y / x) for x, y in zip(turns[a], turns[b])]
     qa, qb = (statistics.quantiles(turns[r], n=4) for r in (a, b))
-    emit("inference_turns", a=a, b=b, pairs=pairs, median_a_ms=qa[1], median_b_ms=qb[1],
+    emit("inference_turns", a=a, b=b, dtype=dtype, pairs=pairs, median_a_ms=qa[1],
+         median_b_ms=qb[1],
          quartiles_a_ms=[qa[0], qa[2]], quartiles_b_ms=[qb[0], qb[2]],
          b_faster_pairs=sum(p["b_ms"] < p["a_ms"] for p in pairs), card=smi)
 
@@ -3227,6 +3321,8 @@ def main():
                     help="only time the BERT-base inference forward of two checkouts in "
                          "turns (A, B, B, A per round); never prints ok")
     ap.add_argument("--rounds", type=int, default=3, help="rounds of --inference-turns")
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"),
+                    help="the network's dtype in --inference-turns")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3246,7 +3342,7 @@ def main():
               file=sys.stderr)
         return 2
     if args.inference_turns:
-        inference_turns(args.inference_turns, args.rounds)
+        inference_turns(args.inference_turns, args.rounds, args.dtype)
         return 0
     smi = phase_device()
     phase_build()

@@ -5,10 +5,10 @@ versions.
 Counterpart of the JAX package's ``ops/attention.py``.  There, Pallas
 kernels (``_fwd_kernel``, ``_bwd_dq_kernel``, ``_bwd_dkv_kernel``) served
 long sequences on the TPU and XLA the rest.  Here every attention call on
-a CUDA tensor launches the port's own kernels, ``ops/csrc/flash_fwd.cu``
-and ``ops/csrc/flash_bwd.cu``, whatever the sequence length; a tensor on
-the CPU takes the plain versions, which the CPU tests hold against the JAX
-package.  There is no other route: a CUDA call a kernel cannot take
+a CUDA tensor launches the port's own kernels, ``ops/csrc/flash_fwd.cu``,
+``flash_bwd.cu`` and ``flash_wide.cu``, whatever the sequence length; a
+tensor on the CPU takes the plain versions, which the CPU tests hold
+against the JAX package.  There is no other route: a CUDA call a kernel cannot take
 raises.
 
 Layouts: the kernels read q/k/v (and o, do) through batch, head and
@@ -22,39 +22,40 @@ Operands: the wrappers take what the JAX functions take, any head dim.
 A head dim the kernels have no instance for (48, 80, 160, ...) is
 zero-padded to the next one they have (zero columns add nothing to q·kᵀ,
 to rowsum(do∘o) or to any product), with the scale of the true head dim,
-and the outputs are sliced back.  The widest instance of ``flash_fwd.cu``
-and ``flash_bwd.cu``, 256, runs each kernel as two launches of a
-128-column slab of its outputs, each reducing over the whole head (the
-sources say why).  A 16-bit operand that repeats one row along its
-sequence (stride 0) goes to the kernels contiguous, since TMA reads rows
-in boxes.  A head dim above 256 goes to ``ops/csrc/flash_wide.cu``
-(padded to a multiple of 64), whose launches count on their own wrappers
-(``flash_wide_fwd``, ``flash_wide_bwd_dq``, ``flash_wide_bwd_dkv``).  In
-bf16 and fp16 all three passes are TMA-fed warpgroup-MMA kernels on
-64-row tiles: the forward's two consumer warpgroups split the head's
-columns and swap partial scores; the dq pass keeps a query tile's q and
-do in shared memory, its warpgroups swap p and dp − delta and split the
-columns of dq; the dk/dv pass gives each key tile two items (a slab of dk
-and dv each).  Before either backward pass, one launch a call computes
-delta = rowsum(do∘o) once a query row into a buffer the wrapper
-allocates; it counts on the dq pass when the call runs it, else on the
-dk/dv pass (``_dq_launches``, ``_dkv_launches``).  Above 512 columns the
-same kernels stream their operands through their rings box by box and
-make each slab of the outputs a work item of its own, so every head dim
-runs on them.  In fp32 the three passes have the same item structure (TMA
-rings, two consumer warpgroups) and run every product on the tensor cores
-in split TF32 (hi·hi′ + hi·lo′ + lo·hi′, which keeps fp32 accuracy).
+and the outputs are sliced back.  The widest 16-bit instance of
+``flash_fwd.cu`` and ``flash_bwd.cu``, 256, runs each kernel as two
+launches of a 128-column slab of its outputs, each reducing over the whole
+head (the sources say why).  Every kernel reads its operands by TMA, in
+boxes of rows, so an operand that repeats one row along its sequence
+(stride 0) goes to the kernels contiguous.  A head dim above 256 goes to
+``ops/csrc/flash_wide.cu`` (padded to a multiple of 64), whose launches
+count on their own wrappers (``flash_wide_fwd``, ``flash_wide_bwd_dq``,
+``flash_wide_bwd_dkv``).  In bf16 and fp16 all three passes are TMA-fed
+warpgroup-MMA kernels on 64-row tiles: the forward's two consumer
+warpgroups split the head's columns and swap partial scores; the dq pass
+keeps a query tile's q and do in shared memory, its warpgroups swap p and
+dp − delta and split the columns of dq; the dk/dv pass gives each key
+tile two items (a slab of dk and dv each).  Before either backward pass,
+one launch a call computes delta = rowsum(do∘o) once a query row into a
+buffer the wrapper allocates; it counts on the dq pass when the call runs
+it, else on the dk/dv pass (``_dq_launches``, ``_dkv_launches``).  Above
+512 columns the same kernels stream their operands through their rings
+box by box and make each slab of the outputs a work item of its own, so
+every head dim runs on them.  In fp32 the three passes run every product
+on the tensor cores in split TF32 (hi·hi′ + hi·lo′ + lo·hi′, which keeps
+fp32 accuracy), on TMA rings and two consumer warpgroups.
 
-fp32 backward: every fp32 backward call, at every head dim, runs on
-``flash_wide.cu``: one delta launch, then the split-TF32 dq pass
-(``flash_wide_bwd_dq_f32``) and dk/dv pass (``flash_wide_bwd_dkv_f32``),
-on operands padded to a multiple of 64 columns (16, 32 and 48 to 64, 80 to
-128, 160 to 192) and handed over with no repeated rows, since the kernels
-read them by TMA.  The launches still count on the wrappers of the
-caller's head dim: ``flash_bwd_dq`` (the delta launch too) and
-``flash_bwd_dkv`` up to 256, the ``flash_wide_*`` ones above.  The fp32
-forward up to 256 stays on ``flash_fwd.cu``, and the 16-bit backward up to
-256 on ``flash_bwd.cu``.
+fp32: every fp32 call, forward and backward, at every head dim, runs on
+``flash_wide.cu``, on operands padded to a multiple of 64 columns (16, 32
+and 48 to 64, 80 to 128, 160 to 192).  The forward is one launch: up to
+128 columns ``flash_wide_fwd_f32_rows`` (128-row items, each consumer
+warpgroup 64 rows over the whole head), wider ``flash_wide_fwd_f32``.
+The backward is one delta launch, then the split-TF32 dq pass
+(``flash_wide_bwd_dq_f32``) and dk/dv pass (``flash_wide_bwd_dkv_f32``).
+The launches still count on the wrappers of the caller's head dim:
+``flash_fwd``, ``flash_bwd_dq`` (the delta launch too) and
+``flash_bwd_dkv`` up to 256, the ``flash_wide_*`` ones above.  The 16-bit
+passes up to 256 stay on ``flash_fwd.cu`` and ``flash_bwd.cu``.
 
 Gradients: one ``torch.autograd.Function`` (``_FlashAttention``) holds
 the forward, which saves o and the per-row log-sum-exp when an input
@@ -85,17 +86,19 @@ _WIDE_STEP = 64  # flash_wide.cu takes head dims above 256 in multiples of this
 
 
 def _is_wide(width, dtype=None):
-    """Whether a pass at the instance ``width`` runs on flash_wide.cu: a
-    head above 256 in every dtype; and, for a backward pass (whose callers
-    give its ``dtype``), every fp32 one, at every width.  The forward gives
-    no dtype: its fp32 up to 256 runs on flash_fwd.cu."""
+    """Whether a pass at the instance ``width`` in ``dtype`` runs on
+    flash_wide.cu: a head above 256 in every dtype, and every fp32 pass
+    (forward or backward) at every width.  With no dtype, the 16-bit rule:
+    above 256 (the launch counters' rule, which follows the caller's head
+    dim whatever the dtype)."""
     return width > _HEAD_DIMS[-1] or dtype == torch.float32
 
 
 def _launches(width, dtype=None):
-    """Launches of one kernel pass at the instance ``width`` (``dtype`` as
-    ``_is_wide`` takes it): one on flash_wide.cu, whose slabs are blocks of
-    one launch, else one a 128-column slab."""
+    """Launches of one kernel pass at the instance ``width`` in ``dtype``
+    (with no dtype, the 16-bit count): one on flash_wide.cu, whose slabs
+    are blocks of one launch, else one a 128-column slab (two at Dh
+    129-256)."""
     return 1 if _is_wide(width, dtype) else max(1, width // _SLAB)
 
 
@@ -178,10 +181,10 @@ def _strides_bhs(x, bshd):
     return (st[0], st[2], st[1]) if bshd else (st[0], st[1], st[2])
 
 
-def _check_cuda_operands(fn, q, k, v, bshd, like_k=(), bwd=False, **like_q):
+def _check_cuda_operands(fn, q, k, v, bshd, like_k=(), **like_q):
     """What the kernels take: 4-D operands on q's device, of q's dtype (one
     of three), head dim 16/32/64/128/256 or a multiple of 64 above 256 (any
-    multiple of 64 in an fp32 backward, ``bwd``), unit stride on Dh,
+    multiple of 64 in fp32), unit stride on Dh,
     16-byte aligned rows; ``like_q`` names further operands of q's shape
     (o, do, dq...), ``like_k`` (name, tensor) pairs of k's shape (dk,
     dv)."""
@@ -206,7 +209,7 @@ def _check_cuda_operands(fn, q, k, v, bshd, like_k=(), bwd=False, **like_q):
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"{fn}: unsupported dtype {q.dtype}")
     d = q.shape[-1]
-    taken = d in _HEAD_DIMS or (_is_wide(d, q.dtype if bwd else None) and d % _WIDE_STEP == 0)
+    taken = d in _HEAD_DIMS or (_is_wide(d, q.dtype) and d % _WIDE_STEP == 0)
     if not taken or k.shape[-1] != d or v.shape[-1] != d:
         raise ValueError(f"{fn}: head dim must be one of {_HEAD_DIMS} or a multiple of "
                          f"{_WIDE_STEP} above {_HEAD_DIMS[-1]}, and equal for q, k, v; got "
@@ -225,17 +228,16 @@ def _check_cuda_operands(fn, q, k, v, bshd, like_k=(), bwd=False, **like_q):
             raise ValueError(f"{fn}: {name} {tuple(x.shape)} differs from k {tuple(k.shape)}")
 
 
-def _kernel_width(fn, q, k, v, bwd=False):
+def _kernel_width(fn, q, k, v):
     """The head dim the kernels run for the caller's: the caller's own when
     the kernels have an instance for it, else the next one they have (the
     operands are zero-padded to it); on flash_wide.cu (above 256, and every
-    fp32 backward, ``bwd``), the next multiple of 64.  Raises for unequal
-    head dims."""
+    fp32 pass), the next multiple of 64.  Raises for unequal head dims."""
     d = q.shape[-1]
     if k.shape[-1] != d or v.shape[-1] != d:
         raise ValueError(f"{fn}: head dim must be equal for q, k, v; got {d}, "
                          f"{k.shape[-1]}, {v.shape[-1]}")
-    if _is_wide(d, q.dtype if bwd else None):
+    if _is_wide(d, q.dtype):
         return -(-d // _WIDE_STEP) * _WIDE_STEP
     return next(w for w in _HEAD_DIMS if w >= d)
 
@@ -257,21 +259,16 @@ def _rows_readable(x, bshd):
     return x.contiguous() if n > 1 and st == 0 else x
 
 
-def _kernel_operands(width, bshd, *xs, bwd=False):
-    """The operands as the kernels take them: padded to ``width`` and, for
-    the TMA-fed kernels (16-bit, every dtype above 256 and every fp32
-    backward, ``bwd``), with no repeated rows.  Only the fp32 forward up to
-    256 (flash_fwd.cu's CUDA-core kernel) reads a repeated row as it is."""
-    xs = [_pad_head(x, width) for x in xs]
-    dtype = xs[0].dtype
-    if dtype != torch.float32 or _is_wide(width, dtype if bwd else None):
-        xs = [_rows_readable(x, bshd) for x in xs]
-    return xs
+def _kernel_operands(width, bshd, *xs):
+    """The operands as the kernels take them: padded to ``width``, with no
+    repeated rows, since every kernel, fp32 ones too, reads them by TMA."""
+    return [_rows_readable(_pad_head(x, width), bshd) for x in xs]
 
 
-def _entry(width=64):
-    """The forward's C entry for the instance ``width``."""
-    fn = (_cuda.load("flash_wide").mx_flash_wide_fwd if _is_wide(width)
+def _entry(width=64, dtype=torch.bfloat16):
+    """The forward's C entry for the instance ``width`` in ``dtype``:
+    flash_wide.cu's above 256 and for every fp32 call."""
+    fn = (_cuda.load("flash_wide").mx_flash_wide_fwd if _is_wide(width, dtype)
           else _cuda.load("flash_fwd").mx_flash_fwd)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
@@ -302,10 +299,11 @@ def flash_fwd(q, k, v, causal=False, scale=None, with_lse=False, layout="bhsd"):
     Returns ``(o, lse)`` with lse ``[B·H, Sq]`` fp32, or None.
 
     A CPU tensor takes :func:`flash_fwd_plain`; a CUDA tensor launches the
-    kernel (``flash_fwd.launches`` counts the launches: two at Dh 129-256,
-    one a slab; above 256 ``flash_wide_fwd.launches`` counts its one) or
-    raises.  On the card a head dim the kernel has no instance for comes
-    back as a slice of the padded o."""
+    kernel or raises.  ``flash_fwd.launches`` counts the launches up to Dh
+    256 (in bf16 and fp16 flash_fwd.cu's, two at Dh 129-256, one a slab;
+    in fp32 flash_wide.cu's one split-TF32 launch), above 256
+    ``flash_wide_fwd.launches`` counts its one.  On the card a head dim
+    the kernel has no instance for comes back as a slice of the padded o."""
     if layout not in ("bhsd", "bshd"):
         raise ValueError(f"layout must be 'bhsd' or 'bshd', got {layout!r}")
     bshd = layout == "bshd"
@@ -330,13 +328,13 @@ def flash_fwd(q, k, v, causal=False, scale=None, with_lse=False, layout="bhsd"):
     strides = (ctypes.c_longlong * 12)(*(_strides_bhs(q, bshd) + _strides_bhs(k, bshd)
                                         + _strides_bhs(v, bshd) + _strides_bhs(o, bshd)))
     with torch.cuda.device(q.device):
-        rc = _entry(d)(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        rc = _entry(d, q.dtype)(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        o.data_ptr(), lse.data_ptr() if with_lse else None,
                        b, h, sq, sk, d, strides, float(scale), int(bool(causal)),
                        torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_fwd launch failed with CUDA error {rc}")
-    _fwd_counter(d).launches += _launches(d)
+    _fwd_counter(d_caller).launches += _launches(d, q.dtype)
     return o[..., :d_caller] if d != d_caller else o, lse
 
 
@@ -363,13 +361,13 @@ def _bwd_launch(q, k, v, o, do, lse, dq, dk, dv, causal, scale, bshd):
     Returns the launches counted on the dq pass and on the dk/dv pass
     (``_dq_launches``, ``_dkv_launches``), 0 for a pass not asked for."""
     d, dtype = q.shape[-1], q.dtype
-    width = _kernel_width("flash_bwd", q, k, v, bwd=True)
-    q, k, v, o, do = _kernel_operands(width, bshd, q, k, v, o, do, bwd=True)
+    width = _kernel_width("flash_bwd", q, k, v)
+    q, k, v, o, do = _kernel_operands(width, bshd, q, k, v, o, do)
     wanted = (dq, dk, dv)
     if width != d:
         dq, dk, dv = (None if g is None else _new_like(x) for g, x in zip(wanted, (q, k, v)))
     _check_cuda_operands("flash_bwd", q, k, v, bshd,
-                         like_k=() if dk is None else (("dk", dk), ("dv", dv)), bwd=True,
+                         like_k=() if dk is None else (("dk", dk), ("dv", dv)),
                          o=o, do=do, **({} if dq is None else {"dq": dq}))
     b = q.shape[0]
     h, sq = (q.shape[2], q.shape[1]) if bshd else (q.shape[1], q.shape[2])
@@ -483,8 +481,9 @@ def flash_wide_bwd_dkv(q, k, v, o, do, lse, causal=False, scale=None, layout="bh
 
 
 def _fwd_counter(d):
-    """The wrapper whose ``launches`` count the forward kernel of head dim
-    ``d``."""
+    """The wrapper whose ``launches`` count the forward kernel of the
+    caller's head dim ``d``, whatever kernel runs: an fp32 call up to 256
+    runs flash_wide.cu's and counts on ``flash_fwd``."""
     return flash_wide_fwd if _is_wide(d) else flash_fwd
 
 

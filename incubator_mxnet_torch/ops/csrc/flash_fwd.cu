@@ -59,12 +59,11 @@
 // consumer's serial chain of q·kᵀ, softmax (one ex2 a score) and p·v per
 // tile, which no other warpgroup's work overlaps.
 //
-// fp32 runs on the CUDA cores in full fp32 (flash_fwd_f32): a block of 4
-// warps per (batch*head, 64 query rows), K/V tiles staged synchronously.
+// This file holds the 16-bit kernel only: fp32 runs on flash_wide.cu
+// (flash_wide_fwd_f32_rows and flash_wide_fwd_f32, split TF32 on the tensor
+// cores), to which the wrapper sends every fp32 call.
 
 #include <math.h>
-
-#include <type_traits>
 
 #include "flash_tma.cuh"
 
@@ -378,162 +377,6 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
   }
 }
 
-// ---------------------------------------------------------------------------
-// fp32: CUDA-core path
-// ---------------------------------------------------------------------------
-
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // key rows per shared-memory tile
-constexpr int WARPS = 4;      // each warp owns BQ / WARPS = 16 query rows
-constexpr int THREADS = WARPS * 32;
-
-// Shared-memory row pitch: 16 bytes of padding keeps the fragment loads free
-// of bank conflicts and every row 16-byte aligned.
-template <typename T, int D>
-struct Pitch {
-  static constexpr int value = D + 16 / (int)sizeof(T);
-};
-
-// Copy rows [row0, row0 + 64) of one (batch, head) into shared memory,
-// 16 bytes per thread and step; rows at or past `nrows` become zeros.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* smem, const T* g, long long ss, int row0,
-                                          int nrows) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CHUNKS = D / VEC;
-  constexpr int LD = Pitch<T, D>::value;
-  for (int idx = threadIdx.x; idx < BK * CHUNKS; idx += THREADS) {
-    const int r = idx / CHUNKS;
-    const int c = (idx % CHUNKS) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < nrows) val = *reinterpret_cast<const uint4*>(g + (row0 + r) * ss + c);
-    *reinterpret_cast<uint4*>(smem + r * LD + c) = val;
-  }
-}
-
-// Lane pair (2i, 2i+1) of a warp owns one of the warp's 16 query rows: each
-// lane scores every other key of a tile and accumulates half of the row's Dh
-// output columns.
-template <int D, int DV>
-__global__ void __launch_bounds__(THREADS) flash_fwd_f32(Params p) {
-  constexpr int LD = Pitch<float, D>::value;
-  constexpr int LDV = Pitch<float, DV>::value;
-  constexpr int HALF = DV / 2;
-  constexpr int KPL = BK / 2;  // keys scored per lane and tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);
-  float* sK = sQ + BQ * LD;
-  float* sV = sK + BK * LD;
-
-  const int nq = (p.Sq + BQ - 1) / BQ;
-  const int bh = blockIdx.x / nq;
-  const int q0 = (blockIdx.x % nq) * BQ;
-  const int b = bh / p.H, h = bh % p.H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int half = lane & 1;
-  const int lrow = warp * 16 + (lane >> 1);
-  const int row = q0 + lrow;
-
-  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-
-  load_tile<float, D>(sQ, qg, p.q_ss, q0, p.Sq);
-
-  float acc[HALF];
-#pragma unroll
-  for (int c = 0; c < HALF; ++c) acc[c] = 0.f;
-  float m = -INFINITY, l = 0.f;
-
-  int nk = (p.Sk + BK - 1) / BK;
-  if (p.causal) nk = min(nk, (min(q0 + BQ, p.Sq) + BK - 1) / BK);
-
-  const float4* q4 = reinterpret_cast<const float4*>(sQ + lrow * LD);
-  for (int j = 0; j < nk; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();
-    load_tile<float, D>(sK, kg, p.k_ss, k0, p.Sk);
-    load_tile<float, DV>(sV, vg, p.v_ss, k0, p.Sk);
-    __syncthreads();
-
-    float s[KPL];
-#pragma unroll
-    for (int i = 0; i < KPL; ++i) s[i] = 0.f;
-#pragma unroll 4
-    for (int d4 = 0; d4 < D / 4; ++d4) {
-      const float4 qv = q4[d4];
-#pragma unroll
-      for (int i = 0; i < KPL; ++i) {
-        const float4 kv = reinterpret_cast<const float4*>(sK + (2 * i + half) * LD)[d4];
-        s[i] = fmaf(qv.x, kv.x, s[i]);
-        s[i] = fmaf(qv.y, kv.y, s[i]);
-        s[i] = fmaf(qv.z, kv.z, s[i]);
-        s[i] = fmaf(qv.w, kv.w, s[i]);
-      }
-    }
-
-    float mx = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < KPL; ++i) {
-      const int col = k0 + 2 * i + half;
-      const bool masked = col >= p.Sk || (p.causal && col > row);
-      s[i] = masked ? -INFINITY : s[i] * p.scale;
-      mx = fmaxf(mx, s[i]);
-    }
-    const float m_new = fmaxf(m, fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1)));
-    const float m_safe = m_new == -INFINITY ? 0.f : m_new;
-    const float corr = m == -INFINITY ? 0.f : expf(m - m_safe);
-    float rs = 0.f;
-#pragma unroll
-    for (int i = 0; i < KPL; ++i) {
-      s[i] = s[i] == -INFINITY ? 0.f : expf(s[i] - m_safe);
-      rs += s[i];
-    }
-    l = l * corr + rs + __shfl_xor_sync(0xffffffffu, rs, 1);
-    m = m_new;
-#pragma unroll
-    for (int c = 0; c < HALF; ++c) acc[c] *= corr;
-
-    const float* vcol = sV + half * HALF;
-#pragma unroll 4
-    for (int i = 0; i < KPL; ++i) {
-      const float mine = s[i];
-      const float other = __shfl_xor_sync(0xffffffffu, mine, 1);
-      const float p0 = half ? other : mine;  // key 2i
-      const float p1 = half ? mine : other;  // key 2i + 1
-      const float* v0 = vcol + (2 * i) * LDV;
-#pragma unroll
-      for (int c = 0; c < HALF; ++c) acc[c] = fmaf(p1, v0[LDV + c], fmaf(p0, v0[c], acc[c]));
-    }
-  }
-
-  if (row >= p.Sq) return;
-  const float lsum = l == 0.f ? 1.f : l;
-  float* orow = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh + row * p.o_ss + half * HALF;
-#pragma unroll
-  for (int c = 0; c < HALF; ++c) orow[c] = acc[c] / lsum;
-  if (p.lse != nullptr && half == 0)
-    p.lse[(long long)bh * p.Sq + row] = (m == -INFINITY ? 0.f : m) + logf(lsum);
-}
-
-
-// Dynamic shared memory: Q and K tiles D wide, a V tile DV wide; at Dh=256
-// (DV = 128) 166,912 bytes.
-template <int D, int DV>
-cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
-  const int smem =
-      ((BQ + BK) * Pitch<float, D>::value + BK * Pitch<float, DV>::value) * (int)sizeof(float);
-  if (smem > 48 * 1024) {  // above 48 KB only after an explicit opt-in
-    const cudaError_t e = cudaFuncSetAttribute(flash_fwd_f32<D, DV>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-  }
-  const long long blocks = (long long)p.B * p.H * ((p.Sq + BQ - 1) / BQ);
-  if (blocks <= 0) return cudaSuccess;
-  flash_fwd_f32<D, DV><<<(unsigned)blocks, THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
 // A head wider than 128 runs as launches of SLAB v/o columns each, every one
 // reducing q·kᵀ over the whole head: the accumulators and the V and o tiles
 // stay those of Dh=128.  Each launch reads its slab of v and writes that of o
@@ -551,17 +394,6 @@ cudaError_t launch_slabs(cudaError_t (*launch)(const Params&, cudaStream_t), Par
     p.lse = nullptr;
   }
   return cudaSuccess;
-}
-
-cudaError_t dispatch_f32(const Params& p, int d, cudaStream_t s) {
-  switch (d) {
-    case 16: return launch_f32<16, 16>(p, s);
-    case 32: return launch_f32<32, 32>(p, s);
-    case 64: return launch_f32<64, 64>(p, s);
-    case 128: return launch_f32<128, 128>(p, s);
-    case 256: return launch_slabs(launch_f32<256, SLAB>, p, d, sizeof(float), s);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 // The persistent grid: as many blocks as the card holds at once, at most
@@ -611,9 +443,10 @@ cudaError_t dispatch_tma(const Params& p, int d, cudaStream_t s) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16.  strides: 12 element
-// strides, (batch, head, sequence) for q, k, v and o in that order.
-// Returns the cudaError_t of the launch (0 on success); never synchronises.
+// dtype: 1 = float16, 2 = bfloat16 (float32, 0, is refused: the wrapper
+// sends it to mx_flash_wide_fwd).  strides: 12 element strides, (batch,
+// head, sequence) for q, k, v and o in that order.  Returns the
+// cudaError_t of the launch (0 on success); never synchronises.
 extern "C" int mx_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
                             float* lse, int B, int H, int Sq, int Sk, int D,
                             const long long* strides, float scale, int causal,
@@ -636,7 +469,6 @@ extern "C" int mx_flash_fwd(int dtype, const void* q, const void* k, const void*
   p.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)dispatch_f32(p, D, s);
     case 1: return (int)dispatch_tma<__half>(p, D, s);
     case 2: return (int)dispatch_tma<__nv_bfloat16>(p, D, s);
     default: return (int)cudaErrorInvalidValue;

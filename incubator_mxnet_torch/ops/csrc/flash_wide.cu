@@ -2,11 +2,12 @@
 // forward (flash_wide_fwd: o and lse) and the two backward passes
 // (flash_wide_bwd_dq: dq; flash_wide_bwd_dkv: dk and dv), with plain C entry
 // points loaded through ctypes by incubator_mxnet_torch/ops/attention.py;
-// and the fp32 backward at every head dim.
+// and fp32, forward and backward, at every head dim.
 //
 // Replaces: the JAX package's ops/attention.py:_fwd_kernel, _bwd_dq_kernel
 // and _bwd_dkv_kernel at the head dims that flash_fwd.cu and flash_bwd.cu
-// have no instance for, and in fp32 the two backward kernels at all.  The JAX function takes any head dim; the wrapper
+// have no instance for, and in fp32 all three at every head dim (those two
+// files hold 16-bit kernels only).  The JAX function takes any head dim; the wrapper
 // zero-pads one that is not a multiple of 64 up to the next (zero columns add
 // nothing to any product or to rowsum(do*o)) and passes the true head dim's
 // scale.  Same function as the other kernels: fp32 scores, softmax and sums;
@@ -138,7 +139,8 @@
 //
 // fp32 (MXNet's default dtype): wgmma has no full-fp32 product and plain
 // TF32 keeps 10 bits of mantissa, far outside the fp32 bounds; so the fp32
-// forward (flash_wide_fwd_f32), dq pass (flash_wide_bwd_dq_f32) and dk/dv
+// forward (flash_wide_fwd_f32_rows, flash_wide_fwd_f32), dq pass
+// (flash_wide_bwd_dq_f32) and dk/dv
 // pass (flash_wide_bwd_dkv_f32) run every product in split TF32 on the
 // tensor cores: x = hi + lo, each fp32 product hi·hi′ + hi·lo′ + lo·hi′
 // (three TF32 products, fp32 sums; lo·lo′ dropped), which errs by about
@@ -148,11 +150,24 @@
 // them: 3 x 17.2 (forward), 3 x 25.8 (dq) and 3 x 34.4 (dk/dv) GFLOP of
 // TF32 at [4, 512, 8, 512], 0.104, 0.156 and 0.208 ms at 495 TFLOP/s,
 // against 67 / 101 / 118 MB of bytes (0.02-0.035 ms).
-// * The fp32 backward runs here at every head dim, not only above 256: the
-//   wrapper pads a narrow head to a multiple of 64 (16, 32, 48 to 64; 80
-//   to 128; 160 to 192), and the kernels take any count P of 64-column
-//   boxes from the call (P = 1 at BERT-base's Dh 64).
-// * The forward's items are the 16-bit kernels': 64 query rows and a slab
+// * fp32 runs here at every head dim, forward and backward, not only above
+//   256: the wrapper pads a narrow head to a multiple of 64 (16, 32, 48 to
+//   64; 80 to 128; 160 to 192), and the kernels take any count P of
+//   64-column boxes from the call (P = 1 at BERT-base's Dh 64).
+// * A head of at most 2 boxes (Dh <= 128) runs the forward on
+//   flash_wide_fwd_f32_rows<P>: items of 128 query rows, each consumer 64 of
+//   them over the whole head (the 16-bit flash_fwd_tma's structure), q
+//   resident in shared memory for the item, k and v through one ring of
+//   one-box slots that both consumers read.  No partial scores are swapped
+//   and the softmax of a row runs once; at P = 1 the 64-row items below
+//   would leave consumer 1 without a box of its own.  What bounds it at
+//   BERT-base's [64, 128, 12, 64]: 100.7 MB of q, k, v and o (0.030 ms at
+//   3.35 TB/s) against 3 x 3.22 GFLOP of TF32 (0.0195 ms): bytes.  There
+//   it takes about 0.07 ms against flash_wide_fwd_f32's 0.10 and SDPA's
+//   0.13; at Dh 192 and 256 flash_wide_fwd_f32 was faster (an item's 96 or
+//   128 KB of q leave one q buffer and a ring shorter than a key tile's k
+//   and v; PERF.md), so wider heads run it.
+// * The wider forward's items are the 16-bit kernels': 64 query rows and a slab
 //   of at most 6 boxes of o (3 a consumer: 4, 128 registers of o beside 32
 //   of scores, made ptxas spill; so Dh 448 and 512 take two slab items,
 //   each computing the scores), the consumers splitting the head's boxes
@@ -399,8 +414,10 @@ struct FwdItem {
 // Work item i of the forward and of the dq pass: causal launches walk the
 // query tiles from the last (most key tiles) down; the others keep a head's
 // tiles side by side.  Streamed, a query tile has `slabs` items side by
-// side, one a slab of o (or dq).
-__device__ __forceinline__ FwdItem fwd_item(int i, const Params& p, int nqt, int slabs) {
+// side, one a slab of o (or dq).  A query tile is `rows` rows (the fp32
+// forward of a narrow head takes 128).
+__device__ __forceinline__ FwdItem fwd_item(int i, const Params& p, int nqt, int slabs,
+                                            int rows = TILE) {
   const int bhn = p.B * p.H;
   const int s = i % slabs;
   i /= slabs;
@@ -415,9 +432,9 @@ __device__ __forceinline__ FwdItem fwd_item(int i, const Params& p, int nqt, int
   FwdItem it;
   it.b = bh / p.H;
   it.h = bh % p.H;
-  it.q0 = qt * TILE;
+  it.q0 = qt * rows;
   it.nk = (p.Sk + TILE - 1) / TILE;
-  if (p.causal) it.nk = min(it.nk, (min(it.q0 + TILE, p.Sq) + TILE - 1) / TILE);
+  if (p.causal) it.nk = min(it.nk, (min(it.q0 + rows, p.Sq) + TILE - 1) / TILE);
   it.slab = slab_of(s, slabs, p.D / 64);
   return it;
 }
@@ -1681,6 +1698,195 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
   }
 }
 
+// The fp32 forward of a head of P <= 2 boxes
+// (flash_wide_fwd_f32_rows<P>): items of 128 query rows, consumer C owning
+// rows [64·C, 64·C + 64) of each over the whole head, so it reduces q·kᵀ
+// over all P boxes, runs its rows' softmax and accumulates all P boxes of
+// their o (32·P registers): no partial scores are swapped, no named barrier
+// is passed a tile, and the two consumers do equal work at every P.  The
+// item's q stays in shared memory (Q_BUFS buffers of 128 rows, consumer
+// C's P boxes at C·P); k and v stream through one ring of one-box slots
+// that both consumers read (a key tile's P k boxes, then its P v boxes;
+// each slot's empty barrier takes the arrivals of all eight consumer
+// warps), so each k and v box crosses into shared memory once an item.
+// Shared memory (the limit 232,448): two q buffers, so the next item's q
+// loads while this one's is read, and the slots that fit beside them, at
+// most 8: P = 1, 2 x 32 KB and 8 slots (of 16 KB), 197,792 bytes; P = 2,
+// 2 x 64 KB and 6 slots, 230,528.
+constexpr int F_ROWS = 2 * TILE;  // query rows of an item
+
+template <int P>
+struct FRows {
+  static constexpr int Q_BYTES = 2 * P * F_BOX;  // an item's 128 rows of q
+  static constexpr int Q_BUFS = 2;
+  static constexpr int ROOM =
+      (SMEM_LIMIT - Q_BUFS * Q_BYTES - 1024 - 8 * (2 * Q_BUFS + 16)) / F_BOX;
+  static constexpr int SLOTS = ROOM < 8 ? ROOM : 8;
+  static constexpr int RING = Q_BUFS * Q_BYTES;         // offset of the ring's slots
+  static constexpr int BARS = RING + SLOTS * F_BOX;     // offset of the barriers
+  static constexpr int SMEM = BARS + 8 * (2 * Q_BUFS + 2 * SLOTS) + 1024;
+  // q buffer b full (the producer's loads landed) and empty (every consumer
+  // warp is past its last reduction of the item); ring slot s full and empty
+  __device__ static uint32_t q_full(uint32_t bars, int b) { return bars + 8 * b; }
+  __device__ static uint32_t q_empty(uint32_t bars, int b) { return bars + 8 * (Q_BUFS + b); }
+  __device__ static uint32_t full(uint32_t bars, int s) { return bars + 8 * (2 * Q_BUFS + s); }
+  __device__ static uint32_t empty(uint32_t bars, int s) {
+    return bars + 8 * (2 * Q_BUFS + SLOTS + s);
+  }
+};
+static_assert(FRows<1>::SLOTS == 8 && FRows<1>::SMEM == 197792 && FRows<2>::SLOTS == 6 &&
+                  FRows<2>::SMEM == 230528,
+              "the sizes stated beside FRows");
+
+// Work items of flash_wide_fwd_f32_rows: 128-row query tiles of each
+// (batch, head).
+__device__ __forceinline__ int rows_tiles(const Params& p) { return (p.Sq + F_ROWS - 1) / F_ROWS; }
+
+template <int P, int C>
+__device__ __forceinline__ void fwd_rows_consumer(const Params& p, uint32_t base, int tid) {
+  using L = FRows<P>;
+  const uint32_t bars = base + L::BARS;
+  const int lane = tid % 32, t = lane & 3;
+  const int rl = TILE * C + 16 * (tid / 32) + lane / 4;  // this thread's rows of an item: rl, rl + 8
+  const float sl2 = p.scale * LOG2E;
+  Ring<L::Q_BUFS> qr;
+  Ring<L::SLOTS> kv;
+  for (int i = blockIdx.x; i < p.B * p.H * rows_tiles(p); i += gridDim.x, ++qr.n) {
+    const FwdItem it = fwd_item(i, p, rows_tiles(p), 1, F_ROWS);
+    const int r0 = it.q0 + TILE * C;  // its first row
+    // the key tiles its own rows see: none past Sq
+    const int nk = r0 >= p.Sq  ? 0
+                   : p.causal ? min(it.nk, (min(r0 + TILE, p.Sq) + TILE - 1) / TILE)
+                              : it.nk;
+    const uint32_t sq = base + qr.slot() * L::Q_BYTES + C * P * F_BOX;  // its q boxes
+    float o[32 * P];
+#pragma unroll
+    for (int e = 0; e < 32 * P; ++e) o[e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};  // running row max, log2 units
+    float l[2] = {0.f, 0.f};
+    mbar_wait(L::q_full(bars, qr.slot()), qr.parity());
+    if (it.nk == 0) release(L::q_empty(bars, qr.slot()), lane);
+    for (int j = 0; j < it.nk; ++j) {
+      const bool live = j < nk;  // a tile past its rows' last visible key is only passed through
+      float sc[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+      // not unrolled: the body with P copies of reduce_box ran P = 2 a
+      // sixth slower (PERF.md)
+#pragma unroll 1
+      for (int x = 0; x < P; ++x) {
+        mbar_wait(L::full(bars, kv.slot()), kv.parity());
+        if (live) reduce_box(sc, sq + x * F_BOX, base + L::RING + kv.slot() * F_BOX);
+        release(L::empty(bars, kv.slot()), lane);
+        ++kv.n;
+      }
+      if (j == it.nk - 1) release(L::q_empty(bars, qr.slot()), lane);  // q is no longer read
+      if (live) {
+        float corr[2];
+        softmax64(sc, m, l, corr, j * TILE, it.q0 + rl, r0, p, sl2, t);
+#pragma unroll
+        for (int n = 0; n < 8 * P; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[4 * n + e] *= corr[e >> 1];
+      }
+#pragma unroll
+      for (int x = 0; x < P; ++x) {
+        mbar_wait(L::full(bars, kv.slot()), kv.parity());
+        if (live)
+          product_box<8>(*reinterpret_cast<float(*)[32]>(o + 32 * x), sc,
+                         base + L::RING + kv.slot() * F_BOX);
+        release(L::empty(bars, kv.slot()), lane);
+        ++kv.n;
+      }
+    }
+    // o / l straight from the registers, rows past Sq not written
+    float* const out = static_cast<float*>(p.out) + it.b * p.st[OUT][0] + it.h * p.st[OUT][1];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float lsum = l[r] == 0.f ? 1.f : l[r];
+      const float inv = 1.f / lsum;
+      const int row = it.q0 + rl + 8 * r;
+      if (row >= p.Sq) continue;
+#pragma unroll
+      for (int x = 0; x < P; ++x)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          *reinterpret_cast<float2*>(out + row * p.st[OUT][2] + x * 64 + 8 * n + 2 * t) =
+              make_float2(o[32 * x + 4 * n + 2 * r] * inv, o[32 * x + 4 * n + 2 * r + 1] * inv);
+      if (p.lse != nullptr && t == 0)
+        p.lse[(long long)(it.b * p.H + it.h) * p.Sq + row] =
+            (m[r] == -INFINITY ? 0.f : m[r] * 0.6931471805599453f) + logf(lsum);
+    }
+  }
+}
+
+// Its producer thread: an item's q (the 64-row halves that hold a row
+// before Sq) into the next q buffer, then for each key tile the P k boxes
+// and the P v boxes into the ring, a box a slot.
+template <int P>
+__device__ __forceinline__ void fwd_rows_producer(const CUtensorMap* tq, const CUtensorMap* tk,
+                                                  const CUtensorMap* tv, const Params& p,
+                                                  uint32_t base) {
+  using L = FRows<P>;
+  const uint32_t bars = base + L::BARS;
+  Ring<L::Q_BUFS> qr;
+  Ring<L::SLOTS> kv;
+  for (int i = blockIdx.x; i < p.B * p.H * rows_tiles(p); i += gridDim.x, ++qr.n) {
+    const FwdItem it = fwd_item(i, p, rows_tiles(p), 1, F_ROWS);
+    const int halves = it.q0 + TILE < p.Sq ? 2 : 1;
+    const int b = qr.slot();
+    mbar_wait(L::q_empty(bars, b), qr.parity() ^ 1u);
+    mbar_expect_tx(L::q_full(bars, b), halves * P * F_BOX);
+    for (int c = 0; c < halves; ++c)
+      for (int x = 0; x < P; ++x)
+        load_box(base + b * L::Q_BYTES + (c * P + x) * F_BOX, tq, L::q_full(bars, b), x * 64,
+                 it.q0 + c * TILE, coord(p, Q, it.b, it.h));
+    for (int j = 0; j < it.nk; ++j)
+      for (int w = 0; w < 2; ++w)
+        for (int x = 0; x < P; ++x, ++kv.n) {
+          const int s = kv.slot();
+          mbar_wait(L::empty(bars, s), kv.parity() ^ 1u);
+          mbar_expect_tx(L::full(bars, s), F_BOX);
+          load_box(base + L::RING + s * F_BOX, w ? tv : tk, L::full(bars, s), x * 64, j * TILE,
+                   coord(p, w ? V : K, it.b, it.h));
+        }
+  }
+}
+
+template <int P>
+__global__ void __launch_bounds__(TMA_THREADS, 1)
+    flash_wide_fwd_f32_rows(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv, Params p) {
+  using L = FRows<P>;
+  extern __shared__ unsigned char smem_fr[];
+  const uint32_t base = (smem_addr(smem_fr) + 1023u) & ~1023u;
+  if (threadIdx.x == 0) {
+    const uint32_t bars = base + L::BARS;
+    for (int b = 0; b < L::Q_BUFS; ++b) {
+      mbar_init(L::q_full(bars, b), 1);
+      mbar_init(L::q_empty(bars, b), 8);  // each of the two consumers' four warps
+    }
+    for (int s = 0; s < L::SLOTS; ++s) {
+      mbar_init(L::full(bars, s), 1);
+      mbar_init(L::empty(bars, s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(F_PRODUCER_REGS));
+    if (threadIdx.x == 256) fwd_rows_producer<P>(&tq, &tk, &tv, p, base);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(F_CONSUMER_REGS));
+    if (wg == 0)
+      fwd_rows_consumer<P, 0>(p, base, threadIdx.x % 128);
+    else
+      fwd_rows_consumer<P, 1>(p, base, threadIdx.x % 128);
+  }
+}
+
 // Consumer warpgroup W of the fp32 dq pass, over all 64 rows of each item
 // (the forward's items, 64 query rows and a slab of dq, with slabs of at
 // most MAXB boxes):
@@ -2176,7 +2382,19 @@ bool map_f32(CUtensorMap* map, const Params& p, int which, const void* ptr, int 
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The fp32 forward (split TF32).  With Sk = 0 no k or v box is ever loaded.
+// flash_wide_fwd_f32_rows<P>: an item a 128-row query tile.
+template <int P>
+cudaError_t run_fwd_rows(const Params& p, cudaStream_t stream, const CUtensorMap& tq,
+                         const CUtensorMap& tk, const CUtensorMap& tv) {
+  static Capacity cache;
+  const long long items = (long long)p.B * p.H * ((p.Sq + F_ROWS - 1) / F_ROWS);
+  return launch_persistent(cache, flash_wide_fwd_f32_rows<P>, FRows<P>::SMEM, items, stream, p,
+                           tq, tk, tv);
+}
+
+// The fp32 forward (split TF32): a head of at most 2 boxes on
+// 128-row items, a wider one on flash_wide_fwd_f32's 64-row slab items.
+// With Sk = 0 no k or v box is ever loaded.
 cudaError_t run_fwd_f32(const Params& p, cudaStream_t stream) {
   const cudaError_t bound = bind_context();
   if (bound != cudaSuccess) return bound;
@@ -2189,6 +2407,8 @@ cudaError_t run_fwd_f32(const Params& p, cudaStream_t stream) {
     tv = tq;
   }
   if (!ok) return cudaErrorInvalidValue;
+  if (p.D == 64) return run_fwd_rows<1>(p, stream, tq, tk, tv);
+  if (p.D == 128) return run_fwd_rows<2>(p, stream, tq, tk, tv);
   static Capacity cache;
   const long long items =
       (long long)f32_slabs(p.D / 64, F_FWD_SLAB) * p.B * p.H * ((p.Sq + TILE - 1) / TILE);
@@ -2293,8 +2513,9 @@ void read_strides(Params& p, const long long* strides, int n) {
 }  // namespace
 
 // dtype: 0 float32, 1 float16, 2 bfloat16.  D: the (padded) head dim, a
-// multiple of 64 (above 256: the wrapper sends narrower heads to
-// flash_fwd.cu).  strides: 12 element
+// multiple of 64: the wrapper sends a 16-bit head here above 256 (narrower
+// ones to flash_fwd.cu) and an fp32 one at every width (up to 128 columns
+// flash_wide_fwd_f32_rows, above flash_wide_fwd_f32).  strides: 12 element
 // strides, (batch, head, sequence) of q, k, v and o.  lse: [B*H, Sq] fp32 or
 // null.  Nothing is launched for Sq = 0.  Returns the cudaError_t of the
 // launch (0 on success); never synchronises.

@@ -168,10 +168,12 @@ def test_cpu_path_launches_nothing():
 
 
 # Head dims the kernels have no instance for: the wrapper zero-pads q, k
-# and v to the next one (8 -> 16, 48 -> 64, 80 and 96 -> 128, 160 and 200
-# -> 256) and passes the scale of the true head dim; zero columns add
-# nothing to q·kᵀ, so the sliced o is the same function.  256, the widest
-# instance, runs as it is.
+# and v to the next one and passes the scale of the true head dim; zero
+# columns add nothing to q·kᵀ, so the sliced o is the same function.  In
+# bf16 and fp16 that is the next 16-bit instance (8 -> 16, 48 -> 64, 80 and
+# 96 -> 128, 160 and 200 -> 256; 256, the widest, runs as it is); in fp32,
+# which runs on flash_wide.cu at every width, the next multiple of 64 (8 and
+# 48 -> 64, 80 and 96 -> 128, 160 -> 192, 200 and 256 -> 256).
 PAD_DIMS = (8, 48, 80, 96, 160, 200, 256)
 
 
@@ -181,12 +183,15 @@ def test_padded_head_dim_matches_jax_reference(d, causal):
     arrs = _qkv(10, 2, 2, 40, 56, d)
     ref = jatt.attention_reference(*map(jnp.asarray, arrs), causal=causal)
     q, k, v = _port(arrs)
-    width = tatt._kernel_width("flash_fwd", q, k, v)
-    assert width in tatt._HEAD_DIMS and width >= d and (width == 16 or width // 2 < d)
-    qp, kp, vp = tatt._kernel_operands(width, False, q, k, v)
-    assert qp.shape[-1] == width and torch.equal(qp[..., d:], torch.zeros_like(qp[..., d:]))
-    o, _ = tatt.flash_fwd_plain(qp, kp, vp, causal, 1.0 / np.sqrt(d))
-    np.testing.assert_allclose(_np(o[..., :d]), _np(ref), rtol=FP32_TOL, atol=FP32_TOL)
+    half = tatt._kernel_width("flash_fwd", *(x.bfloat16() for x in (q, k, v)))
+    assert half in tatt._HEAD_DIMS and half >= d and (half == 16 or half // 2 < d)
+    wide = tatt._kernel_width("flash_fwd", q, k, v)
+    assert wide % 64 == 0 and wide - 64 < d <= wide
+    for width in (half, wide):
+        qp, kp, vp = tatt._kernel_operands(width, False, q, k, v)
+        assert qp.shape[-1] == width and torch.equal(qp[..., d:], torch.zeros_like(qp[..., d:]))
+        o, _ = tatt.flash_fwd_plain(qp, kp, vp, causal, 1.0 / np.sqrt(d))
+        np.testing.assert_allclose(_np(o[..., :d]), _np(ref), rtol=FP32_TOL, atol=FP32_TOL)
 
 
 def test_head_dim_above_128_is_refused():
@@ -230,14 +235,17 @@ def test_wide_head_dim_matches_jax_reference(d, causal):
 
 @pytest.mark.parametrize("d", [129, 160, 192, 200, 255, 256, 257, 512])
 def test_kernel_width_up_to_256(d):
-    """Dh 129-256 runs the 256 instance; above it, flash_wide.cu at the
-    next multiple of 64 (257 -> 320, 512 -> 512), where the wrappers used to
-    refuse."""
-    q = torch.zeros(1, 1, 4, d)
+    """In 16 bits Dh 129-256 runs the 256 instance; above it, flash_wide.cu
+    at the next multiple of 64 (257 -> 320, 512 -> 512), where the wrappers
+    used to refuse.  fp32 runs flash_wide.cu at every width: the next
+    multiple of 64 (160 -> 192)."""
+    q = torch.zeros(1, 1, 4, d, dtype=torch.bfloat16)
     if d > 256:
         assert tatt._kernel_width("flash_bwd", q, q, q) == -(-d // 64) * 64
     else:
         assert tatt._kernel_width("flash_bwd", q, q, q) == 256
+    q = q.float()
+    assert tatt._kernel_width("flash_fwd", q, q, q) == -(-d // 64) * 64
 
 
 @pytest.mark.parametrize("width,launches", [(16, 1), (32, 1), (64, 1), (128, 1), (256, 2)])
@@ -251,10 +259,10 @@ def test_launches_per_pass(width, launches):
     (256, torch.bfloat16, 2), (64, torch.float32, 1), (192, torch.float32, 1),
     (256, torch.float32, 1), (512, torch.float32, 1)])
 def test_backward_launches_per_pass_by_dtype(width, dtype, launches):
-    """A backward pass (given its dtype) in fp32 runs on flash_wide.cu at
-    every width, one launch a pass (its slabs are blocks of that launch);
-    a 16-bit one up to 256 keeps flash_bwd.cu's launch a slab, as the
-    forward (no dtype) does in every dtype."""
+    """A pass in fp32 runs on flash_wide.cu at every width, one launch a
+    pass (its slabs are blocks of that launch); a 16-bit one up to 256
+    keeps flash_bwd.cu's launch a slab, which is also the count given no
+    dtype."""
     assert tatt._launches(width, dtype) == launches
     assert tatt._launches(width) == (2 if width == 256 else 1)
 
@@ -329,7 +337,7 @@ def test_fp32_backward_routes_to_flash_wide(d, dtype, monkeypatch):
             for name in ("flash_bwd", "flash_wide")}
     monkeypatch.setattr(tatt._cuda, "load", lambda name: libs[name])
     q = torch.zeros(1, 2, 8, d, dtype=dtype)
-    width = tatt._kernel_width("flash_bwd", q, q, q, bwd=True)
+    width = tatt._kernel_width("flash_bwd", q, q, q)
     fn = tatt._bwd_entry(width, dtype)
     if dtype == torch.float32 or d > 256:
         assert width == -(-d // 64) * 64
@@ -338,13 +346,57 @@ def test_fp32_backward_routes_to_flash_wide(d, dtype, monkeypatch):
         assert width == tatt._kernel_width("flash_fwd", q, q, q)
         assert width in tatt._HEAD_DIMS and fn.name == "mx_flash_bwd" and len(fn.argtypes) == 19
     tatt._check_cuda_operands("flash_bwd", *tatt._kernel_operands(width, False, q, q, q),
-                              False, bwd=True)
+                              False)
     rep = q[:, :, :1].expand(q.shape)
-    (got,) = tatt._kernel_operands(width, False, rep, bwd=True)
+    (got,) = tatt._kernel_operands(width, False, rep)
     assert got.is_contiguous() and torch.equal(got[..., :d], rep)
     want = ((tatt.flash_wide_bwd_dq, tatt.flash_wide_bwd_dkv) if d > 256
             else (tatt.flash_bwd_dq, tatt.flash_bwd_dkv))
     assert tatt._bwd_counters(d) == want
+
+
+@pytest.mark.parametrize("d", (16, 32, 48, 64, 80, 128, 160, 192, 256, 320))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_fp32_forward_routes_to_flash_wide(d, dtype, monkeypatch):
+    """Every fp32 forward, at every head dim, goes to flash_wide.cu's entry
+    (``mx_flash_wide_fwd``, whose split-TF32 kernels read by TMA) at the
+    head dim padded to a multiple of 64, its operands with no repeated
+    rows; a 16-bit forward up to 256 keeps flash_fwd.cu's entry and
+    instance.  The launches count on the wrapper of the caller's head dim
+    (``flash_fwd`` up to 256, ``flash_wide_fwd`` above): one in fp32 at
+    every width, two in 16 bits at 129-256.  Pure Python: the library is a
+    stand-in."""
+    libs = {name: type("Lib", (), {"mx_flash_fwd": _FakeEntry("mx_flash_fwd"),
+                                   "mx_flash_wide_fwd": _FakeEntry("mx_flash_wide_fwd")})()
+            for name in ("flash_fwd", "flash_wide")}
+    monkeypatch.setattr(tatt._cuda, "load", lambda name: libs[name])
+    q = torch.zeros(1, 2, 8, d, dtype=dtype)
+    width = tatt._kernel_width("flash_fwd", q, q, q)
+    fn = tatt._entry(width, dtype)
+    assert len(fn.argtypes) == 15
+    if dtype == torch.float32 or d > 256:
+        assert width == -(-d // 64) * 64 and fn.name == "mx_flash_wide_fwd"
+        assert tatt._launches(width, dtype) == 1
+    else:
+        assert width == next(w for w in tatt._HEAD_DIMS if w >= d) and fn.name == "mx_flash_fwd"
+        assert tatt._launches(width, dtype) == (2 if width > 128 else 1)
+    tatt._check_cuda_operands("flash_fwd", *tatt._kernel_operands(width, False, q, q, q), False)
+    rep = torch.randn(1, 2, 1, d).to(dtype).expand(q.shape)
+    (got,) = tatt._kernel_operands(width, False, rep)
+    assert got.is_contiguous() and torch.equal(got[..., :d], rep)
+    assert tatt._fwd_counter(d) is (tatt.flash_wide_fwd if d > 256 else tatt.flash_fwd)
+
+
+@pytest.mark.parametrize("width", [16, 64, 128, 256, 320, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_forward_launches_by_dtype(width, dtype):
+    """Launches of one forward call at the instance ``width``: in fp32 one
+    at every width (flash_wide.cu, whose slabs are blocks of one launch);
+    in 16 bits two at 129-256 (flash_fwd.cu's launch a 128-column slab),
+    else one; with no dtype, the 16-bit count."""
+    want = 1 if dtype == torch.float32 or not 128 < width <= 256 else 2
+    assert tatt._launches(width, dtype) == want
+    assert tatt._launches(width) == (2 if 128 < width <= 256 else 1)
 
 
 def _tf32(x, mode):
@@ -369,12 +421,11 @@ def _tf32_matmul(a, b, mode, split):
     return (ah @ bl + al @ bh) + ah @ bh
 
 
-def _emulated_attention(q, k, v, do, o_ref, mm):
+def _emulated_attention(q, k, v, do, o_ref, mm, scale):
     """o, lse, dq, dk and dv with every product of flash_wide.cu's fp32
     kernels through ``mm``: the forward's q·kᵀ and p·v, the dq pass's q·kᵀ,
     do·vᵀ and ds·k, the dk/dv pass's k·qᵀ, v·doᵀ, pᵀ·do and dsᵀ·q; the
     softmax, exponentials and rowsums (delta) in fp32."""
-    scale = 1.0 / np.sqrt(q.shape[-1])
     s = mm(q, k.transpose(-1, -2)) * scale
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
@@ -391,16 +442,17 @@ def _emulated_attention(q, k, v, do, o_ref, mm):
             mm(pt, do))
 
 
-@pytest.mark.parametrize("d", [512, 320, 128, 64])
+@pytest.mark.parametrize("d", [512, 320, 256, 128, 64, 48, 16])
 @pytest.mark.parametrize("mode", ["nearest", "truncate"])
 def test_split_tf32_keeps_the_fp32_bounds(d, mode):
     """The arithmetic of flash_wide.cu's fp32 kernels: with every product in
     split TF32, o and lse stay within chip_smoke.py's FP32_FWD_BOUND and
     LSE_BOUND of the fp32 plain version and dq, dk, dv within FP32_BWD_REL
     of their largest value, whether the card rounds or truncates to TF32;
-    one TF32 product does not.  At Dh 64 and 128 the fp32 backward runs
-    these kernels too (padded to a multiple of 64), so the narrow widths
-    are held to the same bounds."""
+    one TF32 product does not.  Every fp32 forward and backward runs these
+    kernels, at every head dim, on operands zero-padded to a multiple of 64
+    with the true head dim's scale (16 and 48 to 64), so the narrow and
+    padded widths are held to the same bounds."""
     import chip_smoke
 
     rng = np.random.RandomState(11)
@@ -408,10 +460,13 @@ def test_split_tf32_keeps_the_fp32_bounds(d, mode):
                    for _ in range(4))
     o_ref, lse_ref = tatt.flash_fwd_plain(q, k, v, with_lse=True)
     grads_ref = tatt.flash_bwd_plain(q, k, v, o_ref, do, lse_ref)
+    width = -(-d // 64) * 64
+    padded = tatt._kernel_operands(width, False, q, k, v, do, o_ref)
 
     def within(split):
         o, lse, *grads = _emulated_attention(
-            q, k, v, do, o_ref, lambda a, b: _tf32_matmul(a, b, mode, split))
+            *padded, lambda a, b: _tf32_matmul(a, b, mode, split), 1.0 / np.sqrt(d))
+        o, grads = o[..., :d], [g[..., :d] for g in grads]
         return [(o - o_ref).abs().max().item() <= chip_smoke.FP32_FWD_BOUND,
                 (lse - lse_ref).abs().max().item() <= chip_smoke.LSE_BOUND,
                 *((g - r).abs().max().item() <= chip_smoke.FP32_BWD_REL * r.abs().max().item()
@@ -437,12 +492,12 @@ def test_wide_16bit_head_above_512_is_taken(d, dtype):
 
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
 def test_sequence_stride0_operand_becomes_contiguous(layout):
-    """TMA reads rows in boxes: a 16-bit operand repeating one row along
-    its sequence is handed to the kernels contiguous, with the same
-    values; strides of 0 over batch or heads stay as they are (the tensor
-    maps read them at coordinate 0).  An fp32 operand of the forward up to
-    256 (flash_fwd.cu's CUDA-core kernel) is not copied; one of the
-    backward, which runs flash_wide.cu's TMA-fed kernels, is."""
+    """TMA reads rows in boxes: an operand repeating one row along its
+    sequence is handed to the kernels contiguous, with the same values;
+    strides of 0 over batch or heads stay as they are (the tensor maps read
+    them at coordinate 0).  Every kernel reads by TMA, fp32 ones too
+    (flash_wide.cu at every width, forward and backward), so an fp32
+    operand is copied as a 16-bit one is."""
     bshd = layout == "bshd"
     row = torch.randn(2, 1, 3, 16) if bshd else torch.randn(2, 3, 1, 16)
     shape = (2, 40, 3, 16) if bshd else (2, 3, 40, 16)
@@ -453,9 +508,7 @@ def test_sequence_stride0_operand_becomes_contiguous(layout):
     assert tatt._rows_readable(heads, False) is heads
     (q,) = tatt._kernel_operands(16, bshd, rep)
     assert q.is_contiguous() and torch.equal(q, rep)
-    (q32,) = tatt._kernel_operands(16, bshd, row.expand(shape))
-    assert q32.stride(1 if bshd else 2) == 0
-    (q32,) = tatt._kernel_operands(64, bshd, row.expand(shape), bwd=True)
+    (q32,) = tatt._kernel_operands(64, bshd, row.expand(shape))
     assert q32.is_contiguous() and torch.equal(q32[..., :16], row.expand(shape))
     o, _ = tatt.flash_fwd_plain(*(x.float() for x in (rep, rep, rep)))
     o_ref, _ = tatt.flash_fwd_plain(*(x.float() for x in (got, got, got)))
@@ -464,11 +517,10 @@ def test_sequence_stride0_operand_becomes_contiguous(layout):
 
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
 def test_wide_fp32_operand_with_repeated_rows_becomes_contiguous(layout):
-    """Above Dh 256 the fp32 kernels read rows by TMA too: an fp32 operand
-    repeating one row along its sequence goes to them contiguous, with the
-    same values; at a narrow width the fp32 forward (flash_fwd.cu) reads it
-    as it is, and the fp32 backward (flash_wide.cu at every width) takes it
-    contiguous."""
+    """The fp32 kernels read rows by TMA: an fp32 operand repeating one row
+    along its sequence goes to them contiguous, with the same values, above
+    Dh 256 and at a narrow width alike (flash_wide.cu runs every fp32 pass,
+    forward and backward)."""
     bshd = layout == "bshd"
     row = torch.randn(1, 1, 2, 320) if bshd else torch.randn(1, 2, 1, 320)
     rep = row.expand((1, 30, 2, 320) if bshd else (1, 2, 30, 320))
@@ -477,8 +529,6 @@ def test_wide_fp32_operand_with_repeated_rows_becomes_contiguous(layout):
     (q,) = tatt._kernel_operands(512, bshd, rep)
     assert q.is_contiguous() and q.shape[-1] == 512 and torch.equal(q[..., :320], rep)
     (narrow,) = tatt._kernel_operands(64, bshd, rep[..., :64])
-    assert narrow.stride(1 if bshd else 2) == 0
-    (narrow,) = tatt._kernel_operands(64, bshd, rep[..., :64], bwd=True)
     assert narrow.is_contiguous() and torch.equal(narrow, rep[..., :64])
 
 
@@ -646,6 +696,41 @@ def test_kernel_refuses_head_dim_above_128_on_card(cuda_device, name, b, h, sq, 
     bound = 2e-5 if dtype == torch.float32 else _ulps(o_ref, dtype)
     assert o.shape == q.shape
     assert (t(o).float() - o_ref.float()).abs().max().item() <= bound
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
+# name, B, H, Sq, Sk, Dh, causal, layout: fp32 forwards on flash_wide.cu's
+# split-TF32 kernels at narrow heads (flash_wide_fwd_f32_rows at 1 and 2
+# column boxes; Dh 192 on flash_wide_fwd_f32), ragged S, causal with Sk < Sq,
+# the QKV view and padded heads.
+FP32_CARD_CASES = [
+    ("fp32_qkv_s200_causal", 2, 4, 200, 200, 64, True, "qkv"),
+    ("fp32_dh32", 2, 4, 128, 128, 32, False, "bhsd"),
+    ("fp32_dh80_causal", 2, 4, 200, 200, 80, True, "bhsd"),
+    ("fp32_dh128_sq77_sk200", 2, 4, 77, 200, 128, False, "bhsd"),
+    ("fp32_dh192_causal", 2, 2, 200, 200, 192, True, "bhsd"),
+    ("fp32_causal_sq130_sk65", 2, 4, 130, 65, 64, True, "bhsd"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,b,h,sq,sk,d,causal,layout", FP32_CARD_CASES,
+                         ids=[c[0] for c in FP32_CARD_CASES])
+def test_fp32_forward_matches_plain_on_card(cuda_device, name, b, h, sq, sk, d, causal, layout):
+    """The fp32 forward at heads up to 256 runs flash_wide.cu's split-TF32
+    kernels: o within chip_smoke.py's 2e-5 of the plain version, lse
+    within 1e-4, one launch counted on flash_fwd (the caller's head dim)
+    and none on flash_wide_fwd, two runs bit-identical."""
+    q, k, v, layout = _card_inputs(cuda_device, b, h, sq, sk, d, torch.float32, layout)
+    before = (tatt.flash_fwd.launches, tatt.flash_wide_fwd.launches)
+    o, lse = tatt.flash_fwd(q, k, v, causal=causal, with_lse=True, layout=layout)
+    assert (tatt.flash_fwd.launches, tatt.flash_wide_fwd.launches) == (before[0] + 1, before[1])
+    again = tatt.flash_fwd(q, k, v, causal=causal, with_lse=True, layout=layout)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    t = (lambda a: a.transpose(1, 2)) if layout == "bshd" else (lambda a: a)
+    o_ref, lse_ref = tatt.flash_fwd_plain(t(q), t(k), t(v), causal, with_lse=True)
+    assert o.shape == q.shape
+    assert (t(o) - o_ref).abs().max().item() <= 2e-5
     assert (lse - lse_ref).abs().max().item() <= 1e-4
 
 
