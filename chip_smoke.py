@@ -49,6 +49,27 @@ Phases, each printing JSON lines; no phase's failure is caught:
    its gradients against the same CPU ones and beside the built-in GELU's,
    then steps with the launches counted around exactly one (12 gelu_fwd,
    12 gelu_bwd);
+5b. nd_surface: the ``mx.nd`` surface on BERT-base: the slice phase's net
+   saved with ``save_parameters`` as ``.params`` and ``.npz`` (sizes and
+   seconds printed), each file loaded into a fresh ``BERTForPretrain`` with
+   ``load_parameters(..., ctx=mx.gpu())`` and cast to bf16, its NDArray
+   answers to the slice phase's three requests (inputs from
+   ``mx.nd.array(..., ctx=mx.gpu(), dtype="int32")``, read with
+   ``asnumpy`` after ``mx.nd.waitall``) bit-equal to the saved net's, 12
+   flash_fwd launches around one request; two fresh dropout-free copies
+   with the same weights, two steps each in deterministic mode, copy A on
+   tensors (``train_step``), copy B in the MXNet idiom (NDArray inputs,
+   the loss on NDArrays, ``loss.backward()``, ``trainer.step``):
+   parameters, Adam states and losses bit-equal, 12/12/12/1 launches of
+   flash_fwd/flash_bwd_dq/flash_bwd_dkv/multi_tensor (mp_adam over 159
+   tensors, none left to the loop) around one NDArray step, then both eager
+   steps timed in turns (tensor, NDArray, NDArray, tensor; reported, not
+   gated); every op case of ``tests/nd_op_cases.py`` once on card NDArrays,
+   an NDArray on the card of the CPU result's shape and dtype, held to it
+   exactly, within 8 ulps (arithmetic) or 4·n ulps (reductions) of the
+   case's largest |value|, and 10^6 draws of every sampler from the card's
+   generator to its distribution's mean and variance within 5 standard
+   errors; one line per source file; the nets freed;
 6. resnet_train: ResNet-50 v1 training steps as bench.py's bench_resnet50
    takes them (B=256, 224x224 synthetic images, AMP bf16 with fp32
    parameters, SGD lr 0.1 momentum 0.9 wd 1e-4, the streaming softmax
@@ -95,7 +116,7 @@ Phases, each printing JSON lines; no phase's failure is caught:
 
 The last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed on a CUDA card.  The rehearsal runs the slice, train, rtc_train,
-ResNet, fold and timing phases on the CPU at a tiny size, with the kernels' plain
+nd_surface, ResNet, fold and timing phases on the CPU at a tiny size, with the kernels' plain
 versions, and never prints it.  ``--inference-turns`` times only the
 BERT-base inference forward of two checkouts, each turn a fresh process
 (A, B, B, A per round), and never prints it either.
@@ -217,6 +238,10 @@ FP32_SLICE_REL_BOUND = 1e-3
 GRAD_REL_BOUND = 0.15
 
 BERT_BASE = dict(vocab_size=30522, max_length=512, dropout=0.1)
+# nd_surface: eager steps a timed turn, and the samplers' moments are held to
+# the distribution's mean and variance within this many standard errors.
+ND_TIMED_STEPS = 5
+ND_MOMENT_SE = 5.0
 TINY_BERT = dict(vocab_size=128, units=32, hidden_size=64, num_layers=2, num_heads=2,
                  max_length=64, dropout=0.1)
 # BatchNorm kernels against their plain versions.  bn_stats: both sides sum
@@ -1598,6 +1623,287 @@ def phase_rtc_train(net, trainer, train_batch, vs_cpu, rehearsal):
     if not (finite and falling and fused_ok) or counts != want or plain_calls != want_plain:
         sys.exit(1)
     return counts
+
+
+# -- phase 5b ---------------------------------------------------------------
+
+
+def _nd_cases():
+    """The op table of ``tests/nd_op_cases.py`` (numpy only)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import nd_op_cases
+
+    return nd_op_cases
+
+
+def _fresh_bert(cfg):
+    """An uninitialized BERTForPretrain of ``cfg``'s configuration."""
+    base = bert_zoo.BERTModel(**cfg) if "units" in cfg else bert_zoo.bert_base(**cfg)
+    return bert_zoo.BERTForPretrain(base, vocab_size=cfg["vocab_size"])
+
+
+def _nd_request(req, ctx):
+    """A request's token ids, types and positions as a user makes them:
+    host arrays through ``mx.nd.array(..., ctx=, dtype="int32")``."""
+    return [mx.nd.array(x.cpu().numpy(), ctx=ctx, dtype="int32") for x in req]
+
+
+def _nd_save_load(net, cfg, ctx, rehearsal):
+    """The slice phase's net saved with ``save_parameters`` (``.params`` and
+    ``.npz``), loaded into a fresh net on the card and cast to bf16; its
+    NDArray answers to the slice phase's three requests bit-equal to the
+    saved net's tensors, and 12 flash_fwd launches around one request."""
+    device = ctx.device
+    num_layers = cfg.get("num_layers", 12)
+    batches = [(4, 16, 3)] * 3 if rehearsal else [(64, 128, 20)] * 3
+    reqs = _requests(batches, cfg["vocab_size"], torch.Generator(device=device).manual_seed(7),
+                     device)
+    with mx.autograd.predict_mode():
+        want = [[o.float().cpu().numpy() for o in net(*req)] for req in reqs]
+    nd_reqs = [_nd_request(req, ctx) for req in reqs]
+    out_dir = Path(__file__).resolve().parent / "build" / "nd_surface"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    ok = True
+    for ext in ("params", "npz"):
+        path = out_dir / f"bert.{ext}"
+        t0 = time.perf_counter()
+        net.save_parameters(str(path))
+        write_s = time.perf_counter() - t0
+        fresh = _fresh_bert(cfg)
+        sync()
+        t0 = time.perf_counter()
+        fresh.load_parameters(str(path), ctx=ctx)
+        fresh.cast("bfloat16")
+        sync()
+        load_s = time.perf_counter() - t0
+        equal, outputs_nd = True, True
+        with mx.autograd.predict_mode():
+            for req, ref in zip(nd_reqs, want):
+                outs = fresh(*req)
+                mx.nd.waitall()
+                outputs_nd &= all(isinstance(o, mx.nd.NDArray) and o.context == ctx for o in outs)
+                equal &= all(o.shape == r.shape and (o.asnumpy() == r).all()
+                             for o, r in zip(outs, ref))
+            reset_kernel_counts()
+            fresh(*nd_reqs[0])
+            mx.nd.waitall()
+        launches = kernel_counts()["flash_fwd"]
+        want_launches = 0 if rehearsal else num_layers
+        case_ok = equal and outputs_nd and launches == want_launches
+        emit("nd_surface", part="save_load", file=path.name, bytes=path.stat().st_size,
+             write_s=write_s, load_and_cast_s=load_s, requests=len(reqs),
+             logits_bit_equal=equal, outputs_ndarray_on_ctx=outputs_nd,
+             flash_fwd_one_request=launches, expected_flash_fwd=want_launches, ok=case_ok)
+        ok &= case_ok
+        del fresh
+        path.unlink()
+    return ok
+
+
+def _nd_step(net, trainer, batch):
+    """One pretraining step as an MXNet user writes it: NDArrays in, the
+    loss on NDArrays, ``loss.backward()``, ``trainer.step``."""
+    ids, types, pos, labels = batch
+    with mx.autograd.record():
+        mlm, _ = net(ids, types, pos)
+        loss = mx.nd.invoke(streaming_softmax_ce, (mlm, labels), {}).mean(axis=-1)
+    loss.backward()
+    trainer.step(ids.shape[0])
+    return loss
+
+
+def _nd_training(cfg, ctx, rehearsal):
+    """Two dropout-free copies with the same weights: copy A takes two steps
+    on tensors (``train_step``), copy B two in the MXNet idiom on NDArrays;
+    parameters, Adam states and losses bit-equal (deterministic mode), the
+    kernels' launches counted around exactly one NDArray step.  Then the
+    eager step of each in turns (A, B, B, A)."""
+    device = ctx.device
+    num_layers = cfg.get("num_layers", 12)
+    b, s, p = (4, 16, 3) if rehearsal else (64, 128, 20)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    copy_cfg = dict(cfg, dropout=0.0)
+
+    def make():
+        net = _build_net(copy_cfg, ctx, "bfloat16")
+        return net, mx.gluon.Trainer(net.collect_params(), "adam",
+                                     {"learning_rate": 1e-4, "multi_precision": True})
+
+    batch = _train_batch(cfg, b, s, p, torch.Generator(device=device).manual_seed(11), device)
+    nd_batch = _nd_request(batch, ctx)
+    with _deterministic(True):
+        (net_a, tr_a), (net_b, tr_b) = make(), make()
+        with mx.autograd.predict_mode():  # materialize the deferred shapes
+            net_a(*batch[:3])
+            net_b(*batch[:3])
+        for pa, pb in zip(net_a.collect_params().values(), net_b.collect_params().values()):
+            pb.set_data(pa.data())
+        loss_a = [train_step(net_a, tr_a, batch).detach() for _ in range(2)]
+        loss_b = [_nd_step(net_b, tr_b, nd_batch)._data.detach()]
+        reset_kernel_counts()
+        before = fused_counts()
+        loss_b.append(_nd_step(net_b, tr_b, nd_batch)._data.detach())
+        sync()
+        counts = kernel_counts()
+        fused_ok = _optimizer_check("nd_surface", net_b, before, "mp_adam", rehearsal)
+    params = [[p.data().detach() for p in n.collect_params().values()] for n in (net_a, net_b)]
+    p_eq, p_err = _compare(*params)
+    s_eq, s_err = _compare(_flat_states(tr_a), _flat_states(tr_b))
+    l_eq, l_err = _compare(loss_a, loss_b)
+    want = {n: num_layers if n in FLASH and not rehearsal else 0 for n in ENTRIES}
+    want["multi_tensor"] = 0 if rehearsal else 1
+    ok = p_eq and s_eq and l_eq and fused_ok and counts == want
+    emit("nd_surface", part="training_idiom", b=b, s=s, p=p, steps=2,
+         params_bit_equal=p_eq, params_max_abs_diff=p_err, adam_states_bit_equal=s_eq,
+         states_max_abs_diff=s_err, losses_bit_equal=l_eq, losses_max_abs_diff=l_err,
+         losses_tensor=[x.mean().item() for x in loss_a],
+         losses_ndarray=[x.mean().item() for x in loss_b],
+         launches_one_ndarray_step=counts, expected=want, ok=ok)
+
+    def timed(step):
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(ND_TIMED_STEPS):
+            step()
+        sync()
+        return (time.perf_counter() - t0) / ND_TIMED_STEPS * 1e3
+
+    turns = {"tensor": [], "ndarray": []}
+    steps = {"tensor": lambda: train_step(net_a, tr_a, batch),
+             "ndarray": lambda: _nd_step(net_b, tr_b, nd_batch)}
+    for which in steps.values():
+        which()  # leave deterministic mode's kernels behind
+    for which in ("tensor", "ndarray", "ndarray", "tensor"):
+        turns[which].append(timed(steps[which]))
+    emit("nd_surface", part="eager_step_turns", device=str(device),
+         note=None if device.type == "cuda" else "CPU rehearsal: host time, not a device metric",
+         steps_a_turn=ND_TIMED_STEPS, order="tensor, ndarray, ndarray, tensor",
+         tensor_step_ms=turns["tensor"], ndarray_step_ms=turns["ndarray"],
+         ndarray_over_tensor=sum(turns["ndarray"]) / sum(turns["tensor"]))
+    del net_a, net_b, tr_a, tr_b
+    return ok
+
+
+def _nd_outputs(case, C, ctx):
+    """The case's outputs through ``mx.nd`` on ``ctx`` (a list) and the
+    number of input elements."""
+    r = C.rng_for(case.id)
+    arrays = case.inputs(r)
+    kwarrays = {k: v.maker(r) for k, v in case.kwargs.items() if isinstance(v, C.A)}
+    with ctx:
+        xs = [mx.nd.array(a, ctx=ctx, dtype=a.dtype) for a in arrays]
+        if case.dtypes:
+            xs = [x.astype(d) if d else x for x, d in zip(xs, case.dtypes)]
+        kw = dict(case.kwargs)
+        kw.update({k: mx.nd.array(v, ctx=ctx, dtype=v.dtype) for k, v in kwarrays.items()})
+        out = getattr(mx.nd, case.op)(*xs, **kw)
+    n = sum(a.size for a in arrays) + sum(a.size for a in kwarrays.values())
+    return (list(out) if isinstance(out, (list, tuple)) else [out]), bool(arrays), n
+
+
+def _held_ratio(case, C, got, ref, n):
+    """|card − CPU| over the case's bound (0 when equal, inf on a shape,
+    dtype or non-finite mismatch)."""
+    if tuple(got.shape) != tuple(ref.shape) or got.dtype != ref.dtype:
+        return math.inf
+    g, r = got.detach().cpu().double(), ref.detach().double()
+    same_nan = torch.isnan(g) == torch.isnan(r)
+    finite = torch.isfinite(r)
+    if not (bool(same_nan.all()) and bool((g[~finite & ~torch.isnan(r)] ==
+                                          r[~finite & ~torch.isnan(r)]).all())):
+        return math.inf
+    err = (g[finite] - r[finite]).abs().max().item() if bool(finite.any()) else 0.0
+    if err == 0.0:
+        return 0.0
+    if case.card == "exact" or not got.is_floating_point():
+        return math.inf
+    scale = r[finite].abs().max().item()
+    units = C.ULPS if case.card == "ulp" else C.REDUCE_ULPS * n
+    return err / (units * torch.finfo(got.dtype).eps * scale)
+
+
+def _nd_op_table(ctx, rehearsal):
+    """Every case of the CPU parity table once on ``ctx``'s NDArrays, held
+    to the port's CPU result; every sampler's 10^6 draws (10^5 in the
+    rehearsal) to its distribution's mean and variance within
+    ND_MOMENT_SE standard errors."""
+    C = _nd_cases()
+    by_src, failed = {}, []
+    for case in C.CASES:
+        ref, _, n = _nd_outputs(case, C, mx.cpu())
+        got, has_inputs, _ = _nd_outputs(case, C, ctx)
+        ratio = 0.0
+        for g, r in zip(got, ref):
+            gt = g._data if isinstance(g, mx.nd.NDArray) else g
+            placed = (isinstance(g, mx.nd.NDArray) and g.context == ctx) if has_inputs else (
+                gt.device.type == ctx.device.type)
+            rt = r._data if isinstance(r, mx.nd.NDArray) else r
+            ratio = max(ratio, _held_ratio(case, C, gt, rt, n) if placed else math.inf)
+        rec = by_src.setdefault(case.src, {"cases": 0, "held": 0, "worst": 0.0, "worst_case": None})
+        rec["cases"] += 1
+        if len(got) == len(ref) and ratio <= 1.0:
+            rec["held"] += 1
+        else:
+            failed.append([case.id, ratio])
+        if ratio >= rec["worst"]:
+            rec["worst"], rec["worst_case"] = ratio, case.id
+    n_draw = 100_000 if rehearsal else 1_000_000
+    rec = by_src.setdefault("random_ops", {"cases": 0, "held": 0, "worst": 0.0,
+                                           "worst_case": None})
+    for s in C.SAMPLERS:
+        with ctx:
+            args = [mx.nd.array(a, ctx=ctx) for a in s.args(n_draw)]
+            out = getattr(mx.nd, s.op)(*args, **s.kwargs(n_draw))
+        t = out._data if isinstance(out, mx.nd.NDArray) else out
+        worst = 0.0 if t.device.type == ctx.device.type else math.inf
+        if s.moments is None:  # shuffle: a permutation of arange(n)
+            worst = worst if torch.equal(t.sort().values, torch.arange(
+                n_draw, dtype=t.dtype, device=t.device)) else math.inf
+        else:
+            rows = t.double().reshape(len(s.moments), -1)
+            for row, (mu, var) in zip(rows, s.moments):
+                m = row.mean()
+                v = row.var()
+                m4 = ((row - m) ** 4).mean()
+                k = row.numel()
+                se_m, se_v = math.sqrt(var / k), math.sqrt(max((m4 - v * v).item(), 0.0) / k)
+                worst = max(worst, abs(m.item() - mu) / (ND_MOMENT_SE * se_m),
+                            abs(v.item() - var) / (ND_MOMENT_SE * se_v))
+        rec["cases"] += 1
+        if worst <= 1.0:
+            rec["held"] += 1
+        else:
+            failed.append([s.id, worst])
+        if worst >= rec["worst"]:
+            rec["worst"], rec["worst_case"] = worst, s.id
+    for src in ("tensor", "nn", "random_ops"):
+        r = by_src[src]
+        emit("nd_surface", part="op_table", source=f"ops/{src}.py", cases=r["cases"],
+             held=r["held"], worst_err_over_bound=r["worst"], worst_case=r["worst_case"],
+             bound=("exact, %d ulps (arithmetic), %d·n ulps (reductions) of the case's "
+                    "largest |value|" % (C.ULPS, C.REDUCE_ULPS)) if src != "random_ops" else
+             f"mean and variance of {n_draw} draws within {ND_MOMENT_SE} standard errors",
+             ok=r["held"] == r["cases"])
+    emit("nd_surface", part="op_table", failed=failed, ok=not failed)
+    return not failed
+
+
+def phase_nd_surface(net, rehearsal):
+    """Phase 5b: the ``mx.nd`` surface on the slice phase's net (save and
+    load), two fresh copies (the MXNet training idiom against the tensor
+    path) and the op table; exits non-zero on any miss.  Frees its nets."""
+    cfg = TINY_BERT if rehearsal else BERT_BASE
+    ctx = mx.cpu() if rehearsal else mx.gpu(0)
+    t0 = time.perf_counter()
+    ok = _nd_save_load(net, cfg, ctx, rehearsal)
+    ok &= _nd_training(cfg, ctx, rehearsal)
+    ok &= _nd_op_table(ctx, rehearsal)
+    if ctx.device.type == "cuda":
+        torch.cuda.empty_cache()
+    emit("nd_surface", phase_s=time.perf_counter() - t0, ok=ok)
+    if not ok:
+        sys.exit(1)
 
 
 # -- phase 6 ----------------------------------------------------------------
@@ -3332,6 +3638,7 @@ def main():
         vs_cpu = phase_train_vs_cpu(tnet, rehearsal=True)
         phase_rtc_train(tnet, trainer, batch, vs_cpu, rehearsal=True)
         del vs_cpu
+        phase_nd_surface(net, rehearsal=True)
         rnet, rtrainer, rbatch, _, _ = phase_resnet_train(rehearsal=True)
         phase_resnet_train_vs_cpu(rehearsal=True)
         phase_fold((tnet, trainer, batch), (rnet, rtrainer, rbatch), rehearsal=True)
@@ -3357,6 +3664,7 @@ def main():
     vs_cpu = phase_train_vs_cpu(tnet, rehearsal=False)
     rtc_counts = phase_rtc_train(tnet, trainer, batch, vs_cpu, rehearsal=False)
     del vs_cpu
+    phase_nd_surface(net, rehearsal=False)
     rnet, rtrainer, rbatch, resnet_counts, bn_shapes = phase_resnet_train(rehearsal=False)
     phase_resnet_train_vs_cpu(rehearsal=False)
     errs["multi_tensor"] = max(errs["multi_tensor"], phase_main_groups_vs_plain(

@@ -17,7 +17,8 @@ from . import random
 from . import initializer
 from . import initializer as init
 from . import ops
-from .ops.registry import nd
+from . import ndarray
+from . import ndarray as nd
 from . import optimizer
 from . import gluon
 from . import amp
@@ -27,5 +28,5 @@ from . import rtc
 
 __all__ = ["MXNetError", "DeferredInitializationError", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "context", "autograd", "random",
-           "initializer", "init", "ops", "nd", "optimizer", "gluon", "amp", "convert", "operator",
+           "initializer", "init", "ops", "nd", "ndarray", "optimizer", "gluon", "amp", "convert", "operator",
            "rtc"]

@@ -82,17 +82,23 @@ def predict_mode():
     return _scope(None, False)
 
 
+def _tensor(x):
+    return getattr(x, "_data", x)  # an NDArray's tensor, or the tensor itself
+
+
 def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
-    """Back-propagate from ``heads`` (a tensor or a list), seeding each
-    with ``head_grads`` or, as MXNet does, with ones, so a per-sample loss
-    vector needs no ``.sum()``.  Gradients land in the Parameters' buffers
-    by their ``grad_req``."""
-    if isinstance(heads, torch.Tensor):
+    """Back-propagate from ``heads`` (a tensor or NDArray, or a list), seeding
+    each with ``head_grads`` or, as MXNet does, with ones, so a per-sample
+    loss vector needs no ``.sum()``.  Gradients land in the Parameters'
+    buffers (and attached NDArrays' ``grad``) by their ``grad_req``."""
+    if not isinstance(heads, (list, tuple)):
         heads = [heads]
     if head_grads is None:
         head_grads = [None] * len(heads)
-    elif isinstance(head_grads, torch.Tensor):
+    elif not isinstance(head_grads, (list, tuple)):
         head_grads = [head_grads]
+    heads = [_tensor(h) for h in heads]
+    head_grads = [None if g is None else _tensor(g) for g in head_grads]
     if len(heads) != len(head_grads):
         raise ValueError("heads and head_grads length mismatch")
     for h in heads:

@@ -1,15 +1,17 @@
 """Carry weights into the port by structural key.
 
-``load_numpy_params(block, arrays)`` takes ``{key: np.ndarray}`` keyed as
+``load_numpy_params(block, arrays)`` takes ``{key: array}`` (numpy arrays,
+tensors or NDArrays) keyed as
 ``Block._collect_params_with_prefix()`` keys parameters in both packages
 (``bert.encoder.layer0.attention.qkv.weight``), so the global name-prefix
 counters of the two need not agree.  Weights keep MXNet's ``[out, in]``
 layout.  The caller builds the dict (from the JAX package, a checkpoint,
-anything); this module sees only numpy arrays.
+anything); values are brought to the host as numpy arrays first.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from . import initializer
 
@@ -31,7 +33,11 @@ def load_numpy_params(block, arrays, ctx=None):
         raise KeyError(f"parameter keys differ: missing {missing}, extra {extra}")
     values = {}
     for key, param in params.items():
-        arr = np.asarray(arrays[key])
+        arr = arrays[key]
+        arr = getattr(arr, "_data", arr)  # an NDArray's tensor
+        if isinstance(arr, torch.Tensor):
+            arr = arr.detach().float().cpu() if arr.dtype == torch.bfloat16 else arr.detach().cpu()
+        arr = np.asarray(arr)
         if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16 has no torch counterpart
             arr = arr.astype(np.float32)
         want = param.shape

@@ -8,6 +8,14 @@ global counters), ``collect_params``, the structural keys of
 statistics of BatchNorm.  Child blocks are the module's submodules.
 ``hybridize`` records its flag and changes nothing: PyTorch runs eagerly,
 and the port's kernels are launched the same way either way.
+``save_parameters``/``load_parameters`` write and read the structural keys
+through ``mx.nd.save``/``load`` (``.params`` or npz), BatchNorm's running
+statistics included.
+
+A Block takes tensors or NDArrays under ``mx.nd``'s currency rule: when
+any argument is an NDArray (nested tuples and lists searched), the forward
+runs on their tensors and every tensor of its output comes back as an
+NDArray; with tensors in, nothing changes (one scan of the arguments).
 
 A Block runs its forward with PyTorch's grad mode on inside
 ``autograd.record()`` and off outside it, as MXNet records a network only
@@ -22,8 +30,9 @@ import torch
 
 from .. import autograd
 from ..base import DeferredInitializationError
+from ..ndarray.ndarray import _has_nd, _rewrap_nested, _unwrap_nested
 from ..ops.registry import nd
-from .parameter import ParameterDict
+from .parameter import ParameterDict, _load_into
 
 __all__ = ["Block", "HybridBlock", "collect_aux_update"]
 
@@ -175,7 +184,50 @@ class Block(torch.nn.Module):
             child.hybridize(active, **kwargs)
         return self
 
+    def save_parameters(self, filename, deduplicate=False):
+        """Save every parameter's value by its structural key (``.params``
+        or npz by the name; ``deduplicate`` is accepted and changes
+        nothing, as in the JAX package)."""
+        from ..ndarray.utils import save as nd_save
+
+        nd_save(filename, {k: v.data() for k, v in self._collect_params_with_prefix().items()})
+
+    save_params = save_parameters
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False, ignore_extra=False,
+                        cast_dtype=False, dtype_source="current"):
+        """Set the parameters from a file of ``save_parameters`` (of either
+        package).  A parameter never initialized is materialized on ``ctx``
+        (default: the current context); values are cast to each
+        parameter's dtype, or with ``cast_dtype`` and
+        ``dtype_source="saved"`` the parameter takes the saved dtype."""
+        from ..ndarray.utils import _load_tensors
+
+        loaded = _load_tensors(filename)
+        if not isinstance(loaded, dict):
+            raise IOError(f"{filename} holds a list of arrays without names, not parameters")
+        params = self._collect_params_with_prefix()
+        if not allow_missing:
+            for name in params:
+                if name not in loaded:
+                    raise IOError(f"Parameter {name} missing in {filename}")
+        for name, v in loaded.items():
+            if name not in params:
+                if not ignore_extra:
+                    raise IOError(f"Parameter {name} in {filename} not found in Block")
+                continue
+            if cast_dtype and dtype_source == "saved":
+                params[name].cast(v.dtype)
+            _load_into(params[name], v, ctx)
+
+    def load_params(self, filename, ctx=None, **kwargs):
+        self.load_parameters(filename, ctx, **kwargs)
+
     def __call__(self, *args, **kwargs):
+        if _has_nd(args) or _has_nd(kwargs.values()):
+            args = _unwrap_nested(args)
+            kwargs = {k: _unwrap_nested(v) for k, v in kwargs.items()}
+            return _rewrap_nested(self.__call__(*args, **kwargs))
         with torch.set_grad_enabled(autograd.is_recording()):
             return super().__call__(*args, **kwargs)
 

@@ -194,9 +194,10 @@ class Parameter:
             "parameters with Block.initialize() before using them.")
 
     def set_data(self, data):
-        """Copy ``data`` (tensor or numpy array) in, cast to this
+        """Copy ``data`` (NDArray, tensor or numpy array) in, cast to this
         parameter's dtype.  An uninitialized parameter adopts the shape and
         is materialized first, on its deferred device or the current one."""
+        data = getattr(data, "_data", data)  # an NDArray's tensor
         src = data if isinstance(data, torch.Tensor) else torch.from_numpy(_np.array(data))
         if self._data is None:
             self.shape = src.shape
@@ -219,6 +220,15 @@ class Parameter:
 
     def __repr__(self):
         return f"Parameter {self.name} (shape={self._shape}, dtype={self.dtype})"
+
+
+def _load_into(param, value, ctx):
+    """Set ``param`` from a loaded tensor, materializing it on ``ctx`` first
+    if it was never initialized."""
+    if param._data is None and param._deferred_init is None:
+        param.shape = tuple(value.shape)
+        param.initialize(init=_init_mod.Zero(), ctx=ctx)
+    param.set_data(value)
 
 
 class ParameterDict:
@@ -289,3 +299,39 @@ class ParameterDict:
             init = _init_mod.Uniform()
         for v in self.values():
             v.initialize(None, ctx, init, force_reinit=force_reinit)
+
+    def save(self, filename, strip_prefix=""):
+        """Save every parameter's value under its name, less
+        ``strip_prefix`` (``mx.nd.save``: ``.params`` or npz by the name)."""
+        from ..ndarray.utils import save as nd_save
+
+        arg_dict = {}
+        for param in self.values():
+            name = param.name
+            if strip_prefix and name.startswith(strip_prefix):
+                name = name[len(strip_prefix):]
+            arg_dict[name] = param.data()
+        nd_save(filename, arg_dict)
+
+    def load(self, filename, ctx=None, allow_missing=False, ignore_extra=False,
+             restore_prefix=""):
+        """Set the parameters from a file of ``save`` (names prefixed with
+        ``restore_prefix``); an uninitialized parameter is materialized on
+        ``ctx`` (default: the current context)."""
+        from ..ndarray.utils import _load_tensors
+
+        loaded = _load_tensors(filename)
+        if not isinstance(loaded, dict):
+            raise IOError(f"{filename} holds a list of arrays without names, not parameters")
+        loaded = {restore_prefix + k: v for k, v in loaded.items()}
+        if not allow_missing:
+            for name in self.keys():
+                if name not in loaded:
+                    raise IOError(f"Parameter {name} is missing in file {filename}")
+        for name, v in loaded.items():
+            if name not in self._params:
+                if not ignore_extra:
+                    raise IOError(f"Parameter {name} loaded from {filename} is not present "
+                                  "in ParameterDict")
+                continue
+            _load_into(self[name], v, ctx)

@@ -90,7 +90,7 @@ class Uniform(Initializer):
         self.scale = scale
 
     def _init_weight(self, _, arr):
-        arr.copy_(_random.uniform(-self.scale, self.scale, arr.shape, ctx=arr.device))
+        arr.copy_(_random._uniform(-self.scale, self.scale, arr.shape, arr.device))
 
 
 @register
@@ -99,7 +99,7 @@ class Normal(Initializer):
         self.sigma = sigma
 
     def _init_weight(self, _, arr):
-        arr.copy_(_random.normal(0.0, self.sigma, arr.shape, ctx=arr.device))
+        arr.copy_(_random._normal(0.0, self.sigma, arr.shape, arr.device))
 
 
 @register
@@ -121,6 +121,6 @@ class Xavier(Initializer):
                   "out": fan_out}[self.factor_type]
         scale = math.sqrt(self.magnitude / factor)
         if self.rnd_type == "uniform":
-            arr.copy_(_random.uniform(-scale, scale, shape, ctx=arr.device))
+            arr.copy_(_random._uniform(-scale, scale, shape, arr.device))
         else:
-            arr.copy_(_random.normal(0.0, scale, shape, ctx=arr.device))
+            arr.copy_(_random._normal(0.0, scale, shape, arr.device))

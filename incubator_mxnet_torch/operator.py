@@ -153,8 +153,14 @@ def _invoke_custom(op_type, inputs, kwargs):
 
 
 def nd_custom(*args, op_type=None, **kwargs):
-    """``nd.Custom(data..., op_type='name', **params)`` (parity)."""
+    """``nd.Custom(data..., op_type='name', **params)`` (parity), under
+    ``mx.nd``'s currency rule: NDArray inputs give NDArray outputs."""
     if op_type is None:
         raise ValueError("nd.Custom requires op_type=")
-    inputs = [a if isinstance(a, torch.Tensor) else torch.as_tensor(a) for a in args]
-    return _invoke_custom(op_type, inputs, kwargs)
+    from .ndarray.ndarray import NDArray, _wrap_out
+
+    wrap = any(isinstance(a, NDArray) for a in args)
+    inputs = [a._data if isinstance(a, NDArray) else
+              a if isinstance(a, torch.Tensor) else torch.as_tensor(a) for a in args]
+    out = _invoke_custom(op_type, inputs, kwargs)
+    return _wrap_out(out) if wrap else out

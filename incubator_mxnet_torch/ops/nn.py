@@ -1,12 +1,18 @@
-"""Neural-network operators that BERT and ResNet call.
+"""Neural-network operators: the port of the JAX package's ``ops/nn.py``.
 
-Counterpart of the matching ops in the JAX package's ``ops/nn.py``, with
-MXNet's calling conventions (``FullyConnected`` weight ``[out, in]``,
-``Convolution`` NCHW data and OIHW weights) and the same numerics:
-LayerNorm and BatchNorm take one-pass fp32 statistics and return the input
-dtype, ``LeakyReLU(act_type="gelu")`` is the exact erf form.  Plain
-PyTorch, as the JAX package left these ops to XLA, except the train-mode
-BatchNorm, which runs the kernels of ``ops/bn.py``.
+Every op of that file, with MXNet's calling conventions
+(``FullyConnected`` weight ``[out, in]``, ``Convolution`` NCHW data and
+OIHW weights, ``Deconvolution`` weights ``[in, out/group, *kernel]``) and
+the same numerics: LayerNorm, GroupNorm, InstanceNorm and BatchNorm take
+one-pass fp32 statistics and return the input dtype,
+``LeakyReLU(act_type="gelu")`` is the exact erf form.  The legacy loss
+heads keep their own gradients: ``SoftmaxOutput`` back-propagates
+(softmax − one-hot)·grad_scale with its ``ignore_label`` and
+``normalization`` rules and ``LinearRegressionOutput`` (out − label)·
+grad_scale, both ignoring the head gradient; ``MakeLoss`` is the identity
+there, as in the JAX package.  Plain PyTorch, as the JAX package left
+these ops to XLA, except the train-mode BatchNorm, which runs the kernels
+of ``ops/bn.py``.
 """
 from __future__ import annotations
 
@@ -83,14 +89,45 @@ def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
     return out.to(data.dtype)
 
 
+def _normalize(x32, axes, eps):
+    """(x − mean)·rsqrt(var + eps) over ``axes``, one-pass fp32 variance."""
+    mean = x32.mean(dim=axes, keepdim=True)
+    var = ((x32 * x32).mean(dim=axes, keepdim=True) - mean * mean).clamp_min(0.0)
+    return (x32 - mean) * torch.rsqrt(var + eps)
+
+
+@register("GroupNorm")
+def group_norm(data, gamma, beta, num_groups=1, eps=1e-5):
+    n, c = data.shape[0], data.shape[1]
+    rest = tuple(data.shape[2:])
+    x = data.float().reshape((n, num_groups, c // num_groups) + rest)
+    x = _normalize(x, tuple(range(2, x.ndim)), eps).reshape(data.shape)
+    bshape = (1, c) + (1,) * len(rest)
+    return (x * gamma.float().reshape(bshape) + beta.float().reshape(bshape)).to(data.dtype)
+
+
+@register("InstanceNorm")
+def instance_norm(data, gamma, beta, eps=1e-3):
+    x = _normalize(data.float(), tuple(range(2, data.ndim)), eps)
+    bshape = (1, data.shape[1]) + (1,) * (data.ndim - 2)
+    return (x * gamma.float().reshape(bshape) + beta.float().reshape(bshape)).to(data.dtype)
+
+
+@register("RMSNorm")
+def rms_norm(data, gamma, axis=-1, eps=1e-6):
+    x32 = data.float()
+    ms = (x32 * x32).mean(dim=axis, keepdim=True)
+    return (x32 * torch.rsqrt(ms + eps) * gamma.float()).to(data.dtype)
+
+
 @register("Dropout")
-def dropout(data, p=0.5, mode="training", axes=(), training=None):
+def dropout(data, p=0.5, mode="training", axes=(), key=None, training=None):
     """Identity outside training unless ``mode="always"`` (parity: the
     reference's is_train dispatch).  In training, each element is kept
     with probability exactly 1 − p and scaled by 1/(1 − p); the mask is
-    drawn from the port's generator of the data's device
-    (``random.get_generator``), never from PyTorch's global one, and is
-    shared along ``axes``."""
+    drawn from ``key`` (a ``torch.Generator``) or else the port's generator
+    of the data's device (``random.get_generator``), never from PyTorch's
+    global one, and is shared along ``axes``."""
     if training is None:
         from .. import autograd
 
@@ -104,7 +141,7 @@ def dropout(data, p=0.5, mode="training", axes=(), training=None):
         shape[ax] = 1
     keep = 1.0 - p
     mask = torch.empty(shape, device=data.device).bernoulli_(
-        keep, generator=get_generator(data.device))
+        keep, generator=key if key is not None else get_generator(data.device))
     return data * mask.to(data.dtype) / keep
 
 
@@ -130,6 +167,82 @@ def log_softmax(data, axis=-1, temperature=None):
     if temperature not in (None, 1.0):
         x = x / temperature
     return torch.log_softmax(x, dim=axis).to(data.dtype)
+
+
+@register("softmin")
+def softmin(data, axis=-1):
+    return torch.softmax(-data.float(), dim=axis).to(data.dtype)
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Forward softmax; backward (p − one-hot)·grad_scale, masked by
+    ``ignore_label`` and divided by the ``normalization`` count, whatever
+    the head gradient."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, ignore_label, use_ignore, axis, normalization):
+        out = torch.softmax(data, dim=axis)
+        ctx.save_for_backward(out, label)
+        ctx.attrs = (grad_scale, ignore_label, use_ignore, axis, normalization)
+        return out
+
+    @staticmethod
+    def backward(ctx, _head):
+        out, label = ctx.saved_tensors
+        grad_scale, ignore_label, use_ignore, ax, normalization = ctx.attrs
+        ax = ax % out.ndim
+        lab = label.long()
+        classes = torch.arange(out.shape[ax], device=out.device).reshape(
+            (-1,) + (1,) * (out.ndim - 1 - ax))
+        oh = (lab.unsqueeze(ax) == classes).to(out.dtype)
+        grad = (out - oh) * grad_scale
+        if use_ignore:
+            keep = (lab != int(ignore_label)).to(out.dtype)
+            grad = grad * keep.unsqueeze(ax)
+        if normalization == "batch":
+            grad = grad / out.shape[0]
+        elif normalization == "valid":
+            grad = (grad / torch.clamp_min(keep.sum(), 1.0) if use_ignore
+                    else grad / float(lab.numel()))
+        return grad, None, None, None, None, None, None
+
+
+@register("SoftmaxOutput")
+def softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0, use_ignore=False,
+                   multi_output=False, normalization="null", **kw):
+    """The legacy Module-API loss head: forward softmax (over axis 1 with
+    ``multi_output``, else the last), backward scaled (p − one-hot)."""
+    return _SoftmaxOutput.apply(data, label, float(grad_scale), float(ignore_label),
+                                bool(use_ignore), 1 if multi_output else -1,
+                                str(normalization))
+
+
+alias("Softmax", "SoftmaxOutput")
+
+
+class _LinearRegressionOutput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, label, grad_scale):
+        ctx.save_for_backward(data, label)
+        ctx.grad_scale = grad_scale
+        return data.view_as(data)
+
+    @staticmethod
+    def backward(ctx, _head):
+        data, label = ctx.saved_tensors
+        return (data - label) * ctx.grad_scale, None, None
+
+
+@register("LinearRegressionOutput")
+def linear_regression_output(data, label, grad_scale=1.0):
+    """Forward the data; backward (data − label)·grad_scale, whatever the
+    head gradient."""
+    return _LinearRegressionOutput.apply(data, label.reshape(data.shape), grad_scale)
+
+
+@register("MakeLoss")
+def make_loss(data, grad_scale=1.0, normalization="null", valid_thresh=0.0):
+    return data * 1.0
 
 
 def streaming_softmax_ce(logits, labels):
@@ -159,7 +272,12 @@ def gather_positions(data, positions):
 
 
 @register("Embedding")
-def embedding(data, weight, input_dim=0, output_dim=0):
+def embedding(data, weight, input_dim=0, output_dim=0, dtype="float32", sparse_grad=False):
+    """A gather of rows of ``weight``; ``sparse_grad=True`` raises (row-sparse
+    gradients are not ported)."""
+    if sparse_grad:
+        raise NotImplementedError("Embedding(sparse_grad=True): row-sparse gradients are not "
+                                  "ported; the gradient is dense")
     return F.embedding(data.long(), weight)
 
 
@@ -184,6 +302,28 @@ def convolution(data, weight, bias=None, kernel=(1, 1), stride=None, dilate=None
     return _CONV[n](data, weight, None if no_bias else bias, stride=_tuplize(stride, n),
                     padding=_tuplize(pad if pad is not None else 0, n),
                     dilation=_tuplize(dilate, n), groups=num_group)
+
+
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d, 3: F.conv_transpose3d}
+
+
+@register("Deconvolution")
+def deconvolution(data, weight, bias=None, kernel=(1, 1), stride=None, dilate=None, pad=None,
+                  adj=None, num_filter=0, num_group=1, no_bias=True, target_shape=None):
+    """The transposed convolution: output size (in − 1)·stride − 2·pad +
+    dilate·(kernel − 1) + adj + 1; with ``target_shape`` the pad is derived
+    from it by the reference's rule."""
+    n = len(kernel)
+    stride = _tuplize(stride, n)
+    dilate = _tuplize(dilate, n)
+    pad = _tuplize(pad if pad is not None else 0, n)
+    adj = _tuplize(adj if adj is not None else 0, n)
+    if target_shape:
+        keff = [(k - 1) * d + 1 for k, d in zip(kernel, dilate)]
+        pad = tuple(((i - 1) * s + ke + a - t) // 2 for i, s, ke, a, t in
+                    zip(data.shape[2:], stride, keff, adj, target_shape))
+    return _CONV_T[n](data, weight, None if no_bias else bias, stride=stride, padding=pad,
+                      output_padding=adj, groups=num_group, dilation=dilate)
 
 
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
@@ -275,3 +415,52 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-5, momentum=0.
 
 
 batch_norm.reference_calls = 0
+
+
+@register("UpSampling")
+def upsampling(data, scale=2, sample_type="nearest", num_args=1):
+    """Nearest or bilinear upsampling of NCHW data by ``scale`` (half-pixel
+    centres, as the JAX package resizes)."""
+    if sample_type == "nearest":
+        return F.interpolate(data, scale_factor=scale, mode="nearest")
+    return F.interpolate(data, scale_factor=scale, mode="bilinear", align_corners=False)
+
+
+def _steps(data, axis):
+    return torch.arange(data.shape[axis], device=data.device)
+
+
+@register("SequenceMask")
+def sequence_mask(data, sequence_length=None, use_sequence_length=False, value=0.0, axis=0):
+    """Positions at or past each sequence's length along the time axis
+    (0: [T, B, ...], 1: [B, T, ...]) become ``value``."""
+    if not use_sequence_length or sequence_length is None:
+        return data
+    rest = (1,) * (data.ndim - 2)
+    t = _steps(data, axis)
+    if axis == 0:
+        mask = t.reshape((-1, 1) + rest) < sequence_length.reshape((1, -1) + rest)
+    else:
+        mask = t.reshape((1, -1) + rest) < sequence_length.reshape((-1, 1) + rest)
+    return torch.where(mask, data, torch.full_like(data, value))
+
+
+@register("SequenceLast")
+def sequence_last(data, sequence_length=None, use_sequence_length=False, axis=0):
+    if not use_sequence_length or sequence_length is None:
+        return data.select(axis, -1)
+    last = sequence_length.long() - 1
+    if axis == 0:
+        return data[last, torch.arange(data.shape[1], device=data.device)]
+    return data[torch.arange(data.shape[0], device=data.device), last]
+
+
+@register("SequenceReverse")
+def sequence_reverse(data, sequence_length=None, use_sequence_length=False, axis=0):
+    """Reverse the first ``length`` steps of each sequence along axis 0."""
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(data, (axis,))
+    t = _steps(data, 0).reshape(-1, 1)
+    lens = sequence_length.long().reshape(1, -1)
+    rev = torch.where(t < lens, lens - 1 - t, t)
+    return torch.take_along_dim(data, rev.reshape(rev.shape + (1,) * (data.ndim - 2)), dim=0)

@@ -73,14 +73,14 @@ def _adam_lr(lr, beta1, beta2, t):
     return float(np.float32(lr) * np.sqrt(coef2) / coef1)
 
 
-@register()
+@register(differentiable=False, wrap_ndarray=False)
 @torch.no_grad()
 def sgd_update(weight, grad, lr, wd, rescale, clip):
     g = _prep(grad, rescale, clip, wd, weight)
     weight.copy_(weight.float() - _f32(lr) * g)
 
 
-@register()
+@register(differentiable=False, wrap_ndarray=False)
 @torch.no_grad()
 def sgd_mom_update(weight, grad, mom, lr, wd, rescale, clip, momentum):
     g = _prep(grad, rescale, clip, wd, weight)
@@ -88,7 +88,7 @@ def sgd_mom_update(weight, grad, mom, lr, wd, rescale, clip, momentum):
     weight.copy_(weight.float() + mom)
 
 
-@register()
+@register(differentiable=False, wrap_ndarray=False)
 @torch.no_grad()
 def adam_update(weight, grad, mean, var, lr, wd, rescale, clip, beta1, beta2, eps, t):
     g = _prep(grad, rescale, clip, wd, weight)
@@ -100,7 +100,7 @@ def adam_update(weight, grad, mean, var, lr, wd, rescale, clip, beta1, beta2, ep
 # -- multi-precision: a 16-bit weight with its fp32 master copy ------------
 
 
-@register()
+@register(differentiable=False, wrap_ndarray=False)
 @torch.no_grad()
 def mp_sgd_update(weight, grad, weight32, lr, wd, rescale, clip):
     g = _gclip(grad.float() * _f32(rescale), clip) + _f32(wd) * weight32
@@ -108,7 +108,7 @@ def mp_sgd_update(weight, grad, weight32, lr, wd, rescale, clip):
     weight.copy_(weight32)
 
 
-@register()
+@register(differentiable=False, wrap_ndarray=False)
 @torch.no_grad()
 def mp_sgd_mom_update(weight, grad, mom, weight32, lr, wd, rescale, clip, momentum):
     g = _gclip(grad.float() * _f32(rescale), clip) + _f32(wd) * weight32
@@ -117,7 +117,7 @@ def mp_sgd_mom_update(weight, grad, mom, weight32, lr, wd, rescale, clip, moment
     weight.copy_(weight32)
 
 
-@register()
+@register(differentiable=False, wrap_ndarray=False)
 @torch.no_grad()
 def mp_adam_update(weight, grad, mean, var, weight32, lr, wd, rescale, clip, beta1, beta2,
                    eps, t):
@@ -252,7 +252,7 @@ def _sgd_scalars(rescale_grad, clip_gradient, momentum=None):
     return S
 
 
-@register()
+@register(differentiable=False, wrap_ndarray=False)
 def multi_sgd_update(weights, grads, lrs, wds, rescale_grad=1.0, clip_gradient=-1.0):
     weights = list(weights)
     group_apply(sgd_step, weights, grads, [()] * len(weights), lrs, wds, [0] * len(weights),
@@ -260,7 +260,7 @@ def multi_sgd_update(weights, grads, lrs, wds, rescale_grad=1.0, clip_gradient=-
     return weights
 
 
-@register()
+@register(differentiable=False, wrap_ndarray=False)
 def multi_sgd_mom_update(weights, grads, moms, lrs, wds, momentum=0.0, rescale_grad=1.0,
                          clip_gradient=-1.0):
     weights, moms = list(weights), list(moms)
@@ -269,7 +269,7 @@ def multi_sgd_mom_update(weights, grads, moms, lrs, wds, momentum=0.0, rescale_g
     return weights, moms
 
 
-@register()
+@register(differentiable=False, wrap_ndarray=False)
 def multi_mp_sgd_update(weights, grads, weights32, lrs, wds, rescale_grad=1.0,
                         clip_gradient=-1.0):
     weights, weights32 = list(weights), list(weights32)
@@ -278,7 +278,7 @@ def multi_mp_sgd_update(weights, grads, weights32, lrs, wds, rescale_grad=1.0,
     return weights, weights32
 
 
-@register()
+@register(differentiable=False, wrap_ndarray=False)
 def multi_mp_sgd_mom_update(weights, grads, moms, weights32, lrs, wds, momentum=0.0,
                             rescale_grad=1.0, clip_gradient=-1.0):
     weights, moms, weights32 = list(weights), list(moms), list(weights32)
@@ -291,26 +291,26 @@ def multi_mp_sgd_mom_update(weights, grads, moms, weights32, lrs, wds, momentum=
 # (MXNet keeps them on the device; group_apply reads them on the host).
 
 
-@register()
+@register(differentiable=False, wrap_ndarray=False)
 def preloaded_multi_sgd_update(weights, grads, lrs, wds, rescale_grad=1.0, clip_gradient=-1.0):
     return multi_sgd_update(weights, grads, lrs, wds, rescale_grad, clip_gradient)
 
 
-@register()
+@register(differentiable=False, wrap_ndarray=False)
 def preloaded_multi_sgd_mom_update(weights, grads, moms, lrs, wds, momentum=0.0,
                                    rescale_grad=1.0, clip_gradient=-1.0):
     return multi_sgd_mom_update(weights, grads, moms, lrs, wds, momentum, rescale_grad,
                                 clip_gradient)
 
 
-@register()
+@register(differentiable=False, wrap_ndarray=False)
 def preloaded_multi_mp_sgd_update(weights, grads, weights32, lrs, wds, rescale_grad=1.0,
                                   clip_gradient=-1.0):
     return multi_mp_sgd_update(weights, grads, weights32, lrs, wds, rescale_grad,
                                clip_gradient)
 
 
-@register()
+@register(differentiable=False, wrap_ndarray=False)
 def preloaded_multi_mp_sgd_mom_update(weights, grads, moms, weights32, lrs, wds, momentum=0.0,
                                       rescale_grad=1.0, clip_gradient=-1.0):
     return multi_mp_sgd_mom_update(weights, grads, moms, weights32, lrs, wds, momentum,

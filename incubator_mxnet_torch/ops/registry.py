@@ -1,8 +1,11 @@
-"""Operator registry and the ``mx.nd`` / ``mx.nd.contrib`` namespaces.
+"""Operator registry and the tensor namespaces ``nd`` / ``nd.contrib``.
 
 Counterpart of the JAX package's ``ops/registry.py``.  An op is a plain
 function on ``torch.Tensor``s; registering it makes it reachable by name
-as ``nd.<name>`` (and ``nd.contrib.<name>``).  With ``amp.init()`` the lookup
+as ``nd.<name>`` (and ``nd.contrib.<name>``).  This ``nd`` is the ``F`` that
+``HybridBlock.hybrid_forward`` receives: tensors in, tensors out.  The
+user's ``mx.nd`` is the ``ndarray`` package, which reaches the same ops and
+takes NDArrays too.  With ``amp.init()`` the lookup
 returns the op wrapped in AMP's input casts (``amp/amp.py``).  ``nd.Custom``
 resolves to ``operator.nd_custom``, whose gradient is the user's
 ``CustomOp.backward``.  PyTorch runs eagerly, so the
@@ -13,7 +16,7 @@ from __future__ import annotations
 
 import types
 
-__all__ = ["Op", "register", "alias", "get_op", "list_ops", "nd"]
+__all__ = ["Op", "register", "alias", "get_op", "list_ops", "resolve", "nd"]
 
 _REGISTRY: dict[str, "Op"] = {}
 _amp = None  # the AMP policy that amp.init() sets, or None
@@ -21,13 +24,19 @@ _amp = None  # the AMP policy that amp.init() sets, or None
 
 class Op:
     """A registered operator; ``alias`` files the same object under more
-    names."""
+    names.  ``differentiable=False`` marks an op whose outputs carry no
+    gradient (comparisons, indices, samplers): ``mx.nd`` runs it off the
+    graph for NDArrays.  ``wrap_ndarray=False`` marks a raw op (the
+    multi-tensor updates) whose list arguments ``mx.nd`` unwraps as they
+    come."""
 
-    __slots__ = ("name", "fn", "aliases")
+    __slots__ = ("name", "fn", "differentiable", "wrap_ndarray", "aliases")
 
-    def __init__(self, name, fn):
+    def __init__(self, name, fn, differentiable=True, wrap_ndarray=True):
         self.name = name
         self.fn = fn
+        self.differentiable = differentiable
+        self.wrap_ndarray = wrap_ndarray
         self.aliases = []
 
     def __call__(self, *args, **kwargs):
@@ -37,12 +46,12 @@ class Op:
         return f"<Op {self.name}>"
 
 
-def register(name=None):
+def register(name=None, differentiable=True, wrap_ndarray=True):
     def deco(fn):
         opname = name or fn.__name__
         if opname in _REGISTRY:
             raise ValueError(f"op {opname!r} already registered")
-        _REGISTRY[opname] = Op(opname, fn)
+        _REGISTRY[opname] = Op(opname, fn, differentiable, wrap_ndarray)
         return fn
 
     return deco
@@ -67,6 +76,12 @@ def list_ops():
     return sorted(_REGISTRY)
 
 
+def resolve(op):
+    """``op.fn``, or under ``amp.init()`` the function that casts its
+    inputs first: what ``nd.<name>`` calls."""
+    return op.fn if _amp is None else _amp.wrap(op)
+
+
 class _Namespace(types.ModuleType):
     """``nd`` and ``nd.contrib``: attribute access resolves registered ops.
     ``nd.contrib`` also finds ops registered under a ``contrib_`` prefix."""
@@ -84,7 +99,7 @@ class _Namespace(types.ModuleType):
         for p in self._prefixes:
             op = _REGISTRY.get(p + name)
             if op is not None:
-                return op.fn if _amp is None else _amp.wrap(op)
+                return resolve(op)
         raise AttributeError(f"{self.__name__} has no op {name!r}")
 
     def __dir__(self):

@@ -126,8 +126,24 @@ def test_arange_and_zeros_follow_ctx():
 
 
 def test_nd_namespace_reaches_registered_ops():
-    assert mx.nd.FullyConnected is tnn.fully_connected
-    assert mx.nd.Reshape is ttensor.reshape
+    """``ops.registry.nd`` (the ``F`` of ``hybrid_forward``) resolves to the
+    registered functions themselves; the user's ``mx.nd`` reaches the same
+    ops under the currency rule: tensors in give the op's tensor bit for
+    bit, NDArrays in give an NDArray of the same values."""
+    from incubator_mxnet_torch.ops.registry import nd as F
+
+    assert F.FullyConnected is tnn.fully_connected
+    assert F.Reshape is ttensor.reshape
+    assert F.contrib.fused_qkv_attention is F.fused_qkv_attention
     assert mx.nd.contrib.fused_qkv_attention is mx.nd.fused_qkv_attention
-    with pytest.raises(AttributeError):
-        mx.nd.no_such_op
+    x, w, b = map(torch.from_numpy, (_rand(20, 3, 8), _rand(21, 6, 8), _rand(22, 6)))
+    want = tnn.fully_connected(x, w, b, num_hidden=6)
+    got = mx.nd.FullyConnected(x, w, b, num_hidden=6)
+    assert type(got) is torch.Tensor and torch.equal(got, want)
+    with mx.cpu():
+        nd_out = mx.nd.FullyConnected(*(mx.nd.array(t.numpy()) for t in (x, w, b)), num_hidden=6)
+    assert isinstance(nd_out, mx.nd.NDArray) and nd_out.context == mx.cpu()
+    np.testing.assert_array_equal(nd_out.asnumpy(), want.numpy())
+    for ns in (F, mx.nd):
+        with pytest.raises(AttributeError):
+            ns.no_such_op

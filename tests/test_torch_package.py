@@ -85,6 +85,30 @@ print("OK")
     assert proc.returncode == 0 and "OK" in proc.stdout, proc.stderr
 
 
+def test_nd_surface_saves_and_loads_without_jax(tmp_path):
+    """``mx.nd``: NDArrays, an op, a save and a load in both containers
+    (bf16 included), with no JAX module ever imported."""
+    code = f"""
+import sys
+import numpy as np
+import incubator_mxnet_torch as mx
+with mx.cpu():
+    a = mx.nd.array(np.arange(6, dtype=np.float32).reshape(2, 3))
+    b = mx.nd.relu(a - 2).astype("bfloat16")
+    for ext in ("params", "npz"):
+        f = {str(tmp_path)!r} + "/x." + ext
+        mx.nd.save(f, {{"a": a, "b": b}})
+        got = mx.nd.load(f)
+        assert sorted(got) == ["a", "b"] and np.array_equal(got["a"].asnumpy(), a.asnumpy())
+        assert np.array_equal(got["b"].asnumpy(), b.asnumpy())
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "incubator_mxnet_tpu")))
+assert not bad, bad
+print("OK")
+"""
+    proc = _run(code)
+    assert proc.returncode == 0 and "OK" in proc.stdout, proc.stderr
+
+
 def test_sources_name_neither_jax_nor_the_jax_package():
     """Module names only: prose may say "the JAX package"."""
     pattern = re.compile(r"incubator_mxnet_tpu|\bjax\b")
@@ -94,7 +118,8 @@ def test_sources_name_neither_jax_nor_the_jax_package():
             "ops/optimizer_ops.py", "optimizer/optimizer.py", "gluon/trainer.py",
             "gluon/loss.py", "autograd.py", "amp/amp.py", "amp/lists.py",
             "gluon/model_zoo/vision/resnet.py", "rtc.py", "operator.py",
-            "ops/_driver.py"} <= names
+            "ops/_driver.py", "ops/random_ops.py", "ndarray/ndarray.py",
+            "ndarray/__init__.py", "ndarray/utils.py", "random.py"} <= names
     offenders = [f"{p.relative_to(ROOT)}:{i}" for p in sources
                  for i, line in enumerate(p.read_text().splitlines(), 1) if pattern.search(line)]
     assert not offenders, offenders

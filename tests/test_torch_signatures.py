@@ -214,3 +214,77 @@ def test_seed_ctx_gives_the_same_draws(ctx):
     assert torch.equal(got, want)
     mx.random.seed(17, ctx)
     assert torch.equal(mx.random.normal(shape=(5,), ctx=mx.cpu()), want)
+
+
+# -- the mx.nd surface --------------------------------------------------------------
+
+
+def _public_params(fn):
+    """Parameters by (name, default), leaving out private ones (the JAX
+    package binds helpers as ``_fn=...`` defaults)."""
+    return [(p.name, p.default) for p in inspect.signature(fn).parameters.values()
+            if not p.name.startswith("_")]
+
+
+def _nd_methods():
+    out = []
+    for name in sorted(dir(mxj.nd.NDArray)):
+        if name.startswith("_") and name not in ("__init__", "__getitem__", "__setitem__",
+                                                 "__array__"):
+            continue
+        ref = getattr(mxj.nd.NDArray, name)
+        if callable(ref) and not isinstance(ref, property):
+            out.append((f"NDArray.{name}", ref, getattr(mx.nd.NDArray, name)))
+    return out
+
+
+NEW_PAIRS = (
+    [(f"random.{n}", getattr(mxj.random, n), getattr(mx.random, n)) for n in (
+        "uniform", "normal", "randn", "randint", "multinomial", "shuffle", "gamma",
+        "exponential", "poisson", "negative_binomial", "generalized_negative_binomial")]
+    + [(f"nd.{n}", getattr(mxj.nd, n), getattr(mx.nd, n)) for n in (
+        "array", "zeros", "ones", "full", "empty", "arange", "invoke", "waitall", "save",
+        "load")]
+    + [(f"Block.{n}", getattr(mxj.gluon.Block, n), getattr(mx.gluon.Block, n)) for n in (
+        "save_parameters", "save_params", "load_parameters", "load_params")]
+    + [(f"ParameterDict.{n}", getattr(jparameter.ParameterDict, n),
+        getattr(tparameter.ParameterDict, n)) for n in ("save", "load")]
+    + [("Parameter.set_data", jparameter.Parameter.set_data, tparameter.Parameter.set_data)]
+    + _nd_methods()
+)
+
+
+@pytest.mark.parametrize("name,ref,port", NEW_PAIRS, ids=[p[0] for p in NEW_PAIRS])
+def test_nd_surface_in_the_reference_order(name, ref, port):
+    want = _public_params(ref)
+    assert _public_params(port)[:len(want)] == want, name
+
+
+def _op_pairs():
+    from incubator_mxnet_tpu.ops import registry as jreg
+    from incubator_mxnet_torch.ops import registry as treg
+
+    import nd_parity
+
+    out = []
+    for src in ("tensor", "nn", "random_ops"):
+        for name in sorted(nd_parity.jax_names(src)):
+            port = treg.get_op(name).fn
+            try:
+                inspect.signature(port)
+            except (TypeError, ValueError):  # a PyTorch builtin of one tensor, as jnp's ufuncs
+                continue
+            out.append((name, jreg.get_op(name).fn, port))
+    return out
+
+
+OP_PAIRS = _op_pairs()
+
+
+@pytest.mark.parametrize("name,ref,port", OP_PAIRS, ids=[p[0] for p in OP_PAIRS])
+def test_ops_take_the_reference_parameters(name, ref, port):
+    """Every op of ``ops/tensor.py``, ``ops/nn.py`` and ``ops/random_ops.py``
+    begins with the JAX op's parameters, in order, with its defaults (the
+    samplers' ``key`` is a ``torch.Generator`` in the port)."""
+    want = _public_params(ref)
+    assert _public_params(port)[:len(want)] == want, name

@@ -345,12 +345,13 @@ def test_trainer_runs_on_one_device_only():
 
 
 def test_chip_smoke_cpu_rehearsal_trains():
-    """chip_smoke.py's slice, train, rtc_train and timing phases on the CPU
-    plain path."""
+    """chip_smoke.py's slice, train, rtc_train, nd_surface and timing phases
+    on the CPU plain path."""
     proc = subprocess.run([sys.executable, "chip_smoke.py", "--cpu-rehearsal"], cwd=ROOT,
                           capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert proc.returncode == 0, proc.stderr
     assert '"phase": "train"' in proc.stdout and '"ok": true' in proc.stdout
     assert '"phase": "rtc_train"' in proc.stdout
+    assert '"part": "op_table", "failed": [], "ok": true' in proc.stdout  # nd_surface
     assert '"ok": true, "device"' not in proc.stdout
