@@ -25,8 +25,18 @@ from . import amp
 from . import convert
 from . import operator
 from . import rtc
+from . import name
+from . import attribute
+from .attribute import AttrScope
+from . import symbol
+from . import symbol as sym
+from .executor import Executor
+from . import profiler
+from . import predictor
+from . import serving
 
 __all__ = ["MXNetError", "DeferredInitializationError", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "context", "autograd", "random",
            "initializer", "init", "ops", "nd", "ndarray", "optimizer", "gluon", "amp", "convert", "operator",
-           "rtc"]
+           "rtc", "name", "attribute", "AttrScope", "symbol", "sym", "Executor", "profiler",
+           "predictor", "serving"]

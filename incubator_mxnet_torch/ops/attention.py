@@ -81,6 +81,10 @@ __all__ = ["flash_fwd", "flash_fwd_plain", "flash_bwd", "flash_bwd_dq", "flash_b
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _HEAD_DIMS = (16, 32, 64, 128, 256)
+# Devices whose tensors take the plain versions: the CPU, and ``meta``
+# (shape inference: a meta tensor holds no data, so it has only the plain
+# version's shapes and dtypes to give).  A CUDA tensor launches a kernel.
+_PLAIN_DEVICES = ("cpu", "meta")
 _SLAB = 128  # output columns of one launch: a wider instance makes one launch a slab
 _WIDE_STEP = 64  # flash_wide.cu takes head dims above 256 in multiples of this
 
@@ -298,8 +302,8 @@ def flash_fwd(q, k, v, causal=False, scale=None, with_lse=False, layout="bhsd"):
     and sequence strides; o comes back in the same layout, in q's dtype.
     Returns ``(o, lse)`` with lse ``[B·H, Sq]`` fp32, or None.
 
-    A CPU tensor takes :func:`flash_fwd_plain`; a CUDA tensor launches the
-    kernel or raises.  ``flash_fwd.launches`` counts the launches up to Dh
+    A CPU (or meta) tensor takes :func:`flash_fwd_plain`; a CUDA tensor
+    launches the kernel or raises.  ``flash_fwd.launches`` counts the launches up to Dh
     256 (in bf16 and fp16 flash_fwd.cu's, two at Dh 129-256, one a slab;
     in fp32 flash_wide.cu's one split-TF32 launch), above 256
     ``flash_wide_fwd.launches`` counts its one.  On the card a head dim
@@ -309,7 +313,7 @@ def flash_fwd(q, k, v, causal=False, scale=None, with_lse=False, layout="bhsd"):
     bshd = layout == "bshd"
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN_DEVICES:
         if not bshd:
             return flash_fwd_plain(q, k, v, causal, scale, with_lse)
         o, lse = flash_fwd_plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -403,7 +407,7 @@ def _bwd_launch(q, k, v, o, do, lse, dq, dk, dv, causal, scale, bshd):
 def _bwd_args(q, layout, scale):
     if layout not in ("bhsd", "bshd"):
         raise ValueError(f"layout must be 'bhsd' or 'bshd', got {layout!r}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in _PLAIN_DEVICES + ("cuda",):
         raise ValueError(f"flash_bwd runs on CPU or CUDA tensors, got {q.device}")
     return layout == "bshd", 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
 
@@ -430,7 +434,7 @@ def flash_bwd_dq(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd", d
     at every width, two, the delta pass and the split-TF32 or wgmma kernel)
     or raises."""
     bshd, scale = _bwd_args(q, layout, scale)
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN_DEVICES:
         return _into(dq, _bwd_plain(q, k, v, o, do, lse, causal, scale, bshd)[0])
     dq = _new_like(q) if dq is None else dq
     n, _ = _bwd_launch(q, k, v, o, do, lse, dq, None, None, causal, scale, bshd)
@@ -450,7 +454,7 @@ def flash_bwd_dkv(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd",
     if (dk is None) != (dv is None):
         raise ValueError("flash_bwd_dkv: give both dk and dv or neither")
     bshd, scale = _bwd_args(q, layout, scale)
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN_DEVICES:
         _, gk, gv = _bwd_plain(q, k, v, o, do, lse, causal, scale, bshd)
         return _into(dk, gk), _into(dv, gv)
     if dk is None:
@@ -521,7 +525,7 @@ def flash_bwd(q, k, v, o, do, lse, causal=False, scale=None, layout="bhsd", out=
     ``flash_wide_bwd_dq``), three launches in all."""
     dq, dk, dv = out if out is not None else (None, None, None)
     bshd, scale = _bwd_args(q, layout, scale)
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN_DEVICES:
         grads = _bwd_plain(q, k, v, o, do, lse, causal, scale, bshd)
         return tuple(_into(dst, g) for dst, g in zip((dq, dk, dv), grads))
     dq, dk, dv = (_new_like(x) if g is None else g for g, x in zip((dq, dk, dv), (q, k, v)))

@@ -89,6 +89,11 @@ def _lib():
 
 
 def _device_of(fn, x):
+    """"cpu" for a tensor that takes the plain version (a CPU tensor, or a
+    meta tensor in shape inference, which holds no data), "cuda" for one
+    that launches the kernel; any other device raises."""
+    if x.device.type == "meta":
+        return "cpu"
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{fn} runs on CPU or CUDA tensors, got {x.device}")
     return x.device.type

@@ -203,12 +203,26 @@ def test_channel_vector_and_residual_checks_raise():
 
 
 def test_no_other_device_falls_back():
-    """Only CPU and CUDA tensors are taken; anything else raises."""
-    x = torch.zeros(2, 3, 4, device="meta")
+    """Only CPU and CUDA tensors are computed on; any other device raises.
+    A meta tensor (shape inference: it holds no data) gets the plain
+    version's shapes and dtypes, and launches nothing."""
+
+    class OtherDevice:  # a tensor of a device with no backend in this build
+        device = torch.device("xpu")
+        shape = (2, 3, 4)
+
+    x = OtherDevice()
     with pytest.raises(ValueError, match="CPU or CUDA"):
         bn.bn_stats(x)
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        bn.bn_apply(x, torch.ones(3, device="meta"), torch.zeros(3, device="meta"))
+        bn.bn_apply(x, torch.ones(3), torch.zeros(3))
+    launches = bn.bn_stats.launches, bn.bn_apply.launches
+    m = torch.zeros(2, 3, 4, device="meta", dtype=torch.bfloat16)
+    stats = bn.bn_stats(m)
+    out = bn.bn_apply(m, torch.ones(3, device="meta"), torch.zeros(3, device="meta"))
+    assert stats.device.type == "meta" and stats.shape == (3, 2) and stats.dtype == torch.float32
+    assert out.device.type == "meta" and out.shape == m.shape and out.dtype == m.dtype
+    assert (bn.bn_stats.launches, bn.bn_apply.launches) == launches
 
 
 def test_stats_slabs_fill_the_card():

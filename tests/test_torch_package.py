@@ -109,6 +109,51 @@ print("OK")
     assert proc.returncode == 0 and "OK" in proc.stdout, proc.stderr
 
 
+def test_port_serves_a_tiny_bert_symbol_without_jax(tmp_path):
+    """``mx.sym``, ``mx.predictor`` and ``mx.serving``: a tiny BERT symbol
+    saved, loaded and served on the CPU in both tiers, with no JAX module
+    ever imported."""
+    code = f"""
+import sys
+sys.path.insert(0, "tests")
+import numpy as np
+import incubator_mxnet_torch as mx
+from incubator_mxnet_torch.predictor import Predictor
+from incubator_mxnet_torch.serving import InferenceServer
+from sym_bert import bert_symbol
+sym = bert_symbol(mx.sym, num_layers=1, units=32, hidden_size=64, num_heads=2, vocab_size=50,
+                  seq_len=8, num_masked=2, max_length=16)
+spec = {{"token_ids": (8,), "token_types": (8,), "masked_positions": (2,)}}
+shapes, _, _ = sym.infer_shape(**{{k: (1,) + v for k, v in spec.items()}})
+rng = np.random.RandomState(0)
+params = {{"arg:" + n: mx.nd.array(rng.randn(*s).astype(np.float32) * 0.1, ctx=mx.cpu())
+          for n, s in zip(sym.list_arguments(), shapes) if n not in spec}}
+sym.save({str(tmp_path)!r} + "/bert-symbol.json")
+mx.nd.save({str(tmp_path)!r} + "/bert-0000.params", params)
+req = {{"token_ids": rng.randint(0, 50, 8), "token_types": np.zeros(8),
+       "masked_positions": np.array([1, 5])}}
+outs = {{}}
+for amp in (None, "bfloat16"):
+    with InferenceServer({str(tmp_path)!r} + "/bert-symbol.json",
+                         {str(tmp_path)!r} + "/bert-0000.params", spec,
+                         input_dtypes={{k: "int32" for k in spec}}, max_batch_size=2,
+                         max_queue_ms=2.0, amp_dtype=amp, dev_type="cpu", name=str(amp)) as srv:
+        outs[amp] = srv.infer(req, timeout=30.0)
+        assert srv.stats()["bucket_miss_after_warmup"] == 0
+pred = Predictor({str(tmp_path)!r} + "/bert-symbol.json", {str(tmp_path)!r} + "/bert-0000.params",
+                 {{k: (1,) + v for k, v in spec.items()}}, dev_type="cpu")
+want = [pred.predict(**{{k: np.asarray(v)[None] for k, v in req.items()}})[0]]
+assert np.array_equal(outs[None][0], want[0])
+assert [o.shape for o in outs["bfloat16"]] == [(2, 50), (2,)]
+assert np.abs(outs["bfloat16"][0] - outs[None][0]).max() < 0.05
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "incubator_mxnet_tpu")))
+assert not bad, bad
+print("OK")
+"""
+    proc = _run(code)
+    assert proc.returncode == 0 and "OK" in proc.stdout, proc.stderr
+
+
 def test_sources_name_neither_jax_nor_the_jax_package():
     """Module names only: prose may say "the JAX package"."""
     pattern = re.compile(r"incubator_mxnet_tpu|\bjax\b")
@@ -119,7 +164,9 @@ def test_sources_name_neither_jax_nor_the_jax_package():
             "gluon/loss.py", "autograd.py", "amp/amp.py", "amp/lists.py",
             "gluon/model_zoo/vision/resnet.py", "rtc.py", "operator.py",
             "ops/_driver.py", "ops/random_ops.py", "ndarray/ndarray.py",
-            "ndarray/__init__.py", "ndarray/utils.py", "random.py"} <= names
+            "ndarray/__init__.py", "ndarray/utils.py", "random.py", "symbol/symbol.py",
+            "symbol/infer.py", "executor.py", "predictor.py", "profiler.py",
+            "serving/server.py", "serving/bucketing.py", "attribute.py", "name.py"} <= names
     offenders = [f"{p.relative_to(ROOT)}:{i}" for p in sources
                  for i, line in enumerate(p.read_text().splitlines(), 1) if pattern.search(line)]
     assert not offenders, offenders
