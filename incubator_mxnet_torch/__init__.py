@@ -19,6 +19,7 @@ from . import initializer as init
 from . import ops
 from . import ndarray
 from . import ndarray as nd
+from .ndarray import NDArray
 from . import optimizer
 from . import gluon
 from . import amp
@@ -37,6 +38,6 @@ from . import serving
 
 __all__ = ["MXNetError", "DeferredInitializationError", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "context", "autograd", "random",
-           "initializer", "init", "ops", "nd", "ndarray", "optimizer", "gluon", "amp", "convert", "operator",
+           "initializer", "init", "ops", "nd", "ndarray", "NDArray", "optimizer", "gluon", "amp", "convert", "operator",
            "rtc", "name", "attribute", "AttrScope", "symbol", "sym", "Executor", "profiler",
            "predictor", "serving"]

@@ -86,11 +86,19 @@ def _tensor(x):
     return getattr(x, "_data", x)  # an NDArray's tensor, or the tensor itself
 
 
-def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
+def backward(heads, head_grads=None, retain_graph=False, train_mode=True,
+             grad_ready_hook=None):
     """Back-propagate from ``heads`` (a tensor or NDArray, or a list), seeding
     each with ``head_grads`` or, as MXNet does, with ones, so a per-sample
     loss vector needs no ``.sum()``.  Gradients land in the Parameters'
-    buffers (and attached NDArrays' ``grad``) by their ``grad_req``."""
+    buffers (and attached NDArrays' ``grad``) by their ``grad_req``.
+    ``grad_ready_hook`` (the reference's per-leaf readiness callback, which
+    ``Trainer.backward`` overlaps gradient communication with) waits in
+    ROADMAP §1 item 6: accepted at None, anything else raises."""
+    if grad_ready_hook is not None:
+        raise NotImplementedError(
+            "autograd.backward(grad_ready_hook=): the per-leaf readiness hook and the "
+            "Trainer.backward overlap it serves wait in ROADMAP §1 item 6")
     if not isinstance(heads, (list, tuple)):
         heads = [heads]
     if head_grads is None:

@@ -23,6 +23,7 @@ inside ``record()``; every child's ``__call__`` reads the same flag.
 """
 from __future__ import annotations
 
+import functools
 import re
 import threading
 
@@ -34,7 +35,7 @@ from ..ndarray.ndarray import _has_nd, _rewrap_nested, _unwrap_nested
 from ..ops.registry import nd
 from .parameter import ParameterDict, _load_into
 
-__all__ = ["Block", "HybridBlock", "collect_aux_update"]
+__all__ = ["Block", "HybridBlock", "block_method", "collect_aux_update"]
 
 _tls = threading.local()
 
@@ -53,6 +54,30 @@ def collect_aux_update(param, new_value):
     value from a forward.  PyTorch runs eagerly, so the update is applied at
     once, in place (``set_data`` records no graph)."""
     param.set_data(new_value)
+
+
+def _as_block_call(fn, args, kwargs):
+    """``fn(*args, **kwargs)`` as a Block call runs: under the currency rule
+    (NDArrays in, NDArrays out) and with grad mode on only inside
+    ``autograd.record()``."""
+    if _has_nd(args) or _has_nd(kwargs.values()):
+        args = _unwrap_nested(args)
+        kwargs = {k: _unwrap_nested(v) for k, v in kwargs.items()}
+        return _rewrap_nested(_as_block_call(fn, args, kwargs))
+    with torch.set_grad_enabled(autograd.is_recording()):
+        return fn(*args, **kwargs)
+
+
+def block_method(fn):
+    """Decorate a Block method other than ``forward`` that users call
+    directly (the Transformer's ``encode`` and ``decode``) so that it runs
+    as a Block call does."""
+
+    @functools.wraps(fn)
+    def call(self, *args, **kwargs):
+        return _as_block_call(functools.partial(fn, self), args, kwargs)
+
+    return call
 
 
 class _BlockScope:
@@ -179,6 +204,8 @@ class Block(torch.nn.Module):
         return self
 
     def hybridize(self, active=True, **kwargs):
+        """Record the flag on this block and every child (the reference's
+        parameters; PyTorch runs eagerly either way)."""
         self._active = active
         for _, child in self._child_blocks():
             child.hybridize(active, **kwargs)
@@ -224,17 +251,21 @@ class Block(torch.nn.Module):
         self.load_parameters(filename, ctx, **kwargs)
 
     def __call__(self, *args, **kwargs):
-        if _has_nd(args) or _has_nd(kwargs.values()):
-            args = _unwrap_nested(args)
-            kwargs = {k: _unwrap_nested(v) for k, v in kwargs.items()}
-            return _rewrap_nested(self.__call__(*args, **kwargs))
-        with torch.set_grad_enabled(autograd.is_recording()):
-            return super().__call__(*args, **kwargs)
+        return _as_block_call(super().__call__, args, kwargs)
 
 
 class HybridBlock(Block):
     """A Block authored as ``hybrid_forward(F, x, *args, **params)``, with
     ``F`` the ``nd`` namespace and the parameters as keyword tensors."""
+
+    def hybridize(self, active=True, static_alloc=False, static_shape=False, **kwargs):
+        """The reference's ``HybridBlock.hybridize`` parameters, in its
+        order: ``static_alloc`` and ``static_shape`` are recorded in
+        ``_flags`` and passed to the children; they change nothing here,
+        where every call runs eagerly on the port's kernels."""
+        self._flags = dict(static_alloc=static_alloc, static_shape=static_shape, **kwargs)
+        return super().hybridize(active, static_alloc=static_alloc, static_shape=static_shape,
+                                 **kwargs)
 
     def forward(self, x, *args):
         def gather():

@@ -1,20 +1,30 @@
-"""Transformer encoder layers (BERT conventions by default: post-LN, GELU,
-learned positions; pre-LN on request).
+"""Transformer layers: the encoder (BERT conventions by default: post-LN,
+GELU, learned positions; pre-LN on request), the decoder (causal
+self-attention, cross-attention over the encoder's memory, FFN) and the
+sinusoidal position table of the WMT Transformer.
 
-Counterpart of the encoder half of
-the JAX package's ``gluon/nn/transformer.py``, with the same parameter
-names.  Self-attention is one fused QKV projection whose ``[B, S, 3·D]``
-output goes to ``fused_qkv_attention`` as it is; on the card that reaches
-the port's flash-attention kernel.
+Counterpart of the JAX package's ``gluon/nn/transformer.py``, with the
+same parameter names.  Self-attention is one fused QKV projection whose
+``[B, S, 3·D]`` output goes to ``fused_qkv_attention`` as it is,
+cross-attention a q projection and one fused KV projection of the memory
+(``fused_kv_attention``); on the card both reach the port's
+flash-attention kernel.  The JAX ``PositionwiseFFN``'s rematerialization
+switch ``MXNET_TPU_REMAT_FFN`` is a checkpoint policy of the JAX trace
+and has no counterpart: the port runs eagerly, and PyTorch saves what
+autograd needs.
 """
 from __future__ import annotations
+
+import numpy as _np
+import torch
 
 from ...ops.registry import nd as F
 from ..block import HybridBlock
 from .basic_layers import Dense, Dropout, Embedding, LayerNorm
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell",
-           "TransformerEncoder", "PositionalEmbedding"]
+           "TransformerEncoder", "TransformerDecoderCell", "TransformerDecoder",
+           "PositionalEmbedding", "SinusoidalPositionalEncoding"]
 
 
 class MultiHeadAttention(HybridBlock):
@@ -127,6 +137,58 @@ class TransformerEncoder(HybridBlock):
         return x
 
 
+class TransformerDecoderCell(HybridBlock):
+    """Decoder layer: causal self-attention, cross-attention over the
+    memory, FFN; post-LN by default, pre-LN with ``pre_norm=True``.  The
+    residual dropout is applied once, by this cell."""
+
+    def __init__(self, units, hidden_size, num_heads, dropout=0.0, pre_norm=False,
+                 activation="relu", dtype="float32", prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._pre_norm = pre_norm
+        with self.name_scope():
+            self.self_attention = MultiHeadAttention(units, num_heads, dropout=0.0, causal=True,
+                                                     dtype=dtype, prefix="selfattn_")
+            self.ln_self = LayerNorm(prefix="ln1_")
+            self.cross_attention = MultiHeadAttention(units, num_heads, dropout=0.0, cross=True,
+                                                      dtype=dtype, prefix="crossattn_")
+            self.ln_cross = LayerNorm(prefix="ln2_")
+            self.ffn = PositionwiseFFN(units, hidden_size, activation, dropout=0.0, dtype=dtype,
+                                       prefix="ffn_")
+            self.ln_ffn = LayerNorm(prefix="ln3_")
+        self._drop = Dropout(dropout) if dropout else None
+        if self._drop is not None:
+            self.register_child(self._drop, "dropout")
+
+    def forward(self, x, memory):
+        d = self._drop if self._drop is not None else (lambda t: t)
+        if self._pre_norm:
+            x = x + d(self.self_attention(self.ln_self(x)))
+            x = x + d(self.cross_attention(self.ln_cross(x), memory))
+            return x + d(self.ffn(self.ln_ffn(x)))
+        x = self.ln_self(x + d(self.self_attention(x)))
+        x = self.ln_cross(x + d(self.cross_attention(x, memory)))
+        return self.ln_ffn(x + d(self.ffn(x)))
+
+
+class TransformerDecoder(HybridBlock):
+    def __init__(self, num_layers, units, hidden_size, num_heads, dropout=0.0, pre_norm=False,
+                 activation="relu", dtype="float32", prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._layers = []
+        with self.name_scope():
+            for i in range(num_layers):
+                cell = TransformerDecoderCell(units, hidden_size, num_heads, dropout, pre_norm,
+                                              activation, dtype=dtype, prefix=f"layer{i}_")
+                self.register_child(cell, f"layer{i}")
+                self._layers.append(cell)
+
+    def forward(self, x, memory):
+        for cell in self._layers:
+            x = cell(x, memory)
+        return x
+
+
 class PositionalEmbedding(HybridBlock):
     """Learned positional embedding (BERT style): x [B, S, D] → x + pos[:S]."""
 
@@ -137,3 +199,40 @@ class PositionalEmbedding(HybridBlock):
 
     def forward(self, x):
         return x + self.embed(F.arange(0, x.shape[1], ctx=x.device, dtype="int32"))
+
+
+def sinusoidal_table(units, max_length):
+    """The WMT Transformer's position table, float32 ``[max_length,
+    units]``: sin at even columns, cos at odd ones, of pos / 10000^(2i /
+    units) (an odd ``units`` has one sine column more than cosines)."""
+    pos = _np.arange(max_length)[:, None]
+    dim = _np.arange((units + 1) // 2)[None, :]
+    angle = pos / _np.power(10000.0, 2 * dim / units)
+    table = _np.zeros((max_length, units), dtype=_np.float32)
+    table[:, 0::2] = _np.sin(angle)
+    table[:, 1::2] = _np.cos(angle[:, : units // 2])
+    return table
+
+
+class SinusoidalPositionalEncoding(HybridBlock):
+    """Fixed sinusoidal encoding (WMT Transformer); no parameters.  The
+    numpy float32 ``_table`` is kept (the serving adapter reads it); it is
+    added in ``x``'s dtype, so a bf16 network stays bf16."""
+
+    def __init__(self, units, max_length=4096, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._units = units
+        self._table = sinusoidal_table(units, max_length)
+        self._device_tables = {}
+
+    def table(self, device, dtype):
+        """The table as a tensor on ``device`` in ``dtype``, made once a
+        (device, dtype)."""
+        key = (str(device), dtype)
+        t = self._device_tables.get(key)
+        if t is None:
+            t = self._device_tables[key] = torch.from_numpy(self._table).to(device, dtype)
+        return t
+
+    def forward(self, x):
+        return x + self.table(x.device, x.dtype)[: x.shape[1]]

@@ -46,7 +46,12 @@ class Parameter:
     """A trainable (or auxiliary) tensor of a Block."""
 
     def __init__(self, name, grad_req="write", shape=None, dtype="float32", lr_mult=1.0,
-                 wd_mult=1.0, init=None, allow_deferred_init=False, differentiable=True):
+                 wd_mult=1.0, init=None, allow_deferred_init=False, differentiable=True,
+                 stype="default", grad_stype="default"):
+        if stype != "default" or grad_stype != "default":
+            raise NotImplementedError(
+                f"Parameter {name}: stype={stype!r}, grad_stype={grad_stype!r}: sparse storage "
+                "(row_sparse, csr) waits in ROADMAP §1 item 11; use 'default'")
         self.name = name
         self._data = None
         self._grad = None

@@ -209,7 +209,8 @@ def group_rows(step, lrs, wds, ts, scalars):
     return multi_tensor.rows(lrs, wds, _rates(step, lrs, ts, scalars), scalars)
 
 
-def group_apply(step, weights, grads, states, lrs, wds, ts, scalars, device_rows=None):
+def group_apply(step, weights, grads, states, lrs, wds, ts, scalars, donate=False, *,
+                device_rows=None):
     """Apply a step adapter (``sgd_step`` ... ``mp_adam_step``) to a whole
     parameter group in place.  ``states`` holds each tensor's tuple of fp32
     states, ``lrs``/``wds``/``ts`` one value per tensor (``lrs``/``wds``
@@ -222,8 +223,10 @@ def group_apply(step, weights, grads, states, lrs, wds, ts, scalars, device_rows
     kernel reads the values from device memory: those of
     :func:`group_rows`, copied there on the launch stream, or, where a
     caller passes ``device_rows`` (a CUDA graph's buffer that it fills
-    before each replay), those.  Returns ``(weights, states)``, the same
-    tensors, updated."""
+    before each replay), those.  ``donate`` is the reference's: there it
+    lets XLA reuse the weight and state buffers; here every group is
+    updated in place whatever its value, which is what donation buys.
+    Returns ``(weights, states)``, the same tensors, updated."""
     weights = list(weights)
     if not weights:
         return weights, list(states)

@@ -30,13 +30,14 @@ class Op:
     multi-tensor updates) whose list arguments ``mx.nd`` unwraps as they
     come."""
 
-    __slots__ = ("name", "fn", "differentiable", "wrap_ndarray", "aliases")
+    __slots__ = ("name", "fn", "differentiable", "wrap_ndarray", "cacheable", "aliases")
 
-    def __init__(self, name, fn, differentiable=True, wrap_ndarray=True):
+    def __init__(self, name, fn, differentiable=True, wrap_ndarray=True, cacheable=True):
         self.name = name
         self.fn = fn
         self.differentiable = differentiable
         self.wrap_ndarray = wrap_ndarray
+        self.cacheable = cacheable
         self.aliases = []
 
     def __call__(self, *args, **kwargs):
@@ -46,12 +47,17 @@ class Op:
         return f"<Op {self.name}>"
 
 
-def register(name=None, differentiable=True, wrap_ndarray=True):
+def register(name=None, differentiable=True, wrap_ndarray=True, cacheable=True):
+    """Register ``fn`` as an operator.  ``cacheable=False`` keeps an op off
+    the reference's eager dispatch caches (an op running a user's Python
+    with side effects); the port dispatches every op eagerly and caches
+    none, so each op already runs its body each call: the flag is kept on
+    the Op and changes nothing else."""
     def deco(fn):
         opname = name or fn.__name__
         if opname in _REGISTRY:
             raise ValueError(f"op {opname!r} already registered")
-        _REGISTRY[opname] = Op(opname, fn, differentiable, wrap_ndarray)
+        _REGISTRY[opname] = Op(opname, fn, differentiable, wrap_ndarray, bool(cacheable))
         return fn
 
     return deco

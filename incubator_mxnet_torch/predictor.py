@@ -18,11 +18,13 @@ lookup, not a device copy or a plan build.
 A ``Predictor`` is NOT thread-safe (``reshape``/``set_input``/``forward``
 mutate the active executor): concurrent callers must serialize, which is
 exactly what ``serving.InferenceServer``'s single scheduler thread does.
-``StatefulExecutor`` (the generation tier's substrate) comes with the next
-serving slice (ROADMAP §1 item 4).
+:class:`StatefulExecutor` is the generation tier's substrate: named
+programs over one dict of device tensors that they update in place.
 """
 from __future__ import annotations
 
+import json as _json
+import time as _time
 import weakref as _weakref
 
 import numpy as _np
@@ -31,7 +33,7 @@ import torch
 from . import profiler
 from .base import as_torch_dtype
 
-__all__ = ["Predictor", "load_checkpoint"]
+__all__ = ["Predictor", "StatefulExecutor", "load_checkpoint"]
 
 
 def _release_predictor_memory(cell):
@@ -85,6 +87,131 @@ def load_checkpoint(symbol_file, param_file):
             nd = array(_np.asarray(v), ctx=cpu())
         (auxs if kind == "aux" else args)[name] = nd
     return sym, args, auxs
+
+
+class _Program:
+    """A bound program and the input signatures it has been called at (its
+    "builds": ``profiler.jit_cache_size`` counts them)."""
+
+    __slots__ = ("fn", "donate_state", "signatures")
+
+    def __init__(self, fn, donate_state):
+        self.fn, self.donate_state = fn, bool(donate_state)
+        self.signatures = set()
+
+
+class StatefulExecutor:
+    """Bind step programs over one shared dict of device tensors.
+
+    Counterpart of the JAX package's ``StatefulExecutor``.  The decode loop
+    of the generation tier (``serving/generation.py``) is a stateful
+    workload: every iteration reads the KV cache and writes its next
+    position.  Programs are plain functions ``fn(state, inputs) ->
+    (outputs, new_state)``, where ``new_state`` carries every state key.
+    A program updates the state tensors in place (``index_put_``,
+    ``copy_``) and returns them: that is this port's form of the
+    reference's donation, so steady-state memory holds one copy of the
+    state.  With ``donate_state=False`` the program gets copies and the
+    tensors it was handed stay as they were.
+
+    ``run(program, **inputs)``: numpy arrays of one or more dimensions
+    (token ids, positions) go to the state's device before the call;
+    numpy scalars and Python numbers stay on the host (a slot index, a
+    prompt length), so a program can shape views by them; tensors pass as
+    they are.  A program does no host synchronization itself.  The first
+    call of a program at a new input signature (the shapes and dtypes of
+    the state and the inputs) is its build, as a jit trace is the
+    reference's: it is reported through ``profiler.record_compile`` under
+    this executor's site, counts in ``compile_stats()``, and after
+    ``profiler.arm_compile_guard`` raises in the guard's raise mode, after
+    the state is rebound.
+
+    Not thread-safe, as :class:`Predictor`: one scheduler thread owns all
+    the calls.
+    """
+
+    def __init__(self, state, name="stateful", compile_site=None, device=None):
+        self._state = dict(state or {})
+        self._name = str(name)
+        self._site = compile_site or f"executor.{self._name}"
+        self._programs = {}
+        self._calls = {}
+        self._compiles = 0
+        if device is None:
+            device = next((v.device for v in self._state.values()
+                           if isinstance(v, torch.Tensor)), None)
+        self._device = device
+
+    @property
+    def state(self):
+        """The live state dict (read-only by convention)."""
+        return self._state
+
+    def add_program(self, name, fn, donate_state=True):
+        """Register ``fn(state, inputs) -> (outputs, new_state)`` under
+        ``name``."""
+        if name in self._programs:
+            raise ValueError(f"program {name!r} already bound")
+        self._programs[name] = _Program(fn, donate_state)
+        self._calls[name] = 0
+        return self
+
+    def _signature(self, program, inputs):
+        sig = {"__program__": program}
+        for k, v in self._state.items():
+            sig[f"state:{k}"] = profiler.sig_array(v)
+        for k, v in (inputs or {}).items():
+            sig[k] = profiler.sig_array(v) if hasattr(v, "shape") else profiler.sig_static(v)
+        return sig
+
+    def _staged(self, v):
+        if isinstance(v, _np.ndarray) and v.ndim > 0:
+            t = torch.from_numpy(_np.ascontiguousarray(v))
+            return t if self._device is None else t.to(self._device, non_blocking=True)
+        return v
+
+    def run(self, program, **inputs):
+        """Call ``program`` on the current state; rebind the returned state;
+        return the outputs.  A call at a signature the program has not seen
+        is reported to the compile registry."""
+        prog = self._programs[program]
+        sig = self._signature(program, inputs)
+        key = _json.dumps(sig, sort_keys=True, default=str)
+        state = (self._state if prog.donate_state
+                 else {k: v.clone() for k, v in self._state.items()})
+        t0 = _time.perf_counter()
+        try:
+            outputs, new_state = prog.fn(state, {k: self._staged(v) for k, v in inputs.items()})
+        except Exception as e:
+            # the stateful dispatch (a decode step, a KV-cache insert) is an
+            # OOM choke point: one postmortem naming the top ledger owners
+            profiler.maybe_oom_postmortem(e, f"{self._site}:{program}")
+            raise
+        wall_ms = (_time.perf_counter() - t0) * 1e3
+        missing = set(self._state) - set(new_state)
+        if missing:
+            raise RuntimeError(
+                f"program {program!r} dropped state keys {sorted(missing)}; every program "
+                "must return the full state")
+        self._state = dict(new_state)
+        self._calls[program] += 1
+        if key not in prog.signatures:
+            prog.signatures.add(key)
+            self._compiles += 1
+            profiler.record_compile(self._site, sig, wall_ms, fn=prog.fn)
+        return outputs
+
+    def is_warm(self, program):
+        """True when ``program`` has been built at one signature at least."""
+        return profiler.jit_cache_size(self._programs[program]) > 0
+
+    def compile_stats(self):
+        """``{"programs", "entries", "compiles", "calls"}``: the generation
+        harness compares it around a traffic run to prove no program was
+        built after warm-up."""
+        entries = sum(profiler.jit_cache_size(p) for p in self._programs.values())
+        return {"programs": len(self._programs), "entries": entries,
+                "compiles": self._compiles, "calls": dict(self._calls)}
 
 
 class Predictor:

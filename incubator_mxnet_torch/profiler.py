@@ -15,9 +15,14 @@ far as ``predictor.py`` and ``serving/`` reach it:
   ``compile_stats``;
 * the device-memory ledger (``track_memory``, ``array_nbytes``), watermarks
   from ``torch.cuda.memory_stats`` (``maybe_sample_memory``) and the OOM
-  postmortem of ``torch.cuda.OutOfMemoryError`` (``maybe_oom_postmortem``).
-Step telemetry, goodput, the straggler report and the device trace wait in
-ROADMAP §1 item 5.
+  postmortem of ``torch.cuda.OutOfMemoryError`` (``maybe_oom_postmortem``);
+* the part the generation tier calls: :class:`MemoryBudget` and
+  ``memory_budget()`` (admission under a byte budget, over
+  ``torch.cuda.mem_get_info`` and the ledger), ``disarm_compile_guard``,
+  ``reset_compiles`` and ``jit_cache_size``, which counts the signatures a
+  bound program has built (``predictor.StatefulExecutor``).
+Step telemetry, goodput, the straggler report, the JSONL exporter, compile
+cost accounting and the device trace wait in ROADMAP §1 item 5.
 """
 from __future__ import annotations
 
@@ -39,7 +44,9 @@ __all__ = ["set_config", "start", "stop", "dump", "record_span", "incr", "counte
            "arm_compile_guard", "compile_guard_state", "compile_guard_paused",
            "CompileGuardError", "track_memory", "memory_ledger", "array_nbytes",
            "device_memory_stats", "maybe_sample_memory", "memory_watermark",
-           "oom_postmortem", "maybe_oom_postmortem", "memory_postmortems"]
+           "oom_postmortem", "maybe_oom_postmortem", "memory_postmortems",
+           "MemoryBudgetError", "MemoryBudget", "memory_budget", "disarm_compile_guard",
+           "reset_compiles", "jit_cache_size"]
 
 _logger = logging.getLogger(__name__)
 
@@ -81,10 +88,20 @@ _counters = {
     "serving_bucket_miss": 0,         # batches that had to bind/build a plan
     "serving_slo_violation": 0,       # requests completing past their SLO
     "serving_queue_depth_peak": 0,    # high-watermark of the request queue
+    "generation_request": 0,          # prompts accepted by GenerationServer
+    "generation_shed": 0,             # submissions rejected by admission control
+    "generation_prefill": 0,          # prefill dispatches
+    "generation_slot_join": 0,        # requests joining the decode batch
+    "generation_slot_leave": 0,       # requests leaving (finish/cancel/error)
+    "generation_decode_iter": 0,      # per-pool decode steps
+    "generation_token": 0,            # tokens emitted by decode steps
+    "generation_cancelled": 0,        # requests cancelled mid-stream
+    "generation_slo_violation": 0,    # completions past their tenant's SLO
     "compile_total": 0,               # executor plans built, across every site
     "compile_ms_total": 0,            # wall ms those builds cost
     "recompile_steady_state": 0,      # builds after the guard armed
     "memory_oom_postmortem": 0,       # OOM postmortems emitted
+    "memory_budget_refusal": 0,       # admissions deferred by a MemoryBudget
 }
 _counter_lock = _threading.Lock()
 
@@ -126,15 +143,20 @@ def _ring():
     return r
 
 
-def record_span(name, category, t0, t1=None, args=None):
+def record_span(name, category, t0, t1=None, args=None, step=None):
     """Record one completed span between two ``time.perf_counter()``
-    readings (``t1`` defaults to now).  A no-op unless ``start()`` armed
-    the recorder; hot paths check ``profiler._active`` first."""
+    readings (``t1`` defaults to now).  ``step`` tags the span with a step
+    id, written into the trace event's ``args`` as ``"step"`` (the port has
+    no step telemetry yet, so an untagged span carries none).  A no-op
+    unless ``start()`` armed the recorder; hot paths check
+    ``profiler._active`` first."""
     if not _active:
         return
     if t1 is None:
         t1 = _perf()
     t0 = max(t0, _armed_at)
+    if step is not None:
+        args = {"step": step, **(args or {})}
     _ring()[3].append((name, category, t0, max(t1, t0), args))
 
 
@@ -368,13 +390,19 @@ def _make_metrics_handler():
     return Handler
 
 
-def start_metrics(port=None):
+def start_metrics(port=None, jsonl=None, interval_s=None):
     """Start the ``/metrics`` and ``/healthz`` endpoint
     on localhost.  ``port=None`` reads ``MXNET_METRICS_PORT`` (0 or unset:
     no endpoint); an explicit ``port=0`` binds a free port (read it back
     with ``metrics_server_port()``).  A port already taken warns and serves
-    nothing.  Idempotent."""
+    nothing.  Idempotent.  ``jsonl`` and ``interval_s`` (the reference's
+    periodic JSONL log) are accepted at their default, None; the exporter
+    waits in ROADMAP §1 item 5, and a value raises."""
     global _metrics_http
+    if jsonl is not None or interval_s is not None:
+        raise NotImplementedError(
+            "start_metrics(jsonl=, interval_s=): the periodic JSONL metrics log waits in "
+            "ROADMAP §1 item 5; serve /metrics with port= instead")
     env_port = port is None
     if env_port:
         port = _env_int("MXNET_METRICS_PORT", 0)
@@ -478,17 +506,37 @@ def memory_ledger():
             "total_bytes": sum(i["bytes"] for i in owners.values())}
 
 
-def device_memory_stats():
-    """``{"cuda:i": {"bytes_in_use", "peak_bytes_in_use"}}`` from
-    ``torch.cuda.memory_stats`` of every card this process has touched;
-    empty on a machine without one."""
-    if not torch.cuda.is_available() or not torch.cuda.is_initialized():
-        return {}
+def _card_index(d):
+    """A card index from an int, a ``torch.device``, a ``Context`` or a
+    ``"cuda:i"`` string."""
+    d = getattr(d, "device", d)  # a Context's torch.device
+    if isinstance(d, torch.device):
+        return d.index or 0
+    if isinstance(d, str):
+        return torch.device(d).index or 0
+    return int(d)
+
+
+def device_memory_stats(devices=None):
+    """``{"cuda:i": {"bytes_in_use", "peak_bytes_in_use", "bytes_limit"}}``
+    from ``torch.cuda.memory_stats`` (the caching allocator's live and peak
+    bytes) and ``torch.cuda.mem_get_info`` (the card's total) of
+    ``devices`` (card indices, ``torch.device``s, contexts or ``"cuda:i"``
+    strings; default every card), once this process has touched a card;
+    empty on a machine without one.  Never raises."""
     out = {}
-    for i in range(torch.cuda.device_count()):
-        s = torch.cuda.memory_stats(i)
-        out[f"cuda:{i}"] = {"bytes_in_use": s.get("allocated_bytes.all.current", 0),
-                            "peak_bytes_in_use": s.get("allocated_bytes.all.peak", 0)}
+    try:
+        if not torch.cuda.is_available() or not torch.cuda.is_initialized():
+            return {}
+        idx = (range(torch.cuda.device_count()) if devices is None
+               else [_card_index(d) for d in devices])
+        for i in idx:
+            s = torch.cuda.memory_stats(i)
+            out[f"cuda:{i}"] = {"bytes_in_use": s.get("allocated_bytes.all.current", 0),
+                                "peak_bytes_in_use": s.get("allocated_bytes.all.peak", 0),
+                                "bytes_limit": int(torch.cuda.mem_get_info(i)[1])}
+    except Exception:
+        pass  # telemetry must never take serving down
     return out
 
 
@@ -519,12 +567,44 @@ def memory_postmortems():
         return [dict(r) for r in _mem_postmortems]
 
 
-def oom_postmortem(where, error=None):
+def _parse_failed_bytes(msg):
+    """The size of the failed allocation from an OOM message (PyTorch's
+    ``Tried to allocate 20.00 MiB``, XLA's ``trying to allocate N bytes``);
+    None when there is none."""
+    import re
+
+    m = re.search(r"(?:allocat\w+|reserve)\s+([0-9][0-9.]*)\s*(bytes?|[KMG]i?B?\b)?",
+                  msg or "", re.IGNORECASE)
+    if not m:
+        return None
+    try:
+        val = float(m.group(1))
+    except ValueError:
+        return None
+    unit = (m.group(2) or "bytes").upper()
+    return int(val * {"K": 1 << 10, "M": 1 << 20, "G": 1 << 30}.get(unit[0], 1))
+
+
+def _fmt_bytes(n):
+    if n is None:
+        return "?"
+    for unit, div in (("GiB", 1 << 30), ("MiB", 1 << 20), ("KiB", 1 << 10)):
+        if abs(n) >= div:
+            return f"{n / div:.2f} {unit}"
+    return f"{n} B"
+
+
+def oom_postmortem(where, failed_bytes=None, error=None, kind="oom"):
     """Emit ONE device-memory postmortem (top ledger owners, per-category
-    totals, live device stats) as an ERROR log line; returns the report."""
+    totals, live device stats, the failed allocation's size) as an ERROR
+    log line; returns the report.  ``kind`` is ``"oom"`` (a device
+    allocation failed) or ``"budget"`` (:meth:`MemoryBudget.check` refused
+    one); ``step`` is the current step id, None here until the port has
+    step telemetry (ROADMAP §1 item 5)."""
     led = memory_ledger()
     top = sorted(led["owners"].items(), key=lambda kv: -kv[1]["bytes"])[:8]
-    report = {"where": str(where), "time_unix": time.time(),
+    report = {"kind": kind, "where": str(where), "time_unix": time.time(), "step": None,
+              "failed_bytes": failed_bytes,
               "error": str(error)[:500] if error is not None else None,
               "device": device_memory_stats(), "ledger_total_bytes": led["total_bytes"],
               "by_category": led["by_category"],
@@ -533,8 +613,9 @@ def oom_postmortem(where, error=None):
         _mem_postmortems.append(report)
         del _mem_postmortems[:-_MAX_POSTMORTEMS]
     incr("memory_oom_postmortem")
-    _logger.error("device-memory postmortem at %s: %s; ledger attributes %d bytes, top owners "
-                  "%s", where, str(error)[:200], led["total_bytes"],
+    _logger.error("device-memory postmortem at %s: failed to allocate %s (%s): %s; ledger "
+                  "attributes %s, top owners %s", where, _fmt_bytes(failed_bytes), kind,
+                  str(error)[:200], _fmt_bytes(led["total_bytes"]),
                   [(o, i["bytes"]) for o, i in top[:4]])
     return report
 
@@ -544,17 +625,112 @@ def maybe_oom_postmortem(exc, where):
     (``torch.cuda.OutOfMemoryError``, or a message saying "out of
     memory"), emit exactly one postmortem for it; returns the report, or
     None for unrelated errors.  Callers re-raise ``exc``."""
-    if exc is None or not (isinstance(exc, torch.cuda.OutOfMemoryError)
+    if exc is None or not (isinstance(exc, (torch.cuda.OutOfMemoryError, MemoryBudgetError))
                            or "out of memory" in str(exc).lower()):
         return None
     rep = getattr(exc, "_mx_postmortem", None)
     if rep is None:
-        rep = oom_postmortem(where, error=exc)
+        rep = oom_postmortem(where, failed_bytes=_parse_failed_bytes(str(exc)), error=exc)
         try:
             exc._mx_postmortem = rep
         except Exception:
             pass
     return rep
+
+
+# -- budgeted admission ----------------------------------------------------------
+class MemoryBudgetError(RuntimeError):
+    """An allocation was refused by :meth:`MemoryBudget.check`; the
+    budget's postmortem rides on ``._mx_postmortem``."""
+
+
+class MemoryBudget:
+    """The admission API device-buffer holders consult.
+
+    ``limit_mb``: an explicit budget in MiB; None follows
+    ``MXNET_MEM_BUDGET_MB`` at every call (0 or unset: no explicit cap,
+    only the card's own total caps).  ``pressure_frac``: the occupancy
+    counted as pressure (``MXNET_MEM_PRESSURE_FRAC``, default 0.95).
+    ``usage_bytes()`` is the caching allocator's live bytes on the busiest
+    card when a card is in use, else the ledger's total, so a budget works
+    on the CPU as on the card."""
+
+    def __init__(self, limit_mb=None, pressure_frac=None):
+        self._limit_mb = limit_mb
+        self.pressure_frac = (float(pressure_frac) if pressure_frac is not None
+                              else _env_float("MXNET_MEM_PRESSURE_FRAC", 0.95))
+
+    @property
+    def limit_bytes(self):
+        mb = self._limit_mb
+        if mb is None:
+            mb = _env_float("MXNET_MEM_BUDGET_MB", 0.0)
+        return int(float(mb) * (1 << 20)) if mb else None
+
+    @staticmethod
+    def _usage(stats):
+        if stats:
+            return max(s["bytes_in_use"] for s in stats.values())
+        return memory_ledger()["total_bytes"]
+
+    def usage_bytes(self):
+        return self._usage(device_memory_stats())
+
+    def headroom_bytes(self):
+        """Bytes left under the explicit limit; None when uncapped."""
+        limit = self.limit_bytes
+        return None if limit is None else limit - self.usage_bytes()
+
+    def would_fit(self, nbytes=0):
+        """Whether ``nbytes`` more fit: under the explicit limit when one is
+        set, else under every card's total."""
+        n = int(nbytes)
+        stats = device_memory_stats()
+        limit = self.limit_bytes
+        if limit is not None:
+            return self._usage(stats) + n <= limit
+        return all(not s["bytes_limit"] or s["bytes_in_use"] + n <= s["bytes_limit"]
+                   for s in stats.values())
+
+    def under_pressure(self, frac=None):
+        """Whether occupancy exceeds ``frac`` of a card's total or of the
+        explicit budget: the signal ``GenerationServer``'s admission reads."""
+        frac = self.pressure_frac if frac is None else float(frac)
+        stats = device_memory_stats()
+        if any(s["bytes_limit"] and s["bytes_in_use"] > frac * s["bytes_limit"]
+               for s in stats.values()):
+            return True
+        limit = self.limit_bytes
+        return limit is not None and self._usage(stats) > frac * limit
+
+    def check(self, nbytes, owner="?"):
+        """Raise :class:`MemoryBudgetError`, with exactly one postmortem,
+        when ``nbytes`` does not fit."""
+        if self.would_fit(nbytes):
+            return
+        rep = oom_postmortem(f"budget:{owner}", failed_bytes=int(nbytes), kind="budget")
+        err = MemoryBudgetError(
+            f"memory budget refused {_fmt_bytes(int(nbytes))} for {owner!r}: usage "
+            f"{_fmt_bytes(self.usage_bytes())} of limit {_fmt_bytes(self.limit_bytes)} "
+            "(MXNET_MEM_BUDGET_MB / MemoryBudget)")
+        err._mx_postmortem = rep
+        raise err
+
+    def stats(self):
+        return {"limit_bytes": self.limit_bytes, "pressure_frac": self.pressure_frac,
+                "usage_bytes": self.usage_bytes()}
+
+
+_process_budget = None
+
+
+def memory_budget():
+    """The process-wide :class:`MemoryBudget`, which follows
+    ``MXNET_MEM_BUDGET_MB``."""
+    global _process_budget
+    if _process_budget is None:
+        _process_budget = MemoryBudget()
+    return _process_budget
 
 
 # -- compile registry ----------------------------------------------------------
@@ -589,6 +765,25 @@ def arm_compile_guard(source="manual"):
         if not _guard["armed"]:
             _guard["armed"] = True
             _guard["armed_by"] = source
+
+
+def disarm_compile_guard():
+    """Disarm the guard and reset its warn-once latch (tests; re-warming a
+    model after a deliberate shape change)."""
+    with _compile_lock:
+        _guard["armed"] = False
+        _guard["armed_by"] = None
+        _guard["warned"] = False
+
+
+def jit_cache_size(fn):
+    """How many signatures a bound program has built: the counterpart of
+    the reference's jit cache size, for a program of
+    ``predictor.StatefulExecutor`` (anything with a ``signatures`` set); a
+    growth across a call is one build.  -1 for anything else, so that a
+    caller records nothing rather than a build that did not happen."""
+    sigs = getattr(fn, "signatures", None)
+    return len(sigs) if sigs is not None else -1
 
 
 def compile_guard_state():
@@ -661,14 +856,22 @@ def _drift(old, new):
     return "; ".join(out[:4]) or "same signature"
 
 
-def record_compile(site, signature, wall_ms):
-    """Report one build (an executor's plan for a new signature) into the
-    registry.  ``signature`` maps names to :func:`sig_array` /
-    :func:`sig_static` tokens, plus an optional ``"__program__"``.  A build
-    of a program the site built before at another signature is a
-    recompile, logged with the fields that drifted.  With the guard armed
-    it counts in ``recompile_steady_state``, and ``MXNET_COMPILE_GUARD=raise``
-    raises :class:`CompileGuardError` after the bookkeeping."""
+def record_compile(site, signature, wall_ms, fn=None, args=None, kwargs=None, lowered=None):
+    """Report one build (an executor's plan, or a stateful program's first
+    call, at a new signature) into the registry.  ``signature`` maps names
+    to :func:`sig_array` / :func:`sig_static` tokens, plus an optional
+    ``"__program__"``; ``fn`` is the built callable, whose qualified name
+    the record keeps as ``"fn"``.  A build of a program the site built
+    before at another signature is a recompile, logged with the fields that
+    drifted.  With the guard armed it counts in ``recompile_steady_state``,
+    and ``MXNET_COMPILE_GUARD=raise`` raises :class:`CompileGuardError`
+    after the bookkeeping.  ``args``, ``kwargs`` and ``lowered`` feed the
+    reference's compile cost accounting, which waits in ROADMAP §1 item 5:
+    accepted at None, any other value raises."""
+    if args is not None or kwargs is not None or lowered is not None:
+        raise NotImplementedError(
+            "record_compile(args=, kwargs=, lowered=): compile cost accounting waits in "
+            "ROADMAP §1 item 5")
     site = _active_site(str(site))
     signature = dict(signature or {})
     program = signature.get("__program__")
@@ -690,6 +893,7 @@ def record_compile(site, signature, wall_ms):
         ent["recompiles"] += recompile
         armed = _guard["armed"] and _guard["paused"] == 0
         rec = {"site": site, "program": program, "signature": signature,
+               "fn": None if fn is None else getattr(fn, "__qualname__", repr(fn)),
                "wall_ms": round(float(wall_ms), 3), "time_unix": time.time(),
                "recompile": recompile, "attribution": attribution, "steady_state": armed}
         _compile_records.append(rec)
@@ -729,3 +933,12 @@ def compile_registry():
 def compile_stats():
     """Per-site build summary ``{site: {count, ms, recompiles, signatures}}``."""
     return compile_registry()["sites"]
+
+
+def reset_compiles():
+    """Drop every build record and cached signature (tests; a fresh
+    measurement window).  The guard's state is apart:
+    :func:`disarm_compile_guard`."""
+    with _compile_lock:
+        _compile_records.clear()
+        _compile_sites.clear()

@@ -154,6 +154,36 @@ print("OK")
     assert proc.returncode == 0 and "OK" in proc.stdout, proc.stderr
 
 
+def test_port_generates_with_a_tiny_transformer_without_jax():
+    """``gluon.model_zoo.transformer`` and ``mx.serving.GenerationServer``:
+    a tiny seq2seq Transformer decoded greedily and served on the CPU, with
+    no JAX module ever imported."""
+    code = """
+import sys
+import numpy as np
+import torch
+import incubator_mxnet_torch as mx
+from incubator_mxnet_torch.gluon.model_zoo.transformer import Transformer, greedy_search
+mx.random.seed(0)
+net = Transformer(17, units=16, hidden_size=32, num_heads=2, num_encoder_layers=1,
+                  num_decoder_layers=1, dropout=0.0, max_length=32)
+net.initialize(ctx=mx.cpu())
+net(torch.ones((1, 4), dtype=torch.int32), torch.ones((1, 1), dtype=torch.int32))
+prompt = np.array([3, 5, 7, 9], np.int32)
+toks, lens = greedy_search(net, torch.from_numpy(prompt[None]), 1, 2, max_length=7)
+with mx.serving.GenerationServer(net, bos=1, eos=2, max_prompt_length=8, max_new_tokens=8,
+                                 slots_per_bucket=2, name="pkg") as srv:
+    got = srv.submit(prompt, max_new_tokens=6).result(timeout=30.0)
+assert np.array_equal(got, toks[0, 1:1 + len(got)]), (got, toks)
+assert isinstance(srv.stats()["pools"], dict) and mx.predictor.StatefulExecutor
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "incubator_mxnet_tpu")))
+assert not bad, bad
+print("OK")
+"""
+    proc = _run(code)
+    assert proc.returncode == 0 and "OK" in proc.stdout, proc.stderr
+
+
 def test_sources_name_neither_jax_nor_the_jax_package():
     """Module names only: prose may say "the JAX package"."""
     pattern = re.compile(r"incubator_mxnet_tpu|\bjax\b")
@@ -229,6 +259,15 @@ def test_initialize_without_ctx_raises_without_a_card(no_card):
     with pytest.raises(mx.MXNetError, match="ctx=mx.cpu"):
         deferred.initialize()
     assert mx.num_gpus() == 0
+
+
+def test_kv_cache_without_a_device_raises_without_a_card(no_card):
+    """The slot KV cache lives on the card unless the caller names another
+    device."""
+    with pytest.raises(mx.MXNetError, match="CUDA device"):
+        mx.serving.SlotKVCache(1, 2, 8, 8, 2, 4)
+    assert mx.serving.SlotKVCache(1, 2, 8, 8, 2, 4, device="cpu").state["self_k"].device.type \
+        == "cpu"
 
 
 def test_seed_makes_initialization_reproducible():

@@ -5,10 +5,16 @@ and with its defaults, so a call written for the reference (positional
 arguments included) does in the port what it does there: ``Block`` and
 ``ParameterDict.initialize``, the encoder's ``pre_norm``, ``Embedding``'s
 ``sparse_grad``, the fold's ``keep_grads`` and ``donate_window``, and
-``random.seed``'s ``ctx``.  A value the port cannot honour raises and
-names itself.
+``random.seed``'s ``ctx``; ``mx.NDArray``, ``HybridBlock.hybridize``'s
+static flags, ``oom_postmortem``'s ``failed_bytes`` and the keywords of
+``record_span``, ``start_metrics``, ``device_memory_stats``,
+``record_compile``, ``register``, ``Parameter``, ``autograd.backward`` and
+``group_apply``; the generation tier's surface.  A value the port cannot
+honour raises and names its ROADMAP item.
 """
 import inspect
+import json
+import time
 
 import numpy as np
 import pytest
@@ -17,11 +23,15 @@ import torch
 import incubator_mxnet_tpu as mxj
 from incubator_mxnet_tpu.gluon import parameter as jparameter
 from incubator_mxnet_tpu.gluon.nn import transformer as jtransformer
+from incubator_mxnet_tpu.ops import optimizer_ops as jopt_ops
+from incubator_mxnet_tpu.ops import registry as jregistry
 import incubator_mxnet_torch as mx
 from incubator_mxnet_torch.convert import load_numpy_params
 from incubator_mxnet_torch.gluon import nn
 from incubator_mxnet_torch.gluon import parameter as tparameter
 from incubator_mxnet_torch.gluon.nn import transformer as ttransformer
+from incubator_mxnet_torch.ops import optimizer_ops as topt_ops
+from incubator_mxnet_torch.ops import registry as tregistry
 
 # fp32 through 2 layers in another summation order: tests/test_torch_bert.py's
 # tolerance.
@@ -48,6 +58,21 @@ PAIRS = [
     ("Symbol.simple_bind", mxj.sym.Symbol.simple_bind, mx.sym.Symbol.simple_bind),
     ("Executor.__init__", mxj.Executor.__init__, mx.Executor.__init__),
     ("amp.convert_model", mxj.amp.convert_model, mx.amp.convert_model),
+    # the faults of ROADMAP §3 items 1-4
+    ("Block.hybridize", mxj.gluon.Block.hybridize, mx.gluon.Block.hybridize),
+    ("HybridBlock.hybridize", mxj.gluon.HybridBlock.hybridize, mx.gluon.HybridBlock.hybridize),
+    ("profiler.oom_postmortem", mxj.profiler.oom_postmortem, mx.profiler.oom_postmortem),
+    ("profiler.maybe_oom_postmortem", mxj.profiler.maybe_oom_postmortem,
+     mx.profiler.maybe_oom_postmortem),
+    ("profiler.record_span", mxj.profiler.record_span, mx.profiler.record_span),
+    ("profiler.start_metrics", mxj.profiler.start_metrics, mx.profiler.start_metrics),
+    ("profiler.device_memory_stats", mxj.profiler.device_memory_stats,
+     mx.profiler.device_memory_stats),
+    ("profiler.record_compile", mxj.profiler.record_compile, mx.profiler.record_compile),
+    ("registry.register", jregistry.register, tregistry.register),
+    ("Parameter.__init__", jparameter.Parameter.__init__, tparameter.Parameter.__init__),
+    ("autograd.backward", mxj.autograd.backward, mx.autograd.backward),
+    ("optimizer_ops.group_apply", jopt_ops.group_apply, topt_ops.group_apply),
 ]
 
 # The one difference by design: the port's entry points run on the card
@@ -262,6 +287,46 @@ def _nd_methods():
     return out
 
 
+def _generation_pairs():
+    """The generation tier: the decoder layers, the seq2seq model and its
+    search loops, the stateful executor, the slot KV cache, the server and
+    the profiler's part of it."""
+    from incubator_mxnet_tpu.gluon.model_zoo import transformer as jzoo
+    from incubator_mxnet_tpu import predictor as jpred
+    from incubator_mxnet_tpu.serving import generation as jgen, kv_cache as jkv
+    from incubator_mxnet_torch.gluon.model_zoo import transformer as tzoo
+    from incubator_mxnet_torch import predictor as tpred
+    from incubator_mxnet_torch.serving import generation as tgen, kv_cache as tkv
+
+    out = [(f"{n}.__init__", getattr(jtransformer, n).__init__,
+            getattr(ttransformer, n).__init__)
+           for n in ("TransformerDecoderCell", "TransformerDecoder",
+                     "SinusoidalPositionalEncoding")]
+    out += [(f"transformer.{n}", getattr(jzoo, n), getattr(tzoo, n)) for n in (
+        "transformer_base", "transformer_big", "transformer_sharding_rules", "greedy_search",
+        "beam_search")]
+    out.append(("Transformer.__init__", jzoo.Transformer.__init__, tzoo.Transformer.__init__))
+    out += [(f"StatefulExecutor.{n}", getattr(jpred.StatefulExecutor, n),
+             getattr(tpred.StatefulExecutor, n)) for n in (
+        "__init__", "add_program", "run", "is_warm", "compile_stats")]
+    out += [(f"{c}.{n}", getattr(getattr(jkv, c), n), getattr(getattr(tkv, c), n))
+            for c, names in (("SlotKVCache", ("__init__", "alloc", "free")),
+                             ("KVCacheLadder", ("__init__", "try_alloc", "bucket_for")))
+            for n in names]
+    out += [(f"{c}.{n}", getattr(getattr(jgen, c), n), getattr(getattr(tgen, c), n))
+            for c, names in (("GenerationServer", ("__init__", "submit", "generate", "close",
+                                                   "start", "stats", "compile_stats")),
+                             ("Tenant", ("__init__",)),
+                             ("GenerationResult", ("__init__", "stream", "result", "cancel")))
+            for n in names]
+    out += [(f"profiler.{n}", getattr(mxj.profiler, n), getattr(mx.profiler, n)) for n in (
+        "memory_budget", "disarm_compile_guard", "reset_compiles", "jit_cache_size")]
+    out += [(f"MemoryBudget.{n}", getattr(mxj.profiler.MemoryBudget, n),
+             getattr(mx.profiler.MemoryBudget, n)) for n in (
+        "__init__", "would_fit", "under_pressure", "check")]
+    return out
+
+
 NEW_PAIRS = (
     [(f"random.{n}", getattr(mxj.random, n), getattr(mx.random, n)) for n in (
         "uniform", "normal", "randn", "randint", "multinomial", "shuffle", "gamma",
@@ -275,6 +340,7 @@ NEW_PAIRS = (
         getattr(tparameter.ParameterDict, n)) for n in ("save", "load")]
     + [("Parameter.set_data", jparameter.Parameter.set_data, tparameter.Parameter.set_data)]
     + _nd_methods()
+    + _generation_pairs()
 )
 
 
@@ -312,3 +378,116 @@ def test_ops_take_the_reference_parameters(name, ref, port):
     samplers' ``key`` is a ``torch.Generator`` in the port)."""
     want = _public_params(ref)
     assert _public_params(port)[:len(want)] == want, name
+
+
+# -- the repaired faults of ROADMAP §3 items 1-4 ------------------------------------
+
+
+def test_ndarray_is_exported():
+    assert isinstance(mx.nd.ones((2,), ctx=mx.cpu()), mx.NDArray)
+    assert mx.NDArray is mx.nd.NDArray
+
+
+def test_hybridize_takes_static_flags_positionally():
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Dense(4, in_units=3))
+    assert net.hybridize(True, True) is net
+    assert net._flags == {"static_alloc": True, "static_shape": False}
+    assert net[0]._flags == {"static_alloc": True, "static_shape": False} and net[0]._active
+    net.hybridize(False, static_shape=True)
+    assert not net._active and net._flags["static_shape"]
+
+
+def test_oom_postmortem_takes_failed_bytes_second():
+    rep = mx.profiler.oom_postmortem("x", 1024)
+    assert (rep["failed_bytes"], rep["error"], rep["kind"]) == (1024, None, "oom")
+    assert "step" in rep and rep["where"] == "x"
+    rep = mx.profiler.oom_postmortem("y", error=RuntimeError("e"), kind="budget")
+    assert (rep["failed_bytes"], rep["error"], rep["kind"]) == (None, "e", "budget")
+    err = torch.cuda.OutOfMemoryError("CUDA out of memory. Tried to allocate 20.00 MiB")
+    assert mx.profiler.maybe_oom_postmortem(err, "z")["failed_bytes"] == 20 << 20
+
+
+def test_record_span_honours_step(tmp_path):
+    from incubator_mxnet_torch import profiler
+
+    profiler.set_config(filename=str(tmp_path / "t.json"))
+    profiler.start()
+    t0 = time.perf_counter()
+    profiler.record_span("tagged", "test", t0, step=7, args={"k": 1})
+    profiler.record_span("untagged", "test", t0)
+    profiler.stop()
+    with open(profiler.dump()) as f:
+        events = {e["name"]: e for e in json.load(f)["traceEvents"] if e.get("ph") == "B"}
+    assert events["tagged"]["args"] == {"step": 7, "k": 1}
+    assert "step" not in events["untagged"]["args"]
+
+
+def test_keywords_outside_the_port_raise_naming_their_item():
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
+        mx.profiler.start_metrics(jsonl="m.jsonl")
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
+        mx.profiler.start_metrics(None, None, 5.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
+        mx.profiler.record_compile("s", {}, 1.0, args=(1,))
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 11"):
+        tparameter.Parameter("w", shape=(2,), stype="row_sparse")
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 11"):
+        tparameter.Parameter("w", "write", (2,), "float32", 1.0, 1.0, None, False, True,
+                             "default", "row_sparse")
+    assert tparameter.Parameter("w", shape=(2,), stype="default", grad_stype="default")
+    x = torch.ones(2, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6"):
+        mx.autograd.backward((x * 2).sum(), grad_ready_hook=lambda leaf: None)
+    mx.autograd.backward((x * 2).sum(), grad_ready_hook=None)
+    assert x.grad.tolist() == [2.0, 2.0]
+
+
+def test_record_compile_keeps_fn_and_device_stats_take_devices():
+    from incubator_mxnet_torch import profiler
+
+    def my_program():
+        pass
+
+    rec = profiler.record_compile("test.fn_identity", {"__program__": "p"}, 1.0, fn=my_program)
+    assert rec["fn"].endswith("my_program")
+    assert profiler.record_compile("test.fn_identity", {"__program__": "q"}, 1.0)["fn"] is None
+    # no card here: nothing to report, whichever cards are asked for
+    assert profiler.device_memory_stats(devices=[0]) == {}
+    assert profiler.device_memory_stats([torch.device("cuda", 0), "cuda:0", mx.gpu(0)]) == {}
+
+
+def test_register_takes_cacheable():
+    name = "_test_uncacheable_op"
+    try:
+        tregistry.register(name, True, True, False)(lambda x: x)
+        assert tregistry.get_op(name).cacheable is False
+    finally:
+        tregistry._REGISTRY.pop(name, None)
+    assert tregistry.get_op("dot").cacheable is True
+
+
+def test_group_apply_takes_donate_ninth_and_device_rows_by_keyword():
+    """``donate`` in the ninth place, as the reference's, changes no bit (the
+    port updates in place either way); ``device_rows`` is keyword-only."""
+    def group(seed):
+        rng = np.random.RandomState(seed)
+        ws = [torch.from_numpy(rng.randn(5).astype(np.float32)) for _ in range(3)]
+        gs = [torch.from_numpy(rng.randn(5).astype(np.float32)) for _ in range(3)]
+        ms = [(torch.zeros(5),) for _ in range(3)]
+        return ws, gs, ms
+
+    S = {"rescale": 1.0, "clip": -1.0, "momentum": 0.9}
+    outs = []
+    for donate in (False, True):
+        ws, gs, ms = group(0)
+        w2, s2 = topt_ops.group_apply(topt_ops.sgd_mom_step, ws, gs, ms, [0.1] * 3, [0.0] * 3,
+                                      [1] * 3, S, donate)
+        assert all(a is b for a, b in zip(w2, ws))
+        outs.append([w.clone() for w in ws] + [m[0].clone() for m in s2])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    ws, gs, ms = group(0)
+    with pytest.raises(TypeError):
+        topt_ops.group_apply(topt_ops.sgd_mom_step, ws, gs, ms, [0.1] * 3, [0.0] * 3, [1] * 3,
+                             S, False, None)

@@ -5,6 +5,7 @@ scopes and ``Function``, and three ``gluon.Trainer`` steps of the tiny BERT
 dropout 0) from the same parameters, carried across by structural key.
 """
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -345,8 +346,8 @@ def test_trainer_runs_on_one_device_only():
 
 
 def test_chip_smoke_cpu_rehearsal_trains():
-    """chip_smoke.py's slice, train, rtc_train, nd_surface and timing phases
-    on the CPU plain path."""
+    """chip_smoke.py's slice, train, rtc_train, nd_surface, timing, serve and
+    generation phases on the CPU plain path."""
     proc = subprocess.run([sys.executable, "chip_smoke.py", "--cpu-rehearsal"], cwd=ROOT,
                           capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
@@ -354,4 +355,5 @@ def test_chip_smoke_cpu_rehearsal_trains():
     assert '"phase": "train"' in proc.stdout and '"ok": true' in proc.stdout
     assert '"phase": "rtc_train"' in proc.stdout
     assert '"part": "op_table", "failed": [], "ok": true' in proc.stdout  # nd_surface
+    assert re.search(r'"phase": "generation", "phase_s": [0-9.e-]+, "ok": true', proc.stdout)
     assert '"ok": true, "device"' not in proc.stdout
