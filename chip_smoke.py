@@ -31,9 +31,13 @@ Phases, each printing JSON lines; no phase's failure is caught:
    flash_fwd, flash_bwd, the flash_wide
    kernels and bn_stats against themselves: two runs must be
    bit-identical), and the refusals of the rtc launcher; the multi-tensor
-   optimizer kernel in every variant and weight dtype over one group of
-   mixed sizes, whole and in chunks of 3, bit-equal to the plain loop; any
-   miss exits non-zero after the phase;
+   optimizer kernel in every elementwise variant and weight dtype over one
+   group of mixed sizes, whole and in chunks of 3, bit-equal to the plain
+   loop; LAMB's two launches in every weight dtype, whole and in chunks
+   (bit-equal to each other), its moments bit-equal to the plain per-tensor
+   LAMB and each weight within LAMB_STEP_REL of its step; the finite pass
+   in every dtype with NaN, ±inf and an overflowing square, counts exact
+   and sums within FINITE_SQ_REL; any miss exits non-zero after the phase;
 4. slice: BERT-base (12 layers, 768 units, vocab 30522, bf16, random
    weights from a seed) answers inference requests through
    ``net(token_ids, token_types, masked_positions)``; the kernels' launch
@@ -99,6 +103,23 @@ Phases, each printing JSON lines; no phase's failure is caught:
    capture and replay, the kernels of one replay counted by name in a
    torch.profiler trace (12+12+12+1 BERT, 53+53+1 ResNet-50), each call
    one replay, no fallback;
+6c. train_surface: BERT-base (fp32 parameters) under fp16 AMP with LAMB
+   (lr 1e-3, wd 0.01, a PolyScheduler warm-up and decay) and dynamic loss
+   scaling (``amp.init_trainer``, ``amp.scale_loss``): six steps, then the
+   loss scale set to 2^40 and steps until one is finite; every skipped step
+   leaves each weight and state bit-equal, halves the scale and keeps the
+   update counts, every finite step reads the schedule's lr exactly and
+   launches 12/12/12 attention kernels, one finite pass and two LAMB
+   launches (counted; one step also traced by kernel name); the fp16
+   gradients against the card's fp32 ones (b=2, dropout off, GRAD_REL_BOUND);
+   the LAMB group through the kernels against the per-tensor LAMB, one
+   update at a time; ``fold_update`` of a LAMB trainer bit-equal to the
+   eager fused update (deterministic mode); ``autograd.grad`` bit-equal to
+   the gradients ``backward`` writes, and refused with ``create_graph``
+   through the attention kernels; ResNet-50 v1 (B=256, AMP bf16) with NAG
+   (momentum 0.9, wd 1e-4, a CosineScheduler warm-up): three steps of 53
+   bn_stats, 53 bn_apply and one nag_mom launch over 193 tensors, the lr
+   exact, and its group bit-equal to the per-tensor loop;
 7. times: each kernel, its plain version and the library call at the main
    paths' shapes (the attention kernels also at the S=512 request, in fp32
    at the main shape, and by CUDA-graph replay), the kernel's bound; BERT
@@ -115,10 +136,13 @@ Phases, each printing JSON lines; no phase's failure is caught:
    [4, 512, 8, 1024] in bf16 and at Dh 512 in fp32; both training steps
    eager and folded in turns
    (step ms, samples/s or img/s, peak and reserved memory, capture time,
-   a breakdown of one folded step with its device busy share);
-8. generation, after the timing phase (after the serving phases, later
-   profiler traces come back a few kernel records short, ROADMAP §3 item
-   5):
+   a breakdown of one folded step with its device busy share); LAMB and
+   the finite pass on the train_surface BERT step's group and gradients,
+   NAG on its ResNet-50 group, each beside its plain version (and
+   torch._fused_sgd_(nesterov=True) for NAG) and its bound;
+8. generation, after the timing phase (after the serving phases kineto
+   drops a few kernel records of every later profiler trace as out of its
+   window, ROADMAP §3 "Not faults"):
    transformer-big (bench.py's widths and vocabulary, random weights from
    ``--seed``) in fp32 and in bf16: the teacher-forced forward at B=2,
    S=64, fp32 logits against the port's fp32 CPU run and bf16 within 0.1
@@ -159,7 +183,7 @@ Phases, each printing JSON lines; no phase's failure is caught:
 
 The last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed on a CUDA card.  The rehearsal runs the slice, train, rtc_train,
-nd_surface, ResNet, fold, timing, serve and generation phases on the CPU at a tiny size, with the kernels' plain
+nd_surface, ResNet, fold, train_surface, timing, serve and generation phases on the CPU at a tiny size, with the kernels' plain
 versions, and never prints it.  ``--inference-turns`` times only the
 BERT-base inference forward of two checkouts, each turn a fresh process
 (A, B, B, A per round), and never prints it either.
@@ -575,7 +599,8 @@ ENTRIES = {"flash_fwd": att.flash_fwd, "flash_bwd_dq": att.flash_bwd_dq,
            "flash_wide_bwd_dkv": att.flash_wide_bwd_dkv, "bn_stats": bn.bn_stats,
            "bn_apply": bn.bn_apply, "bn_apply_res": bn.bn_apply_res,
            "rtc_gelu_fwd": GELU_FWD, "rtc_gelu_bwd": GELU_BWD,
-           "multi_tensor": mt.multi_tensor_update}
+           "multi_tensor": mt.multi_tensor_update, "multi_tensor_lamb": mt.multi_tensor_lamb,
+           "multi_tensor_finite": mt.sum_sq_finite}
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
@@ -1389,7 +1414,27 @@ MT_STEPS = {"sgd": (opt_ops.sgd_step, {}),
             "mp_sgd": (opt_ops.mp_sgd_step, {}),
             "mp_sgd_mom": (opt_ops.mp_sgd_mom_step, {"momentum": 0.9}),
             "adam": (opt_ops.adam_step, {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}),
-            "mp_adam": (opt_ops.mp_adam_step, {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8})}
+            "mp_adam": (opt_ops.mp_adam_step, {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}),
+            "nag_mom": (opt_ops.nag_mom_step, {"momentum": 0.9}),
+            "mp_nag_mom": (opt_ops.mp_nag_mom_step, {"momentum": 0.9}),
+            "adamw": (opt_ops.adamw_step, {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8,
+                                           "eta": 0.5}),
+            "rmsprop": (opt_ops.rmsprop_step, {"rho": 0.9, "epsilon": 1e-8}),
+            "rmspropalex": (opt_ops.rmspropalex_step, {"rho": 0.9, "momentum": 0.9,
+                                                       "epsilon": 1e-8})}
+# LAMB against its plain version (lamb_update_phase1/2 per tensor): the
+# moments are the same operations (bit-equal); the trust ratio's norms are
+# summed in another order (torch.linalg.vector_norm against fixed-order
+# block partials) and m/(1 - beta1^t) divides where PyTorch may multiply by
+# the reciprocal, so each weight element is held to
+# |w_kernel - w_plain| <= LAMB_STEP_REL * |w_plain - w_before| + 2 ulp(w_plain).
+LAMB_S = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-6, "lower_bound": 0.0,
+          "upper_bound": 10.0, "bias_correction": 1.0}
+LAMB_STEP_REL = 1e-4
+# The finite pass against its plain version (torch's fp32 square-sum and
+# isfinite count): counts exact, each finite sum within FINITE_SQ_REL of the
+# plain one (fp32 within a block, fp64 across blocks, against torch's order).
+FINITE_SQ_REL = 1e-5
 MT_CLIPS = (math.inf, 0.05, -1.0)
 
 
@@ -1414,8 +1459,11 @@ def phase_kernel_vs_plain_multi_tensor(device):
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
             start = [_randn((m + (i == n - 1),), torch.float32, gen, device)
                      for i, m in enumerate(MT_SIZES)]
-            states = [tuple(torch.rand(m, generator=gen, device=device) * 1e-2
-                            for _ in range(n_states)) for m in MT_SIZES]
+            # rmspropalex's n above its g_avg squared, as from zeros: no sqrt of < 0
+            floor = [1e-4 if variant == "rmspropalex" and k == 0 else 0.0
+                     for k in range(n_states)]
+            states = [tuple(torch.rand(m, generator=gen, device=device) * 1e-2 + floor[k]
+                            for k in range(n_states)) for m in MT_SIZES]
             one, chunked, plain = (_mt_group(start, states, dtype) for _ in range(3))
             lrs = [1e-2 * (1 + i / 8) for i in range(n)]
             wds = [1e-3 * (i % 2) for i in range(n)]
@@ -1451,6 +1499,135 @@ def phase_kernel_vs_plain_multi_tensor(device):
             if not ok:
                 misses.append(f"{variant}_{dtype}")
             del start, states, one, chunked, plain
+    if misses:
+        emit("kernel_vs_plain_multi_tensor", failed=misses)
+        sys.exit(1)
+    return worst
+
+
+def _lamb_bound_ok(got, plain, before):
+    """LAMB's element bound (LAMB_STEP_REL): ``(ok, max_abs_err,
+    worst ratio of error to bound)``."""
+    dtype = plain.dtype
+    p, g, b = plain.float(), got.float(), before.float()
+    spacing = torch.where(p == 0, torch.zeros_like(p),
+                          torch.exp2(torch.floor(torch.log2(p.abs())) -
+                                     {torch.bfloat16: 7, torch.float16: 10,
+                                      torch.float32: 23}[dtype]))
+    bound = LAMB_STEP_REL * (p - b).abs() + 2 * spacing
+    err = (g - p).abs()
+    ratio = (err / bound.clamp_min(1e-45)).max().item()
+    return bool((err <= bound).all().item()), err.max().item(), ratio
+
+
+def phase_kernel_vs_plain_lamb(device):
+    """LAMB (multi_tensor_lamb: two launches a chunk) against the plain
+    per-tensor phase 1 and 2, in every weight dtype, on the multi-tensor
+    group of mixed sizes (one weight all zeros: ratio 1 at the first step),
+    three steps (clip +inf, 0.05, -1): one launch pair for the group and
+    launch pairs of 3 tensors must be bit-equal to each other, their
+    moments bit-equal to the plain ones and each weight within
+    LAMB_STEP_REL.  Returns the largest absolute weight difference."""
+    gen = torch.Generator(device=device).manual_seed(78)
+    misses, worst = [], 0.0
+    n = len(MT_SIZES)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        start = [_randn((m + (i == n - 1),), torch.float32, gen, device)
+                 for i, m in enumerate(MT_SIZES)]
+        start[1].zero_()
+        states = [tuple(torch.rand(m, generator=gen, device=device) * 1e-2 for _ in range(2))
+                  for m in MT_SIZES]
+        one, chunked, plain = (_mt_group(start, states, dtype) for _ in range(3))
+        lrs = [1e-2 * (1 + i / 8) for i in range(n)]
+        wds = [1e-2 * (i % 2) for i in range(n)]
+        launches = mt.multi_tensor_lamb.launches
+        ok, err, ratio = True, 0.0, 0.0
+        for t, clip in enumerate(MT_CLIPS, 1):
+            gbuf = [_randn((m + (i == n - 1),), dtype, gen, device) * 0.1
+                    for i, m in enumerate(MT_SIZES)]
+            gs = [g[1:] if i == n - 1 else g for i, g in enumerate(gbuf)]
+            S = {"rescale": 0.5, "clip": clip, **LAMB_S}
+            args = (lrs, wds, [t] * n, S)
+            before = [w.clone() for w in plain[0]]
+            opt_ops.group_apply(opt_ops.lamb_step, one[0], gs, one[1], *args)
+            for a in range(0, n, 3):
+                z = slice(a, a + 3)
+                opt_ops.group_apply(opt_ops.lamb_step, chunked[0][z], gs[z], chunked[1][z],
+                                    lrs[z], wds[z], [t] * len(chunked[0][z]), S)
+            opt_ops.group_apply_plain(opt_ops.lamb_step, plain[0], gs, plain[1], *args)
+            torch.cuda.synchronize()
+            for got, want, b in zip(one[0], plain[0], before):
+                good, e, r = _lamb_bound_ok(got, want, b)
+                ok, err, ratio = ok and good, max(err, e), max(ratio, r)
+            # restart every copy from the plain weights: one update at a time
+            for w, pw in zip(one[0] + chunked[0], plain[0] + plain[0]):
+                w.copy_(pw)
+        launched = mt.multi_tensor_lamb.launches - launches
+        chunks_equal = all(torch.equal(a, b) for a, b in zip(
+            [x for st in one[1] for x in st], [x for st in chunked[1] for x in st]))
+        moments_equal = all(torch.equal(a, b) for a, b in zip(
+            [x for st in one[1] for x in st], [x for st in plain[1] for x in st]))
+        good = ok and chunks_equal and moments_equal and launched == 3 * 2 * (1 + 2)
+        worst = max(worst, err)
+        emit("kernel_vs_plain_multi_tensor", variant="lamb", dtype=str(dtype).replace(
+            "torch.", ""), sizes=list(MT_SIZES), steps=len(MT_CLIPS), clips=list(MT_CLIPS),
+             launches=launched, expected_launches=18, moments_bit_equal=moments_equal,
+             chunked_bit_equal=chunks_equal, max_abs_err=err, worst_err_over_bound=ratio,
+             bound=f"|dw| <= {LAMB_STEP_REL} * |step| + 2 ulp", ok=good)
+        if not good:
+            misses.append(f"lamb_{dtype}")
+        del start, states, one, chunked, plain
+    if misses:
+        emit("kernel_vs_plain_multi_tensor", failed=misses)
+        sys.exit(1)
+    return worst
+
+
+def phase_kernel_vs_plain_finite(device):
+    """The finite pass (sum_sq_finite: one launch a chunk) against its plain
+    version on the group of mixed sizes in every dtype, with NaN and inf
+    elements in some tensors and, in fp32 and bf16, a finite value whose
+    square overflows: counts exact, sums within FINITE_SQ_REL (NaN and inf
+    where the plain sum is); then ``all_finite`` and ``multi_sum_sq``
+    through ``mx.nd``.  Returns the largest relative sum difference."""
+    gen = torch.Generator(device=device).manual_seed(79)
+    misses, worst = [], 0.0
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        xs = [_randn((m,), dtype, gen, device) for m in MT_SIZES]
+        cases = {"finite": [x.clone() for x in xs]}
+        bad = [x.clone() for x in xs]
+        bad[0][0] = float("nan")
+        bad[3][5] = float("inf")
+        bad[3][77] = float("-inf")
+        bad[4][123456] = float("nan")
+        if dtype != torch.float16:
+            bad[2][3] = 1e20  # finite; its fp32 square is inf
+        cases["nan_inf"] = bad
+        for label, ts in cases.items():
+            launches = mt.sum_sq_finite.launches
+            sq, cnt = mt.sum_sq_finite(ts)
+            psq, pcnt = opt_ops.sum_sq_finite_plain(ts)
+            torch.cuda.synchronize()
+            launched = mt.sum_sq_finite.launches - launches
+            counts_equal = torch.equal(cnt.cpu(), pcnt.cpu())
+            a, b = sq.cpu().double(), psq.cpu().double()
+            fin = torch.isfinite(b)
+            same_nonfinite = torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+                torch.isinf(a), torch.isinf(b))
+            rel = ((a[fin] - b[fin]).abs() / b[fin].abs().clamp_min(1e-30)).max().item()
+            worst = max(worst, rel)
+            via_nd = (bool(mx.nd.all_finite(*ts).item()) == (label == "finite")
+                      and torch.equal(mx.nd.multi_sum_sq(*ts).cpu().isnan(), a.isnan()))
+            ok = (counts_equal and same_nonfinite and rel <= FINITE_SQ_REL and launched == 1
+                  and via_nd)
+            emit("kernel_vs_plain_multi_tensor", variant="finite", case=label,
+                 dtype=str(dtype).replace("torch.", ""), sizes=list(MT_SIZES),
+                 nonfinite_counts=cnt.tolist(), plain_counts=pcnt.tolist(),
+                 counts_equal=counts_equal, nonfinite_sums_agree=same_nonfinite,
+                 max_rel_err=rel, bound=FINITE_SQ_REL, launches=launched, expected_launches=1,
+                 nd_ops_agree=via_nd, ok=ok)
+            if not ok:
+                misses.append(f"finite_{label}_{dtype}")
     if misses:
         emit("kernel_vs_plain_multi_tensor", failed=misses)
         sys.exit(1)
@@ -3295,6 +3472,386 @@ def phase_fold(train, resnet, rehearsal):
             {"fold_bert_step": bert_prog, "fold_resnet_step": resnet_prog}, records)
 
 
+# -- phase 6c: the rest of the training surface --------------------------------
+# BERT-base pretraining under fp16 AMP with LAMB, linear warm-up and
+# polynomial decay and dynamic loss scaling (large-batch BERT's recipe), and
+# ResNet-50 with NAG and a warm-up cosine schedule (GluonCV's ImageNet
+# recipe), each through the entry points a user calls.
+SURFACE_POLY = dict(max_update=8, base_lr=1e-3, pwr=1, warmup_steps=2)
+SURFACE_COSINE = dict(max_update=6, base_lr=0.1, warmup_steps=2)
+SURFACE_STEPS = 6
+SURFACE_RESNET_STEPS = 3
+SURFACE_OVERFLOW_SCALE = 2.0 ** 40
+SURFACE_MAX_SKIPS = 40  # halvings from 2^40 before a step must be finite
+# the kernels one finite step of each path launches, by profiler name
+SURFACE_BERT_FAMILIES = (("flash_bwd_dkv", "flash_bwd_dkv"), ("flash_bwd_dq", "flash_bwd_dq"),
+                         ("flash_fwd", "flash_fwd"), ("lamb_pass1", "lamb_pass1"),
+                         ("lamb_pass2", "lamb_pass2"), ("finite_pass", "finite_pass"))
+
+
+def _poly_lr(k):
+    """PolyScheduler(**SURFACE_POLY)'s value at update k, written out: the
+    linear warm-up from 0 to base_lr, then (1 - progress)^pwr to 0."""
+    c = SURFACE_POLY
+    if k < c["warmup_steps"]:
+        return 0 + (c["base_lr"] - 0) * k / c["warmup_steps"]
+    frac = 1 - (k - c["warmup_steps"]) / (c["max_update"] - c["warmup_steps"])
+    return 0 + (c["base_lr"] - 0) * frac ** c["pwr"]
+
+
+def _cosine_lr(k):
+    """CosineScheduler(**SURFACE_COSINE)'s value at update k, written out."""
+    c = SURFACE_COSINE
+    if k < c["warmup_steps"]:
+        return 0 + (c["base_lr"] - 0) * k / c["warmup_steps"]
+    frac = (k - c["warmup_steps"]) / (c["max_update"] - c["warmup_steps"])
+    return 0 + (c["base_lr"] - 0) * (1 + math.cos(math.pi * frac)) / 2
+
+
+def surface_step(net, trainer, batch, train_mode=True):
+    """One pretraining step as an fp16 AMP user writes it: the loss under
+    ``record``, its backward through ``amp.scale_loss``, ``trainer.step``."""
+    ids, types, pos, labels = batch
+    with mx.autograd.record(train_mode=train_mode):
+        mlm, _ = net(ids, types, pos)
+        loss = streaming_softmax_ce(mlm, labels).mean(-1)
+    with mx.amp.scale_loss(loss, trainer) as scaled:
+        mx.autograd.backward(scaled)
+    if trainer is not None:
+        trainer.step(ids.shape[0])
+    return loss
+
+
+class _LrLog:
+    """Records every learning rate the optimizer reads for an update."""
+
+    def __init__(self, opt):
+        self.opt, self.seen = opt, []
+        self._orig = opt._get_lr
+
+    def __enter__(self):
+        def get_lr(i):
+            lr = self._orig(i)
+            self.seen.append(lr)
+            return lr
+        self.opt._get_lr = get_lr
+        return self
+
+    def __exit__(self, *exc):
+        del self.opt._get_lr
+        return False
+
+
+def _snapshot(trainer):
+    return ([p.data().detach().clone() for p in trainer._params]
+            + [x.clone() for x in _flat_states(trainer)])
+
+
+def _traced_families(fn, families):
+    """Run ``fn`` once under a CUDA-only trace: {family: kernel records}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    got = {fam: 0 for _, fam in families}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            for sub, fam in families:
+                if sub in ev.name:
+                    got[fam] += 1
+                    break
+    return got
+
+
+def _surface_bert(rehearsal, cfg, ctx, batch):
+    """(a): six steps, then the overflow steps; returns (net, trainer, counts
+    of a finite step, ok)."""
+    device = ctx.device
+    num_layers = cfg.get("num_layers", 12)
+    net = _build_net(cfg, ctx, "float32")
+    with mx.autograd.predict_mode():  # finish the deferred shapes
+        net(*batch[:3])
+    trainer = mx.gluon.Trainer(net.collect_params(), "lamb", {
+        "learning_rate": 1e-3, "wd": 0.01,
+        "lr_scheduler": mx.lr_scheduler.PolyScheduler(**SURFACE_POLY)})
+    mx.amp.init_trainer(trainer)
+    scaler, opt = trainer._amp_loss_scaler, trainer._optimizer
+    want_finite = {n: 0 for n in ENTRIES}
+    if not rehearsal:
+        want_finite.update({n: num_layers for n in FLASH}, multi_tensor_lamb=2,
+                           multi_tensor_finite=1)
+    want_skip = dict(want_finite, multi_tensor_lamb=0)
+    want_trace = {fam: 0 for _, fam in SURFACE_BERT_FAMILIES}
+    if not rehearsal:
+        want_trace.update({n: num_layers for n in FLASH}, lamb_pass1=1, lamb_pass2=1,
+                          finite_pass=1)
+    records, misses, finite_counts, traced = [], [], None, None
+    for k in range(SURFACE_STEPS + SURFACE_MAX_SKIPS):
+        if k == SURFACE_STEPS:
+            scaler.loss_scale = SURFACE_OVERFLOW_SCALE
+        before = _snapshot(trainer)
+        counts_before = (dict(opt._index_update_count), opt.num_update)
+        scale = scaler.loss_scale
+        trace = (not rehearsal and traced is None and k >= 2 and k < SURFACE_STEPS)
+        reset_kernel_counts()
+        with _LrLog(opt) as log:
+            if trace:
+                fams = _traced_families(lambda: surface_step(net, trainer, batch),
+                                        SURFACE_BERT_FAMILIES)
+            else:
+                loss = surface_step(net, trainer, batch)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+        counts = kernel_counts()
+        skipped = scaler.loss_scale < scale
+        after = _snapshot(trainer)
+        if skipped:
+            bit_exact = all(torch.equal(a, b) for a, b in zip(before, after))
+            ok = (bit_exact and scaler.loss_scale == scale / 2 and not log.seen
+                  and (dict(opt._index_update_count), opt.num_update) == counts_before
+                  and counts == want_skip)
+            rec = dict(step=k, skipped=True, loss_scale=scale, new_scale=scaler.loss_scale,
+                       bit_exact=bit_exact, update_counts_kept=(dict(
+                           opt._index_update_count), opt.num_update) == counts_before)
+        else:
+            moved = not all(torch.equal(a, b) for a, b in zip(before[:len(trainer._params)],
+                                                               after[:len(trainer._params)]))
+            lr_want = _poly_lr(opt.num_update)
+            lrs = sorted(set(log.seen))
+            ok = (moved and lrs == [lr_want] and opt.learning_rate == lr_want
+                  and opt.num_update == counts_before[1] + 1 and counts == want_finite)
+            rec = dict(step=k, skipped=False, loss_scale=scale, num_update=opt.num_update,
+                       lr_read=lrs, lr_expected=lr_want, weights_moved=moved)
+            if finite_counts is None:
+                finite_counts = counts
+            if trace:
+                traced = fams
+                ok = ok and fams == want_trace
+                rec["traced_kernels"] = fams
+        if not trace:
+            rec["loss"] = loss.float().mean().item()
+        rec.update(launches=counts, ok=ok)
+        records.append(rec)
+        emit("train_surface", path="bert_lamb_fp16", **rec)
+        if not ok:
+            misses.append(k)
+        if k >= SURFACE_STEPS and not skipped:
+            break
+    skips = [r["step"] for r in records if r["skipped"] and r["step"] >= SURFACE_STEPS]
+    ok = (not misses and bool(skips) and not records[-1]["skipped"]
+          and (rehearsal or traced == want_trace))
+    emit("train_surface", path="bert_lamb_fp16", model="BERTForPretrain(bert_base) fp32 "
+         "parameters, AMP float16, LAMB lr 1e-3 wd 0.01, PolyScheduler" if not rehearsal else
+         "tiny BERT (CPU rehearsal)", schedule=SURFACE_POLY, steps=len(records),
+         overflow_scale=SURFACE_OVERFLOW_SCALE, skipped_after_overflow=len(skips),
+         final_scale=scaler.loss_scale, finite_step_launches=finite_counts,
+         expected_finite_step=want_finite, traced_finite_step=traced,
+         expected_traced=want_trace, failed_steps=misses, ok=ok)
+    return net, trainer, finite_counts, ok
+
+
+def _surface_fp16_grads(net, trainer, rehearsal):
+    """The fp16 AMP gradients (unscaled) of a b=2 batch, dropout off,
+    against the card's fp32 gradients of the same weights and batch."""
+    cfg = TINY_BERT if rehearsal else BERT_BASE
+    device = next(iter(net.collect_params().values())).data().device
+    gen = torch.Generator(device=device).manual_seed(41)
+    batch = _train_batch(cfg, 2, 16 if rehearsal else 128, 3 if rehearsal else 20, gen,
+                         device)
+    scale = trainer._amp_loss_scaler.loss_scale
+    ids, types, pos, labels = batch
+    with mx.autograd.record(train_mode=False):
+        mlm, _ = net(ids, types, pos)
+        loss = streaming_softmax_ce(mlm, labels).mean(-1)
+    mx.autograd.backward(loss * scale)  # what amp.scale_loss hands the backward
+    got = {k: (p.grad().detach().float() / scale).cpu()
+           for k, p in net._collect_params_with_prefix().items()}
+    mx.amp.disable()
+    try:
+        train_step(net, None, batch, train_mode=False)
+    finally:
+        mx.amp.init("float16")
+    ref = {k: p.grad().detach().float().cpu()
+           for k, p in net._collect_params_with_prefix().items()}
+    return _grad_check("train_surface_fp16_vs_fp32", got, ref, loss_scale=scale,
+                       path="bert_lamb_fp16")
+
+
+def _surface_lamb_vs_plain(trainer):
+    """The BERT step's LAMB group through the kernels against the per-tensor
+    LAMB (what ``aggregate_num=0`` runs: phase 1 and 2 a tensor), from the
+    same gradients, one update at a time: moments bit-equal, weights within
+    LAMB_STEP_REL.  Returns the largest weight difference."""
+    (step, kern), (_, plain) = _optimizer_group(trainer), _optimizer_group(trainer)
+    launches = mt.multi_tensor_lamb.launches
+    ok, err, ratio, moments_equal = True, 0.0, 0.0, True
+    for extra in range(2):
+        before = [w.clone() for w in plain[0]]
+        opt_ops.group_apply(step, *kern[:5], [t + extra for t in kern[5]], kern[6])
+        opt_ops.group_apply_plain(step, *plain[:5], [t + extra for t in plain[5]], plain[6])
+        torch.cuda.synchronize()
+        for a, b, w0 in zip(kern[0], plain[0], before):
+            good, e, r = _lamb_bound_ok(a, b, w0)
+            ok, err, ratio = ok and good, max(err, e), max(ratio, r)
+        moments_equal = moments_equal and all(
+            torch.equal(a, b) for a, b in zip([x for st in kern[2] for x in st],
+                                              [x for st in plain[2] for x in st]))
+        for a, b in zip(kern[0], plain[0]):
+            a.copy_(b)
+    launched = mt.multi_tensor_lamb.launches - launches
+    good = ok and moments_equal and launched == 4
+    emit("kernel_vs_plain_multi_tensor", case="train_surface_bert_step_group", variant="lamb",
+         tensors=len(kern[0]), elements=sum(w.numel() for w in kern[0]),
+         weight_dtype=str(kern[0][0].dtype).replace("torch.", ""), updates=2,
+         launches=launched, expected_launches=4, moments_bit_equal=moments_equal,
+         max_abs_err=err, worst_err_over_bound=ratio,
+         bound=f"|dw| <= {LAMB_STEP_REL} * |step| + 2 ulp", ok=good)
+    if not good:
+        sys.exit(1)
+    return err
+
+
+def _surface_autograd_grad(net, rehearsal):
+    """(c): ``autograd.grad`` of the per-sample loss against the gradients
+    ``backward`` writes, same batch, dropout off, deterministic mode: bit
+    for bit, and the gradient buffers untouched by ``grad``; on the card a
+    ``create_graph`` gradient through the attention kernels raises."""
+    cfg = TINY_BERT if rehearsal else BERT_BASE
+    device = next(iter(net.collect_params().values())).data().device
+    gen = torch.Generator(device=device).manual_seed(43)
+    ids, types, pos, labels = _train_batch(cfg, 2, 16 if rehearsal else 128,
+                                           3 if rehearsal else 20, gen, device)
+    params = [p for p in net.collect_params().values() if p.grad_req != "null"]
+
+    def loss():
+        with mx.autograd.record(train_mode=False):
+            mlm, _ = net(ids, types, pos)
+            return streaming_softmax_ce(mlm, labels).mean(-1)
+
+    with _deterministic(bert=True):
+        mx.autograd.backward(loss())
+        written = [p.grad().detach().clone() for p in params]
+        got = mx.autograd.grad(loss(), [p.data() for p in params])
+    equal = all(torch.equal(a, b) for a, b in zip(got, written))
+    untouched = all(torch.equal(p.grad(), w) for p, w in zip(params, written))
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, written))
+    refused = None
+    if not rehearsal:
+        try:
+            mx.autograd.grad(loss(), [params[0].data()], create_graph=True)
+            refused = False
+        except RuntimeError as e:
+            refused = "double backward" in str(e)
+    ok = equal and untouched and refused is not False
+    emit("train_surface", path="autograd_grad", params=len(params), bit_equal=equal,
+         max_abs_err=err, grad_buffers_untouched=untouched,
+         create_graph_through_kernels_refused=refused, ok=ok)
+    return ok
+
+
+def _surface_resnet(rehearsal):
+    """(b): ResNet-50 with NAG and the warm-up cosine schedule, three steps,
+    then its NAG group through the kernel against the per-tensor loop;
+    returns (net, trainer, counts of one step, ok)."""
+    ctx = mx.cpu() if rehearsal else mx.gpu(0)
+    device = ctx.device
+    b = 2 if rehearsal else RESNET_B
+    mx.amp.init("bfloat16")
+    try:
+        net = _build_resnet(rehearsal, ctx, 0)
+        trainer = mx.gluon.Trainer(net.collect_params(), "nag", {
+            "momentum": 0.9, "wd": 1e-4,
+            "lr_scheduler": mx.lr_scheduler.CosineScheduler(**SURFACE_COSINE)})
+        batch = _image_batch(rehearsal, b, torch.Generator(device=device).manual_seed(23),
+                             device)
+        n_bn = sum(isinstance(m, mx.gluon.nn.BatchNorm) for m in net.modules())
+        want = {n: 0 for n in ENTRIES}
+        if not rehearsal:
+            want.update(bn_stats=n_bn, bn_apply=n_bn, multi_tensor=1)
+        opt, misses, counts = trainer._optimizer, [], None
+        for k in range(SURFACE_RESNET_STEPS):
+            reset_kernel_counts()
+            before_fused = fused_counts()
+            with _LrLog(opt) as log:
+                loss = resnet_step(net, trainer, batch).mean().item()
+            step_counts = kernel_counts()
+            nag = mt.multi_tensor_update.launches_by_variant.get("nag_mom", 0)
+            fused_ok = _optimizer_check("train_surface", net, before_fused, "nag_mom",
+                                        rehearsal)
+            lrs = sorted(set(log.seen))
+            ok = (fused_ok and step_counts == want and lrs == [_cosine_lr(opt.num_update)]
+                  and math.isfinite(loss))
+            emit("train_surface", path="resnet_nag", step=k, loss=loss,
+                 num_update=opt.num_update, lr_read=lrs,
+                 lr_expected=_cosine_lr(opt.num_update), launches=step_counts, expected=want,
+                 ok=ok)
+            counts = counts or dict(step_counts, multi_tensor_nag_mom=nag)
+            if not ok:
+                misses.append(k)
+    finally:
+        mx.amp.disable()
+    ok = not misses
+    if not rehearsal:
+        phase_main_groups_vs_plain({"train_surface_resnet_step": trainer})
+    emit("train_surface", path="resnet_nag", model="resnet50_v1(classes=1000), AMP bf16, "
+         "fp32 parameters, NAG momentum 0.9 wd 1e-4, CosineScheduler" if not rehearsal else
+         "tiny ResNetV1 (CPU rehearsal)", b=b, schedule=SURFACE_COSINE,
+         steps=SURFACE_RESNET_STEPS, failed_steps=misses, ok=ok)
+    return net, trainer, batch, counts, ok
+
+
+def phase_train_surface(rehearsal):
+    """The rest of the training surface on the card: (a) BERT-base under
+    fp16 AMP with LAMB, PolyScheduler and dynamic loss scaling, six steps
+    and then forced overflows, its fp16 gradients against fp32, its LAMB
+    group against the per-tensor LAMB and its fold_update against the eager
+    fused update; (b) ResNet-50 with NAG and CosineScheduler; (c)
+    ``autograd.grad``.  Returns ({path: launch counts of one step}, the
+    BERT (net, trainer, batch), the ResNet (net, trainer, batch), the
+    largest LAMB kernel-vs-plain difference)."""
+    t0 = time.perf_counter()
+    cfg = TINY_BERT if rehearsal else BERT_BASE
+    ctx = mx.cpu() if rehearsal else mx.gpu(0)
+    device = ctx.device
+    b, s, p = (4, 16, 3) if rehearsal else (64, 128, 20)
+    batch = _train_batch(cfg, b, s, p, torch.Generator(device=device).manual_seed(17), device)
+    misses = []
+    mx.amp.init("float16")
+    try:
+        net, trainer, bert_counts, ok = _surface_bert(rehearsal, cfg, ctx, batch)
+        if not ok:
+            misses.append("bert_lamb_fp16")
+        if not _surface_fp16_grads(net, trainer, rehearsal):
+            misses.append("fp16_vs_fp32_grads")
+        lamb_err = 0.0 if rehearsal else _surface_lamb_vs_plain(trainer)
+        if not _surface_autograd_grad(net, rehearsal):
+            misses.append("autograd_grad")
+    finally:
+        mx.amp.disable()
+
+    def make_lamb():
+        net = _build_net(dict(cfg, dropout=0.0), ctx, "float32")
+        with mx.autograd.predict_mode():
+            net(*batch[:3])
+        return net, mx.gluon.Trainer(net.collect_params(), "lamb", {
+            "learning_rate": 1e-3, "wd": 0.01,
+            "lr_scheduler": mx.lr_scheduler.PolyScheduler(**SURFACE_POLY)})
+
+    with _deterministic(bert=True):
+        if not _fold_update_check(make_lamb, bert_loss, batch, rehearsal):
+            misses.append("fold_update_lamb")
+    rnet, rtrainer, rbatch, resnet_counts, ok = _surface_resnet(rehearsal)
+    if not ok:
+        misses.append("resnet_nag")
+    emit("train_surface", phase_s=time.perf_counter() - t0, failed=misses, ok=not misses)
+    if misses:
+        sys.exit(1)
+    return ({"train_surface_bert_step": bert_counts,
+             "train_surface_resnet_step": resnet_counts},
+            (net, trainer, batch), (rnet, rtrainer, rbatch), lamb_err)
+
+
 # -- phase 7 ----------------------------------------------------------------
 
 
@@ -3374,6 +3931,10 @@ def _graph_ms(fn, arg_sets, calls=40, replays=5):
 def _kernel_family(name):
     if name.startswith(("gelu_fwd_", "gelu_bwd_")):  # the user's kernels of RTC_SOURCE
         return "rtc_" + name[:8]
+    if "lamb_pass" in name:
+        return "multi_tensor_lamb"
+    if "finite_pass" in name:
+        return "multi_tensor_finite"
     for fam in ("flash_wide_bwd_dkv", "flash_wide_bwd_dq", "flash_wide_bwd_delta",
                 "flash_wide_fwd", "flash_bwd_dkv",
                 "flash_bwd_dq", "flash_fwd", "bn_stats", "bn_apply", "multi_tensor"):
@@ -3823,10 +4384,13 @@ def _library_update(step, args):
         return "torch._fused_adam_", lambda: torch._fused_adam_(
             p32, g32, m, v, [], steps, lr=lrs[0], beta1=S["beta1"], beta2=S["beta2"],
             weight_decay=0.0, eps=S["epsilon"], amsgrad=False, maximize=False), [()]
+    if step.variant not in ("sgd_mom", "nag_mom"):
+        return None, None, None
     moms = [st[0].clone() for st in sts]
-    return "torch._fused_sgd_", lambda: torch._fused_sgd_(
+    nesterov = step.variant == "nag_mom"
+    return (f"torch._fused_sgd_(nesterov={nesterov})", lambda: torch._fused_sgd_(
         p32, g32, moms, weight_decay=wds[0], momentum=S["momentum"], lr=lrs[0], dampening=0.0,
-        nesterov=False, maximize=False, is_first_step=False), [()]
+        nesterov=nesterov, maximize=False, is_first_step=False), [()])
 
 
 def _times_multi_tensor(train, resnet, smi):
@@ -3868,6 +4432,65 @@ def _times_multi_tensor(train, resnet, smi):
              card=smi)
         out[what] = row
         del args, ws, gs, sts
+    return out
+
+
+def _times_train_surface(bert, resnet, smi):
+    """The train_surface paths' kernels: LAMB on the BERT-base step's fp32
+    group (two launches), the finite pass over its gradients (one launch),
+    NAG on the ResNet-50 step's fp32 group (one launch), each against its
+    plain version, the nearest library call where there is one, and the
+    bound: the bytes the function must move (each input read once, each
+    output written once) over the memory rate.  ``graph_ms`` times the same
+    calls by CUDA-graph replay; where the profiler's trace came back short
+    (``_time``'s fallback), ``ms`` is that graph time, not the CUDA events'
+    time around eager calls, which holds their host time.  Returns {kernel:
+    row}."""
+    out = {}
+    for name, trainer in (("multi_tensor_lamb", bert[1]), ("multi_tensor_nag_mom", resnet[1])):
+        step, args = _optimizer_group(trainer)
+        ws, gs, sts = args[:3]
+        numel = sum(w.numel() for w in ws)
+        wsize = ws[0].element_size()
+        # read w, g and every state, write w and every state
+        nbytes = sum((3 * wsize + 8 * len(st)) * w.numel() for w, st in zip(ws, sts))
+        flops = (24 if name == "multi_tensor_lamb" else 8) * numel
+        rows = torch.from_numpy(opt_ops.group_rows(step, *args[3:])).to(ws[0].device)
+        scratch = mt.lamb_scratch(ws) if step.variant == "lamb" else None
+        def kernel():
+            opt_ops.group_apply(step, *args, device_rows=rows, scratch=scratch)
+
+        kern = _time(kernel, [()], 20, uniform=True)
+        graph = _graph_ms(kernel, [()], calls=10, replays=3)
+        plain = _time(lambda: opt_ops.group_apply_plain(step, *args), [()], 3)
+        lib_name, lib_fn, lib_sets = _library_update(step, args)
+        lib = _time(lib_fn, lib_sets, 20) if lib_fn is not None else (None,)
+        bound_ms, bound_by = _bound(nbytes, flops, torch.float32)
+        row = dict(variant=step.variant, tensors=len(ws), elements=numel,
+                   weight_dtype=str(ws[0].dtype).replace("torch.", ""),
+                   ms=kern[0] if kern[2] else graph, ms_from="trace" if kern[2] else "graph",
+                   graph_ms=graph, call_ms=kern[1], plain_ms=plain[0], library_ms=lib[0],
+                   bound_ms=bound_ms, bound_by=bound_by, library=lib_name)
+        emit("times", kernel=name, per="one train_surface step's fused group", **row,
+             bytes=nbytes, flops=flops, share_of_bound=bound_ms / row["ms"],
+             kernels_us=kern[2], card=smi)
+        out[name] = row
+        del args, ws, gs, sts
+    grads = [p.grad() for p in bert[1]._params if p.grad_req != "null"]
+    numel = sum(g.numel() for g in grads)
+    nbytes = sum(g.numel() * g.element_size() for g in grads) + 8 * len(grads)
+    kern = _time(lambda: mt.sum_sq_finite(grads), [()], 20, uniform=True)
+    graph = _graph_ms(lambda: mt.sum_sq_finite(grads), [()], calls=10, replays=3)
+    plain = _time(lambda: opt_ops.sum_sq_finite_plain(grads), [()], 3)
+    bound_ms, bound_by = _bound(nbytes, 3 * numel, torch.float32)
+    row = dict(tensors=len(grads), elements=numel, dtype="float32",
+               ms=kern[0] if kern[2] else graph, ms_from="trace" if kern[2] else "graph",
+               graph_ms=graph, call_ms=kern[1], plain_ms=plain[0], library_ms=None,
+               bound_ms=bound_ms, bound_by=bound_by, library=None)
+    emit("times", kernel="multi_tensor_finite", per="one train_surface BERT-base step's "
+         "gradients", **row, bytes=nbytes, share_of_bound=bound_ms / row["ms"],
+         kernels_us=kern[2], card=smi)
+    out["multi_tensor_finite"] = row
     return out
 
 
@@ -4167,13 +4790,14 @@ def _times_fold(train, resnet, progs, records, smi):
              capture_and_replay_s=rec["capture_and_replay_s"], card=smi)
 
 
-def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, fold, smi):
+def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, fold, smi, surface):
     """``train`` and ``resnet`` = (net, trainer, batch) of the BERT and
     ResNet-50 training paths; ``bn_shapes`` = {(C, HW): launches in one
     ResNet-50 step}; ``counts`` = {path: launch counts}; ``errs`` =
     {kernel: max abs error at the main paths' layouts and shapes}; ``fold``
-    = (programs, records) of the fold phase's main paths.  Returns the
-    kernels line's rows."""
+    = (programs, records) of the fold phase's main paths; ``surface`` = the
+    train_surface phase's BERT and ResNet-50 (net, trainer, batch).  Returns
+    the kernels line's rows."""
     device = torch.device("cuda", 0)
     b, s, h, d = MAIN["b"], MAIN["sq"], MAIN["h"], MAIN["d"]
     gen = torch.Generator(device=device).manual_seed(99)
@@ -4190,6 +4814,7 @@ def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, fold, smi
     rows.update(_times_gelu(smi))
     mt_rows = _times_multi_tensor(train, resnet, smi)
     rows["multi_tensor"] = mt_rows["bert_train_step"]
+    rows.update(_times_train_surface(*surface, smi))
 
     iters = 10
     torch.cuda.reset_peak_memory_stats()
@@ -4260,7 +4885,13 @@ def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, fold, smi
                "rtc_gelu_fwd": ("chip_smoke.py", "incubator_mxnet_tpu/rtc.py:48"),
                "rtc_gelu_bwd": ("chip_smoke.py", "incubator_mxnet_tpu/rtc.py:48"),
                "multi_tensor": (csrc + "multi_tensor.cu",
-                                "incubator_mxnet_tpu/ops/optimizer_ops.py:367")}
+                                "incubator_mxnet_tpu/ops/optimizer_ops.py:367"),
+               "multi_tensor_nag_mom": (csrc + "multi_tensor.cu",
+                                        "incubator_mxnet_tpu/ops/optimizer_ops.py:367"),
+               "multi_tensor_lamb": (csrc + "multi_tensor.cu",
+                                     "incubator_mxnet_tpu/ops/optimizer_ops.py:367"),
+               "multi_tensor_finite": (csrc + "multi_tensor.cu",
+                                       "incubator_mxnet_tpu/amp/amp.py:120")}
     # this slice's main path is the fold: each kernel's launches are those of
     # its fold path (warm-up and capture; a replay runs no wrapper)
     main_path = {"flash_fwd": "fold_bert_step", "flash_bwd_dq": "fold_bert_step",
@@ -4268,7 +4899,10 @@ def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, fold, smi
                  "flash_wide_bwd_dq": "fold_bert_step", "flash_wide_bwd_dkv": "fold_bert_step",
                  "bn_stats": "fold_resnet_step", "bn_apply": "fold_resnet_step",
                  "bn_apply_res": "fold_resnet_step", "rtc_gelu_fwd": "rtc_train_step",
-                 "rtc_gelu_bwd": "rtc_train_step", "multi_tensor": "fold_bert_step"}
+                 "rtc_gelu_bwd": "rtc_train_step", "multi_tensor": "fold_bert_step",
+                 "multi_tensor_nag_mom": "train_surface_resnet_step",
+                 "multi_tensor_lamb": "train_surface_bert_step",
+                 "multi_tensor_finite": "train_surface_bert_step"}
     kernels = []
     for name, (src, replaces) in sources.items():
         path = main_path[name]
@@ -4305,13 +4939,26 @@ def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, fold, smi
                           "library_ms is torch._fused_adam_ over fp32 copies, the nearest "
                           "PyTorch call, not the same function",
                    "resnet_train_step": mt_rows["resnet_train_step"]}
+        elif name == "multi_tensor_nag_mom":
+            per = {"per": "one train_surface ResNet-50 step's fused group (nag_mom, 193 fp32 "
+                          "tensors): the multi_tensor kernel's nag_mom variant, its launches "
+                          "those of that variant; library_ms is torch._fused_sgd_(nesterov="
+                          "True) over fp32 copies, not the same function"}
+        elif name == "multi_tensor_lamb":
+            per = {"per": "one train_surface BERT-base step's fused group (lamb, fp32): pass 1 "
+                          "and pass 2; PyTorch has no LAMB call (library_ms null)"}
+        elif name == "multi_tensor_finite":
+            per = {"per": "one train_surface BERT-base step's fp32 gradients (the loss "
+                          "scaler's overflow check); replaces the JAX package's per-parameter "
+                          "isfinite reduction in LossScaler.has_overflow, no Pallas kernel; "
+                          "PyTorch has no single call for it (library_ms null)"}
         headers = ([str(h.relative_to(Path(__file__).resolve().parent))
                     for h in _cuda.includes(Path(__file__).resolve().parent / src)]
                    if src.endswith(".cu") else [])
         kernels.append({
             "name": name, "route": "cuda", "source": src, "headers": headers,
             "replaces": replaces, "launches": counts[path][name],
-            "launches_by_path": {p: c[name] for p, c in counts.items()},
+            "launches_by_path": {p: c.get(name, 0) for p, c in counts.items()},
             "max_abs_err": errs[name], "max_err": errs[name], "ms": row["ms"],
             "kernel_ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -4480,6 +5127,7 @@ def main():
         rnet, rtrainer, rbatch, _, _ = phase_resnet_train(rehearsal=True)
         phase_resnet_train_vs_cpu(rehearsal=True)
         phase_fold((tnet, trainer, batch), (rnet, rtrainer, rbatch), rehearsal=True)
+        phase_train_surface(rehearsal=True)
         rehearse_times(net, main_req, (tnet, trainer, batch), (rnet, rtrainer, rbatch))
         phase_serve(net, main_req, rehearsal=True)
         phase_generation(rehearsal=True, seed=args.seed)
@@ -4499,6 +5147,9 @@ def main():
     errs.update(phase_kernel_vs_plain_bn(device))
     errs.update(phase_kernel_vs_plain_rtc(device))
     errs["multi_tensor"] = phase_kernel_vs_plain_multi_tensor(device)
+    errs["multi_tensor_nag_mom"] = errs["multi_tensor"]
+    errs["multi_tensor_lamb"] = phase_kernel_vs_plain_lamb(device)
+    errs["multi_tensor_finite"] = phase_kernel_vs_plain_finite(device)
     net, main_req, infer_counts = phase_slice(rehearsal=False)
     tnet, trainer, batch, train_counts = phase_train(rehearsal=False)
     vs_cpu = phase_train_vs_cpu(tnet, rehearsal=False)
@@ -4511,19 +5162,23 @@ def main():
         {"bert_train_step": trainer, "resnet_train_step": rtrainer}))
     fold_counts, fold_progs, fold_records = phase_fold(
         (tnet, trainer, batch), (rnet, rtrainer, rbatch), rehearsal=False)
+    surface_counts, sbert, sresnet, lamb_err = phase_train_surface(rehearsal=False)
+    errs["multi_tensor_lamb"] = max(errs["multi_tensor_lamb"], lamb_err)
     kernels = phase_times(net, main_req, (tnet, trainer, batch), (rnet, rtrainer, rbatch),
                           bn_shapes, {"inference": infer_counts, "train_step": train_counts,
                                       "resnet_train_step": resnet_counts,
-                                      "rtc_train_step": rtc_counts, **fold_counts},
-                          errs, (fold_progs, fold_records), smi)
-    # the serving phases run last: after them every later CUDA-only profiler
-    # trace of the process comes back a few kernel records short (ROADMAP §3
-    # item 5, not located), and the timing phase reads those traces
+                                      "rtc_train_step": rtc_counts, **fold_counts,
+                                      **surface_counts},
+                          errs, (fold_progs, fold_records), smi, (sbert, sresnet))
+    del sbert, sresnet
+    # the serving phases run last: after them kineto drops a few kernel
+    # records of every later CUDA-only profiler trace as out of its window
+    # (ROADMAP §3 "Not faults"), and the timing phase reads those traces
     paths = phase_generation(rehearsal=False, seed=args.seed, smi=smi)
     paths.update(phase_serve(net, main_req, rehearsal=False, smi=smi))
     for path, counts in paths.items():
         for row in kernels:
-            row["launches_by_path"][path] = counts[row["name"]]
+            row["launches_by_path"][path] = counts.get(row["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,7 @@ from __future__ import annotations
 __version__ = "0.1.0"
 
 from .base import MXNetError, DeferredInitializationError
-from .context import Context, cpu, gpu, current_context, num_gpus
+from .context import Context, cpu, gpu, cpu_pinned, current_context, num_gpus
 from . import context
 from . import autograd
 from . import random
@@ -21,6 +21,7 @@ from . import ndarray
 from . import ndarray as nd
 from .ndarray import NDArray
 from . import optimizer
+from . import lr_scheduler
 from . import gluon
 from . import amp
 from . import convert
@@ -36,8 +37,8 @@ from . import profiler
 from . import predictor
 from . import serving
 
-__all__ = ["MXNetError", "DeferredInitializationError", "Context", "cpu", "gpu",
+__all__ = ["MXNetError", "DeferredInitializationError", "Context", "cpu", "gpu", "cpu_pinned",
            "current_context", "num_gpus", "context", "autograd", "random",
-           "initializer", "init", "ops", "nd", "ndarray", "NDArray", "optimizer", "gluon", "amp", "convert", "operator",
+           "initializer", "init", "ops", "nd", "ndarray", "NDArray", "optimizer", "lr_scheduler", "gluon", "amp", "convert", "operator",
            "rtc", "name", "attribute", "AttrScope", "symbol", "sym", "Executor", "profiler",
            "predictor", "serving"]

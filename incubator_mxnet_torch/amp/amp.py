@@ -11,9 +11,20 @@ Like that hook it casts positional inputs only; parameters stay fp32 and
 their casts are part of the graph, so gradients come back in fp32.
 
 ``convert_symbol`` and ``convert_model`` are the offline Symbol pass of
-the serving tier (``InferenceServer(amp_dtype=...)``).  ``LossScaler``,
-``scale_loss``, ``init_trainer``, ``unscale`` and ``convert_hybrid_block``
-(fp16 loss scaling) wait in ROADMAP §1 item 3.
+the serving tier (``InferenceServer(amp_dtype=...)``).
+
+Dynamic loss scaling for fp16 (``LossScaler``, ``scale_loss``,
+``init_trainer``, ``unscale``): the loss is multiplied by the scale before
+the backward, and the wrapped ``Trainer.step`` folds ``1/scale`` into
+``trainer._scale`` (so into ``rescale_grad``) or, when a gradient is not
+finite, skips the update (no weight, state or update count moves), halves
+the scale and leaves the gradients as they are; ``scale_window`` finite
+steps in a row double it.  The overflow check reads one count of
+non-finite elements for all the gradients from the card: one launch of the
+multi-tensor finite pass per chunk of up to 256 gradients of one dtype
+(``ops/multi_tensor.py`` ``sum_sq_finite``), the counts summed on the card,
+one host sync a step.  It reads counts, not sums of squares: a large finite
+gradient can square to inf.
 """
 from __future__ import annotations
 
@@ -23,7 +34,9 @@ from ..base import as_torch_dtype
 from ..ops import registry
 from . import lists
 
-__all__ = ["init", "is_enabled", "disable", "disabled", "convert_symbol", "convert_model"]
+__all__ = ["init", "is_enabled", "disable", "disabled", "convert_symbol", "convert_model",
+           "LossScaler", "scale_loss", "init_trainer", "unscale", "convert_hybrid_block",
+           "list_lp16_ops", "list_fp32_ops"]
 
 
 class _AmpPolicy:
@@ -161,3 +174,158 @@ def convert_model(sym, arg_params, aux_params, target_dtype="bfloat16",
         return out
 
     return out_sym, cast_dict(arg_params), cast_dict(aux_params)
+
+
+def _grad_of(p):
+    """The gradient tensor of a Parameter, an NDArray with an attached
+    gradient, or a tensor (its ``.grad``); None where there is none."""
+    from ..gluon.parameter import Parameter
+
+    if isinstance(p, Parameter):
+        return p._grad if p.grad_req != "null" else None
+    g = getattr(p, "_grad", None)
+    if g is not None:
+        return getattr(g, "_data", g)
+    return p.grad if isinstance(p, torch.Tensor) else None
+
+
+def _nonfinite_count(grads):
+    """The number of non-finite elements in ``grads`` (tensors), as a 0-d
+    int64 tensor on their device: on the card the multi-tensor finite pass
+    (one launch a chunk of up to 256 tensors of one dtype per device) and
+    a sum of its counts, on the CPU its plain version."""
+    from ..ops import optimizer_ops as K
+
+    by_device = {}
+    for g in grads:
+        by_device.setdefault(g.device, []).append(g)
+    counts = [K._sum_sq_finite(gs)[1].sum(dtype=torch.int64) for gs in by_device.values()]
+    if not counts:
+        return torch.zeros((), dtype=torch.int64)
+    total = counts[0]
+    for c in counts[1:]:
+        total = total + c.to(total.device)
+    return total
+
+
+class LossScaler:
+    """Dynamic loss scaling (parity: MXNet's ``amp.LossScaler``): halve the
+    scale (not below 1) and skip the update on overflow, double it after
+    ``scale_window`` finite steps in a row."""
+
+    def __init__(self, init_scale=2.0 ** 16, scale_factor=2.0, scale_window=2000):
+        self.loss_scale = float(init_scale)
+        self._factor = scale_factor
+        self._window = scale_window
+        self._unskipped = 0
+
+    def has_overflow(self, params):
+        """True if any gradient holds a non-finite element.  Takes Gluon
+        Parameters, NDArrays with attached gradients or tensors; one count
+        read from the card for all of them."""
+        grads = [g for g in (_grad_of(p) for p in params) if g is not None]
+        if not grads:
+            return False
+        return bool(_nonfinite_count(grads).item() != 0)
+
+    def update_scale(self, overflow):
+        if overflow:
+            self.loss_scale = max(self.loss_scale / self._factor, 1.0)
+            self._unskipped = 0
+        else:
+            self._unskipped += 1
+            if self._unskipped >= self._window:
+                self.loss_scale *= self._factor
+                self._unskipped = 0
+
+
+class scale_loss:
+    """``with amp.scale_loss(loss, trainer) as scaled: autograd.backward(scaled)``
+    (parity: ``amp.scale_loss``): the loss (or each of a list) times the
+    trainer's loss scale; a trainer without ``init_trainer`` gets the loss
+    back as it is."""
+
+    def __init__(self, loss, trainer):
+        self._loss = loss
+        self._trainer = trainer
+
+    def __enter__(self):
+        scaler = getattr(self._trainer, "_amp_loss_scaler", None)
+        if scaler is None:
+            return self._loss
+        if isinstance(self._loss, (list, tuple)):
+            return [l * scaler.loss_scale for l in self._loss]
+        return self._loss * scaler.loss_scale
+
+    def __exit__(self, *a):
+        return False
+
+
+def init_trainer(trainer):
+    """Attach a dynamic :class:`LossScaler` to a Gluon Trainer and wrap its
+    ``step`` (parity: ``amp.init_trainer``): a step whose gradients are all
+    finite runs with ``trainer._scale`` divided by the loss scale for that
+    call (``Trainer.step`` reads it into ``rescale_grad``), unless
+    :func:`unscale` already divided the gradients; a step with a non-finite
+    gradient updates nothing.  Either way the scaler then updates the scale.
+    Idempotent: a second call returns the trainer as it is."""
+    if getattr(trainer, "_amp_loss_scaler", None) is not None:
+        return trainer
+    scaler = LossScaler()
+    trainer._amp_loss_scaler = scaler
+    orig_step = trainer.step
+
+    def step(batch_size, ignore_stale_grad=False):
+        params = [p for p in trainer._params if p.grad_req != "null"]
+        overflow = scaler.has_overflow(params)
+        if not overflow:
+            if getattr(trainer, "_amp_unscaled", False):
+                trainer._amp_unscaled = False
+                orig_step(batch_size, ignore_stale_grad)
+            else:
+                saved = trainer._scale
+                trainer._scale = saved / scaler.loss_scale
+                try:
+                    orig_step(batch_size, ignore_stale_grad)
+                finally:
+                    trainer._scale = saved
+        else:
+            trainer._amp_unscaled = False
+        scaler.update_scale(overflow)
+
+    trainer.step = step
+    return trainer
+
+
+@torch.no_grad()
+def unscale(trainer):
+    """Divide the current gradients by the loss scale in place (to clip them
+    before ``step``); the wrapped step then does not divide again."""
+    scaler = getattr(trainer, "_amp_loss_scaler", None)
+    if scaler is None:
+        return
+    for p in trainer._params:
+        if p.grad_req != "null" and p._grad is not None:
+            p._grad.div_(scaler.loss_scale)
+    trainer._amp_unscaled = True
+
+
+def convert_hybrid_block(block, target_dtype="bfloat16"):
+    """Cast the block's floating-point parameters to ``target_dtype`` in
+    place and return the block (parity: ``amp.convert_hybrid_block``, the
+    JAX package's form); combine with :func:`init` for the op lists."""
+    for p in block.collect_params().values():
+        if p._data is not None and not p._data.is_floating_point():
+            continue
+        p.cast(target_dtype)
+    return block
+
+
+def list_lp16_ops(target_dtype="bfloat16"):
+    """The ops AMP runs in the low-precision target dtype."""
+    return sorted(lists.TARGET_OPS)
+
+
+def list_fp32_ops(target_dtype="bfloat16"):
+    """The ops AMP runs in fp32."""
+    return sorted(lists.FP32_OPS)

@@ -10,7 +10,12 @@ scopes, as in MXNet: ``record()`` trains unless ``train_mode=False``.
 
 Gradients land in each Parameter's own buffer with MXNet's ``grad_req``
 semantics (``gluon/parameter.py``), whether the backward is started by
-``backward(heads)`` here or by PyTorch's ``Tensor.backward``.
+``backward(heads)`` here or by PyTorch's ``Tensor.backward``.  ``grad``
+returns gradients without touching those buffers, and with
+``create_graph=True`` returns them differentiable, on PyTorch's own
+``create_graph``: higher-order gradients.  The attention kernels have no
+double backward: on the card a differentiable gradient through them raises
+(``ops/attention.py``), on the CPU it goes through the plain attention.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ import threading
 import torch
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording", "is_training",
-           "set_recording", "set_training", "backward", "Function"]
+           "set_recording", "set_training", "backward", "grad", "mark_variables", "Function"]
 
 _tls = threading.local()
 
@@ -116,6 +121,65 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True,
                 "graph; compute it inside autograd.record() from Parameters")
     seeds = [torch.ones_like(h) if g is None else g for h, g in zip(heads, head_grads)]
     torch.autograd.backward(heads, seeds, retain_graph=retain_graph)
+
+
+def grad(heads, variables, head_grads=None, retain_graph=None, create_graph=False,
+         train_mode=True):
+    """Gradients of ``heads`` with respect to ``variables`` (parity:
+    ``mx.autograd.grad``), seeded with ``head_grads`` or ones, returned
+    instead of written to any gradient buffer.  ``variables`` is one array
+    or a list: NDArrays (``attach_grad``) or tensors that require a
+    gradient; a variable the heads do not reach gets zeros.  An NDArray in
+    gives an NDArray out.  ``create_graph=True`` records the backward, so
+    the gradients can be differentiated again; ``retain_graph`` defaults to
+    ``create_graph``.  ``train_mode`` is the reference's (Dropout reads the
+    flag in the forward, which has run)."""
+    single = not isinstance(variables, (list, tuple))
+    variables = [variables] if single else list(variables)
+    tensors = [_tensor(v) for v in variables]
+    for v, t in zip(variables, tensors):
+        if not (isinstance(t, torch.Tensor) and t.requires_grad):
+            raise ValueError(
+                "variables passed to autograd.grad must be part of the recorded graph: "
+                "attach_grad() (or mark_variables) before recording, or Parameters' data()")
+    if not isinstance(heads, (list, tuple)):
+        heads = [heads]
+    if head_grads is None:
+        head_grads = [None] * len(heads)
+    elif not isinstance(head_grads, (list, tuple)):
+        head_grads = [head_grads]
+    heads = [_tensor(h) for h in heads]
+    if len(heads) != len(head_grads):
+        raise ValueError("heads and head_grads length mismatch")
+    for h in heads:
+        if not h.requires_grad:
+            raise ValueError("cannot differentiate a head that is not part of the recorded "
+                             "graph")
+    seeds = [torch.ones_like(h) if g is None else _tensor(g) for h, g in zip(heads, head_grads)]
+    keep = create_graph if retain_graph is None else bool(retain_graph)
+    with _scope(bool(create_graph), train_mode):
+        got = torch.autograd.grad(heads, tensors, seeds, retain_graph=keep,
+                                  create_graph=bool(create_graph), allow_unused=True)
+    out = []
+    for v, t, g in zip(variables, tensors, got):
+        g = torch.zeros_like(t) if g is None else g
+        if v is not t:  # an NDArray: the currency rule
+            from .ndarray.ndarray import _wrap
+            g = _wrap(g, getattr(v, "_ctx", None))
+        out.append(g)
+    return out[0] if single else out
+
+
+def mark_variables(variables, gradients, grad_reqs="write"):
+    """Make each NDArray of ``variables`` a leaf of the graph whose gradient
+    a backward writes (``"write"``), adds (``"add"``) or skips (``"null"``)
+    into the NDArray of ``gradients`` given for it (parity:
+    ``mx.autograd.mark_variables``, the legacy form of ``attach_grad``)."""
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for v, g, req in zip(variables, gradients, grad_reqs):
+        v.attach_grad(req)
+        v._grad = g
 
 
 class _Bridge(torch.autograd.Function):

@@ -13,19 +13,22 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context", "num_gpus"]
+__all__ = ["Context", "cpu", "gpu", "cpu_pinned", "current_context", "current_device",
+           "num_gpus"]
 
 _tls = threading.local()
 
 
 class Context:
     """A device context (parity: ``mxnet.context.Context``); ``device``
-    names the ``torch.device`` it stands for."""
+    names the ``torch.device`` it stands for (``cpu_pinned``: the CPU)."""
 
     __slots__ = ("device_type", "device_id")
 
     def __init__(self, device_type, device_id=0):
-        if device_type not in ("cpu", "gpu"):
+        if isinstance(device_type, Context):
+            device_type, device_id = device_type.device_type, device_type.device_id
+        if device_type not in ("cpu", "gpu", "cpu_pinned"):
             raise ValueError(f"unknown device type {device_type!r}")
         self.device_type = device_type
         self.device_id = int(device_id)
@@ -33,7 +36,7 @@ class Context:
     @property
     def device(self):
         """The ``torch.device``; a GPU context raises when no card is there."""
-        if self.device_type == "cpu":
+        if self.device_type != "gpu":
             return torch.device("cpu")
         n = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if self.device_id >= n:
@@ -63,9 +66,26 @@ class Context:
     def __repr__(self):
         return f"{self.device_type}({self.device_id})"
 
+    def empty_cache(self):
+        """Release the cached blocks of PyTorch's allocator on this card
+        (parity: ``Context.empty_cache``); on the CPU a garbage
+        collection."""
+        if self.device_type == "gpu":
+            with torch.cuda.device(self.device):
+                torch.cuda.empty_cache()
+        else:
+            import gc
+
+            gc.collect()
+
 
 def cpu(device_id=0):
     return Context("cpu", device_id)
+
+
+def cpu_pinned(device_id=0):
+    """The CPU context of page-locked memory (parity: ``mx.cpu_pinned``)."""
+    return Context("cpu_pinned", device_id)
 
 
 def gpu(device_id=0):
@@ -78,6 +98,10 @@ def current_context():
     if stack:
         return stack[-1]
     return Context("gpu", 0)
+
+
+def current_device():
+    return current_context()
 
 
 def num_gpus():

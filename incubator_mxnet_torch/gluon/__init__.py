@@ -1,6 +1,6 @@
 """Gluon: the imperative front end of the port."""
 from . import parameter
-from .parameter import Parameter, ParameterDict
+from .parameter import Parameter, Constant, ParameterDict
 from . import block
 from .block import Block, HybridBlock
 from . import nn
@@ -9,5 +9,5 @@ from . import model_zoo
 from . import trainer
 from .trainer import Trainer
 
-__all__ = ["Parameter", "ParameterDict", "Block", "HybridBlock", "nn", "loss", "model_zoo",
+__all__ = ["Parameter", "Constant", "ParameterDict", "Block", "HybridBlock", "nn", "loss", "model_zoo",
            "Trainer"]

@@ -20,10 +20,22 @@ NDArray; with tensors in, nothing changes (one scan of the arguments).
 A Block runs its forward with PyTorch's grad mode on inside
 ``autograd.record()`` and off outside it, as MXNet records a network only
 inside ``record()``; every child's ``__call__`` reads the same flag.
+
+``register_forward_hook``/``register_forward_pre_hook`` and ``apply`` have
+MXNet's semantics, not ``torch.nn.Module``'s: a hook gets ``(block,
+args)`` or ``(block, args, output)`` as the caller passed and received
+them (NDArrays under the currency rule), its return value is ignored, and
+the registration returns a handle with ``detach()`` (and ``remove()``);
+``apply(fn)`` calls ``fn`` on every child block and then on the block, and
+returns the block.  A registration with PyTorch's keywords
+(``prepend``, ``with_kwargs``...) goes to PyTorch's own hooks, so
+PyTorch's machinery (``.to()``, ``_apply``) is untouched.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import math
 import re
 import threading
 
@@ -35,7 +47,7 @@ from ..ndarray.ndarray import _has_nd, _rewrap_nested, _unwrap_nested
 from ..ops.registry import nd
 from .parameter import ParameterDict, _load_into
 
-__all__ = ["Block", "HybridBlock", "block_method", "collect_aux_update"]
+__all__ = ["Block", "HybridBlock", "block_method", "collect_aux_update", "name_scope"]
 
 _tls = threading.local()
 
@@ -47,6 +59,33 @@ def _gen_prefix(hint):
     idx = counters.get(hint, 0)
     counters[hint] = idx + 1
     return f"{hint}{idx}_"
+
+
+@contextlib.contextmanager
+def name_scope():
+    """A fresh set of the global name counters for the blocks made inside
+    (parity: ``gluon.block.name_scope``): the first Dense made in the scope
+    is ``dense0_`` again; the counters outside resume on exit."""
+    saved = getattr(_tls, "counters", None)
+    _tls.counters = {}
+    try:
+        yield
+    finally:
+        _tls.counters = saved
+
+
+class _HookHandle:
+    """What ``register_forward_hook`` returns: ``detach()`` (MXNet's name)
+    or ``remove()`` takes the hook off."""
+
+    def __init__(self, hooks, hook):
+        self._hooks, self._hook = hooks, hook
+
+    def detach(self):
+        if any(h is self._hook for h in self._hooks):
+            self._hooks.remove(self._hook)
+
+    remove = detach
 
 
 def collect_aux_update(param, new_value):
@@ -128,6 +167,7 @@ class Block(torch.nn.Module):
 
     def __init__(self, prefix=None, params=None):
         super().__init__()
+        self._mx_pre_hooks, self._mx_hooks = [], []
         self._empty_prefix = prefix == ""
         self._prefix, self._params = _BlockScope.create(prefix, params, self._alias())
         self._name = self._prefix[:-1] if self._prefix.endswith("_") else self._prefix
@@ -250,8 +290,62 @@ class Block(torch.nn.Module):
     def load_params(self, filename, ctx=None, **kwargs):
         self.load_parameters(filename, ctx, **kwargs)
 
+    def register_forward_pre_hook(self, hook, **torch_kwargs):
+        """``hook(block, args)`` before each call, ``args`` as passed; returns
+        a handle with ``detach()``.  PyTorch's keywords register a PyTorch
+        pre-hook instead."""
+        if torch_kwargs:
+            return super().register_forward_pre_hook(hook, **torch_kwargs)
+        self._mx_pre_hooks.append(hook)
+        return _HookHandle(self._mx_pre_hooks, hook)
+
+    def register_forward_hook(self, hook, **torch_kwargs):
+        """``hook(block, args, output)`` after each call, as the caller
+        passes and receives them; returns a handle with ``detach()``.
+        PyTorch's keywords register a PyTorch hook instead."""
+        if torch_kwargs:
+            return super().register_forward_hook(hook, **torch_kwargs)
+        self._mx_hooks.append(hook)
+        return _HookHandle(self._mx_hooks, hook)
+
+    def apply(self, fn):
+        """``fn(block)`` on every child block (each applying it to its own
+        children first), then on this block; returns this block."""
+        for _, child in self._child_blocks():
+            child.apply(fn)
+        fn(self)
+        return self
+
+    def summary(self, *inputs):
+        """Print one row a child block (name, type, output shape, parameters)
+        from one forward of ``inputs``."""
+        rows, handles = [], []
+        for name, child in self._child_blocks():
+            def hook(b, _, out, name=name):
+                o = out[0] if isinstance(out, (list, tuple)) else out
+                n = sum(math.prod(p.shape) for p in b.params.values()
+                        if p.shape and all(d > 0 for d in p.shape))
+                rows.append((name or b.name, type(b).__name__, tuple(getattr(o, "shape", ())),
+                             n))
+            handles.append(child.register_forward_hook(hook))
+        try:
+            self(*inputs)
+        finally:
+            for h in handles:
+                h.detach()
+        header = f"{'Layer':<28}{'Type':<20}{'Output shape':<24}{'Params':<12}"
+        print(header)
+        print("-" * len(header))
+        for r in rows:
+            print(f"{r[0]:<28}{r[1]:<20}{str(r[2]):<24}{r[3]:<12}")
+
     def __call__(self, *args, **kwargs):
-        return _as_block_call(super().__call__, args, kwargs)
+        for hook in list(self._mx_pre_hooks):
+            hook(self, args)
+        out = _as_block_call(super().__call__, args, kwargs)
+        for hook in list(self._mx_hooks):
+            hook(self, args, out)
+        return out
 
 
 class HybridBlock(Block):
@@ -279,6 +373,19 @@ class HybridBlock(Block):
             self._shape_inference(x, *args)
             params = gather()
         return self.hybrid_forward(nd, x, *args, **params)
+
+    def infer_shape(self, *args):
+        """Finish the deferred parameters' shapes from ``args``: one forward
+        with recording off (the JAX package's method of this name leaves
+        them to the first call)."""
+        with autograd.pause():
+            self(*args)
+
+    def optimize_for(self, x, *args, backend=None, **kwargs):
+        """``hybridize()`` and one forward, as the JAX package's shim does:
+        PyTorch runs eagerly and there is no subgraph backend to pick."""
+        self.hybridize()
+        self(x, *args)
 
     def _shape_inference(self, x, *args):
         raise RuntimeError(

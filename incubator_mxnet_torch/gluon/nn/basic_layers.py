@@ -1,5 +1,6 @@
-"""Basic layers BERT and ResNet are built from: Sequential,
-HybridSequential, Dense, Dropout, BatchNorm, LayerNorm, Embedding, Flatten.
+"""Basic layers: Sequential, HybridSequential, Dense, Dropout, BatchNorm,
+LayerNorm, GroupNorm, InstanceNorm, Embedding, Flatten, Identity,
+Lambda/HybridLambda and Concatenate/HybridConcatenate.
 
 Counterpart of the matching layers in
 the JAX package's ``gluon/nn/basic_layers.py``: same parameter names,
@@ -17,7 +18,8 @@ from ...base import dtype_name
 from ..block import Block, HybridBlock, collect_aux_update
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm", "LayerNorm",
-           "Embedding", "Flatten"]
+           "GroupNorm", "InstanceNorm", "Embedding", "Flatten", "Identity", "Lambda",
+           "HybridLambda", "Concatenate", "HybridConcatenate"]
 
 
 class Sequential(Block):
@@ -207,3 +209,106 @@ class Flatten(HybridBlock):
 
     def hybrid_forward(self, F, x):
         return F.Flatten(x)
+
+
+class _ChannelNorm(HybridBlock):
+    """gamma and beta of the input's channel count (axis 1), deferred."""
+
+    def __init__(self, epsilon, center, scale, beta_initializer, gamma_initializer,
+                 in_channels, prefix, params):
+        super().__init__(prefix=prefix, params=params)
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null", shape=(in_channels,),
+                init=gamma_initializer, allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null", shape=(in_channels,),
+                init=beta_initializer, allow_deferred_init=True)
+
+    def _shape_inference(self, x, *args):
+        c = x.shape[1]
+        self.gamma._finish_deferred_init((c,))
+        self.beta._finish_deferred_init((c,))
+
+
+class GroupNorm(_ChannelNorm):
+    """Normalization over groups of channels (``F.GroupNorm``)."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones", in_channels=0,
+                 prefix=None, params=None):
+        super().__init__(epsilon, center, scale, beta_initializer, gamma_initializer,
+                         in_channels, prefix, params)
+        self._num_groups = num_groups
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.GroupNorm(x, gamma, beta, num_groups=self._num_groups, eps=self._epsilon)
+
+
+class InstanceNorm(_ChannelNorm):
+    """Normalization of each sample's channel over its spatial axes
+    (``F.InstanceNorm``); ``axis`` is taken for the reference's signature,
+    as in the JAX package, which normalizes with the channel at axis 1."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones", in_channels=0,
+                 prefix=None, params=None):
+        super().__init__(epsilon, center, scale, beta_initializer, gamma_initializer,
+                         in_channels, prefix, params)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+
+
+class Identity(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return x
+
+
+class Lambda(Block):
+    """A function (or the name of an ``mx.nd`` op) as a Block."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as nd
+
+            function = getattr(nd, function)
+        self._func = function
+
+    def forward(self, *args):
+        return self._func(*args)
+
+
+class HybridLambda(HybridBlock):
+    """A function ``fn(F, *args)`` (or the name of an op of ``F``) as a
+    HybridBlock."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            self._func = lambda F, *args: getattr(F, function)(*args)
+        else:
+            self._func = function
+
+    def hybrid_forward(self, F, x, *args):
+        return self._func(F, x, *args)
+
+
+class Concatenate(Sequential):
+    """Runs every child on the same input and concatenates their outputs on
+    ``axis``."""
+
+    def __init__(self, axis=-1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.axis = axis
+
+    def forward(self, x):
+        from ...ops.registry import nd
+
+        return nd.concat(*(child(x) for child in self._modules.values()), dim=self.axis)
+
+
+class HybridConcatenate(Concatenate, HybridBlock):
+    """Concatenate of HybridBlocks."""

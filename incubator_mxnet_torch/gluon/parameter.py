@@ -3,11 +3,12 @@
 Counterpart of the JAX package's ``gluon/parameter.py``, with the same
 lifecycle: construct (a 0 in the shape means unknown), ``initialize``
 (deferred until the first forward infers the shape), ``data()``,
-``set_data``, ``cast``, and the gradient API: ``grad()``, ``list_grad()``,
-``zero_grad()``, ``grad_req`` and ``lr_mult``/``wd_mult``; a parameter made
-with ``differentiable=False`` (BatchNorm's running statistics) has
-``grad_req="null"``.  A Parameter holds one ``torch.nn.Parameter`` on one
-device.
+``set_data``, ``cast``, ``reset_ctx``, ``var``, and the gradient API:
+``grad()``, ``list_grad()``, ``zero_grad()``, ``grad_req`` and
+``lr_mult``/``wd_mult``; a parameter made with ``differentiable=False``
+(BatchNorm's running statistics) has ``grad_req="null"``, as has a
+``Constant``.  A Parameter holds one ``torch.nn.Parameter`` on one device,
+so ``list_data``/``list_ctx`` hold one entry.
 
 Gradients follow MXNet, not PyTorch: a Parameter keeps its own gradient
 buffer, and a hook run after PyTorch accumulates the backward's gradient
@@ -27,7 +28,7 @@ from .. import initializer as _init_mod
 from ..base import DeferredInitializationError, as_torch_dtype, dtype_name
 from ..context import Context, current_context
 
-__all__ = ["Parameter", "ParameterDict"]
+__all__ = ["Parameter", "Constant", "ParameterDict"]
 
 
 def _shape_is_known(shape):
@@ -182,6 +183,31 @@ class Parameter:
     def list_grad(self):
         return [self.grad()]
 
+    def list_data(self):
+        return [self.data()]
+
+    def list_ctx(self):
+        """The one context the parameter lives on."""
+        self._check_initialized()
+        from ..context import cpu, gpu
+
+        dev = self._data.device
+        return [gpu(dev.index or 0) if dev.type == "cuda" else cpu()]
+
+    def reset_ctx(self, ctx):
+        """Move the parameter to ``ctx`` (the first of a list): a new
+        ``torch.nn.Parameter`` there, its gradient buffer anew."""
+        self._check_initialized()
+        device = _resolve_device(ctx)
+        self._data = torch.nn.Parameter(self._data.detach().to(device))
+        self._attach_grad()
+
+    def var(self):
+        """A Symbol variable of this parameter's name, shape and dtype."""
+        from .. import symbol as _sym
+
+        return _sym.var(self.name, shape=self._shape, dtype=self.dtype)
+
     def zero_grad(self):
         if self._grad is not None:
             self._grad.zero_()
@@ -225,6 +251,27 @@ class Parameter:
 
     def __repr__(self):
         return f"Parameter {self.name} (shape={self._shape}, dtype={self.dtype})"
+
+
+class Constant(Parameter):
+    """A parameter that holds a constant value and takes no gradient
+    (parity: ``gluon.Constant``); initializing it writes the value."""
+
+    def __init__(self, name, value):
+        value = getattr(value, "_data", value)  # an NDArray's tensor
+        if not isinstance(value, torch.Tensor):
+            value = torch.from_numpy(_np.asarray(value, dtype="float32"))
+        self.value = value
+
+        class _Value(_init_mod.Initializer):
+            def __call__(self, _, arr):
+                with torch.no_grad():
+                    arr.copy_(value)
+
+            _init_weight = __call__
+
+        super().__init__(name, grad_req="null", shape=tuple(value.shape),
+                         dtype=dtype_name(value.dtype), init=_Value())
 
 
 def _load_into(param, value, ctx):
@@ -289,6 +336,33 @@ class ParameterDict:
             if kwargs.get("init") is not None and param.init is None:
                 param.init = kwargs["init"]
         return param
+
+    def get_constant(self, name, value=None):
+        """The constant ``prefix + name``, made from ``value`` on first
+        use (a shared dict is checked first)."""
+        full = self._prefix + name
+        param = self._params.get(full)
+        if param is None and self._shared is not None and full in self._shared:
+            param = self._params[full] = self._shared[full]
+        if param is None:
+            if value is None:
+                raise KeyError(f"No constant named {full}")
+            param = self._params[full] = Constant(full, value)
+        return param
+
+    def zero_grad(self):
+        for v in self.values():
+            v.zero_grad()
+
+    def reset_ctx(self, ctx):
+        for v in self.values():
+            v.reset_ctx(ctx)
+
+    def setattr(self, name, value):
+        """Set an attribute (``grad_req``, ``lr_mult``...) on every
+        parameter."""
+        for v in self.values():
+            setattr(v, name, value)
 
     def update(self, other):
         for k, v in other.items():

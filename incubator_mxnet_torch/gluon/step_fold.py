@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from .. import autograd
+from ..ops import multi_tensor as _mt
 from ..ops import optimizer_ops as _K
 from ..optimizer import fused as _fused
 from ..random import get_generator
@@ -181,14 +182,24 @@ class _Tail:
                       for (step, _, _, _, _), vals in zip(self.groups, per_group)]
         return per_group, sum(self.sizes)
 
-    def apply(self, per_group, device_rows=None):
+    def scratch(self):
+        """The buffers a capture owns for its groups' launches: LAMB's
+        partial norms (``multi_tensor.lamb_scratch``) for a LAMB group on the
+        card, None for the others."""
+        return [_mt.lamb_scratch(ws) if step.variant == "lamb" and ws[0].is_cuda else None
+                for step, _, ws, _, _ in self.groups]
+
+    def apply(self, per_group, device_rows=None, scratch=None):
         """One ``group_apply`` a group: on the card the kernel reads
-        ``device_rows`` (a graph's buffer) when given."""
+        ``device_rows`` (a graph's buffer) when given, and LAMB writes its
+        partial norms to ``scratch`` (:meth:`scratch`) when given."""
         scalars = _fused._scalars(self.opt)
+        scratch = scratch or [None] * len(self.groups)
         offset = 0
-        for (step, _, ws, gs, flats), vals, n in zip(self.groups, per_group, self.sizes):
+        for (step, _, ws, gs, flats), vals, n, buf in zip(self.groups, per_group, self.sizes,
+                                                          scratch):
             rows = None if device_rows is None else device_rows[offset:offset + n]
-            _K.group_apply(step, ws, gs, flats, *vals, scalars, device_rows=rows)
+            _K.group_apply(step, ws, gs, flats, *vals, scalars, device_rows=rows, scratch=buf)
             offset += n
 
 
@@ -400,14 +411,14 @@ class StepProgram:
                   for j in range(1 if kw is None else kw)]
         return losses[0] if kw is None else torch.stack(losses)
 
-    def _body(self, batch, tail, per_group, device_rows=None):
+    def _body(self, batch, tail, per_group, device_rows=None, scratch=None):
         """One logical step: forward and loss recorded, the backward (the
         parameters' hooks move each gradient into its buffer), one
         ``group_apply`` a fused group.  Returns the loss, detached."""
         with autograd.record():
             loss = self._loss_fn(*batch)
         autograd.backward(loss)
-        tail.apply(per_group, device_rows)
+        tail.apply(per_group, device_rows, scratch)
         return loss.detach()
 
     def _key(self, batch, kw, tail, device):
@@ -451,6 +462,7 @@ class StepProgram:
         per_group, n = tail.layout()
         static = [torch.empty_like(b, device=device) for b in batch]
         rows = torch.zeros(steps, n, dtype=torch.float32, device=device)
+        scratch = tail.scratch()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(get_generator(device))
         if self._pool is None:
@@ -458,13 +470,14 @@ class StepProgram:
         versions = [p._grad_version for _, p in touched]
         try:
             with torch.cuda.graph(graph, pool=self._pool):
-                losses = [self._body(self._row(static, j, kw), tail, per_group, rows[j])
-                          for j in range(steps)]
+                losses = [self._body(self._row(static, j, kw), tail, per_group, rows[j],
+                                     scratch) for j in range(steps)]
                 loss = losses[0] if kw is None else torch.stack(losses)
         finally:  # capture ran the hooks without running the step
             for (_, p), v in zip(touched, versions):
                 p._grad_version = v
-        return {"graph": graph, "batch": static, "rows": rows, "loss": loss}
+        return {"graph": graph, "batch": static, "rows": rows, "loss": loss,
+                "scratch": scratch}
 
 
 class EvalProgram:
@@ -650,10 +663,11 @@ def fold_update(optimizer, items, states):
     if "graph" not in entry:
         per_group, n = tail.layout()
         rows = torch.zeros(n, dtype=torch.float32, device=device)
+        scratch = tail.scratch()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            tail.apply(per_group, rows)
-        entry.update(graph=graph, rows=rows)
+            tail.apply(per_group, rows, scratch)
+        entry.update(graph=graph, rows=rows, scratch=scratch)
         fold_update.captures += 1
     _stage(tail.values()[1], entry["rows"])
     entry["graph"].replay()

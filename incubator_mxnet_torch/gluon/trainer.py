@@ -156,6 +156,17 @@ class Trainer:
     def allreduce_grads(self):
         """Nothing to reduce: the gradients of one device are already whole."""
 
+    def close(self):
+        """Release what the trainer holds for distributed training: on one
+        device there is nothing to release.  Idempotent."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
     def update(self, batch_size, ignore_stale_grad=False):
         """The optimizer update alone (gradients already reduced)."""
         self._check_and_rescale_grad(self._scale / batch_size)

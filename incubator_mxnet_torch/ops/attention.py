@@ -559,10 +559,31 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         *inputs, o, lse = ctx.saved_tensors
+        if torch.is_grad_enabled():  # create_graph: the gradients must be differentiable
+            return (None, None, None, None, *_differentiable_grads(ctx, inputs, do))
         grads = [torch.empty_like(x, memory_format=torch.contiguous_format) for x in inputs]
         flash_bwd(*_views(inputs, ctx.spec), o, do.contiguous(), lse, ctx.causal, ctx.scale,
                   ctx.layout, out=_views(grads, ctx.spec))
         return (None, None, None, None, *grads)
+
+
+def _differentiable_grads(ctx, inputs, do):
+    """The inputs' gradients as a graph over the inputs and ``do``, for a
+    backward with ``create_graph``: on the CPU the plain attention
+    recomputed and differentiated by PyTorch, so a second derivative is
+    exact; the kernels have no double backward, so on the card this
+    raises rather than return gradients that a second derivative would
+    read as constants."""
+    if inputs[0].device.type not in _PLAIN_DEVICES:
+        raise RuntimeError(
+            "attention: the flash kernels (flash_fwd/flash_bwd) have no double backward, so a "
+            "gradient through them cannot be differentiated again (create_graph=True); run "
+            "the higher-order gradient on CPU tensors, where attention takes its plain version")
+    q, k, v = _views(inputs, ctx.spec)
+    t = (lambda x: x.transpose(1, 2)) if ctx.layout == "bshd" else (lambda x: x)  # noqa: E731
+    o = t(flash_fwd_plain(t(q), t(k), t(v), ctx.causal, ctx.scale)[0])
+    grads = torch.autograd.grad(o, inputs, do, create_graph=True, allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
 
 
 def _attend(spec, inputs, causal, scale, layout):

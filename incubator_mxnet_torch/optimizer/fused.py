@@ -8,9 +8,12 @@ hand-written multi-tensor kernel per chunk, in place, instead of some
 seventeen PyTorch ops per tensor.  ``aggregate_num`` <= 1 (or
 ``MXNET_OPTIMIZER_AGGREGATION=0``) keeps the per-tensor loop.  An
 optimizer with no fused variant, or a subclass, takes the per-tensor path:
-``fused_update`` returns those items to the caller.  ``_select`` names the
-optimizers the port has; NAG, AdamW, RMSProp and LAMB join it with their
-optimizers.
+``fused_update`` returns those items to the caller.  The fused optimizers
+are the JAX package's: SGD, NAG, Adam, AdamW, RMSProp (both forms) and
+LAMB (two launches a chunk: its trust ratio needs each tensor's norms
+first).  RMSProp and LAMB under ``multi_precision`` take the per-tensor
+path, and AdamW under it takes Adam's ``mp_adam`` variant, as in the JAX
+package.
 
 The counters ``fused_update.calls`` (group updates), ``fused_update.params``
 (parameters they updated) and ``fused_update.fallback_params`` (parameters
@@ -20,7 +23,7 @@ left to the loop) stand where the JAX package counts ``fused_step_call``,
 from __future__ import annotations
 
 from ..ops import optimizer_ops as K
-from .optimizer import SGD, Adam
+from .optimizer import LAMB, NAG, SGD, Adam, AdamW, RMSProp
 
 __all__ = ["fused_update", "plan_groups", "supports"]
 
@@ -37,26 +40,56 @@ def _select(opt, index, weight, state):
             mom, w32 = state
             return (K.mp_sgd_step, (w32,)) if mom is None else (K.mp_sgd_mom_step, (mom, w32))
         return (K.sgd_step, ()) if state is None else (K.sgd_mom_step, (state,))
-    if t is Adam:
+    if t is NAG:
         if mp:
+            inner, w32 = state
+            # the base _update_mp runs sgd_update on the master copy
+            return ((K.mp_sgd_step, (w32,)) if opt.momentum == 0.0
+                    else (K.mp_nag_mom_step, (inner, w32)))
+        return (K.sgd_step, ()) if state is None else (K.nag_mom_step, (state,))
+    if t in (Adam, AdamW):
+        if mp:
+            # AdamW inherits Adam's _update_mp (mp_adam_update) on the
+            # per-tensor path; the fused path matches it
             (mean, var), w32 = state
             return K.mp_adam_step, (mean, var, w32)
         mean, var = state
-        return K.adam_step, (mean, var)
+        return (K.adamw_step if t is AdamW else K.adam_step), (mean, var)
+    if t is RMSProp:
+        if mp:
+            return None  # the base _update_mp: per-tensor path
+        return ((K.rmspropalex_step, tuple(state)) if opt.centered
+                else (K.rmsprop_step, (state,)))
+    if t is LAMB:
+        if mp:
+            return None
+        mean, var = state
+        return K.lamb_step, (mean, var)
     return None
 
 
 def supports(opt):
     """Whether this optimizer has fused group updates at all."""
-    return type(opt) in (SGD, Adam)
+    return type(opt) in (SGD, NAG, Adam, AdamW, RMSProp, LAMB)
 
 
 def _scalars(opt):
     S = {"rescale": opt.rescale_grad, "clip": opt.clip_gradient}
-    if type(opt) is SGD:
+    t = type(opt)
+    if t in (SGD, NAG):
         S["momentum"] = opt.momentum
+    elif t is RMSProp:
+        S["rho"], S["epsilon"] = opt.rho, opt.epsilon
+        if opt.centered:
+            S["momentum"] = opt.momentum
+    elif t is LAMB:
+        S["beta1"], S["beta2"], S["epsilon"] = opt.beta1, opt.beta2, opt.epsilon
+        S["lower_bound"], S["upper_bound"] = opt.lower_bound, opt.upper_bound
+        S["bias_correction"] = 1.0 if opt.bias_correction else 0.0
     else:
         S["beta1"], S["beta2"], S["epsilon"] = opt.beta1, opt.beta2, opt.epsilon
+        if t is AdamW:
+            S["eta"] = opt.eta
     return S
 
 

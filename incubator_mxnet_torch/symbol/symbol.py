@@ -791,14 +791,6 @@ _QUEUED_OPS = {
         "box_iou", "box_nms", "contrib_MultiBoxDetection", "contrib_MultiBoxPrior",
         "contrib_MultiBoxTarget", "contrib_box_iou", "contrib_box_nms"),
     ("ops/moe.py", 8): ("moe_ffn",),
-    ("ops/optimizer_ops.py", 3): (
-        "adadelta_update", "adagrad_update", "adam_lazy_update", "adamax_update",
-        "adamw_update", "all_finite", "dcasgd_update", "ftml_update", "ftrl_update",
-        "group_adagrad_update", "lamb_update_phase1", "lamb_update_phase2",
-        "mp_nag_mom_update", "mp_sgd_mom_lazy_update", "multi_all_finite", "multi_lars",
-        "multi_sum_sq", "nadam_update", "nag_mom_update", "rmsprop_update",
-        "rmspropalex_update", "sgd_lazy_update", "sgd_mom_lazy_update", "sgld_update",
-        "signum_update"),
     ("operator.py", 4): ("Custom",),
 }
 _QUEUE_OF = {n: key for key, names in _QUEUED_OPS.items() for n in names}

@@ -332,20 +332,23 @@ def test_table_of_an_adam_chunk():
     ws, gs, sts = _group("mp_adam", torch.bfloat16)
     lrs, wds, ts = [1e-3, 2e-3, 1e-3, 1e-3, 5e-4], [0.0, 1e-2, 0.0, 1e-2, 0.0], [1, 1, 2, 7, 7]
     S = {"rescale": 1 / 3, "clip": math.inf, "beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}
-    lrts = tops._rates(tops.mp_adam_step, lrs, ts, S)  # what group_apply hands the kernel
-    t = mt.table("mp_adam", ws, gs, sts, lrs, wds, lrts, S)
+    coefs = tops._rates(tops.mp_adam_step, lrs, ts, S)  # what group_apply hands the kernel
+    t = mt.table("mp_adam", ws, gs, sts, lrs, wds, *coefs, S)
     assert t["ptrs"].shape == (5, 5)
     assert list(t["ptrs"][0]) == [w.data_ptr() for w in ws]
     assert list(t["ptrs"][1]) == [g.data_ptr() for g in gs]
     for k in range(3):
         assert list(t["ptrs"][2 + k]) == [s[k].data_ptr() for s in sts]
     assert list(t["numel"]) == [1, 7, 16384, 16385, 40000]
-    assert t["lr"].dtype == t["wd"].dtype == t["lrt"].dtype == np.float32
-    assert list(t["lrt"]) == [np.float32(tops._adam_lr(lr, 0.9, 0.999, s))
-                              for lr, s in zip(lrs, ts)]
+    assert t["lr"].dtype == t["wd"].dtype == t["c1"].dtype == t["c2"].dtype == np.float32
+    assert list(t["c1"]) == [np.float32(tops._adam_lr(lr, 0.9, 0.999, s))
+                             for lr, s in zip(lrs, ts)]
+    assert list(t["c2"]) == [0.0] * 5
     f = np.float32
     assert list(t["scalars"]) == [f(1 / 3), -1.0, 0.0, f(0.9), f(1) - f(0.9), f(0.999),
-                                  f(1) - f(0.999), f(1e-8)]
+                                  f(1) - f(0.999), f(1e-8), 0.0, 1.0, 0.0, 0.0, 0.0, 0.0,
+                                  0.0, 0.0]
+    assert len(t["rows"]) == 4 * 5 + 16
 
 
 @pytest.mark.parametrize("clip,want", [(-1.0, -1.0), (math.inf, -1.0), (0.0, 0.0),
@@ -353,16 +356,16 @@ def test_table_of_an_adam_chunk():
 def test_table_clip_sentinels(clip, want):
     ws, gs, sts = _group("sgd_mom", sizes=(5,))
     S = {"rescale": 1.0, "clip": clip, "momentum": 0.9}
-    lrts = tops._rates(tops.sgd_mom_step, [0.1], [0], S)
-    t = mt.table("sgd_mom", ws, gs, sts, [0.1], [0.0], lrts, S)
-    assert t["scalars"][1] == np.float32(want) and t["lrt"][0] == 0.0
+    coefs = tops._rates(tops.sgd_mom_step, [0.1], [0], S)
+    t = mt.table("sgd_mom", ws, gs, sts, [0.1], [0.0], *coefs, S)
+    assert t["scalars"][1] == np.float32(want) and t["c1"][0] == t["c2"][0] == 0.0
     assert list(t["ptrs"][3]) == [0] and list(t["ptrs"][4]) == [0]
 
 
 def test_table_refusals():
     ws, gs, sts = _group("adam")
-    args = ([1e-3] * 5, [0.0] * 5, [1e-3] * 5, {"rescale": 1.0, "clip": -1.0, "beta1": 0.9,
-                                                 "beta2": 0.999, "epsilon": 1e-8})
+    args = ([1e-3] * 5, [0.0] * 5, [1e-3] * 5, [0.0] * 5,
+            {"rescale": 1.0, "clip": -1.0, "beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8})
     with pytest.raises(ValueError, match="one device and one dtype"):
         mt.table("adam", ws[:-1] + [ws[-1].to(torch.bfloat16)], gs, sts, *args)
     with pytest.raises(ValueError, match="one device and one dtype"):
@@ -377,12 +380,12 @@ def test_table_refusals():
         mt.table("adam", ws, gs, sts[:-1] + [sts[-1][:1]], *args)
     with pytest.raises(ValueError, match="non-contiguous"):
         mt.table("adam", [torch.randn(4, 3).t()], [torch.randn(3, 4)],
-                 [(torch.zeros(12), torch.zeros(12))], *[a[:1] for a in args[:3]], args[3])
+                 [(torch.zeros(12), torch.zeros(12))], *[a[:1] for a in args[:4]], args[4])
     with pytest.raises(ValueError, match="float32, float16 or bfloat16"):
         mt.table("adam", [torch.zeros(3, dtype=torch.float64)], [torch.zeros(3)],
-                 [(torch.zeros(3), torch.zeros(3))], [0.1], [0.0], [0.1], args[3])
+                 [(torch.zeros(3), torch.zeros(3))], [0.1], [0.0], [0.1], [0.0], args[4])
     with pytest.raises(ValueError, match="unknown variant"):
-        mt.table("nag", ws, gs, sts, *args)
+        mt.table("sgld", ws, gs, sts, *args)
     with pytest.raises(ValueError, match="multi_tensor_update runs on CUDA tensors"):
         mt.multi_tensor_update("adam", ws, gs, sts, *args)
     with pytest.raises(ValueError, match="group_apply runs on CPU or CUDA"):
@@ -405,7 +408,12 @@ STEPS = {"sgd": (tops.sgd_step, {}), "sgd_mom": (tops.sgd_mom_step, {"momentum":
          "mp_sgd": (tops.mp_sgd_step, {}), "mp_sgd_mom": (tops.mp_sgd_mom_step,
                                                           {"momentum": 0.9}),
          "adam": (tops.adam_step, {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}),
-         "mp_adam": (tops.mp_adam_step, {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8})}
+         "mp_adam": (tops.mp_adam_step, {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}),
+         "nag_mom": (tops.nag_mom_step, {"momentum": 0.9}),
+         "mp_nag_mom": (tops.mp_nag_mom_step, {"momentum": 0.9}),
+         "adamw": (tops.adamw_step, {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8, "eta": 0.5}),
+         "rmsprop": (tops.rmsprop_step, {"rho": 0.9, "epsilon": 1e-8}),
+         "rmspropalex": (tops.rmspropalex_step, {"rho": 0.9, "momentum": 0.9, "epsilon": 1e-8})}
 
 
 @pytest.mark.cuda
@@ -420,8 +428,10 @@ def test_kernel_is_bit_equal_to_the_loop_on_card(cuda_device, variant, dtype):
     sizes = (1, 7, 768, 3072 * 5, 40001)
     n_states = mt.VARIANTS[variant][1]
     start = [torch.randn(n + 1, generator=gen, device=cuda_device) for n in sizes]
-    states = [[torch.rand(n, generator=gen, device=cuda_device) * 1e-2 for _ in range(n_states)]
-              for n in sizes]
+    # rmspropalex's n above its g_avg squared, as from zeros: no sqrt of < 0
+    floor = [1e-4 if variant == "rmspropalex" and k == 0 else 0.0 for k in range(n_states)]
+    states = [[torch.rand(n, generator=gen, device=cuda_device) * 1e-2 + floor[k]
+               for k in range(n_states)] for n in sizes]
 
     def group():  # the last weight is a view one element into its buffer
         ws = ([x[:-1].to(dtype, copy=True) for x in start[:-1]]
@@ -440,3 +450,73 @@ def test_kernel_is_bit_equal_to_the_loop_on_card(cuda_device, variant, dtype):
     torch.cuda.synchronize()
     for a, b in zip(wk + [s for st in sk for s in st], wp + [s for st in sp for s in st]):
         assert torch.equal(a, b)
+
+
+LAMB_S = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-6, "lower_bound": 0.0, "upper_bound": 10.0,
+          "bias_correction": 1.0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_lamb_kernels_against_the_loop_on_card(cuda_device, dtype):
+    """LAMB's two launches against the per-tensor phase 1 and 2, one update
+    at a time: moments bit-equal (the same operations), each weight within
+    1e-4 of its step plus 2 ulp (the norms are summed in another order);
+    a second launch pair from the same inputs gives the same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    sizes = (1, 7, 768, 3072 * 5, 40001)
+    ws = [torch.randn(n, generator=gen, device=cuda_device).to(dtype) for n in sizes]
+    ws[1].zero_()  # a zero norm: the trust ratio is 1
+    sts = [tuple(torch.rand(n, generator=gen, device=cuda_device) * 1e-2 for _ in range(2))
+           for n in sizes]
+    lrs, wds = [1e-2] * len(sizes), [1e-2 * (i % 2) for i in range(len(sizes))]
+    for t in range(1, 4):
+        S = {"rescale": 0.5, "clip": (math.inf, 0.05, -1.0)[t - 1], **LAMB_S}
+        gs = [torch.randn(n, generator=gen, device=cuda_device).to(dtype) for n in sizes]
+        copies = [([w.clone() for w in ws], [tuple(x.clone() for x in st) for st in sts])
+                  for _ in range(3)]
+        (wk, sk), (wk2, sk2), (wp, sp) = copies
+        tops.group_apply(tops.lamb_step, wk, gs, sk, lrs, wds, [t] * len(sizes), S)
+        tops.group_apply(tops.lamb_step, wk2, gs, sk2, lrs, wds, [t] * len(sizes), S)
+        tops.group_apply_plain(tops.lamb_step, wp, gs, sp, lrs, wds, [t] * len(sizes), S)
+        torch.cuda.synchronize()
+        for a, b in zip(wk + [x for st in sk for x in st], wk2 + [x for st in sk2 for x in st]):
+            assert torch.equal(a, b)
+        for a, b in zip([x for st in sk for x in st], [x for st in sp for x in st]):
+            assert torch.equal(a, b)
+        mant = {torch.float32: 23, torch.bfloat16: 7, torch.float16: 10}[dtype]
+        for a, b, w0 in zip(wk, wp, ws):
+            a, b, w0 = a.float(), b.float(), w0.float()
+            ulp = torch.where(b == 0, torch.zeros_like(b),
+                              torch.exp2(torch.floor(torch.log2(b.abs())) - mant))
+            assert bool(((a - b).abs() <= 1e-4 * (b - w0).abs() + 2 * ulp).all())
+        ws, sts = wp, sp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_finite_pass_against_its_plain_version_on_card(cuda_device, dtype):
+    """Per tensor the sum of squares and the non-finite count, in one launch:
+    counts exact with NaN, +inf and -inf elements, sums within 1e-5 of the
+    plain fp32 ones, non-finite where they are; a finite value whose square
+    overflows gives an infinite sum and a count of 0."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    sizes = (1, 7, 768, 3072 * 5, 40001, 0)
+    xs = [torch.randn(n, generator=gen, device=cuda_device).to(dtype) for n in sizes]
+    xs[0][0] = float("nan")
+    xs[3][5], xs[3][77] = float("inf"), float("-inf")
+    if dtype != torch.float16:
+        xs[2][3] = 1e20
+    launches = mt.sum_sq_finite.launches
+    sq, bad = mt.sum_sq_finite(xs)
+    psq, pbad = tops.sum_sq_finite_plain(xs)
+    assert mt.sum_sq_finite.launches - launches == 1
+    assert bad.tolist() == pbad.tolist()
+    a, b = sq.cpu().double(), psq.cpu().double()
+    assert torch.equal(a.isnan(), b.isnan()) and torch.equal(a.isinf(), b.isinf())
+    fin = b.isfinite()
+    assert bool(((a[fin] - b[fin]).abs() <= 1e-5 * b[fin].abs()).all())
+    if dtype != torch.float16:
+        assert bad[2].item() == 0 and math.isinf(sq[2].item())
+    assert not bool(mx.nd.all_finite(*xs).item())
+    assert bool(mx.nd.multi_all_finite(*xs[1:3], xs[4]).item())

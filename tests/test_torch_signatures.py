@@ -491,3 +491,66 @@ def test_group_apply_takes_donate_ninth_and_device_rows_by_keyword():
     with pytest.raises(TypeError):
         topt_ops.group_apply(topt_ops.sgd_mom_step, ws, gs, ms, [0.1] * 3, [0.0] * 3, [1] * 3,
                              S, False, None)
+
+
+# -- the rest of the training surface (ROADMAP §1 item 3) -------------------------------
+
+_OPTIMIZERS = ("NAG", "AdamW", "AdaGrad", "AdaDelta", "RMSProp", "Ftrl", "Signum", "LAMB",
+               "Nadam", "FTML", "SGLD", "DCASGD", "Adamax", "LBSGD", "LARS", "GroupAdaGrad")
+_LOSSES = ("L1Loss", "SigmoidBinaryCrossEntropyLoss", "KLDivLoss", "HuberLoss", "HingeLoss",
+           "SquaredHingeLoss", "LogisticLoss", "TripletLoss", "SDMLLoss", "PoissonNLLLoss",
+           "CosineEmbeddingLoss", "CTCLoss")
+_INITS = ("Orthogonal", "MSRAPrelu", "Bilinear", "LSTMBias", "Load", "Mixed")
+_OPS = ("sgd_lazy_update", "sgd_mom_lazy_update", "mp_sgd_mom_lazy_update", "adam_lazy_update",
+        "nag_mom_update", "mp_nag_mom_update", "adamw_update", "rmsprop_update",
+        "rmspropalex_update", "adagrad_update", "adadelta_update", "ftrl_update",
+        "signum_update", "lamb_update_phase1", "lamb_update_phase2", "nadam_update",
+        "ftml_update", "sgld_update", "dcasgd_update", "adamax_update", "group_adagrad_update",
+        "multi_sum_sq", "multi_lars", "all_finite", "nag_mom_step", "mp_nag_mom_step",
+        "adamw_step", "rmsprop_step", "rmspropalex_step", "lamb_step")
+
+SURFACE_PAIRS = (
+    [(f"optimizer.{n}", getattr(mxj.optimizer, n).__init__, getattr(mx.optimizer, n).__init__)
+     for n in _OPTIMIZERS]
+    + [(f"lr_scheduler.{n}", getattr(mxj.lr_scheduler, n).__init__,
+        getattr(mx.lr_scheduler, n).__init__) for n in (
+        "LRScheduler", "FactorScheduler", "MultiFactorScheduler", "PolyScheduler",
+        "CosineScheduler")]
+    + [(f"amp.{n}", getattr(mxj.amp, n), getattr(mx.amp, n)) for n in (
+        "LossScaler", "scale_loss", "init_trainer", "unscale", "convert_hybrid_block",
+        "list_lp16_ops", "list_fp32_ops")]
+    + [(f"autograd.{n}", getattr(mxj.autograd, n), getattr(mx.autograd, n))
+       for n in ("grad", "mark_variables")]
+    + [(f"loss.{n}", getattr(mxj.gluon.loss, n).__init__, getattr(mx.gluon.loss, n).__init__)
+       for n in _LOSSES]
+    + [(f"init.{n}", getattr(mxj.init, n).__init__, getattr(mx.init, n).__init__)
+       for n in _INITS]
+    + [("init.Initializer.dumps", mxj.init.Initializer.dumps, mx.init.Initializer.dumps)]
+    + [(f"nn.{n}", getattr(mxj.gluon.nn, n).__init__, getattr(mx.gluon.nn, n).__init__)
+       for n in ("GroupNorm", "InstanceNorm", "Lambda", "HybridLambda", "Concatenate",
+                 "HybridConcatenate")]
+    + [(f"Parameter.{n}", getattr(jparameter.Parameter, n), getattr(tparameter.Parameter, n))
+       for n in ("list_data", "list_ctx", "reset_ctx", "var")]
+    + [("Constant", jparameter.Constant.__init__, tparameter.Constant.__init__)]
+    + [(f"ParameterDict.{n}", getattr(jparameter.ParameterDict, n),
+        getattr(tparameter.ParameterDict, n)) for n in (
+        "get_constant", "zero_grad", "reset_ctx", "setattr")]
+    + [("Trainer.close", mxj.gluon.Trainer.close, mx.gluon.Trainer.close)]
+    + [(f"Block.{n}", getattr(mxj.gluon.Block, n), getattr(mx.gluon.Block, n)) for n in (
+        "register_forward_hook", "register_forward_pre_hook", "apply", "summary")]
+    + [(f"HybridBlock.{n}", getattr(mxj.gluon.HybridBlock, n), getattr(mx.gluon.HybridBlock, n))
+       for n in ("infer_shape", "optimize_for")]
+    + [("block.name_scope", mxj.gluon.block.name_scope, mx.gluon.block.name_scope)]
+    + [(f"context.{n}", getattr(mxj.context, n), getattr(mx.context, n))
+       for n in ("cpu_pinned", "current_device")]
+    + [("Context.empty_cache", mxj.context.Context.empty_cache, mx.context.Context.empty_cache)]
+    + [(f"optimizer_ops.{n}", getattr(jopt_ops, n), getattr(topt_ops, n)) for n in _OPS]
+)
+
+
+@pytest.mark.parametrize("name,ref,port", SURFACE_PAIRS, ids=[p[0] for p in SURFACE_PAIRS])
+def test_training_surface_in_the_reference_order(name, ref, port):
+    """Every public name the training slice added begins with the JAX
+    package's parameters, in order, with its defaults."""
+    want = _public_params(ref)
+    assert _public_params(port)[:len(want)] == want, name

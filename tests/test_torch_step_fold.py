@@ -479,28 +479,31 @@ def test_fold_update_returns_the_leftovers():
 
 def test_device_rows_equal_the_plain_group_update():
     """The values the multi-tensor kernel reads from device memory: each
-    chunk's lr, wd and Adam rate rows and the group's scalars, as the plain
-    per-tensor update reads them, chunk after chunk of 256 tensors; and the
-    fold's per-step rows are those the fused update hands ``group_apply``."""
+    chunk's lr, wd, Adam rate and (unused) second coefficient rows and the
+    group's scalars, as the plain per-tensor update reads them, chunk after
+    chunk of 256 tensors; and the fold's per-step rows are those the fused
+    update hands ``group_apply``."""
     n = 300
     lrs = [1e-3 * (1 + i % 3) for i in range(n)]
     wds = [1e-4 * (i % 2) for i in range(n)]
     ts = [1 + i % 4 for i in range(n)]
     S = {"rescale": 1 / 8, "clip": math.inf, "beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}
     rows = tops.group_rows(tops.mp_adam_step, lrs, wds, ts, S)
-    assert rows.dtype == np.float32 and len(rows) == 3 * n + 2 * 8
+    assert rows.dtype == np.float32 and len(rows) == 4 * n + 2 * 16
     f = np.float32
-    scalars = [f(1 / 8), -1.0, 0.0, f(0.9), f(1) - f(0.9), f(0.999), f(1) - f(0.999), f(1e-8)]
-    for a, m in ((0, 256), (3 * 256 + 8, n - 256)):
+    scalars = [f(1 / 8), -1.0, 0.0, f(0.9), f(1) - f(0.9), f(0.999), f(1) - f(0.999), f(1e-8),
+               0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0]
+    for a, m in ((0, 256), (4 * 256 + 16, n - 256)):
         chunk = slice(n - m if a else 0, n if a else m)
         assert list(rows[a:a + m]) == list(np.asarray(lrs[chunk], f))
         assert list(rows[a + m:a + 2 * m]) == list(np.asarray(wds[chunk], f))
         assert list(rows[a + 2 * m:a + 3 * m]) == [
             f(tops._adam_lr(lr, 0.9, 0.999, t)) for lr, t in zip(lrs[chunk], ts[chunk])]
-        assert list(rows[a + 3 * m:a + 3 * m + 8]) == scalars
+        assert list(rows[a + 3 * m:a + 4 * m]) == [0.0] * m
+        assert list(rows[a + 4 * m:a + 4 * m + 16]) == scalars
     ws = [torch.zeros(3, dtype=torch.bfloat16) for _ in range(4)]
     table = mt.table("mp_adam", ws, ws, [(torch.zeros(3),) * 3] * 4, lrs[:4], wds[:4],
-                     tops._rates(tops.mp_adam_step, lrs[:4], ts[:4], S), S)
+                     *tops._rates(tops.mp_adam_step, lrs[:4], ts[:4], S), S)
     assert list(table["rows"]) == list(tops.group_rows(tops.mp_adam_step, lrs[:4], wds[:4],
                                                        ts[:4], S))
 
