@@ -77,6 +77,18 @@ Phases, each printing JSON lines; no phase's failure is caught:
    case's largest |value|, and 10^6 draws of every sampler from the card's
    generator to its distribution's mean and variance within 5 standard
    errors; one line per source file; the nets freed;
+5c. symbol_block: the slice phase's weights in a fp32 Gluon copy,
+   hybridized, one forward and ``export`` under ``build/``; that file
+   through ``predictor.load_checkpoint`` (a ``Predictor``) and a
+   ``gluon.SymbolBlock`` over ``tests/sym_bert.py``'s graph, each bit-equal
+   to the Gluon forward (deterministic mode), one plan and 12 ``flash_fwd``
+   launches a forward; in bf16 through ``amp.convert_model`` within
+   SLICE_REL_BOUND of the fp32 tier; the graph with every FFN activation
+   ``sym.Custom(op_type="rtc_gelu")`` in bf16 through a ``Predictor`` (12
+   ``flash_fwd`` and 12 ``rtc_gelu_fwd`` launches a forward, within
+   GRAD_REL_BOUND relative L2 of the bf16 Gluon net under ``rtc_gelu_ffn``)
+   and an ``InferenceServer`` burst (a full batch bit-equal to the
+   ``Predictor``, the same launches, no plan built after warm-up);
 6. resnet_train: ResNet-50 v1 training steps as bench.py's bench_resnet50
    takes them (B=256, 224x224 synthetic images, AMP bf16 with fp32
    parameters, SGD lr 0.1 momentum 0.9 wd 1e-4, the streaming softmax
@@ -120,6 +132,21 @@ Phases, each printing JSON lines; no phase's failure is caught:
    (momentum 0.9, wd 1e-4, a CosineScheduler warm-up): three steps of 53
    bn_stats, 53 bn_apply and one nag_mom launch over 193 tensors, the lr
    exact, and its group bit-equal to the per-tensor loop;
+6d. observe (after the timing phase, before generation: its long trace
+   makes kineto drop records of every later trace, as the serving phases
+   do): ``mx.profiler`` over the train phase's BERT-base trainer: a
+   fold program captured before the recorder arms, then under
+   ``profiler.start()`` 20 eager ``Trainer.step``s and 20 folded calls
+   (replays), one 200 ms host stall injected among them: one
+   ``step_stats`` entry a call with consecutive ids (each beside the
+   step's CUDA-event time), ``trainer.update`` and ``fused.group_apply``
+   inside their steps in the dump, which ``tools/trace_merge.py --check``
+   passes, one ``gluon.step_fold`` compile record and none once the guard
+   is armed in raise mode, the goodput buckets summing to the wall, the
+   JSONL log's strictly increasing ``seq``, exactly one slow step, and the
+   device trace's kernel table counting 12 ``flash_*_tma`` of each kind
+   and one ``multi_tensor_update`` a step; then the folded step with the
+   recorder unarmed and armed, in turns (reported);
 7. times: each kernel, its plain version and the library call at the main
    paths' shapes (the attention kernels also at the S=512 request, in fp32
    at the main shape, and by CUDA-graph replay), the kernel's bound; BERT
@@ -183,8 +210,9 @@ Phases, each printing JSON lines; no phase's failure is caught:
 
 The last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed on a CUDA card.  The rehearsal runs the slice, train, rtc_train,
-nd_surface, ResNet, fold, train_surface, timing, serve and generation phases on the CPU at a tiny size, with the kernels' plain
-versions, and never prints it.  ``--inference-turns`` times only the
+nd_surface, symbol_block, ResNet, fold, train_surface, timing, observe,
+serve and generation phases on the CPU at a tiny size, with the kernels'
+plain versions, and never prints it.  ``--inference-turns`` times only the
 BERT-base inference forward of two checkouts, each turn a fresh process
 (A, B, B, A per round), and never prints it either.
 """
@@ -2213,23 +2241,65 @@ def _forward_ms(fn, iters, sync):
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def _busy_share(fn):
+# In some processes on the card kineto leaves the first record of a kind
+# of kernel out of every CUDA trace from late in the run on (ROADMAP §3 "Not
+# faults"): a trace that counts kernels runs one call of its work first,
+# then this sentinel kernel, and counts what follows the sentinel only.
+SENTINEL = "spin_kernel"  # torch.cuda._sleep's kernel
+SENTINEL_CYCLES = 1000
+# (what, {kernel: records the warm-up call lacked against a counted call}):
+# the traces whose warm-up call came back short
+WARM_SHORT = []
+
+
+def _split_at_sentinel(prof):
+    """(records before the sentinel, records after it) of ``prof``'s CUDA
+    activity in start order; (None, None) if the trace lost the sentinel."""
+    recs = sorted((ev for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda ev: ev.time_range.start)
+    at = next((i for i, ev in enumerate(recs) if SENTINEL in ev.name), None)
+    return (None, None) if at is None else (recs[:at], recs[at + 1:])
+
+
+def _note_warm_short(what, warm, per_call):
+    """Record the kernels the warm-up call's records lack against
+    ``per_call`` ({name: records a counted call holds})."""
+    have = {}
+    for ev in warm:
+        have[ev.name[:90]] = have.get(ev.name[:90], 0) + 1
+    short = {n: c - have.get(n, 0) for n, c in per_call.items() if have.get(n, 0) < c}
+    if short:
+        WARM_SHORT.append((what, short))
+
+
+def _busy_share(fn, warm=False):
     """One call of ``fn`` under torch.profiler: (wall ms, kernel ms, copy ms,
     kernel busy share, kernel records by name); the work of every thread
     counts, and memory copies are kept apart from kernels.  CUDA activity
     only: a session that also traced the CPU over the server's threads made
     every later CUDA-only trace of the process drop 3-5 kernel records (so
-    each ``_time`` row fell back to CUDA events), on the card."""
+    each ``_time`` row fell back to CUDA events), on the card.  With
+    ``warm`` the session first runs ``fn`` once and the sentinel, and counts
+    the call after them (an empty count if the sentinel's record is lost)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        if warm:
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(SENTINEL_CYCLES)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    if warm:
+        before, events = _split_at_sentinel(prof)
+    else:
+        before, events = None, list(prof.events())
     names = {}
     kernel_us = copy_us = 0.0
-    for ev in prof.events():
+    for ev in events or ():
         if ev.device_type != torch.autograd.DeviceType.CUDA or ev.name.startswith("mx."):
             continue
         if ev.name.startswith(("Memcpy", "Memset")):
@@ -2237,6 +2307,11 @@ def _busy_share(fn):
             continue
         kernel_us += ev.time_range.elapsed_us()
         names[ev.name] = names.get(ev.name, 0) + 1
+    if before is not None:
+        per_call = {}
+        for n, c in names.items():
+            per_call[n[:90]] = per_call.get(n[:90], 0) + c
+        _note_warm_short(getattr(fn, "__qualname__", repr(fn)), before, per_call)
     return (wall_us * 1e-3, kernel_us * 1e-3, copy_us * 1e-3,
             kernel_us / wall_us if kernel_us else None, names)
 
@@ -2315,15 +2390,17 @@ def phase_serve(net, main_req, rehearsal, smi=None):
     del gluon32
     bit_equal = all(np.array_equal(g, r) for g, r in zip(got32, ref32))
     want_counts = {n: (layers if n == "flash_fwd" and cuda else 0) for n in ENTRIES}
-    # the kernels one forward ran, by name, from a trace; a trace that holds
-    # another call's records is taken again, three times at most
+    # the kernels one forward ran, by name, from a trace (the forward after
+    # a warm-up forward and the sentinel); a trace that holds another call's
+    # records is taken again, three times at most
     traced = None
     want_traced = {"flash_wide_fwd_f32_rows": layers, "flash_fwd_tma": 0}
     t0 = time.perf_counter()
+    warm_short = len(WARM_SHORT)
     if cuda:
         traced = []
         for _ in range(3):
-            *_, names = _busy_share(lambda: pred32.forward())
+            *_, names = _busy_share(lambda: pred32.forward(), warm=True)
             traced.append({k: _count_named(names, k) for k in want_traced})
             if traced[-1] == want_traced:
                 break
@@ -2358,7 +2435,7 @@ def phase_serve(net, main_req, rehearsal, smi=None):
          logits_bit_equal_gluon_fp32=bit_equal,
          max_abs_diff=[float(np.abs(g - r).max()) for g, r in zip(got32, ref32)],
          launches_one_forward=fp32_counts, expected=want_counts, traced_kernels=traced,
-         trace_s=trace_s,
+         warm_up_forward_short=[short for _, short in WARM_SHORT[warm_short:]], trace_s=trace_s,
          bind_bytes_b8=m1 - m0, bind_bytes_back=m3 - m2, param_bytes=param_bytes,
          params_shared_by_object=shared, compile_stats_before=stats0, compile_stats_after=stats1,
          ok=fp32_ok)
@@ -3852,6 +3929,463 @@ def phase_train_surface(rehearsal):
             (net, trainer, batch), (rnet, rtrainer, rbatch), lamb_err)
 
 
+# -- phase 6d: serving's last items -----------------------------------------
+# symbol_block: HybridBlock.export, gluon.SymbolBlock and sym.Custom in a
+# graph at BERT-base width (the slice phase's weights, the serve phase's
+# graph), before the timing phase.
+SB_INPUTS = ("token_ids", "token_types", "masked_positions")
+SB_BURST = (2, 64)  # submitter threads, requests each
+
+
+def _rel_max(got, ref):
+    """max |got − ref| over max |ref| (the slice phase's unit)."""
+    g, r = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(g - r).max() / np.abs(r).max())
+
+
+def phase_symbol_block(net, main_req, rehearsal, smi=None):
+    """The serving items of slice 18 on the slice phase's weights: a fp32
+    Gluon copy hybridized, one forward and ``export`` under ``build/``; that
+    file through ``predictor.load_checkpoint`` (``Predictor``) and a
+    ``SymbolBlock`` over ``tests/sym_bert.py``'s graph, each bit-equal to the
+    Gluon forward (deterministic mode), and through ``amp.convert_model``
+    in bf16; then the graph with every FFN activation ``sym.Custom(
+    op_type="rtc_gelu")`` (the user's kernels) in bf16, through a
+    ``Predictor`` and an ``InferenceServer`` burst, held to the bf16 Gluon
+    net under ``rtc_gelu_ffn``.  Returns {path: launch counts}; exits
+    non-zero on any miss."""
+    from incubator_mxnet_torch import amp, profiler
+    from incubator_mxnet_torch.predictor import Predictor, load_checkpoint
+    from incubator_mxnet_torch.serving import InferenceServer
+
+    cfg = TINY_BERT if rehearsal else BERT_BASE
+    ctx = mx.cpu() if rehearsal else mx.gpu(0)
+    device_kw = {"dev_type": "cpu"} if rehearsal else {}
+    cuda = ctx.device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    layers = cfg.get("num_layers", 12)
+    t_phase = time.perf_counter()
+    b, s = main_req[0].shape
+    p = main_req[2].shape[1]
+    inputs = _serve_inputs(main_req)
+    shapes = {k: v.shape for k, v in inputs.items()}
+    out_dir = Path(__file__).resolve().parent / "build" / "symbol_block"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ok = True
+
+    # 1. export: the slice weights in fp32, hybridized, one forward
+    gluon32 = _build_net(cfg, ctx, "float32")
+    load_numpy_params(gluon32, {k: v.data().detach().float().cpu().numpy()
+                                for k, v in net._collect_params_with_prefix().items()})
+    names = (gluon32.bert.prefix, gluon32.prefix)
+    gluon32.hybridize()
+    with _deterministic(True), mx.autograd.predict_mode():
+        ref32 = [o.float().cpu().numpy() for o in gluon32(*main_req)]
+    t0 = time.perf_counter()
+    json_path, params_path = gluon32.export(str(out_dir / "bert"))
+    export_s = time.perf_counter() - t0
+    del gluon32
+    graph = _sym_bert().bert_symbol
+    dims = (layers, cfg.get("units", 768), cfg.get("hidden_size", 3072),
+            cfg.get("num_heads", 12), cfg["vocab_size"], s, p)
+    sym = graph(mx.sym, *dims, names=names, max_length=cfg["max_length"])
+    emit("symbol_block", part="export", params_bytes=Path(params_path).stat().st_size,
+         symbol_json=json.loads(Path(json_path).read_text()), export_s=export_s)
+
+    # 2. the file through load_checkpoint (Predictor) and SymbolBlock, fp32
+    t0 = time.perf_counter()
+    _, args, auxs = load_checkpoint(sym, params_path)
+    pred32 = Predictor(sym, {**{"arg:" + k: v for k, v in args.items()},
+                             **{"aux:" + k: v for k, v in auxs.items()}}, shapes, **device_kw)
+    block = mx.gluon.SymbolBlock(sym, [mx.sym.var(n) for n in SB_INPUTS])
+    block.load_parameters(params_path, ctx=ctx)
+    load_s = time.perf_counter() - t0
+    profiler.reset_compiles()
+    with _deterministic(True), mx.autograd.predict_mode():
+        got_pred = _predict(pred32, inputs)
+        sync()
+        reset_kernel_counts()
+        got_block = [o.float().cpu().numpy() for o in block(*main_req)]
+        sync()
+        block_counts = kernel_counts()
+        again = [o.float().cpu().numpy() for o in block(*main_req)]
+    plans = len(block._plans)
+    builds = profiler.compile_stats().get("gluon.symbol_block", {}).get("count")
+    want32 = {n: (layers if n == "flash_fwd" and cuda else 0) for n in ENTRIES}
+    pred_equal = all(np.array_equal(g, r) for g, r in zip(got_pred, ref32))
+    block_equal = all(np.array_equal(g, r) for g, r in zip(got_block, ref32))
+    repeat_equal = all(np.array_equal(g, r) for g, r in zip(again, got_block))
+    fp32_ok = (pred_equal and block_equal and repeat_equal and plans == 1 and builds == 1
+               and block_counts == want32)
+    emit("symbol_block", part="fp32", b=b, s=s, p=p, load_s=load_s,
+         predictor_bit_equal_gluon=pred_equal, symbol_block_bit_equal_gluon=block_equal,
+         symbol_block_repeat_bit_equal=repeat_equal,
+         max_abs_diff=[float(np.abs(g - r).max()) for g, r in zip(got_block, ref32)],
+         plans=plans, builds_reported=builds, launches_one_forward=block_counts,
+         expected=want32, ok=fp32_ok)
+    ok &= fp32_ok
+    pred32.close()
+    del pred32, block, args, auxs
+
+    # 3. bf16 through amp.convert_model
+    conv = amp.convert_model(*load_checkpoint(sym, params_path), target_dtype="bfloat16")
+
+    def predictor16(csym, cargs, cauxs):
+        return Predictor(csym, {**{"arg:" + k: v for k, v in cargs.items()},
+                                **{"aux:" + k: v for k, v in cauxs.items()}},
+                         shapes, **device_kw)
+
+    pred16 = predictor16(*conv)
+    got16 = _predict(pred16, inputs)
+    rel16 = max(_rel_max(g, r) for g, r in zip(got16, ref32))
+    bf16_ok = rel16 <= SLICE_REL_BOUND
+    emit("symbol_block", part="bf16_predictor", max_rel_err_vs_fp32=rel16,
+         bound=SLICE_REL_BOUND, ok=bf16_ok)
+    ok &= bf16_ok
+    pred16.close()
+    del pred16, conv
+
+    # 4. the graph with the user's GELU, bf16: Predictor and a server burst
+    csym = graph(mx.sym, *dims, names=names, max_length=cfg["max_length"],
+                 ffn_op_type="rtc_gelu")
+    cjson = out_dir / "bert_rtc-symbol.json"
+    csym.save(str(cjson))
+    predc = predictor16(*amp.convert_model(*load_checkpoint(str(cjson), params_path),
+                                           target_dtype="bfloat16"))
+    _predict(predc, inputs)  # its plan
+    sync()
+    reset_kernel_counts()
+    RtcGelu.plain_calls = 0
+    gotc = _predict(predc, inputs)
+    sync()
+    custom_counts, plain_calls = kernel_counts(), RtcGelu.plain_calls
+    with mx.autograd.predict_mode():
+        with rtc_gelu_ffn(net):
+            refc = [o.float().cpu().numpy() for o in net(*main_req)]
+        builtin = [o.float().cpu().numpy() for o in net(*main_req)]
+
+    def rel_l2(a, r):
+        return float(np.linalg.norm(np.asarray(a, np.float64) - r) / np.linalg.norm(r))
+
+    relc = [rel_l2(g, r) for g, r in zip(gotc, refc)]
+    on_card = {"flash_fwd", "rtc_gelu_fwd"}
+    wantc = {n: (layers if n in on_card and cuda else 0) for n in ENTRIES}
+    want_plain = 0 if cuda else layers
+    custom_ok = (max(relc) <= GRAD_REL_BOUND and custom_counts == wantc
+                 and plain_calls == want_plain)
+    emit("symbol_block", part="custom_predictor", op_type="rtc_gelu",
+         custom_nodes=sum(n.op == "Custom" for n in csym._topo()),
+         rel_l2_vs_gluon_rtc_gelu_ffn=relc, bound=GRAD_REL_BOUND,
+         rel_l2_vs_gluon_builtin_gelu=[rel_l2(g, r) for g, r in zip(gotc, builtin)],
+         launches_one_forward=custom_counts, expected=wantc,
+         plain_gelu_calls=plain_calls, expected_plain=want_plain, ok=custom_ok)
+    ok &= custom_ok
+
+    # a full batch dispatches at once; the budget only bounds a partial one,
+    # which a CPU shared with other work must not cut into two
+    srv = InferenceServer(str(cjson), params_path, {k: v.shape[1:] for k, v in inputs.items()},
+                          input_dtypes={k: "int32" for k in inputs}, max_batch_size=b,
+                          max_queue_ms=SERVE_QUEUE_MS if cuda else 5000.0,
+                          amp_dtype="bfloat16", name="bert_rtc", **device_kw)
+    warm = srv.compile_stats()
+    c0 = profiler.counters()
+    samples = [{k: v[i] for k, v in inputs.items()} for i in range(b)]
+    reset_kernel_counts()
+    full = _served(srv, samples)
+    sync()
+    served_counts = kernel_counts()
+    served_equal = _rows_equal(full, gotc, range(b))
+    threads_n, per = SB_BURST if not rehearsal else (2, 8)
+    errors = []
+
+    def submitter(t):
+        try:
+            for q in [srv.submit(samples[(t * per + j) % b]) for j in range(per)]:
+                q.result(timeout=120.0)
+        except Exception as e:  # noqa: BLE001 — counted and gated below
+            errors.append(repr(e))
+
+    workers = [threading.Thread(target=submitter, args=(t,)) for t in range(threads_n)]
+    t0 = time.perf_counter()
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    burst_s = time.perf_counter() - t0
+    c1 = profiler.counters()
+    final = srv.stats()
+    gates = {"bucket_miss_after_warmup": final["bucket_miss_after_warmup"],
+             "failed": final["failed"], "submit_errors": len(errors),
+             "plans_built_after_warmup": c1["compile_total"] - c0["compile_total"],
+             "compile_stats_unchanged": srv.compile_stats() == warm}
+    want_gates = {"bucket_miss_after_warmup": 0, "failed": 0, "submit_errors": 0,
+                  "plans_built_after_warmup": 0, "compile_stats_unchanged": True}
+    server_ok = (gates == want_gates and served_equal and served_counts == wantc)
+    srv.close(drain=True)
+    emit("symbol_block", part="custom_server", full_batch_bit_equal_predictor=served_equal,
+         launches_one_batch=served_counts, expected=wantc, burst_requests=threads_n * per,
+         burst_s=burst_s, samples_per_s=threads_n * per / burst_s, gates=gates,
+         errors=errors[:3], ok=server_ok, card=smi)
+    ok &= server_ok
+    predc.close()
+    del predc, srv
+    for f in (json_path, params_path, cjson):
+        Path(f).unlink()
+    if cuda:
+        torch.cuda.empty_cache()
+    emit("symbol_block", phase_s=time.perf_counter() - t_phase, ok=ok)
+    if not ok:
+        sys.exit(1)
+    return {"symbol_block_fp32_forward": block_counts, "symbol_block_custom_forward":
+            custom_counts}
+
+
+# -- phase 6e: observability ---------------------------------------------------
+# observe: mx.profiler over the train phase's BERT-base trainer: eager
+# Trainer.steps and folded calls (replays of a program captured before the
+# recorder arms, so no trace starts inside a capture), step telemetry, spans,
+# the compile registry, goodput, the JSONL log, the slow-step detector and
+# the device trace's kernel table.
+OBSERVE_STEPS = 20          # eager steps, then as many folded calls
+OBSERVE_SLEEP_S = 0.2       # the injected host stall (1 s in the rehearsal: a CPU
+                            # shared with other work can stretch a tiny step)
+OBSERVE_SLOW_MULT = 4.0     # the threshold: this many folded steps' median wall
+OBSERVE_GOODPUT_REL = 0.01  # the goodput buckets sum to the wall within this share
+# the device table may miss this share of a kernel's records (kineto drops
+# records outside its trace window, ROADMAP §3 "Not faults"); a shortfall is
+# printed as a device_table_short line, never hidden
+OBSERVE_TABLE_SLACK = 0.02
+OBSERVE_TURN_CALLS = 20     # folded calls a timed turn
+
+
+def _nesting(path):
+    """(B/E pairs that close, every trainer/optimizer span inside a step
+    span with that step's id, spans by name) of a dumped chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    stacks, spans = {}, []
+    closed = True
+    for e in sorted((e for e in events if e.get("ph") in ("B", "E")), key=lambda e: e["ts"]):
+        st = stacks.setdefault((e["pid"], e["tid"]), [])
+        if e["ph"] == "B":
+            st.append(e)
+        elif st:
+            b = st.pop()
+            spans.append((b, e["ts"]))
+        else:
+            closed = False
+    closed &= not any(stacks.values())
+    steps = [(b, end) for b, end in spans if b["cat"] == "step"]
+    nested = all(any(sb["ts"] <= b["ts"] and end <= send
+                     and sb["args"]["step"] == b["args"]["step"] for sb, send in steps)
+                 for b, end in spans if b["cat"] in ("trainer", "optimizer"))
+    by_name = {}
+    for b, _ in spans:
+        by_name[b["name"]] = by_name.get(b["name"], 0) + 1
+    return closed, nested, by_name
+
+
+def _observe_turns(prog, batch, profiler, cuda):
+    """The folded step's ms with the recorder unarmed and armed (device trace
+    on), in turns (unarmed, armed, armed, unarmed): CUDA events over
+    OBSERVE_TURN_CALLS calls."""
+    out = []
+    for armed in (False, True, True, False):
+        if armed:
+            profiler.start()
+        prog(*batch)
+        if cuda:
+            torch.cuda.synchronize()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+        t0 = time.perf_counter()
+        for _ in range(OBSERVE_TURN_CALLS):
+            prog(*batch)
+        if cuda:
+            e1.record()
+            torch.cuda.synchronize()
+            ms = e0.elapsed_time(e1) / OBSERVE_TURN_CALLS
+        else:
+            ms = (time.perf_counter() - t0) * 1e3 / OBSERVE_TURN_CALLS
+        if armed:
+            profiler.stop()
+        out.append({"armed": armed, "step_ms": ms})
+    return out
+
+
+def phase_observe(train, rehearsal, smi=None):
+    """``mx.profiler`` over the train phase's BERT-base Adam multi_precision
+    trainer: with ``profiler.start()`` OBSERVE_STEPS eager Trainer.steps and
+    as many folded calls (one host stall of OBSERVE_SLEEP_S injected among
+    them), then the checks: one step_stats entry a call with consecutive
+    ids, trainer.update and fused.group_apply inside their steps in the
+    dump, which ``tools/trace_merge.py --check`` passes; one gluon.step_fold
+    compile record and none once the guard is armed in raise mode; the
+    goodput buckets summing to the wall; the JSONL log's strictly
+    increasing seq; exactly one slow step; and the device table's kernels
+    of the 2·OBSERVE_STEPS steps.  Then the folded step's ms with the
+    recorder unarmed and armed, in turns (reported).  Returns {path: launch
+    counts of the eager steps}; exits non-zero on any miss."""
+    from incubator_mxnet_torch import profiler
+
+    tnet, trainer, batch = train
+    cuda = batch[0].is_cuda
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    layers = (TINY_BERT if rehearsal else BERT_BASE).get("num_layers", 12)
+    n = OBSERVE_STEPS if not rehearsal else 4
+    stall_s = OBSERVE_SLEEP_S if not rehearsal else 1.0
+    t_phase = time.perf_counter()
+    out_dir = Path(__file__).resolve().parent / "build" / "observe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in ("metrics.jsonl", "profile.json"):
+        (out_dir / f).unlink(missing_ok=True)
+    profiler.stop()
+    profiler.set_config(filename=str(out_dir / "profile.json"), compile_guard=None,
+                        slow_step_ms=None, slow_step_auto=False)
+    profiler.disarm_compile_guard()
+    profiler.reset_compiles()
+
+    # the folded program: warm-up and capture before the recorder arms
+    prog = trainer.fold_step(bert_loss(tnet), block=tnet)
+    prog(*batch)
+    prog(*batch)
+    sync()
+    records = [r for r in profiler.compile_registry()["records"]
+               if r["site"] == "gluon.step_fold"]
+    guard = profiler.compile_guard_state()
+    profiler.set_config(compile_guard="raise")
+    c0 = profiler.counters()
+
+    profiler.reset_goodput()
+    profiler.start()
+    profiler.start_metrics(jsonl=str(out_dir / "metrics.jsonl"), interval_s=0.1)
+    first = profiler.current_step()
+    events = []
+
+    def mark():
+        if cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+
+    mark()
+    reset_kernel_counts()
+    for _ in range(n):
+        train_step(tnet, trainer, batch)
+        mark()
+    sync()
+    eager_counts = kernel_counts()
+    for i in range(n):
+        if i == n // 2:  # the threshold from the folded steps so far
+            folded = [s["wall_ms"] for s in profiler.step_stats()[n:]]
+            threshold = max(OBSERVE_SLOW_MULT * statistics.median(folded), stall_s * 1e3 / 2)
+            profiler.set_config(slow_step_ms=threshold)
+        if i == n // 2 + 1:
+            time.sleep(stall_s)
+        prog(*batch)
+        mark()
+    sync()
+    stats = profiler.step_stats()
+    goodput = profiler.goodput_snapshot()
+    jsonl = out_dir / "metrics.jsonl"
+    deadline = time.perf_counter() + 10.0
+    while (not jsonl.exists() or jsonl.read_text().count("\n") < 2) and \
+            time.perf_counter() < deadline:
+        time.sleep(0.05)  # a short run: let the log write its second line
+    profiler.stop_metrics()
+    profiler.stop()
+    c1 = profiler.counters()
+    profiler.set_config(slow_step_ms=None, slow_step_auto=True, compile_guard=None)
+    path = profiler.dump()
+    text = profiler.dumps()
+
+    # step telemetry: one entry a call, consecutive ids, beside device time
+    ids = [s["step"] - first for s in stats]
+    steps_ok = ids == list(range(2 * n))
+    event_ms = ([events[i].elapsed_time(events[i + 1]) for i in range(len(events) - 1)]
+                if cuda else None)
+    walls = [s["wall_ms"] for s in stats]
+    host = [s["host_ms"] for s in stats]
+
+    def med(xs):
+        return statistics.median(xs) if xs else None
+
+    emit("observe", part="steps", calls=2 * n, step_stats=len(stats), ids_consecutive=steps_ok,
+         eager_wall_ms_median=med(walls[:n]), eager_host_ms_median=med(host[:n]),
+         eager_event_ms_median=med(event_ms[:n]) if cuda else None,
+         folded_wall_ms_median=med(walls[n:]), folded_host_ms_median=med(host[n:]),
+         folded_event_ms_median=med(event_ms[n:]) if cuda else None,
+         wall_ms=[round(w, 3) for w in walls],
+         event_ms=[round(e, 3) for e in event_ms] if cuda else None, card=smi)
+
+    # spans nest in the dump, which trace_merge --check passes
+    closed, nested, by_name = _nesting(path)
+    merged = out_dir / "merged.json"
+    rc = subprocess.run([sys.executable, str(Path(__file__).resolve().parent / "tools" /
+                                             "trace_merge.py"), path, "-o", str(merged),
+                         "--check", "--expect-ranks", "1"], capture_output=True, text=True,
+                        timeout=300)
+    spans_ok = (closed and nested and rc.returncode == 0
+                and by_name.get("trainer.update") == n and by_name.get("step") == 2 * n
+                and by_name.get("trainer.step_fold") == n
+                and by_name.get("fused.group_apply", 0) >= n)
+    emit("observe", part="spans", pairs_close=closed, nested_in_steps=nested,
+         trace_merge_check_rc=rc.returncode, trace_merge_stderr=rc.stderr[-300:],
+         spans_by_name={k: by_name[k] for k in sorted(by_name) if not k.startswith("dispatch")},
+         ok=spans_ok)
+
+    # compile registry and guard, goodput, the JSONL log, the slow step
+    compile_ok = (len(records) == 1 and records[0]["program"] == "step_fold"
+                  and guard["armed"] and guard["armed_by"] == "gluon.step_fold"
+                  and c1["recompile_steady_state"] == c0["recompile_steady_state"]
+                  and c1["compile_total"] == c0["compile_total"])
+    b = goodput["buckets_s"]
+    gp_rel = abs(sum(b.values()) - goodput["wall_s"]) / goodput["wall_s"]
+    lines = [json.loads(ln) for ln in jsonl.read_text().splitlines()]
+    seqs = [ln["seq"] for ln in lines]
+    jsonl_ok = len(seqs) >= 2 and all(a < b2 for a, b2 in zip(seqs, seqs[1:]))
+    slow = c1["slow_step_detected"] - c0["slow_step_detected"]
+    calls = c1["step_fold_call"] - c0["step_fold_call"]
+    misc_ok = (compile_ok and gp_rel <= OBSERVE_GOODPUT_REL and jsonl_ok and slow == 1
+               and calls == n)
+    emit("observe", part="registry", step_fold_records=len(records),
+         capture_ms=records[0]["wall_ms"] if records else None, guard=guard,
+         builds_while_armed=c1["compile_total"] - c0["compile_total"],
+         goodput=goodput, goodput_sum_rel_err=gp_rel, bound=OBSERVE_GOODPUT_REL,
+         jsonl_lines=len(lines), jsonl_seq_increasing=jsonl_ok, slow_steps=slow,
+         slow_threshold_ms=threshold, step_fold_calls=calls, ok=misc_ok)
+
+    # the device table: the kernels of the 2·n steps by name
+    table = profiler._device_op_stats(topn=10 ** 6)
+    fams = {"flash_fwd": "flash_fwd_tma", "flash_bwd_dq": "flash_bwd_dq_tma",
+            "flash_bwd_dkv": "flash_bwd_dkv_tma", "multi_tensor": "multi_tensor_update"}
+    counts = {f: sum(c for name, c, _ in table if sub in name) for f, sub in fams.items()}
+    want = {f: (2 * n * (1 if f == "multi_tensor" else layers) if cuda else 0) for f in fams}
+    short = {f: want[f] - counts[f] for f in fams if counts[f] != want[f]}
+    table_ok = all(0 < want[f] - counts[f] <= OBSERVE_TABLE_SLACK * want[f] for f in short)
+    if short and table_ok:
+        emit("observe", device_table_short=short, expected=want,
+             note="kineto dropped records outside its trace window")
+    emit("observe", part="device_table", kernels=counts, expected=want,
+         top=[[name[:60], c, round(s * 1e3, 3)] for name, c, s in table[:8]],
+         dumps_device_section=("Device kernels" in text) if cuda else None, ok=table_ok)
+
+    # the folded step unarmed and armed, in turns (reported)
+    turns = _observe_turns(prog, batch, profiler, cuda)
+    emit("observe", part="turns", per=f"ms a folded BERT-base step, CUDA events over "
+         f"{OBSERVE_TURN_CALLS} calls", turns=turns, card=smi)
+    prog.invalidate()
+    del prog
+    profiler.disarm_compile_guard()
+    if cuda:
+        torch.cuda.empty_cache()
+    ok = steps_ok and spans_ok and misc_ok and table_ok
+    emit("observe", phase_s=time.perf_counter() - t_phase, ok=ok)
+    if not ok:
+        sys.exit(1)
+    return {"observe_eager_steps": eager_counts}
+
+
 # -- phase 7 ----------------------------------------------------------------
 
 
@@ -3864,7 +4398,9 @@ def _time(fn, arg_sets, iters, uniform=False):
     between CUDA events around the calls, which also holds host time where
     the host issues calls slower than the card runs them; kernels_us splits
     device time by kernel name, and records counts each name's records in
-    the trace.  A trace with no device record is taken again, and with
+    the trace.  The trace holds a warm-up call and the sentinel before the
+    counted calls, and counts what follows the sentinel.  A trace with no
+    counted record is taken again, and with
     ``uniform`` (every call launches the same kernels) so is one whose
     counts are not multiples of ``iters``: at most three times in all.  The
     trace can come back empty on the card for the rest of a process; then
@@ -3886,15 +4422,20 @@ def _time(fn, arg_sets, iters, uniform=False):
     call_ms = start.elapsed_time(end) / iters
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(*arg_sets[-1])  # the warm-up call, then the sentinel
+            torch.cuda._sleep(SENTINEL_CYCLES)
             for i in range(iters):
                 fn(*arg_sets[i % len(arg_sets)])
             torch.cuda.synchronize()
+        warm, counted = _split_at_sentinel(prof)
         kernels, records = {}, {}
-        for ev in prof.events():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
-                name = ev.name[:90]
-                kernels[name] = kernels.get(name, 0.0) + ev.time_range.elapsed_us() / iters
-                records[name] = records.get(name, 0) + 1
+        for ev in counted or ():
+            name = ev.name[:90]
+            kernels[name] = kernels.get(name, 0.0) + ev.time_range.elapsed_us() / iters
+            records[name] = records.get(name, 0) + 1
+        if warm is not None:
+            _note_warm_short(getattr(fn, "__qualname__", repr(fn)), warm,
+                             {n: c // iters for n, c in records.items() if c % iters == 0})
         if records and (not uniform or all(n % iters == 0 for n in records.values())):
             return sum(kernels.values()) * 1e-3, call_ms, kernels, records
     emit("times", timing_fallback=getattr(fn, "__qualname__", repr(fn)), iters=iters,
@@ -4866,6 +5407,9 @@ def phase_times(net, main_req, train, resnet, bn_shapes, counts, errs, fold, smi
     # after every row the parent's runs also take
     _times_fp32_forward(main_req, iters, smi)
     set_kernel_counts(before)  # timed and profiled launches are not the main paths'
+    emit("times", traces_with_warm_up_short=len(WARM_SHORT), first=WARM_SHORT[:4],
+         note="kernels a trace's warm-up call lacked against its counted calls, which "
+              "follow the sentinel: kineto's lost first records (ROADMAP §3 Not faults)")
 
     csrc = "incubator_mxnet_torch/ops/csrc/"
     sources = {"flash_fwd": (csrc + "flash_fwd.cu", "incubator_mxnet_tpu/ops/attention.py:85"),
@@ -5118,17 +5662,22 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.cpu_rehearsal:
+        # tiny tensors: one intra-op thread is faster, and keeps the run's
+        # time where a CPU shared with other work leaves it
+        torch.set_num_threads(1)
         net, main_req, _ = phase_slice(rehearsal=True)
         tnet, trainer, batch, _ = phase_train(rehearsal=True)
         vs_cpu = phase_train_vs_cpu(tnet, rehearsal=True)
         phase_rtc_train(tnet, trainer, batch, vs_cpu, rehearsal=True)
         del vs_cpu
         phase_nd_surface(net, rehearsal=True)
+        phase_symbol_block(net, main_req, rehearsal=True)
         rnet, rtrainer, rbatch, _, _ = phase_resnet_train(rehearsal=True)
         phase_resnet_train_vs_cpu(rehearsal=True)
         phase_fold((tnet, trainer, batch), (rnet, rtrainer, rbatch), rehearsal=True)
         phase_train_surface(rehearsal=True)
         rehearse_times(net, main_req, (tnet, trainer, batch), (rnet, rtrainer, rbatch))
+        phase_observe((tnet, trainer, batch), rehearsal=True)
         phase_serve(net, main_req, rehearsal=True)
         phase_generation(rehearsal=True, seed=args.seed)
         return 0
@@ -5156,6 +5705,7 @@ def main():
     rtc_counts = phase_rtc_train(tnet, trainer, batch, vs_cpu, rehearsal=False)
     del vs_cpu
     phase_nd_surface(net, rehearsal=False)
+    sb_counts = phase_symbol_block(net, main_req, rehearsal=False, smi=smi)
     rnet, rtrainer, rbatch, resnet_counts, bn_shapes = phase_resnet_train(rehearsal=False)
     phase_resnet_train_vs_cpu(rehearsal=False)
     errs["multi_tensor"] = max(errs["multi_tensor"], phase_main_groups_vs_plain(
@@ -5168,13 +5718,16 @@ def main():
                           bn_shapes, {"inference": infer_counts, "train_step": train_counts,
                                       "resnet_train_step": resnet_counts,
                                       "rtc_train_step": rtc_counts, **fold_counts,
-                                      **surface_counts},
+                                      **surface_counts, **sb_counts},
                           errs, (fold_progs, fold_records), smi, (sbert, sresnet))
     del sbert, sresnet
-    # the serving phases run last: after them kineto drops a few kernel
-    # records of every later CUDA-only profiler trace as out of its window
-    # (ROADMAP §3 "Not faults"), and the timing phase reads those traces
-    paths = phase_generation(rehearsal=False, seed=args.seed, smi=smi)
+    # observe and the serving phases run after the timing phase: after each
+    # of them kineto drops a few kernel records of every later CUDA-only
+    # profiler trace as out of its window (ROADMAP §3 "Not faults"), and the
+    # timing phase reads those traces; observe runs before the serving
+    # phases, whose drops are larger
+    paths = phase_observe((tnet, trainer, batch), rehearsal=False, smi=smi)
+    paths.update(phase_generation(rehearsal=False, seed=args.seed, smi=smi))
     paths.update(phase_serve(net, main_req, rehearsal=False, smi=smi))
     for path, counts in paths.items():
         for row in kernels:

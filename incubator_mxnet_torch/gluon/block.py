@@ -30,24 +30,36 @@ the registration returns a handle with ``detach()`` (and ``remove()``);
 returns the block.  A registration with PyTorch's keywords
 (``prepend``, ``with_kwargs``...) goes to PyTorch's own hooks, so
 PyTorch's machinery (``.to()``, ``_apply``) is untouched.
+
+``HybridBlock.export(path, epoch)`` writes the parameters as the
+reference's checkpoint (``{path}-{epoch:04d}.params``, keys ``arg:<name>``
+and ``aux:<name>``) beside a ``{path}-symbol.json`` that records the
+port's format and holds no graph, as the JAX package's records its own:
+tracing a Block into a symbol graph is something neither package does; the
+graph is built with ``mx.sym``.  :class:`SymbolBlock` runs such a graph as
+a Block, its parameters named as the graph's variables.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
+import json
 import math
 import re
 import threading
+from time import perf_counter as _perf
 
 import torch
 
 from .. import autograd
+from .. import profiler as _profiler
 from ..base import DeferredInitializationError
 from ..ndarray.ndarray import _has_nd, _rewrap_nested, _unwrap_nested
 from ..ops.registry import nd
 from .parameter import ParameterDict, _load_into
 
-__all__ = ["Block", "HybridBlock", "block_method", "collect_aux_update", "name_scope"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "block_method", "collect_aux_update",
+           "name_scope"]
 
 _tls = threading.local()
 
@@ -348,9 +360,15 @@ class Block(torch.nn.Module):
         return out
 
 
+# the format tag of export's symbol file (the JAX package writes its own)
+EXPORT_FORMAT = "torch-eager"
+
+
 class HybridBlock(Block):
     """A Block authored as ``hybrid_forward(F, x, *args, **params)``, with
     ``F`` the ``nd`` namespace and the parameters as keyword tensors."""
+
+    _hybrid_called = False  # a forward ran since hybridize(): export may write
 
     def hybridize(self, active=True, static_alloc=False, static_shape=False, **kwargs):
         """The reference's ``HybridBlock.hybridize`` parameters, in its
@@ -358,8 +376,38 @@ class HybridBlock(Block):
         ``_flags`` and passed to the children; they change nothing here,
         where every call runs eagerly on the port's kernels."""
         self._flags = dict(static_alloc=static_alloc, static_shape=static_shape, **kwargs)
+        self._hybrid_called = False
         return super().hybridize(active, static_alloc=static_alloc, static_shape=static_shape,
                                  **kwargs)
+
+    def __call__(self, *args, **kwargs):
+        if self._active and not kwargs:
+            self._hybrid_called = True
+        return super().__call__(*args, **kwargs)
+
+    def cast(self, dtype):
+        self._hybrid_called = False
+        return super().cast(dtype)
+
+    def export(self, path, epoch=0, remove_amp_cast=True):
+        """Write ``{path}-{epoch:04d}.params`` (every parameter by its name,
+        ``aux:`` for ``grad_req='null'``, else ``arg:``, in name order: what
+        ``predictor.load_checkpoint``, ``Predictor``, ``InferenceServer``
+        and :class:`SymbolBlock` load) and ``{path}-symbol.json`` (the
+        format record; no graph).  Refused before a forward after
+        ``hybridize()``, as the reference refuses.  Returns both paths."""
+        if not self._hybrid_called:
+            raise RuntimeError("Please first call block.hybridize() and then run forward with "
+                               "this block at least once before calling export.")
+        from ..ndarray.utils import save as nd_save
+
+        nd_save(f"{path}-{epoch:04d}.params",
+                {("aux:" if p.grad_req == "null" else "arg:") + p.name: p.data()
+                 for p in sorted(self.collect_params().values(), key=lambda p: p.name)})
+        with open(f"{path}-symbol.json", "w") as f:
+            f.write(json.dumps({"format": EXPORT_FORMAT,
+                                "note": "no graph: build it with mx.sym"}))
+        return f"{path}-symbol.json", f"{path}-{epoch:04d}.params"
 
     def forward(self, x, *args):
         def gather():
@@ -394,3 +442,111 @@ class HybridBlock(Block):
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+
+class SymbolBlock(HybridBlock):
+    """A Block over a Symbol graph (parity: ``gluon.SymbolBlock``).
+
+    ``outputs`` is the graph (a Symbol, or a list grouped into one),
+    ``inputs`` its input variable(s).  Every other argument of the graph is
+    a Parameter, and every auxiliary state one with ``grad_req='null'``,
+    named as the variable is (``params`` shares an existing
+    ``ParameterDict``), so a checkpoint of ``HybridBlock.export`` or of
+    ``mx.nd.save`` (``arg:``/``aux:`` keys, or bare names) loads by name
+    (:meth:`load_parameters`).  A call runs the graph through the
+    executor's plan, one plan a signature of its inputs and parameters
+    (shapes and dtypes), whose build reports to ``profiler.record_compile``
+    under ``gluon.symbol_block``.  Under ``autograd.record()`` the walk
+    records as any Block does, so gradients reach the Parameters, and a
+    training forward moves BatchNorm's running statistics."""
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix="", params=params)
+        from .. import symbol as _sym
+
+        if isinstance(outputs, (list, tuple)):
+            outputs = outputs[0] if len(outputs) == 1 else _sym.Group(list(outputs))
+        inputs = list(inputs) if isinstance(inputs, (list, tuple)) else [inputs]
+        self._symbol = outputs
+        self._input_names = [i.name for i in inputs]
+        unknown = [n for n in self._input_names if n not in outputs.list_inputs()]
+        if unknown:
+            raise ValueError(f"SymbolBlock: inputs {unknown} are not variables of the graph")
+        for name in outputs.list_arguments():
+            if name not in self._input_names:
+                self.params.get(name, allow_deferred_init=True)
+        for name in outputs.list_auxiliary_states():
+            self.params.get(name, grad_req="null", allow_deferred_init=True)
+        self._plans = {}
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False, ignore_extra=False,
+                        cast_dtype=False, dtype_source="current"):
+        """Set the parameters from a checkpoint, by name: ``arg:``/``aux:``
+        keys stripped by the rule of ``predictor.load_checkpoint``.  A
+        parameter never initialized is materialized on ``ctx``; with
+        ``cast_dtype`` and ``dtype_source="saved"`` it takes the saved
+        dtype."""
+        from ..ndarray.utils import _load_tensors
+        from ..predictor import _split_param_key
+
+        loaded = _load_tensors(filename)
+        if not isinstance(loaded, dict):
+            raise IOError(f"{filename} holds a list of arrays without names, not parameters")
+        values = {_split_param_key(k)[1]: v for k, v in loaded.items()}
+        if not allow_missing:
+            missing = [n for n in self.params.keys() if n not in values]
+            if missing:
+                raise IOError(f"Parameters {missing[:4]} missing in {filename}")
+        for name, v in values.items():
+            if name not in self.params:
+                if not ignore_extra and name not in self._input_names:
+                    raise IOError(f"Parameter {name} in {filename} is not a variable of the "
+                                  "graph")
+                continue
+            if cast_dtype and dtype_source == "saved":
+                self.params[name].cast(v.dtype)
+            _load_into(self.params[name], v, ctx)
+
+    load_params = load_parameters
+
+    def forward(self, *args):
+        if len(args) != len(self._input_names):
+            raise ValueError(f"SymbolBlock takes {len(self._input_names)} inputs "
+                             f"{self._input_names}, got {len(args)}")
+        arrays = dict(zip(self._input_names, args))
+        if any(p._data is None for p in self.params.values()):
+            self._finish_deferred(arrays)
+        for name, p in self.params.items():
+            arrays[name] = p.data()
+        training = autograd.is_training()
+        sig = (tuple(sorted((k, tuple(v.shape), v.dtype) for k, v in arrays.items())), training)
+        plan = self._plans.get(sig)
+        if plan is None:
+            from ..executor import _Plan
+            from ..ndarray.ndarray import _ctx_of
+
+            tb = _perf()
+            plan = _Plan(self._symbol, _ctx_of(args[0].device), training)
+            outs, updates = plan.run(arrays)
+            self._plans[sig] = plan
+            _profiler.record_compile(
+                "gluon.symbol_block",
+                {"__program__": "fwd_train" if training else "fwd",
+                 **{k: _profiler.sig_array(arrays[k]) for k in sorted(arrays)}},
+                (_perf() - tb) * 1e3)
+        else:
+            outs, updates = plan.run(arrays)
+        for name, new in updates.items():
+            collect_aux_update(self.params[name], new.detach())
+        return outs[0] if len(outs) == 1 else list(outs)
+
+    def _finish_deferred(self, arrays):
+        """Deferred parameters take the shapes the graph infers from the
+        inputs'."""
+        arg_shapes, _, aux_shapes = self._symbol.infer_shape(
+            **{k: tuple(v.shape) for k, v in arrays.items()})
+        names = self._symbol.list_arguments() + self._symbol.list_auxiliary_states()
+        for name, shape in zip(names, arg_shapes + aux_shapes):
+            p = self.params._params.get(name) if name in self.params else None
+            if p is not None and p._data is None and shape is not None:
+                p._finish_deferred_init(tuple(shape))

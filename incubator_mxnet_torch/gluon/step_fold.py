@@ -46,19 +46,30 @@ Escape hatches, as in the JAX package: ``MXNET_STEP_FOLD=0``, a block with
 optimizer with no fused update, and any capture failure fall back to the
 eager record/backward/step path for good, with one warning; a call while
 a parameter is deferred runs one eager step.  Each eager step of a program
-counts in ``StepProgram.fallbacks`` under its label (``FALLBACK_LABELS``).
-The JAX package's ``naive-engine`` and ``async-PS`` labels have no
-counterpart: the port has no engine switch and no kvstore yet.
+counts in the profiler's ``step_fold_fallback`` under its label
+(``FALLBACK_LABELS``, ``profiler.incr_labeled``).  The JAX package's
+``naive-engine`` and ``async-PS`` labels have no counterpart: the port has
+no engine switch and no kvstore yet.
+
+The profiler sees the fold as the JAX package's does: a folded call counts
+in ``step_fold_call`` (``fold_eval_call`` for evaluation), records a
+``trainer.step_fold`` span when the profiler is armed and closes one
+telemetry step (``step_boundary``), one a call however many steps its
+window holds; the build of a program (the capture on the card, the first
+call of a signature on the CPU) reports to ``record_compile`` under
+``gluon.step_fold``, after which the program arms the compile guard.
 """
 from __future__ import annotations
 
 import os
 import warnings
+from time import perf_counter as _perf
 
 import numpy as np
 import torch
 
 from .. import autograd
+from .. import profiler as _profiler
 from ..ops import multi_tensor as _mt
 from ..ops import optimizer_ops as _K
 from ..optimizer import fused as _fused
@@ -203,7 +214,23 @@ class _Tail:
             offset += n
 
 
-class StepProgram:
+class _CounterViews(type):
+    """``StepProgram.calls`` and ``EvalProgram.calls`` (the profiler's
+    ``step_fold_call`` and ``fold_eval_call``) and ``.fallbacks`` (each
+    label of ``step_fold_fallback``) read the profiler's declared
+    counters."""
+
+    @property
+    def calls(cls):
+        return _profiler.counters()[cls._CALLS_COUNTER]
+
+    @property
+    def fallbacks(cls):
+        got = _profiler.counter_labels("step_fold_fallback")
+        return {label: got.get(label, 0) for label in FALLBACK_LABELS}
+
+
+class StepProgram(metaclass=_CounterViews):
     """The folded training step of one ``(Trainer, loss_fn)`` pair.
 
     ``loss_fn(*batch) -> loss`` computes the loss from the batch, calling
@@ -212,15 +239,14 @@ class StepProgram:
     returns a copy of the loss (the ``[K, ...]`` losses of a window).
     Built by ``Trainer.fold_step`` / ``fold_steps``.
 
-    Counters (class attributes, over every program): ``calls`` counts
-    folded calls (the JAX package's ``step_fold_call``), ``replays`` and
-    ``captures`` the graphs' replays and captures, ``fallbacks`` each eager
-    step by label."""
+    Counters, over every program: ``calls`` counts folded calls and
+    ``fallbacks`` each eager step by label (views of the profiler's
+    ``step_fold_call`` and ``step_fold_fallback``), ``replays`` and
+    ``captures`` the graphs' replays and captures."""
 
-    calls = 0
+    _CALLS_COUNTER = "step_fold_call"
     replays = 0
     captures = 0
-    fallbacks = dict.fromkeys(FALLBACK_LABELS, 0)
 
     def __init__(self, trainer, loss_fn, block=None, k=None):
         self._trainer = trainer
@@ -234,6 +260,7 @@ class StepProgram:
         self._captured = False
         self._logical_steps = 0
         self._window_pos = 0    # steps since the last window boundary (step_one moves it)
+        self._guard_armed = False
         if not fold_enabled():
             self._fallback_reason, self._fallback_label = "MXNET_STEP_FOLD=0", "env-off"
         elif _opted_out(block):
@@ -341,7 +368,7 @@ class StepProgram:
 
     def _eager_step(self, batch, batch_size):
         """The unfused reference step: record, backward, ``Trainer.step``."""
-        StepProgram.fallbacks[self._fallback_label or "deferred-init"] += 1
+        _profiler.incr_labeled("step_fold_fallback", self._fallback_label or "deferred-init")
         with autograd.record():
             loss = self._loss_fn(*batch)
         autograd.backward(loss)
@@ -389,16 +416,49 @@ class StepProgram:
             self._note_fallback("parameters on more than one device, or not on the CPU or a "
                                 "CUDA card", "capture-failure")
             return self._eager(batch, batch_size, kw)
-        StepProgram.calls += 1
-        if device.type == "cpu":  # nothing to capture: the body is the plain version
-            out = self._run(batch, kw, tail)
-        else:
-            out = self._on_card(batch, kw, touched, tail, device)
-            if out is None:
-                return self._eager(batch, batch_size, kw)
-        for i, p in touched:  # the freshness snapshot of Trainer._update
-            tr._grad_versions[i] = p.grad_version
+        t0 = _perf() if _profiler._active else None
+        done = False
+        try:
+            if device.type == "cpu":
+                out, built_ms = self._on_cpu(batch, kw, tail, device)
+            else:
+                out, built_ms = self._on_card(batch, kw, touched, tail, device)
+            done = True
+        finally:
+            if not done:  # a call that raised closes its own step
+                _profiler.step_boundary()
+        if out is None:  # a capture failure: nothing of the step has run
+            return self._eager(batch, batch_size, kw)
+        try:
+            for i, p in touched:  # the freshness snapshot of Trainer._update
+                tr._grad_versions[i] = p.grad_version
+            if t0 is not None:
+                _profiler.record_span("trainer.step_fold", "trainer", t0,
+                                      args={"params": len(touched), "k": kw or 1})
+            _profiler.incr("step_fold_call")
+            if built_ms is not None:
+                self._record_build(batch, kw, tail, built_ms)
+        finally:
+            _profiler.step_boundary()  # one a call, however many steps it holds
+        if not self._guard_armed and (device.type == "cpu" or self._captured):
+            self._guard_armed = True
+            _profiler.arm_compile_guard("gluon.step_fold")
         return out
+
+    def _record_build(self, batch, kw, tail, wall_ms):
+        """Report a build of this program to the compile registry; a window
+        of another width than K (``step_one``) is a declared warm-up, which
+        the armed guard does not judge."""
+        sig = {"__program__": "step_fold" if kw is None else f"step_fold_k[{kw}]",
+               "params": _profiler.sig_static(len(tail.indices)),
+               "groups": _profiler.sig_static([step.__name__ for step, *_ in tail.groups])}
+        for i, b in enumerate(batch):
+            sig[f"in{i}"] = _profiler.sig_array(b)
+        if kw is not None and kw != self._k:
+            with _profiler.compile_guard_paused():
+                _profiler.record_compile("gluon.step_fold", sig, wall_ms)
+        else:
+            _profiler.record_compile("gluon.step_fold", sig, wall_ms)
 
     @staticmethod
     def _row(batch, j, kw):
@@ -427,21 +487,35 @@ class StepProgram:
                 tuple(p._data.data_ptr() for p in tr._params if p._data is not None),
                 id(get_generator(device)))
 
+    def _on_cpu(self, batch, kw, tail, device):
+        """The step bodies run directly; the first call of a signature is
+        its program's build.  Returns ``(loss, build ms or None)``."""
+        key = self._key(batch, kw, tail, device)
+        built = key not in self._cache
+        self._cache[key] = {}
+        tb = _perf()
+        out = self._run(batch, kw, tail)
+        return out, ((_perf() - tb) * 1e3 if built else None)
+
     def _on_card(self, batch, kw, touched, tail, device):
-        """Warm up, capture or replay; returns the loss copy, or None after
-        a capture failure (nothing of the step has run)."""
+        """Warm up, capture or replay; returns ``(loss copy, capture ms or
+        None)``, the loss None after a capture failure (nothing of the
+        step has run)."""
         steps = 1 if kw is None else kw
         key = self._key(batch, kw, tail, device)
         entry = self._cache.get(key)
         if entry is None:  # warm-up: the bodies run eagerly, on a side stream
             self._cache[key] = {}
-            return _side_stream_run(lambda: self._run(batch, kw, tail))
+            return _side_stream_run(lambda: self._run(batch, kw, tail)), None
+        built_ms = None
         if "graph" not in entry:
+            tc = _perf()
             try:
                 entry.update(self._capture(batch, kw, touched, tail, device))
             except Exception as e:  # noqa: BLE001 -- the documented capture-failure fallback
                 self._note_fallback(f"capture failed: {e!r:.200}", "capture-failure")
-                return None
+                return None, None
+            built_ms = (_perf() - tc) * 1e3
             StepProgram.captures += 1
         rows = [tail.values()[1] for _ in range(steps)]
         for static, b in zip(entry["batch"], batch):
@@ -452,7 +526,7 @@ class StepProgram:
         for _, p in touched:  # the hooks did not run: one write a logical step
             p._grad_version += steps
         self._captured = True
-        return entry["loss"].clone()
+        return entry["loss"].clone(), built_ms
 
     def _capture(self, batch, kw, touched, tail, device):
         """Capture ``kw or 1`` step bodies into one graph on the program's
@@ -480,18 +554,20 @@ class StepProgram:
                 "scratch": scratch}
 
 
-class EvalProgram:
+class EvalProgram(metaclass=_CounterViews):
     """The folded evaluation pass (``Trainer.fold_eval(loss_fn, k)``): the
     forward-only loss of a batch (or of a ``[K, batch, ...]`` window) with
     training off (BatchNorm reads its running statistics, dropout is the
     identity), summed into a device fp32 register; :meth:`result` reads it
     once.  On the card the first call per batch signature runs eagerly on a
     side stream, the next captures one graph and replays it, each later
-    one replays.  ``EvalProgram.calls`` counts folded calls (the JAX
-    package's ``fold_eval_call``), ``replays`` the replays; fallbacks count
-    in ``StepProgram.fallbacks``."""
+    one replays.  ``EvalProgram.calls`` counts folded calls (a view of the
+    profiler's ``fold_eval_call``), ``replays`` the replays; fallbacks count
+    in ``step_fold_fallback``.  A folded call closes one telemetry step and
+    records a ``trainer.fold_eval`` span; a build reports to
+    ``record_compile`` under ``gluon.fold_eval`` as a declared warm-up."""
 
-    calls = 0
+    _CALLS_COUNTER = "fold_eval_call"
     replays = 0
 
     def __init__(self, trainer, loss_fn, block=None, k=None):
@@ -505,6 +581,7 @@ class EvalProgram:
         self._count = 0           # loss elements summed since the last reset
         self._fallback_reason = self._fallback_label = None
         self._warned = False
+        self._guard_armed = False
         if not fold_enabled():
             self._fallback_reason, self._fallback_label = "MXNET_STEP_FOLD=0", "env-off"
         elif _opted_out(block):
@@ -554,22 +631,54 @@ class EvalProgram:
         device = _device_of(tr._params)
         if (self._fallback_reason is not None or device is None
                 or any(p._data is None for p in tr._params)):
-            StepProgram.fallbacks[self._fallback_label or "deferred-init"] += 1
+            _profiler.incr_labeled("step_fold_fallback", self._fallback_label or "deferred-init")
             total, count = self._sum(rows)
             self._host_sum += float(total)
             self._count += count
             return
-        EvalProgram.calls += 1
         if self._acc is None:
             self._acc = torch.zeros((), dtype=torch.float32, device=device)
-        if device.type != "cuda":
-            total, count = self._sum(rows)
-            self._acc += total
-            self._count += count
-            return
         key = (tuple((tuple(b.shape), b.dtype, b.device) for b in batch),
                tuple(p._data.data_ptr() for p in tr._params if p._data is not None),
                id(get_generator(device)))
+        t0 = _perf() if _profiler._active else None
+        built_ms = None
+        try:
+            built_ms = self._dispatch(batch, rows, key, device)
+            if built_ms is False:  # a capture failure: the eager pass ran instead
+                return
+            if t0 is not None:
+                _profiler.record_span("trainer.fold_eval", "trainer", t0,
+                                      args={"params": len(tr._params), "k": len(rows)})
+            _profiler.incr("fold_eval_call")
+            if built_ms is not None:
+                # every eval build is a declared warm-up: registered, not judged
+                with _profiler.compile_guard_paused():
+                    _profiler.record_compile(
+                        "gluon.fold_eval",
+                        {"__program__": "fold_eval" if self._k == 1
+                         else f"fold_eval_k[{len(rows)}]",
+                         **{f"in{i}": _profiler.sig_array(b) for i, b in enumerate(batch)}},
+                        built_ms)
+        finally:
+            if built_ms is not False:
+                _profiler.step_boundary()
+        if not self._guard_armed and (device.type != "cuda" or "graph" in self._cache[key]):
+            self._guard_armed = True
+            _profiler.arm_compile_guard("gluon.fold_eval")
+
+    def _dispatch(self, batch, rows, key, device):
+        """One folded call: the sum directly on the CPU (the first call of a
+        signature its build), else warm-up, capture or replay.  Returns the
+        build ms, None without a build, False after a capture failure."""
+        if device.type != "cuda":
+            built = key not in self._cache
+            self._cache[key] = {}
+            tb = _perf()
+            total, count = self._sum(rows)
+            self._acc += total
+            self._count += count
+            return (_perf() - tb) * 1e3 if built else None
         entry = self._cache.get(key)
         if entry is None:  # warm-up: eager, on a side stream
             self._cache[key] = entry = {}
@@ -581,8 +690,10 @@ class EvalProgram:
 
             entry["count"] = _side_stream_run(warm)
             self._count += entry["count"]
-            return
+            return None
+        built_ms = None
         if "graph" not in entry:
+            tc = _perf()
             try:
                 entry.update(self._capture(batch, device))
             except Exception as e:  # noqa: BLE001 -- the documented capture-failure fallback
@@ -592,13 +703,16 @@ class EvalProgram:
                 if not self._warned:
                     self._warned = True
                     warnings.warn(f"eval fold disabled ({self._fallback_reason}); running the "
-                                  "eager forward instead", UserWarning, stacklevel=2)
-                return self(*batch)
+                                  "eager forward instead", UserWarning, stacklevel=3)
+                self(*batch)
+                return False
+            built_ms = (_perf() - tc) * 1e3
         for static, b in zip(entry["batch"], batch):
             static.copy_(b, non_blocking=True)
         entry["graph"].replay()
         EvalProgram.replays += 1
         self._count += entry["count"]
+        return built_ms
 
     def _capture(self, batch, device):
         static = [torch.empty_like(b, device=device) for b in batch]
@@ -637,7 +751,11 @@ def fold_update(optimizer, items, states):
     caller must update per tensor, as ``fused_update`` does.  On the CPU
     each group takes ``group_apply``'s plain version.  Counters:
     ``fold_update.calls`` (folded tails), ``.params``, ``.fallback_params``,
-    ``.captures`` and ``.replays``."""
+    ``.captures`` and ``.replays``; a call also counts once in the
+    profiler's ``fused_step_call`` (its parameters in
+    ``fused_step_params``), records one ``fused.group_apply`` span when the
+    profiler is armed, and a capture reports to ``record_compile`` under
+    ``gluon.step_fold``."""
     agg = int(getattr(optimizer, "aggregate_num", 0) or 0)
     if agg <= 1 or not items:
         return items
@@ -649,9 +767,33 @@ def fold_update(optimizer, items, states):
     fold_update.calls += 1
     fold_update.params += len(tail.indices)
     fold_update.fallback_params += len(tail.rest)
+    t0 = _perf() if _profiler._active else None
+    built_ms = _fold_tail(tail, device)
+    if t0 is not None:
+        _profiler.record_span("fused.group_apply", "optimizer", t0,
+                              args={"params": len(tail.indices), "groups": len(tail.groups),
+                                    "folded": True})
+    _profiler.incr("fused_step_call")
+    _profiler.incr("fused_step_params", len(tail.indices))
+    if tail.rest:
+        _profiler.incr("fused_step_fallback_params", len(tail.rest))
+    if built_ms is not None:
+        sig = {"__program__": "update_tail",
+               "groups": _profiler.sig_static([(step.__name__, len(idx))
+                                               for step, idx, _, _, _ in tail.groups])}
+        for k, w in enumerate(w for _, _, ws, _, _ in tail.groups for w in ws):
+            sig[f"w{k}"] = _profiler.sig_array(w)
+        _profiler.record_compile("gluon.step_fold", sig, built_ms)
+    return tail.rest
+
+
+def _fold_tail(tail, device):
+    """Run one fused tail: its groups' plain versions on the CPU; on the
+    card eagerly at the first sight of these groups and pointers, captured
+    at the next, replayed after that.  Returns the capture's ms, or None."""
     if device is None or device.type != "cuda":
         tail.apply(tail.values()[0])
-        return tail.rest
+        return None
     key = tail.signature()
     entry = _TAILS.get(key)
     if entry is None:  # first sight of these groups and pointers: eager
@@ -659,8 +801,10 @@ def fold_update(optimizer, items, states):
         while len(_TAILS) > _MAX_TAILS:
             _TAILS.pop(next(iter(_TAILS)))
         tail.apply(tail.values()[0])
-        return tail.rest
+        return None
+    built_ms = None
     if "graph" not in entry:
+        tc = _perf()
         per_group, n = tail.layout()
         rows = torch.zeros(n, dtype=torch.float32, device=device)
         scratch = tail.scratch()
@@ -669,10 +813,11 @@ def fold_update(optimizer, items, states):
             tail.apply(per_group, rows, scratch)
         entry.update(graph=graph, rows=rows, scratch=scratch)
         fold_update.captures += 1
+        built_ms = (_perf() - tc) * 1e3
     _stage(tail.values()[1], entry["rows"])
     entry["graph"].replay()
     fold_update.replays += 1
-    return tail.rest
+    return built_ms
 
 
 fold_update.calls = 0

@@ -20,6 +20,10 @@ steps (which makes new tensors) is seen.
 (``gluon/step_fold.py``): a whole training step, or a window of K, or an
 evaluation pass, as one CUDA-graph replay on the card; ``MXNET_STEP_FOLD=1``
 makes ``step`` replay its optimizer tail (``step_fold.fold_update``).
+
+``step`` and ``update`` close a step of the profiler's telemetry
+(``profiler.step_boundary``, in a ``finally``); with the profiler armed
+they record ``trainer.allreduce`` and ``trainer.update`` spans.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import weakref
 import torch
 
 from .. import optimizer as opt_mod
+from .. import profiler as _profiler
 from ..optimizer import fused as _fused
 from . import step_fold as _sf
 from .parameter import Parameter, ParameterDict
@@ -108,8 +113,20 @@ class Trainer:
         ``rescale_grad = scale / batch_size``."""
         self._check_and_rescale_grad(self._scale / batch_size)
         stale = self._stale_indices() if ignore_stale_grad else frozenset()
-        self.allreduce_grads()
-        self._update(ignore_stale_grad, stale)
+        try:
+            if _profiler._active:
+                with _profiler.span("trainer.allreduce", "trainer"):
+                    self.allreduce_grads()
+                with _profiler.span("trainer.update", "trainer"):
+                    self._update(ignore_stale_grad, stale)
+            else:
+                self.allreduce_grads()
+                self._update(ignore_stale_grad, stale)
+        finally:
+            # the step every span since the previous boundary belongs to;
+            # in a finally, so that a step that raised bills its partial
+            # time to itself, not to the next one
+            _profiler.step_boundary()
 
     def fold_step(self, loss_fn, block=None, keep_grads=False):
         """The folded training step of this trainer: a
@@ -170,8 +187,15 @@ class Trainer:
     def update(self, batch_size, ignore_stale_grad=False):
         """The optimizer update alone (gradients already reduced)."""
         self._check_and_rescale_grad(self._scale / batch_size)
-        self._update(ignore_stale_grad,
-                     self._stale_indices() if ignore_stale_grad else frozenset())
+        stale = self._stale_indices() if ignore_stale_grad else frozenset()
+        try:
+            if _profiler._active:
+                with _profiler.span("trainer.update", "trainer"):
+                    self._update(ignore_stale_grad, stale)
+            else:
+                self._update(ignore_stale_grad, stale)
+        finally:
+            _profiler.step_boundary()
 
     def _stale_indices(self):
         """Parameters whose gradient no backward has written since their

@@ -31,10 +31,13 @@ device.
 """
 from __future__ import annotations
 
+from time import perf_counter as _perf
+
 import numpy as _np
 import torch
 
 from .. import autograd
+from .. import profiler as _profiler
 from ..base import as_torch_dtype, dtype_name
 from ..context import Context, current_context
 from ..ops import registry as _registry
@@ -104,7 +107,17 @@ def _from_host(data, dtype, device):
 
 def _run(fn, args, kwargs, differentiable=True):
     """Run an op for NDArrays: recorded only inside ``autograd.record()``
-    and only if the op is differentiable."""
+    and only if the op is differentiable.  With the profiler armed the call
+    is a ``dispatch.raw`` span (host time of the step's telemetry)."""
+    if _profiler._active:
+        t0 = _perf()
+        out = _call(fn, args, kwargs, differentiable)
+        _profiler.record_span("dispatch.raw", "dispatch", t0)
+        return out
+    return _call(fn, args, kwargs, differentiable)
+
+
+def _call(fn, args, kwargs, differentiable):
     rec = differentiable and autograd.is_recording()
     if torch.is_grad_enabled() == rec:
         return fn(*args, **kwargs)

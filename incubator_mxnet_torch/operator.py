@@ -10,9 +10,16 @@ kernel, and choose its plain version on CPU tensors.
 
 Auxiliary states are fresh zeros on every call, as in the JAX package's
 eager ``nd.Custom`` (the reference keeps them only in a bound executor's
-``aux_states``; a stateful op keeps its state on the ``CustomOp``).  The
-symbol-graph form (``sym.Custom`` inside a compiled graph) waits for the
-port of ``symbol/``.
+``aux_states``; a stateful op keeps its state on the ``CustomOp``).
+
+In a symbol graph ``sym.Custom(data..., op_type=name, **params)`` is the
+registered op ``Custom`` (``cacheable=False``): at bind time the graph's
+shape and type passes take its outputs from the prop's ``infer_shape`` and
+``infer_type`` on ``meta`` tensors, never running the user's ``forward``
+(a kernel cannot launch on them); an executor's plan calls it on the
+device tensors, ``is_train`` from the executor.  PyTorch runs the plan
+eagerly, so there is no host round trip (the JAX package's graph calls back
+to the host because XLA traces it).
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import torch
 
 from . import autograd
 from .base import as_torch_dtype
+from .ops.registry import register as _register
 
 __all__ = ["CustomOp", "CustomOpProp", "register", "get_prop"]
 
@@ -164,3 +172,25 @@ def nd_custom(*args, op_type=None, **kwargs):
               a if isinstance(a, torch.Tensor) else torch.as_tensor(a) for a in args]
     out = _invoke_custom(op_type, inputs, kwargs)
     return _wrap_out(out) if wrap else out
+
+
+def _custom_entry(*raw, op_type=None, **kwargs):
+    """The registry's ``Custom`` (what a graph's node calls): on ``meta``
+    tensors (the bind-time shape and type passes) the outputs the prop
+    infers, else the user's op on the tensors (``nd.Custom``'s path)."""
+    if op_type is None:
+        raise ValueError("Custom requires op_type=")
+    if any(a.is_meta for a in raw):
+        prop = get_prop(op_type)(**kwargs)
+        _, out_shapes, _ = prop.infer_shape([list(a.shape) for a in raw])
+        _, out_types, _ = prop.infer_type([a.dtype for a in raw])
+        outs = tuple(torch.empty(tuple(s), dtype=as_torch_dtype(t), device="meta")
+                     for s, t in zip(out_shapes, out_types))
+        return outs if len(outs) > 1 else outs[0]
+    out = _invoke_custom(op_type, list(raw), kwargs)
+    return tuple(out) if isinstance(out, list) else out
+
+
+# cacheable=False: the body runs the user's CustomOp.forward, arbitrary
+# stateful Python
+_register("Custom", differentiable=False, cacheable=False)(_custom_entry)

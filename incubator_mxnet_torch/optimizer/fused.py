@@ -15,13 +15,19 @@ first).  RMSProp and LAMB under ``multi_precision`` take the per-tensor
 path, and AdamW under it takes Adam's ``mp_adam`` variant, as in the JAX
 package.
 
-The counters ``fused_update.calls`` (group updates), ``fused_update.params``
-(parameters they updated) and ``fused_update.fallback_params`` (parameters
-left to the loop) stand where the JAX package counts ``fused_step_call``,
-``fused_step_params`` and ``fused_step_fallback_params`` in its profiler.
+Each chunk's update counts in the profiler's declared counters
+``fused_step_call`` (group updates), ``fused_step_params`` (parameters they
+updated) and ``fused_step_fallback_params`` (parameters left to the loop),
+as in the JAX package; ``fused_update.calls``, ``.params`` and
+``.fallback_params`` read them.  With the profiler armed each chunk is a
+``fused.group_apply`` span (host time of the step's telemetry).
 """
 from __future__ import annotations
 
+import functools
+from time import perf_counter as _perf
+
+from .. import profiler as _profiler
 from ..ops import optimizer_ops as K
 from .optimizer import LAMB, NAG, SGD, Adam, AdamW, RMSProp
 
@@ -113,7 +119,7 @@ def plan_groups(optimizer, items, states):
     return groups, rest
 
 
-def fused_update(optimizer, items, states):
+def _fused_update(optimizer, items, states):
     """Update every ``(index, weight, grad)`` of ``items`` that has a fused
     variant, a group at a time in chunks of ``optimizer.aggregate_num``;
     returns the items the caller must update per tensor.  ``states`` maps
@@ -136,14 +142,40 @@ def fused_update(optimizer, items, states):
                 lrs = [optimizer._get_lr(i) for i, _, _, _ in chunk]
                 wds = [optimizer._get_wd(i) for i, _, _, _ in chunk]
                 ts = [optimizer._index_update_count[i] for i, _, _, _ in chunk]
+                t0 = _perf() if _profiler._active else None
                 K.group_apply(step, [w for _, w, _, _ in chunk], [g for _, _, g, _ in chunk],
                               [flat for _, _, _, flat in chunk], lrs, wds, ts, scalars)
-                fused_update.calls += 1
-                fused_update.params += len(chunk)
-    fused_update.fallback_params += len(rest)
+                if t0 is not None:
+                    _profiler.record_span("fused.group_apply", "optimizer", t0,
+                                          args={"params": len(chunk)})
+                _profiler.incr("fused_step_call")
+                _profiler.incr("fused_step_params", len(chunk))
+    if rest:
+        _profiler.incr("fused_step_fallback_params", len(rest))
     return rest
 
 
-fused_update.calls = 0
-fused_update.params = 0
-fused_update.fallback_params = 0
+class _CountedUpdate:
+    """``fused_update``: the function, with its counts as read-only views of
+    the profiler's declared counters (``calls`` is ``fused_step_call``,
+    ``params`` ``fused_step_params``, ``fallback_params``
+    ``fused_step_fallback_params``)."""
+
+    _VIEWS = {"calls": "fused_step_call", "params": "fused_step_params",
+              "fallback_params": "fused_step_fallback_params"}
+
+    def __init__(self, fn):
+        functools.update_wrapper(self, fn)
+        self._fn = fn
+
+    def __call__(self, optimizer, items, states):
+        return self._fn(optimizer, items, states)
+
+    def __getattr__(self, name):
+        counter = type(self)._VIEWS.get(name)
+        if counter is None:
+            raise AttributeError(name)
+        return _profiler.counters()[counter]
+
+
+fused_update = _CountedUpdate(_fused_update)

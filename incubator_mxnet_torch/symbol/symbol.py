@@ -791,7 +791,6 @@ _QUEUED_OPS = {
         "box_iou", "box_nms", "contrib_MultiBoxDetection", "contrib_MultiBoxPrior",
         "contrib_MultiBoxTarget", "contrib_box_iou", "contrib_box_nms"),
     ("ops/moe.py", 8): ("moe_ffn",),
-    ("operator.py", 4): ("Custom",),
 }
 _QUEUE_OF = {n: key for key, names in _QUEUED_OPS.items() for n in names}
 

@@ -16,6 +16,9 @@ Every variable carries the Gluon parameter's name
 ``{"arg:" + name: p.data()}`` of ``BERTForPretrain.collect_params()``,
 saved with ``mx.nd.save``, is this graph's checkpoint.  ``names`` gives the
 two Gluon prefixes, ``(BERTModel.prefix, BERTForPretrain.prefix)``.
+``ffn_op_type`` makes each encoder layer's FFN activation
+``S.Custom(h, op_type=ffn_op_type)``, a user's registered op (the default,
+None, is the built-in GELU).
 
 Imports neither package: tests and ``chip_smoke.py`` pass ``S`` in.
 """
@@ -24,7 +27,7 @@ DEFAULT_NAMES = ("bertmodel0_", "bertforpretrain0_")
 
 
 def bert_symbol(S, num_layers, units, hidden_size, num_heads, vocab_size, seq_len,
-                num_masked, names=DEFAULT_NAMES, max_length=512):
+                num_masked, names=DEFAULT_NAMES, max_length=512, ffn_op_type=None):
     """The symbol graph; its inputs are ``token_ids`` and ``token_types``
     ``[B, seq_len]`` int32 and ``masked_positions`` ``[B, num_masked]``
     int32.  ``max_length`` is the position table's row count (the Gluon
@@ -66,7 +69,9 @@ def bert_symbol(S, num_layers, units, hidden_size, num_heads, vocab_size, seq_le
                                             num_heads=num_heads, name=p + "attention")
         x = layer_norm(S.broadcast_add(x, dense(att, p + "attn_out_", units),
                                        name=p + "add_attn"), p + "ln1_")
-        h = gelu(dense(x, p + "ffn_ffn1_", hidden_size), p + "ffn_gelu")
+        h = dense(x, p + "ffn_ffn1_", hidden_size)
+        h = (gelu(h, p + "ffn_gelu") if ffn_op_type is None
+             else S.Custom(h, op_type=ffn_op_type, name=p + "ffn_gelu"))
         x = layer_norm(S.broadcast_add(x, dense(h, p + "ffn_ffn2_", units),
                                        name=p + "add_ffn"), p + "ln2_")
     first = S.reshape(S.slice_axis(x, axis=1, begin=0, end=1, name=bp + "first"),

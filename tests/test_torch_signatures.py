@@ -73,6 +73,20 @@ PAIRS = [
     ("Parameter.__init__", jparameter.Parameter.__init__, tparameter.Parameter.__init__),
     ("autograd.backward", mxj.autograd.backward, mx.autograd.backward),
     ("optimizer_ops.group_apply", jopt_ops.group_apply, topt_ops.group_apply),
+    # serving's last items and the profiler (ROADMAP §1 items 4.6-4.8 and 5)
+    ("HybridBlock.export", mxj.gluon.HybridBlock.export, mx.gluon.HybridBlock.export),
+    ("SymbolBlock.__init__", mxj.gluon.SymbolBlock.__init__, mx.gluon.SymbolBlock.__init__),
+    ("profiler.span", mxj.profiler.span.__init__, mx.profiler.span.__init__),
+    ("profiler.step_boundary", mxj.profiler.step_boundary, mx.profiler.step_boundary),
+    ("profiler.dumps", mxj.profiler.dumps, mx.profiler.dumps),
+    ("profiler.dump", mxj.profiler.dump, mx.profiler.dump),
+    ("profiler.scope", mxj.profiler.scope.__init__, mx.profiler.scope.__init__),
+    ("profiler.Marker", mxj.profiler.Marker.__init__, mx.profiler.Marker.__init__),
+    ("profiler.Marker.mark", mxj.profiler.Marker.mark, mx.profiler.Marker.mark),
+    ("profiler.record_downtime", mxj.profiler.record_downtime, mx.profiler.record_downtime),
+    ("profiler.incr_labeled", mxj.profiler.incr_labeled, mx.profiler.incr_labeled),
+    ("profiler.sample_clock_offset", mxj.profiler.sample_clock_offset,
+     mx.profiler.sample_clock_offset),
 ]
 
 # The one difference by design: the port's entry points run on the card
@@ -421,16 +435,21 @@ def test_record_span_honours_step(tmp_path):
     with open(profiler.dump()) as f:
         events = {e["name"]: e for e in json.load(f)["traceEvents"] if e.get("ph") == "B"}
     assert events["tagged"]["args"] == {"step": 7, "k": 1}
-    assert "step" not in events["untagged"]["args"]
+    # an untagged span carries the step it was recorded in, as in the JAX package
+    assert events["untagged"]["args"] == {"step": profiler.current_step()}
 
 
-def test_keywords_outside_the_port_raise_naming_their_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
-        mx.profiler.start_metrics(jsonl="m.jsonl")
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
-        mx.profiler.start_metrics(None, None, 5.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
-        mx.profiler.record_compile("s", {}, 1.0, args=(1,))
+def test_keywords_outside_the_port_raise_naming_their_item(tmp_path):
+    # the profiler's keywords of ROADMAP §1 item 5 are honoured since that item
+    path = tmp_path / "m.jsonl"
+    mx.profiler.start_metrics(jsonl=str(path), interval_s=0.05)
+    time.sleep(0.2)
+    mx.profiler.stop_metrics()
+    assert json.loads(path.read_text().splitlines()[0])["schema"] == 1
+    rec = mx.profiler.record_compile("s", {}, 1.0, args=(1,), lowered={"flops": 8.0})
+    assert rec["cost"] == {"flops": 8.0}
+    assert mx.profiler.record_compile("s", {}, 1.0, args=(1,))["cost"] is None
+    mx.profiler.reset_compiles()
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 11"):
         tparameter.Parameter("w", shape=(2,), stype="row_sparse")
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 11"):

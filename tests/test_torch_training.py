@@ -351,7 +351,7 @@ def test_chip_smoke_cpu_rehearsal_trains():
     proc = subprocess.run([sys.executable, "chip_smoke.py", "--cpu-rehearsal"], cwd=ROOT,
                           capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
-    assert proc.returncode == 0, proc.stderr
+    assert proc.returncode == 0, proc.stderr + proc.stdout[-4000:]
     assert '"phase": "train"' in proc.stdout and '"ok": true' in proc.stdout
     assert '"phase": "rtc_train"' in proc.stdout
     assert '"part": "op_table", "failed": [], "ok": true' in proc.stdout  # nd_surface
