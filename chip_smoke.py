@@ -147,6 +147,31 @@ Phases, each printing JSON lines; no phase's failure is caught:
    device trace's kernel table counting 12 ``flash_*_tma`` of each kind
    and one ``multi_tensor_update`` a step; then the folded step with the
    recorder unarmed and armed, in turns (reported);
+6e. spmd (after the timing phase: its traces of replays put kineto in the
+   mode that drops the first records of every later session, which the
+   timing phase's short traces cannot take; the fold phase's graphs freed):
+   bench.py's BERT-base (B=64, S=128, P=20, bf16 parameters, fp32 Adam
+   masters, dropout 0.1, the streaming MLM loss) and ResNet-50 v1 (B=256,
+   AMP bf16, SGD lr 0.1 momentum 0.9 wd 1e-4) through
+   ``parallel.SPMDTrainer(..., mesh=make_mesh())`` at world 1: on fresh
+   dropout-free copies two SPMD steps bit-equal to two ``Trainer.fold_step``
+   calls (parameters, states, losses, running statistics; deterministic
+   mode), and for BERT ``step_bulk(4)`` and ``step_window`` over a [4, B,
+   ...] window bit-equal to 4 ``step`` calls each; then the main path:
+   six steps, finite and falling, the launch counts and the port's
+   collectives set to 0 before the first step (the eager warm-up) and read
+   after it (12/12/12 attention kernels and one mp_adam launch; 53 bn_stats,
+   53 bn_apply and one sgd_mom launch; no collective), one replay's kernels
+   by name in a profiler trace, and the SPMD step against the fold step on
+   the same net in turns (reported); its launches are the kernels line's
+   ``spmd`` path;
+   dist: a 1-rank NCCL group in this process (``init_distributed``, exact
+   ``dist_sync`` values on the card, one NCCL all-reduce through the
+   store), then a 2-rank gloo cohort on the one card
+   (``tools/launch_local.py`` and ``tests/torch_dist_worker.py``): the exact
+   ``dist_sync`` assertions on CUDA tensors, ``Trainer.backward``'s overlap
+   bit-equal to a plain backward, ``SPMDTrainer`` at 2 ranks against 1,
+   at BERT-base's width cut to 2 layers;
 7. times: each kernel, its plain version and the library call at the main
    paths' shapes (the attention kernels also at the S=512 request, in fp32
    at the main shape, and by CUDA-graph replay), the kernel's bound; BERT
@@ -210,9 +235,9 @@ Phases, each printing JSON lines; no phase's failure is caught:
 
 The last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed on a CUDA card.  The rehearsal runs the slice, train, rtc_train,
-nd_surface, symbol_block, ResNet, fold, train_surface, timing, observe,
-serve and generation phases on the CPU at a tiny size, with the kernels'
-plain versions, and never prints it.  ``--inference-turns`` times only the
+nd_surface, symbol_block, ResNet, fold, spmd, train_surface, timing,
+observe, serve and generation phases on the CPU at a tiny size, with the
+kernels' plain versions, and never prints it.  ``--inference-turns`` times only the
 BERT-base inference forward of two checkouts, each turn a fresh process
 (A, B, B, A per round), and never prints it either.
 """
@@ -2252,13 +2277,27 @@ SENTINEL_CYCLES = 1000
 WARM_SHORT = []
 
 
+# Sentinel kernels a counting trace launches first, each a record of its
+# own: in some processes kineto leaves the first records of every session
+# out of its window (ROADMAP §3 "Not faults"; PR 19 saw more than one lost
+# a session), and these take that loss instead of the counted work.
+LEAD_KERNELS = 8
+
+
+def _lead():
+    for _ in range(LEAD_KERNELS):
+        torch.cuda._sleep(SENTINEL_CYCLES)
+    torch.cuda.synchronize()
+
+
 def _split_at_sentinel(prof):
-    """(records before the sentinel, records after it) of ``prof``'s CUDA
-    activity in start order; (None, None) if the trace lost the sentinel."""
+    """(records up to the last sentinel, records after it) of ``prof``'s
+    CUDA activity in start order; (None, None) if the trace lost every
+    sentinel."""
     recs = sorted((ev for ev in prof.events()
                    if ev.device_type == torch.autograd.DeviceType.CUDA),
                   key=lambda ev: ev.time_range.start)
-    at = next((i for i, ev in enumerate(recs) if SENTINEL in ev.name), None)
+    at = max((i for i, ev in enumerate(recs) if SENTINEL in ev.name), default=None)
     return (None, None) if at is None else (recs[:at], recs[at + 1:])
 
 
@@ -2273,7 +2312,7 @@ def _note_warm_short(what, warm, per_call):
         WARM_SHORT.append((what, short))
 
 
-def _busy_share(fn, warm=False):
+def _busy_share(fn, warm=False, lead=False):
     """One call of ``fn`` under torch.profiler: (wall ms, kernel ms, copy ms,
     kernel busy share, kernel records by name); the work of every thread
     counts, and memory copies are kept apart from kernels.  CUDA activity
@@ -2281,10 +2320,14 @@ def _busy_share(fn, warm=False):
     every later CUDA-only trace of the process drop 3-5 kernel records (so
     each ``_time`` row fell back to CUDA events), on the card.  With
     ``warm`` the session first runs ``fn`` once and the sentinel, and counts
-    the call after them (an empty count if the sentinel's record is lost)."""
+    the call after them (an empty count if the sentinel's record is lost);
+    with ``lead`` it first launches the lead sentinels (``_lead``) and
+    counts what follows the last one that survived."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        if lead:
+            _lead()
         if warm:
             fn()
             torch.cuda.synchronize()
@@ -2293,8 +2336,11 @@ def _busy_share(fn, warm=False):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    if warm:
+    if warm or lead:
         before, events = _split_at_sentinel(prof)
+        if not warm:  # the lead alone: no warm-up call to compare
+            before = None
+            events = list(prof.events()) if events is None else events
     else:
         before, events = None, list(prof.events())
     names = {}
@@ -2657,7 +2703,7 @@ def _traced_count(fn, name, want, tries=3):
     (taken again while short of ``want``, three times at most)."""
     got = []
     for _ in range(tries):
-        *_, names = _busy_share(fn)
+        *_, names = _busy_share(fn, lead=True)
         got.append(_count_named(names, name))
         if got[-1] == want:
             break
@@ -3235,6 +3281,7 @@ def _replay_kernels(fn, want):
     for _ in range(3):
         py_before = kernel_counts()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _lead()
             fn()
             torch.cuda.synchronize()
         moved = {k: v - py_before[k] for k, v in kernel_counts().items() if v != py_before[k]}
@@ -3549,6 +3596,371 @@ def phase_fold(train, resnet, rehearsal):
             {"fold_bert_step": bert_prog, "fold_resnet_step": resnet_prog}, records)
 
 
+# -- phase 6a: SPMDTrainer and the distributed tier -----------------------------
+# bench.py's training configurations through parallel.SPMDTrainer on
+# make_mesh() (world 1: one process, one card), then the kvstore and the
+# trainers across processes: a 1-rank NCCL group in this process and a
+# 2-rank gloo cohort on the one card (tests/torch_dist_worker.py).
+SPMD_STEPS = 10          # main-path steps: warm-up, capture + replay, replays
+SPMD_BULK_K = 4          # step_bulk's k and step_window's K
+SPMD_TURN_CALLS = 10     # timed calls a turn (SPMD, fold, fold, SPMD)
+DIST_TIMEOUT_S = 420     # the 2-rank cohort, both processes
+# The cohort's SPMDTrainer at 2 ranks on half-batches against 1 rank on the
+# whole batch, BERT at 2 layers in fp32, one SGD-momentum step: the same
+# arithmetic summed in another order (two gradient halves added by gloo,
+# matmuls over 4 rows instead of 8), ~1e-6 relative; the parameters and
+# the loss within 1e-4 relative or absolute.
+DIST_SPMD_TOL = 1e-4
+
+
+def mlm_loss(out, label):
+    """bench.py's ``mlm_loss`` as SPMDTrainer's ``loss_fn(outputs, label)``."""
+    return streaming_softmax_ce(out[0], label).mean(-1)
+
+
+def ce_loss(out, label):
+    """bench.py's ``ce_loss`` (ResNet-50) as SPMDTrainer's ``loss_fn``."""
+    return streaming_softmax_ce(out, label)
+
+
+def _keyed(net, trainer):
+    """``(parameters, optimizer states)`` by the net's structural keys (the
+    two trainers index their states differently)."""
+    params = net._collect_params_with_prefix()
+    key_of = {id(p): k for k, p in params.items()}
+    states = {}
+    for i, st in trainer._states.items():
+        flat = []
+
+        def walk(s):
+            if isinstance(s, torch.Tensor):
+                flat.append(s.detach().clone())
+            elif s is not None:
+                for x in s:
+                    walk(x)
+        walk(st)
+        states[key_of[id(trainer._params[i])]] = flat
+    return ({k: p.data().detach().clone() for k, p in params.items()},
+            [t for k in sorted(states) for t in states[k]])
+
+
+def _keyed_compare(a, b):
+    """(bit-equal, largest |difference|) of two ``_keyed`` snapshots."""
+    (pa, sa), (pb, sb) = a, b
+    keys = sorted(pa)
+    if keys != sorted(pb):
+        return False, math.inf
+    eq_p, err_p = _compare([pa[k] for k in keys], [pb[k] for k in keys])
+    eq_s, err_s = _compare(sa, sb)
+    return eq_p and eq_s, max(err_p, err_s)
+
+
+def _spmd_mesh(ctx):
+    from incubator_mxnet_torch import parallel
+
+    # make_mesh() is bench.py's call: the card of this rank; the rehearsal
+    # asks for the CPU
+    return parallel.make_mesh(devices=[ctx.device]) if ctx.device.type == "cpu" \
+        else parallel.make_mesh()
+
+
+def _spmd_vs_fold(label, make, loss_fn, batch, ctx, rehearsal):
+    """Two SPMDTrainer steps against two ``Trainer.fold_step`` calls on
+    copies of one model (dropout 0, deterministic mode): parameters, states
+    (running statistics among the parameters) and losses bit-equal."""
+    from incubator_mxnet_torch import parallel
+
+    data, lab = list(batch[:-1]), batch[-1]
+    net, opt = make()
+    tr = parallel.SPMDTrainer(net, loss_fn, *opt, mesh=_spmd_mesh(ctx))
+    loss_a = [tr.step(data, lab)._data for _ in range(2)]
+    snap_a = _keyed(net, tr._trainer)
+    captured = tr._programs["step"].captured
+    del net, tr
+    mx.profiler.disarm_compile_guard()
+    if not rehearsal:
+        torch.cuda.empty_cache()
+    net, opt = make()
+    trainer = mx.gluon.Trainer(net.collect_params(), *opt)
+    prog = trainer.fold_step(lambda *b: loss_fn(net(*b[:-1]), b[-1]), block=net)
+    loss_b = [prog(*batch).float().mean() for _ in range(2)]
+    equal, err = _keyed_compare(snap_a, _keyed(net, trainer))
+    loss_eq, loss_err = _compare(loss_a, loss_b)
+    ok = equal and loss_eq and captured == (not rehearsal) and prog.captured == (not rehearsal)
+    emit("spmd", check="spmd_vs_fold_step", model=label, steps=2,
+         params_and_states=dict(bit_equal=equal, max_abs_err=err),
+         losses=dict(bit_equal=loss_eq, max_abs_err=loss_err, spmd=[x.item() for x in loss_a]),
+         spmd_captured=captured, fold_captured=prog.captured, ok=ok)
+    del net, trainer, prog
+    mx.profiler.disarm_compile_guard()
+    if not rehearsal:
+        torch.cuda.empty_cache()
+    return ok
+
+
+def _spmd_bulk_window(label, make, loss_fn, batches, ctx, rehearsal):
+    """``step_bulk(K)`` on one batch and ``step_window`` over a ``[K, B, ...]``
+    window of K batches against K ``step`` calls each, on two copies:
+    parameters, states and the last loss bit-equal after each."""
+    from incubator_mxnet_torch import parallel
+
+    k = len(batches)
+    window = [torch.stack([b[i] for b in batches]) for i in range(len(batches[0]))]
+    snaps = []
+    for bulk in (False, True):
+        net, opt = make()
+        tr = parallel.SPMDTrainer(net, loss_fn, *opt, mesh=_spmd_mesh(ctx))
+        b0 = batches[0]
+        if bulk:
+            after_bulk = tr.step_bulk(list(b0[:-1]), b0[-1], k)._data
+            snap_bulk = _keyed(net, tr._trainer)
+            after_window = tr.step_window(window[:-1], window[-1])._data
+        else:
+            for _ in range(k):
+                after_bulk = tr.step(list(b0[:-1]), b0[-1])._data
+            snap_bulk = _keyed(net, tr._trainer)
+            for b in batches:
+                after_window = tr.step(list(b[:-1]), b[-1])._data
+        snaps.append((snap_bulk, after_bulk, _keyed(net, tr._trainer), after_window,
+                      tr.num_update))
+        del net, tr
+        mx.profiler.disarm_compile_guard()
+        if not rehearsal:
+            torch.cuda.empty_cache()
+    (s_b, l_b, s_w, l_w, n_seq), (b_b, bl_b, b_w, bl_w, n_blk) = snaps
+    bulk_eq, bulk_err = _keyed_compare(s_b, b_b)
+    win_eq, win_err = _keyed_compare(s_w, b_w)
+    ok = (bulk_eq and win_eq and torch.equal(l_b, bl_b) and torch.equal(l_w, bl_w)
+          and n_seq == n_blk == 2 * k)
+    emit("spmd", check="step_bulk_and_step_window", model=label, k=k,
+         step_bulk_vs_steps=dict(bit_equal=bulk_eq, max_abs_err=bulk_err,
+                                 last_loss_equal=bool(torch.equal(l_b, bl_b))),
+         step_window_vs_steps=dict(bit_equal=win_eq, max_abs_err=win_err,
+                                   last_loss_equal=bool(torch.equal(l_w, bl_w))),
+         num_update=[n_seq, n_blk], ok=ok)
+    return ok
+
+
+def _spmd_main(label, net, opt, loss_fn, batch, want_replay, variant, ctx, rehearsal, smi):
+    """The main path: ``SPMDTrainer(net, loss_fn, ..., mesh=make_mesh())``,
+    SPMD_STEPS steps on one device-resident batch, the launch counts and
+    the collectives set to 0 just before the first step (the warm-up, run
+    eagerly) and read just after it; one replay's kernels by name in a
+    profiler trace; then the SPMD step and ``Trainer.fold_step`` on the
+    same net timed in turns (reported).  Returns (counts, ok)."""
+    from incubator_mxnet_torch import parallel
+    from incubator_mxnet_torch.parallel import mesh as pmesh
+
+    sync = (lambda: None) if rehearsal else torch.cuda.synchronize
+    data, lab = list(batch[:-1]), batch[-1]
+    tr = parallel.SPMDTrainer(net, loss_fn, *opt, mesh=_spmd_mesh(ctx))
+    tr.shard_batch(*data, lab)  # device-resident already: returned as they are
+    pmesh.reset_collective_counts()
+    reset_kernel_counts()
+    losses = [tr.step(data, lab).asscalar()]
+    counts = kernel_counts()
+    variants = dict(mt.multi_tensor_update.launches_by_variant)
+    losses += [tr.step(data, lab).asscalar() for _ in range(SPMD_STEPS - 1)]
+    sync()
+    prog = tr._programs["step"]
+    tries, moved = ([], {}) if rehearsal else _replay_kernels(lambda: tr.step(data, lab),
+                                                               want_replay)
+    collectives = pmesh.collective_counts()
+    finite = all(math.isfinite(x) for x in losses)
+    want = {n: 0 for n in ENTRIES}
+    if not rehearsal:
+        want.update(want_replay)
+    ok = (finite and losses[-1] < losses[0] and counts == want
+          and variants == ({} if rehearsal else {variant: 1})
+          and sum(collectives.values()) == 0 and prog.folded
+          and prog.captured == (not rehearsal) and tr.fallback_reason is None
+          and (rehearsal or (tries[-1] == want_replay and not moved)))
+    turns = {}
+    if not rehearsal:
+        trainer = mx.gluon.Trainer(net.collect_params(), *opt)
+        fold = trainer.fold_step(lambda *b: loss_fn(net(*b[:-1]), b[-1]), block=net)
+        fold(*batch)
+        fold(*batch)  # warm-up, capture
+        calls = {"spmd": lambda: tr.step(data, lab), "fold": lambda: fold(*batch)}
+        for name in ("spmd", "fold", "fold", "spmd"):
+            sync()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(SPMD_TURN_CALLS):
+                calls[name]()
+            end.record()
+            sync()
+            turns.setdefault(name, []).append(
+                dict(event_ms=start.elapsed_time(end) / SPMD_TURN_CALLS,
+                     wall_ms=(time.perf_counter() - t0) * 1e3 / SPMD_TURN_CALLS))
+        del trainer, fold
+    emit("spmd", check="main_path", model=label, mesh=repr(tr.mesh), losses=losses,
+         finite=finite, falling=losses[-1] < losses[0], launches_one_step=counts,
+         expected=want, multi_tensor_by_variant=variants, collectives=collectives,
+         replay_kernels=tries[-1] if tries else None, replay_kernel_tries=len(tries),
+         expected_replay_kernels=None if rehearsal else want_replay,
+         python_counts_moved_by_replay=moved, captured=prog.captured, folded=prog.folded,
+         turns_ms=turns, turn_calls=SPMD_TURN_CALLS, card=smi, ok=ok)
+    mx.profiler.disarm_compile_guard()
+    return counts, ok
+
+
+def phase_spmd(rehearsal, smi=None):
+    """bench.py's BERT-base (B=64, S=128, P=20, bf16 parameters, fp32 Adam
+    masters, dropout 0.1, the streaming MLM loss) and ResNet-50 v1 (B=256,
+    AMP bf16, SGD lr 0.1 momentum 0.9 wd 1e-4) through ``SPMDTrainer`` on
+    ``make_mesh()`` at world 1: two SPMD steps bit-equal to two folded
+    steps (dropout 0, deterministic mode), ``step_bulk`` and
+    ``step_window`` bit-equal to sequential steps (BERT), then the main
+    path.  Returns the launch counts of one BERT and one ResNet-50 SPMD
+    step together (the kernels line's ``spmd`` path)."""
+    cfg = dict(TINY_BERT if rehearsal else BERT_BASE)
+    ctx = mx.cpu() if rehearsal else mx.gpu(0)
+    device = ctx.device
+    b, s, p = (4, 16, 3) if rehearsal else (64, 128, 20)
+    gen = torch.Generator(device=device).manual_seed(41)
+    batches = [_train_batch(cfg, b, s, p, gen, device) for _ in range(SPMD_BULK_K)]
+    adam = ("adam", {"learning_rate": 1e-4, "multi_precision": True})
+    num_layers = cfg.get("num_layers", 12)
+
+    def make_bert(dropout=0.0):
+        net = _build_net(dict(cfg, dropout=dropout), ctx, "bfloat16")
+        with mx.autograd.predict_mode():  # finish the deferred shapes from the same seed
+            net(*batches[0][:3])
+        return net, adam
+
+    bert_label = ("BERTForPretrain(bert_base) bf16, Adam mp" if not rehearsal
+                  else "tiny BERT (CPU rehearsal)")
+    misses = []
+    with _deterministic(bert=True):
+        if not _spmd_vs_fold(bert_label + ", dropout 0 (deterministic algorithms)", make_bert,
+                             mlm_loss, batches[0], ctx, rehearsal):
+            misses.append("bert_vs_fold")
+        if not _spmd_bulk_window(bert_label + ", dropout 0 (deterministic algorithms)",
+                                 make_bert, mlm_loss, batches, ctx, rehearsal):
+            misses.append("bert_bulk_window")
+    net, _ = make_bert(dropout=cfg["dropout"])
+    bert_counts, ok = _spmd_main(
+        bert_label + f", dropout {cfg['dropout']}", net, adam, mlm_loss, batches[0],
+        {"flash_fwd": num_layers, "flash_bwd_dq": num_layers, "flash_bwd_dkv": num_layers,
+         "multi_tensor": 1}, "mp_adam", ctx, rehearsal, smi)
+    if not ok:
+        misses.append("bert_main_path")
+    del net, batches
+    if not rehearsal:
+        torch.cuda.empty_cache()
+
+    sgd = ("sgd", {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4})
+    rb = 2 if rehearsal else RESNET_B
+    rbatch = _image_batch(rehearsal, rb, gen, device)
+
+    def make_resnet():
+        return _build_resnet(rehearsal, ctx, 0), sgd
+
+    resnet_label = ("resnet50_v1 AMP bf16, SGD momentum" if not rehearsal
+                    else "tiny ResNetV1 (CPU rehearsal)")
+    mx.amp.init("bfloat16")
+    try:
+        with _deterministic(bert=False):
+            if not _spmd_vs_fold(resnet_label + " (cuDNN deterministic)", make_resnet, ce_loss,
+                                 rbatch, ctx, rehearsal):
+                misses.append("resnet_vs_fold")
+        net, _ = make_resnet()
+        n_bn = sum(isinstance(m, mx.gluon.nn.BatchNorm) for m in net.modules())
+        resnet_counts, ok = _spmd_main(resnet_label, net, sgd, ce_loss, rbatch,
+                                       {"bn_stats": n_bn, "bn_apply": n_bn, "multi_tensor": 1},
+                                       "sgd_mom", ctx, rehearsal, smi)
+        if not ok:
+            misses.append("resnet_main_path")
+        del net
+    finally:
+        mx.amp.disable()
+    if not rehearsal:
+        torch.cuda.empty_cache()
+    if misses:
+        emit("spmd", failed=misses)
+        sys.exit(1)
+    return {"spmd": {k: bert_counts[k] + resnet_counts[k] for k in bert_counts}}
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_dist(smi):
+    """The distributed tier on the one card: a 1-rank NCCL group in this
+    process (``init_distributed``, exact ``dist_sync`` values on the card,
+    one NCCL all-reduce through the store's wire), then a 2-rank gloo
+    cohort on the card spawned through ``tools/launch_local.py``
+    (``tests/torch_dist_worker.py``: the exact ``dist_sync`` assertions on
+    CUDA tensors, ``Trainer.backward``'s overlap against a plain backward,
+    ``SPMDTrainer`` at 2 ranks against 1), at BERT-base's width (768 units,
+    12 heads, vocab 30522) cut to 2 layers."""
+    import torch.distributed as dist
+
+    from incubator_mxnet_torch import parallel
+    from incubator_mxnet_torch.parallel import mesh as pmesh
+
+    t0 = time.perf_counter()
+    pmesh.reset_collective_counts()
+    parallel.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0, backend="nccl")
+    try:
+        ctx = mx.gpu(0)
+        kv = mx.kv.create("dist_sync")
+        mesh = parallel.make_mesh()
+        kv.init(3, mx.nd.ones((4, 5), ctx=ctx))
+        kv.push(3, [mx.nd.ones((4, 5), ctx=ctx), mx.nd.ones((4, 5), ctx=ctx) * 2])
+        out = mx.nd.zeros((4, 5), ctx=ctx)
+        kv.pull(3, out=out)
+        g = mx.nd.array([0.6, -0.7, 0.1, 0.0], ctx=ctx)
+        outp = mx.nd.zeros((4,), ctx=ctx)
+        kv.pushpull(9, g, out=outp)
+        wire = torch.arange(4096, dtype=torch.float32, device=ctx.device)
+        kv._allreduce(wire)  # the store's NCCL all-reduce, over one rank
+        torch.cuda.synchronize()
+        values_ok = (np.array_equal(out.asnumpy(), np.full((4, 5), 3.0, np.float32))
+                     and np.array_equal(outp.asnumpy(), g.asnumpy())
+                     and torch.equal(wire, torch.arange(4096, dtype=torch.float32,
+                                                        device=ctx.device)))
+        counts = pmesh.collective_counts()
+        ok = (values_ok and kv.num_workers == 1 and kv.rank == 0 and mesh.world == 1
+              and dist.get_backend() == "nccl" and counts.get("nccl") == 1)
+        emit("dist", check="nccl_one_rank", backend=dist.get_backend(), world=kv.num_workers,
+             mesh=repr(mesh), values_exact=values_ok, collectives=counts, ok=ok)
+    finally:
+        dist.destroy_process_group()
+    if not ok:
+        sys.exit(1)
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, str(root / "tools" / "launch_local.py"), "-n", "2", sys.executable,
+           str(root / "tests" / "torch_dist_worker.py"), "kv,overlap,spmd", "--device",
+           "cuda:0", "--backend", "gloo", "--model", "bert", "--steps", "1", "--tol",
+           str(DIST_SPMD_TOL)]
+    t1 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=DIST_TIMEOUT_S,
+                          cwd=root)
+    log = root / "chiprun_out" / "dist_cohort.log"
+    log.parent.mkdir(exist_ok=True)
+    log.write_text(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(("rank", "torch_dist"))]
+    passed = {name: proc.stdout.count(f"{name} assertions passed")
+              for name in ("kv", "overlap", "spmd")}
+    ok = proc.returncode == 0 and all(n == 2 for n in passed.values())
+    emit("dist", check="gloo_two_ranks_one_card", ranks=2, device="cuda:0", backend="gloo",
+         model="BERTForPretrain at BERT-base width (768 units, 12 heads, vocab 30522), cut to "
+               "2 layers; overlap: bf16, Adam mp; spmd: fp32, SGD momentum, one step",
+         spmd_tol=DIST_SPMD_TOL, rc=proc.returncode, passed=passed, lines=lines,
+         stderr_tail=proc.stderr[-1500:] if not ok else "", log=str(log),
+         cohort_s=time.perf_counter() - t1, phase_s=time.perf_counter() - t0, card=smi, ok=ok)
+    if not ok:
+        sys.exit(1)
+
+
 # -- phase 6c: the rest of the training surface --------------------------------
 # BERT-base pretraining under fp16 AMP with LAMB, linear warm-up and
 # polynomial decay and dynamic loss scaling (large-batch BERT's recipe), and
@@ -3629,6 +4041,7 @@ def _traced_families(fn, families):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _lead()
         fn()
         torch.cuda.synchronize()
     got = {fam: 0 for _, fam in families}
@@ -4422,6 +4835,7 @@ def _time(fn, arg_sets, iters, uniform=False):
     call_ms = start.elapsed_time(end) / iters
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _lead()
             fn(*arg_sets[-1])  # the warm-up call, then the sentinel
             torch.cuda._sleep(SENTINEL_CYCLES)
             for i in range(iters):
@@ -5675,6 +6089,7 @@ def main():
         rnet, rtrainer, rbatch, _, _ = phase_resnet_train(rehearsal=True)
         phase_resnet_train_vs_cpu(rehearsal=True)
         phase_fold((tnet, trainer, batch), (rnet, rtrainer, rbatch), rehearsal=True)
+        phase_spmd(rehearsal=True)
         phase_train_surface(rehearsal=True)
         rehearse_times(net, main_req, (tnet, trainer, batch), (rnet, rtrainer, rbatch))
         phase_observe((tnet, trainer, batch), rehearsal=True)
@@ -5720,13 +6135,16 @@ def main():
                                       "rtc_train_step": rtc_counts, **fold_counts,
                                       **surface_counts, **sb_counts},
                           errs, (fold_progs, fold_records), smi, (sbert, sresnet))
-    del sbert, sresnet
-    # observe and the serving phases run after the timing phase: after each
-    # of them kineto drops a few kernel records of every later CUDA-only
+    del sbert, sresnet, fold_progs, fold_records
+    torch.cuda.empty_cache()  # the fold's graphs: spmd captures ResNet-50 twice
+    # spmd, observe and the serving phases run after the timing phase: after
+    # each of them kineto drops kernel records of every later CUDA-only
     # profiler trace as out of its window (ROADMAP §3 "Not faults"), and the
     # timing phase reads those traces; observe runs before the serving
     # phases, whose drops are larger
-    paths = phase_observe((tnet, trainer, batch), rehearsal=False, smi=smi)
+    paths = phase_spmd(rehearsal=False, smi=smi)
+    phase_dist(smi)
+    paths.update(phase_observe((tnet, trainer, batch), rehearsal=False, smi=smi))
     paths.update(phase_generation(rehearsal=False, seed=args.seed, smi=smi))
     paths.update(phase_serve(net, main_req, rehearsal=False, smi=smi))
     for path, counts in paths.items():

@@ -36,9 +36,12 @@ from .executor import Executor
 from . import profiler
 from . import predictor
 from . import serving
+from . import kvstore
+from . import kvstore as kv
+from . import parallel
 
 __all__ = ["MXNetError", "DeferredInitializationError", "Context", "cpu", "gpu", "cpu_pinned",
            "current_context", "num_gpus", "context", "autograd", "random",
            "initializer", "init", "ops", "nd", "ndarray", "NDArray", "optimizer", "lr_scheduler", "gluon", "amp", "convert", "operator",
            "rtc", "name", "attribute", "AttrScope", "symbol", "sym", "Executor", "profiler",
-           "predictor", "serving"]
+           "predictor", "serving", "kvstore", "kv", "parallel"]

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from ..base import as_torch_dtype
+from ..base import as_torch_dtype, invalidate_jit_caches
 from ..ops import registry
 from . import lists
 
@@ -80,6 +80,7 @@ def init(target_dtype="bfloat16"):
     if str(target_dtype) not in ("bfloat16", "float16"):
         raise ValueError(f"AMP target dtype must be bfloat16 or float16, got {target_dtype!r}")
     registry._amp = _AmpPolicy(str(target_dtype))
+    invalidate_jit_caches()  # programs built before trace the old dispatch
 
 
 def is_enabled():

@@ -16,6 +16,15 @@ returns gradients without touching those buffers, and with
 ``create_graph``: higher-order gradients.  The attention kernels have no
 double backward: on the card a differentiable gradient through them raises
 (``ops/attention.py``), on the CPU it goes through the plain attention.
+
+``backward(grad_ready_hook=hook)`` calls ``hook(leaf)`` once for each leaf
+the moment its gradient is final and written to its buffer, while the rest
+of the backward runs: PyTorch runs a leaf's gradient accumulation once,
+after every contribution to it, and the port's own hook that moves the
+gradient into the buffer (``Parameter._take_grad``,
+``NDArray._take_grad``) then calls :func:`_grad_ready`.  ``leaf`` is the
+Parameter's tensor (``param.data()``) or the ``attach_grad`` NDArray.
+``Trainer.backward`` launches each gradient bucket's all-reduce from it.
 """
 from __future__ import annotations
 
@@ -28,6 +37,9 @@ __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording", "is_
            "set_recording", "set_training", "backward", "grad", "mark_variables", "Function"]
 
 _tls = threading.local()
+# the grad_ready_hook of each backward in flight (the hooks run on
+# PyTorch's backward threads, so the list is the process's, not a thread's)
+_ready_hooks = []
 
 
 def is_recording():
@@ -97,13 +109,9 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True,
     each with ``head_grads`` or, as MXNet does, with ones, so a per-sample
     loss vector needs no ``.sum()``.  Gradients land in the Parameters'
     buffers (and attached NDArrays' ``grad``) by their ``grad_req``.
-    ``grad_ready_hook`` (the reference's per-leaf readiness callback, which
-    ``Trainer.backward`` overlaps gradient communication with) waits in
-    ROADMAP §1 item 6: accepted at None, anything else raises."""
-    if grad_ready_hook is not None:
-        raise NotImplementedError(
-            "autograd.backward(grad_ready_hook=): the per-leaf readiness hook and the "
-            "Trainer.backward overlap it serves wait in ROADMAP §1 item 6")
+    ``grad_ready_hook(leaf)`` is called for each leaf as soon as its
+    gradient is final and written (see the module doc), while the backward
+    goes on; an exception it raises ends the backward and propagates."""
     if not isinstance(heads, (list, tuple)):
         heads = [heads]
     if head_grads is None:
@@ -120,7 +128,21 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True,
                 "cannot differentiate a head that is not part of the recorded "
                 "graph; compute it inside autograd.record() from Parameters")
     seeds = [torch.ones_like(h) if g is None else g for h, g in zip(heads, head_grads)]
-    torch.autograd.backward(heads, seeds, retain_graph=retain_graph)
+    if grad_ready_hook is None:
+        torch.autograd.backward(heads, seeds, retain_graph=retain_graph)
+        return
+    _ready_hooks.append(grad_ready_hook)
+    try:
+        torch.autograd.backward(heads, seeds, retain_graph=retain_graph)
+    finally:
+        _ready_hooks.remove(grad_ready_hook)
+
+
+def _grad_ready(leaf):
+    """A leaf's gradient is final and in its buffer: call the readiness
+    hook of each backward in flight."""
+    for hook in tuple(_ready_hooks):
+        hook(leaf)
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None, create_graph=False,

@@ -5,6 +5,8 @@ Counterpart of the JAX package's ``base.py``: MXNet's dtype names map onto
 """
 from __future__ import annotations
 
+import weakref
+
 import numpy as _np
 import torch
 
@@ -13,6 +15,8 @@ __all__ = [
     "DeferredInitializationError",
     "as_torch_dtype",
     "dtype_name",
+    "register_jit_cache_owner",
+    "invalidate_jit_caches",
 ]
 
 
@@ -53,3 +57,21 @@ def as_torch_dtype(dtype):
 def dtype_name(dtype):
     """MXNet's name for a dtype (``torch.bfloat16`` -> ``"bfloat16"``)."""
     return _NAMES[as_torch_dtype(dtype)]
+
+
+# Objects holding built programs (captured graphs, plans) that a change of
+# the op dispatch (``amp.init``) makes stale; held weakly.
+_jit_cache_owners = weakref.WeakSet()
+
+
+def register_jit_cache_owner(obj):
+    """Register ``obj`` (with an ``_invalidate_jit_cache()`` method) for
+    :func:`invalidate_jit_caches`."""
+    _jit_cache_owners.add(obj)
+
+
+def invalidate_jit_caches():
+    """Drop every registered owner's built programs: the next call builds
+    anew under the current dispatch."""
+    for obj in list(_jit_cache_owners):
+        obj._invalidate_jit_cache()

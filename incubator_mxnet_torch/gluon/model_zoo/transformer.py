@@ -99,10 +99,23 @@ def transformer_big(vocab_size, max_length=1024, dropout=0.3, **kwargs):
 
 
 def transformer_sharding_rules(fsdp=False):
-    """The reference's tensor-parallel placement for ``SPMDTrainer``; the
-    port has no SPMD trainer yet."""
-    raise NotImplementedError(
-        "transformer_sharding_rules: sharding rules and SPMDTrainer wait in ROADMAP §1 item 6")
+    """Megatron-style tensor-parallel placement for ``SPMDTrainer``, built as
+    the JAX package builds it: QKV and FFN-in column-parallel, out-proj and
+    FFN-out row-parallel, the embedding vocab-sharded.  The port's trainer
+    places parameters replicated only: given these rules it raises, naming
+    ROADMAP §1 item 6b."""
+    from ...parallel.sharding import ShardingRules
+
+    dp = "fsdp" if fsdp else None
+    return ShardingRules(rules=[
+        (r".*qkv_weight$", ("tp", dp)),
+        (r".*kv_weight$", ("tp", dp)),
+        (r".*q_weight$", ("tp", dp)),
+        (r".*ffn1_weight$", ("tp", dp)),
+        (r".*(out|ffn2)_weight$", (dp, "tp")),
+        (r".*embed_weight$", ("tp", dp)),
+        (r".*_bias$", (None,)),
+    ])
 
 
 # ---------------------------------------------------------------------------

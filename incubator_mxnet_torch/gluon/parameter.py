@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as _np
 import torch
 
+from .. import autograd
 from .. import initializer as _init_mod
 from ..base import DeferredInitializationError, as_torch_dtype, dtype_name
 from ..context import Context, current_context
@@ -127,6 +128,8 @@ class Parameter:
         else:
             self._grad.copy_(g)
         self._grad_version += 1
+        if autograd._ready_hooks:
+            autograd._grad_ready(tensor)
 
     def initialize(self, init=None, ctx=None, default_init=None, force_reinit=False):
         """Allocate and initialize on ``ctx`` (default: the current context,

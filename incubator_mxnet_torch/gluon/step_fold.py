@@ -44,12 +44,15 @@ copies in place and keeps the graph).
 Escape hatches, as in the JAX package: ``MXNET_STEP_FOLD=0``, a block with
 ``_step_fold_opt_out = True``, a parameter with ``grad_req="add"``, an
 optimizer with no fused update, and any capture failure fall back to the
-eager record/backward/step path for good, with one warning; a call while
-a parameter is deferred runs one eager step.  Each eager step of a program
-counts in the profiler's ``step_fold_fallback`` under its label
+eager record/backward/step path for good, with one warning; so does a
+Trainer whose optimizer runs on its kvstore (``update_on_kvstore``, the
+JAX package's ``async-PS`` label: the optimizer is the store's); a call
+while a parameter is deferred runs one eager step.  Each eager step of a
+program counts in the profiler's ``step_fold_fallback`` under its label
 (``FALLBACK_LABELS``, ``profiler.incr_labeled``).  The JAX package's
-``naive-engine`` and ``async-PS`` labels have no counterpart: the port has
-no engine switch and no kvstore yet.
+``naive-engine`` label has no counterpart: the port has no engine switch.
+A Trainer whose kvstore has more than one worker does not fold at all
+(``Trainer.fold_step`` raises, naming ROADMAP §1 item 6b).
 
 The profiler sees the fold as the JAX package's does: a folded call counts
 in ``step_fold_call`` (``fold_eval_call`` for evaluation), records a
@@ -79,7 +82,7 @@ __all__ = ["StepProgram", "EvalProgram", "fold_update", "fold_enabled", "step_fa
            "fold_k", "FALLBACK_LABELS"]
 
 FALLBACK_LABELS = ("env-off", "block-opt-out", "grad-req-add", "unsupported-optimizer",
-                   "capture-failure", "deferred-init")
+                   "async-PS", "capture-failure", "deferred-init")
 
 
 def fold_enabled():
@@ -245,6 +248,8 @@ class StepProgram(metaclass=_CounterViews):
     ``captures`` the graphs' replays and captures."""
 
     _CALLS_COUNTER = "step_fold_call"
+    _SPAN = "trainer.step_fold"   # the span of a folded call
+    _SITE = "gluon.step_fold"     # the compile registry's site of a build
     replays = 0
     captures = 0
 
@@ -402,6 +407,10 @@ class StepProgram(metaclass=_CounterViews):
     def _folded(self, batch, batch_size, kw):
         tr = self._trainer
         tr._check_and_rescale_grad(tr._scale / batch_size)
+        if tr._on_store():
+            self._note_fallback("the optimizer runs on the kvstore (update_on_kvstore)",
+                                "async-PS")
+            return self._eager(batch, batch_size, kw)
         touched = self._touched()
         if touched is None:
             return self._eager(batch, batch_size, kw)
@@ -433,7 +442,7 @@ class StepProgram(metaclass=_CounterViews):
             for i, p in touched:  # the freshness snapshot of Trainer._update
                 tr._grad_versions[i] = p.grad_version
             if t0 is not None:
-                _profiler.record_span("trainer.step_fold", "trainer", t0,
+                _profiler.record_span(self._SPAN, "trainer", t0,
                                       args={"params": len(touched), "k": kw or 1})
             _profiler.incr("step_fold_call")
             if built_ms is not None:
@@ -442,7 +451,7 @@ class StepProgram(metaclass=_CounterViews):
             _profiler.step_boundary()  # one a call, however many steps it holds
         if not self._guard_armed and (device.type == "cpu" or self._captured):
             self._guard_armed = True
-            _profiler.arm_compile_guard("gluon.step_fold")
+            _profiler.arm_compile_guard(self._SITE)
         return out
 
     def _record_build(self, batch, kw, tail, wall_ms):
@@ -456,9 +465,9 @@ class StepProgram(metaclass=_CounterViews):
             sig[f"in{i}"] = _profiler.sig_array(b)
         if kw is not None and kw != self._k:
             with _profiler.compile_guard_paused():
-                _profiler.record_compile("gluon.step_fold", sig, wall_ms)
+                _profiler.record_compile(self._SITE, sig, wall_ms)
         else:
-            _profiler.record_compile("gluon.step_fold", sig, wall_ms)
+            _profiler.record_compile(self._SITE, sig, wall_ms)
 
     @staticmethod
     def _row(batch, j, kw):

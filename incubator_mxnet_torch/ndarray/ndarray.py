@@ -368,6 +368,8 @@ class NDArray:
         else:
             self._grad._data = g
         self._grad._version += 1
+        if autograd._ready_hooks:
+            autograd._grad_ready(self)
 
     def zero_grad(self):
         if self._grad is not None:

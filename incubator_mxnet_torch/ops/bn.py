@@ -16,19 +16,74 @@ Gradients: ``trainable_batch_norm`` is a ``torch.autograd.Function`` whose
 forward runs the two passes and whose backward recomputes the reference
 formula in plain PyTorch and differentiates it, as the JAX package's
 ``custom_vjp`` differentiates the same formula with XLA.
+
+Across ranks (``SPMDTrainer`` at world > 1, inside :func:`global_batch`):
+the JAX package's data-parallel step is one program over the global
+batch, so its batch statistics are the global batch's.  Here each rank
+holds its own rows: the per-channel (Σx, Σx²) of ``bn_stats`` are summed
+over the ranks before ``bn_apply``, the count is the global one, and the
+backward's sums go through :class:`_GlobalSum`, whose gradient is summed
+over the ranks too.  With no group nothing changes.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
 import torch
 
 from . import _cuda
 
 __all__ = ["bn_stats", "bn_stats_plain", "bn_apply", "bn_apply_res", "bn_apply_plain",
-           "fused_bn_relu", "trainable_batch_norm", "batch_norm_reference"]
+           "fused_bn_relu", "trainable_batch_norm", "batch_norm_reference", "global_batch",
+           "sync_group", "global_sums"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_sync = threading.local()
+
+
+@contextlib.contextmanager
+def global_batch(group):
+    """Within the scope, train-mode BatchNorm in this thread normalizes by
+    the statistics of the rows of every rank of ``group`` (an object with
+    ``size`` and an in-place summing ``all_reduce(tensor)``, such as a
+    ``parallel.Mesh``); None restores the local statistics."""
+    prev = getattr(_sync, "group", None)
+    _sync.group = group
+    try:
+        yield group
+    finally:
+        _sync.group = prev
+
+
+def sync_group():
+    """The group of the innermost :func:`global_batch` scope, or None."""
+    return getattr(_sync, "group", None)
+
+
+class _GlobalSum(torch.autograd.Function):
+    """The sum of ``x`` over the ranks of ``group``; its gradient is the sum
+    of the ranks' gradients (each rank's loss is its rows' part of one
+    loss over the global batch)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        group.all_reduce(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        ctx.group.all_reduce(g)
+        return g, None
+
+
+def global_sums(sums, group):
+    """``sums`` summed over ``group``'s ranks, differentiably."""
+    return _GlobalSum.apply(sums, group)
 # bn_stats splits N into slabs so that C·S blocks fill the card's 132 SMs a
 # few times over; a slab keeps at least one row per group of lanes.
 _STATS_BLOCKS = 2112
@@ -200,14 +255,18 @@ def _as_rows(x_nchw):
     return x_nchw.reshape(n, c, h * w)
 
 
-def fused_bn_relu(x_nchw, gamma, beta, eps=1e-5, residual=None, relu=True):
+def fused_bn_relu(x_nchw, gamma, beta, eps=1e-5, residual=None, relu=True, group=None):
     """Train-mode BatchNorm (+residual, +ReLU) over NCHW conv output through
     the two passes: returns ``(out, batch_mean, batch_var)``, out in x's
-    dtype, mean and var fp32 with var = max(E[x²] − E[x]², 0) (biased)."""
+    dtype, mean and var fp32 with var = max(E[x²] − E[x]², 0) (biased).
+    With ``group`` the statistics are those of every rank's rows."""
     n, c, h, w = x_nchw.shape
     x = _as_rows(x_nchw)
     stats = bn_stats(x)
     cnt = float(n * h * w)
+    if group is not None:
+        group.all_reduce(stats)
+        cnt *= group.size
     mean = stats[:, 0] / cnt
     var = torch.clamp_min(stats[:, 1] / cnt - mean * mean, 0.0)
     scale = gamma.float() * torch.rsqrt(var + eps)
@@ -217,13 +276,20 @@ def fused_bn_relu(x_nchw, gamma, beta, eps=1e-5, residual=None, relu=True):
     return out.view(n, c, h, w), mean, var
 
 
-def batch_norm_reference(x, gamma, beta, eps=1e-5):
+def batch_norm_reference(x, gamma, beta, eps=1e-5, group=None):
     """The reference formula over NCHW: fp32 one-pass statistics, out in x's
-    dtype; returns ``(out, mean, var)``.  Differentiable."""
+    dtype; returns ``(out, mean, var)``.  Differentiable.  With ``group``
+    the statistics are those of every rank's rows."""
     x32 = x.float()
     axes = (0, 2, 3)
-    mean = x32.mean(dim=axes)
-    var = torch.clamp_min((x32 * x32).mean(dim=axes) - mean * mean, 0.0)
+    if group is None:
+        mean = x32.mean(dim=axes)
+        var = torch.clamp_min((x32 * x32).mean(dim=axes) - mean * mean, 0.0)
+    else:
+        cnt = x32.numel() // x32.shape[1] * group.size
+        sums = global_sums(torch.stack([x32.sum(dim=axes), (x32 * x32).sum(dim=axes)]), group)
+        mean = sums[0] / cnt
+        var = torch.clamp_min(sums[1] / cnt - mean * mean, 0.0)
     inv = torch.rsqrt(var + eps) * gamma.float()
     out = ((x32 - mean[None, :, None, None]) * inv[None, :, None, None]
            + beta.float()[None, :, None, None])
@@ -232,9 +298,9 @@ def batch_norm_reference(x, gamma, beta, eps=1e-5):
 
 class _TrainableBN(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps):
-        out, mean, var = fused_bn_relu(x, gamma, beta, eps=eps, relu=False)
-        ctx.eps = eps
+    def forward(ctx, x, gamma, beta, eps, group):
+        out, mean, var = fused_bn_relu(x, gamma, beta, eps=eps, relu=False, group=group)
+        ctx.eps, ctx.group = eps, group
         ctx.save_for_backward(x, gamma, beta)
         return out, mean, var
 
@@ -244,15 +310,15 @@ class _TrainableBN(torch.autograd.Function):
             inputs = [t.detach().requires_grad_(w)
                       for t, w in zip(ctx.saved_tensors, ctx.needs_input_grad)]
             with torch.enable_grad():
-                outs = batch_norm_reference(*inputs, eps=ctx.eps)
+                outs = batch_norm_reference(*inputs, eps=ctx.eps, group=ctx.group)
                 pairs = [(o, g) for o, g in zip(outs, (dout, dmean, dvar)) if o.requires_grad]
                 torch.autograd.backward([o for o, _ in pairs], [g for _, g in pairs])
-            return tuple(t.grad for t in inputs) + (None,)
+            return tuple(t.grad for t in inputs) + (None, None)
 
 
 def trainable_batch_norm(x_nchw, gamma, beta, eps=1e-5):
     """Train-mode NCHW BatchNorm: the two kernels forward (the plain versions
     on the CPU), the reference formula's gradient backward.  Returns
     ``(out, batch_mean, batch_var)``, each differentiable in x, gamma and
-    beta."""
-    return _TrainableBN.apply(x_nchw, gamma, beta, float(eps))
+    beta; inside :func:`global_batch` over every rank's rows."""
+    return _TrainableBN.apply(x_nchw, gamma, beta, float(eps), sync_group())

@@ -403,11 +403,18 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-5, momentum=0.
     reduce_axes = tuple(i for i in range(data.ndim) if i != ax)
     bshape = tuple(data.shape[ax] if i == ax else 1 for i in range(data.ndim))
     x32 = data.float()
+    group = None if use_global_stats else bn.sync_group()
     if use_global_stats:
         mean, var = moving_mean.float(), moving_var.float()
-    else:
+    elif group is None:
         mean = x32.mean(dim=reduce_axes)
         var = torch.clamp_min((x32 * x32).mean(dim=reduce_axes) - mean * mean, 0.0)
+    else:  # every rank's rows (SPMDTrainer at world > 1: ops/bn.py global_batch)
+        cnt = x32.numel() // x32.shape[ax] * group.size
+        sums = bn.global_sums(torch.stack([x32.sum(dim=reduce_axes),
+                                           (x32 * x32).sum(dim=reduce_axes)]), group)
+        mean = sums[0] / cnt
+        var = torch.clamp_min(sums[1] / cnt - mean * mean, 0.0)
     inv = torch.rsqrt(var + eps)
     out = ((x32 - mean.reshape(bshape)) * (g.float() * inv).reshape(bshape)
            + beta.float().reshape(bshape))

@@ -37,8 +37,11 @@ semantics, on PyTorch and the CUDA card:
   ``torch.cuda.OutOfMemoryError`` and ``MemoryBudget`` admission.
 
 ``MXNET_PROFILER_AUTOSTART=1`` starts the recorder at import and dumps at
-exit.  The transports that feed peer metrics and clock offsets (the
-kvstore's heartbeats) come with the port's multi-GPU slice.
+exit.  Clock offsets of a multi-process run come from
+``parallel.sync_profiler_clock`` (a broadcast of rank 0's clock over the
+process group at ``init_distributed``); the heartbeat wire that carries
+peer metrics belongs to the asynchronous parameter server (ROADMAP §1
+item 9).
 """
 from __future__ import annotations
 
@@ -136,8 +139,8 @@ def _tally(name, dur):
 # THE declared set: ``incr`` on any other name raises; extensions declare
 # theirs with ``declare_counter``.  Each subsystem of the port counts here;
 # the JAX package's counters of subsystems the port does not have yet
-# (dispatch cache, engine bulking, kvstore, io, async PS, pipeline, MoE,
-# elastic) come with them.
+# (dispatch cache, engine bulking, io, async PS, pipeline, MoE, elastic,
+# gradient compression) come with them.
 _counters = {
     "fused_step_call": 0,             # fused optimizer group updates (kernel launches
                                       # or one fold_update replay)
@@ -147,6 +150,10 @@ _counters = {
     "step_fold_fallback": 0,          # fold entries that ran the eager path
                                       # (per-reason split: counter_labels())
     "fold_eval_call": 0,              # folded-eval calls
+    "allreduce_overlap_launched": 0,  # buckets launched from the grad-readiness
+                                      # hook (Trainer.backward overlap)
+    "allreduce_bucket": 0,            # bucketed gradient all-reduces
+    "allreduce_bucket_params": 0,     # grads carried by those buckets
     "profiler_trace_error": 0,        # torch.profiler start/stop failures
     "slow_step_detected": 0,          # slow-step detector firings
     "metrics_snapshot": 0,            # metrics_snapshot() captures taken
@@ -310,12 +317,14 @@ _ring_gen = 0   # bumped by a fresh start(): stale thread-local rings are abando
 _tls = _threading.local()
 
 # step-bucket attribution: only root spans bill (a nested phase would
-# double-bill its parent's time); the port has no kvstore yet, so nothing
-# of its own bills "comms"
+# double-bill its parent's time): the kvstore's push/pull/pushpull bill
+# "comms", and a bucket's kvstore.bucketed_pushpull does not, since the
+# kvstore.pushpull of its wire wait lies inside it
 _BUCKET_OF = {
     "dispatch.raw": "host",
     "fused.group_apply": "host",
     "io.wait": "host",
+    "spmd.shard_batch": "host",  # a step's host-to-device batch copy
     "kvstore.pushpull": "comms",
     "kvstore.push": "comms",
     "kvstore.pull": "comms",

@@ -22,6 +22,7 @@ import torch
 
 import incubator_mxnet_tpu as mxj
 from incubator_mxnet_tpu.gluon import parameter as jparameter
+from incubator_mxnet_tpu.gluon.model_zoo import transformer as jtransformer_zoo
 from incubator_mxnet_tpu.gluon.nn import transformer as jtransformer
 from incubator_mxnet_tpu.ops import optimizer_ops as jopt_ops
 from incubator_mxnet_tpu.ops import registry as jregistry
@@ -456,11 +457,18 @@ def test_keywords_outside_the_port_raise_naming_their_item(tmp_path):
         tparameter.Parameter("w", "write", (2,), "float32", 1.0, 1.0, None, False, True,
                              "default", "row_sparse")
     assert tparameter.Parameter("w", shape=(2,), stype="default", grad_stype="default")
+    # autograd.backward's grad_ready_hook is honoured since ROADMAP §1 item 6:
+    # it sees each leaf once, its gradient written
     x = torch.ones(2, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6"):
-        mx.autograd.backward((x * 2).sum(), grad_ready_hook=lambda leaf: None)
     mx.autograd.backward((x * 2).sum(), grad_ready_hook=None)
     assert x.grad.tolist() == [2.0, 2.0]
+    a = mx.nd.ones((2,), ctx=mx.cpu())
+    a.attach_grad()
+    seen = []
+    with mx.autograd.record():
+        y = (a * 3).sum()
+    mx.autograd.backward(y, grad_ready_hook=lambda leaf: seen.append(leaf.grad.asnumpy()))
+    assert len(seen) == 1 and seen[0].tolist() == [3.0, 3.0]
 
 
 def test_record_compile_keeps_fn_and_device_stats_take_devices():
@@ -570,6 +578,46 @@ SURFACE_PAIRS = (
 @pytest.mark.parametrize("name,ref,port", SURFACE_PAIRS, ids=[p[0] for p in SURFACE_PAIRS])
 def test_training_surface_in_the_reference_order(name, ref, port):
     """Every public name the training slice added begins with the JAX
+    package's parameters, in order, with its defaults."""
+    want = _public_params(ref)
+    assert _public_params(port)[:len(want)] == want, name
+
+
+# The data-parallel tier (ROADMAP §1 item 6, its pure-dp half).
+_KV_METHODS = ("init", "push", "pull", "pushpull", "broadcast", "row_sparse_pull",
+               "set_optimizer", "save_optimizer_states", "load_optimizer_states", "barrier",
+               "supports_grad_bucketing", "membership_epoch", "wire_allreduce")
+PARALLEL_PAIRS = (
+    [(f"parallel.{n}", getattr(mxj.parallel, n), getattr(mx.parallel, n)) for n in (
+        "make_mesh", "local_mesh", "current_mesh", "mesh_scope", "init_distributed",
+        "default_rules", "fsdp_rules", "param_sharding", "batch_pspec", "shard_array",
+        "replicate")]
+    + [("parallel.sync_profiler_clock", mxj.parallel.mesh.sync_profiler_clock,
+        mx.parallel.sync_profiler_clock),
+       ("MeshConfig.resolve", mxj.parallel.MeshConfig.resolve, mx.parallel.MeshConfig.resolve),
+       ("ShardingRules.__init__", mxj.parallel.ShardingRules.__init__,
+        mx.parallel.ShardingRules.__init__),
+       ("ShardingRules.spec_for", mxj.parallel.ShardingRules.spec_for,
+        mx.parallel.ShardingRules.spec_for),
+       ("ShardingRules.add", mxj.parallel.ShardingRules.add, mx.parallel.ShardingRules.add)]
+    + [(f"SPMDTrainer.{n}", getattr(mxj.parallel.SPMDTrainer, n),
+        getattr(mx.parallel.SPMDTrainer, n)) for n in (
+        "__init__", "step", "step_bulk", "step_window", "shard_batch", "shard_window",
+        "sync_to_block", "save_states", "load_states", "learning_rate")]
+    + [(f"kvstore.{n}", getattr(mxj.kvstore, n), getattr(mx.kvstore, n)) for n in (
+        "create", "bucket_bytes", "plan_buckets", "execute_bucket", "bucketed_pushpull")]
+    + [(f"KVStore.{n}", getattr(mxj.kvstore.KVStore, n), getattr(mx.kvstore.KVStore, n))
+       for n in _KV_METHODS]
+    + [(f"Trainer.{n}", getattr(mxj.gluon.Trainer, n), getattr(mx.gluon.Trainer, n))
+       for n in ("__init__", "backward", "allreduce_grads", "step", "update")]
+    + [("transformer_sharding_rules", jtransformer_zoo.transformer_sharding_rules,
+        mx.gluon.model_zoo.transformer_sharding_rules)]
+)
+
+
+@pytest.mark.parametrize("name,ref,port", PARALLEL_PAIRS, ids=[p[0] for p in PARALLEL_PAIRS])
+def test_parallel_tier_in_the_reference_order(name, ref, port):
+    """Every public name of the data-parallel tier begins with the JAX
     package's parameters, in order, with its defaults."""
     want = _public_params(ref)
     assert _public_params(port)[:len(want)] == want, name

@@ -331,11 +331,22 @@ def test_blocks_record_only_inside_record_and_predict_mode_drops_nothing():
 
 
 def test_trainer_runs_on_one_device_only():
+    """One process: every store the port has sums nothing across workers,
+    and a step with one is the step without; the tiers of later slices
+    raise, naming their ROADMAP items."""
     net = nn.Dense(2, in_units=2)
     net.initialize(ctx=mx.cpu())
-    for kv in ("dist_sync", "local"):
-        with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-            mx.gluon.Trainer(net.collect_params(), "sgd", kvstore=kv)
+    for kv in ("dist_sync", "local", "device", mx.kv.create("local")):
+        tr = mx.gluon.Trainer(net.collect_params(), "sgd", {"learning_rate": 0.0}, kvstore=kv)
+        with mx.autograd.record():
+            y = net(torch.ones(1, 2))
+        tr.backward(y)
+        tr.step(1)
+        assert tr._kvstore.num_workers == 1
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6b"):
+        mx.gluon.Trainer(net.collect_params(), "sgd", compression_params={"type": "2bit"})
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 9"):
+        mx.gluon.Trainer(net.collect_params(), "sgd", kvstore="dist_async").step(1)
     tr = mx.gluon.Trainer(net.collect_params(), "sgd", {"learning_rate": 0.1}, kvstore=None)
     with mx.autograd.record():
         y = net(torch.ones(1, 2))

@@ -206,8 +206,26 @@ def test_transformer_big_shapes_match_jax():
 
 
 def test_sharding_rules_name_their_queue():
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6"):
-        tt.transformer_sharding_rules()
+    """The rules are the JAX package's; placing a parameter by them raises,
+    naming the queue of tensor and fsdp placement."""
+    from incubator_mxnet_torch import parallel as tpar
+
+    sizes = tpar.MeshConfig(tp=2, fsdp=2).resolve(8)
+    jmesh = mxj.parallel.make_mesh(tp=2, fsdp=2)
+    for fsdp in (False, True):
+        rules, jrules = tt.transformer_sharding_rules(fsdp), jt.transformer_sharding_rules(fsdp)
+        for name, shape in (("enc_qkv_weight", (96, 32)), ("dec_kv_weight", (64, 32)),
+                            ("ffn1_weight", (128, 32)), ("att_out_weight", (32, 32)),
+                            ("ffn2_weight", (32, 128)), ("src_embed_weight", (100, 32)),
+                            ("ffn1_bias", (128,)), ("ln_gamma", (32,))):
+            assert tuple(rules.spec_for(name, shape, sizes)) == tuple(
+                jrules.spec_for(name, shape, jmesh)), (fsdp, name)
+    net = mx.gluon.nn.Dense(4, in_units=8, prefix="enc_q_")
+    net.initialize(ctx=mx.cpu())
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6b"):
+        tpar.SPMDTrainer(net, mx.gluon.loss.L2Loss(), "sgd",
+                         rules=tt.transformer_sharding_rules(),
+                         mesh=tpar.make_mesh(devices=["cpu"]))
 
 
 def test_ndarray_inputs_follow_the_currency_rule(pair):
