@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # on a machine with a CUDA card
     python3 chip_smoke.py --cpu-rehearsal  # tiny BERT and ResNet on the CPU plain path
     python3 chip_smoke.py --inference-turns ROOT_A ROOT_B  # two checkouts' BERT forward
+    python3 chip_smoke.py --decode-load    # the decode pool's batch on an idle and a loaded card
 
 Phases, each printing JSON lines; no phase's failure is caught:
 
@@ -172,6 +173,34 @@ Phases, each printing JSON lines; no phase's failure is caught:
    ``dist_sync`` assertions on CUDA tensors, ``Trainer.backward``'s overlap
    bit-equal to a plain backward, ``SPMDTrainer`` at 2 ranks against 1,
    at BERT-base's width cut to 2 layers;
+6f. io (after dist, before observe): first a probe line (Pillow's
+   version, where libjpeg's header and library are, nvJPEG under the CUDA
+   toolkit, the cores); then ResNet-50 v1 as bench.py builds it (B=256,
+   AMP bf16, SGD momentum 0.9, wd 1e-4) through ``SPMDTrainer`` on
+   ``make_mesh()``, fed from a record file of 2048 seeded 500x375 JPEGs
+   (quality 90, written with ``recordio.pack_img`` into a temporary
+   directory the phase deletes) by ``ImageRecordIter`` (shuffle, random
+   crop and mirror, ImageNet mean and std, a decode thread a core up to
+   16) inside a ``DataPipeline`` with the autotuner on: the native path and
+   its decoder, the decode against the source pixels within JPEG's loss,
+   the iterator's decode img/s alone, two epochs of 8 steps, every
+   delivered batch (cloned on the consumer's stream at delivery) bit-equal
+   to the host batch that produced it, each epoch's labels a permutation
+   of the records', finite losses, 53/53/1 launches at the first step, the
+   pipeline's tensors passed straight through (no ``spmd.shard_batch``
+   span); epoch 2 timed between two runs of the same steps on a resident
+   batch (img/s), with the goodput ``data_wait`` share, the stalls and the
+   autotuned depth (reported); BERT-base (B=64, S=128, P=20, bf16, Adam
+   multi_precision, dropout 0, deterministic mode) from an ``NDArrayIter``
+   of 32 seeded batches through ``DataPipeline.stage_window(4)`` into
+   ``Trainer.fold_steps(k=4)`` and ``SPMDTrainer.step_window``: two windows
+   each bit-equal (parameters, states, losses) to the same windows stacked
+   by the caller, the epoch 8 full windows, 48/48/48/4 kernels in a
+   replay's trace; a ``gluon.data.DataLoader`` over
+   ``SyntheticImageDataset`` with ``ToTensor`` and ``Normalize``, 4
+   process workers and ``pin_memory``: two batches of 256 pinned, equal on
+   the card and to the main process's own transform; its launches are the
+   kernels line's ``io`` path;
 7. times: each kernel, its plain version and the library call at the main
    paths' shapes (the attention kernels also at the S=512 request, in fp32
    at the main shape, and by CUDA-graph replay), the kernel's bound; BERT
@@ -235,7 +264,7 @@ Phases, each printing JSON lines; no phase's failure is caught:
 
 The last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed on a CUDA card.  The rehearsal runs the slice, train, rtc_train,
-nd_surface, symbol_block, ResNet, fold, spmd, train_surface, timing,
+nd_surface, symbol_block, ResNet, fold, spmd, io, train_surface, timing,
 observe, serve and generation phases on the CPU at a tiny size, with the
 kernels' plain versions, and never prints it.  ``--inference-turns`` times only the
 BERT-base inference forward of two checkouts, each turn a fresh process
@@ -3961,6 +3990,512 @@ def phase_dist(smi):
         sys.exit(1)
 
 
+# -- phase 6f: the input pipeline ----------------------------------------------
+# ResNet-50 trained from a record file: seeded synthetic JPEGs packed with
+# mx.recordio, read by ImageRecordIter on the native decode pool inside a
+# DataPipeline (pinned staging, its own copy stream) into SPMDTrainer;
+# BERT-base windows staged by DataPipeline.stage_window into
+# Trainer.fold_steps and SPMDTrainer.step_window; a DataLoader with process
+# workers and pinned batches.
+IO_RECORDS = 2048        # JPEGs in the record file: 8 batches of 256 an epoch
+IO_IMAGE = (375, 500)    # their height and width (an ImageNet photo's usual size)
+IO_QUALITY = 90
+IO_MEAN = (123.68, 116.28, 103.53)  # ImageNet's, as CreateAugmenter's mean=True
+IO_STD = (58.395, 57.12, 57.375)
+IO_EPOCHS = 2            # epoch 1 checked (warm-up, capture, replays), epoch 2 timed
+IO_DECODE_BATCHES = 4    # batches the iterator's decode alone is timed over
+IO_WINDOW = 4            # stage_window's K
+IO_BERT_BATCHES = 32     # the NDArrayIter's batches: 8 windows an epoch
+IO_LOADER = (512, 256, 4)  # DataLoader samples, batch, process workers
+# A decode of one of these JPEGs against the pixels it was encoded from, in
+# [0, 255] units over a batch's center crops: quality 90 of the smooth
+# fields io_image makes loses a mean of 0.95 and at most 13 with libjpeg
+# (64 images at 500x375 and at 48x40, tests/test_torch_recordio.py holds
+# it); twice that leaves another decoder's IDCT and chroma upsampling room
+# to differ, and a wrong crop, channel order or scale exceeds it by far.
+IO_JPEG_MEAN_ERR = 2.0
+IO_JPEG_MAX_ERR = 26.0
+
+
+def io_image(i, hw, classes, seed=0):
+    """Record ``i``'s source pixels and label: a smooth random field at two
+    scales (a photo's low frequencies), the same for a seed and index on
+    every machine."""
+    from PIL import Image
+
+    rng = np.random.RandomState([seed, i])
+    h, w = hw
+    coarse = rng.randint(0, 256, (max(2, h // 60), max(2, w // 60), 3)).astype(np.uint8)
+    fine = rng.randint(0, 256, (max(2, h // 15), max(2, w // 15), 3)).astype(np.uint8)
+    a = np.asarray(Image.fromarray(coarse).resize((w, h), Image.BICUBIC), np.uint16)
+    b = np.asarray(Image.fromarray(fine).resize((w, h), Image.BILINEAR), np.uint16)
+    return ((3 * a + b) // 4).astype(np.uint8), int(rng.randint(0, classes))
+
+
+def io_record_file(path, n, hw, classes, seed=0):
+    """Write ``n`` seeded JPEG records with ``recordio.pack_img`` (encoded on
+    a thread a core); returns (labels, bytes)."""
+    from incubator_mxnet_torch import recordio
+
+    def one(i):
+        img, label = io_image(i, hw, classes, seed)
+        return recordio.pack_img(recordio.IRHeader(0, float(label), i, 0), img,
+                                 quality=IO_QUALITY), label
+
+    with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        packed = list(pool.map(one, range(n)))
+    w = recordio.MXRecordIO(path, "w")
+    for rec, _ in packed:
+        w.write(rec)
+    w.close()
+    return [lab for _, lab in packed], sum(len(rec) for rec, _ in packed)
+
+
+def _io_probe():
+    """Pillow's version, where the compiler would find libjpeg, nvJPEG under
+    the CUDA toolkit, the cores: printed before the phase."""
+    import ctypes.util
+    import glob
+
+    try:
+        import PIL
+        pillow = PIL.__version__
+    except ImportError:
+        pillow = "absent"
+    heads = [p for d in ("/usr/include", "/usr/local/include")
+             for p in glob.glob(f"{d}/jpeglib.h") + glob.glob(f"{d}/*/jpeglib.h")]
+    libs = [p for d in ("/usr/lib", "/usr/lib64", "/usr/local/lib", "/usr/lib/x86_64-linux-gnu")
+            for p in glob.glob(f"{d}/libjpeg.so*")]
+    from incubator_mxnet_torch.io import _native
+
+    cuda = _native.CUDA_HOME
+    return dict(pillow=pillow, jpeglib_h=heads or "absent",
+                libjpeg_so=libs or ctypes.util.find_library("jpeg") or "absent",
+                nvjpeg_h=str(cuda / "include" / "nvjpeg.h")
+                if (cuda / "include" / "nvjpeg.h").exists() else "absent",
+                cpu_count=os.cpu_count())
+
+
+@contextlib.contextmanager
+def _span_names():
+    """Count the profiler spans recorded inside the scope, by name."""
+    from incubator_mxnet_torch import profiler
+
+    names, orig = {}, profiler.record_span
+
+    def counting(name, *args, **kwargs):
+        names[name] = names.get(name, 0) + 1
+        return orig(name, *args, **kwargs)
+
+    profiler.record_span = counting
+    try:
+        yield names
+    finally:
+        profiler.record_span = orig
+
+
+def _io_epoch(pipe, tr, snaps, first=None):
+    """One epoch of SPMD steps on the pipeline's batches: each delivered
+    batch cloned on the consumer's stream at delivery (what the step
+    reads) beside its host batch; returns the losses (device tensors)."""
+    losses = []
+    for batch in pipe:
+        data, label = batch.data[0], batch.label[0]
+        snaps.append((data._data.clone(), label._data.clone(), batch.index))
+        losses.append(tr.step(data, label)._data)
+        if first is not None and not first:
+            first.update(kernels=kernel_counts(),
+                         variants=dict(mt.multi_tensor_update.launches_by_variant),
+                         passthrough=all(a is b._data for a, b in zip(
+                             tr.shard_batch(data, label), (data, label))))
+    return losses
+
+
+def _io_held(snaps):
+    """(every delivered batch bit-equal to its host batch, the epoch's
+    labels from the host batches)."""
+    equal = all(torch.equal(d.cpu(), h[0]) and torch.equal(lab.cpu(), h[1])
+                for d, lab, h in snaps)
+    labels = sorted(int(x) for _, _, h in snaps for x in h[1].tolist())
+    return equal, labels
+
+
+def _io_record_leg(rehearsal, ctx, smi, tmp):
+    """ResNet-50 v1 (bench.py's: B=256, AMP bf16, SGD momentum) through
+    SPMDTrainer on make_mesh(), fed from a record file of IO_RECORDS seeded
+    JPEGs by ImageRecordIter in a DataPipeline.  Returns (counts, ok)."""
+    from incubator_mxnet_torch import parallel, profiler
+    from incubator_mxnet_torch.io import DataPipeline, ImageRecordIter
+
+    n, hw, crop, b = ((64, (40, 48), 32, 16) if rehearsal
+                      else (IO_RECORDS, IO_IMAGE, 224, RESNET_B))
+    classes = TINY_RESNET["classes"] if rehearsal else 1000
+    threads = min(os.cpu_count() or 1, 16)
+    sync = (lambda: None) if rehearsal else torch.cuda.synchronize
+    rec = os.path.join(tmp, "train.rec")
+    t0 = time.perf_counter()
+    labels, nbytes = io_record_file(rec, n, hw, classes)
+    write_s = time.perf_counter() - t0
+    base = dict(data_shape=(3, crop, crop), batch_size=b, preprocess_threads=threads)
+
+    # the decoder against the source pixels: unaugmented, unnormalised, in order
+    fid = ImageRecordIter(rec, **base)
+    got = fid.next().data[0].asnumpy()
+    y0, x0 = (hw[0] - crop) // 2, (hw[1] - crop) // 2
+    ref = np.stack([io_image(i, hw, classes)[0][y0:y0 + crop, x0:x0 + crop].transpose(2, 0, 1)
+                    for i in range(b)]).astype(np.float32)
+    err = np.abs(got - ref)
+    fidelity = dict(mean_abs_err=float(err.mean()), max_abs_err=float(err.max()),
+                    bounds=[IO_JPEG_MEAN_ERR, IO_JPEG_MAX_ERR],
+                    ok=bool(err.mean() <= IO_JPEG_MEAN_ERR and err.max() <= IO_JPEG_MAX_ERR))
+    del fid
+
+    aug = dict(base, shuffle=True, rand_crop=True, rand_mirror=True, seed=0,
+               mean_r=IO_MEAN[0], mean_g=IO_MEAN[1], mean_b=IO_MEAN[2],
+               std_r=IO_STD[0], std_g=IO_STD[1], std_b=IO_STD[2])
+    alone = ImageRecordIter(rec, **aug)
+    t1 = time.perf_counter()
+    for _ in range(IO_DECODE_BATCHES):
+        alone.next()
+    decode_img_s = IO_DECODE_BATCHES * b / (time.perf_counter() - t1)
+    del alone
+
+    it = ImageRecordIter(rec, **aug)
+
+    def keep(batch):  # the host batch, held for the check after the steps
+        batch.index = [a._data for a in batch.data + batch.label]
+        return batch
+
+    mesh = _spmd_mesh(ctx)
+    pipe = DataPipeline(it, prep_fn=keep, mesh=mesh, name="io_record")
+    mx.amp.init("bfloat16")
+    profiler.set_config(slow_step_ms=1e9)  # telemetry: step_stats for the autotuner, goodput
+    try:
+        net = _build_resnet(rehearsal, ctx, 0)
+        n_bn = sum(isinstance(m, mx.gluon.nn.BatchNorm) for m in net.modules())
+        tr = parallel.SPMDTrainer(net, ce_loss, "sgd",
+                                  {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}, mesh=mesh)
+        first = {}
+        snaps = []
+        reset_kernel_counts()
+        with _span_names() as spans:
+            losses = _io_epoch(pipe, tr, snaps, first)
+            sync()
+            held = [_io_held(snaps)]
+            resident = snaps[-1][:2]
+            snaps = []
+
+            def resident_turn():
+                for _ in range(n // b):
+                    tr.step(*resident)
+
+            def pipeline_turn():
+                losses.extend(_io_epoch(pipe, tr, snaps))
+
+            turns = []
+            for name, fn in (("resident", resident_turn), ("pipeline", pipeline_turn),
+                             ("resident", resident_turn)):
+                if name == "pipeline":
+                    profiler.reset_goodput()
+                sync()
+                t2 = time.perf_counter()
+                fn()
+                sync()
+                turns.append(dict(turn=name, img_s=n / (time.perf_counter() - t2)))
+                if name == "pipeline":
+                    goodput = profiler.goodput_snapshot()
+            held.append(_io_held(snaps))
+        stats = pipe.stats()
+        prog = tr._programs["step"]
+        loss_values = [float(x) for x in losses]
+    finally:
+        pipe.close()
+        profiler.set_config(slow_step_ms=None)
+        mx.amp.disable()
+    want = {k: 0 for k in ENTRIES}
+    if not rehearsal:
+        want.update(bn_stats=n_bn, bn_apply=n_bn, multi_tensor=1)
+    finite = all(math.isfinite(x) for x in loss_values)
+    perm = [lab == sorted(labels) for _, lab in held]
+    wall = goodput["wall_s"] or float("nan")
+    checks = dict(native=it.native, decoder_fidelity=fidelity["ok"],
+                  bit_equal=[eq for eq, _ in held], labels_permutation=perm,
+                  finite=finite, launches=first.get("kernels") == want,
+                  variants=first.get("variants") == ({} if rehearsal else {"sgd_mom": 1}),
+                  passthrough=bool(first.get("passthrough")),
+                  no_shard_batch_span=spans.get("spmd.shard_batch", 0) == 0,
+                  steps=len(loss_values) == IO_EPOCHS * n // b,
+                  captured=prog.captured == (not rehearsal) and tr.fallback_reason is None)
+    ok = all(all(v) if isinstance(v, list) else bool(v) for v in checks.values())
+    emit("io", leg="record", model=("resnet50_v1 AMP bf16, SGD momentum" if not rehearsal
+                                    else "tiny ResNetV1 (CPU rehearsal)"),
+         records=n, image_hw=list(hw), jpeg_quality=IO_QUALITY, record_bytes=nbytes,
+         write_s=write_s, batch=b, preprocess_threads=threads, cpu_count=os.cpu_count(),
+         native=it.native, decoder=it.decoder, decoder_vs_source=fidelity,
+         decode_alone_img_s=decode_img_s, epochs=IO_EPOCHS, steps=len(loss_values),
+         losses=loss_values, launches_first_step=first.get("kernels"), expected=want,
+         multi_tensor_by_variant=first.get("variants"), spans=dict(spans), turns=turns,
+         data_wait_share=goodput["buckets_s"]["data_wait"] / wall,
+         goodput=goodput["buckets_s"], goodput_wall_s=goodput["wall_s"],
+         io_pipeline_stalls=stats["stalls"], stalls_warm=stats["stalls_warm"],
+         autotuned_depth=stats["depth"], depth_changes=stats["depth_changes"],
+         stall_ms_p50=stats["stall_ms_p50"], stall_ms_p99=stats["stall_ms_p99"],
+         checks=checks, card=smi, ok=ok)
+    del net, tr, pipe, it, snaps, resident, prog
+    profiler.disarm_compile_guard()
+    if not rehearsal:
+        torch.cuda.empty_cache()
+    return first.get("kernels") or {}, ok
+
+
+def _io_window_leg(rehearsal, ctx, smi):
+    """BERT-base (bench.py's: B=64, S=128, P=20, bf16, fp32 Adam masters)
+    windows of IO_WINDOW batches staged by ``DataPipeline.stage_window``
+    from an ``NDArrayIter`` into ``Trainer.fold_steps`` and
+    ``SPMDTrainer.step_window``, each against the same windows stacked by
+    the caller (dropout 0, deterministic mode); then one replay's kernels
+    by name.  Returns (counts of one window, ok)."""
+    from incubator_mxnet_torch import parallel
+    from incubator_mxnet_torch.io import DataPipeline, NDArrayIter
+
+    cfg = dict(TINY_BERT if rehearsal else BERT_BASE, dropout=0.0)
+    b, s, p = (4, 16, 3) if rehearsal else (64, 128, 20)
+    k, nb = IO_WINDOW, IO_BERT_BATCHES
+    device = ctx.device
+    rng = np.random.RandomState(43)
+    arrays = [rng.randint(0, cfg["vocab_size"], (nb * b, s)), rng.randint(0, 2, (nb * b, s)),
+              rng.randint(0, s, (nb * b, p)), rng.randint(0, cfg["vocab_size"], (nb * b, p))]
+    arrays = [a.astype(np.int32) for a in arrays]
+    mesh = _spmd_mesh(ctx)
+    adam = ("adam", {"learning_rate": 1e-4, "multi_precision": True})
+    layers = cfg.get("num_layers", 12)
+    want = {"flash_fwd": k * layers, "flash_bwd_dq": k * layers, "flash_bwd_dkv": k * layers,
+            "multi_tensor": k}
+
+    def pipeline():
+        return DataPipeline(NDArrayIter(arrays[:3], arrays[3], batch_size=b), mesh=mesh,
+                            name="io_window")
+
+    def caller(w):  # batches w*k .. w*k+k-1 as the caller stacks them
+        rows = slice(w * k * b, (w + 1) * k * b)
+        return [torch.from_numpy(a[rows].reshape(k, b, *a.shape[1:])).to(device)
+                for a in arrays]
+
+    def delivered(window):
+        return [x._data for x in window.data + window.label]
+
+    def make():
+        net = _build_net(cfg, ctx, "bfloat16")
+        with mx.autograd.predict_mode():  # finish the deferred shapes
+            net(*(x[0] for x in caller(0)[:3]))
+        return net
+
+    def fold_run(windows):
+        net = make()
+        trainer = mx.gluon.Trainer(net.collect_params(), *adam)
+        prog = trainer.fold_steps(bert_loss(net), k=k)
+        losses = [prog(*w) for w in windows]
+        return net, trainer, prog, losses
+
+    def spmd_run(windows):
+        net = make()
+        tr = parallel.SPMDTrainer(net, mlm_loss, *adam, mesh=mesh)
+        losses = [tr.step_window(w[:3], w[3])._data for w in windows]
+        return net, tr, tr._programs["window"], losses
+
+    results = {}
+    with _deterministic(bert=True):
+        for name, run in (("fold_steps", fold_run), ("step_window", spmd_run)):
+            pipe = pipeline()
+            try:
+                windows = [delivered(pipe.stage_window(k)) for _ in range(2)]
+                stacked_equal = all(torch.equal(x, y) for w in range(2)
+                                    for x, y in zip(windows[w], caller(w)))
+                net, tr, prog, losses_a = run(windows)
+                snap_a = _keyed(net, getattr(tr, "_trainer", tr))
+                if name == "fold_steps":  # the rest of the epoch; one replay traced
+                    rest = []
+                    while True:
+                        try:
+                            rest.append(delivered(pipe.stage_window()))
+                        except StopIteration:
+                            break
+                    tries, moved = (([], {}) if rehearsal else
+                                    _replay_kernels(lambda: prog(*rest[0]), want))
+                    shapes = [int(w[0].shape[0]) for w in windows + rest]
+                    results["epoch_windows"] = shapes
+                    results["replay"] = (tries, moved)
+                captured = prog.captured
+            finally:
+                pipe.close()
+            del net, tr, prog, windows
+            mx.profiler.disarm_compile_guard()
+            if not rehearsal:
+                torch.cuda.empty_cache()
+            net, tr, prog, losses_b = run([caller(0), caller(1)])
+            equal, err = _keyed_compare(snap_a, _keyed(net, getattr(tr, "_trainer", tr)))
+            loss_eq, loss_err = _compare(losses_a, losses_b)
+            results[name] = dict(windows_equal_caller_stacked=stacked_equal,
+                                 params_and_states=dict(bit_equal=equal, max_abs_err=err),
+                                 losses=dict(bit_equal=loss_eq, max_abs_err=loss_err),
+                                 captured=captured,
+                                 ok=stacked_equal and equal and loss_eq
+                                 and captured == (not rehearsal))
+            del net, tr, prog, snap_a
+            mx.profiler.disarm_compile_guard()
+            if not rehearsal:
+                torch.cuda.empty_cache()
+    tries, moved = results["replay"]
+    replay_ok = rehearsal or (tries[-1] == want and not moved)
+    shapes = results["epoch_windows"]
+    tail_ok = shapes == [k] * (nb // k)
+    ok = results["fold_steps"]["ok"] and results["step_window"]["ok"] and replay_ok and tail_ok
+    emit("io", leg="window", model=("BERTForPretrain(bert_base) bf16, Adam mp, dropout 0 "
+                                    "(deterministic algorithms)" if not rehearsal
+                                    else "tiny BERT (CPU rehearsal)"),
+         batch=[b, s, p], k=k, source_batches=nb, epoch_window_sizes=shapes,
+         fold_steps=results["fold_steps"], step_window=results["step_window"],
+         replay_kernels=tries[-1] if tries else None, replay_kernel_tries=len(tries),
+         expected_replay_kernels=None if rehearsal else want,
+         python_counts_moved_by_replay=moved, card=smi, ok=ok)
+    return (tries[-1] if tries else {}), ok
+
+
+def _io_loader_leg(rehearsal, ctx, smi):
+    """``gluon.data.DataLoader`` over ``SyntheticImageDataset`` with
+    ``transform_first(Compose([ToTensor(), Normalize(...)]))``, process
+    workers and ``pin_memory``: two batches arrive pinned, go to the card
+    and equal their CPU values and the main process's own transform."""
+    from incubator_mxnet_torch.gluon.data import DataLoader
+    from incubator_mxnet_torch.gluon.data.vision import SyntheticImageDataset
+    from incubator_mxnet_torch.gluon.data.vision import transforms as T
+
+    n, b, workers = (8, 4, 2) if rehearsal else IO_LOADER
+    shape = (32, 32, 3) if rehearsal else (224, 224, 3)
+    ds = SyntheticImageDataset(num_samples=n, shape=shape, classes=1000, seed=5)
+    tds = ds.transform_first(T.Compose([T.ToTensor(),
+                                        T.Normalize([m / 255 for m in IO_MEAN],
+                                                    [d / 255 for d in IO_STD])]))
+    t0 = time.perf_counter()
+    loader = DataLoader(tds, batch_size=b, num_workers=workers, pin_memory=not rehearsal,
+                        thread_pool=rehearsal)
+    rows = []
+    for j, (data, label) in enumerate(loader):
+        on_card = data._data.to(ctx.device, non_blocking=True)
+        lab_card = label._data.to(ctx.device, non_blocking=True)
+        if not rehearsal:
+            torch.cuda.synchronize()
+        own = torch.stack([tds[i][0]._data for i in range(j * b, j * b + min(8, b))])
+        rows.append(dict(shape=list(data.shape), dtype=str(data.dtype), context=str(data.context),
+                         pinned=bool(data._data.is_pinned()) if not rehearsal else None,
+                         card_equal=bool(torch.equal(on_card.cpu(), data._data)
+                                         and torch.equal(lab_card.cpu(), label._data)),
+                         first8_equal_own_transform=bool(torch.equal(data._data[:len(own)],
+                                                                     own))))
+    loader_s = time.perf_counter() - t0
+    ok = (len(rows) == n // b and all(r["card_equal"] and r["first8_equal_own_transform"]
+                                      and (rehearsal or (r["pinned"]
+                                                         and r["context"] == "cpu_pinned(0)"))
+                                      for r in rows))
+    emit("io", leg="dataloader", samples=n, batch=b, num_workers=workers,
+         pin_memory=not rehearsal, batches=rows, loader_s=loader_s, card=smi, ok=ok)
+    return ok
+
+
+def phase_io(rehearsal, smi=None):
+    """The input pipeline on the card: the probe line, then the record leg
+    (ResNet-50 from a record file), the window leg (BERT-base windows) and
+    the DataLoader leg.  Returns {"io": launch counts of one ResNet-50 step
+    and one BERT-base window}; exits non-zero on any miss."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    mx.profiler.disarm_compile_guard()  # earlier phases' programs armed it: these are new
+    probe = _io_probe()
+    emit("io", probe=probe)
+    ctx = mx.cpu() if rehearsal else mx.gpu(0)
+    tmp = tempfile.mkdtemp(prefix="mxnet_io_")
+    misses = []
+    try:
+        resnet_counts, ok = _io_record_leg(rehearsal, ctx, smi, tmp)
+        if not ok:
+            misses.append("record")
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    window_counts, ok = _io_window_leg(rehearsal, ctx, smi)
+    if not ok:
+        misses.append("window")
+    if not _io_loader_leg(rehearsal, ctx, smi):
+        misses.append("dataloader")
+    emit("io", phase_s=time.perf_counter() - t0, failed=misses, ok=not misses)
+    if misses:
+        sys.exit(1)
+    return {"io": {name: resnet_counts.get(name, 0) + window_counts.get(name, 0)
+                   for name in ENTRIES}}
+
+
+def decode_load(records=1024, loads=400):
+    """``--decode-load``: the native pool's time for one batch of 256 from
+    the ``io`` phase's record file on an idle card, while ``loads`` bf16
+    8192x8192 matmuls fill the SMs on the default stream and on a side
+    stream, and while a 1 s sleep kernel (one block) holds each; one JSON
+    line a case, with the load's CUDA-event time and whether it was still
+    running when the batch came back."""
+    import shutil
+    import tempfile
+
+    from incubator_mxnet_torch.io import ImageRecordIter
+
+    smi = phase_device()
+    tmp = tempfile.mkdtemp(prefix="mxnet_io_")
+    try:
+        rec = os.path.join(tmp, "load.rec")
+        io_record_file(rec, records, IO_IMAGE, 1000)
+        it = ImageRecordIter(rec, data_shape=(3, 224, 224), batch_size=RESNET_B,
+                             preprocess_threads=min(os.cpu_count() or 1, 16))
+        a = torch.randn(8192, 8192, device="cuda", dtype=torch.bfloat16)
+        side = torch.cuda.Stream()
+
+        def matmuls(stream):
+            with torch.cuda.stream(stream):
+                for _ in range(loads):
+                    a @ a
+
+        def sleep(stream):
+            with torch.cuda.stream(stream):
+                torch.cuda._sleep(int(1.98e9))  # ~1 s at the H100's 1.98 GHz
+
+        it.next()
+        (a @ a).sum().item()
+        for case, fn, stream in (("idle", None, None),
+                                 ("matmuls_default_stream", matmuls, torch.cuda.default_stream()),
+                                 ("matmuls_side_stream", matmuls, side),
+                                 ("sleep_default_stream", sleep, torch.cuda.default_stream()),
+                                 ("sleep_side_stream", sleep, side), ("idle", None, None)):
+            torch.cuda.synchronize()
+            s0 = stream or torch.cuda.current_stream()
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            ev0.record(s0)
+            if fn is not None:
+                fn(stream)
+            ev1.record(s0)
+            t0 = time.perf_counter()
+            try:
+                it.next()
+            except StopIteration:
+                it.reset()
+                it.next()
+            batch_ms = (time.perf_counter() - t0) * 1e3
+            running = not ev1.query()
+            torch.cuda.synchronize()
+            emit("decode_load", case=case, decoder=it.decoder, batch=RESNET_B, batch_ms=batch_ms,
+                 load_ms=ev0.elapsed_time(ev1), load_running_at_batch_end=running, card=smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # -- phase 6c: the rest of the training surface --------------------------------
 # BERT-base pretraining under fp16 AMP with LAMB, linear warm-up and
 # polynomial decay and dynamic loss scaling (large-batch BERT's recipe), and
@@ -6072,6 +6607,9 @@ def main():
                     help="the network's dtype in --inference-turns")
     ap.add_argument("--seed", type=int, default=0,
                     help="the generation phase's weights and traffic")
+    ap.add_argument("--decode-load", action="store_true",
+                    help="only time the native decode pool's batch on an idle and a loaded "
+                         "card; never prints ok")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6090,6 +6628,7 @@ def main():
         phase_resnet_train_vs_cpu(rehearsal=True)
         phase_fold((tnet, trainer, batch), (rnet, rtrainer, rbatch), rehearsal=True)
         phase_spmd(rehearsal=True)
+        phase_io(rehearsal=True)
         phase_train_surface(rehearsal=True)
         rehearse_times(net, main_req, (tnet, trainer, batch), (rnet, rtrainer, rbatch))
         phase_observe((tnet, trainer, batch), rehearsal=True)
@@ -6102,6 +6641,9 @@ def main():
         return 2
     if args.inference_turns:
         inference_turns(args.inference_turns, args.rounds, args.dtype)
+        return 0
+    if args.decode_load:
+        decode_load()
         return 0
     smi = phase_device()
     phase_build()
@@ -6144,6 +6686,7 @@ def main():
     # phases, whose drops are larger
     paths = phase_spmd(rehearsal=False, smi=smi)
     phase_dist(smi)
+    paths.update(phase_io(rehearsal=False, smi=smi))
     paths.update(phase_observe((tnet, trainer, batch), rehearsal=False, smi=smi))
     paths.update(phase_generation(rehearsal=False, seed=args.seed, smi=smi))
     paths.update(phase_serve(net, main_req, rehearsal=False, smi=smi))

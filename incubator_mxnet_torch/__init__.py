@@ -39,9 +39,12 @@ from . import serving
 from . import kvstore
 from . import kvstore as kv
 from . import parallel
+from . import recordio
+from . import io
+from . import image
 
 __all__ = ["MXNetError", "DeferredInitializationError", "Context", "cpu", "gpu", "cpu_pinned",
            "current_context", "num_gpus", "context", "autograd", "random",
            "initializer", "init", "ops", "nd", "ndarray", "NDArray", "optimizer", "lr_scheduler", "gluon", "amp", "convert", "operator",
            "rtc", "name", "attribute", "AttrScope", "symbol", "sym", "Executor", "profiler",
-           "predictor", "serving", "kvstore", "kv", "parallel"]
+           "predictor", "serving", "kvstore", "kv", "parallel", "recordio", "io", "image"]

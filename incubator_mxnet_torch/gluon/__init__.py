@@ -8,6 +8,7 @@ from . import loss
 from . import model_zoo
 from . import trainer
 from .trainer import Trainer
+from . import data
 
 __all__ = ["Parameter", "Constant", "ParameterDict", "Block", "HybridBlock", "SymbolBlock", "nn",
-           "loss", "model_zoo", "Trainer"]
+           "loss", "model_zoo", "Trainer", "data"]

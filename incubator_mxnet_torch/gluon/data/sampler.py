@@ -1,0 +1,90 @@
+"""Samplers (counterpart of the JAX package's ``gluon/data/sampler.py``;
+parity: MXNet's ``python/mxnet/gluon/data/sampler.py``)."""
+from __future__ import annotations
+
+import numpy as _np
+
+__all__ = ["Sampler", "SequentialSampler", "RandomSampler", "BatchSampler", "FilterSampler"]
+
+
+class Sampler:
+    def __iter__(self):
+        raise NotImplementedError
+
+    def __len__(self):
+        raise NotImplementedError
+
+
+class SequentialSampler(Sampler):
+    def __init__(self, length, start=0):
+        self._length = length
+        self._start = start
+
+    def __iter__(self):
+        return iter(range(self._start, self._start + self._length))
+
+    def __len__(self):
+        return self._length
+
+
+class RandomSampler(Sampler):
+    def __init__(self, length):
+        self._length = length
+
+    def __iter__(self):
+        indices = _np.arange(self._length)
+        _np.random.shuffle(indices)
+        return iter(indices.tolist())
+
+    def __len__(self):
+        return self._length
+
+
+class BatchSampler(Sampler):
+    """Parity: ``data.BatchSampler`` (keep/rollover/discard last batch)."""
+
+    def __init__(self, sampler, batch_size, last_batch="keep"):
+        self._sampler = sampler
+        self._batch_size = batch_size
+        self._last_batch = last_batch
+        self._prev = []
+
+    def __iter__(self):
+        batch, self._prev = self._prev, []
+        for i in self._sampler:
+            batch.append(i)
+            if len(batch) == self._batch_size:
+                yield batch
+                batch = []
+        if batch:
+            if self._last_batch == "keep":
+                yield batch
+            elif self._last_batch == "discard":
+                return
+            elif self._last_batch == "rollover":
+                self._prev = batch
+            else:
+                raise ValueError(f"last_batch must be one of keep/discard/rollover, got {self._last_batch}")
+
+    def __len__(self):
+        if self._last_batch == "keep":
+            return (len(self._sampler) + self._batch_size - 1) // self._batch_size
+        if self._last_batch == "discard":
+            return len(self._sampler) // self._batch_size
+        if self._last_batch == "rollover":
+            return (len(self._prev) + len(self._sampler)) // self._batch_size
+        raise ValueError(self._last_batch)
+
+
+class FilterSampler(Sampler):
+    """Yield indices whose dataset item satisfies ``fn`` (parity:
+    ``gluon.data.FilterSampler``)."""
+
+    def __init__(self, fn, dataset):
+        self._indices = [i for i in range(len(dataset)) if fn(dataset[i])]
+
+    def __iter__(self):
+        return iter(self._indices)
+
+    def __len__(self):
+        return len(self._indices)

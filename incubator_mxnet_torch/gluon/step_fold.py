@@ -124,6 +124,13 @@ def _device_of(params):
     return devices.pop() if len(devices) == 1 else None
 
 
+# A capture forbids unsafe CUDA calls (allocations, synchronizations) from
+# this thread only: an input pipeline's threads (io.DataPipeline's pinned
+# staging and copy stream, the native decode pool) go on staging batches on
+# their own streams while a step is captured.
+_CAPTURE_MODE = "thread_local"
+
+
 def _side_stream_run(fn):
     """``fn()`` on a side stream that waits for, and is waited for by, the
     current one: the warm-up PyTorch's capture asks for."""
@@ -552,7 +559,7 @@ class StepProgram(metaclass=_CounterViews):
             self._pool = torch.cuda.graph_pool_handle()
         versions = [p._grad_version for _, p in touched]
         try:
-            with torch.cuda.graph(graph, pool=self._pool):
+            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode=_CAPTURE_MODE):
                 losses = [self._body(self._row(static, j, kw), tail, per_group, rows[j],
                                      scratch) for j in range(steps)]
                 loss = losses[0] if kw is None else torch.stack(losses)
@@ -729,7 +736,7 @@ class EvalProgram(metaclass=_CounterViews):
         graph.register_generator_state(get_generator(device))
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        with torch.cuda.graph(graph, pool=self._pool):
+        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode=_CAPTURE_MODE):
             total, _ = self._sum(self._rows(static))
             self._acc.add_(total)
         return {"graph": graph, "batch": static}
@@ -818,7 +825,7 @@ def _fold_tail(tail, device):
         rows = torch.zeros(n, dtype=torch.float32, device=device)
         scratch = tail.scratch()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode=_CAPTURE_MODE):
             tail.apply(per_group, rows, scratch)
         entry.update(graph=graph, rows=rows, scratch=scratch)
         fold_update.captures += 1

@@ -139,7 +139,7 @@ def _tally(name, dur):
 # THE declared set: ``incr`` on any other name raises; extensions declare
 # theirs with ``declare_counter``.  Each subsystem of the port counts here;
 # the JAX package's counters of subsystems the port does not have yet
-# (dispatch cache, engine bulking, io, async PS, pipeline, MoE, elastic,
+# (dispatch cache, engine bulking, async PS, pipeline, MoE, elastic,
 # gradient compression) come with them.
 _counters = {
     "fused_step_call": 0,             # fused optimizer group updates (kernel launches
@@ -182,6 +182,11 @@ _counters = {
     "memory_budget_refusal": 0,       # admissions deferred by a MemoryBudget
     "goodput_snapshot": 0,            # goodput_snapshot() captures taken
     "goodput_downtime_ms": 0,         # downtime ms recorded into the ledger
+    "io_prefetch_batches": 0,         # batches produced by prefetch workers
+    "io_pipeline_batches": 0,         # device-resident batches DataPipeline delivered
+    "io_pipeline_stalls": 0,          # consumer arrivals that found the buffer empty
+    "io_pipeline_depth_change": 0,    # autotuner depth raises + lowers
+    "io_pipeline_bytes": 0,           # host->device bytes the transfer thread moved
 }
 _counter_lock = _threading.Lock()
 # per-reason breakdowns of a declared counter (``incr_labeled``):

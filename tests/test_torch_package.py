@@ -184,10 +184,43 @@ print("OK")
     assert proc.returncode == 0 and "OK" in proc.stdout, proc.stderr
 
 
+def test_input_pipeline_runs_without_jax(tmp_path):
+    """``mx.recordio`` -> ``ImageRecordIter`` (the native decode pool) ->
+    ``DataPipeline``, and a ``DataLoader`` with transforms, in a fresh
+    process on the CPU, with no JAX module ever imported."""
+    code = f"""
+import sys
+import numpy as np
+import incubator_mxnet_torch as mx
+from incubator_mxnet_torch.gluon.data import ArrayDataset, DataLoader
+from incubator_mxnet_torch.gluon.data.vision import transforms as T
+rec = {str(tmp_path / "t.rec")!r}
+w = mx.recordio.MXRecordIO(rec, "w")
+for i in range(6):
+    img = np.random.RandomState(i).randint(0, 255, (20, 24, 3)).astype(np.uint8)
+    w.write(mx.recordio.pack_img(mx.recordio.IRHeader(0, float(i), i, 0), img))
+w.close()
+it = mx.io.ImageRecordIter(rec, (3, 16, 16), 4, shuffle=True, rand_crop=True)
+with mx.io.DataPipeline(it, device=mx.cpu(), num_workers=2) as pipe:
+    window = pipe.stage_window(2)
+assert it.native and tuple(window.data[0].shape) == (2, 4, 3, 16, 16)
+ds = ArrayDataset(np.ones((4, 8, 8, 3), np.uint8), np.arange(4)).transform_first(T.ToTensor())
+batches = list(DataLoader(ds, batch_size=2, num_workers=2, thread_pool=True))
+assert len(batches) == 2 and tuple(batches[0][0].shape) == (2, 3, 8, 8)
+img = mx.image.imresize(mx.nd.array(np.zeros((8, 8, 3)), ctx=mx.cpu(), dtype="uint8"), 4, 4)
+assert img.shape == (4, 4, 3)
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "incubator_mxnet_tpu")))
+assert not bad, bad
+print("OK")
+"""
+    proc = _run(code)
+    assert proc.returncode == 0 and "OK" in proc.stdout, proc.stderr
+
+
 def test_sources_name_neither_jax_nor_the_jax_package():
     """Module names only: prose may say "the JAX package"."""
     pattern = re.compile(r"incubator_mxnet_tpu|\bjax\b")
-    sources = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
+    sources = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cuh", ".cpp")]
     names = {str(p.relative_to(PKG)) for p in sources}
     assert {"ops/csrc/flash_fwd.cu", "ops/csrc/flash_bwd.cu", "ops/csrc/bn.cu", "ops/bn.py",
             "ops/optimizer_ops.py", "optimizer/optimizer.py", "gluon/trainer.py",
@@ -196,7 +229,9 @@ def test_sources_name_neither_jax_nor_the_jax_package():
             "ops/_driver.py", "ops/random_ops.py", "ndarray/ndarray.py",
             "ndarray/__init__.py", "ndarray/utils.py", "random.py", "symbol/symbol.py",
             "symbol/infer.py", "executor.py", "predictor.py", "profiler.py",
-            "serving/server.py", "serving/bucketing.py", "attribute.py", "name.py"} <= names
+            "serving/server.py", "serving/bucketing.py", "attribute.py", "name.py",
+            "io/io.py", "io/pipeline.py", "io/record_iter.py", "io/csrc/mxnet_io.cpp",
+            "recordio.py", "gluon/data/dataloader.py", "image/image.py"} <= names
     offenders = [f"{p.relative_to(ROOT)}:{i}" for p in sources
                  for i, line in enumerate(p.read_text().splitlines(), 1) if pattern.search(line)]
     assert not offenders, offenders

@@ -621,3 +621,61 @@ def test_parallel_tier_in_the_reference_order(name, ref, port):
     package's parameters, in order, with its defaults."""
     want = _public_params(ref)
     assert _public_params(port)[:len(want)] == want, name
+
+
+# The input pipeline (ROADMAP §1 item 7): every public class's constructor
+# and methods and every public function of mx.io, mx.recordio, mx.image
+# (detection waits in item 10) and mx.gluon.data (with vision).
+def _surface_pairs(prefix, jmod, tmod, names):
+    out = []
+    for n in names:
+        j, t = getattr(jmod, n), getattr(tmod, n)
+        if inspect.ismodule(j) or not callable(j):
+            continue
+        if not inspect.isclass(j):
+            out.append((f"{prefix}.{n}", j, t))
+            continue
+        methods = ["__init__"] + sorted(k for k, v in vars(j).items()
+                                        if callable(v) and not k.startswith("_"))
+        out += [(f"{prefix}.{n}.{m}", getattr(j, m), getattr(t, m)) for m in methods]
+    return out
+
+
+from incubator_mxnet_tpu.gluon.data.vision import transforms as _jtransforms  # noqa: E402
+from incubator_mxnet_tpu.image import image as _jimage  # noqa: E402
+from incubator_mxnet_tpu.io import pipeline as _jpipeline  # noqa: E402
+from incubator_mxnet_torch.gluon.data.vision import transforms as _ttransforms  # noqa: E402
+from incubator_mxnet_torch.io import pipeline as _tpipeline  # noqa: E402
+
+IO_PAIRS = (
+    _surface_pairs("io", mxj.io, mx.io, mxj.io.__all__)
+    + _surface_pairs("recordio", mxj.recordio, mx.recordio, mxj.recordio.__all__)
+    + _surface_pairs("image", _jimage, mx.image, _jimage.__all__)
+    + _surface_pairs("gluon.data", mxj.gluon.data, mx.gluon.data, mxj.gluon.data.__all__)
+    + _surface_pairs("gluon.data.vision", mxj.gluon.data.vision, mx.gluon.data.vision,
+                     mxj.gluon.data.vision.__all__)
+    + _surface_pairs("transforms", _jtransforms, _ttransforms, _jtransforms.__all__)
+    + [("io.pipeline._Engine.__init__", _jpipeline._Engine.__init__,
+        _tpipeline._Engine.__init__),
+       ("gluon.data.dataloader.default_batchify_fn",
+        mxj.gluon.data.dataloader.default_batchify_fn,
+        mx.gluon.data.dataloader.default_batchify_fn)]
+)
+
+
+@pytest.mark.parametrize("name,ref,port", IO_PAIRS, ids=[p[0] for p in IO_PAIRS])
+def test_input_pipeline_in_the_reference_order(name, ref, port):
+    """Every public name of the input pipeline begins with the JAX package's
+    parameters, in order, with its defaults."""
+    want = _public_params(ref)
+    assert _public_params(port)[:len(want)] == want, name
+
+
+def test_the_input_pipeline_is_exported():
+    assert {"io", "recordio", "image"} <= set(mx.__all__) and "data" in mx.gluon.__all__
+    assert set(mxj.io.__all__) == set(mx.io.__all__)
+    assert set(_jimage.__all__) == set(mx.image.__all__)
+    assert set(mxj.gluon.data.__all__) == set(mx.gluon.data.__all__)
+    assert set(mxj.gluon.data.vision.__all__) == set(mx.gluon.data.vision.__all__)
+    assert set(_jtransforms.__all__) == set(_ttransforms.__all__)
+    assert len(IO_PAIRS) > 150

@@ -357,8 +357,8 @@ def test_trainer_runs_on_one_device_only():
 
 
 def test_chip_smoke_cpu_rehearsal_trains():
-    """chip_smoke.py's slice, train, rtc_train, nd_surface, timing, serve and
-    generation phases on the CPU plain path."""
+    """chip_smoke.py's slice, train, rtc_train, nd_surface, timing, serve,
+    generation and io phases on the CPU plain path."""
     proc = subprocess.run([sys.executable, "chip_smoke.py", "--cpu-rehearsal"], cwd=ROOT,
                           capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
@@ -367,4 +367,5 @@ def test_chip_smoke_cpu_rehearsal_trains():
     assert '"phase": "rtc_train"' in proc.stdout
     assert '"part": "op_table", "failed": [], "ok": true' in proc.stdout  # nd_surface
     assert re.search(r'"phase": "generation", "phase_s": [0-9.e-]+, "ok": true', proc.stdout)
+    assert re.search(r'"phase": "io", "phase_s": [0-9.e-]+, "failed": \[\], "ok": true', proc.stdout)
     assert '"ok": true, "device"' not in proc.stdout
