@@ -201,6 +201,29 @@ Phases, each printing JSON lines; no phase's failure is caught:
    process workers and ``pin_memory``: two batches of 256 pinned, equal on
    the card and to the main process's own transform; its launches are the
    kernels line's ``io`` path;
+6g. detect (after io, before observe): bench.py's config 5, SSD-512 on
+   ResNet-18 (B=32, 512x512, SGD lr 0.01) and YOLOv3-Darknet-53 (B=16,
+   416x416, SGD lr 1e-3), momentum 0.9, wd 5e-4, AMP bf16, through
+   ``SPMDTrainer`` on ``make_mesh()`` on bench.py's seeded images and label
+   rows: first each net's fp32 forward at B=2 (train-mode BatchNorm)
+   against the port's CPU forward of the same weights (SSD VGG-16 atrous
+   too), ``multibox_target`` (mining off and on), ``multibox_detection``,
+   ``box_nms`` and ``yolo3_decode`` on the card against the CPU; then in
+   deterministic mode two SPMD steps bit-equal to two eager steps
+   (parameters, momenta, running statistics, losses) for SSD and YOLOv3;
+   then each main path: the launches of the warm-up step (25/25/1 and
+   72/72/1 bn_stats/bn_apply/multi_tensor), one replay's kernels by name,
+   20 timed replays (step ms and img/s, reported), losses finite and
+   falling; the BN kernels against their plain versions at every
+   BatchNorm shape the two paths gave; 64 seeded images through
+   ``ImageDetIter`` with ``rand_mirror`` into two SSD steps, each batch
+   bit-equal on the card to its host batch; one SPMD step of
+   ``ssd_512_vgg16_atrous`` (10/10/1: BatchNorm only in the
+   downsamplers); alexnet, vgg16_bn, mobilenet1.0, mobilenetv2_1.0,
+   squeezenet1.1, densenet121 (224x224) and inceptionv3 (299x299), B=8,
+   AMP bf16: one train-mode forward and backward each, finite gradients,
+   BN launches equal to the BatchNorm count; its launches are the kernels
+   line's ``detect`` path;
 7. times: each kernel, its plain version and the library call at the main
    paths' shapes (the attention kernels also at the S=512 request, in fp32
    at the main shape, and by CUDA-graph replay), the kernel's bound; BERT
@@ -264,7 +287,7 @@ Phases, each printing JSON lines; no phase's failure is caught:
 
 The last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed on a CUDA card.  The rehearsal runs the slice, train, rtc_train,
-nd_surface, symbol_block, ResNet, fold, spmd, io, train_surface, timing,
+nd_surface, symbol_block, ResNet, fold, spmd, io, detect, train_surface, timing,
 observe, serve and generation phases on the CPU at a tiny size, with the
 kernels' plain versions, and never prints it.  ``--inference-turns`` times only the
 BERT-base inference forward of two checkouts, each turn a fresh process
@@ -295,11 +318,14 @@ import incubator_mxnet_torch as mx  # noqa: E402
 from incubator_mxnet_torch.convert import load_numpy_params  # noqa: E402
 from incubator_mxnet_torch.gluon.model_zoo import bert as bert_zoo  # noqa: E402
 from incubator_mxnet_torch.gluon import step_fold  # noqa: E402
+from incubator_mxnet_torch.gluon.model_zoo import ssd as ssd_zoo  # noqa: E402
 from incubator_mxnet_torch.gluon.model_zoo import vision  # noqa: E402
+from incubator_mxnet_torch.gluon.model_zoo import yolo as yolo_zoo  # noqa: E402
 from incubator_mxnet_torch.gluon.nn.transformer import PositionwiseFFN  # noqa: E402
 from incubator_mxnet_torch.ops import _cuda  # noqa: E402
 from incubator_mxnet_torch.ops import attention as att  # noqa: E402
 from incubator_mxnet_torch.ops import bn  # noqa: E402
+from incubator_mxnet_torch.ops import detection as detection_ops  # noqa: E402
 from incubator_mxnet_torch.ops import multi_tensor as mt  # noqa: E402
 from incubator_mxnet_torch.ops import nn as ops_nn  # noqa: E402
 from incubator_mxnet_torch.ops import optimizer_ops as opt_ops  # noqa: E402
@@ -2549,14 +2575,17 @@ def phase_serve(net, main_req, rehearsal, smi=None):
         for a, o32 in zip(ans, got32):
             rel.append(float(np.abs(a - o32[i]).max() / np.abs(o32[i]).max()))
     want16 = {n: (layers if n == "flash_fwd" and cuda else 0) for n in ENTRIES}
+    # the kernels of one served batch, from a trace of the batch after a
+    # warm-up batch and the sentinel ("batches": the two calls')
     traced16, busy = None, None
-    want_traced16 = {"flash_fwd_tma": layers, "flash_wide": 0, "batches": 1}
+    want_traced16 = {"flash_fwd_tma": layers, "flash_wide": 0, "batches": 2}
     t0 = time.perf_counter()
     if cuda:
         traced16 = []
         for _ in range(3):
             batches = srv.stats()["batches"]
-            wall_ms, kernel_ms, copy_ms, share, names = _busy_share(lambda: _served(srv, samples))
+            wall_ms, kernel_ms, copy_ms, share, names = _busy_share(lambda: _served(srv, samples),
+                                                                    warm=True, lead=True)
             traced16.append({"flash_fwd_tma": _count_named(names, "flash_fwd_tma"),
                              "flash_wide": _count_named(names, "flash_wide"),
                              "batches": srv.stats()["batches"] - batches})
@@ -2728,11 +2757,12 @@ def _gen_net(cfg, ctx, seed, dtype="float32", arrays=None):
 
 
 def _traced_count(fn, name, want, tries=3):
-    """The records of kernels named ``name`` in a CUDA trace of ``fn``
-    (taken again while short of ``want``, three times at most)."""
+    """The records of kernels named ``name`` in a CUDA trace of ``fn``, the
+    call after a warm-up call and the sentinel (taken again while short of
+    ``want``, three times at most)."""
     got = []
     for _ in range(tries):
-        *_, names = _busy_share(fn, lead=True)
+        *_, names = _busy_share(fn, warm=True, lead=True)
         got.append(_count_named(names, name))
         if got[-1] == want:
             break
@@ -3302,29 +3332,25 @@ def _delta(before):
 def _replay_kernels(fn, want):
     """Kernels one call of ``fn`` (a replay) launches, by family, from
     torch.profiler's CUDA trace, and the Python launch counts it moved
-    (none: a replay runs no wrapper).  A trace that lost a record is taken
-    again, three times at most."""
-    from torch.profiler import ProfilerActivity, profile
-
+    (none: a replay runs no wrapper).  Each trace first runs ``fn`` once and
+    a sentinel, and counts the call after them (``_busy_share(warm=True)``):
+    late in a whole run, every lead-only trace of YOLOv3's 78 ms replay
+    lacked one ``bn_stats`` record, where the phase alone counted all 72.
+    A trace that lost a record is taken again, three times at most; each
+    try calls ``fn`` twice."""
+    py_before = kernel_counts()
     tries = []
     for _ in range(3):
-        py_before = kernel_counts()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _lead()
-            fn()
-            torch.cuda.synchronize()
-        moved = {k: v - py_before[k] for k, v in kernel_counts().items() if v != py_before[k]}
         got = {}
-        for ev in prof.events():
-            if ev.device_type != torch.autograd.DeviceType.CUDA or ev.name.startswith("mx."):
-                continue
-            fam = next((f for sub, f in REPLAY_FAMILIES if sub in ev.name), None)
+        for name, c in _busy_share(fn, warm=True, lead=True)[4].items():
+            fam = next((f for sub, f in REPLAY_FAMILIES if sub in name), None)
             if fam is not None:
-                got[fam] = got.get(fam, 0) + 1
+                got[fam] = got.get(fam, 0) + c
         tries.append(got)
         if got == want:
             break
-    return tries, moved
+    return tries, {k: v - py_before[k] for k, v in kernel_counts().items()
+                   if v != py_before[k]}
 
 
 @contextlib.contextmanager
@@ -3518,9 +3544,11 @@ def _fold_main(label, net, trainer, loss_fn, batch, want_replay, rehearsal):
                                                                want_replay)
     counters = _delta(start)
     finite = all(bool(torch.isfinite(x).all()) for x in losses)
-    # every call after the warm-up is one replay (the profiled ones too)
+    # every call after the warm-up is one replay (the profiled ones too:
+    # two a try)
     want_counters = ({"calls": 3, "replays": 0, "captures": 0} if rehearsal
-                     else {"calls": 3 + len(tries), "replays": 2 + len(tries), "captures": 1})
+                     else {"calls": 3 + 2 * len(tries), "replays": 2 + 2 * len(tries),
+                           "captures": 1})
     ok = (finite and prog.folded and counters["fallbacks"] == 0
           and {k: counters[k] for k in want_counters} == want_counters
           and (rehearsal or (tries[-1] == want_replay and not moved)))
@@ -4434,6 +4462,600 @@ def phase_io(rehearsal, smi=None):
         sys.exit(1)
     return {"io": {name: resnet_counts.get(name, 0) + window_counts.get(name, 0)
                    for name in ENTRIES}}
+
+
+# -- phase 6g: detect ---------------------------------------------------------
+# bench.py's config 5 on the card: SSD-512 on a ResNet-18 backbone (B=32,
+# 512x512, SGD lr 0.01 momentum 0.9 wd 5e-4, bench_ssd) and YOLOv3 on
+# Darknet-53 (B=16, 416x416, SGD lr 1e-3 momentum 0.9 wd 5e-4,
+# bench_yolo3), both under AMP bf16 through SPMDTrainer on make_mesh(),
+# bench.py's seeded images and label rows.  Their BatchNorms run the BN
+# kernels at new shapes: SSD's downsamplers reach 2x2 and 1x1 maps (HW = 1
+# takes _check_x's no-stride branch), Darknet's 13x13 and 26x26 maps give
+# rows of 338 and 1352 bytes in bf16, most of them off a 16-byte boundary
+# (bn.cu's scalar heads and tails).
+DETECT_SSD = dict(b=32, size=512, classes=20, lr=0.01, rows=(
+    (1, 0.2, 0.2, 0.7, 0.7), (5, 0.5, 0.5, 0.9, 0.9)), max_objects=4)
+DETECT_YOLO = dict(b=16, size=416, classes=80, lr=1e-3, rows=(
+    (1, 80, 80, 280, 280), (7, 200, 120, 380, 360)), max_objects=8)
+DETECT_REPLAYS = 20      # timed replays of each main path; the losses must fall over them
+DETECT_EXACT_STEPS = 2   # SPMD steps against eager steps, bit for bit
+# The card's fp32 forward (train-mode BatchNorm, TF32 off) against the
+# port's CPU fp32 forward of the same weights, relative L2 error of each
+# output: the two differ by summation order and algorithm, about one fp32
+# rounding per op, which a forward through 20-75 convolutions and
+# BatchNorms grows to ~1e-5; a wrong kernel moves outputs by their own
+# size.  The bound is RESNET_FP32_LOGIT_REL_BOUND's, which holds ResNet-50.
+DETECT_FWD_REL_BOUND = RESNET_FP32_LOGIT_REL_BOUND
+# multibox_target's box targets: the same float32 arithmetic on both, with
+# log and division within an ulp; yolo3_decode's boxes and scores: exp and
+# sigmoid within a few ulps of values up to ~1e4 pixels.
+DETECT_BOX_REL = 1e-6
+DETECT_DECODE_REL = 1e-5
+DETECT_NMS_AMBIGUOUS = 1e-6  # an IoU this close to the threshold may round either way
+DETECT_ITER = dict(images=64, hw=(375, 500))
+# The rest of the vision zoo: one train-mode forward and backward each at
+# its published input size, AMP bf16.
+DETECT_ZOO = (("alexnet", 224), ("vgg16_bn", 224), ("mobilenet1.0", 224),
+              ("mobilenetv2_1.0", 224), ("squeezenet1.1", 224), ("densenet121", 224),
+              ("inceptionv3", 299))
+DETECT_ZOO_B = 8
+
+
+def ssd_bench_loss(out, label):
+    """bench.py's ``ssd_loss``: multibox_target on the class predictions
+    swapped to [B, C+1, N], the per-sample streaming CE over the anchors
+    and the masked L1 of the box regression."""
+    anchors, cls_preds, box_preds = out
+    bt, bm, ct = detection_ops.multibox_target(anchors, label, cls_preds.transpose(1, 2))
+    ce = streaming_softmax_ce(cls_preds, ct).mean(-1)
+    return ce + ((box_preds - bt).abs() * bm).mean(-1)
+
+
+def yolo_bench_loss(classes):
+    """bench.py's ``yolo_loss`` (``mx.nd`` ops under the currency rule:
+    tensors in, tensors out)."""
+    def loss_fn(out, label):
+        preds, off, anc, st = out
+        gt_ids = mx.nd.slice_axis(label, axis=-1, begin=0, end=1)
+        gt_boxes = mx.nd.slice_axis(label, axis=-1, begin=1, end=5)
+        targets = yolo_zoo.yolo3_targets(gt_boxes, gt_ids, off, anc, st, classes)
+        return yolo_zoo.yolo3_loss(preds, *targets, classes, reduction="none")
+    return loss_fn
+
+
+def _detect_cfgs(rehearsal):
+    """(ssd, yolo) configurations: bench.py's, or tiny ones on the CPU."""
+    if not rehearsal:
+        return dict(DETECT_SSD), dict(DETECT_YOLO)
+    return (dict(DETECT_SSD, b=2, size=64, classes=3, rows=DETECT_SSD["rows"]),
+            dict(DETECT_YOLO, b=2, size=64, classes=3,
+                 rows=((1, 8, 8, 30, 30), (2, 20, 12, 50, 40))))
+
+
+def _detect_net(kind, cfg, ctx, rehearsal, seed=0):
+    """A net of ``kind`` ("ssd", "vgg" or "yolo") from ``seed``, its shapes
+    finished by a forward of zeros at B=2 as bench.py does."""
+    mx.random.seed(seed)
+    if rehearsal:
+        if kind == "yolo":
+            net = yolo_zoo.YOLOV3(yolo_zoo.DarknetV3(layers=(1, 1, 1, 1, 1),
+                                                     channels=(8, 16, 32, 64, 128)),
+                                  num_classes=cfg["classes"], channels=(16, 32, 64))
+        else:
+            feat = mx.gluon.nn.HybridSequential()
+            feat.add(mx.gluon.nn.Conv2D(16, kernel_size=3, strides=2, padding=1))
+            if kind == "ssd":
+                feat.add(mx.gluon.nn.BatchNorm())
+            feat.add(mx.gluon.nn.Activation("relu"))
+            net = ssd_zoo.SSD(feat, num_classes=cfg["classes"],
+                              scales=ssd_zoo.SSDAnchorScales[:3], channels=32)
+    else:
+        net = {"ssd": ssd_zoo.ssd_512_resnet18, "vgg": ssd_zoo.ssd_512_vgg16_atrous,
+               "yolo": yolo_zoo.yolo3_darknet53}[kind](num_classes=cfg["classes"])
+    net.initialize(ctx=ctx)
+    with mx.autograd.predict_mode():
+        net(torch.zeros(2, 3, cfg["size"], cfg["size"], device=ctx.device))
+    return net
+
+
+def _detect_batch(cfg, device, seed=0):
+    """bench.py's batch: ``rand`` images from RandomState(seed) and the
+    label rows, padded with -1."""
+    rng = np.random.RandomState(seed)
+    img = rng.rand(cfg["b"], 3, cfg["size"], cfg["size"]).astype(np.float32)
+    lab = np.full((cfg["b"], cfg["max_objects"], 5), -1, np.float32)
+    for i, row in enumerate(cfg["rows"]):
+        lab[:, i] = row
+    return torch.from_numpy(img).to(device), torch.from_numpy(lab).to(device)
+
+
+def _sgd(cfg):
+    return ("sgd", {"learning_rate": cfg["lr"], "momentum": 0.9, "wd": 5e-4})
+
+
+def _n_bn(net):
+    return sum(isinstance(m, mx.gluon.nn.BatchNorm) for m in net.modules())
+
+
+def _detect_exact(label, make, loss_fn, batch, ctx, rehearsal):
+    """DETECT_EXACT_STEPS SPMDTrainer steps (warm-up, then capture and
+    replay) against as many eager steps (``autograd.backward`` and
+    ``Trainer.step``) on a second copy, in deterministic mode: parameters,
+    running statistics, momenta and losses bit-equal."""
+    from incubator_mxnet_torch import parallel
+
+    net, opt = make()
+    tr = parallel.SPMDTrainer(net, loss_fn, *opt, mesh=_spmd_mesh(ctx))
+    loss_a = [tr.step([batch[0]], batch[1])._data for _ in range(DETECT_EXACT_STEPS)]
+    snap_a = _keyed(net, tr._trainer)
+    captured = tr._programs["step"].captured
+    del net, tr
+    mx.profiler.disarm_compile_guard()
+    if not rehearsal:
+        torch.cuda.empty_cache()
+    net, opt = make()
+    trainer = mx.gluon.Trainer(net.collect_params(), *opt)
+    loss_b = [_eager_step(trainer, lambda x, y: loss_fn(net(x), y), batch).float().mean()
+              for _ in range(DETECT_EXACT_STEPS)]
+    equal, err = _keyed_compare(snap_a, _keyed(net, trainer))
+    loss_eq, loss_err = _compare(loss_a, loss_b)
+    ok = equal and loss_eq and captured == (not rehearsal)
+    emit("detect", check="spmd_vs_eager", model=label, steps=DETECT_EXACT_STEPS,
+         params_states_running_stats=dict(bit_equal=equal, max_abs_err=err),
+         losses=dict(bit_equal=loss_eq, max_abs_err=loss_err,
+                     spmd=[x.item() for x in loss_a]), spmd_captured=captured, ok=ok)
+    del net, trainer
+    mx.profiler.disarm_compile_guard()
+    if not rehearsal:
+        torch.cuda.empty_cache()
+    return ok
+
+
+def _bn_shapes(net):
+    """Forward pre-hooks that record each BatchNorm input's (N, C, H·W)."""
+    shapes, handles = set(), []
+    for m in net.modules():
+        if isinstance(m, mx.gluon.nn.BatchNorm):
+            handles.append(m.register_forward_pre_hook(
+                lambda _, args: shapes.add((args[0].shape[0], args[0].shape[1],
+                                            math.prod(args[0].shape[2:])))))
+    return shapes, handles
+
+
+def _detect_main(label, net, cfg, loss_fn, batch, ctx, rehearsal, smi):
+    """The main path: ``SPMDTrainer(net, loss_fn, "sgd", ..., mesh=make_mesh())``
+    on one device-resident batch; the launch counts set to 0 just before
+    the first step (the eager warm-up) and read just after it; the second
+    step captures; DETECT_REPLAYS replays timed with CUDA events, their
+    losses finite and falling; one replay's kernels by name in a profiler
+    trace.  Returns (counts, BatchNorm input shapes, ok, profile), where
+    ``profile()`` prints the device time of a replay and of an eager step
+    by kernel family (None in the rehearsal): the caller runs it after
+    every main path's counting trace, since a session with CPU activity
+    makes kineto drop records of later traces (ROADMAP §3 "Not faults")."""
+    from incubator_mxnet_torch import parallel
+
+    sync = (lambda: None) if rehearsal else torch.cuda.synchronize
+    n_bn = _n_bn(net)
+    tr = parallel.SPMDTrainer(net, loss_fn, *_sgd(cfg), mesh=_spmd_mesh(ctx))
+    shapes, handles = _bn_shapes(net)
+    reset_kernel_counts()
+    losses = [tr.step([batch[0]], batch[1]).asscalar()]
+    counts = kernel_counts()
+    variants = dict(mt.multi_tensor_update.launches_by_variant)
+    for h in handles:
+        h.remove()
+    losses.append(tr.step([batch[0]], batch[1]).asscalar())  # capture and replay
+    sync()
+    outs = []
+    if rehearsal:
+        t0 = time.perf_counter()
+        outs = [tr.step([batch[0]], batch[1]) for _ in range(DETECT_REPLAYS)]
+        step_ms = (time.perf_counter() - t0) * 1e3 / DETECT_REPLAYS
+    else:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs = [tr.step([batch[0]], batch[1]) for _ in range(DETECT_REPLAYS)]
+        end.record()
+        sync()
+        step_ms = start.elapsed_time(end) / DETECT_REPLAYS
+    losses += [o.asscalar() for o in outs]
+    want = {n: 0 for n in ENTRIES}
+    want_replay = {}
+    if not rehearsal:
+        want_replay = {"multi_tensor": 1}
+        if n_bn:
+            want_replay.update(bn_stats=n_bn, bn_apply=n_bn)
+        want.update(want_replay)
+    tries, moved = ([], {}) if rehearsal else _replay_kernels(
+        lambda: tr.step([batch[0]], batch[1]), want_replay)
+    prog = tr._programs["step"]
+    finite = all(math.isfinite(x) for x in losses)
+    n_params = sum(p.grad_req != "null" for p in net.collect_params().values())
+    ok = (finite and losses[-1] < losses[0] and counts == want
+          and variants == ({} if rehearsal else {"sgd_mom": 1}) and prog.folded
+          and prog.captured == (not rehearsal) and tr.fallback_reason is None
+          and (rehearsal or (tries[-1] == want_replay and not moved)))
+    emit("detect", check="main_path", model=label, batch=cfg["b"], size=cfg["size"],
+         batchnorms=n_bn, trainable_params=n_params, losses=losses, finite=finite,
+         falling=losses[-1] < losses[0], launches_one_step=counts, expected=want,
+         multi_tensor_by_variant=variants,
+         replay_kernels=tries[-1] if tries else None, replay_kernel_tries=len(tries),
+         expected_replay_kernels=None if rehearsal else want_replay,
+         python_counts_moved_by_replay=moved, captured=prog.captured, folded=prog.folded,
+         replays_timed=DETECT_REPLAYS,
+         **({"step_host_ms": step_ms, "note": "CPU rehearsal: host time"} if rehearsal else
+            {"step_ms": step_ms, "img_per_s": cfg["b"] * 1e3 / step_ms, "card": smi}),
+         ok=ok)
+    mx.profiler.disarm_compile_guard()
+
+    def profile():
+        # where the device time goes: one replay (its busy share), then one
+        # eager step, whose BN backward shows as ``mx.bn_backward`` ranges
+        # (a replay shows none: those kernels fall in "other")
+        name = label.split("(")[0]
+        phase_profile(f"detect {name} folded step (one replay)",
+                      lambda: tr.step([batch[0]], batch[1]), smi)
+        trainer = mx.gluon.Trainer(net.collect_params(), *_sgd(cfg))
+        phase_profile(f"detect {name} eager step", lambda: _eager_step(
+            trainer, lambda x, y: loss_fn(net(x), y), batch), smi)
+        mx.profiler.disarm_compile_guard()
+
+    return counts, shapes, ok, None if rehearsal else profile
+
+
+def _detect_bn_kernels(shapes, device):
+    """The BN kernels at the detection paths' BatchNorm shapes (bf16, as
+    AMP gives them) against their plain versions on the card."""
+    gen = torch.Generator(device=device).manual_seed(4242)
+    misses = []
+    with torch.no_grad():
+        for n, c, hw in sorted(shapes, key=lambda s: (s[2], s[1])):
+            case = dict(name=f"n{n}_c{c}_hw{hw}", n=n, c=c, hw=hw, dtype=torch.bfloat16)
+            rec, _ = _bn_case(case, gen, device)
+            emit("detect", check="bn_kernels_vs_plain", row_bytes=hw * 2,
+                 row_16b_aligned=(hw * 2) % 16 == 0, stats_bound_rel=STATS_REL, **rec)
+            if not rec["ok"]:
+                misses.append(case["name"])
+            torch.cuda.empty_cache()
+    return misses
+
+
+def _detect_fwd_vs_cpu(kind, cfg, ctx, rehearsal):
+    """The card's fp32 forward at B=2 (train-mode BatchNorm, no recording)
+    against the port's CPU fp32 forward of the same weights; returns
+    (ok, the card net's outputs, the CPU net's outputs, the input)."""
+    net = _detect_net(kind, cfg, ctx, rehearsal, seed=3)
+    arrays = {k: p.data().detach().float().cpu().numpy()
+              for k, p in net._collect_params_with_prefix().items()}
+    ref = _detect_net(kind, cfg, mx.cpu(), rehearsal, seed=3)
+    load_numpy_params(ref, arrays)
+    x = torch.from_numpy(np.random.RandomState(5).rand(2, 3, cfg["size"], cfg["size"])
+                         .astype(np.float32))
+    with mx.autograd.train_mode():
+        got = [o.detach().float().cpu() for o in net(x.to(ctx.device))]
+        want = [o.detach().float() for o in ref(x)]
+    rels = list(_rel_l2(dict(enumerate(got)), dict(enumerate(want))).values())
+    tables_equal = [torch.equal(g, w) for g, w in zip(got, want)
+                    if g.shape[0] == 1]  # anchors / decode tables: data-independent
+    ok = all(math.isfinite(r) and r <= DETECT_FWD_REL_BOUND for r in rels) and all(tables_equal)
+    emit("detect", check="fp32_forward_vs_cpu", model=kind, batch=2, size=cfg["size"],
+         outputs_rel_l2=rels, bound=DETECT_FWD_REL_BOUND, tables_bit_equal=tables_equal, ok=ok)
+    del net, ref
+    return ok, got, x
+
+
+def _targets_vs_cpu(anchors, cfg, device):
+    """multibox_target on the card against the CPU on SSD's anchors: bench.py's
+    rows and seeded rows of 0-4 valid boxes, mining off (bench.py) and on
+    (3:1, ties in the scores); matches and class targets exact, box
+    targets within DETECT_BOX_REL."""
+    rng = np.random.RandomState(11)
+    b, m, n = cfg["b"], cfg["max_objects"], anchors.shape[1]
+    lab = np.full((b, m, 5), -1, np.float32)
+    for i in range(b):
+        for j in range(i % (m + 1)):
+            x0, y0 = rng.rand(2) * 0.6
+            lab[i, j] = [rng.randint(cfg["classes"]), x0, y0, x0 + 0.05 + 0.35 * rng.rand(),
+                         y0 + 0.05 + 0.35 * rng.rand()]
+    lab[0, :len(cfg["rows"])] = cfg["rows"]
+    cls = rng.rand(b, cfg["classes"] + 1, n).astype(np.float32)
+    cls[:, 0, : n // 4] = 0.25  # tied background scores
+    out = {}
+    for mining in (-1.0, 3.0):
+        args = (anchors, torch.from_numpy(lab), torch.from_numpy(cls))
+        want = detection_ops.multibox_target(*args, negative_mining_ratio=mining)
+        got = [t.cpu() for t in detection_ops.multibox_target(
+            *(a.to(device) for a in args), negative_mining_ratio=mining)]
+        out[f"mining_{mining}"] = dict(
+            matches_equal=torch.equal(got[1], want[1]),
+            cls_targets_equal=torch.equal(got[2], want[2]),
+            box_targets_max_rel=((got[0] - want[0]).abs()
+                                 / (want[0].abs() + 1e-6)).max().item(),
+            matched=int(want[1].sum().item() // 4), ignored=int((want[2] < 0).sum().item()))
+    ok = all(r["matches_equal"] and r["cls_targets_equal"]
+             and r["box_targets_max_rel"] <= DETECT_BOX_REL for r in out.values())
+    emit("detect", check="multibox_target_vs_cpu", anchors=n, batch=b, bound_rel=DETECT_BOX_REL,
+         **out, ok=ok)
+    return ok
+
+
+def _ambiguous_samples(boxes, thresh):
+    """Samples whose candidate boxes have a pairwise IoU within
+    DETECT_NMS_AMBIGUOUS of the NMS threshold (CPU, float64)."""
+    iou = detection_ops.box_iou(boxes.double(), boxes.double())
+    return ((iou - thresh).abs() < DETECT_NMS_AMBIGUOUS).flatten(1).any(1)
+
+
+def _nms_vs_cpu(anchors, cfg, device):
+    """multibox_detection (nms_topk 400) and box_nms (id_index 0, topk 400)
+    on the card against the CPU: each sample's rows equal (classes,
+    scores and the kept pattern exact, boxes within DETECT_BOX_REL of 1),
+    samples with an IoU within DETECT_NMS_AMBIGUOUS of the threshold
+    excused and counted."""
+    rng = np.random.RandomState(13)
+    b, n = cfg["b"], anchors.shape[1]
+    logits = torch.from_numpy(rng.randn(b, cfg["classes"] + 1, n).astype(np.float32) * 3)
+    prob = torch.softmax(logits, dim=1)
+    loc = torch.from_numpy((rng.randn(b, n * 4) * 0.2).astype(np.float32))
+    rows = {}
+    want = detection_ops.multibox_detection(prob, loc, anchors)
+    got = detection_ops.multibox_detection(prob.to(device), loc.to(device),
+                                           anchors.to(device)).cpu()
+    recs = torch.cat([torch.from_numpy(rng.randint(0, 3, (b, 1000, 1)).astype(np.float32)),
+                      torch.from_numpy(rng.rand(b, 1000, 1).astype(np.float32)),
+                      anchors[:, :1000].expand(b, -1, -1) + torch.from_numpy(
+                          (rng.rand(b, 1000, 4) * 0.02).astype(np.float32))], dim=-1)
+    nms_want = detection_ops.box_nms(recs, overlap_thresh=0.5, id_index=0, topk=400)
+    nms_got = detection_ops.box_nms(recs.to(device), overlap_thresh=0.5, id_index=0,
+                                    topk=400).cpu()
+    score, _ = prob[:, 1:].max(dim=1)
+    order = detection_ops._topk_order(score, score > 0.01, 400)
+    decoded = detection_ops._decode_boxes(anchors.reshape(-1, 4), loc.reshape(b, n, 4),
+                                          (0.1, 0.1, 0.2, 0.2), True)
+    candidates = torch.gather(decoded, 1, order[..., None].expand(-1, -1, 4))
+    ok = True
+    for name, g, w, boxes in (("multibox_detection", got, want, candidates),
+                              ("box_nms", nms_got, nms_want, recs[..., 2:6])):
+        amb = _ambiguous_samples(boxes, 0.5)
+        # coordinates are normalized: within DETECT_BOX_REL of 1
+        same = [(torch.equal(g[i, :, :2], w[i, :, :2])
+                 and ((g[i, :, 2:] - w[i, :, 2:]).abs()
+                      <= DETECT_BOX_REL * w[i, :, 2:].abs().clamp_min(1.0)).all().item())
+                for i in range(b)]
+        bad = [i for i in range(b) if not same[i] and not amb[i]]
+        first = None
+        if bad:
+            i = bad[0]
+            j = int((g[i] != w[i]).any(-1).nonzero()[0].item())
+            first = dict(sample=i, row=j, card=g[i, j].tolist(), cpu=w[i, j].tolist())
+        rows[name] = dict(kept=int((w[..., 0] >= 0).sum().item()), samples_equal=sum(same),
+                          ambiguous_samples=int(amb.sum().item()), unexcused_mismatch=bad,
+                          first_mismatch=first)
+        ok = ok and not bad
+    emit("detect", check="nms_vs_cpu", batch=b, anchors=n, **rows, ok=ok)
+    return ok
+
+
+def _decode_vs_cpu(tables, cfg, device):
+    """yolo3_decode on the card against the CPU, on seeded predictions and
+    the YOLO net's decode tables: ids exact where the top two class scores
+    differ by more than DETECT_DECODE_REL relative, scores and boxes within
+    DETECT_DECODE_REL of their largest |value|."""
+    off, anc, st = tables
+    n = off.shape[1]
+    preds = torch.from_numpy(np.random.RandomState(17).randn(cfg["b"], n, 5 + cfg["classes"])
+                             .astype(np.float32))
+    want = yolo_zoo.yolo3_decode(preds, off, anc, st, cfg["classes"])
+    got = [t.cpu() for t in yolo_zoo.yolo3_decode(preds.to(device), off.to(device),
+                                                   anc.to(device), st.to(device),
+                                                   cfg["classes"])]
+    rel = [((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+           for g, w in zip(got[1:], want[1:])]
+    scores = torch.sigmoid(preds[..., 4:5]) * torch.sigmoid(preds[..., 5:])
+    top2 = scores.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > DETECT_DECODE_REL * top2[..., 0]
+    ids_mismatch = int(((got[0][..., 0] != want[0][..., 0]) & clear).sum().item())
+    ok = all(r <= DETECT_DECODE_REL for r in rel) and ids_mismatch == 0
+    emit("detect", check="yolo3_decode_vs_cpu", priors=n, batch=cfg["b"],
+         scores_boxes_rel=rel, ids_mismatch_where_top2_clear=ids_mismatch,
+         near_ties=int((~clear).sum().item()), bound=DETECT_DECODE_REL, ok=ok)
+    return ok
+
+
+def _det_iter_leg(cfg, net, ctx, rehearsal):
+    """64 seeded images with boxes through ``ImageDetIter`` with
+    ``CreateDetAugmenter(rand_mirror=True)`` (resized to the net's input),
+    each batch copied to the card bit-equal to its host batch, into two
+    SPMD steps of the SSD main path's net; finite losses."""
+    from incubator_mxnet_torch import parallel
+
+    rng = np.random.RandomState(19)
+    h, w = (48, 64) if rehearsal else DETECT_ITER["hw"]
+    samples = []
+    for i in range(DETECT_ITER["images"] if not rehearsal else 2 * cfg["b"]):
+        boxes = []
+        for _ in range(1 + i % 3):
+            x0, y0 = rng.rand(2) * 0.5
+            boxes.append([rng.randint(cfg["classes"]), x0, y0, x0 + 0.1 + 0.4 * rng.rand(),
+                          y0 + 0.1 + 0.4 * rng.rand()])
+        samples.append((np.array(boxes, np.float32),
+                        rng.randint(0, 256, (h, w, 3)).astype(np.uint8)))
+    np.random.seed(23)
+    it = mx.image.ImageDetIter(samples, batch_size=cfg["b"],
+                               data_shape=(3, cfg["size"], cfg["size"]),
+                               max_objects=cfg["max_objects"], rand_mirror=True)
+    tr = parallel.SPMDTrainer(net, ssd_bench_loss, *_sgd(cfg), mesh=_spmd_mesh(ctx))
+    equal, losses, batches = [], [], 0
+    for batch in it:
+        host_x, host_y = batch.data[0]._data, batch.label[0]._data
+        x, y = host_x.to(ctx.device), host_y.to(ctx.device)
+        equal.append(torch.equal(x.cpu(), host_x) and torch.equal(y.cpu(), host_y))
+        losses.append(tr.step([x], y).asscalar())
+        batches += 1
+    ok = batches == 2 and all(equal) and all(math.isfinite(x) for x in losses)
+    emit("detect", check="image_det_iter", images=len(samples), batches=batches,
+         batch_bit_equal=equal, losses=losses, ok=ok)
+    del tr
+    mx.profiler.disarm_compile_guard()
+    return ok
+
+
+def _zoo_leg(ctx, rehearsal):
+    """The rest of the vision zoo, AMP bf16, B=DETECT_ZOO_B: one train-mode
+    forward and backward each at its published size; finite gradients,
+    bn_stats and bn_apply launches equal to its BatchNorm count."""
+    misses = []
+    zoo = DETECT_ZOO if not rehearsal else (("squeezenet1.1", 64), ("mobilenetv2_0.25", 64))
+    for name, size in zoo:
+        mx.random.seed(0)
+        net = vision.get_model(name, classes=10 if rehearsal else 1000)
+        net.initialize(ctx=ctx)
+        b = 2 if rehearsal else DETECT_ZOO_B
+        gen = torch.Generator(device=ctx.device).manual_seed(31)
+        x = torch.rand((b, 3, size, size), generator=gen, device=ctx.device)
+        labels = torch.randint(0, 10, (b,), generator=gen, device=ctx.device)
+        with mx.autograd.predict_mode():
+            net(x[:1])  # finish the deferred shapes
+        n_bn = _n_bn(net)
+        mx.amp.init("bfloat16")
+        try:
+            reset_kernel_counts()
+            t0 = time.perf_counter()
+            with mx.autograd.record():
+                loss = streaming_softmax_ce(net(x), labels)
+            mx.autograd.backward(loss)
+            if not rehearsal:
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            counts = kernel_counts()
+        finally:
+            mx.amp.disable()
+        grads = [p.grad() for p in net.collect_params().values() if p.grad_req != "null"]
+        finite = all(bool(torch.isfinite(g).all()) for g in grads) and bool(
+            torch.isfinite(loss).all())
+        want_bn = 0 if rehearsal else n_bn
+        ok = finite and counts["bn_stats"] == want_bn and counts["bn_apply"] == want_bn
+        emit("detect", check="zoo_train_forward_backward", model=name, batch=b, size=size,
+             batchnorms=n_bn, bn_stats=counts["bn_stats"], bn_apply=counts["bn_apply"],
+             params=len(grads), finite=finite, first_call_wall_ms=wall_ms, ok=ok)
+        if not ok:
+            misses.append(name)
+        del net, grads, loss
+        if not rehearsal:
+            torch.cuda.empty_cache()
+    return misses
+
+
+def phase_detect(rehearsal, smi=None):
+    """bench.py's config 5 on the card (see the block above): correctness
+    against the CPU first (fp32 forwards, the detection ops), then in
+    deterministic mode two SPMD steps bit-equal to two eager steps for
+    SSD-512 ResNet-18 and YOLOv3, then the main paths under AMP bf16 (launch
+    counts, replays by name, timed replays), the BN kernels at their
+    BatchNorm shapes, one SPMD step of SSD-512 VGG-16 atrous, the
+    ImageDetIter leg and the rest of the zoo.  Returns {"detect": launch
+    counts of one step each of SSD, YOLOv3 and SSD VGG-16}; exits non-zero
+    on any miss."""
+    t0 = time.perf_counter()
+    mx.profiler.disarm_compile_guard()
+    ctx = mx.cpu() if rehearsal else mx.gpu(0)
+    device = ctx.device
+    scfg, ycfg = _detect_cfgs(rehearsal)
+    misses = []
+
+    # correctness on the card against the CPU, fp32
+    ok, sout, _ = _detect_fwd_vs_cpu("ssd", scfg, ctx, rehearsal)
+    anchors = sout[0]
+    if not ok:
+        misses.append("ssd_forward_vs_cpu")
+    if not _detect_fwd_vs_cpu("yolo", ycfg, ctx, rehearsal)[0]:
+        misses.append("yolo_forward_vs_cpu")
+    ynet = _detect_net("yolo", ycfg, ctx, rehearsal)
+    with mx.autograd.predict_mode():
+        tables = [t.cpu() for t in ynet(torch.zeros(1, 3, ycfg["size"], ycfg["size"],
+                                                     device=device))[1:]]
+    del ynet
+    if not rehearsal:
+        if not _detect_fwd_vs_cpu("vgg", scfg, ctx, rehearsal)[0]:
+            misses.append("vgg_forward_vs_cpu")
+        if not _targets_vs_cpu(anchors, scfg, device):
+            misses.append("multibox_target_vs_cpu")
+        if not _nms_vs_cpu(anchors, scfg, device):
+            misses.append("nms_vs_cpu")
+        if not _decode_vs_cpu(tables, ycfg, device):
+            misses.append("yolo3_decode_vs_cpu")
+        torch.cuda.empty_cache()
+
+    sbatch = _detect_batch(scfg, device)
+    ybatch = _detect_batch(ycfg, device)
+    yloss = yolo_bench_loss(ycfg["classes"])
+    mx.amp.init("bfloat16")
+    try:
+        with _deterministic(bert=True):
+            if not _detect_exact("ssd_512_resnet18 AMP bf16 (deterministic algorithms)",
+                                 lambda: (_detect_net("ssd", scfg, ctx, rehearsal), _sgd(scfg)),
+                                 ssd_bench_loss, sbatch, ctx, rehearsal):
+                misses.append("ssd_vs_eager")
+            if not _detect_exact("yolo3_darknet53 AMP bf16 (deterministic algorithms)",
+                                 lambda: (_detect_net("yolo", ycfg, ctx, rehearsal),
+                                          _sgd(ycfg)), yloss, ybatch, ctx, rehearsal):
+                misses.append("yolo_vs_eager")
+        net = _detect_net("ssd", scfg, ctx, rehearsal)
+        counts, shapes, ok, ssd_profile = _detect_main(
+            "ssd_512_resnet18(num_classes=20) AMP bf16, SGD momentum", net, scfg,
+            ssd_bench_loss, sbatch, ctx, rehearsal, smi)
+        if not ok:
+            misses.append("ssd_main_path")
+        if not _det_iter_leg(scfg, net, ctx, rehearsal):
+            misses.append("image_det_iter")
+        net = _detect_net("yolo", ycfg, ctx, rehearsal)
+        c, s, ok, yolo_profile = _detect_main(
+            "yolo3_darknet53(num_classes=80) AMP bf16, SGD momentum", net, ycfg, yloss,
+            ybatch, ctx, rehearsal, smi)
+        counts, shapes = {k: counts[k] + c[k] for k in counts}, shapes | s
+        if not ok:
+            misses.append("yolo_main_path")
+        if not rehearsal:
+            ssd_profile()
+            yolo_profile()
+        del net, ssd_profile, yolo_profile
+        if not rehearsal:
+            torch.cuda.empty_cache()
+        # one SPMD step of SSD-512 VGG-16 atrous (BatchNorm only in the
+        # downsamplers)
+        from incubator_mxnet_torch import parallel
+
+        net = _detect_net("vgg", scfg, ctx, rehearsal)
+        n_bn = _n_bn(net)
+        tr = parallel.SPMDTrainer(net, ssd_bench_loss, *_sgd(scfg), mesh=_spmd_mesh(ctx))
+        reset_kernel_counts()
+        loss = tr.step([sbatch[0]], sbatch[1]).asscalar()
+        c = kernel_counts()
+        want = {n: 0 for n in ENTRIES}
+        if not rehearsal:
+            want.update(bn_stats=n_bn, bn_apply=n_bn, multi_tensor=1)
+        ok = math.isfinite(loss) and c == want
+        emit("detect", check="vgg16_atrous_one_step", batch=scfg["b"], batchnorms=n_bn,
+             loss=loss, launches_one_step=c, expected=want, ok=ok)
+        counts = {k: counts[k] + c[k] for k in counts}
+        if not ok:
+            misses.append("vgg_one_step")
+        del tr, net
+        mx.profiler.disarm_compile_guard()
+    finally:
+        mx.amp.disable()
+    if not rehearsal:
+        torch.cuda.empty_cache()
+        bad = _detect_bn_kernels(shapes, device)
+        if bad:
+            misses.append("bn_kernels:" + ",".join(bad))
+    misses += [f"zoo:{m}" for m in _zoo_leg(ctx, rehearsal)]
+    emit("detect", phase_s=time.perf_counter() - t0, failed=misses, ok=not misses)
+    if misses:
+        sys.exit(1)
+    return {"detect": counts}
 
 
 def decode_load(records=1024, loads=400):
@@ -6629,6 +7251,7 @@ def main():
         phase_fold((tnet, trainer, batch), (rnet, rtrainer, rbatch), rehearsal=True)
         phase_spmd(rehearsal=True)
         phase_io(rehearsal=True)
+        phase_detect(rehearsal=True)
         phase_train_surface(rehearsal=True)
         rehearse_times(net, main_req, (tnet, trainer, batch), (rnet, rtrainer, rbatch))
         phase_observe((tnet, trainer, batch), rehearsal=True)
@@ -6687,6 +7310,7 @@ def main():
     paths = phase_spmd(rehearsal=False, smi=smi)
     phase_dist(smi)
     paths.update(phase_io(rehearsal=False, smi=smi))
+    paths.update(phase_detect(rehearsal=False, smi=smi))
     paths.update(phase_observe((tnet, trainer, batch), rehearsal=False, smi=smi))
     paths.update(phase_generation(rehearsal=False, seed=args.seed, smi=smi))
     paths.update(phase_serve(net, main_req, rehearsal=False, smi=smi))

@@ -43,6 +43,20 @@ _DTYPES = {
 _NAMES = {v: k for k, v in _DTYPES.items()}
 
 
+def _settle_cpu_log():
+    """Call PyTorch's CPU ``log`` once, on this thread, at a size of one
+    chunk.  PyTorch hands a float ``log`` on the CPU to MKL in chunks of
+    2048 elements across its OpenMP pool; when the first call of a process
+    came from several workers at once, the chunks of one or two of them
+    came back off by up to 4e-5 relative (5 processes in 280, that first
+    call only; ``exp``, ``tanh`` and ``sqrt`` never, in 100).  After one
+    call from a single thread, 0 in 500."""
+    torch.log(torch.ones(8))
+
+
+_settle_cpu_log()
+
+
 def as_torch_dtype(dtype):
     """Normalize a user dtype (MXNet name | numpy dtype | torch.dtype) to a
     ``torch.dtype``; the counterpart of ``_as_np_dtype``."""

@@ -260,7 +260,12 @@ class StepProgram(metaclass=_CounterViews):
     replays = 0
     captures = 0
 
-    def __init__(self, trainer, loss_fn, block=None, k=None):
+    def __init__(self, trainer, loss_fn, block=None, keep_grads=False, k=None,
+                 donate_window=False):
+        """``keep_grads`` and ``donate_window`` mean what they mean in
+        ``Trainer.fold_steps``: the gradients stay in the Parameters'
+        buffers either way, and no window is donated (each is copied into
+        the graph's static inputs)."""
         self._trainer = trainer
         self._loss_fn = loss_fn
         self._k = max(1, int(k if k is not None else fold_k()))

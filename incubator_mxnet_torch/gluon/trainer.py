@@ -199,7 +199,7 @@ class Trainer:
         failure) fall back to the eager path with a warning, never an
         error."""
         self._check_foldable()
-        sp = _sf.StepProgram(self, loss_fn, block=block)
+        sp = _sf.StepProgram(self, loss_fn, block=block, keep_grads=keep_grads)
         self._fold = weakref.ref(sp)
         return sp
 
@@ -227,7 +227,8 @@ class Trainer:
         copies each window into its graph's static input buffers, so the
         caller's window stays valid whatever its value."""
         self._check_foldable()
-        sp = _sf.StepProgram(self, loss_fn, block=block, k=k)
+        sp = _sf.StepProgram(self, loss_fn, block=block, keep_grads=keep_grads, k=k,
+                             donate_window=donate_window)
         self._fold = weakref.ref(sp)
         return sp
 

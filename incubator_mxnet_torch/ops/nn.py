@@ -427,9 +427,15 @@ batch_norm.reference_calls = 0
 @register("UpSampling")
 def upsampling(data, scale=2, sample_type="nearest", num_args=1):
     """Nearest or bilinear upsampling of NCHW data by ``scale`` (half-pixel
-    centres, as the JAX package resizes)."""
+    centres, as the JAX package resizes).  Nearest is each pixel repeated
+    ``scale`` times in H and W, written as a broadcast so that its gradient
+    is a sum (deterministic on the card, where ``interpolate``'s backward
+    adds with atomics)."""
     if sample_type == "nearest":
-        return F.interpolate(data, scale_factor=scale, mode="nearest")
+        n, c, h, w = data.shape
+        s = int(scale)
+        return data[:, :, :, None, :, None].expand(n, c, h, s, w, s).reshape(
+            n, c, h * s, w * s)
     return F.interpolate(data, scale_factor=scale, mode="bilinear", align_corners=False)
 
 

@@ -787,9 +787,6 @@ _QUEUED_OPS = {
     ("ops/attention.py", 11): (
         "_contrib_interleaved_matmul_encdec_qk", "_contrib_interleaved_matmul_encdec_valatt",
         "_contrib_interleaved_matmul_selfatt_qk", "_contrib_interleaved_matmul_selfatt_valatt"),
-    ("ops/detection.py", 10): (
-        "box_iou", "box_nms", "contrib_MultiBoxDetection", "contrib_MultiBoxPrior",
-        "contrib_MultiBoxTarget", "contrib_box_iou", "contrib_box_nms"),
     ("ops/moe.py", 8): ("moe_ffn",),
 }
 _QUEUE_OF = {n: key for key, names in _QUEUED_OPS.items() for n in names}

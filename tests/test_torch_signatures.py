@@ -22,6 +22,7 @@ import torch
 
 import incubator_mxnet_tpu as mxj
 from incubator_mxnet_tpu.gluon import parameter as jparameter
+from incubator_mxnet_tpu.gluon import step_fold as jstep_fold
 from incubator_mxnet_tpu.gluon.model_zoo import transformer as jtransformer_zoo
 from incubator_mxnet_tpu.gluon.nn import transformer as jtransformer
 from incubator_mxnet_tpu.ops import optimizer_ops as jopt_ops
@@ -30,6 +31,7 @@ import incubator_mxnet_torch as mx
 from incubator_mxnet_torch.convert import load_numpy_params
 from incubator_mxnet_torch.gluon import nn
 from incubator_mxnet_torch.gluon import parameter as tparameter
+from incubator_mxnet_torch.gluon import step_fold as tstep_fold
 from incubator_mxnet_torch.gluon.nn import transformer as ttransformer
 from incubator_mxnet_torch.ops import optimizer_ops as topt_ops
 from incubator_mxnet_torch.ops import registry as tregistry
@@ -49,6 +51,10 @@ PAIRS = [
     ("Embedding", mxj.gluon.nn.Embedding.__init__, nn.Embedding.__init__),
     ("Trainer.fold_step", mxj.gluon.Trainer.fold_step, mx.gluon.Trainer.fold_step),
     ("Trainer.fold_steps", mxj.gluon.Trainer.fold_steps, mx.gluon.Trainer.fold_steps),
+    ("StepProgram.__init__", jstep_fold.StepProgram.__init__,
+     tstep_fold.StepProgram.__init__),
+    ("EvalProgram.__init__", jstep_fold.EvalProgram.__init__,
+     tstep_fold.EvalProgram.__init__),
     ("random.seed", mxj.random.seed, mx.random.seed),
     ("Predictor.__init__", mxj.predictor.Predictor.__init__, mx.predictor.Predictor.__init__),
     ("InferenceServer.__init__", mxj.serving.InferenceServer.__init__,
@@ -625,7 +631,8 @@ def test_parallel_tier_in_the_reference_order(name, ref, port):
 
 # The input pipeline (ROADMAP §1 item 7): every public class's constructor
 # and methods and every public function of mx.io, mx.recordio, mx.image
-# (detection waits in item 10) and mx.gluon.data (with vision).
+# and mx.gluon.data (with vision); the detection half of mx.image is in
+# DETECTION_PAIRS below.
 def _surface_pairs(prefix, jmod, tmod, names):
     out = []
     for n in names:
@@ -674,8 +681,63 @@ def test_input_pipeline_in_the_reference_order(name, ref, port):
 def test_the_input_pipeline_is_exported():
     assert {"io", "recordio", "image"} <= set(mx.__all__) and "data" in mx.gluon.__all__
     assert set(mxj.io.__all__) == set(mx.io.__all__)
-    assert set(_jimage.__all__) == set(mx.image.__all__)
+    assert set(mxj.image.__all__) == set(mx.image.__all__)
     assert set(mxj.gluon.data.__all__) == set(mx.gluon.data.__all__)
     assert set(mxj.gluon.data.vision.__all__) == set(mx.gluon.data.vision.__all__)
     assert set(_jtransforms.__all__) == set(_ttransforms.__all__)
     assert len(IO_PAIRS) > 150
+
+
+# The detection family and the rest of the vision zoo (ROADMAP §1 item 10):
+# the detection ops, SSD, YOLOv3, every vision constructor and class, the
+# transposed convolutions, ReflectionPad2D and the detection half of
+# mx.image.
+from incubator_mxnet_tpu.gluon.model_zoo import ssd as _jssd  # noqa: E402
+from incubator_mxnet_tpu.gluon.model_zoo import yolo as _jyolo  # noqa: E402
+from incubator_mxnet_tpu.gluon.model_zoo import vision as _jvision  # noqa: E402
+from incubator_mxnet_tpu.image import detection as _jimdet  # noqa: E402
+from incubator_mxnet_tpu.ops import detection as _jdetops  # noqa: E402
+from incubator_mxnet_torch.gluon.model_zoo import ssd as _tssd  # noqa: E402
+from incubator_mxnet_torch.gluon.model_zoo import yolo as _tyolo  # noqa: E402
+from incubator_mxnet_torch.gluon.model_zoo import vision as _tvision  # noqa: E402
+from incubator_mxnet_torch.image import detection as _timdet  # noqa: E402
+from incubator_mxnet_torch.ops import detection as _tdetops  # noqa: E402
+
+DETECTION_PAIRS = (
+    _surface_pairs("ops.detection", _jdetops, _tdetops, _jdetops.__all__)
+    + _surface_pairs("ssd", _jssd, _tssd, _jssd.__all__)
+    + _surface_pairs("yolo", _jyolo, _tyolo, _jyolo.__all__ + ["DarknetBasicBlockV3",
+                                                                "YOLODetectionBlockV3"])
+    + _surface_pairs("vision", _jvision, _tvision,
+                     sorted({n for n in _jvision.__all__ if hasattr(_jvision, n)}
+                            | {f.__name__ for f in _jvision._models.values()}
+                            | {"AlexNet", "VGG", "MobileNet", "MobileNetV2", "SqueezeNet",
+                               "DenseNet", "Inception3", "get_resnet"}))
+    + _surface_pairs("nn", mxj.gluon.nn, nn, ["Conv1DTranspose", "Conv2DTranspose",
+                                              "Conv3DTranspose", "ReflectionPad2D"])
+    + _surface_pairs("image.detection", _jimdet, _timdet, _jimdet.__all__)
+)
+
+
+@pytest.mark.parametrize("name,ref,port", DETECTION_PAIRS, ids=[p[0] for p in DETECTION_PAIRS])
+def test_detection_family_in_the_reference_order(name, ref, port):
+    """Every public name of the detection family and the vision zoo begins
+    with the JAX package's parameters, in order, with its defaults."""
+    want = _public_params(ref)
+    assert _public_params(port)[:len(want)] == want, name
+
+
+def test_the_detection_family_is_registered_and_exported():
+    """The seven op names are registered (none is queued any more), and the
+    zoo exports what the JAX package's does."""
+    from incubator_mxnet_torch.symbol import symbol as tsym
+
+    names = ("box_iou", "box_nms", "contrib_MultiBoxDetection", "contrib_MultiBoxPrior",
+             "contrib_MultiBoxTarget", "contrib_box_iou", "contrib_box_nms")
+    for n in names:
+        assert tregistry.get_op(n).name == jregistry.get_op(n).name
+        assert n not in tsym._QUEUE_OF
+    assert not any(f == "ops/detection.py" for f, _ in tsym._QUEUED_OPS)
+    assert set(_jvision._models) == set(_tvision._models)
+    assert {"ssd", "yolo"} <= set(mx.gluon.model_zoo.__all__)
+    assert len(DETECTION_PAIRS) > 80
