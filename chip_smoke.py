@@ -224,6 +224,41 @@ Phases, each printing JSON lines; no phase's failure is caught:
    AMP bf16: one train-mode forward and backward each, finite gradients,
    BN launches equal to the BatchNorm count; its launches are the kernels
    line's ``detect`` path;
+6h. fit (after detect, before observe; fp32 with AMP off and TF32 off,
+   as the reference's ``fit.py`` trains): ResNet-50 v1 as
+   ``tests/sym_resnet.py``'s symbol graph with a ``SoftmaxOutput`` head
+   (the Gluon ``resnet50_v1``'s parameter names) under ``mx.mod.Module``
+   (B=256, 224x224, SGD lr 0.1 momentum 0.9 wd 1e-4, ``rescale_grad``
+   1/256): one ``forward_backward`` + ``update`` against one eager Gluon
+   step from the same weights and batch (deterministic cuDNN), weights and
+   momenta within FIT_STEP_REL of their step and moving statistics within
+   FIT_STATS_REL, 53 ``bn_stats``, 53 ``bn_apply`` and no ``multi_tensor``
+   launch (counted and traced; the per-tensor update), the BN kernels in
+   fp32 against their plain versions at B=256 on all nine BatchNorm
+   shapes the step gives them, the steps timed
+   (batch on the host and on the card, the update alone, the Gluon step
+   and ``Trainer.step``; reported) and profiled; ``Module.fit`` for 2
+   epochs of 8 batches from an ``NDArrayIter`` of seeded images (a class's
+   mean colour) with acc, top-5 and ce, ``Speedometer(256, 4)`` and
+   ``do_checkpoint``: the training cross-entropy falls from epoch 0 to 1,
+   the checkpoint equals ``get_params``, ``Module.load(..., 2,
+   load_optimizer_states=True)`` takes a step bit-equal to the module that
+   was not interrupted, ``score`` and ``predict`` on the card agree; the
+   reference's bucketing LSTM language model (vocabulary 10,000, embed and
+   hidden 200, 2 layers, B=32, buckets 10-60, SGD lr 0.01, Xavier) as a
+   ``BucketingModule`` over ``sym.RNN`` (``FusedRNNCell``) fed by
+   ``BucketSentenceIter`` from a seeded Zipfian corpus with bigram
+   structure: ``fit`` 3 epochs with ``Perplexity(0)``, which falls each
+   epoch, one shared parameter set after every bucket trained, a training
+   step's tokens/s in each bucket and a profile of the largest, the fused
+   graph against the unrolled ``LSTMCell``s (``unpack_weights``) within
+   LM_FUSED_REL in outputs and gradients; the RNN op at the LM's widths
+   (T=60) on the card against the CPU in the four modes, bidirectional and
+   bf16, and ``gluon.rnn.LSTM``, ``GRU`` (bidirectional) and ``RNN``
+   forward and backward against the CPU, ``LSTMCell.unroll`` against
+   ``LSTM``, within RNN_CARD_REL (bf16 RNN_BF16_REL); the LSTM op's time
+   with the packed views against ``torch.nn.LSTM``'s flat weights
+   (reported); its launches are the kernels line's ``fit`` path;
 7. times: each kernel, its plain version and the library call at the main
    paths' shapes (the attention kernels also at the S=512 request, in fp32
    at the main shape, and by CUDA-graph replay), the kernel's bound; BERT
@@ -287,8 +322,8 @@ Phases, each printing JSON lines; no phase's failure is caught:
 
 The last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed on a CUDA card.  The rehearsal runs the slice, train, rtc_train,
-nd_surface, symbol_block, ResNet, fold, spmd, io, detect, train_surface, timing,
-observe, serve and generation phases on the CPU at a tiny size, with the
+nd_surface, symbol_block, ResNet, fold, spmd, io, detect, fit, train_surface,
+timing, observe, serve and generation phases on the CPU at a tiny size, with the
 kernels' plain versions, and never prints it.  ``--inference-turns`` times only the
 BERT-base inference forward of two checkouts, each turn a fresh process
 (A, B, B, A per round), and never prints it either.
@@ -297,7 +332,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib
 import json
+import logging
 import math
 import os
 import re
@@ -1979,12 +2016,15 @@ def phase_rtc_train(net, trainer, train_batch, vs_cpu, rehearsal):
 # -- phase 5b ---------------------------------------------------------------
 
 
+def _tests_module(name):
+    """A helper module of ``tests/`` that imports neither package."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    return importlib.import_module(name)
+
+
 def _nd_cases():
     """The op table of ``tests/nd_op_cases.py`` (numpy only)."""
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
-    import nd_op_cases
-
-    return nd_op_cases
+    return _tests_module("nd_op_cases")
 
 
 def _fresh_bert(cfg):
@@ -2268,11 +2308,7 @@ SERVE_TIMED = 10        # forwards a bucket's time averages
 
 
 def _sym_bert():
-    """``tests/sym_bert.py`` (imports neither package)."""
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
-    import sym_bert
-
-    return sym_bert
+    return _tests_module("sym_bert")
 
 
 def _serve_inputs(req):
@@ -4705,17 +4741,20 @@ def _detect_main(label, net, cfg, loss_fn, batch, ctx, rehearsal, smi):
     return counts, shapes, ok, None if rehearsal else profile
 
 
-def _detect_bn_kernels(shapes, device):
-    """The BN kernels at the detection paths' BatchNorm shapes (bf16, as
-    AMP gives them) against their plain versions on the card."""
+def _detect_bn_kernels(shapes, device, dtype=torch.bfloat16, phase="detect"):
+    """The BN kernels at a path's BatchNorm shapes (n, c, hw), in the
+    path's dtype (the detection paths' bf16, as AMP gives them; the fit
+    phase's fp32), against their plain versions on the card; emits under
+    ``phase`` and returns the names of the cases that missed."""
     gen = torch.Generator(device=device).manual_seed(4242)
+    size = torch.empty((), dtype=dtype).element_size()
     misses = []
     with torch.no_grad():
         for n, c, hw in sorted(shapes, key=lambda s: (s[2], s[1])):
-            case = dict(name=f"n{n}_c{c}_hw{hw}", n=n, c=c, hw=hw, dtype=torch.bfloat16)
+            case = dict(name=f"n{n}_c{c}_hw{hw}", n=n, c=c, hw=hw, dtype=dtype)
             rec, _ = _bn_case(case, gen, device)
-            emit("detect", check="bn_kernels_vs_plain", row_bytes=hw * 2,
-                 row_16b_aligned=(hw * 2) % 16 == 0, stats_bound_rel=STATS_REL, **rec)
+            emit(phase, check="bn_kernels_vs_plain", row_bytes=hw * size,
+                 row_16b_aligned=(hw * size) % 16 == 0, stats_bound_rel=STATS_REL, **rec)
             if not rec["ok"]:
                 misses.append(case["name"])
             torch.cuda.empty_cache()
@@ -5056,6 +5095,620 @@ def phase_detect(rehearsal, smi=None):
     if misses:
         sys.exit(1)
     return {"detect": counts}
+
+
+# -- phase 6h: fit -------------------------------------------------------------------------
+
+FIT_EPOCHS = 2
+FIT_BATCHES = 8          # batches of RESNET_B an epoch
+FIT_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+FIT_TIMED = 5            # timed steps of each kind
+# One Module step against one eager Gluon step from the same weights and
+# batch (fp32, TF32 off, deterministic cuDNN): the forwards run the same
+# ops, and the two backwards start from differently rounded loss gradients
+# (SoftmaxOutput's p - onehot against streaming_softmax_ce's backward: an
+# ulp or so of each logit's gradient), which the backward carries linearly
+# into every parameter's gradient.  So each updated weight and momentum is
+# held within FIT_STEP_REL of the step it took (the largest |after -
+# before|), and each moving statistic within FIT_STATS_REL of its largest
+# |value|.  The convolution biases a BatchNorm follows are left out: their
+# exact gradient is zero, and what either side computes is rounding noise.
+FIT_STEP_REL = 1e-3
+FIT_STATS_REL = 1e-5
+# The bucketing LSTM language model at the widths of the reference's
+# example/rnn/bucketing/lstm_bucketing.py defaults (as recalled: the
+# reference's sources are not in this repository), on a seeded synthetic
+# corpus with bigram structure in place of PTB (its vocabulary size,
+# sentences over the same buckets).  The learning rate is the reference's
+# 0.01.
+LM = dict(vocab=10000, embed=200, hidden=200, layers=2, batch=32,
+          buckets=(10, 20, 30, 40, 50, 60), invalid_label=0, lr=0.01, wd=1e-5,
+          sentences=3200, epochs=3, timed=5)
+# the rehearsal's 40 words and 12 batches an epoch need a larger rate to learn
+TINY_LM = dict(LM, vocab=40, embed=8, hidden=8, batch=4, buckets=(3, 5), sentences=48, lr=0.5)
+# fp32 with TF32 off: cuDNN's LSTM against the unrolled cells' matrix
+# products, and the card against the CPU, differ in summation order over
+# 200-long dot products and 60 steps; relative to each array's largest
+# |value|.  bf16 on the card against fp32 on the CPU: the JAX package's bf16
+# RNN bound (tests/test_rnn.py's test_rnn_megaop_bf16).
+LM_FUSED_REL = 1e-4
+RNN_CARD_REL = 1e-4
+RNN_BF16_REL = 5e-2
+RNN_CARD_SHAPE = (60, 32, 200, 200, 2)  # T, N, C, H, layers: the LM's widths
+TINY_RNN_SHAPE = (5, 3, 4, 6, 2)
+
+
+def _fit_resnet_symbol(rehearsal, prefix):
+    sr = _tests_module("sym_resnet")
+    if rehearsal:
+        cfg = TINY_RESNET
+        return sr.resnet_v1_symbol(mx.sym, cfg["layers"], cfg["channels"], cfg["classes"],
+                                   thumbnail=True, prefix=prefix)
+    return sr.resnet_v1_symbol(mx.sym, prefix=prefix)
+
+
+def _fit_images(n, size, classes, seed):
+    """``n`` seeded float32 images whose mean colour names their class, so
+    that the labels can be learnt, and the labels (float32, as an
+    ``NDArrayIter`` gives them)."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, classes, n)
+    x = rng.random((n, 3, size, size), dtype=np.float32)
+    x *= 0.5
+    x += rng.random((classes, 3, 1, 1), dtype=np.float32)[y]
+    return x, y.astype(np.float32)
+
+
+def _fit_params(net):
+    """The Gluon net's parameters as the symbol graph's ``arg_params`` and
+    ``aux_params`` (copies)."""
+    params = net.collect_params()
+    arg = {n: p.data().detach().clone() for n, p in params.items() if p.grad_req != "null"}
+    aux = {n: p.data().detach().clone() for n, p in params.items() if p.grad_req == "null"}
+    return arg, aux
+
+
+class _LogLines(logging.Handler):
+    """The log records of a ``fit`` (its epoch lines, Speedometer's)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+@contextlib.contextmanager
+def _captured_log():
+    root = logging.getLogger()
+    handler, level = _LogLines(), root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    try:
+        yield handler.lines
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+
+
+def _epoch_metric(lines, name):
+    """{epoch: value} of fit's ``Epoch[e] Train-<name>=<value>`` lines."""
+    got = {}
+    for line in lines:
+        m = re.match(rf"Epoch\[(\d+)\] Train-{re.escape(name)}=([-0-9.naie+]+)$", line)
+        if m:
+            got[int(m.group(1))] = float(m.group(2))
+    return got
+
+
+def _fit_vs_gluon(rehearsal, ctx, smi):
+    """One Module step (``forward_backward`` + ``update``) against one eager
+    Gluon step of the same net from the same weights and batch, the launches
+    of the Module step counted and traced, then both steps timed.  Returns
+    (ok, launch counts of the Module step)."""
+    device = ctx.device
+    sync = (lambda: None) if rehearsal else torch.cuda.synchronize
+    b = 4 if rehearsal else RESNET_B
+    size, classes = (32, TINY_RESNET["classes"]) if rehearsal else (224, 1000)
+    net = _build_resnet(rehearsal, ctx, 3)
+    n_bn = sum(isinstance(m, mx.gluon.nn.BatchNorm) for m in net.modules())
+    arg, aux = _fit_params(net)
+    sym = _fit_resnet_symbol(rehearsal, net.prefix)
+    x, y = _fit_images(b, size, classes, 5)
+    opt = dict(FIT_SGD, rescale_grad=1.0 / b)  # the reference Module's 1/batch_size
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind([("data", x.shape)], [("softmax_label", y.shape)])
+    mod.init_params(arg_params=arg, aux_params=aux)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=opt)
+    host_batch = mx.io.DataBatch([mx.nd.array(x, ctx=mx.cpu())], [mx.nd.array(y, ctx=mx.cpu())])
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(FIT_SGD))
+    img, lab = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device).int()
+
+    def module_step(batch=host_batch):
+        mod.forward_backward(batch)
+        mod.update()
+
+    with _deterministic(bert=False):
+        reset_kernel_counts()
+        ops_nn.batch_norm.reference_calls = 0
+        module_step()
+        sync()
+        counts = kernel_counts()
+        reference_calls = ops_nn.batch_norm.reference_calls
+        out_dtype = mod.get_outputs()[0]._data.dtype
+        resnet_step(net, trainer, (img, lab))
+        sync()
+    key = {p.name: i for i, p in enumerate(trainer._params)}
+    worst = {"weight": 0.0, "momentum": 0.0, "moving_stat": 0.0}
+    noise = 0.0
+    for name, w0 in arg.items():
+        wg = net.collect_params()[name].data().detach()
+        wm = mod._exec.arg_dict[name]._data
+        mg, mm = trainer._states[key[name]], mod._updater_states[name]
+        if re.search(r"conv2d\d+_bias$", name):
+            noise = max(noise, (wm - wg).abs().max().item())
+            continue
+        step = (wg - w0).abs().max().item()
+        worst["weight"] = max(worst["weight"], (wm - wg).abs().max().item() / step)
+        worst["momentum"] = max(worst["momentum"], (mm - mg).abs().max().item()
+                                / max(mg.abs().max().item(), 1e-30))
+    for name in aux:
+        sg = net.collect_params()[name].data().detach()
+        sm = mod._exec.aux_dict[name]._data
+        worst["moving_stat"] = max(worst["moving_stat"],
+                                   (sm - sg).abs().max().item() / sg.abs().max().item())
+    want = {n: 0 for n in ENTRIES}
+    want_traced = {}
+    if not rehearsal:
+        want_traced = {"bn_stats": n_bn, "bn_apply": n_bn}
+        want.update(want_traced)
+    tries, _ = ([], {}) if rehearsal else _replay_kernels(module_step, want_traced)
+    ok = (worst["weight"] <= FIT_STEP_REL and worst["momentum"] <= FIT_STEP_REL
+          and worst["moving_stat"] <= FIT_STATS_REL and counts == want
+          and reference_calls == 0 and out_dtype == torch.float32
+          and mx.ops.registry._amp is None
+          and (rehearsal or tries[-1] == want_traced))
+    emit("fit", check="module_step_vs_gluon_step", batch=b, batchnorms=n_bn,
+         params=len(arg), max_rel_err=worst,
+         bounds=dict(weight=FIT_STEP_REL, momentum=FIT_STEP_REL, moving_stat=FIT_STATS_REL),
+         bn_fed_conv_bias_max_abs_err=noise, output_dtype=str(out_dtype),
+         amp_policy=None if mx.ops.registry._amp is None else "on",
+         launches_one_step=counts, expected=want, batchnorm_reference_calls=reference_calls,
+         traced_kernels=tries[-1] if tries else None, traced_tries=len(tries),
+         expected_traced=want_traced or None, ok=ok)
+
+    # the steps timed: Module with its batch on the host (the copy to the
+    # card inside), Module with the batch on the card, the per-tensor
+    # update alone, the eager Gluon step and its Trainer.step alone
+    card_batch = mx.io.DataBatch([mx.nd.NDArray(img, ctx=ctx)], [mx.nd.array(y, ctx=ctx)])
+    iters = 1 if rehearsal else FIT_TIMED
+    t = dict(module_step_ms=_time_steps(module_step, iters),
+             module_step_card_batch_ms=_time_steps(lambda: module_step(card_batch), iters))
+    mod.forward_backward(card_batch)
+    t["module_update_ms"] = _time_steps(mod.update, iters)
+    t["gluon_step_ms"] = _time_steps(lambda: resnet_step(net, trainer, (img, lab)), iters)
+    resnet_step(net, None, (img, lab))
+    t["gluon_trainer_step_ms"] = _time_steps(lambda: trainer.step(b), iters)
+    t["host_to_card_copy_ms"] = _time_steps(lambda: host_batch.data[0]._data.to(device), iters)
+    emit("fit", check="step_times", batch=b, **t,
+         module_img_per_s=b * 1e3 / t["module_step_ms"],
+         module_card_batch_img_per_s=b * 1e3 / t["module_step_card_batch_ms"],
+         gluon_img_per_s=b * 1e3 / t["gluon_step_ms"], batch_bytes=x.nbytes,
+         note="CPU rehearsal: host time" if rehearsal else "wall, card synchronized; fp32, "
+         "TF32 off", card=smi)
+    if not rehearsal:
+        phase_profile("fit Module step (ResNet-50 v1, fp32, batch on the host)", module_step,
+                      smi)
+    return ok, counts
+
+
+def _fit_resnet(rehearsal, ctx, smi, tmp):
+    """``Module.fit`` for FIT_EPOCHS epochs of FIT_BATCHES batches from an
+    ``NDArrayIter`` with the acc, top-5 and ce metrics, ``Speedometer`` and
+    ``do_checkpoint``; the training cross-entropy falls from epoch 0 to 1;
+    the checkpoint loads back equal; ``Module.load(..., 2,
+    load_optimizer_states=True)`` takes one step bit-equal to the module
+    that was not interrupted; ``score`` and ``predict`` on the card.
+    Returns ok."""
+    b = 4 if rehearsal else RESNET_B
+    size, classes = (32, TINY_RESNET["classes"]) if rehearsal else (224, 1000)
+    net = _build_resnet(rehearsal, ctx, 7)
+    arg, aux = _fit_params(net)
+    sym = _fit_resnet_symbol(rehearsal, net.prefix)
+    del net
+    x, y = _fit_images(b * FIT_BATCHES, size, classes, 9)
+    train = mx.io.NDArrayIter(x, y, batch_size=b)
+    opt = dict(FIT_SGD, rescale_grad=1.0 / b)
+    prefix = os.path.join(tmp, "resnet50_v1")
+    mod = mx.mod.Module(sym, context=ctx)
+    metrics = ["acc", mx.metric.TopKAccuracy(5), "ce"]
+    t0 = time.perf_counter()
+    with _captured_log() as lines:
+        mod.fit(train, eval_metric=metrics, optimizer="sgd", optimizer_params=opt,
+                arg_params=arg, aux_params=aux, num_epoch=FIT_EPOCHS,
+                batch_end_callback=mx.callback.Speedometer(b, 4),
+                epoch_end_callback=mx.callback.do_checkpoint(prefix))
+    fit_s = time.perf_counter() - t0
+    ce = _epoch_metric(lines, "cross-entropy")
+    speeds = [float(s) for line in lines for s in re.findall(r"Speed: ([0-9.]+)", line)]
+    falls = len(ce) == FIT_EPOCHS and ce[1] < ce[0]
+    # the epoch-2 checkpoint of do_checkpoint is what get_params holds
+    _, ck_arg, ck_aux = mx.model.load_checkpoint(prefix, FIT_EPOCHS)
+    marg, maux = mod.get_params()
+    ck_equal = (sorted(ck_arg) == sorted(marg) and sorted(ck_aux) == sorted(maux)
+                and all(torch.equal(ck_arg[k]._data, marg[k]._data.cpu()) for k in marg)
+                and all(torch.equal(ck_aux[k]._data, maux[k]._data.cpu()) for k in maux))
+    files = sorted(p for p in os.listdir(tmp) if p.startswith("resnet50_v1"))
+    # resume: the states saved beside the epoch-2 parameters
+    mod.save_checkpoint(prefix, FIT_EPOCHS, save_optimizer_states=True)
+    resumed = mx.mod.Module.load(prefix, FIT_EPOCHS, load_optimizer_states=True, context=ctx)
+    resumed.bind(train.provide_data, train.provide_label, for_training=True)
+    resumed.init_params()
+    resumed.init_optimizer(optimizer="sgd", optimizer_params=opt)
+    train.reset()
+    batch = next(iter(train))
+    with _deterministic(bert=False):
+        for m in (mod, resumed):
+            m.forward_backward(batch)
+            m.update()
+    ra, rx = resumed.get_params()
+    ma, mx_ = mod.get_params()
+    resume_equal = (all(torch.equal(ra[k]._data, ma[k]._data) for k in ma)
+                    and all(torch.equal(rx[k]._data, mx_[k]._data) for k in mx_)
+                    and all(torch.equal(resumed._updater_states[k], mod._updater_states[k])
+                            for k in mod._updater_states))
+    del resumed
+    # score and predict: two batches, on the card
+    val = mx.io.NDArrayIter(x[:2 * b], y[:2 * b], batch_size=b)
+    with _deterministic(bert=False):
+        scored = dict(mod.score(val, ["acc", "ce"]))
+        pred = mod.predict(val)
+    probs = pred.asnumpy()
+    pred_acc = float((probs.argmax(1) == y[:2 * b]).mean())
+    pred_ok = (pred.shape == (2 * b, classes) and pred.context == ctx
+               and bool(np.isfinite(probs).all())
+               and np.abs(probs.sum(1) - 1).max() < 1e-4
+               and abs(pred_acc - scored["accuracy"]) < 1e-9)
+    ok = falls and ck_equal and resume_equal and pred_ok and len(speeds) >= 1
+    emit("fit", check="module_fit", model="resnet50_v1 symbol (tests/sym_resnet.py)"
+         if not rehearsal else "tiny ResNetV1 symbol (CPU rehearsal)", batch=b,
+         epochs=FIT_EPOCHS, batches_an_epoch=FIT_BATCHES, optimizer=opt,
+         train_cross_entropy_by_epoch=ce, falls=falls,
+         epoch_lines=[ln for ln in lines if ln.startswith("Epoch")],
+         speedometer_samples_per_s=speeds, fit_s=fit_s, checkpoint_files=files,
+         checkpoint_equals_get_params=ck_equal, resumed_step_bit_equal=resume_equal,
+         score=scored, predict_shape=list(pred.shape), predict_acc=pred_acc,
+         predict_ok=pred_ok, card=smi, ok=ok)
+    return ok
+
+
+def lm_corpus(n, vocab, buckets, seed):
+    """``n`` seeded sentences of 2 to the largest bucket's tokens (1 ..
+    vocab - 1; 0 is the padding label), words drawn by Zipf's law (a
+    word's frequency 1/rank, as a natural corpus such as PTB has them):
+    each word is followed by one of its four successors nine times in ten,
+    else by any word."""
+    rng = np.random.default_rng(seed)
+    zipf = 1.0 / np.arange(1, vocab)
+    zipf /= zipf.sum()
+    succ = rng.choice(vocab - 1, (vocab, 4), p=zipf) + 1
+    lengths = rng.integers(2, max(buckets) + 1, n)
+    out = []
+    for length in lengths:
+        words = rng.choice(vocab - 1, length, p=zipf) + 1
+        picks, keep = rng.integers(0, 4, length), rng.random(length) < 0.9
+        s = [int(words[0])]
+        for i in range(1, length):
+            s.append(int(succ[s[-1], picks[i]]) if keep[i] else int(words[i]))
+        out.append(s)
+    return out
+
+
+def lm_sym_gen(cfg, unrolled=False):
+    """The reference example's net for a bucket: embedding, a 2-layer LSTM
+    (``FusedRNNCell``, or with ``unrolled`` a SequentialRNNCell of
+    LSTMCells carrying the same parameter names after ``unpack_weights``),
+    the vocabulary projection and ``SoftmaxOutput``."""
+    S = mx.sym
+
+    def sym_gen(seq_len):
+        embed = S.Embedding(S.var("data"), input_dim=cfg["vocab"], output_dim=cfg["embed"],
+                            name="embed")
+        if unrolled:
+            cell = mx.rnn.SequentialRNNCell()
+            for i in range(cfg["layers"]):
+                cell.add(mx.rnn.LSTMCell(cfg["hidden"], prefix=f"lstm_l{i}_"))
+        else:
+            cell = mx.rnn.FusedRNNCell(cfg["hidden"], num_layers=cfg["layers"], mode="lstm",
+                                       prefix="lstm_")
+        out, _ = cell.unroll(seq_len, inputs=embed, merge_outputs=True)
+        pred = S.FullyConnected(S.Reshape(out, shape=(-1, cfg["hidden"])),
+                                num_hidden=cfg["vocab"], name="pred")
+        label = S.Reshape(S.var("softmax_label"), shape=(-1,))
+        return S.SoftmaxOutput(pred, label, name="softmax"), ("data",), ("softmax_label",)
+
+    return sym_gen
+
+
+def _lm_fused_init(cfg):
+    """The packed LSTM parameters as the reference's FusedRNN initializer
+    fills them: Xavier(in, 2.34) on each weight matrix, the i2h biases
+    ``LSTMBias(1.0)``, the h2h biases 0, packed by ``pack_weights``."""
+    cell = mx.rnn.FusedRNNCell(cfg["hidden"], num_layers=cfg["layers"], mode="lstm",
+                               prefix="lstm_")
+    n = mx.ops.rnn_ops.rnn_param_size("lstm", cfg["embed"], cfg["hidden"], cfg["layers"])
+    parts = cell.unpack_weights({"lstm_parameters": np.zeros(n, np.float32)})
+    xavier = mx.init.Xavier(factor_type="in", magnitude=2.34)
+    for name, v in parts.items():
+        if name.endswith("weight"):
+            xavier(mx.init.InitDesc(name), v._data)
+        elif "i2h_bias" in name:
+            mx.init.LSTMBias(1.0)(mx.init.InitDesc(name), v._data)
+    return cell.pack_weights(parts)["lstm_parameters"]
+
+
+def _lm(rehearsal, ctx, smi):
+    """The bucketing LSTM language model: ``BucketingModule`` over
+    ``sym.RNN`` (FusedRNNCell) fed by ``BucketSentenceIter``, ``fit`` for
+    the epochs with ``Perplexity(0)``; perplexity falls, one shared
+    parameter set after every bucket trained, tokens/s for each bucket; the
+    fused graph against the unrolled cells at the smallest bucket.
+    Returns ok."""
+    cfg = TINY_LM if rehearsal else LM
+    mx.random.seed(13)
+    np.random.seed(13)  # BucketSentenceIter shuffles with numpy's global generator
+    sentences = lm_corpus(cfg["sentences"], cfg["vocab"], cfg["buckets"], 17)
+    it = mx.rnn.BucketSentenceIter(sentences, cfg["batch"], buckets=list(cfg["buckets"]),
+                                   invalid_label=cfg["invalid_label"])
+    bmod = mx.mod.BucketingModule(lm_sym_gen(cfg), default_bucket_key=it.default_bucket_key,
+                                  context=ctx)
+    opt = {"learning_rate": cfg["lr"], "momentum": 0.0, "wd": cfg["wd"],
+           "rescale_grad": 1.0 / cfg["batch"]}
+    t0 = time.perf_counter()
+    with _captured_log() as lines:
+        bmod.fit(it, eval_metric=mx.metric.Perplexity(cfg["invalid_label"]), optimizer="sgd",
+                 optimizer_params=opt, num_epoch=cfg["epochs"],
+                 initializer=mx.init.Xavier(factor_type="in", magnitude=2.34),
+                 arg_params={"lstm_parameters": _lm_fused_init(cfg)}, allow_missing=True,
+                 batch_end_callback=mx.callback.Speedometer(cfg["batch"], 50))
+    fit_s = time.perf_counter() - t0
+    ppl = _epoch_metric(lines, "perplexity")
+    falls = (len(ppl) == cfg["epochs"]
+             and all(ppl[e + 1] < ppl[e] for e in range(cfg["epochs"] - 1)))
+    arg, aux = bmod.get_params()
+    n_lstm = mx.ops.rnn_ops.rnn_param_size("lstm", cfg["embed"], cfg["hidden"], cfg["layers"])
+    master = bmod._buckets[bmod._default_bucket_key]
+    shared = (sorted(arg) == ["embed_weight", "lstm_parameters", "pred_bias", "pred_weight"]
+              and not aux and arg["lstm_parameters"].shape == (n_lstm,)
+              and sorted(bmod._buckets) == sorted(cfg["buckets"])
+              and all(m._exec.arg_dict[k] is master._exec.arg_dict[k]
+                      for m in bmod._buckets.values() for k in arg))
+    # one batch of each bucket, its training step timed (tokens/s)
+    it.reset()
+    first = {}
+    for batch in it:
+        first.setdefault(batch.bucket_key, batch)
+    tokens_per_s = {}
+    for key in sorted(first):
+        batch = first[key]
+
+        def step(batch=batch):
+            bmod.forward(batch, is_train=True)
+            bmod.backward()
+            bmod.update()
+
+        ms = _time_steps(step, 1 if rehearsal else cfg["timed"])
+        tokens_per_s[key] = cfg["batch"] * key * 1e3 / ms
+    if not rehearsal:
+        phase_profile(f"fit LSTM LM training step (bucket {key})", step, smi)
+    fused_ok, fused_err = _lm_fused_vs_unrolled(cfg, ctx, arg, first[min(first)])
+    ok = falls and shared and fused_ok
+    emit("fit", check="bucketing_lstm_lm", widths=dict(
+        vocab=cfg["vocab"], embed=cfg["embed"], hidden=cfg["hidden"], layers=cfg["layers"],
+        batch=cfg["batch"], buckets=list(cfg["buckets"])), optimizer=opt,
+         corpus=dict(sentences=cfg["sentences"], batches_an_epoch=len(it._plan)),
+         perplexity_by_epoch=ppl, falls=falls, lstm_parameters=n_lstm,
+         one_shared_parameter_set=shared, fit_s=fit_s,
+         train_step_tokens_per_s_by_bucket=tokens_per_s,
+         fused_vs_unrolled_max_rel_err=fused_err, fused_bound=LM_FUSED_REL,
+         note="CPU rehearsal: host time" if rehearsal else "wall, card synchronized; fp32, "
+         "TF32 off", card=smi, ok=ok)
+    return ok
+
+
+def _lm_fused_vs_unrolled(cfg, ctx, arg, batch):
+    """The fused LM graph and the unrolled one (LSTMCells with the weights
+    ``unpack_weights`` gives) at one bucket: outputs and every gradient
+    (the fused one unpacked) within LM_FUSED_REL of the largest |value|."""
+    key = batch.bucket_key
+    shapes = {"data": batch.data[0].shape, "softmax_label": batch.label[0].shape}
+    exes = []
+    for unrolled in (False, True):
+        sym = lm_sym_gen(cfg, unrolled)(key)[0]
+        ex = sym.simple_bind(ctx, **shapes)
+        params = ({k: v for k, v in arg.items()} if not unrolled else
+                  mx.rnn.FusedRNNCell(cfg["hidden"], num_layers=cfg["layers"], mode="lstm",
+                                      prefix="lstm_").unpack_weights(arg))
+        ex.copy_params_from({"data": batch.data[0], "softmax_label": batch.label[0], **params})
+        ex.forward(is_train=True)
+        ex.backward()
+        exes.append(ex)
+    fused, cells = exes
+    grads = mx.rnn.FusedRNNCell(cfg["hidden"], num_layers=cfg["layers"], mode="lstm",
+                                prefix="lstm_").unpack_weights(
+        {k: v for k, v in fused.grad_dict.items() if k not in ("data", "softmax_label")})
+    pairs = [(fused.outputs[0], cells.outputs[0])] + [
+        (g, cells.grad_dict[k]) for k, g in grads.items()]
+    err = max((a._data - b._data).abs().max().item() / max(b._data.abs().max().item(), 1e-30)
+              for a, b in pairs)
+    return err <= LM_FUSED_REL, err
+
+
+def _rnn_op_case(mode, bidirectional, dtype, shape, device, seed):
+    """The RNN op's outputs and gradients (data, parameters, states) on
+    ``device`` in ``dtype``, from seeded fp32 CPU inputs and head
+    gradients; returned as fp32 CPU tensors."""
+    T, N, C, H, L = shape
+    dirs = 2 if bidirectional else 1
+    gen = torch.Generator().manual_seed(seed)
+    n = mx.ops.rnn_ops.rnn_param_size(mode, C, H, L, bidirectional)
+    inputs = [torch.randn(T, N, C, generator=gen), torch.randn(n, generator=gen) * 0.08,
+              torch.randn(L * dirs, N, H, generator=gen)]
+    if mode == "lstm":
+        inputs.append(torch.randn(L * dirs, N, H, generator=gen))
+    leaves = [t.to(device=device, dtype=dtype).requires_grad_() for t in inputs]
+    outs = mx.ops.rnn_ops.rnn_mega(*leaves, mode=mode, state_size=H, num_layers=L,
+                                   bidirectional=bidirectional, state_outputs=True)
+    seeds = [torch.randn(o.shape, generator=gen).to(device=device, dtype=dtype) for o in outs]
+    grads = torch.autograd.grad(outs, leaves, seeds)
+    return [t.detach().float().cpu() for t in list(outs) + list(grads)]
+
+
+def _rnn_weight_copy_ms(shape, device, iters):
+    """The LSTM op's forward and backward at ``shape`` (fp32), through the
+    packed vector's views (which cuDNN copies into its own buffer at every
+    call), beside ``torch.nn.LSTM`` with its weights flattened into
+    cuDNN's buffer (the library call): what the copy costs."""
+    T, N, C, H, L = shape
+    gen = torch.Generator().manual_seed(71)
+    x = torch.randn(T, N, C, generator=gen).to(device).requires_grad_()
+    n = mx.ops.rnn_ops.rnn_param_size("lstm", C, H, L)
+    packed = (torch.randn(n, generator=gen) * 0.08).to(device).requires_grad_()
+    lib = torch.nn.LSTM(C, H, L).to(device)
+    lib.flatten_parameters()
+
+    def op():
+        out = mx.ops.rnn_ops.rnn_mega(x, packed, mode="lstm", state_size=H, num_layers=L)
+        torch.autograd.grad(out.sum(), (x, packed))
+
+    def library():
+        out = lib(x)[0]
+        torch.autograd.grad(out.sum(), [x] + list(lib.parameters()))
+
+    return dict(op_ms=_time_steps(op, iters), library_ms=_time_steps(library, iters))
+
+
+def _rnn_card_vs_cpu(rehearsal, device):
+    """The RNN op at the LM's widths on the card against the port's CPU
+    result: all four modes, LSTM bidirectional, LSTM in bf16."""
+    shape = TINY_RNN_SHAPE if rehearsal else RNN_CARD_SHAPE
+    cases = [(m, False, torch.float32) for m in ("lstm", "gru", "rnn_tanh", "rnn_relu")]
+    cases += [("lstm", True, torch.float32), ("lstm", False, torch.bfloat16)]
+    rows, ok = [], True
+    for i, (mode, bi, dtype) in enumerate(cases):
+        got = _rnn_op_case(mode, bi, dtype, shape, device, 40 + i)
+        ref = _rnn_op_case(mode, bi, torch.float32, shape, torch.device("cpu"), 40 + i)
+        errs = [(a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                for a, b in zip(got, ref)]
+        bound = RNN_BF16_REL if dtype == torch.bfloat16 else RNN_CARD_REL
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        rows.append(dict(mode=mode, bidirectional=bi, dtype=str(dtype).split(".")[1],
+                         max_rel_err=max(errs), bound=bound))
+        ok = ok and finite and max(errs) <= bound
+    return ok, rows
+
+
+def _gluon_rnn_card_vs_cpu(rehearsal, ctx):
+    """``gluon.rnn.LSTM``, ``GRU`` (bidirectional) and ``RNN`` (2 layers,
+    hidden 200) forward and backward on the card against the CPU with the
+    same weights; ``LSTMCell.unroll`` against a one-layer ``LSTM`` with the
+    same weights on the card."""
+    T, N, C, H, _ = TINY_RNN_SHAPE if rehearsal else RNN_CARD_SHAPE
+    cpu = mx.cpu()
+    makes = {"LSTM": lambda: mx.gluon.rnn.LSTM(H, num_layers=2, input_size=C),
+             "GRU": lambda: mx.gluon.rnn.GRU(H, num_layers=2, bidirectional=True, input_size=C),
+             "RNN": lambda: mx.gluon.rnn.RNN(H, num_layers=2, input_size=C)}
+    gen = torch.Generator().manual_seed(61)
+    x = torch.randn(T, N, C, generator=gen)
+    rows, ok = {}, True
+    for name, make in makes.items():
+        mx.random.seed(62)
+        ref_net = make()
+        ref_net.initialize(mx.init.Uniform(0.1), ctx=cpu)
+        net = make()
+        load_numpy_params(net, {k: p.data().detach() for k, p in
+                                ref_net._collect_params_with_prefix().items()}, ctx=ctx)
+        res = []
+        for n, dev in ((net, ctx.device), (ref_net, torch.device("cpu"))):
+            xin = x.to(dev)
+            with mx.autograd.record():
+                out = n(xin)
+            w = torch.linspace(-1, 1, out.numel(), device=dev).reshape(out.shape)
+            mx.autograd.backward(out, w)
+            res.append([out.detach().cpu()] + [p.grad().detach().cpu() for p in
+                                               n._collect_params_with_prefix().values()])
+        err = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                  for a, b in zip(*res))
+        rows[name] = err
+        ok = ok and err <= RNN_CARD_REL
+    layer = mx.gluon.rnn.LSTM(H, input_size=C)
+    layer.initialize(mx.init.Uniform(0.1), ctx=ctx)
+    cell = mx.gluon.rnn.LSTMCell(H, input_size=C)
+    cell.initialize(ctx=ctx)
+    for n in ("i2h_weight", "h2h_weight", "i2h_bias", "h2h_bias"):
+        getattr(cell, n).set_data(getattr(layer, "l0_" + n).data())
+    xd = x.to(ctx.device)
+    with mx.autograd.predict_mode():
+        fused = layer(xd)
+        unrolled, _ = cell.unroll(T, xd, layout="TNC")
+    rows["LSTMCell.unroll_vs_LSTM"] = ((unrolled - fused).abs().max().item()
+                                       / fused.abs().max().item())
+    ok = ok and rows["LSTMCell.unroll_vs_LSTM"] <= RNN_CARD_REL
+    return ok, rows
+
+
+def phase_fit(rehearsal, smi=None):
+    """The fit loop and the RNNs on the card (see the module doc): fp32,
+    AMP off.  Returns {"fit": launch counts of one ResNet-50 Module step};
+    exits non-zero on any miss."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    mx.amp.disable()  # the earlier phases' AMP is process-wide: fit runs fp32
+    mx.profiler.disarm_compile_guard()
+    ctx = mx.cpu() if rehearsal else mx.gpu(0)
+    misses = []
+    ok, counts = _fit_vs_gluon(rehearsal, ctx, smi)
+    if not ok:
+        misses.append("module_step_vs_gluon")
+    if not rehearsal:
+        torch.cuda.empty_cache()
+        # the Module step's BN kernels run fp32 at B=256 on all nine
+        # ResNet-50 shapes; the bn phase holds only two of them in fp32
+        bad = _detect_bn_kernels([(RESNET_B, c, hw) for c, hw in RESNET_BN_SHAPES],
+                                 ctx.device, torch.float32, phase="fit")
+        if bad:
+            misses.append("bn_kernels:" + ",".join(bad))
+    tmp = tempfile.mkdtemp(prefix="mxnet_fit_")
+    try:
+        if not _fit_resnet(rehearsal, ctx, smi, tmp):
+            misses.append("module_fit")
+    finally:
+        for name in os.listdir(tmp):
+            os.remove(os.path.join(tmp, name))
+        os.rmdir(tmp)
+    if not rehearsal:
+        torch.cuda.empty_cache()
+    if not _lm(rehearsal, ctx, smi):
+        misses.append("bucketing_lm")
+    rnn_ok, rnn_rows = _rnn_card_vs_cpu(rehearsal, ctx.device)
+    layers_ok, layer_rows = _gluon_rnn_card_vs_cpu(rehearsal, ctx)
+    emit("fit", check="rnn_card_vs_cpu", op=rnn_rows, gluon_layers_max_rel_err=layer_rows,
+         bound=RNN_CARD_REL, ok=rnn_ok and layers_ok)
+    shape = TINY_RNN_SHAPE if rehearsal else RNN_CARD_SHAPE
+    emit("fit", check="rnn_weight_copy", shape=dict(zip("TNCHL", shape)), mode="lstm fp32",
+         **_rnn_weight_copy_ms(shape, ctx.device, 1 if rehearsal else 20),
+         note="CPU rehearsal: host time" if rehearsal else
+         "wall, card synchronized; forward and backward", card=smi)
+    if not rnn_ok:
+        misses.append("rnn_op_card_vs_cpu")
+    if not layers_ok:
+        misses.append("gluon_rnn_card_vs_cpu")
+    emit("fit", phase_s=time.perf_counter() - t0, failed=misses, ok=not misses)
+    if misses:
+        sys.exit(1)
+    return {"fit": counts}
 
 
 def decode_load(records=1024, loads=400):
@@ -6607,13 +7260,15 @@ def _times_train_surface(bert, resnet, smi):
 
 
 def _time_steps(fn, iters):
-    """Mean wall ms of ``iters`` calls of ``fn`` after one warm-up."""
+    """Mean wall ms of ``iters`` calls of ``fn`` after one warm-up (the
+    card synchronized around them, if there is one)."""
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
     fn()
-    torch.cuda.synchronize()
+    sync()
     t0 = time.perf_counter()
     for _ in range(iters):
         fn()
-    torch.cuda.synchronize()
+    sync()
     return (time.perf_counter() - t0) / iters * 1e3
 
 
@@ -7252,6 +7907,7 @@ def main():
         phase_spmd(rehearsal=True)
         phase_io(rehearsal=True)
         phase_detect(rehearsal=True)
+        phase_fit(rehearsal=True)
         phase_train_surface(rehearsal=True)
         rehearse_times(net, main_req, (tnet, trainer, batch), (rnet, rtrainer, rbatch))
         phase_observe((tnet, trainer, batch), rehearsal=True)
@@ -7311,6 +7967,7 @@ def main():
     phase_dist(smi)
     paths.update(phase_io(rehearsal=False, smi=smi))
     paths.update(phase_detect(rehearsal=False, smi=smi))
+    paths.update(phase_fit(rehearsal=False, smi=smi))
     paths.update(phase_observe((tnet, trainer, batch), rehearsal=False, smi=smi))
     paths.update(phase_generation(rehearsal=False, seed=args.seed, smi=smi))
     paths.update(phase_serve(net, main_req, rehearsal=False, smi=smi))

@@ -16,8 +16,25 @@ BatchNorm's auxiliary states: the op returns batch statistics, and a
 training forward blends them into the moving statistics after the walk
 (the reference mutates aux arrays inside the op kernel).
 
-Training through the symbol path (``backward``, gradient buffers) is not
-ported yet: it comes with ``module/`` (ROADMAP §1 item 11).
+Training (the JAX package differentiates the same program): a training
+forward records PyTorch's graph from a fresh ``detach().requires_grad_()``
+view of every floating argument whose ``grad_req`` is not ``"null"``, so
+the optimizer's in-place update of a bound weight never touches a leaf that
+requires grad.  ``backward`` differentiates that graph and frees it (the
+activations leave the device before the optimizer's update).  A second
+``backward``, or one after an inference forward (or none), walks the graph
+again in training mode over the bound arrays, as the JAX package's
+recompute does: from the generator state the last training forward
+started from (the same dropout masks; after an inference forward, from the
+state it finds) and without moving the BatchNorm statistics a second time.
+Gradients land in the bound gradient NDArrays, which stay the same objects
+(a caller's ``args_grad`` and ``BucketingModule``'s buckets hold them):
+``write`` gives one a new tensor in its dtype, ``add`` accumulates.
+
+The ops that draw (``Dropout``, and ``RNN``'s dropout between layers) get
+the walk's mode and, in training, the context's generator.  The JAX
+package's executor gives ``RNN`` no key, so there a graph's ``RNN(p=...)``
+trains without that dropout; the reference applies it.
 """
 from __future__ import annotations
 
@@ -33,12 +50,10 @@ from .base import as_torch_dtype
 from .context import current_context
 from .ndarray.ndarray import NDArray, _from_host, _wrap
 from .ops.registry import get_op
-from .symbol.infer import takes_ctx
+from .random import get_generator
+from .symbol.infer import takes_ctx, takes_key
 
 __all__ = ["Executor"]
-
-_NO_TRAINING = ("training through the symbol path (Executor.backward, gradient buffers) "
-                "is not ported yet: it comes with module/, ROADMAP §1 item 11")
 
 
 def _release_executor_memory(nbytes):
@@ -71,9 +86,11 @@ def _as_ndarray(v, ctx):
 class _Plan:
     """One signature's graph walk: ``steps`` of (fn, attrs, input slots,
     slot, slots to free after), the variable slots, the output slots and,
-    in training, the BatchNorm aux updates."""
+    in training, the BatchNorm aux updates and the slots of the ops that
+    draw from a generator (``Dropout``, ``RNN``), which get the ``key``
+    their walk is given."""
 
-    __slots__ = ("n_slots", "var_slots", "steps", "outputs", "bn_updates")
+    __slots__ = ("n_slots", "var_slots", "steps", "outputs", "bn_updates", "keyed")
 
     def __init__(self, symbol, ctx, training):
         topo = symbol._topo()
@@ -92,6 +109,7 @@ class _Plan:
                 frees.setdefault(i, []).append(s)
         self.steps = []
         self.bn_updates = []
+        self.keyed = set()
         for i, node in enumerate(topo):
             if node.op is None:
                 continue
@@ -99,6 +117,10 @@ class _Plan:
             attrs = {k: v for k, v in node.attrs.items() if not k.startswith("__")}
             if "ctx" not in attrs and takes_ctx(fn):
                 attrs["ctx"] = ctx
+            if takes_key(fn):
+                attrs["training"] = training
+                if training:
+                    self.keyed.add(i)
             ins = tuple((slot[id(src)], idx) for src, idx in node.inputs)
             self.steps.append((fn, attrs, ins, i, tuple(frees.get(i, ()))))
             if (node.op == "BatchNorm" and training
@@ -110,15 +132,17 @@ class _Plan:
                         stat = 1 if pname == "moving_mean" else 2
                         self.bn_updates.append((src.name, i, stat, momentum))
 
-    def run(self, arrays):
+    def run(self, arrays, key=None):
         """Outputs and aux updates of one walk over ``arrays`` (name →
-        tensor)."""
+        tensor), the keyed ops drawing from ``key``."""
         values = [None] * self.n_slots
         for s, name in self.var_slots:
             values[s] = (arrays[name],)
         bn_out = {}
         bn_slots = {i for _, i, _, _ in self.bn_updates}
         for fn, attrs, ins, s, frees in self.steps:
+            if s in self.keyed:
+                attrs = {**attrs, "key": key}
             out = fn(*[values[j][k] for j, k in ins], **attrs)
             values[s] = out if isinstance(out, tuple) else (out,)
             if s in bn_slots:
@@ -157,11 +181,22 @@ class Executor:
         elif isinstance(grad_req, (list, tuple)):
             grad_req = dict(zip(arg_names, grad_req))
         self._grad_req = {n: grad_req.get(n, "null") for n in arg_names}
-        if args_grad and any(r != "null" for r in self._grad_req.values()):
-            raise NotImplementedError(_NO_TRAINING)
-        self._grad_dict = {}
+
+        if isinstance(args_grad, (list, tuple)):
+            args_grad = dict(zip(arg_names, args_grad))
+        self._grad_dict = {k: _as_ndarray(v, self._ctx)
+                           for k, v in (args_grad or {}).items() if v is not None}
+        for n in arg_names:
+            if self._grad_req[n] != "null" and n not in self._grad_dict and n in args:
+                self._grad_dict[n] = _wrap(torch.zeros_like(args[n]._data), self._ctx)
 
         self._fwd_cache = {}
+        # the last training forward's recorded outputs and leaves, and the
+        # generator state it started from (backward's recompute draws the
+        # same dropout masks from it; None after an inference forward, whose
+        # backward draws from the state it finds)
+        self._graph = None
+        self._rng_state = None
         # compile-registry site label; the Predictor relabels its executors
         # "predictor.forward" and the serving tier overrides both with a
         # profiler.compile_site scope ("serving.warmup"/"serving.dispatch")
@@ -170,7 +205,7 @@ class Executor:
         # A Predictor immediately calls _release_memory(): its executors
         # share the predictor-accounted parameter store by object.
         nb = sum(_profiler.array_nbytes(v)
-                 for d in (self._arg_dict, self._aux_dict) for v in d.values())
+                 for d in (self._arg_dict, self._aux_dict, self._grad_dict) for v in d.values())
         _profiler.track_memory("executor.bound", "params").alloc(nb)
         self._mem_finalizer = _weakref.finalize(self, _release_executor_memory, nb)
 
@@ -183,8 +218,8 @@ class Executor:
     def simple_bind(cls, symbol, ctx=None, grad_req="write", type_dict=None,
                     **shapes):
         """Infer all shapes from the given input shapes and allocate zeroed
-        arg/aux arrays on ``ctx`` (parity: ``Symbol.simple_bind``; the user
-        then fills params)."""
+        arg/aux/grad arrays on ``ctx`` (parity: ``Symbol.simple_bind``; the
+        user then fills params)."""
         ctx = ctx or current_context()
         arg_shapes, _, aux_shapes = symbol.infer_shape(**shapes)
         arg_dtypes, _, aux_dtypes = symbol.infer_type(
@@ -252,7 +287,8 @@ class Executor:
     def forward(self, is_train=False, **kwargs):
         """Run the graph (under ``torch.inference_mode()`` unless
         ``is_train``) and return the outputs as NDArrays on the executor's
-        context.  Keyword arguments replace bound arguments first."""
+        context.  Keyword arguments replace bound arguments first.  A
+        training forward records the graph ``backward`` differentiates."""
         for k, v in kwargs.items():
             if k not in self._arg_dict:
                 raise ValueError(
@@ -261,18 +297,16 @@ class Executor:
             arg = self._arg_dict[k]
             arg._data = _tensor(v, arg._data.device, arg._data.dtype)
             arg._version += 1
+        self._graph = None  # the last forward's activations go first
         arrays = self._collect_inputs()
         training = bool(is_train)
-        sig = (self._signature(arrays), training)
-        plan = self._fwd_cache.get(sig)
-        tc = None
-        if plan is None:
-            tc = _perf()
-            plan = self._fwd_cache[sig] = _Plan(self._symbol, self._ctx, training)
+        plan, sig, tc = self._plan(arrays, training)
+        self._rng_state = None
         try:
             if training:
-                with torch.no_grad(), autograd._scope(False, True):
-                    outs, aux_updates = plan.run(arrays)
+                gen = get_generator(self._ctx.device)
+                self._rng_state = gen.get_state()
+                outs, aux_updates, self._graph = self._run_train(plan, arrays, gen)
             else:
                 with torch.inference_mode(), autograd._scope(False, False):
                     outs, aux_updates = plan.run(arrays)
@@ -285,14 +319,95 @@ class Executor:
                 self._compile_site,
                 self._compile_signature(arrays, "fwd_train" if training else "fwd"),
                 (_perf() - tc) * 1e3)
-        self.outputs = [_wrap(o, self._ctx) for o in outs]
+        self.outputs = [_wrap(o.detach(), self._ctx) for o in outs]
         for name, new in aux_updates.items():
-            self._aux_dict[name]._data = new
+            self._aux_dict[name]._data = new.detach()
             self._aux_dict[name]._version += 1
         return self.outputs
 
+    def _wrt(self, arrays):
+        """The arguments to differentiate: ``grad_req`` not ``"null"``, of a
+        floating dtype."""
+        return [n for n, r in self._grad_req.items()
+                if r != "null" and n in arrays and arrays[n].is_floating_point()]
+
+    def _plan(self, arrays, training):
+        """``(plan, signature, build start)`` of ``arrays``' signature; the
+        plan is built on a miss, and the start is None on a hit."""
+        sig = (self._signature(arrays), training)
+        plan = self._fwd_cache.get(sig)
+        if plan is not None:
+            return plan, sig, None
+        tc = _perf()
+        plan = self._fwd_cache[sig] = _Plan(self._symbol, self._ctx, training)
+        return plan, sig, tc
+
+    def _run_train(self, plan, arrays, gen):
+        """One training walk, its keyed ops drawing from ``gen``; with
+        arguments to differentiate it records the graph from fresh leaves:
+        ``(outputs, aux updates, (outputs, leaves))``, else ``(outputs, aux
+        updates, None)``."""
+        wrt = self._wrt(arrays)
+        if not wrt:
+            with torch.no_grad(), autograd._scope(False, True):
+                outs, aux_updates = plan.run(arrays, gen)
+            return outs, aux_updates, None
+        leaves = {n: arrays[n].detach().requires_grad_() for n in wrt}
+        with autograd._scope(True, True):
+            outs, aux_updates = plan.run({**arrays, **leaves}, gen)
+        return outs, aux_updates, (outs, leaves)
+
     def backward(self, out_grads=None, is_train=True):
-        raise NotImplementedError(_NO_TRAINING)
+        """Gradients of the outputs, seeded with ``out_grads`` (ones by
+        default, cast to each output's dtype), with respect to every
+        argument whose ``grad_req`` is not ``"null"``, into ``grad_dict``.
+        The loss heads (``SoftmaxOutput``, ``LinearRegressionOutput``)
+        ignore their seed, as in the reference."""
+        if not any(r != "null" for r in self._grad_req.values()):
+            return
+        graph, self._graph = self._graph, None
+        if graph is None:  # a second backward, or after an inference forward: walk again
+            arrays = self._collect_inputs()
+            plan = self._plan(arrays, True)[0]
+            gen = get_generator(self._ctx.device)
+            now = gen.get_state()
+            if self._rng_state is not None:
+                gen.set_state(self._rng_state)
+            try:
+                _, _, graph = self._run_train(plan, arrays, gen)
+            finally:
+                gen.set_state(now)
+            if graph is None:
+                return
+        outs, leaves = graph
+        if out_grads is None:
+            seeds = [None] * len(outs)
+        else:
+            if isinstance(out_grads, (NDArray, torch.Tensor)):
+                out_grads = [out_grads]
+            seeds = [_tensor(g, o.device, o.dtype) for g, o in zip(out_grads, outs)]
+        heads, head_grads = [], []
+        for o, g in zip(outs, seeds):
+            if o.requires_grad:
+                heads.append(o)
+                head_grads.append(torch.ones_like(o) if g is None else g)
+        names = list(leaves)
+        grads = [None] * len(names)
+        if heads:
+            with torch.enable_grad():
+                grads = torch.autograd.grad(heads, [leaves[n] for n in names], head_grads,
+                                            allow_unused=True)
+        for name, g in zip(names, grads):
+            if g is None:
+                g = torch.zeros_like(leaves[name])
+            tgt = self._grad_dict.get(name)
+            if tgt is None:
+                tgt = self._grad_dict[name] = _wrap(torch.zeros_like(g), self._ctx)
+            if self._grad_req[name] == "add":
+                tgt._data = tgt._data + g
+            else:
+                tgt._data = g.to(tgt._data.dtype)
+            tgt._version += 1
 
     # ------------------------------------------------------------------
     def copy_params_from(self, arg_params, aux_params=None,
@@ -307,14 +422,15 @@ class Executor:
                     raise ValueError(f"unknown {what} {k!r}")
 
     def reshape(self, partial_shaping=False, allow_up_sizing=False, **new_shapes):
-        """Rebind with new input shapes, sharing the weights (the bucketing
-        primitive: a new signature gets its own plan at its first
-        forward)."""
+        """Rebind with new input shapes, sharing the weights and their
+        gradient arrays by object (the bucketing primitive: a new signature
+        gets its own plan at its first forward)."""
         args = dict(self._arg_dict)
+        grads = {k: v for k, v in self._grad_dict.items() if k not in new_shapes}
         for k, shape in new_shapes.items():
             if k in args:
                 old = args[k]._data
                 args[k] = _wrap(torch.zeros(tuple(shape), dtype=old.dtype, device=old.device),
                                 self._ctx)
-        return Executor(self._symbol, self._ctx, args=args, grad_req=self._grad_req,
-                        aux_states=dict(self._aux_dict))
+        return Executor(self._symbol, self._ctx, args=args, args_grad=grads,
+                        grad_req=self._grad_req, aux_states=dict(self._aux_dict))

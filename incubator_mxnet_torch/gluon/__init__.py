@@ -9,6 +9,8 @@ from . import model_zoo
 from . import trainer
 from .trainer import Trainer
 from . import data
+from . import rnn
+from . import contrib
 
 __all__ = ["Parameter", "Constant", "ParameterDict", "Block", "HybridBlock", "SymbolBlock", "nn",
-           "loss", "model_zoo", "Trainer", "data"]
+           "loss", "model_zoo", "Trainer", "data", "rnn", "contrib"]

@@ -56,6 +56,7 @@ from .. import profiler as _profiler
 from ..base import DeferredInitializationError
 from ..ndarray.ndarray import _has_nd, _rewrap_nested, _unwrap_nested
 from ..ops.registry import nd
+from ..random import get_generator
 from .parameter import ParameterDict, _load_into
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock", "block_method", "collect_aux_update",
@@ -519,6 +520,8 @@ class SymbolBlock(HybridBlock):
         for name, p in self.params.items():
             arrays[name] = p.data()
         training = autograd.is_training()
+        # the graph's Dropout and RNN draw from the port's generator
+        key = get_generator(args[0].device) if training else None
         sig = (tuple(sorted((k, tuple(v.shape), v.dtype) for k, v in arrays.items())), training)
         plan = self._plans.get(sig)
         if plan is None:
@@ -527,7 +530,7 @@ class SymbolBlock(HybridBlock):
 
             tb = _perf()
             plan = _Plan(self._symbol, _ctx_of(args[0].device), training)
-            outs, updates = plan.run(arrays)
+            outs, updates = plan.run(arrays, key)
             self._plans[sig] = plan
             _profiler.record_compile(
                 "gluon.symbol_block",
@@ -535,7 +538,7 @@ class SymbolBlock(HybridBlock):
                  **{k: _profiler.sig_array(arrays[k]) for k in sorted(arrays)}},
                 (_perf() - tb) * 1e3)
         else:
-            outs, updates = plan.run(arrays)
+            outs, updates = plan.run(arrays, key)
         for name, new in updates.items():
             collect_aux_update(self.params[name], new.detach())
         return outs[0] if len(outs) == 1 else list(outs)

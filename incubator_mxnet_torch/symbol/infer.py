@@ -10,8 +10,7 @@ shape path (it has no data to launch on).  What does need hand rules is the
 *backward* direction the reference gets from its bidirectional pass:
 inferring parameter shapes (weight/bias/gamma/...) from the data shape plus
 op attrs.  Those rules live in ``PARAM_SHAPE_RULES`` below, as in the JAX
-package, except RNN's: the port has no RNN op yet (ROADMAP §1 item 11), and
-its rule comes with it.
+package.
 """
 from __future__ import annotations
 
@@ -23,6 +22,7 @@ import torch
 from ..base import as_torch_dtype, dtype_name
 from ..ndarray.ndarray import _np_dtype
 from ..ops.registry import get_op
+from ..ops.rnn_ops import rnn_param_size as _rnn_param_size
 
 __all__ = ["infer_shape", "infer_type", "PARAM_SHAPE_RULES"]
 
@@ -88,6 +88,17 @@ PARAM_SHAPE_RULES = {
     "Embedding": {
         "weight": lambda d, a: (a.get("input_dim", 0), a.get("output_dim", 0)),
     },
+    "RNN": {
+        "parameters": lambda d, a: (_rnn_param_size(
+            a.get("mode", "lstm"), d[2], a.get("state_size", 0),
+            a.get("num_layers", 1), a.get("bidirectional", False)),),
+        "state": lambda d, a: (
+            int(a.get("num_layers", 1)) * (2 if a.get("bidirectional") else 1),
+            d[1], int(a.get("state_size", 0))),
+        "state_cell": lambda d, a: (
+            int(a.get("num_layers", 1)) * (2 if a.get("bidirectional") else 1),
+            d[1], int(a.get("state_size", 0))),
+    },
     # loss heads: label shape from data shape (the bidirectional-inference
     # direction the reference's InferShape pass provides — lets predict-
     # style binds omit label shapes)
@@ -126,6 +137,17 @@ def takes_ctx(fn):
         return "ctx" in inspect.signature(fn).parameters
     except (TypeError, ValueError):
         return False
+
+
+def takes_key(fn):
+    """Whether an op function takes ``training`` and a generator ``key``
+    (``Dropout``, ``RNN``, ``RNNFused``): the executor gives it its walk's
+    mode and, in training, its context's generator."""
+    try:
+        params = inspect.signature(fn).parameters
+    except (TypeError, ValueError):
+        return False
+    return "training" in params and "key" in params
 
 
 def _meta(shape, dtype):

@@ -783,7 +783,6 @@ _QUEUED_OPS = {
     ("ops/quantization.py", 11): (
         "dequantize", "quantize", "quantize_v2", "quantized_conv",
         "quantized_fully_connected", "requantize"),
-    ("ops/rnn_ops.py", 11): ("RNN", "RNNFused"),
     ("ops/attention.py", 11): (
         "_contrib_interleaved_matmul_encdec_qk", "_contrib_interleaved_matmul_encdec_valatt",
         "_contrib_interleaved_matmul_selfatt_qk", "_contrib_interleaved_matmul_selfatt_valatt"),

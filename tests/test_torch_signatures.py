@@ -9,8 +9,11 @@ arguments included) does in the port what it does there: ``Block`` and
 static flags, ``oom_postmortem``'s ``failed_bytes`` and the keywords of
 ``record_span``, ``start_metrics``, ``device_memory_stats``,
 ``record_compile``, ``register``, ``Parameter``, ``autograd.backward`` and
-``group_apply``; the generation tier's surface.  A value the port cannot
-honour raises and names its ROADMAP item.
+``group_apply``; the generation tier's surface; the fit loop's and the
+RNNs' surface (``Executor.backward``, ``mx.mod``, ``mx.metric``,
+``mx.callback``, ``mx.model``, ``Monitor``, ``mx.rnn``, ``gluon.rnn`` and
+``gluon.contrib.rnn``).  A value the port cannot honour raises and names
+its ROADMAP item.
 """
 import inspect
 import json
@@ -94,7 +97,59 @@ PAIRS = [
     ("profiler.incr_labeled", mxj.profiler.incr_labeled, mx.profiler.incr_labeled),
     ("profiler.sample_clock_offset", mxj.profiler.sample_clock_offset,
      mx.profiler.sample_clock_offset),
-]
+    # the fit loop and the RNNs (ROADMAP §1 items 11.1 and 11.2)
+    ("Executor.backward", mxj.Executor.backward, mx.Executor.backward),
+    ("Executor.forward", mxj.Executor.forward, mx.Executor.forward),
+    ("Symbol.bind", mxj.sym.Symbol.bind, mx.sym.Symbol.bind),
+    ("Module.__init__", mxj.mod.Module.__init__, mx.mod.Module.__init__),
+    ("Module.bind", mxj.mod.Module.bind, mx.mod.Module.bind),
+    ("Module.init_params", mxj.mod.Module.init_params, mx.mod.Module.init_params),
+    ("Module.init_optimizer", mxj.mod.Module.init_optimizer, mx.mod.Module.init_optimizer),
+    ("Module.save_checkpoint", mxj.mod.Module.save_checkpoint, mx.mod.Module.save_checkpoint),
+    ("Module.load", mxj.mod.Module.load, mx.mod.Module.load),
+    ("BucketingModule.__init__", mxj.mod.BucketingModule.__init__,
+     mx.mod.BucketingModule.__init__),
+    ("BaseModule.fit", mxj.mod.BaseModule.fit, mx.mod.BaseModule.fit),
+    ("BaseModule.score", mxj.mod.BaseModule.score, mx.mod.BaseModule.score),
+    ("BaseModule.predict", mxj.mod.BaseModule.predict, mx.mod.BaseModule.predict),
+    ("FeedForward.__init__", mxj.model.FeedForward.__init__, mx.model.FeedForward.__init__),
+    ("FeedForward.fit", mxj.model.FeedForward.fit, mx.model.FeedForward.fit),
+    ("model.save_checkpoint", mxj.model.save_checkpoint, mx.model.save_checkpoint),
+    ("model.load_checkpoint", mxj.model.load_checkpoint, mx.model.load_checkpoint),
+    ("Monitor.__init__", mxj.Monitor.__init__, mx.Monitor.__init__),
+    ("Monitor.install", mxj.Monitor.install, mx.Monitor.install),
+    ("rnn.BucketSentenceIter", mxj.rnn.BucketSentenceIter.__init__,
+     mx.rnn.BucketSentenceIter.__init__),
+    ("ops.RNN", mxj.ops.rnn_ops.rnn_mega, mx.ops.rnn_ops.rnn_mega),
+    ("ops.RNNFused", mxj.ops.rnn_ops.rnn_fused, mx.ops.rnn_ops.rnn_fused),
+    ("ops.rnn_param_size", mxj.ops.rnn_ops.rnn_param_size, mx.ops.rnn_ops.rnn_param_size),
+] + [(f"metric.{n}", getattr(mxj.metric, n).__init__, getattr(mx.metric, n).__init__)
+     for n in ("EvalMetric", "Accuracy", "TopKAccuracy", "F1", "MCC", "PCC", "MAE", "MSE",
+               "RMSE", "CrossEntropy", "NegativeLogLikelihood", "Perplexity",
+               "PearsonCorrelation", "Loss", "CompositeEvalMetric", "CustomMetric")] + [
+    ("metric.create", mxj.metric.create, mx.metric.create),
+    ("callback.Speedometer", mxj.callback.Speedometer.__init__,
+     mx.callback.Speedometer.__init__),
+    ("callback.ProgressBar", mxj.callback.ProgressBar.__init__,
+     mx.callback.ProgressBar.__init__),
+] + [(f"callback.{n}", getattr(mxj.callback, n), getattr(mx.callback, n))
+     for n in ("do_checkpoint", "module_checkpoint", "log_train_metric")] + [
+    (f"rnn.{n}", getattr(mxj.rnn, n).__init__, getattr(mx.rnn, n).__init__)
+    for n in ("RNNCell", "LSTMCell", "GRUCell", "FusedRNNCell", "BidirectionalCell",
+              "DropoutCell", "ResidualCell", "ZoneoutCell")] + [
+    (f"rnn.{n}.unroll", getattr(mxj.rnn, n).unroll, getattr(mx.rnn, n).unroll)
+    for n in ("BaseRNNCell", "FusedRNNCell", "BidirectionalCell")] + [
+    (f"gluon.rnn.{n}", getattr(mxj.gluon.rnn, n).__init__, getattr(mx.gluon.rnn, n).__init__)
+    for n in ("RNNCell", "LSTMCell", "GRUCell", "DropoutCell", "ZoneoutCell",
+              "BidirectionalCell", "RNN", "LSTM", "GRU")] + [
+    ("gluon.rnn.RecurrentCell.unroll", mxj.gluon.rnn.RecurrentCell.unroll,
+     mx.gluon.rnn.RecurrentCell.unroll),
+    ("gluon.rnn.BidirectionalCell.unroll", mxj.gluon.rnn.BidirectionalCell.unroll,
+     mx.gluon.rnn.BidirectionalCell.unroll),
+] + [(f"gluon.contrib.rnn.{n}", getattr(mxj.gluon.contrib.rnn, n).__init__,
+      getattr(mx.gluon.contrib.rnn, n).__init__)
+     for n in ("VariationalDropoutCell", "LSTMPCell", "Conv2DRNNCell", "Conv2DLSTMCell",
+               "Conv2DGRUCell")]
 
 # The one difference by design: the port's entry points run on the card
 # unless the caller asks for the CPU (its default context is gpu(0), and
@@ -103,6 +158,8 @@ PAIRS = [
 DEFAULTS_BY_DESIGN = {
     ("Predictor.__init__", "dev_type"): ("cpu", "gpu"),
     ("InferenceServer.__init__", "dev_type"): ("cpu", "gpu"),
+    # the JAX Module's None means the CPU; the port's default is the card
+    ("Module.__init__", "context"): (None, mx.gpu(0)),
 }
 
 

@@ -125,7 +125,8 @@ def test_attr_and_names_through_scopes():
 
 def test_unported_op_names_its_queue():
     with pytest.raises(AttributeError, match="ROADMAP §1 item 11"):
-        S.RNN
+        S.CTCLoss
+    assert callable(S.RNN)  # ported with the RNNs (ROADMAP §1 item 11.2)
     with pytest.raises(AttributeError, match="ROADMAP §1 item 11"):
         S.contrib.ROIAlign
     with pytest.raises(AttributeError, match="ROADMAP §1 item 8"):
@@ -203,13 +204,24 @@ def test_forward_kwargs_copy_params_and_reshape():
 
 
 def test_symbol_training_raises_until_module_is_ported():
+    """``module/`` is ported (ROADMAP §1 item 11.1): ``backward`` and
+    ``bind(args_grad=...)`` no longer raise, and train through the symbol
+    path (``tests/test_torch_executor_backward.py`` holds them against the
+    JAX executor)."""
     _, t = _both("fc")
     ex = t.simple_bind(mx.cpu(), data=(2, 5))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 11"):
-        ex.backward()
+    ex.copy_params_from({"data": np.ones((2, 5), np.float32)})
+    ex.forward(is_train=True)
+    ex.backward()
+    assert sorted(ex.grad_dict) == sorted(t.list_arguments())
     args = {k: v for k, v in ex.arg_dict.items()}
-    with pytest.raises(NotImplementedError, match="module/"):
-        t.bind(mx.cpu(), args=args, args_grad={k: v for k, v in args.items()})
+    grads = {k: mx.nd.zeros(v.shape, ctx=mx.cpu()) for k, v in args.items()}
+    bound = t.bind(mx.cpu(), args=args, args_grad=grads)
+    bound.forward(is_train=True)
+    bound.backward()
+    assert bound.grad_dict["fc1_weight"] is grads["fc1_weight"]
+    np.testing.assert_array_equal(grads["fc1_weight"].asnumpy(),
+                                  ex.grad_dict["fc1_weight"].asnumpy())
 
 
 def test_executor_defaults_to_the_card():
