@@ -72,12 +72,15 @@ Phases, each printing JSON lines; no phase's failure is caught:
    flash_fwd/flash_bwd_dq/flash_bwd_dkv/multi_tensor (mp_adam over 159
    tensors, none left to the loop) around one NDArray step, then both eager
    steps timed in turns (tensor, NDArray, NDArray, tensor; reported, not
-   gated); every op case of ``tests/nd_op_cases.py`` once on card NDArrays,
-   an NDArray on the card of the CPU result's shape and dtype, held to it
-   exactly, within 8 ulps (arithmetic) or 4·n ulps (reductions) of the
-   case's largest |value|, and 10^6 draws of every sampler from the card's
-   generator to its distribution's mean and variance within 5 standard
-   errors; one line per source file; the nets freed;
+   gated); every op case of ``tests/nd_op_cases.py`` (the PR 14 table and
+   LIBRARY_CASES: ops/spatial, ops/linalg, ops/quantization, the
+   interleaved attention ops) once on card NDArrays, an NDArray on the
+   card of the CPU result's shape and dtype, held to it exactly, within 8
+   ulps (arithmetic) or 4·n ulps (reductions) of the case's largest
+   |value| (``gelqf``/``syevd`` by reconstruction and up to sign), and
+   10^6 draws of every sampler from the card's generator to its
+   distribution's mean and variance within 5 standard errors; one line per
+   source file; the nets freed;
 5c. symbol_block: the slice phase's weights in a fp32 Gluon copy,
    hybridized, one forward and ``export`` under ``build/``; that file
    through ``predictor.load_checkpoint`` (a ``Predictor``) and a
@@ -259,6 +262,44 @@ Phases, each printing JSON lines; no phase's failure is caught:
    ``LSTM``, within RNN_CARD_REL (bf16 RNN_BF16_REL); the LSTM op's time
    with the packed views against ``torch.nn.LSTM``'s flat weights
    (reported); its launches are the kernels line's ``fit`` path;
+6i. op_library (after fit, before observe; fp32 with AMP off and TF32 off
+   unless a part says bf16): ROIAlign (Mask R-CNN C4), ROIPooling (Fast R-CNN
+   VGG-16), a deformable convolution (DCN res5), deformable PS-ROI pooling
+   (R-FCN) and Correlation (FlowNetC) at those models' widths, each timed;
+   ``ctc``: example/ctc_ocr.py's OCRNet (hidden 64, bidirectional LSTM, 11
+   classes) trained with ``mx.nd.CTCLoss`` and Adam (lr 3e-3, B=32, 10
+   epochs of 25 batches of the example's seeded batches), each epoch's loss
+   and greedy-decoded accuracy, the first step's loss and gradients against
+   the CPU within CTC_CARD_REL, the loss falling, the step's wall and
+   kernel ms and the CTC forward's kernels, ``gluon.loss.CTCLoss`` against
+   the CPU in both layouts with and without lengths; ``interleaved``:
+   BERT-base layer 0's QKV weights interleaved a head at B=64, S=128,
+   H=12, Dh=64 (and the enc-dec pair at transformer-big's d=1024, H=16),
+   forward and backward in bf16 and fp32 against the same attention through
+   the flash kernels (counted), within the stated bounds, both timed;
+   ``int8``: ResNet-50 v1 (seeded weights) at B=64 through ``quantize_net``
+   (naive over two batches; entropy over one, all 54 layers), every
+   quantized layer's int32 sums and float output bit-equal to the float64
+   plain version on the card, every entropy threshold in (0, the naive
+   range's max|x|], the int8 forward's ms beside fp32's and bf16's (wall
+   and kernel), the logits' relative L2 from fp32, the calibrations' wall;
+   ``control_flow``: the fit phase's LM cell (embed and hidden 200) over a 35-step bucket at B=32 by
+   ``nd.contrib.foreach`` bit-equal to ``LSTMCell.unroll`` (outputs,
+   states, input and weight gradients; deterministic mode), ``while_loop``
+   with an early stop captured in a CUDA graph (no host sync a step: a
+   sync fails the capture), rows past the stop zero, ``cond`` both ways;
+   ``sparse``: example/sparse_linear_classification.py's model at
+   1,000,000 features, B=8192, 32 ids, SGD lr 0.5 momentum 0.9, 20 steps,
+   each step's weight and momentum bit-equal to the per-tensor lazy op's
+   plain version on the CPU (untouched rows bit-unchanged), no
+   ``multi_tensor`` launch, ``fold_step`` refused with the JAX package's
+   message, ``cast_storage``/``tostype`` of card arrays (the gradient to
+   row_sparse, a batch's dense rows to csr, each to the other) on the card
+   and bit-equal back, csr · dense [1,000,000, 64] both ways against the
+   dense product within REDUCE_ULPS·terms ulps, the step's and the
+   product's ms;
+   the interleaved part's flash launches are the kernels line's
+   ``op_library`` path;
 7. times: each kernel, its plain version and the library call at the main
    paths' shapes (the attention kernels also at the S=512 request, in fp32
    at the main shape, and by CUDA-graph replay), the kernel's bound; BERT
@@ -322,8 +363,8 @@ Phases, each printing JSON lines; no phase's failure is caught:
 
 The last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed on a CUDA card.  The rehearsal runs the slice, train, rtc_train,
-nd_surface, symbol_block, ResNet, fold, spmd, io, detect, fit, train_surface,
-timing, observe, serve and generation phases on the CPU at a tiny size, with the
+nd_surface, symbol_block, ResNet, fold, spmd, io, detect, fit, op_library,
+train_surface, timing, observe, serve and generation phases on the CPU at a tiny size, with the
 kernels' plain versions, and never prints it.  ``--inference-turns`` times only the
 BERT-base inference forward of two checkouts, each turn a fresh process
 (A, B, B, A per round), and never prints it either.
@@ -332,6 +373,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import importlib
 import json
 import logging
@@ -2215,22 +2257,29 @@ def _held_ratio(case, C, got, ref, n):
 
 
 def _nd_op_table(ctx, rehearsal):
-    """Every case of the CPU parity table once on ``ctx``'s NDArrays, held
-    to the port's CPU result; every sampler's 10^6 draws (10^5 in the
-    rehearsal) to its distribution's mean and variance within
-    ND_MOMENT_SE standard errors."""
+    """Every case of the CPU parity table and of the op library's table
+    (``LIBRARY_CASES``) once on ``ctx``'s NDArrays, held to the port's CPU
+    result (a ``decomp`` case by reconstruction and up to sign); every
+    sampler's 10^6 draws (10^5 in the rehearsal) to its distribution's mean
+    and variance within ND_MOMENT_SE standard errors."""
     C = _nd_cases()
     by_src, failed = {}, []
-    for case in C.CASES:
+    for case in C.CASES + C.LIBRARY_CASES:
         ref, _, n = _nd_outputs(case, C, mx.cpu())
         got, has_inputs, _ = _nd_outputs(case, C, ctx)
-        ratio = 0.0
-        for g, r in zip(got, ref):
-            gt = g._data if isinstance(g, mx.nd.NDArray) else g
-            placed = (isinstance(g, mx.nd.NDArray) and g.context == ctx) if has_inputs else (
-                gt.device.type == ctx.device.type)
-            rt = r._data if isinstance(r, mx.nd.NDArray) else r
-            ratio = max(ratio, _held_ratio(case, C, gt, rt, n) if placed else math.inf)
+        placed = [(isinstance(g, mx.nd.NDArray) and g.context == ctx) if has_inputs else
+                  (g._data if isinstance(g, mx.nd.NDArray) else g).device.type == ctx.device.type
+                  for g in got]
+        if case.card == "decomp":
+            as64 = lambda outs: [o._data.detach().double().cpu().numpy() for o in outs]  # noqa
+            ratio = (C.decomp_ratio(case, case.inputs(C.rng_for(case.id)), as64(got), as64(ref),
+                                    C.REDUCE_ULPS * n) if all(placed) else math.inf)
+        else:
+            ratio = 0.0
+            for g, r, ok in zip(got, ref, placed):
+                gt = g._data if isinstance(g, mx.nd.NDArray) else g
+                rt = r._data if isinstance(r, mx.nd.NDArray) else r
+                ratio = max(ratio, _held_ratio(case, C, gt, rt, n) if ok else math.inf)
         rec = by_src.setdefault(case.src, {"cases": 0, "held": 0, "worst": 0.0, "worst_case": None})
         rec["cases"] += 1
         if len(got) == len(ref) and ratio <= 1.0:
@@ -2268,13 +2317,18 @@ def _nd_op_table(ctx, rehearsal):
             failed.append([s.id, worst])
         if worst >= rec["worst"]:
             rec["worst"], rec["worst_case"] = worst, s.id
-    for src in ("tensor", "nn", "random_ops"):
-        r = by_src[src]
-        emit("nd_surface", part="op_table", source=f"ops/{src}.py", cases=r["cases"],
-             held=r["held"], worst_err_over_bound=r["worst"], worst_case=r["worst_case"],
-             bound=("exact, %d ulps (arithmetic), %d·n ulps (reductions) of the case's "
-                    "largest |value|" % (C.ULPS, C.REDUCE_ULPS)) if src != "random_ops" else
-             f"mean and variance of {n_draw} draws within {ND_MOMENT_SE} standard errors",
+    bound = ("exact, %d ulps (arithmetic), %d·n ulps (reductions) of the case's largest "
+             "|value|" % (C.ULPS, C.REDUCE_ULPS))
+    bounds = {"random_ops": f"mean and variance of {n_draw} draws within {ND_MOMENT_SE} "
+                            "standard errors",
+              "linalg": bound + "; decompositions: L·Q and Uᵀ·diag(λ)·U against A, Q's rows "
+                                "orthonormal, U's rows up to sign, within %d·n ulps"
+                                % C.REDUCE_ULPS}
+    for src, r in by_src.items():
+        emit("nd_surface", part="op_table", source=("ops/attention.py (interleaved)"
+                                                    if src == "interleaved" else f"ops/{src}.py"),
+             cases=r["cases"], held=r["held"], worst_err_over_bound=r["worst"],
+             worst_case=r["worst_case"], bound=bounds.get(src, bound),
              ok=r["held"] == r["cases"])
     emit("nd_surface", part="op_table", failed=failed, ok=not failed)
     return not failed
@@ -5711,6 +5765,817 @@ def phase_fit(rehearsal, smi=None):
     return {"fit": counts}
 
 
+# -- the op library: the line recogniser of example/ctc_ocr.py ----------------------
+
+OCR_CLASSES = 11         # blank 0 and the digits 0-9 as 1-10
+OCR_FEAT = 16            # a column's features
+OCR_FRAMES_PER_CHAR = 3
+
+
+def ocr_batch(rng, batch, max_len=5):
+    """example/ctc_ocr.py's render_batch in numpy, the same draws: T x B x
+    FEAT columns (each digit paints OCR_FRAMES_PER_CHAR columns with two hot
+    rows) and 1-based labels padded with 0."""
+    T = max_len * OCR_FRAMES_PER_CHAR + 2
+    x = rng.rand(T, batch, OCR_FEAT).astype(np.float32) * 0.1
+    labels = np.zeros((batch, max_len), np.float32)
+    for b in range(batch):
+        n = rng.randint(1, max_len + 1)
+        digits = rng.randint(0, 10, n)
+        labels[b, :n] = digits + 1
+        for i, d in enumerate(digits):
+            lo = i * OCR_FRAMES_PER_CHAR
+            x[lo:lo + OCR_FRAMES_PER_CHAR, b, d] += 1.0
+            x[lo:lo + OCR_FRAMES_PER_CHAR, b, 10 + (d % 6)] += 0.5
+    return x, labels
+
+
+class OCRNet(mx.gluon.HybridBlock):
+    """example/ctc_ocr.py's OCRNet in the port: Dense(relu), a
+    bidirectional LSTM and a Dense head over [T, B, FEAT] columns."""
+
+    def __init__(self, hidden=64, **kw):
+        super().__init__(**kw)
+        with self.name_scope():
+            self.proj = mx.gluon.nn.Dense(hidden, activation="relu", flatten=False)
+            self.lstm = mx.gluon.rnn.LSTM(hidden, bidirectional=True)
+            self.head = mx.gluon.nn.Dense(OCR_CLASSES, flatten=False)
+
+    def forward(self, x):
+        return self.head(self.lstm(self.proj(x)))
+
+
+def greedy_decode(logits):
+    """Argmax a frame, repeats collapsed, blanks dropped: one list a sample."""
+    ids = logits.detach().cpu().numpy().argmax(-1)
+    out = []
+    for b in range(ids.shape[1]):
+        seq, prev = [], -1
+        for s in ids[:, b]:
+            if s != prev and s != 0:
+                seq.append(int(s))
+            prev = s
+        out.append(seq)
+    return out
+
+
+OCR_TRAIN = dict(hidden=64, batch=32, epochs=10, batches=25, lr=3e-3)
+TINY_OCR = dict(hidden=8, batch=4, epochs=2, batches=3, lr=3e-3)
+CTC_CARD_REL = 1e-4      # the first step's loss and gradients, card against CPU (fp32)
+INTERLEAVED = dict(b=64, s=128, h=12, d=64)          # BERT-base self-attention
+ENCDEC = dict(b=16, sq=128, sk=128, h=16, d=64)      # transformer-big cross-attention
+TINY_INTERLEAVED = dict(b=2, s=8, h=2, d=16)
+TINY_ENCDEC = dict(b=2, sq=5, sk=7, h=2, d=16)
+INTERLEAVED_F32_REL = 1e-5   # vs flash_wide_fwd_f32_rows (split TF32, ~2.5e-6 of max|o|)
+INT8 = dict(b=64, size=224, calib_batches=2)
+TINY_INT8 = dict(b=4, size=32, calib_batches=2)
+LM_CELL = dict(T=35, B=32, embed=200, hidden=200)    # the fit phase's LSTM LM's cell
+TINY_LM_CELL = dict(T=5, B=3, embed=6, hidden=8)
+WHILE_MAX, WHILE_STOP = 12, 7
+SPARSE = dict(features=1_000_000, batch=8192, nnz=32, steps=20, dense_cols=64, cast_rows=64)
+TINY_SPARSE = dict(features=2000, batch=64, nnz=8, steps=3, dense_cols=8, cast_rows=8)
+CTC_WARM_STEPS = 3
+# an entropy threshold against the same layer's naive range: the naive pass
+# saw batch 0 too; the slack covers a forward that rounds otherwise
+ENTROPY_RANGE_SLACK = 1e-3
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _kernel_ms(fn):
+    """Kernel ms of one call of ``fn`` from a torch.profiler trace (the call
+    after a warm call and a sentinel); None if the trace held none."""
+    _, ms, _, _, names = _busy_share(fn, warm=True)
+    return ms if names else None
+
+
+def sparse_samples(num_samples, num_features, nnz, seed=0):
+    """example/sparse_linear_classification.py's synthetic_sparse, the same
+    draws: ``nnz`` random feature ids a sample, the label the sign of the
+    sum of a hidden per-feature weight over them."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, num_features, size=(num_samples, nnz)).astype(np.float32)
+    hidden = rng.randn(num_features).astype(np.float32)
+    label = (hidden[ids.astype(np.int64)].sum(axis=1) > 0).astype(np.float32)
+    return ids, label
+
+
+# public-model widths for the op table (each case's ``terms`` is the number of
+# products or samples summed into one output: its bound is REDUCE_ULPS·terms ulps)
+WIDE_OP_CASES = [
+    # Mask R-CNN's C4 head (He et al. 2017; Detectron's ResNet-50-C4): 1024
+    # channels at stride 16 of an 800x600 image, 200 ROIs to 14x14, 2x2 samples
+    dict(id="ROIAlign-C4", op="_contrib_ROIAlign", data=(1, 1024, 38, 50), rois=200,
+         kw=dict(pooled_size=(14, 14), spatial_scale=1 / 16, sample_ratio=2), terms=16),
+    # Fast R-CNN (Girshick 2015) VGG-16 conv5: 512 channels, 128 ROIs to 7x7
+    dict(id="ROIPooling-VGG16", op="ROIPooling", data=(1, 512, 38, 50), rois=128,
+         kw=dict(pooled_size=(7, 7), spatial_scale=1 / 16), terms=0),
+    # Deformable ConvNets (Dai et al. 2017) res5 of ResNet-101 at stride 16:
+    # a 3x3 deformable convolution, 512 channels, dilation 2
+    dict(id="DeformableConvolution-res5", op="_contrib_DeformableConvolution",
+         data=(1, 512, 38, 50), kw=dict(kernel=(3, 3), pad=(2, 2), dilate=(2, 2),
+                                        num_filter=512), terms=512 * 9 * 4),
+    # Deformable R-FCN's class head: 21 VOC classes, 7x7 position-sensitive
+    # bins (1029 score maps), 128 ROIs, 4x4 samples a bin
+    dict(id="DeformablePSROIPooling-RFCN", op="_contrib_DeformablePSROIPooling",
+         data=(1, 21 * 49, 38, 50), rois=128,
+         kw=dict(spatial_scale=1 / 16, output_dim=21, group_size=7, pooled_size=7,
+                 part_size=7, sample_per_part=4, trans_std=0.1), terms=64),
+    # FlowNetC (Dosovitskiy et al. 2015): conv3 features of a 384x512 pair,
+    # 256 channels, displacements of ±20 at stride 2 (441 channels out)
+    dict(id="Correlation-FlowNetC", op="Correlation", data=(2, 256, 48, 64),
+         kw=dict(kernel_size=1, max_displacement=20, stride1=1, stride2=2, pad_size=20),
+         terms=256),
+]
+
+
+def _wide_inputs(case, rehearsal, gen, device):
+    """The case's arrays (in the rehearsal a 10x12 map, and a 64th of the
+    channels but for PS-ROI pooling's 1029 score maps)."""
+    b, c, h, w = case["data"]
+    if rehearsal:
+        c, h, w = (c if "PSROI" in case["id"] else max(c // 64, 1)), 10, 12
+    data = torch.randn((b, c, h, w), generator=gen, device=device)
+    args, kw = [data], dict(case["kw"])
+    if "rois" in case:
+        r = case["rois"] if not rehearsal else 5
+        scale = 1 / kw["spatial_scale"]
+        xy = torch.rand((r, 2), generator=gen, device=device) * torch.tensor(
+            [w * scale * 0.7, h * scale * 0.7], device=device)
+        wh = torch.rand((r, 2), generator=gen, device=device) * torch.tensor(
+            [w * scale * 0.3, h * scale * 0.3], device=device) + 16
+        rois = torch.cat([torch.zeros((r, 1), device=device), xy, xy + wh], 1)
+        args.append(rois)
+        if "PSROI" in case["id"]:
+            args.append(torch.randn((r, 2, 7, 7), generator=gen, device=device))
+    if case["op"] == "_contrib_DeformableConvolution":
+        o = kw["num_filter"] if not rehearsal else 4
+        kw["num_filter"] = o
+        args.append(torch.randn((b, 18, h, w), generator=gen, device=device))
+        args.append(torch.randn((o, c, 3, 3), generator=gen, device=device) / math.sqrt(c * 9))
+    if case["op"] == "Correlation":
+        args.append(torch.randn((b, c, h, w), generator=gen, device=device))
+        if rehearsal:
+            kw.update(max_displacement=4, pad_size=4)
+    return args, kw
+
+
+def _wide_op_table(ctx, rehearsal):
+    """The public-width cases of WIDE_OP_CASES on ``ctx``'s tensors, each
+    held to the port's CPU result (the library's small cases run in
+    ``_nd_op_table``)."""
+    C = _nd_cases()
+    failed = []
+    gen = torch.Generator(device=ctx.device).manual_seed(23)
+    for case in WIDE_OP_CASES:
+        args, kw = _wide_inputs(case, rehearsal, gen, ctx.device)
+        fn = getattr(mx.nd, case["op"])
+        got = fn(*args, **kw)
+        ref = fn(*(a.cpu() for a in args), **kw)
+        _sync(ctx.device)
+        err = (got.detach().double().cpu() - ref.double()).abs().max().item()
+        scale = ref.abs().max().item()
+        bound = (C.REDUCE_ULPS * case["terms"] * torch.finfo(torch.float32).eps * scale)
+        ms = _time_steps(lambda: fn(*args, **kw), 1 if rehearsal else 5)
+        ok = got.device.type == ctx.device.type and (err <= bound if case["terms"] else
+                                                     err == 0.0)
+        emit("op_library", part="op_table_public_width", case=case["id"], op=case["op"],
+             shapes=[list(a.shape) for a in args], max_abs_err=err, bound=bound,
+             bound_rule=("exact" if not case["terms"] else
+                         f"{C.REDUCE_ULPS}·{case['terms']} ulps of max|ref|"),
+             ms=ms, ok=ok)
+        if not ok:
+            failed.append([case["id"], err / bound if bound else math.inf])
+        del got, ref, args
+    emit("op_library", part="op_table", failed=failed, ok=not failed)
+    return not failed
+
+
+def _ocr_step(net, trainer, x, y, batch):
+    with mx.autograd.record():
+        loss = mx.nd.CTCLoss(net(x), y).mean()
+    mx.autograd.backward(loss)
+    trainer.step(batch)
+    return loss
+
+
+def _ctc_part(rehearsal, ctx, smi):
+    """example/ctc_ocr.py's OCRNet trained on the card through mx.nd.CTCLoss
+    and Adam; the first step's loss and gradients held to the CPU's; the
+    gluon CTCLoss on the card against the CPU."""
+    cfg = TINY_OCR if rehearsal else OCR_TRAIN
+    dev = ctx.device
+    rng = np.random.RandomState(0)
+    mx.random.seed(0)
+    net = OCRNet(hidden=cfg["hidden"])
+    net.initialize(ctx=ctx)
+    x0, _ = ocr_batch(rng, 2)
+    net(torch.from_numpy(x0).to(dev))
+    ref = OCRNet(hidden=cfg["hidden"])
+    ref.initialize(ctx=mx.cpu())
+    ref(torch.from_numpy(x0))
+    load_numpy_params(ref, {k: p.data().detach().cpu().numpy()
+                            for k, p in net._collect_params_with_prefix().items()})
+    x, y = ocr_batch(rng, cfg["batch"])
+    grads = {}
+    for name, model, device in (("card", net, dev), ("cpu", ref, torch.device("cpu"))):
+        with mx.autograd.record():
+            loss = mx.nd.CTCLoss(model(torch.from_numpy(x).to(device)),
+                                 torch.from_numpy(y).to(device)).mean()
+        mx.autograd.backward(loss)
+        grads[name] = (loss.item(), {k: p.grad().detach().double().cpu()
+                                     for k, p in model._collect_params_with_prefix().items()})
+    loss_err = abs(grads["card"][0] - grads["cpu"][0]) / abs(grads["cpu"][0])
+    grad_err = max((grads["card"][1][k] - g).abs().max().item() / max(g.abs().max().item(),
+                                                                      1e-30)
+                   for k, g in grads["cpu"][1].items())
+    first_ok = loss_err <= CTC_CARD_REL and grad_err <= CTC_CARD_REL
+    emit("op_library", part="ctc", check="first_step_vs_cpu", loss_card=grads["card"][0],
+         loss_cpu=grads["cpu"][0], loss_rel_err=loss_err, grad_max_rel_err=grad_err,
+         bound=CTC_CARD_REL, ok=first_ok)
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam", {"learning_rate": cfg["lr"]})
+    epochs = []
+    t0 = time.perf_counter()
+    for epoch in range(cfg["epochs"]):
+        total = 0.0
+        for _ in range(cfg["batches"]):
+            xb, yb = ocr_batch(rng, cfg["batch"])
+            total += _ocr_step(net, trainer, torch.from_numpy(xb).to(dev),
+                               torch.from_numpy(yb).to(dev), cfg["batch"]).item()
+        xe, ye = ocr_batch(rng, cfg["batch"])
+        with mx.autograd.predict_mode():
+            decoded = greedy_decode(net(torch.from_numpy(xe).to(dev)))
+        truth = [[int(v) for v in row if v != 0] for row in ye]
+        acc = float(np.mean([d == t for d, t in zip(decoded, truth)]))
+        epochs.append(total / cfg["batches"])
+        emit("op_library", part="ctc", epoch=epoch, mean_loss=epochs[-1], seq_acc=acc)
+    train_s = time.perf_counter() - t0
+    falls = epochs[-1] < epochs[0]
+    xb, yb = (torch.from_numpy(a).to(dev) for a in ocr_batch(rng, cfg["batch"]))
+    step = lambda: _ocr_step(net, trainer, xb, yb, cfg["batch"])  # noqa: E731
+    wall = _time_steps(step, 1 if rehearsal else 20)
+    kms = kn = ctc_kms = ctc_kn = None
+    if not rehearsal:
+        _, kms, _, _, names = _busy_share(step, warm=True)
+        kn = sum(names.values())
+        logits = net(xb).detach()
+        _, ctc_kms, _, _, names = _busy_share(lambda: mx.nd.CTCLoss(logits, yb), warm=True)
+        ctc_kn = sum(names.values())
+    emit("op_library", part="ctc", check="train", epochs=cfg["epochs"],
+         batches_an_epoch=cfg["batches"], batch=cfg["batch"], first_epoch_loss=epochs[0],
+         last_epoch_loss=epochs[-1], loss_falls=falls, train_s=train_s, step_wall_ms=wall,
+         step_kernel_ms=kms, step_kernels=kn, ctc_forward_kernel_ms=ctc_kms,
+         ctc_forward_kernels=ctc_kn, T=int(xb.shape[0]),
+         note="CPU rehearsal: host time" if rehearsal else
+         "wall, card synchronized; kernel ms from a torch.profiler trace", card=smi,
+         ok=falls)
+    # the gluon loss (its own trellis) on the card against the CPU
+    r = np.random.RandomState(3)
+    pred = r.randn(4, 17, OCR_CLASSES).astype(np.float32)
+    lab = np.array([[1, 2, 0, 0], [3, 3, 5, 1], [4, 0, 0, 0], [2, 5, 2, 3]], np.float32)
+    pl, ll = np.array([17, 12, 15, 11], np.float32), np.array([2, 4, 1, 4], np.float32)
+    worst = 0.0
+    for layout in ("NTC", "TNC"):
+        p = pred if layout == "NTC" else np.ascontiguousarray(pred.transpose(1, 0, 2))
+        for lens in ((), (pl,), (pl, ll)):
+            args = [p, lab, *lens]
+            loss_fn = mx.gluon.loss.CTCLoss(layout=layout)
+            got = loss_fn(*(torch.from_numpy(a).to(dev) for a in args))
+            want = loss_fn(*(torch.from_numpy(a) for a in args))
+            worst = max(worst, ((got.cpu() - want).abs() / want.abs()).max().item())
+    gluon_ok = worst <= CTC_CARD_REL
+    emit("op_library", part="ctc", check="gluon_ctc_loss_vs_cpu", layouts=["NTC", "TNC"],
+         lengths=["none", "pred", "pred+label"], max_rel_err=worst, bound=CTC_CARD_REL,
+         ok=gluon_ok)
+    return first_ok and falls and gluon_ok
+
+
+def _interleave_weight(w, h):
+    """A fused [3·D, D] QKV weight (rows [3, H, Dh]) interleaved a head
+    ([H, 3, Dh]), as GluonNLP 0.x's interleaved projection lays it out."""
+    d3 = w.shape[0]
+    return w.reshape(3, h, d3 // (3 * h), *w.shape[1:]).transpose(0, 1).reshape(w.shape)
+
+
+def _interleaved_case(kind, dtype, qkv_w, qkv_b, cfg, gen, device):
+    """One attention through the interleaved ops and through the flash
+    kernels on the same q, k, v: outputs, input gradients and bounds."""
+    h, d = cfg["h"], cfg["d"]
+    b = cfg["b"]
+    if kind == "selfatt":
+        s = cfg["s"]
+        x = torch.randn((s, b, h * d), generator=gen, device=device).to(dtype)
+        proj = torch.nn.functional.linear(x, _interleave_weight(qkv_w, h).to(dtype),
+                                          _interleave_weight(qkv_b, h).to(dtype))
+        proj = proj.detach().requires_grad_()
+        parts = proj.reshape(s, b, h, 3, d)
+        q, k, v = (parts[:, :, :, i] for i in range(3))
+        sq = sk = s
+    else:
+        sq, sk = cfg["sq"], cfg["sk"]
+        qx = (torch.randn((sq, b, h * d), generator=gen, device=device) * 0.5).to(dtype)
+        kvx = (torch.randn((sk, b, 2 * h * d), generator=gen, device=device) * 0.5).to(dtype)
+        qx.requires_grad_()
+        kvx.requires_grad_()
+        q = qx.reshape(sq, b, h, d)
+        kv = kvx.reshape(sk, b, h, 2, d)
+        k, v = kv[:, :, :, 0], kv[:, :, :, 1]
+    head = torch.randn((sq, b, h * d), generator=gen, device=device).to(dtype)
+
+    def interleaved():
+        if kind == "selfatt":
+            sc = mx.nd.contrib.interleaved_matmul_selfatt_qk(proj, heads=h)
+            return sc, mx.nd.contrib.interleaved_matmul_selfatt_valatt(
+                proj, torch.softmax(sc, -1), heads=h)
+        sc = mx.nd.contrib.interleaved_matmul_encdec_qk(qx, kvx, heads=h)
+        return sc, mx.nd.contrib.interleaved_matmul_encdec_valatt(kvx, torch.softmax(sc, -1),
+                                                                 heads=h)
+
+    qf, kf, vf = (t.detach().permute(1, 2, 0, 3).contiguous().requires_grad_()
+                  for t in (q, k, v))  # [B, H, S, Dh]
+
+    def flash():
+        return att.flash_attention(qf, kf, vf).permute(2, 0, 1, 3).reshape(sq, b, h * d)
+
+    with mx.autograd.record():
+        scores, out = interleaved()
+    out.backward(head)
+    leaves = (proj,) if kind == "selfatt" else (qx, kvx)
+    reset_kernel_counts()
+    ref = flash()
+    ref.backward(head)
+    _sync(device)
+    launches = {n: c for n, c in kernel_counts().items() if c}
+    if kind == "selfatt":
+        g = proj.grad.reshape(sq, b, h, 3, d)
+        got_grads = [g[:, :, :, i].permute(1, 2, 0, 3) for i in range(3)]
+    else:
+        gkv = kvx.grad.reshape(sk, b, h, 2, d)
+        got_grads = [qx.grad.reshape(sq, b, h, d).permute(1, 2, 0, 3)] + [
+            gkv[:, :, :, i].permute(1, 2, 0, 3) for i in range(2)]
+    ref_grads = [qf.grad, kf.grad, vf.grad]
+    o_err = (out.float() - ref.float()).abs().max().item()
+    o_scale = ref.float().abs().max().item()
+    rel = lambda a, r: ((a.float() - r.float()).norm() / r.float().norm()).item()  # noqa
+    g_rel = max(rel(a, r) for a, r in zip(got_grads, ref_grads))
+    s_max = scores.float().abs().max().item()
+    v_max = v.float().abs().max().item()
+    if dtype == torch.float32:
+        o_bound = INTERLEAVED_F32_REL * o_scale
+        g_bound = INTERLEAVED_F32_REL * 10
+        rule = (f"{INTERLEAVED_F32_REL}·max|o| (the flash fp32 kernels' split-TF32 error, "
+                f"~2.5e-6); gradients' relative L2 {g_bound}")
+    else:
+        # bf16: the interleaved path rounds the scores (one bf16 half-ulp,
+        # 2^-9 relative) and the probabilities before its fp32 product;
+        # softmax moves an output by at most 2·max|δs|·max|v|, the rounded
+        # probabilities by 2^-9·max|v|, both outputs' own rounding 2^-9·|o|
+        o_bound = (2 * 2 ** -9 * s_max + 2 ** -9) * v_max + 2 * 2 ** -9 * o_scale
+        g_bound = 4 * 2 ** -9 * max(s_max, 1.0)
+        rule = ("(2·2^-9·max|s| + 2^-9)·max|v| + 2·2^-9·max|o|; gradients' relative L2 "
+                "4·2^-9·max(max|s|, 1)")
+    ok = (o_err <= o_bound and g_rel <= g_bound
+          and all(launches.get(n, 0) > 0 for n in FLASH))
+    iters = 1 if device.type != "cuda" else 10
+
+    def run_interleaved():
+        with mx.autograd.record():
+            _, o = interleaved()
+        o.backward(head)
+
+    def run_flash():
+        flash().backward(head)
+
+    t_int = _time_steps(run_interleaved, iters)
+    t_flash = _time_steps(run_flash, iters)
+    k_int = k_flash = None
+    if device.type == "cuda":
+        k_int, k_flash = _kernel_ms(run_interleaved), _kernel_ms(run_flash)
+    return dict(kind=kind, dtype=str(dtype).replace("torch.", ""),
+                shape=dict(cfg), max_abs_o=o_scale, max_abs_s=s_max, max_abs_v=v_max,
+                max_abs_err=o_err, bound=o_bound, grad_rel_l2=g_rel,
+                grad_bound=g_bound, bound_rule=rule, flash_launches=launches,
+                interleaved_fwd_bwd_ms=t_int, flash_fwd_bwd_ms=t_flash,
+                interleaved_kernel_ms=k_int, flash_kernel_ms=k_flash,
+                timing="wall a forward and backward (card synchronized); kernel ms from a "
+                       "torch.profiler trace of one", ok=ok), launches
+
+
+def _interleaved_part(net, rehearsal, device, smi, counts):
+    """BERT-base layer 0's QKV weights interleaved a head; self-attention
+    through the interleaved ops against flash_fwd/flash_bwd (bf16) and the
+    fp32 flash kernels, and the enc-dec pair at transformer-big's widths;
+    the flash launches added into ``counts``."""
+    params = net._collect_params_with_prefix()
+    w = params["bert.encoder.layer0.attention.qkv.weight"].data().detach().float()
+    bias = params["bert.encoder.layer0.attention.qkv.bias"].data().detach().float()
+    gen = torch.Generator(device=device).manual_seed(31)
+    cfg = TINY_INTERLEAVED if rehearsal else INTERLEAVED
+    ecfg = TINY_ENCDEC if rehearsal else ENCDEC
+    ok = True
+    for kind, c in (("selfatt", cfg), ("encdec", ecfg)):
+        for dtype in (torch.bfloat16, torch.float32):
+            row, launches = _interleaved_case(kind, dtype, w.to(device), bias.to(device), c,
+                                              gen, device)
+            if rehearsal:
+                row["ok"] = row["max_abs_err"] <= row["bound"] and (
+                    row["grad_rel_l2"] <= row["grad_bound"])
+            for n, v in launches.items():
+                counts[n] = counts.get(n, 0) + v
+            emit("op_library", part="interleaved", card=smi, **row)
+            ok = ok and row["ok"]
+    return ok
+
+
+@contextlib.contextmanager
+def _int_sums(conv, matmul):
+    """The quantized ops' int32 sums through ``conv`` and ``matmul`` for the
+    scope (``ops/quantization.py`` resolves them at each call)."""
+    from incubator_mxnet_torch.ops import quantization as qops
+
+    real = qops.int_conv, qops.int_matmul
+    qops.int_conv, qops.int_matmul = conv, matmul
+    try:
+        yield
+    finally:
+        qops.int_conv, qops.int_matmul = real
+
+
+def _int8_part(rehearsal, ctx, smi):
+    """ResNet-50 v1 (seeded weights) through quantize_net: naive over two
+    batches, entropy once; every quantized layer's int32 sums and float
+    output against the float64 plain version on the card, bit for bit; the
+    int8 forward's time beside fp32's and bf16's, and its logits' distance
+    from fp32's."""
+    from incubator_mxnet_torch.contrib import quantization as cq
+    from incubator_mxnet_torch.ops import quantization as qops
+
+    cfg = TINY_INT8 if rehearsal else INT8
+    dev = ctx.device
+    b, size = cfg["b"], cfg["size"]
+
+    def make():
+        mx.random.seed(5)
+        n = (vision.resnet18_v1(classes=10, thumbnail=True) if rehearsal
+             else vision.resnet50_v1())
+        n.initialize(mx.init.Xavier(magnitude=2.0), ctx=ctx)
+        return n
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+    batches = [torch.rand((b, 3, size, size), generator=gen, device=dev) * 2 - 1
+               for _ in range(cfg["calib_batches"] + 1)]
+    net = make()
+    with mx.autograd.predict_mode():
+        fp32 = net(batches[-1]).detach().float()
+        iters = 1 if rehearsal else 10
+        fp32_ms = _time_steps(lambda: net(batches[-1]), iters)
+        bf = make()
+        bf.cast("bfloat16")
+        bf16_ms = _time_steps(lambda: bf(batches[-1].bfloat16()), iters)
+        bf16 = bf(batches[-1].bfloat16()).detach().float()
+        kernel_ms = {}
+        if not rehearsal:
+            kernel_ms["fp32"] = _kernel_ms(lambda: net(batches[-1]))
+            kernel_ms["bf16"] = _kernel_ms(lambda: bf(batches[-1].bfloat16()))
+        del bf
+        t0 = time.perf_counter()
+        cq.quantize_net(net, batches[:-1], calib_mode="naive")
+        _sync(dev)
+        naive_s = time.perf_counter() - t0
+    layers = [blk for _, blk in cq._iter_blocks(net) if getattr(blk, "_quantized", False)]
+    # one batch with every layer's input and output and every int32 sum recorded
+    ins, outs, sums, current = {}, {}, {}, [None]
+
+    def enter(blk, a):
+        ins[id(blk)] = a[0]
+        current[0] = blk
+
+    def record(real):
+        def call(*a, **k):
+            acc = sums[id(current[0])] = real(*a, **k)
+            return acc
+        return call
+
+    hooks = [blk.register_forward_pre_hook(enter) for blk in layers]
+    hooks += [blk.register_forward_hook(lambda blk, a, o: outs.__setitem__(id(blk), o))
+              for blk in layers]
+    try:
+        with _int_sums(record(qops.int_conv), record(qops.int_matmul)), \
+                mx.autograd.predict_mode():
+            int8 = net(batches[-1]).detach().float()
+    finally:
+        for h in hooks:
+            h.detach()
+    bad_sums = bad_outs = 0
+    for blk in layers:
+        acc = sums.get(id(blk))
+        wq, wmin, wmax, lo, hi = blk._int8_state
+        xq, xmin, xmax = qops.quantize_v2(ins[id(blk)], min_calib_range=lo, max_calib_range=hi)
+        bias = blk.bias.data() if getattr(blk, "bias", None) is not None else None
+        if isinstance(blk, mx.gluon.nn.Dense):
+            plain = qops.int_matmul_plain(xq.reshape(xq.shape[0], -1), wq)
+            out = qops.quantized_fully_connected
+            kw = dict(num_hidden=blk._units, no_bias=bias is None, flatten=blk._flatten)
+        else:
+            plain = qops.int_conv_plain(xq, wq, ops_nn._tuplize(blk._stride, 2),
+                                        ops_nn._tuplize(blk._dilate, 2),
+                                        ops_nn._tuplize(blk._pad, 2), blk._groups)
+            out = qops.quantized_conv
+            kw = dict(kernel=blk._kernel, stride=blk._stride, dilate=blk._dilate, pad=blk._pad,
+                      num_filter=blk._channels, num_group=blk._groups, no_bias=bias is None)
+        bad_sums += acc is None or not torch.equal(acc, plain)
+        with _int_sums(lambda *a, **k: plain, lambda *a, **k: plain):
+            want = out(xq, wq, bias, xmin, xmax, wmin, wmax, **kw)  # the op on the plain sums
+        bad_outs += not torch.equal(outs[id(blk)], want)
+    with mx.autograd.predict_mode():
+        int8_ms = _time_steps(lambda: net(batches[-1]), 1 if rehearsal else 10)
+        if not rehearsal:
+            kernel_ms["int8"] = _kernel_ms(lambda: net(batches[-1]))
+    rel = ((int8 - fp32).norm() / fp32.norm()).item()
+    rel_bf16 = ((bf16 - fp32).norm() / fp32.norm()).item()
+    exact = bad_sums == 0 and bad_outs == 0 and len(sums) == len(layers) > 0
+    finite = bool(torch.isfinite(int8).all())
+    emit("op_library", part="int8", model="resnet18_v1 (rehearsal)" if rehearsal else
+         "resnet50_v1", batch=b, image=size, quantized_layers=len(layers),
+         int32_sums=len(sums), sums_not_bit_equal=bad_sums, outputs_not_bit_equal=bad_outs,
+         calib_mode="naive", calib_batches=cfg["calib_batches"], calib_wall_s=naive_s,
+         int8_ms=int8_ms, fp32_ms=fp32_ms, bf16_ms=bf16_ms, kernel_ms=kernel_ms,
+         int8_vs_fp32_logits_rel_l2=rel, bf16_vs_fp32_logits_rel_l2=rel_bf16,
+         note="CPU rehearsal: host time" if rehearsal else
+         "wall, card synchronized, B images a call; kernel_ms from a torch.profiler trace",
+         card=smi, ok=exact and finite)
+    # each layer's naive max|x| over both batches (batch 0's among them)
+    naive_amax = {p: max(abs(blk._int8_state[3]), abs(blk._int8_state[4]))
+                  for p, blk in cq._iter_blocks(net) if getattr(blk, "_quantized", False)}
+    net = make()
+    # the KL sweep costs ~0.5 s a layer on the host: the rehearsal
+    # calibrates four layers by entropy, the card all of ResNet-50's
+    names = [blk.name for _, blk in cq._iter_blocks(net) if cq._quantizable(blk)]
+    excluded = names[2:-2] if rehearsal else []
+    with mx.autograd.predict_mode():
+        t0 = time.perf_counter()
+        cq.quantize_net(net, batches[:1], calib_mode="entropy", excluded_layers=excluded)
+        _sync(dev)
+        entropy_s = time.perf_counter() - t0
+        ent = net(batches[-1]).detach().float()
+    # a KL threshold is a bin edge of batch 0's histogram: in (0, max|x|]
+    ratios = [blk._int8_state[4] / naive_amax[p] for p, blk in cq._iter_blocks(net)
+              if getattr(blk, "_quantized", False)]
+    ent_rel = ((ent - fp32).norm() / fp32.norm()).item()
+    ent_ok = (bool(torch.isfinite(ent).all()) and len(ratios) == len(names) - len(excluded)
+              and all(0 < r <= 1 + ENTROPY_RANGE_SLACK for r in ratios))
+    emit("op_library", part="int8", calib_mode="entropy", calib_batches=1,
+         entropy_layers=len(ratios), quantizable_layers=len(names),
+         threshold_over_naive_max=dict(min=min(ratios), median=float(np.median(ratios)),
+                                       max=max(ratios)),
+         bound=f"each threshold in (0, (1 + {ENTROPY_RANGE_SLACK})·naive max|x|]",
+         calib_wall_s=entropy_s, int8_vs_fp32_logits_rel_l2=ent_rel, ok=ent_ok)
+    del net
+    return exact and finite and ent_ok
+
+
+def _control_flow_part(rehearsal, ctx, smi):
+    """The fit phase's LSTM language model's cell unrolled by nd.contrib.foreach
+    against LSTMCell.unroll (deterministic mode, bit for bit); while_loop
+    with an early stop captured in a CUDA graph (no host sync a step);
+    cond both ways."""
+    cfg = TINY_LM_CELL if rehearsal else LM_CELL
+    dev = ctx.device
+    T, B, E, H = cfg["T"], cfg["B"], cfg["embed"], cfg["hidden"]
+    mx.random.seed(3)
+    cell = mx.gluon.rnn.LSTMCell(H, input_size=E)
+    cell.initialize(ctx=ctx)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn((T, B, E), generator=gen, device=dev)
+    head = torch.randn((T, B, H), generator=gen, device=dev)
+    params = list(cell.collect_params().values())
+
+    def run(use_foreach):
+        xi = x.clone().requires_grad_()
+        begin = [torch.zeros((B, H), device=dev), torch.zeros((B, H), device=dev)]
+        with mx.autograd.record():
+            if use_foreach:
+                out, states = mx.nd.contrib.foreach(lambda xt, st: cell(xt, st), xi, begin)
+            else:
+                out, states = cell.unroll(T, xi, begin, layout="TNC", merge_outputs=True)
+            loss = (out * head).sum() + states[0].sum() + 2 * states[1].sum()
+        mx.autograd.backward(loss)
+        return ([out.detach(), states[0].detach(), states[1].detach(), xi.grad]
+                + [p.grad().detach().clone() for p in params])
+
+    with _deterministic(True):
+        a, b_ = run(True), run(False)
+    equal = all(torch.equal(u, v) for u, v in zip(a, b_))
+    worst = max((u - v).abs().max().item() for u, v in zip(a, b_))
+    emit("op_library", part="control_flow", check="foreach_vs_unroll", T=T, B=B, embed=E,
+         hidden=H, compared=["outputs", "h", "c", "input_grad"] + [p.name for p in params],
+         bit_equal=equal, max_abs_diff=worst, ok=equal)
+    # while_loop: s ← 0.5·s + i while i < stop, per-step outputs; captured
+    stop = torch.tensor([float(WHILE_STOP)], device=dev)
+
+    def loop(i0, s0):
+        return mx.nd.contrib.while_loop(lambda i, s: i < stop,
+                                        lambda i, s: ([s * 2.0], [i + 1, s * 0.5 + i]),
+                                        [i0, s0], max_iterations=WHILE_MAX)
+
+    i0 = torch.zeros(1, device=dev)
+    s0 = torch.arange(4, dtype=torch.float32, device=dev)
+    eager_out, (ei, es) = loop(i0, s0)
+    captured = False
+    if dev.type == "cuda":
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            loop(i0, s0)  # warm-up off the capture
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with step_fold._graph_capture(graph):  # a host sync inside fails the capture
+            g_out, (gi, gs) = loop(i0, s0)
+        graph.replay()
+        torch.cuda.synchronize()
+        captured = True
+    else:
+        g_out, gi, gs = eager_out, ei, es
+    rows_zero = bool((g_out[WHILE_STOP:] == 0).all()) and bool((g_out[:WHILE_STOP] != 0).any())
+    same = (torch.equal(g_out, eager_out) and torch.equal(gi, ei) and torch.equal(gs, es)
+            and gi.item() == WHILE_STOP)
+    while_ok = rows_zero and same and (captured or dev.type != "cuda")
+    emit("op_library", part="control_flow", check="while_loop", max_iterations=WHILE_MAX,
+         stop=WHILE_STOP, captured_in_cuda_graph=captured, rows_past_stop_zero=rows_zero,
+         replay_equals_eager=same, ok=while_ok)
+    xa, xb = torch.randn(5, device=dev), torch.randn(5, device=dev)
+    outs = [mx.nd.contrib.cond(torch.tensor([flag], device=dev), lambda: xa * xb,
+                               lambda: xa - xb) for flag in (1.0, 0.0)]
+    cond_ok = torch.equal(outs[0], xa * xb) and torch.equal(outs[1], xa - xb)
+    emit("op_library", part="control_flow", check="cond", branches=["then", "else"],
+         ok=cond_ok, note="pred read on the host: a sync, outside any capture")
+    return equal and while_ok and cond_ok
+
+
+def _sparse_part(rehearsal, ctx, smi):
+    """example/sparse_linear_classification.py's model at a million
+    features: SGD with momentum, lazy row updates held row for row against
+    the per-tensor lazy op on the CPU, no multi-tensor launch, the fold's
+    refusal, and csr · dense against the dense product."""
+    cfg = TINY_SPARSE if rehearsal else SPARSE
+    dev = ctx.device
+    F_, B, nnz, steps = cfg["features"], cfg["batch"], cfg["nnz"], cfg["steps"]
+    X, Y = sparse_samples(B * steps, F_, nnz)
+    mx.random.seed(0)
+    embed = mx.gluon.nn.Embedding(F_, 1, sparse_grad=True)
+    embed.initialize(ctx=ctx)
+    loss_fn = mx.gluon.loss.SigmoidBinaryCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(embed.collect_params(), "sgd",
+                               {"learning_rate": 0.5, "momentum": 0.9})
+    weight = embed.weight
+    xs = torch.from_numpy(X).to(dev)
+    ys = torch.from_numpy(Y).to(dev)
+
+    def step(k):
+        xb, yb = xs[k * B:(k + 1) * B], ys[k * B:(k + 1) * B]
+        with mx.autograd.record():
+            logits = embed(xb).reshape(B, -1).sum(1)
+            loss = loss_fn(logits, yb)
+        mx.autograd.backward(loss)
+        return xb, loss
+
+    bad_rows = bad_touched = 0
+    mt_launches = 0
+    losses = []
+    for k in range(steps):
+        xb, loss = step(k)
+        w0 = weight.data().detach().cpu().clone()
+        mom0 = trainer._states[0].detach().cpu().clone() if 0 in trainer._states else None
+        g = weight.grad().detach().cpu().clone()
+        before = mt.multi_tensor_update.launches
+        trainer.step(B)
+        mt_launches += mt.multi_tensor_update.launches - before
+        w1 = weight.data().detach().cpu()
+        mom1 = trainer._states[0].detach().cpu()
+        # the per-tensor lazy op's plain version on the CPU, from the same state
+        pw, pm = w0.clone(), (mom0.clone() if mom0 is not None else torch.zeros_like(w0))
+        opt = trainer._optimizer
+        opt_ops.sgd_mom_lazy_update(pw, g, pm, opt._get_lr(0), opt._get_wd(0),
+                                    opt.rescale_grad, opt.clip_gradient, opt.momentum)
+        touched = torch.zeros(F_, dtype=torch.bool)
+        touched[xb.long().unique().cpu()] = True
+        untouched = ~touched
+        bad_rows += int(not (torch.equal(w1[untouched], w0[untouched])
+                             and torch.equal(mom1[untouched], pm[untouched])))
+        bad_touched += int(not (torch.equal(w1, pw) and torch.equal(mom1, pm)))
+        losses.append(loss.mean().item())
+    sparse_ok = bad_rows == 0 and bad_touched == 0 and mt_launches == 0
+    emit("op_library", part="sparse", features=F_, batch=B, nnz=nnz, steps=steps,
+         first_loss=losses[0], last_loss=losses[-1],
+         steps_with_untouched_rows_changed=bad_rows,
+         steps_not_equal_to_the_plain_lazy_op=bad_touched,
+         multi_tensor_launches=mt_launches, ok=sparse_ok)
+    step_ms = _time_steps(lambda: (step(0), trainer.step(B)), 1 if rehearsal else 10)
+    prog = trainer.fold_step(lambda a, b: loss_fn(embed(a).reshape(B, -1).sum(1), b),
+                             block=embed)
+    prog(xs[:B], ys[:B])
+    refused = (not prog.folded) and "(lazy/sparse or unsupported)" in (prog.fallback_reason
+                                                                       or "")
+    mx.profiler.disarm_compile_guard()
+    emit("op_library", part="sparse", check="fold_refuses", fallback_reason=prog.fallback_reason,
+         ok=refused, step_ms=step_ms, note="CPU rehearsal: host time" if rehearsal else
+         "wall, card synchronized: forward, backward and Trainer.step", card=smi)
+    # cast_storage and tostype of card arrays: the last step's gradient and
+    # a batch's first rows as multi-hot dense rows; each sparse form and its
+    # conversion stay on the card and give back the dense array bit for bit
+    hot = torch.zeros((cfg["cast_rows"], F_), device=dev)
+    hot.scatter_(1, xs[:cfg["cast_rows"]].long(), 1.0)
+    placed = equal = True
+    for src, first, second in ((mx.nd.NDArray(weight.grad().detach()), "row_sparse", "csr"),
+                               (mx.nd.NDArray(hot), "csr", "row_sparse")):
+        a1 = mx.nd.cast_storage(src, first)
+        for arr in (a1, a1.tostype(second), src.tostype(second)):
+            placed &= arr.data.context == ctx and arr.indices.context == ctx
+            equal &= torch.equal(arr.tostype("default")._data, src._data)
+    emit("op_library", part="sparse", check="cast_storage_on_the_card",
+         arrays=[[F_, 1], [cfg["cast_rows"], F_]], stays_on_device=placed,
+         round_trip_bit_equal=equal, ok=placed and equal)
+    del hot
+    # csr · dense and csrᵀ · dense against the dense product, a row block at a time
+    C = _nd_cases()
+    cols = cfg["dense_cols"]
+    ids = xs[:B].long()
+    vals = torch.rand((B, nnz), generator=torch.Generator(device=dev).manual_seed(5),
+                      device=dev)
+    indptr = torch.arange(0, B * nnz + 1, nnz, dtype=torch.int32, device=dev)
+    csr = mx.nd.sparse.CSRNDArray(mx.nd.NDArray(vals.reshape(-1)),
+                                  mx.nd.NDArray(ids.reshape(-1).int()),
+                                  mx.nd.NDArray(indptr), (B, F_))
+    rhs = torch.randn((F_, cols), generator=torch.Generator(device=dev).manual_seed(6),
+                      device=dev)
+    rhs_t = torch.randn((B, cols), generator=torch.Generator(device=dev).manual_seed(7),
+                        device=dev)
+    with _deterministic(True):
+        got = mx.nd.sparse.dot(csr, mx.nd.NDArray(rhs))._data
+        got_t = mx.nd.sparse.dot(csr, mx.nd.NDArray(rhs_t), transpose_a=True)._data
+    want = torch.zeros((B, cols), device=dev)
+    want_t = torch.zeros((F_, cols), device=dev)
+    rows = 1024 if not rehearsal else 16
+    for r0 in range(0, B, rows):
+        dense = torch.zeros((min(rows, B - r0), F_), device=dev)
+        dense.scatter_add_(1, ids[r0:r0 + rows], vals[r0:r0 + rows])
+        want[r0:r0 + rows] = dense @ rhs
+        want_t += dense.t() @ rhs_t[r0:r0 + rows]
+        del dense
+    eps = torch.finfo(torch.float32).eps
+    counts = torch.bincount(ids.reshape(-1), minlength=F_)
+    worst = 0.0
+    for g, w_, terms in ((got, want, nnz), (got_t, want_t, int(counts.max()))):
+        err = (g - w_).abs().max().item()
+        bound = C.REDUCE_ULPS * terms * eps * w_.abs().max().item()
+        worst = max(worst, err / bound)
+    dot_ms = _time_steps(lambda: mx.nd.sparse.dot(csr, mx.nd.NDArray(rhs)),
+                         1 if rehearsal else 10)
+    emit("op_library", part="sparse", check="csr_dot_vs_dense", shape=[B, F_], nnz_a_row=nnz,
+         dense_cols=cols, worst_err_over_bound=worst,
+         bound="REDUCE_ULPS·terms ulps of max|ref| (terms: nnz a row; the most ids a column)",
+         dot_ms=dot_ms, ok=worst <= 1.0)
+    return sparse_ok and refused and placed and equal and worst <= 1.0
+
+
+def phase_op_library(net, rehearsal, smi=None):
+    """The rest of the op library on the card (see the module doc); exits
+    non-zero on any miss.  Returns {"op_library": the flash launches of the
+    interleaved part's reference attentions}."""
+    t0 = time.perf_counter()
+    mx.amp.disable()
+    mx.profiler.disarm_compile_guard()
+    ctx = mx.cpu() if rehearsal else mx.gpu(0)
+    misses, counts, walls = [], {}, {}
+    parts = (("op_table", lambda: _wide_op_table(ctx, rehearsal)),
+             ("ctc", lambda: _ctc_part(rehearsal, ctx, smi)),
+             ("interleaved", lambda: _interleaved_part(net, rehearsal, ctx.device, smi, counts)),
+             ("int8", lambda: _int8_part(rehearsal, ctx, smi)),
+             ("control_flow", lambda: _control_flow_part(rehearsal, ctx, smi)),
+             ("sparse", lambda: _sparse_part(rehearsal, ctx, smi)))
+    for name, fn in parts:
+        t1 = time.perf_counter()
+        if not fn():
+            misses.append(name)
+        walls[name] = time.perf_counter() - t1
+        if not rehearsal:
+            torch.cuda.empty_cache()
+    # the parts' nets hold reference cycles (blocks and their hooks, the int8
+    # forwards' closures): collect them here, not inside a later phase's
+    # timed steps
+    gc.collect()
+    if not rehearsal:
+        torch.cuda.empty_cache()
+    emit("op_library", part_wall_s=walls, phase_s=time.perf_counter() - t0, failed=misses,
+         ok=not misses)
+    if misses:
+        sys.exit(1)
+    return {"op_library": counts}
+
+
 def decode_load(records=1024, loads=400):
     """``--decode-load``: the native pool's time for one batch of 256 from
     the ``io`` phase's record file on an idle card, while ``loads`` bf16
@@ -6679,7 +7544,7 @@ def _graph_ms(fn, arg_sets, calls=40, replays=5):
             fn(*args)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with step_fold._graph_capture(graph):
         for i in range(calls):
             fn(*arg_sets[i % len(arg_sets)])
     graph.replay()
@@ -7908,6 +8773,7 @@ def main():
         phase_io(rehearsal=True)
         phase_detect(rehearsal=True)
         phase_fit(rehearsal=True)
+        phase_op_library(net, rehearsal=True)
         phase_train_surface(rehearsal=True)
         rehearse_times(net, main_req, (tnet, trainer, batch), (rnet, rtrainer, rbatch))
         phase_observe((tnet, trainer, batch), rehearsal=True)
@@ -7968,6 +8834,7 @@ def main():
     paths.update(phase_io(rehearsal=False, smi=smi))
     paths.update(phase_detect(rehearsal=False, smi=smi))
     paths.update(phase_fit(rehearsal=False, smi=smi))
+    paths.update(phase_op_library(net, rehearsal=False, smi=smi))
     paths.update(phase_observe((tnet, trainer, batch), rehearsal=False, smi=smi))
     paths.update(phase_generation(rehearsal=False, seed=args.seed, smi=smi))
     paths.update(phase_serve(net, main_req, rehearsal=False, smi=smi))

@@ -50,10 +50,11 @@ from . import module as mod
 from . import rnn
 from . import monitor
 from .monitor import Monitor
+from . import contrib
 
 __all__ = ["MXNetError", "DeferredInitializationError", "Context", "cpu", "gpu", "cpu_pinned",
            "current_context", "num_gpus", "context", "autograd", "random",
            "initializer", "init", "ops", "nd", "ndarray", "NDArray", "optimizer", "lr_scheduler", "gluon", "amp", "convert", "operator",
            "rtc", "name", "attribute", "AttrScope", "symbol", "sym", "Executor", "profiler",
            "predictor", "serving", "kvstore", "kv", "parallel", "recordio", "io", "image", "metric", "callback", "model", "module", "mod", "rnn",
-           "monitor", "Monitor"]
+           "monitor", "Monitor", "contrib"]

@@ -3,12 +3,12 @@
 Counterpart of the JAX package's ``gluon/loss.py``, with its losses and
 their semantics: HybridBlocks returning a per-sample loss vector (the
 batch axis kept; ``PoissonNLLLoss`` the mean), scaled by ``weight`` and
-``sample_weight``.  ``CTCLoss`` waits for the CTC op (ROADMAP §1 item 11)
-and raises.
+``sample_weight``.
 """
 from __future__ import annotations
 
 import numpy as _np
+import torch
 
 from .block import HybridBlock
 
@@ -271,10 +271,55 @@ class CosineEmbeddingLoss(Loss):
 
 
 class CTCLoss(Loss):
-    """Connectionist temporal classification: waits for the CTC op of the
-    JAX package's ``ops/spatial.py`` (ROADMAP §1 item 11)."""
+    """Connectionist temporal classification, layout ``'NTC'`` (default) or
+    ``'TNC'``, blank label 0.  The JAX package's own trellis (not the
+    ``CTCLoss`` op's): probabilities clamped at 1e-30 before the log, -1e30
+    for log 0, the recursion one frame at a time under autograd (a position
+    no path reaches takes no gradient: the JAX package's is NaN there).  The
+    last frame is ``pred_lengths - 1`` when given, else T-1; the last extended
+    position is ``2·label_lengths`` when given, else S-1 of the padded
+    labels (the padding counts as labels)."""
 
     def __init__(self, layout="NTC", label_layout="NT", weight=None, **kwargs):
-        raise NotImplementedError(
-            "gluon.loss.CTCLoss waits for the CTC op (the JAX package's ops/spatial.py "
-            "ctc_loss), queued in ROADMAP §1 item 11")
+        super().__init__(weight, 0, **kwargs)
+        self._layout = layout
+        self._label_layout = label_layout
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None, label_lengths=None,
+                       sample_weight=None):
+        p = pred.permute(1, 0, 2) if self._layout == "NTC" else pred
+        T, B, C = p.shape
+        e = torch.exp(p - p.amax(-1, keepdim=True))
+        logp = torch.log((e / e.sum(-1, keepdim=True)).clamp_min(1e-30))
+        S = 2 * label.shape[1] + 1
+        dev = p.device
+        ext = torch.zeros((B, S), dtype=torch.long, device=dev)
+        ext[:, 1::2] = label.to(torch.long)
+        neg = torch.tensor(-1e30, device=dev, dtype=logp.dtype)
+        zero = torch.zeros((), device=dev, dtype=logp.dtype)
+        fill = lambda n: neg.expand(B, n)  # noqa: E731
+        same = torch.cat([torch.zeros((B, 2), dtype=torch.bool, device=dev),
+                          ext[:, 2:] == ext[:, :-2]], 1)
+        alpha = torch.cat([logp[0].gather(1, ext[:, :2]), fill(S - 2)], 1)
+        alphas = [alpha]
+        for t in range(1, T):
+            a1 = torch.cat([fill(1), alpha[:, :-1]], 1)
+            a2 = torch.where(same, neg, torch.cat([fill(2), alpha[:, :-2]], 1))
+            m = torch.maximum(torch.maximum(alpha, a1), a2)
+            m_safe = torch.where(m == neg, zero, m)
+            summed = torch.exp(alpha - m_safe) + torch.exp(a1 - m_safe) + torch.exp(a2 - m_safe)
+            # a position no path reaches keeps -1e30; its log(1) keeps the
+            # masked branch's gradient 0 (log(0) made it 0/0 = NaN)
+            summed = torch.where(m == neg, torch.ones_like(summed), summed)
+            new = torch.where(m == neg, neg, m_safe + torch.log(summed))
+            alpha = new + logp[t].gather(1, ext)
+            alphas.append(alpha)
+        alphas = torch.stack(alphas)
+        bidx = torch.arange(B, device=dev)
+        t_last = (torch.full((B,), T - 1, dtype=torch.long, device=dev) if pred_lengths is None
+                  else pred_lengths.to(torch.long) - 1)
+        last_s = (torch.full((B,), S - 1, dtype=torch.long, device=dev) if label_lengths is None
+                  else (2 * label_lengths).to(torch.long))
+        alpha_t = alphas[t_last, bidx]
+        loss = -torch.logaddexp(alpha_t[bidx, last_s], alpha_t[bidx, (last_s - 1).clamp_min(0)])
+        return _apply_weighting(F, loss, self._weight, sample_weight)

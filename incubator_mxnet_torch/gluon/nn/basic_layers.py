@@ -180,25 +180,22 @@ class LayerNorm(HybridBlock):
 
 
 class Embedding(HybridBlock):
-    """Lookup of rows of a ``(input_dim, output_dim)`` weight.  The
-    reference's parameters in its order; ``sparse_grad=True`` raises: the
-    reference's row-sparse gradient drives the lazy optimizer updates,
-    which touch only the rows a batch has, and the port has no row-sparse
-    storage yet, so a dense gradient would silently change the update."""
+    """Lookup of rows of a ``(input_dim, output_dim)`` weight, the
+    reference's parameters in its order.  ``sparse_grad=True`` makes the
+    weight ``row_sparse``: its gradient is held densely, and SGD and Adam
+    then update it lazily, as the reference updates a row-sparse gradient:
+    a row no lookup of the batch touched keeps its value and its optimizer
+    state (no momentum decay, no weight decay)."""
 
     def __init__(self, input_dim, output_dim, dtype="float32", weight_initializer=None,
                  sparse_grad=False, prefix=None, params=None):
-        if sparse_grad:
-            raise NotImplementedError(
-                "Embedding(sparse_grad=True): row-sparse gradients (and the lazy optimizer "
-                "updates they drive) are not in the port; use sparse_grad=False")
         super().__init__(prefix=prefix, params=params)
         self._input_dim = input_dim
         self._output_dim = output_dim
         with self.name_scope():
             self.weight = self.params.get(
                 "weight", shape=(input_dim, output_dim), dtype=dtype,
-                init=weight_initializer)
+                init=weight_initializer, stype="row_sparse" if sparse_grad else "default")
 
     def hybrid_forward(self, F, x, weight):
         return F.Embedding(x, weight, input_dim=self._input_dim, output_dim=self._output_dim)

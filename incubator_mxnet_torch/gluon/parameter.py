@@ -5,7 +5,9 @@ lifecycle: construct (a 0 in the shape means unknown), ``initialize``
 (deferred until the first forward infers the shape), ``data()``,
 ``set_data``, ``cast``, ``reset_ctx``, ``var``, and the gradient API:
 ``grad()``, ``list_grad()``, ``zero_grad()``, ``grad_req`` and
-``lr_mult``/``wd_mult``; a parameter made with ``differentiable=False``
+``lr_mult``/``wd_mult``, and ``stype``/``grad_stype``, kept as the JAX
+package keeps them (a ``row_sparse`` parameter is held densely and takes
+the optimizer's lazy updates); a parameter made with ``differentiable=False``
 (BatchNorm's running statistics) has ``grad_req="null"``, as has a
 ``Constant``.  A Parameter holds one ``torch.nn.Parameter`` on one device,
 so ``list_data``/``list_ctx`` hold one entry.
@@ -50,10 +52,9 @@ class Parameter:
     def __init__(self, name, grad_req="write", shape=None, dtype="float32", lr_mult=1.0,
                  wd_mult=1.0, init=None, allow_deferred_init=False, differentiable=True,
                  stype="default", grad_stype="default"):
-        if stype != "default" or grad_stype != "default":
-            raise NotImplementedError(
-                f"Parameter {name}: stype={stype!r}, grad_stype={grad_stype!r}: sparse storage "
-                "(row_sparse, csr) waits in ROADMAP §1 item 11; use 'default'")
+        for kind in (stype, grad_stype):
+            if kind not in ("default", "row_sparse", "csr"):
+                raise ValueError(f"Parameter {name}: unknown storage type {kind!r}")
         self.name = name
         self._data = None
         self._grad = None
@@ -70,6 +71,8 @@ class Parameter:
         self.init = init
         self.allow_deferred_init = allow_deferred_init
         self._deferred_init = None
+        self._stype = stype
+        self._grad_stype = grad_stype
 
     @property
     def shape(self):
@@ -88,6 +91,13 @@ class Parameter:
     @property
     def grad_req(self):
         return self._grad_req
+
+    @property
+    def stype(self):
+        """The storage type: ``'row_sparse'`` makes SGD and Adam update the
+        parameter lazily (only the rows its gradient touches).  The values
+        and the gradient are held densely either way."""
+        return self._stype
 
     @grad_req.setter
     def grad_req(self, req):

@@ -64,6 +64,8 @@ call of a signature on the CPU) reports to ``record_compile`` under
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import os
 import warnings
 from time import perf_counter as _perf
@@ -129,6 +131,25 @@ def _device_of(params):
 # staging and copy stream, the native decode pool) go on staging batches on
 # their own streams while a step is captured.
 _CAPTURE_MODE = "thread_local"
+
+
+@contextlib.contextmanager
+def _graph_capture(graph, **kw):
+    """``torch.cuda.graph(graph, ...)`` with Python's cyclic collector run
+    first and paused inside: a dead reference cycle holding an earlier
+    program's ``CUDAGraph`` (a Block, a program) collected mid-capture
+    resets that graph, which a capture forbids, and the capture is
+    invalidated (PyTorch's own collect before a capture is off by
+    default)."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode=_CAPTURE_MODE, **kw):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _side_stream_run(fn):
@@ -429,8 +450,9 @@ class StepProgram(metaclass=_CounterViews):
         tail = _Tail(tr._optimizer, [(i, p.data(), p.grad()) for i, p in touched], tr._states)
         if tail.rest or not tail.groups:
             names = [tr._params[i].name for i, _, _ in tail.rest][:3]
-            self._note_fallback(f"no fused update for {type(tr._optimizer).__name__} on "
-                                f"{names or 'these parameters'}", "unsupported-optimizer")
+            self._note_fallback(f"no fused kernels for {type(tr._optimizer).__name__} on "
+                                f"{names or 'these params'} (lazy/sparse or unsupported)",
+                                "unsupported-optimizer")
             return self._eager(batch, batch_size, kw)
         device = _device_of(tr._params)
         if device is None or device.type not in ("cpu", "cuda"):
@@ -564,7 +586,7 @@ class StepProgram(metaclass=_CounterViews):
             self._pool = torch.cuda.graph_pool_handle()
         versions = [p._grad_version for _, p in touched]
         try:
-            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode=_CAPTURE_MODE):
+            with _graph_capture(graph, pool=self._pool):
                 losses = [self._body(self._row(static, j, kw), tail, per_group, rows[j],
                                      scratch) for j in range(steps)]
                 loss = losses[0] if kw is None else torch.stack(losses)
@@ -741,7 +763,7 @@ class EvalProgram(metaclass=_CounterViews):
         graph.register_generator_state(get_generator(device))
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode=_CAPTURE_MODE):
+        with _graph_capture(graph, pool=self._pool):
             total, _ = self._sum(self._rows(static))
             self._acc.add_(total)
         return {"graph": graph, "batch": static}
@@ -830,7 +852,7 @@ def _fold_tail(tail, device):
         rows = torch.zeros(n, dtype=torch.float32, device=device)
         scratch = tail.scratch()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode=_CAPTURE_MODE):
+        with _graph_capture(graph):
             tail.apply(per_group, rows, scratch)
         entry.update(graph=graph, rows=rows, scratch=scratch)
         fold_update.captures += 1

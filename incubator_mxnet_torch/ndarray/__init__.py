@@ -11,7 +11,9 @@ tensors is unchanged.  Raw ops (``wrap_ndarray=False``: the multi-tensor
 updates) unwrap NDArrays inside their list arguments and give their own
 structure back with NDArrays in it.  ``nd.Custom`` is
 ``operator.nd_custom``, which applies the same rule; the legacy
-``nd.random_<name>`` and ``nd.sample_<name>`` resolve to ``mx.random``.
+``nd.random_<name>`` and ``nd.sample_<name>`` resolve to ``mx.random``;
+``nd.sparse`` holds the sparse storage types and ``nd.cast_storage``
+converts between them.
 """
 from __future__ import annotations
 
@@ -23,9 +25,11 @@ from .ndarray import (NDArray, _has_nd, _rewrap_nested, _run, _unwrap_nested, _w
 from .utils import load, save
 from . import contrib  # noqa: F401
 from . import random  # noqa: F401
+from . import sparse  # noqa: F401
+from .sparse import cast_storage  # noqa: F401  (mx.nd.cast_storage)
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange", "invoke",
-           "waitall", "save", "load", "random", "contrib"]
+           "waitall", "save", "load", "random", "contrib", "sparse", "cast_storage"]
 
 _WRAPPER_CACHE = {}
 

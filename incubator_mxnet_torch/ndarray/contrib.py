@@ -3,31 +3,20 @@
 Counterpart of the JAX package's ``ndarray/contrib.py``: ``nd.contrib.<name>``
 finds the op registered as ``contrib_<name>``, ``_contrib_<name>`` or
 ``<name>``, with ``mx.nd``'s wrapper (the same object as ``nd.<that name>``).
-The control-flow ops ``foreach``, ``while_loop`` and ``cond`` are not
-ported yet and raise.
+The control-flow ops ``foreach``, ``while_loop`` and ``cond`` take
+callables, not arrays, and are ``ops/control_flow.py``'s functions.
 """
 from __future__ import annotations
 
+from ..ops import control_flow as _control_flow
 from ..ops import registry as _registry
-
-_CONTROL_FLOW = ("foreach", "while_loop", "cond")
-
-
-def _not_ported(name):
-    def control_flow(*args, **kwargs):
-        raise NotImplementedError(
-            f"nd.contrib.{name} needs the control-flow ops (ops/control_flow.py), which "
-            "the port has not ported yet")
-
-    control_flow.__name__ = name
-    return control_flow
 
 
 def __getattr__(name):
     if name.startswith("__"):
         raise AttributeError(name)
-    if name in _CONTROL_FLOW:
-        return _not_ported(name)
+    if name in _control_flow.__all__:
+        return getattr(_control_flow, name)
     from . import _wrapper
 
     for candidate in (f"contrib_{name}", f"_contrib_{name}", name):

@@ -625,10 +625,16 @@ class NDArray:
         return self
 
     def tostype(self, stype):
-        """Only ``"default"``: sparse storage is not ported yet."""
+        """This array (``"default"``) or its ``row_sparse`` or ``csr`` form
+        (``ndarray/sparse.py``)."""
         if stype == "default":
             return self
-        raise NotImplementedError(f"storage type {stype!r} is not ported yet (dense only)")
+        from . import sparse as _sparse
+        if stype == "row_sparse":
+            return _sparse.row_sparse_array(self)
+        if stype == "csr":
+            return _sparse.csr_matrix(self)
+        raise ValueError(f"unknown storage type {stype!r}")
 
     # -- reductions -------------------------------------------------------------
     def sum(self, axis=None, keepdims=False, **kw):

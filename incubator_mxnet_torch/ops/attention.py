@@ -655,3 +655,65 @@ def fused_kv_attention(q, kv, num_heads=1, causal=False, scale=None):
     out = _attend(((0, None), (1, 0), (1, 1)), (q.reshape(b, sq, h, dh), x), causal, scale,
                   "bshd")
     return out.reshape(b, sq, d)
+
+
+# -- interleaved_matmul_* ------------------------------------------------------------
+# The fused multi-head attention ops of GluonNLP 0.x (the reference's
+# contrib/transformer.cc): projections [S, B, H·3·Dh] (self-attention, q, k
+# and v interleaved a head) or [S, B, H·2·Dh] (encoder-decoder k and v);
+# scores [B·H, Sq, Sk].  Plain products, as the JAX package leaves them to
+# XLA: q, k, v and the attention in fp32, one rounding to the input dtype.
+
+
+def _deinterleave(proj, heads, parts):
+    s, b, hpd = proj.shape
+    if hpd % (heads * parts):
+        raise ValueError(f"interleaved projection width {hpd} is not divisible by "
+                         f"heads({heads})×{parts}")
+    x = proj.reshape(s, b, heads, parts, hpd // (heads * parts))
+    return tuple(x[:, :, :, i] for i in range(parts))  # each [S, B, H, Dh]
+
+
+def _scores(q, k, dtype):
+    s = torch.einsum("qbhd,kbhd->bhqk", q.float() * (1.0 / math.sqrt(q.shape[-1])), k.float())
+    b, h, sq, sk = s.shape
+    return s.reshape(b * h, sq, sk).to(dtype)
+
+
+def _context(v, attention, dtype):
+    sk, b, h, dh = v.shape
+    att = attention.reshape(b, h, -1, sk)
+    out = torch.einsum("bhqk,kbhd->qbhd", att.float(), v.float())
+    return out.reshape(out.shape[0], b, h * dh).to(dtype)
+
+
+@register("_contrib_interleaved_matmul_selfatt_qk")
+def interleaved_matmul_selfatt_qk(queries_keys_values, heads=1):
+    """scores [B·H, Sq, Sk] = Q·Kᵀ/√Dh from the interleaved projection."""
+    q, k, _ = _deinterleave(queries_keys_values, heads, 3)
+    return _scores(q, k, queries_keys_values.dtype)
+
+
+@register("_contrib_interleaved_matmul_selfatt_valatt")
+def interleaved_matmul_selfatt_valatt(queries_keys_values, attention, heads=1):
+    """context [S, B, H·Dh] = attention · V, V from the interleaved
+    projection, attention [B·H, Sq, Sk]."""
+    _, _, v = _deinterleave(queries_keys_values, heads, 3)
+    return _context(v, attention, queries_keys_values.dtype)
+
+
+@register("_contrib_interleaved_matmul_encdec_qk")
+def interleaved_matmul_encdec_qk(queries, keys_values, heads=1):
+    """Cross-attention scores from Q [Sq, B, H·Dh] and the interleaved
+    KV [Sk, B, H·2·Dh]."""
+    sq, b, hd = queries.shape
+    if hd % heads:
+        raise ValueError(f"query width {hd} not divisible by heads({heads})")
+    k, _ = _deinterleave(keys_values, heads, 2)
+    return _scores(queries.reshape(sq, b, heads, hd // heads), k, queries.dtype)
+
+
+@register("_contrib_interleaved_matmul_encdec_valatt")
+def interleaved_matmul_encdec_valatt(keys_values, attention, heads=1):
+    _, v = _deinterleave(keys_values, heads, 2)
+    return _context(v, attention, keys_values.dtype)

@@ -8,7 +8,8 @@ user's ``mx.nd`` is the ``ndarray`` package, which reaches the same ops and
 takes NDArrays too.  With ``amp.init()`` the lookup
 returns the op wrapped in AMP's input casts (``amp/amp.py``).  ``nd.Custom``
 resolves to ``operator.nd_custom``, whose gradient is the user's
-``CustomOp.backward``.  PyTorch runs eagerly, so the
+``CustomOp.backward``; ``nd.contrib.foreach``, ``while_loop`` and ``cond``
+to ``ops/control_flow.py``.  PyTorch runs eagerly, so the
 JAX package's dispatch accelerators (the level-1 jit cache, ``engine.py``
 bulking) have no counterpart here.
 """
@@ -102,6 +103,10 @@ class _Namespace(types.ModuleType):
         if name == "Custom":  # the user's backward, not an op of the registry
             from ..operator import nd_custom
             return nd_custom
+        if "contrib_" in self._prefixes:
+            from . import control_flow  # callables, not arrays: not ops of the registry
+            if name in control_flow.__all__:
+                return getattr(control_flow, name)
         for p in self._prefixes:
             op = _REGISTRY.get(p + name)
             if op is not None:

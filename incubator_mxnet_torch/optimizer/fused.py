@@ -13,7 +13,8 @@ are the JAX package's: SGD, NAG, Adam, AdamW, RMSProp (both forms) and
 LAMB (two launches a chunk: its trust ratio needs each tensor's norms
 first).  RMSProp and LAMB under ``multi_precision`` take the per-tensor
 path, and AdamW under it takes Adam's ``mp_adam`` variant, as in the JAX
-package.
+package; so does a ``row_sparse`` parameter of SGD, Adam or AdamW with
+``lazy_update``: its lazy update touches only the rows its gradient has.
 
 Each chunk's update counts in the profiler's declared counters
 ``fused_step_call`` (group updates), ``fused_step_params`` (parameters they
@@ -41,6 +42,8 @@ def _select(opt, index, weight, state):
     ``update`` must not inherit a fused kernel it no longer matches."""
     t = type(opt)
     mp = opt._use_mp(weight)
+    if opt._lazy_for(index):
+        return None  # a lazy row_sparse parameter: its per-tensor lazy update
     if t is SGD:
         if mp:
             mom, w32 = state

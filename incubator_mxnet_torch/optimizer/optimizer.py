@@ -140,6 +140,14 @@ class Optimizer:
     def create_state(self, index, weight):
         return None
 
+    def _lazy_for(self, index):
+        """Whether parameter ``index`` takes the lazy update (SGD's and
+        Adam's ``lazy_update`` and a ``row_sparse`` parameter): only the
+        rows its gradient touches move, their state too."""
+        p = self.param_dict.get(index)
+        return (getattr(self, "lazy_update", False)
+                and getattr(p, "stype", "default") == "row_sparse")
+
     def _use_mp(self, weight):
         return self.multi_precision and weight.dtype in (torch.float16, torch.bfloat16)
 
@@ -182,18 +190,21 @@ class SGD(Optimizer):
     ``sgd_mom_update``, ``mp_sgd_update``, ``mp_sgd_mom_update``)."""
 
     def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
-        super().__init__(**kwargs)  # lazy_update: row_sparse only; the port has none
+        super().__init__(**kwargs)
         self.momentum = momentum
+        self.lazy_update = lazy_update
 
     def create_state(self, index, weight):
         return None if self.momentum == 0.0 else _zeros32(weight)
 
     def update(self, index, weight, grad, state):
         lr, wd, rescale, clip = self._hyper(index)
+        lazy = self._lazy_for(index)
         if state is None:
-            K.sgd_update(weight, grad, lr, wd, rescale, clip)
+            (K.sgd_lazy_update if lazy else K.sgd_update)(weight, grad, lr, wd, rescale, clip)
         else:
-            K.sgd_mom_update(weight, grad, state, lr, wd, rescale, clip, self.momentum)
+            (K.sgd_mom_lazy_update if lazy else K.sgd_mom_update)(
+                weight, grad, state, lr, wd, rescale, clip, self.momentum)
 
     def _update_mp(self, index, weight, grad, state):
         mom, w32 = state
@@ -201,7 +212,8 @@ class SGD(Optimizer):
         if mom is None:
             K.mp_sgd_update(weight, grad, w32, lr, wd, rescale, clip)
         else:
-            K.mp_sgd_mom_update(weight, grad, mom, w32, lr, wd, rescale, clip, self.momentum)
+            (K.mp_sgd_mom_lazy_update if self._lazy_for(index) else K.mp_sgd_mom_update)(
+                weight, grad, mom, w32, lr, wd, rescale, clip, self.momentum)
 
 
 @register
@@ -211,8 +223,9 @@ class Adam(Optimizer):
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
                  lazy_update=True, **kwargs):
-        super().__init__(learning_rate=learning_rate, **kwargs)  # lazy_update: as SGD's
+        super().__init__(learning_rate=learning_rate, **kwargs)
         self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.lazy_update = lazy_update
 
     def create_state(self, index, weight):
         return _zeros32(weight), _zeros32(weight)
@@ -220,8 +233,9 @@ class Adam(Optimizer):
     def update(self, index, weight, grad, state):
         lr, wd, rescale, clip = self._hyper(index)
         mean, var = state
-        K.adam_update(weight, grad, mean, var, lr, wd, rescale, clip, self.beta1, self.beta2,
-                      self.epsilon, self._index_update_count[index])
+        (K.adam_lazy_update if self._lazy_for(index) else K.adam_update)(
+            weight, grad, mean, var, lr, wd, rescale, clip, self.beta1, self.beta2,
+            self.epsilon, self._index_update_count[index])
 
     def _update_mp(self, index, weight, grad, state):
         (mean, var), w32 = state

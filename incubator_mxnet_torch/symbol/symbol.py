@@ -766,26 +766,6 @@ def _bind_fluent_methods():
 # the JAX file that defines them and the ROADMAP §1 item whose queue they
 # wait in: ``mx.sym.<name>`` raises and names the queue.
 _QUEUED_OPS = {
-    ("ops/spatial.py", 11): (
-        "BilinearSampler", "CTCLoss", "Correlation", "Crop", "DeformableConvolution",
-        "DeformablePSROIPooling", "GridGenerator", "LRN", "LogisticRegressionOutput",
-        "MAERegressionOutput", "ROIAlign", "ROIPooling", "SVMOutput", "SpatialTransformer",
-        "_contrib_AdaptiveAvgPooling2D", "_contrib_BilinearResize2D", "_contrib_CTCLoss",
-        "_contrib_DeformableConvolution", "_contrib_DeformablePSROIPooling",
-        "_contrib_ROIAlign", "_contrib_ctc_loss", "arange_like", "col2im", "ctc_loss",
-        "depth_to_space", "im2col", "index_array", "index_copy", "masked_log_softmax",
-        "masked_softmax", "ravel_multi_index", "space_to_depth", "unravel_index"),
-    ("ops/linalg.py", 11): (
-        "khatri_rao", "linalg_det", "linalg_extractdiag", "linalg_extracttrian",
-        "linalg_gelqf", "linalg_gemm", "linalg_inverse", "linalg_makediag",
-        "linalg_maketrian", "linalg_potri", "linalg_slogdet", "linalg_sumlogdiag",
-        "linalg_syevd", "linalg_trmm", "linalg_trsm", "moments"),
-    ("ops/quantization.py", 11): (
-        "dequantize", "quantize", "quantize_v2", "quantized_conv",
-        "quantized_fully_connected", "requantize"),
-    ("ops/attention.py", 11): (
-        "_contrib_interleaved_matmul_encdec_qk", "_contrib_interleaved_matmul_encdec_valatt",
-        "_contrib_interleaved_matmul_selfatt_qk", "_contrib_interleaved_matmul_selfatt_valatt"),
     ("ops/moe.py", 8): ("moe_ffn",),
 }
 _QUEUE_OF = {n: key for key, names in _QUEUED_OPS.items() for n in names}

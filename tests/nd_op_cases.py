@@ -392,6 +392,272 @@ NO_GRAD_INPUTS = {
     "SequenceLast": (1,), "SequenceReverse": (1,), "one_hot_encode": (1,),
 }
 
+# -- the rest of the op library: ops/spatial.py, ops/linalg.py, ops/quantization.py and
+# the interleaved attention ops of ops/attention.py (``LIBRARY_CASES``) -----------------
+#
+# ``decomp``, a fourth card class: a decomposition, held by its reconstruction (and,
+# for syevd, its eigenvectors row by row up to sign) rather than entry by entry.
+
+_L = []
+
+
+def lib(id_, op, src, ins, kw=None, card="reduce", dtypes=None):
+    _L.append(Case(id_, op, src, ins, kw or {}, card, dtypes))
+
+
+def I8(*shape):
+    return lambda r: r.randint(-127, 128, shape).astype(np.int8)
+
+
+def I32(*shape, lo=-2 ** 20, hi=2 ** 20):
+    return lambda r: r.randint(lo, hi, shape).astype(np.int32)
+
+
+def lower_tri(n, diag=2.0):
+    """A well-conditioned lower-triangular matrix."""
+    return lambda r: (np.tril(r.uniform(-0.5, 0.5, (n, n))) + diag * np.eye(n)).astype(np.float32)
+
+
+def well_conditioned(*shape):
+    n = shape[-1]
+    return lambda r: (r.uniform(-0.5, 0.5, shape) + 2.0 * np.eye(n)).astype(np.float32)
+
+
+def spd_batch(b, n):
+    def make(r):
+        a = r.uniform(-1, 1, (b, n, n))
+        return (a @ a.transpose(0, 2, 1) + n * np.eye(n)).astype(np.float32)
+    return make
+
+
+def sp(id_, op, ins, kw=None, card="reduce", dtypes=None):
+    lib(id_, op, "spatial", ins, kw, card, dtypes)
+
+
+# layout shuffles and indices
+sp("depth_to_space", "depth_to_space", inputs(U(2, 8, 3, 3)), {"block_size": 2}, card="exact")
+sp("space_to_depth", "space_to_depth", inputs(U(2, 2, 4, 6)), {"block_size": 2}, card="exact")
+sp("unravel_index", "unravel_index", inputs(K([5.0, 17.0, 0.0, 23.0])), {"shape": (2, 3, 4)},
+   card="exact")
+sp("ravel_multi_index", "ravel_multi_index", inputs(K([[1, 0, 2, 1], [2, 1, 3, 0]])),
+   {"shape": (3, 4)}, card="exact")
+sp("index_array", "index_array", inputs(U(2, 3)), card="exact")
+sp("index_array-axes", "index_array", inputs(U(2, 3, 4)), {"axes": (2, 0)}, card="exact")
+sp("index_copy", "index_copy", inputs(U(5, 3), K([0, 3], np.int32), U(2, 3)), card="exact")
+sp("arange_like", "arange_like", inputs(U(2, 3)), {"start": 1.0, "step": 0.5, "repeat": 2},
+   card="exact")
+sp("arange_like-axis", "arange_like", inputs(U(2, 5)), {"start": -2.0, "axis": 1},
+   card="exact")
+_MASK = K([[1, 1, 0, 1, 0], [0, 0, 0, 0, 0], [1, 0, 1, 1, 1]], np.int32)
+sp("masked_softmax", "masked_softmax", inputs(U(3, 5), _MASK), {"temperature": 2.0})
+sp("masked_log_softmax", "masked_log_softmax", inputs(U(3, 5), _MASK))
+sp("LRN", "LRN", inputs(U(2, 6, 3, 3)), {"nsize": 3, "alpha": 0.01})
+# bilinear sampling
+sp("BilinearSampler", "BilinearSampler",
+   inputs(U(2, 3, 5, 6), U(2, 2, 4, 4, lo=-1.1, hi=1.1)))
+sp("GridGenerator", "GridGenerator", inputs(U(2, 6)), {"target_shape": (4, 5)})
+sp("GridGenerator-warp", "GridGenerator", inputs(U(2, 2, 4, 5)),
+   {"transform_type": "warp", "target_shape": (4, 5)})
+sp("SpatialTransformer", "SpatialTransformer", inputs(U(2, 3, 5, 6), U(2, 6, lo=-1, hi=1)),
+   {"target_shape": (4, 4)})
+sp("_contrib_BilinearResize2D", "_contrib_BilinearResize2D", inputs(U(2, 3, 4, 5)),
+   {"height": 7, "width": 3})
+sp("_contrib_BilinearResize2D-half", "_contrib_BilinearResize2D", inputs(U(2, 3, 4, 5)),
+   {"scale_height": 2.0, "scale_width": 0.5, "align_corners": False})
+sp("_contrib_AdaptiveAvgPooling2D", "_contrib_AdaptiveAvgPooling2D", inputs(U(2, 3, 7, 5)),
+   {"output_size": (3, 2)})
+# ROI ops
+_ROIS = K([[0, 1, 1, 6, 5], [1, 0, 2, 7, 7], [0, 3.4, 2.6, 5.5, 7.2]])
+sp("ROIPooling", "ROIPooling", inputs(U(2, 3, 8, 8), _ROIS), {"pooled_size": (2, 2)},
+   card="exact")
+sp("ROIPooling-scale", "ROIPooling", inputs(U(2, 3, 8, 8), _ROIS),
+   {"pooled_size": (3, 2), "spatial_scale": 0.5}, card="exact")
+sp("_contrib_ROIAlign", "_contrib_ROIAlign", inputs(U(2, 3, 8, 8), _ROIS),
+   {"pooled_size": (3, 3), "spatial_scale": 0.5, "sample_ratio": 2})
+sp("ROIAlign", "ROIAlign", inputs(U(2, 3, 8, 8), _ROIS),
+   {"pooled_size": (2, 2), "sample_ratio": -1, "aligned": True})
+# deformable ops
+sp("_contrib_DeformableConvolution", "_contrib_DeformableConvolution",
+   inputs(U(2, 4, 6, 6), U(2, 18, 4, 4, lo=-1, hi=1), U(5, 4, 3, 3), U(5)),
+   {"kernel": (3, 3), "num_filter": 5})
+sp("DeformableConvolution", "DeformableConvolution",
+   inputs(U(2, 4, 6, 6), U(2, 36, 6, 6, lo=-1, hi=1), U(6, 2, 3, 3)),
+   {"kernel": (3, 3), "pad": (1, 1), "num_filter": 6, "num_group": 2,
+    "num_deformable_group": 2, "no_bias": True})
+_PSROIS = K([[0, 1, 1, 12, 10], [1, 0, 2, 14, 15], [0, 3.4, 2.6, 9.5, 13.2]])
+sp("_contrib_DeformablePSROIPooling", "_contrib_DeformablePSROIPooling",
+   inputs(U(2, 18, 8, 8), _PSROIS, U(3, 2, 3, 3)),
+   {"spatial_scale": 0.5, "output_dim": 2, "group_size": 3, "pooled_size": 3,
+    "sample_per_part": 2, "trans_std": 0.1})
+sp("DeformablePSROIPooling", "DeformablePSROIPooling", inputs(U(2, 8, 8, 8), _PSROIS),
+   {"spatial_scale": 0.5, "output_dim": 2, "group_size": 2, "pooled_size": 4,
+    "no_trans": True})
+# correlation, im2col / col2im
+sp("Correlation", "Correlation", inputs(U(2, 3, 8, 8), U(2, 3, 8, 8)),
+   {"max_displacement": 2, "pad_size": 2})
+sp("Correlation-k3", "Correlation", inputs(U(2, 3, 9, 9), U(2, 3, 9, 9)),
+   {"kernel_size": 3, "max_displacement": 2, "stride1": 2, "stride2": 2, "pad_size": 2,
+    "is_multiply": False})
+sp("im2col", "im2col", inputs(U(2, 3, 5, 5)),
+   {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1)}, card="exact")
+sp("col2im", "col2im", inputs(U(2, 27, 9)),
+   {"output_size": (5, 5), "kernel": (3, 3), "stride": (2, 2), "pad": (1, 1)})
+# output heads
+sp("SVMOutput", "SVMOutput", inputs(U(4, 5), K([1, 0, 4, 2])), {"margin": 0.5},
+   card="exact")
+sp("SVMOutput-linear", "SVMOutput", inputs(U(4, 5), K([3, 0, 1, 2])),
+   {"use_linear": True, "regularization_coefficient": 0.5}, card="exact")
+sp("MAERegressionOutput", "MAERegressionOutput", inputs(U(4, 3), U(4, 3)),
+   {"grad_scale": 0.5}, card="exact")
+sp("LogisticRegressionOutput", "LogisticRegressionOutput",
+   inputs(U(4, 3), U(4, 3, lo=0, hi=1)), {"grad_scale": 2.0}, card="ulp")
+# CTC
+_CTC_LAB = K([[1, 2, 0], [3, 3, 1], [2, 0, 0]])
+sp("CTCLoss", "CTCLoss", inputs(U(6, 3, 5), _CTC_LAB))
+sp("CTCLoss-last", "CTCLoss", inputs(U(6, 3, 5), K([[0, 1, -1], [2, 2, 0], [1, -1, -1]])),
+   {"blank_label": "last"})
+sp("CTCLoss-lengths", "CTCLoss", inputs(U(6, 3, 5), _CTC_LAB, K([6, 4, 5]), K([2, 3, 1])),
+   {"use_data_lengths": True, "use_label_lengths": True})
+sp("CTCLoss-impossible", "CTCLoss", inputs(U(2, 2, 4), K([[1, 2, 3], [1, 1, 0]])))
+sp("ctc_loss", "ctc_loss", inputs(U(5, 2, 4), K([[1, 2], [3, 0]])))
+sp("_contrib_CTCLoss", "_contrib_CTCLoss", inputs(U(5, 2, 4), K([[0, 2], [1, -1]])),
+   {"blank_label": "last"})
+sp("_contrib_ctc_loss", "_contrib_ctc_loss", inputs(U(5, 2, 4), K([[1, 3], [2, 2]]),
+                                                    K([5, 3])), {"use_data_lengths": True})
+sp("Crop", "Crop", inputs(U(2, 3, 6, 7)), {"h_w": (3, 4), "offset": (1, 2)}, card="exact")
+sp("Crop-center", "Crop", inputs(U(2, 3, 6, 7)), {"h_w": (3, 4), "center_crop": True},
+   card="exact")
+sp("Crop-like", "Crop", inputs(U(2, 3, 6, 7), U(1, 1, 4, 5)), card="exact")
+
+
+def la(id_, op, ins, kw=None, card="reduce"):
+    lib(id_, op, "linalg", ins, kw, card)
+
+
+la("linalg_gemm", "linalg_gemm", inputs(U(2, 3, 4), U(2, 5, 4), U(2, 3, 5)),
+   {"transpose_b": True, "alpha": 0.5, "beta": 2.0})
+la("linalg_gemm-ta", "linalg_gemm", inputs(U(4, 3), U(4, 2), U(3, 2)), {"transpose_a": True})
+la("linalg_potri", "linalg_potri", inputs(lower_tri(3)))
+la("linalg_potri-upper", "linalg_potri", inputs(lambda r: lower_tri(4)(r).T.copy()),
+   {"lower": False})
+la("linalg_trmm", "linalg_trmm", inputs(U(3, 3), U(3, 4)), {"alpha": 2.0})
+la("linalg_trmm-right-t", "linalg_trmm", inputs(U(3, 3), U(4, 3)),
+   {"transpose": True, "rightside": True, "lower": False})
+la("linalg_trsm", "linalg_trsm", inputs(lower_tri(3), U(3, 4)), {"alpha": 0.5})
+la("linalg_trsm-right-t", "linalg_trsm", inputs(lower_tri(3), U(4, 3)),
+   {"transpose": True, "rightside": True})
+la("linalg_trsm-upper", "linalg_trsm", inputs(lambda r: lower_tri(3)(r).T.copy(), U(3, 2)),
+   {"lower": False, "transpose": True})
+la("linalg_sumlogdiag", "linalg_sumlogdiag", inputs(spd_batch(2, 3)))
+la("linalg_extractdiag", "linalg_extractdiag", inputs(U(2, 4, 4)), {"offset": 1},
+   card="exact")
+la("linalg_makediag", "linalg_makediag", inputs(U(2, 3)), {"offset": -1}, card="exact")
+la("linalg_extracttrian", "linalg_extracttrian", inputs(U(4, 4)), card="exact")
+la("linalg_extracttrian-upper", "linalg_extracttrian", inputs(U(2, 4, 4)),
+   {"offset": 1, "lower": False}, card="exact")
+la("linalg_maketrian", "linalg_maketrian", inputs(U(6)), card="exact")
+la("linalg_maketrian-upper", "linalg_maketrian", inputs(U(2, 6)),
+   {"offset": 1, "lower": False}, card="exact")
+la("linalg_gelqf", "linalg_gelqf", inputs(U(3, 5)), card="decomp")
+la("linalg_syevd", "linalg_syevd", inputs(spd_batch(2, 4)), card="decomp")
+la("linalg_inverse", "linalg_inverse", inputs(well_conditioned(2, 3, 3)))
+la("linalg_det", "linalg_det", inputs(well_conditioned(2, 3, 3)))
+la("linalg_slogdet", "linalg_slogdet", inputs(well_conditioned(3, 3)))
+la("khatri_rao", "khatri_rao", inputs(U(2, 3), U(4, 3), U(2, 3)))
+la("moments", "moments", inputs(U(3, 4, 5)), {"axes": (0, 2)})
+la("moments-keep", "moments", inputs(U(3, 4, 5)), {"axes": (1,), "keepdims": True})
+
+
+def qz(id_, op, ins, kw=None, card="exact", dtypes=None):
+    lib(id_, op, "quantization", ins, kw, card, dtypes)
+
+
+_R = K([-1.5]), K([2.0])
+qz("quantize_v2", "quantize_v2", inputs(U(3, 4)))
+qz("quantize_v2-calib", "quantize_v2", inputs(U(3, 4)),
+   {"min_calib_range": -1.5, "max_calib_range": 1.2})
+qz("dequantize", "dequantize", inputs(I8(3, 4), *_R), card="ulp")
+qz("requantize", "requantize", inputs(I32(3, 4), K([-0.001]), K([0.002])))
+qz("requantize-calib", "requantize", inputs(I32(3, 4), K([-0.001]), K([0.002])),
+   {"min_calib_range": -500.0, "max_calib_range": 400.0})
+qz("quantized_fully_connected", "quantized_fully_connected",
+   inputs(I8(3, 5), I8(4, 5), U(4), *_R, K([-0.5]), K([0.25])), {"num_hidden": 4},
+   card="ulp")
+qz("quantized_fully_connected-flatten", "quantized_fully_connected",
+   inputs(I8(2, 3, 2), I8(4, 6), U(4), *_R, K([-0.5]), K([0.25])),
+   {"num_hidden": 4, "no_bias": True}, card="ulp")
+qz("quantized_conv", "quantized_conv",
+   inputs(I8(2, 3, 6, 6), I8(4, 3, 3, 3), U(4), *_R, K([-0.5]), K([0.25])),
+   {"kernel": (3, 3), "pad": (1, 1), "num_filter": 4}, card="ulp")
+qz("quantized_conv-groups", "quantized_conv",
+   inputs(I8(2, 4, 7, 7), I8(6, 2, 3, 3), U(6), *_R, K([-0.5]), K([0.25])),
+   {"kernel": (3, 3), "stride": (2, 2), "num_filter": 6, "num_group": 2}, card="ulp")
+qz("quantize", "quantize", inputs(U(3, 4), K([-1.0]), K([1.5])))
+qz("quantize-int8", "quantize", inputs(U(3, 4), K([-1.0]), K([1.5])), {"out_type": "int8"})
+
+
+def il(id_, op, ins, kw=None, dtypes=None):
+    lib(id_, op, "interleaved", ins, kw, "reduce", dtypes)
+
+
+_QKV, _ATT = U(5, 2, 2 * 3 * 4), U(2 * 2, 5, 5, lo=0, hi=1)
+_Q, _KV, _XATT = U(3, 2, 2 * 4), U(5, 2, 2 * 2 * 4), U(2 * 2, 3, 5, lo=0, hi=1)
+for tag, dt in (("", None), ("-bf16", "bfloat16")):
+    il("_contrib_interleaved_matmul_selfatt_qk" + tag, "_contrib_interleaved_matmul_selfatt_qk",
+       inputs(_QKV), {"heads": 2}, dtypes=dt and (dt,))
+    il("_contrib_interleaved_matmul_selfatt_valatt" + tag,
+       "_contrib_interleaved_matmul_selfatt_valatt", inputs(_QKV, _ATT), {"heads": 2},
+       dtypes=dt and (dt, dt))
+    il("_contrib_interleaved_matmul_encdec_qk" + tag, "_contrib_interleaved_matmul_encdec_qk",
+       inputs(_Q, _KV), {"heads": 2}, dtypes=dt and (dt, dt))
+    il("_contrib_interleaved_matmul_encdec_valatt" + tag,
+       "_contrib_interleaved_matmul_encdec_valatt", inputs(_KV, _XATT), {"heads": 2},
+       dtypes=dt and (dt, dt))
+
+LIBRARY_CASES = _L
+
+NO_GRAD_INPUTS.update({
+    "index_copy": (1,), "masked_softmax": (1,), "masked_log_softmax": (1,),
+    "ROIPooling": (1,), "_contrib_ROIAlign": (1,), "ROIAlign": (1,),
+    "_contrib_DeformablePSROIPooling": (1,), "DeformablePSROIPooling": (1,),
+    "SVMOutput": (1,), "MAERegressionOutput": (1,), "LogisticRegressionOutput": (1,),
+    "CTCLoss": (1, 2, 3), "ctc_loss": (1, 2, 3), "_contrib_CTCLoss": (1, 2, 3),
+    "_contrib_ctc_loss": (1, 2, 3), "Crop": (1,), "ravel_multi_index": (0,),
+    "unravel_index": (0,),
+})
+
+
+def decomp_ratio(case, arrays, got, ref, units):
+    """A ``decomp`` case's error over its bound (numpy; 0 is exact, above 1
+    fails): ``got`` and ``ref`` the two runs' outputs as float64 arrays,
+    ``units`` the bound's ulps of the input's largest |value|.  gelqf:
+    L·Q against A, Q·Qᵀ against I, diag(L) ≥ 0 and Q, L against ``ref``;
+    syevd: Uᵀ·diag(λ)·U against A, λ against ``ref``'s and U's rows against
+    ``ref``'s up to sign."""
+    a = np.asarray(arrays[0], np.float64)
+    eps = float(np.finfo(np.float32).eps)
+    scale = max(float(np.abs(a).max()), 1e-30)
+
+    def over(err, s=scale):
+        return float(err) / (units * eps * s)
+
+    if case.op == "linalg_gelqf":
+        q, l = got
+        if (np.diagonal(l, axis1=-2, axis2=-1) < 0).any():
+            return np.inf
+        eye = np.eye(q.shape[-2])
+        return max(over(np.abs(l @ q - a).max()), over(np.abs(q @ np.swapaxes(q, -1, -2)
+                                                               - eye).max(), 1.0),
+                   over(np.abs(q - ref[0]).max(), 1.0), over(np.abs(l - ref[1]).max()))
+    if case.op == "linalg_syevd":
+        u, lam = got
+        rec = np.swapaxes(u, -1, -2) @ (lam[..., :, None] * u)
+        sign = np.sign((u * ref[0]).sum(-1, keepdims=True))
+        return max(over(np.abs(rec - a).max()), over(np.abs(lam - ref[1]).max()),
+                   over(np.abs(u * sign - ref[0]).max(), 1.0))
+    raise ValueError(f"no decomposition check for {case.op}")
+
+
 # -- ops/random_ops.py ----------------------------------------------------------------
 
 

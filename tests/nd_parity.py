@@ -23,21 +23,31 @@ REL = 1e-5
 BF16_REL = 2.0 ** -8
 
 _MODULES = {"tensor": "incubator_mxnet_tpu.ops.tensor", "nn": "incubator_mxnet_tpu.ops.nn",
-            "random_ops": "incubator_mxnet_tpu.ops.random_ops"}
+            "random_ops": "incubator_mxnet_tpu.ops.random_ops",
+            "spatial": "incubator_mxnet_tpu.ops.spatial",
+            "linalg": "incubator_mxnet_tpu.ops.linalg",
+            "quantization": "incubator_mxnet_tpu.ops.quantization",
+            "interleaved": "incubator_mxnet_tpu.ops.attention"}
 
 
 def jax_names(src):
     """Every name the JAX package registers from ``ops/<src>.py`` (the
-    unary table's ``jax.numpy`` functions included)."""
+    unary table's ``jax.numpy`` functions included; for ``interleaved``
+    the ``_contrib_interleaved_*`` ops of ``ops/attention.py``)."""
     names = {n for n in jreg.list_ops()
              if getattr(jreg.get_op(n).fn, "__module__", None) == _MODULES[src]}
     if src == "tensor":
         names |= set(jtensor._UNARY)
+    if src == "interleaved":
+        names = {n for n in names if n.startswith("_contrib_interleaved_")}
     return names
 
 
+ALL_CASES = nd_op_cases.CASES + nd_op_cases.LIBRARY_CASES
+
+
 def cases(src):
-    return [c for c in nd_op_cases.CASES if c.src == src]
+    return [c for c in ALL_CASES if c.src == src]
 
 
 def ids(cs):
@@ -122,7 +132,13 @@ def check_values(case):
         assert all(isinstance(g, mx.nd.NDArray) and g.context == mx.cpu() for g in got)
     for g, r in zip(got, ref):
         assert _name(g) == _name(r), (case.id, _name(g), _name(r))
-        assert_close(_np(g), _np(r), case)
+        if case.card != "decomp":
+            assert_close(_np(g), _np(r), case)
+    if case.card == "decomp":  # reconstruction, and up to sign where it is free
+        as64 = lambda outs: [_np(o).astype(np.float64) for o in outs]  # noqa: E731
+        ratio = nd_op_cases.decomp_ratio(case, arrays, as64(got), as64(ref),
+                                         REL / np.finfo(np.float32).eps)
+        assert ratio <= 1.0, (case.id, ratio)
 
 
 def grad_inputs(case, arrays):
@@ -185,7 +201,7 @@ def check_registry(src):
     names = jax_names(src)
     missing = sorted(n for n in names if n not in treg.list_ops())
     assert not missing, missing
-    covered = {c.op for c in nd_op_cases.CASES} | {s.op for s in nd_op_cases.SAMPLERS}
+    covered = {c.op for c in ALL_CASES} | {s.op for s in nd_op_cases.SAMPLERS}
     assert names <= covered, sorted(names - covered)
     for n in names:
         assert callable(getattr(mx.nd, n))

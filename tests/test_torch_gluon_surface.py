@@ -71,8 +71,16 @@ def test_loss_matches_jax(name, weighted):
 
 
 def test_ctc_loss_waits_for_its_op():
-    with pytest.raises(NotImplementedError, match="CTC"):
-        mx.gluon.loss.CTCLoss()
+    """Ported with the CTC op (the name kept from when it raised): the loss
+    of both layouts equals the JAX package's (tests/test_torch_ctc.py holds
+    the lengths, weights and gradients)."""
+    rng = np.random.RandomState(5)
+    pred = rng.randn(3, 6, 5).astype(np.float32)
+    label = np.array([[1, 2, 0], [3, 4, 4], [2, 0, 0]], np.float32)
+    for layout, x in (("NTC", pred), ("TNC", np.ascontiguousarray(pred.transpose(1, 0, 2)))):
+        t = mx.gluon.loss.CTCLoss(layout=layout)(torch.from_numpy(x), torch.from_numpy(label))
+        j = mxj.gluon.loss.CTCLoss(layout=layout)(mxj.nd.array(x), mxj.nd.array(label))
+        np.testing.assert_allclose(t.numpy(), j.asnumpy(), **FP32_TOL)
 
 
 # -- initializers ------------------------------------------------------------------------

@@ -402,8 +402,22 @@ def test_amp_casts_apply_to_ndarrays():
 
 def test_contrib_namespace():
     assert mx.nd.contrib.boolean_mask is mx.nd._contrib_boolean_mask
-    with pytest.raises(NotImplementedError, match="control-flow"):
-        mx.nd.contrib.foreach(None, None, None)
+    # the control-flow ops are ported (tests/test_torch_control_flow.py):
+    # foreach over NDArrays equals the JAX package's
+    x = np.arange(12, dtype=np.float32).reshape(3, 4)
+    h = np.ones(4, np.float32)
+
+    def run(pkg):
+        body = lambda xt, s: (xt * s, s + xt)  # noqa: E731
+        return pkg.nd.contrib.foreach(body, pkg.nd.array(x, ctx=pkg.cpu()),
+                                      pkg.nd.array(h, ctx=pkg.cpu()))
+
+    with mx.cpu():
+        got = run(mx)
+    want = run(mxj)
+    for g, w in zip(got, want):
+        assert isinstance(g, mx.nd.NDArray)
+        np.testing.assert_array_equal(g.asnumpy(), w.asnumpy())
     with pytest.raises(AttributeError):
         mx.nd.contrib.no_such_op
 

@@ -151,6 +151,34 @@ PAIRS = [
      for n in ("VariationalDropoutCell", "LSTMPCell", "Conv2DRNNCell", "Conv2DLSTMCell",
                "Conv2DGRUCell")]
 
+# the rest of the op library (ROADMAP §1 item 11.3) and quantize_net (11.4)
+from incubator_mxnet_tpu.ops import control_flow as _jcf  # noqa: E402
+from incubator_mxnet_torch.ops import control_flow as _tcf  # noqa: E402
+
+PAIRS += [(f"nd.sparse.{n}", getattr(mxj.nd.sparse, n), getattr(mx.nd.sparse, n))
+          for n in ("row_sparse_array", "csr_matrix", "zeros", "empty", "array", "dot", "add",
+                    "retain", "cast_storage")] + [
+    ("nd.sparse.RowSparseNDArray", mxj.nd.sparse.RowSparseNDArray.__init__,
+     mx.nd.sparse.RowSparseNDArray.__init__),
+    ("nd.sparse.CSRNDArray", mxj.nd.sparse.CSRNDArray.__init__,
+     mx.nd.sparse.CSRNDArray.__init__),
+    ("nd.sparse.RowSparseNDArray.retain", mxj.nd.sparse.RowSparseNDArray.retain,
+     mx.nd.sparse.RowSparseNDArray.retain),
+    ("nd.sparse.BaseSparseNDArray.tostype", mxj.nd.sparse.BaseSparseNDArray.tostype,
+     mx.nd.sparse.BaseSparseNDArray.tostype),
+    ("nd.cast_storage", mxj.nd.cast_storage, mx.nd.cast_storage),
+    ("NDArray.tostype", mxj.nd.NDArray.tostype, mx.nd.NDArray.tostype),
+] + [(f"nd.contrib.{n}", getattr(_jcf, n), getattr(_tcf, n))
+     for n in ("foreach", "while_loop", "cond")] + [
+    (f"contrib.quantization.{n}", getattr(mxj.contrib.quantization, n),
+     getattr(mx.contrib.quantization, n))
+    for n in ("quantize_net", "optimal_threshold", "optimal_threshold_from_hist")] + [
+    ("loss.CTCLoss.hybrid_forward", mxj.gluon.loss.CTCLoss.hybrid_forward,
+     mx.gluon.loss.CTCLoss.hybrid_forward),
+    ("optimizer.SGD", mxj.optimizer.SGD.__init__, mx.optimizer.SGD.__init__),
+    ("optimizer.Adam", mxj.optimizer.Adam.__init__, mx.optimizer.Adam.__init__),
+]
+
 # The one difference by design: the port's entry points run on the card
 # unless the caller asks for the CPU (its default context is gpu(0), and
 # with no card they raise), where the JAX package's serving entry points
@@ -266,8 +294,13 @@ def test_pre_norm_differs_from_post_norm(pre_norm_ref):
 
 
 def test_embedding_sparse_grad_raises():
-    with pytest.raises(NotImplementedError, match="sparse_grad"):
-        nn.Embedding(10, 4, sparse_grad=True)
+    """Ported with row-sparse storage (the name kept from when it raised):
+    ``sparse_grad=True`` makes the weight ``row_sparse``, as in the JAX
+    package (tests/test_torch_sparse.py holds the lazy updates)."""
+    t = nn.Embedding(10, 4, sparse_grad=True)
+    j = mxj.gluon.nn.Embedding(10, 4, sparse_grad=True)
+    assert t.weight.stype == j.weight.stype == "row_sparse"
+    assert nn.Embedding(10, 4, "float32", None, False).weight.stype == "default"
     assert nn.Embedding(10, 4, "float32", None, False).weight.shape == (10, 4)
 
 
@@ -435,7 +468,8 @@ def _op_pairs():
     import nd_parity
 
     out = []
-    for src in ("tensor", "nn", "random_ops"):
+    for src in ("tensor", "nn", "random_ops", "spatial", "linalg", "quantization",
+                "interleaved"):
         for name in sorted(nd_parity.jax_names(src)):
             port = treg.get_op(name).fn
             try:
@@ -514,11 +548,15 @@ def test_keywords_outside_the_port_raise_naming_their_item(tmp_path):
     assert rec["cost"] == {"flops": 8.0}
     assert mx.profiler.record_compile("s", {}, 1.0, args=(1,))["cost"] is None
     mx.profiler.reset_compiles()
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 11"):
-        tparameter.Parameter("w", shape=(2,), stype="row_sparse")
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 11"):
-        tparameter.Parameter("w", "write", (2,), "float32", 1.0, 1.0, None, False, True,
+    # stype and grad_stype are honoured since ROADMAP §1 item 11.3, kept as the
+    # JAX package keeps them
+    assert tparameter.Parameter("w", shape=(2,), stype="row_sparse").stype == (
+        jparameter.Parameter("w", shape=(2,), stype="row_sparse").stype)
+    p = tparameter.Parameter("w", "write", (2,), "float32", 1.0, 1.0, None, False, True,
                              "default", "row_sparse")
+    assert (p.stype, p._grad_stype) == ("default", "row_sparse")
+    with pytest.raises(ValueError, match="storage type"):
+        tparameter.Parameter("w", shape=(2,), stype="dense")
     assert tparameter.Parameter("w", shape=(2,), stype="default", grad_stype="default")
     # autograd.backward's grad_ready_hook is honoured since ROADMAP §1 item 6:
     # it sees each leaf once, its gradient written
@@ -795,6 +833,36 @@ def test_the_detection_family_is_registered_and_exported():
         assert tregistry.get_op(n).name == jregistry.get_op(n).name
         assert n not in tsym._QUEUE_OF
     assert not any(f == "ops/detection.py" for f, _ in tsym._QUEUED_OPS)
+    # the rest of the op library (ROADMAP §1 item 11.3): no file queued but moe
+    for f in ("ops/spatial.py", "ops/linalg.py", "ops/quantization.py", "ops/attention.py"):
+        assert not any(q == f for q, _ in tsym._QUEUED_OPS)
+    assert list(tsym._QUEUED_OPS) == [("ops/moe.py", 8)]
+
+
+def test_the_op_library_names_resolve_where_the_jax_package_resolves_them():
+    """Every name of the four files the queue dropped: ``mx.nd``, ``mx.sym``
+    and, by the short name of a ``_contrib_`` op, ``nd.contrib`` and
+    ``sym.contrib``, each where the JAX package has it."""
+    import nd_parity
+
+    names = set()
+    for src in ("spatial", "linalg", "quantization", "interleaved"):
+        names |= nd_parity.jax_names(src)
+    assert len(names) == 59
+
+    def has(ns, name):
+        try:
+            return callable(getattr(ns, name))
+        except (AttributeError, KeyError):
+            return False
+
+    for n in sorted(names):
+        short = n[len("_contrib_"):] if n.startswith("_contrib_") else n
+        for jns, tns, key in ((mxj.nd, mx.nd, n), (mxj.sym, mx.sym, n),
+                              (mxj.nd.contrib, mx.nd.contrib, short),
+                              (mxj.sym.contrib, mx.sym.contrib, short)):
+            assert has(tns, key) == has(jns, key), (n, key)
+        assert has(mx.nd, n) and has(mx.sym, n)
     assert set(_jvision._models) == set(_tvision._models)
     assert {"ssd", "yolo"} <= set(mx.gluon.model_zoo.__all__)
     assert len(DETECTION_PAIRS) > 80

@@ -124,11 +124,9 @@ def test_attr_and_names_through_scopes():
 
 
 def test_unported_op_names_its_queue():
-    with pytest.raises(AttributeError, match="ROADMAP §1 item 11"):
-        S.CTCLoss
+    assert callable(S.CTCLoss)  # ported with the op library (ROADMAP §1 item 11.3)
     assert callable(S.RNN)  # ported with the RNNs (ROADMAP §1 item 11.2)
-    with pytest.raises(AttributeError, match="ROADMAP §1 item 11"):
-        S.contrib.ROIAlign
+    assert callable(S.contrib.ROIAlign)
     with pytest.raises(AttributeError, match="ROADMAP §1 item 8"):
         S.moe_ffn
     assert callable(S.Custom)  # ported: a graph op (tests/test_torch_export_symbolblock.py)

@@ -358,7 +358,7 @@ def test_trainer_runs_on_one_device_only():
 
 def test_chip_smoke_cpu_rehearsal_trains():
     """chip_smoke.py's slice, train, rtc_train, nd_surface, timing, serve,
-    generation, io, detect and fit phases on the CPU plain path."""
+    generation, io, detect, fit and op_library phases on the CPU plain path."""
     proc = subprocess.run([sys.executable, "chip_smoke.py", "--cpu-rehearsal"], cwd=ROOT,
                           capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
@@ -372,4 +372,6 @@ def test_chip_smoke_cpu_rehearsal_trains():
                      proc.stdout)
     assert re.search(r'"phase": "fit", "phase_s": [0-9.e-]+, "failed": \[\], "ok": true',
                      proc.stdout)
+    assert re.search(r'"phase": "op_library", "part_wall_s": \{[^}]*\}, "phase_s": [0-9.e-]+, '
+                     r'"failed": \[\], "ok": true', proc.stdout)
     assert '"ok": true, "device"' not in proc.stdout
